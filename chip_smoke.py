@@ -2,21 +2,30 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs four phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs five phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
 1. build    — compile the kernels (one nvcc per source, in parallel);
 2. kernels  — every kernel against its plain PyTorch version on the same
-              inputs at the serving path's shapes, timed with CUDA events
-              beside its bound (bytes over 3.35 TB/s or operations over the
-              published dense peak) and a PyTorch library call;
+              inputs at the main paths' shapes, timed beside its bound
+              (bytes over 3.35 TB/s or operations over the published dense
+              peak) and a PyTorch library call;
 3. forward  — ``paged_forward``: a 128-token prefill chunk and 4 decode
               steps, once through the kernels and once through the plain
               functions, logits compared;
-4. engine   — ``Engine``: six greedy requests (prompts of 17..700 tokens,
-              32 new tokens each) and two radix-cache resubmissions; every
-              kernel's launch counter must grow in this phase.
+4. batch1   — ``models.bitnet.forward`` at batch 1 (the path of
+              ``wrinklefree_tpu_torch.bench.decode``): 8 decode steps
+              through the kernels vs the plain functions; a 64-token
+              prefill and 64 greedy steps whose exact head must equal the
+              bf16 head's argmax every step, with the attention and MLP
+              block kernels launched once per layer and step; then the
+              bench's timed windows and the device's busy share;
+5. engine   — ``Engine``: six greedy requests (prompts of 17..700 tokens,
+              32 new tokens each) and two radix-cache resubmissions, every
+              serving kernel's launch counter growing; then the six
+              requests again with ``flash_decode=True``, whose decode
+              attention kernel must launch.
 
 It exits non-zero on any failure (nothing is caught, nothing falls back)
 and when CUDA or the package is missing. The line before the last is a
@@ -52,6 +61,16 @@ KERNELS = {
     "flash_paged_prefill": {
         "source": "wrinklefree_tpu_torch/csrc/flash_prefill.cu",
         "replaces": "wrinklefree_tpu/ops/flash_attention.py:219",
+    },
+    "attn_block_megakernel": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:1033",
+        # the same function over the flat cache (ROADMAP queue 2 row 7)
+        "also_replaces": "wrinklefree_tpu/ops/ternary_pallas.py:1991",
+    },
+    "flash_paged_decode": {
+        "source": "wrinklefree_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "wrinklefree_tpu/ops/flash_attention.py:382",
     },
 }
 
@@ -293,6 +312,175 @@ def phase_kernels(params, cfg, dev, results):
              max_abs_err=d.max().item())
     print("kernels: K4 " + json.dumps(r))
     results["flash_paged_prefill"] = r
+    kernels_k5(params, cfg, dev, rnd, results)
+    kernels_k6(cfg, dev, g, rnd, results)
+
+
+def kernels_k5(params, cfg, dev, rnd, results):
+    """K5, the batch-1 attention block, against its plain version at 2B
+    shapes: caches of T = 328 (the bench's) and 2048 rows, pos 0, 47 and
+    T - 1, layers 0 and 29. Bars: h' within 5% of its largest value and the
+    written k/v rows within 3% of theirs (the prologues' variance and the
+    scores sum in another order than torch's, so an int8 code can move by
+    one, as for K1/K2); every other cache row bitwise unchanged."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.rope import rope_cos_sin
+    from wrinklefree_tpu_torch.ops.ternary import unpack_ternary
+
+    st = params["layers"]
+    L, H, Q = cfg.num_layers, cfg.hidden_size, cfg.q_dim
+    NH, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(q_dim=Q, n_kv=KV, n_heads=NH, head_dim=D, eps=cfg.rms_norm_eps)
+
+    def call(fn, h, ck, cv, layer, pos, cos, sin):
+        return fn(h, ck, cv, st["qkv_qw"], st["o_qw"], layer, pos, st["qkv_scale"],
+                  st["o_scale"], st["input_ln"], st["attn_sub"], cos, sin, **kw)[0]
+
+    wq = [unpack_ternary(st["qkv_qw"][i]).to(torch.bfloat16) for i in range(L)]
+    wo = [unpack_ternary(st["o_qw"][i]).to(torch.bfloat16) for i in range(L)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, worst, exact_rows, checks = [], 0.0, 0, 0
+    for T in (328, 2048):
+        ck0, cv0 = rnd(L, 1, T, KV, D), rnd(L, 1, T, KV, D)
+        h = rnd(1, H)
+        for pos in (0, 47, T - 1):
+            cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), D, cfg.rope_theta,
+                                    torch.bfloat16)
+            cos, sin = cos[0], sin[0]
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            for layer in (0, L - 1):
+                ka, va, kb, vb = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+                a = call(tc.attn_block_megakernel, h, ka, va, layer, p, cos, sin)
+                b = call(tc.attn_block_megakernel_plain, h, kb, vb, layer, p, cos, sin)
+                torch.cuda.synchronize()
+                d = (a.float() - b.float()).abs().max().item()
+                if not (torch.isfinite(a).all() and d <= 0.05 * b.float().abs().max().item()):
+                    fail(f"K5 T={T} pos={pos} layer={layer}: h' differs by {d}")
+                keep = torch.ones(L, T, dtype=torch.bool, device=dev)
+                keep[layer, pos] = False
+                for x, x0, y in ((ka, ck0, kb), (va, cv0, vb)):
+                    if not torch.equal(x[:, 0][keep], x0[:, 0][keep]):
+                        fail(f"K5 T={T} pos={pos} layer={layer}: a cache row other than pos "
+                             "changed")
+                    r, s = x[layer, 0, pos].float(), y[layer, 0, pos].float()
+                    if not (r - s).abs().max().item() <= 0.03 * s.abs().max().item():
+                        fail(f"K5 T={T} pos={pos} layer={layer}: written row differs")
+                    exact_rows += bool(torch.equal(r, s))
+                worst = max(worst, d)
+                checks += 1
+        for pos in ((47, T - 1) if T == 328 else (T - 1,)):
+            cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), D, cfg.rope_theta,
+                                    torch.bfloat16)
+            cos, sin = cos[0], sin[0]
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            lay = Cycle(L)
+            ck, cv = ck0.clone(), cv0.clone()
+            ms, call_ms = cuda_ms(
+                lambda: call(tc.attn_block_megakernel, h, ck, cv, lay(), p, cos, sin))
+            plain_ms, _ = cuda_ms(
+                lambda: call(tc.attn_block_megakernel_plain, h, ck, cv, lay(), p, cos, sin),
+                iters=5, warmup=1)
+
+            def lib():
+                i = lay()
+                qkv = torch.matmul(h, wq[i])
+                q = qkv[:, :Q].reshape(1, NH, 1, D)
+                k = ck[i, 0, :pos + 1].permute(1, 0, 2)[None]
+                v = cv[i, 0, :pos + 1].permute(1, 0, 2)[None]
+                o = sdpa(q, k, v, enable_gqa=True)
+                return h + torch.matmul(o.reshape(1, Q), wo[i])
+
+            lib_ms, _ = cuda_ms(lib)
+            n_q = st["qkv_qw"].shape[2]
+            nbytes = (H // 4 * n_q + Q // 4 * H + (n_q + H) * 4 + (H + Q) * 2 + 2 * H * 2
+                      + 2 * D * 2 + 2 * (pos + 1) * KV * D * 2)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = (2 * (H * n_q + Q * H) / PEAK_OPS["int8"]
+                     + 4 * NH * D * (pos + 1) / PEAK_OPS["bf16"]) * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            rows.append(dict(shape=f"attention block T={T} pos={pos}", ms=ms, call_ms=call_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             library="bf16 matmul qkv + SDPA over pos+1 rows + bf16 matmul o",
+                             bound_ms=b_ms, bound_by=b_by))
+    del wq, wo
+    for r in rows:
+        print("kernels: K5 " + json.dumps(r))
+    print(f"kernels: K5 {checks} checks, max |h' diff| {worst}, written rows bitwise equal to "
+          f"the plain version's {exact_rows}/{2 * checks}")
+    pick = next(r for r in rows if r["shape"].endswith("T=328 pos=327"))
+    results["attn_block_megakernel"] = dict(pick, max_abs_err=worst)
+
+
+def kernels_k6(cfg, dev, g, rnd, results):
+    """K6, the paged flash decode, against its plain version: 8 slots,
+    page_size 16, histories of 17..2000 tokens, layers 0 and 29. Bar: 2e-2
+    absolute (probabilities round to bf16 against each 64-token tile's
+    running max in the kernel, against one max over all committed pages in
+    the plain version)."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+
+    L, NH, KV, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, ps, MP = 8, 16, 128
+    lens = [17, 100, 255, 512, 777, 1024, 1500, 2000]
+    P = B * MP + 1
+    main = torch.empty((P, 2 * L, ps, KV * D), dtype=torch.bfloat16, device=dev)
+    for i in range(0, P, 128):  # filled in slabs (one randn of 1.2 GB would double it)
+        main[i:i + 128] = rnd(min(128, P - i), 2 * L, ps, KV * D)
+    stage = rnd(B, ps, 2 * L, KV * D)
+    q, kc, vc = rnd(B, NH, D), rnd(B, KV, D), rnd(B, KV, D)
+    pt = (torch.randperm(B * MP, generator=g, device=dev) + 1).reshape(B, MP).to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for layer in (0, L - 1):
+        a = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+        b = fa.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+        torch.cuda.synchronize()
+        d = (a.float() - b.float()).abs().max().item()
+        if not (torch.isfinite(a).all() and d <= 2e-2):
+            fail(f"K6 layer={layer}: max abs error {d}")
+        worst = max(worst, d)
+    lay = Cycle(L)
+    ms, call_ms = cuda_ms(lambda: fa.flash_paged_decode(q, kc, vc, main, stage, lay(), pt, sl))
+    plain_ms, _ = cuda_ms(
+        lambda: fa.flash_paged_decode_plain(q, kc, vc, main, stage, lay(), pt, sl),
+        iters=5, warmup=1)
+    # the yardstick: SDPA over contiguous copies of the same histories (made
+    # untimed; four layers' copies, 164 MB, so repeats miss the 50 MB L2)
+    Tm = max(lens) + 1
+    n_l = min(4, L)
+    ks = torch.zeros((n_l, B, KV, Tm, D), dtype=torch.bfloat16, device=dev)
+    vs = torch.zeros_like(ks)
+    for li in range(n_l):
+        for bi, n in enumerate(lens):
+            full, off = n // ps * ps, n % ps
+            pages = pt[bi, :full // ps].long()
+            kk = main[pages, li].reshape(full, KV, D)
+            vv = main[pages, L + li].reshape(full, KV, D)
+            ks_ = torch.cat([kk, stage[bi, :off, li].reshape(off, KV, D), kc[bi][None]])
+            vs_ = torch.cat([vv, stage[bi, :off, L + li].reshape(off, KV, D), vc[bi][None]])
+            ks[li, bi, :, :n + 1] = ks_.permute(1, 0, 2)
+            vs[li, bi, :, :n + 1] = vs_.permute(1, 0, 2)
+    mask = (torch.arange(Tm, device=dev)[None, :] <= sl[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cyc = Cycle(n_l)
+
+    def lib():
+        i = cyc()
+        return sdpa(q[:, :, None], ks[i], vs[i], attn_mask=mask, enable_gqa=True)
+
+    lib_ms, _ = cuda_ms(lib)
+    tokens = sum(n + 1 for n in lens)
+    nbytes = 2 * tokens * KV * D * 2 + 2 * B * NH * D * 2 + B * MP * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4 * NH * D * tokens, "bf16")
+    r = dict(shape=f"decode B={B} ps={ps} seq_lens={lens}", ms=ms, call_ms=call_ms,
+             plain_ms=plain_ms, library_ms=lib_ms, library="SDPA over contiguous histories",
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
+    print("kernels: K6 " + json.dumps(r))
+    results["flash_paged_decode"] = r
 
 
 def _prefill_attention_p_rounded(q, k_cur, v_cur, main, staging_b, layer, page_table,
@@ -331,7 +519,7 @@ def phase_forward(params, cfg, dev):
     path with the flash kernel's rounding point, at the prefill step) and
     holds the kernels to max(6e-2, 3 x floor) at 2 layers. Over 30
     random-weight layers the differences grow chaotically, so at full depth
-    it reports them without a bar."""
+    it reports them without a bar. Returns the noise floor by depth."""
     import dataclasses
 
     import torch
@@ -365,39 +553,163 @@ def phase_forward(params, cfg, dev):
             tok = nxt.reshape(1, 1)
         return out
 
+    floors = {}
     for depth in (2, cfg.num_layers):
         c = dataclasses.replace(cfg, num_layers=depth)
         p = dict(params, layers={k: v[:depth] for k, v in params["layers"].items()})
         ker = run(p, c, {})
         pla = run(p, c, plain, forced=[torch.argmax(x, -1) for x in ker])
         alt = run(p, c, dict(plain, attention_fn=_prefill_attention_p_rounded), steps=1)
-        floor = (alt[0] - pla[0]).abs().max().item()
-        bar = max(6e-2, 3 * floor)
-        worst, ties, agree = 0.0, [], 0
-        for step, (a, b) in enumerate(zip(ker, pla)):
-            if not torch.isfinite(a).all():
-                fail(f"forward depth {depth} step {step}: non-finite logits")
-            err = (a - b).abs().max().item()
-            worst = max(worst, err)
-            ia, ib = int(a.argmax()), int(b.argmax())
-            agree += ia == ib
-            if depth != 2:
-                continue
-            if err > bar:
-                fail(f"forward step {step}: logits differ by {err} (bar {bar})")
-            if ia != ib:
-                top2 = torch.topk(b[0], 2).values
-                gap = (top2[0] - top2[1]).item()
-                if gap > 2 * err:
-                    fail(f"forward step {step}: argmax {ia} vs {ib} with top-2 gap {gap}")
-                ties.append(dict(step=step, kernels=ia, plain=ib, top2_gap=gap))
+        floors[depth] = (alt[0] - pla[0]).abs().max().item()
+        worst, agree, bar, ties = compare_logits("forward", ker, pla, depth, floors[depth])
         print(f"forward: {depth} layers at full width, 128-token prefill + 4 decode steps, "
-              f"kernels vs plain: max |logit diff| {worst}, noise floor {floor}, "
+              f"kernels vs plain: max |logit diff| {worst}, noise floor {floors[depth]}, "
               f"argmax equal at {agree}/5 steps"
               + (f", bar {bar}, ties {json.dumps(ties)}" if depth == 2 else " (no bar)"))
+    return floors
 
 
-def phase_engine(params, cfg, dev, counters):
+def compare_logits(what, ker, pla, depth, floor):
+    """The kernels' logits against the plain path's, step by step: at 2
+    layers within max(6e-2, 3 x the noise floor) with any argmax change at a
+    top-2 gap below twice the difference; deeper, reported only. Returns
+    (max |difference|, steps with equal argmax, bar, ties)."""
+    import torch
+
+    bar = max(6e-2, 3 * floor)
+    worst, ties, agree = 0.0, [], 0
+    for step, (a, b) in enumerate(zip(ker, pla)):
+        if not torch.isfinite(a).all():
+            fail(f"{what} depth {depth} step {step}: non-finite logits")
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        ia, ib = int(a.argmax()), int(b.argmax())
+        agree += ia == ib
+        if depth != 2:
+            continue
+        if err > bar:
+            fail(f"{what} step {step}: logits differ by {err} (bar {bar})")
+        if ia != ib:
+            top2 = torch.topk(b[0], 2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap > 2 * err:
+                fail(f"{what} step {step}: argmax {ia} vs {ib} with top-2 gap {gap}")
+            ties.append(dict(step=step, kernels=ia, plain=ib, top2_gap=gap))
+    return worst, agree, bar, ties
+
+
+def phase_batch1(qparams, cfg, dev, floors, counters):
+    """The batch-1 path of ``wrinklefree_tpu_torch.bench.decode`` on the
+    dense cache (T = 64 + 4 * 64 + 8 = 328, as the bench's):
+
+    - at 2 and 30 layers, a 64-token prefill and 8 greedy decode steps
+      through the kernels, then teacher-forced through the plain functions;
+      logits compared under phase_forward's noise-floor rule;
+    - at 30 layers, the prefill and 64 greedy steps through the exact head
+      (int8 scan + top-64 rescore), whose token must equal the argmax of the
+      bf16 head every step, with the attention and MLP block kernels
+      launched once per layer and step (counters zeroed just before);
+    - the bench itself (warm window, best of 3 windows of 64 steps) and the
+      device's busy share over one window under the profiler.
+    Returns the launches of the counted run."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wrinklefree_tpu_torch.bench import decode as bd
+    from wrinklefree_tpu_torch.models.bitnet import (
+        KVCache, compute_logits, forward, greedy_exact_topk)
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+
+    prompt_len, steps = 64, 64
+    T = prompt_len + 4 * steps + 8
+    plain_lf = tc.make_linear_fused(tc.ternary_matmul_stacked_fused_plain,
+                                    tc.mlp_block_megakernel_plain,
+                                    tc.attn_block_megakernel_plain)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    prompt = torch.randint(1, cfg.vocab_size, (1, prompt_len), generator=g).to(dev)
+
+    def logits_run(p, c, lf, forced=None, n=8):
+        cache = KVCache.zeros(c, 1, T, device=dev)
+        lo, cache = forward(p, c, prompt, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+                            linear_fn=lf, logits_all=False)
+        out, pos = [lo.float()], torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
+        for step in range(n):
+            tok = (torch.argmax(lo, -1) if forced is None else forced[step]).reshape(1, 1)
+            lo, cache = forward(p, c, tok, cache, pos, linear_fn=lf, logits_all=False)
+            out.append(lo.float())
+            pos = pos + 1
+        return out
+
+    kernels_lf = tc.make_linear_fused()
+    for depth in (2, cfg.num_layers):
+        c = dataclasses.replace(cfg, num_layers=depth)
+        p = dict(qparams, layers={k: v[:depth] for k, v in qparams["layers"].items()})
+        ker = logits_run(p, c, kernels_lf)
+        pla = logits_run(p, c, plain_lf, forced=[torch.argmax(x, -1) for x in ker[:-1]])
+        worst, agree, bar, ties = compare_logits("batch1", ker, pla, depth, floors[depth])
+        print(f"batch1: {depth} layers, 64-token prefill + 8 decode steps, kernels vs plain: "
+              f"max |logit diff| {worst} (noise floor {floors[depth]}), argmax equal at "
+              f"{agree}/9 steps"
+              + (f", bar {bar}, ties {json.dumps(ties)}" if depth == 2 else " (no bar)"))
+
+    # the exact head against the bf16 head, every step; launch counts
+    clean = {k: v for k, v in qparams.items() if not k.startswith("lm_head_")}
+    checks = []
+
+    def checked_head(hidden, p):
+        tok, _ = greedy_exact_topk(hidden, p, cfg, k=bd.EXACT_HEAD_K)
+        checks.append(tok == torch.argmax(compute_logits(hidden, clean, cfg), -1))
+        return tok[:, None]
+
+    tok, cache = bd.prefill(qparams, cfg, kernels_lf, prompt, T)
+    pos = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    for cnt in counters:
+        cnt.launches = 0
+    toks, tok, cache, pos = bd.decode_window(qparams, cfg, kernels_lf, tok, cache, pos, steps,
+                                             checked_head)
+    torch.cuda.synchronize()
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if not bool(torch.cat(checks).all()):
+        bad = [i for i, x in enumerate(checks) if not bool(x.all())]
+        fail(f"batch1: the exact head's token differs from the bf16 head's argmax at steps {bad}")
+    for name in ("attn_block_megakernel", "mlp_block_megakernel"):
+        if launches[name] != cfg.num_layers * steps:
+            fail(f"batch1: {name} launched {launches[name]} times in {steps} decode steps")
+    if not all(0 <= t < cfg.vocab_size for t in toks.tolist()):
+        fail("batch1: token id out of vocabulary")
+    print(f"batch1: {cfg.num_layers} layers, 64-token prefill + {steps} greedy steps: exact head == bf16 "
+          f"argmax at {len(checks)}/{steps} steps, launches per decode step "
+          f"{json.dumps(per_step)}")
+
+    res = bd.run("bitnet2b", prompt_len, steps, dev)
+    print("batch1: bench " + json.dumps(res))
+
+    # device busy share over one more window, under the profiler
+    head = bd.exact_head(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, tok, cache, pos = bd.decode_window(qparams, cfg, kernels_lf, tok, cache, pos, steps,
+                                              head)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.device_time_total for e in evs) / 1e6
+    top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
+    print(f"batch1: window under the profiler, device busy {dev_s / dt} of {dt} s "
+          f"({dev_s / steps * 1e3} ms of device time per token); device ms per token by "
+          "kernel: " + json.dumps({e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
+    return launches
+
+
+def phase_engine(params, cfg, dev, counters, flash_decode=False):
+    """The engine phase; with ``flash_decode`` the decode attention runs the
+    paged flash decode kernel. Returns (launches, the six requests' tokens)."""
     import numpy as np
     import torch
 
@@ -405,7 +717,8 @@ def phase_engine(params, cfg, dev, counters):
     from wrinklefree_tpu_torch.engine import Engine, SamplingParams
 
     ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
-                        prefill_buckets=(32, 128, 512))
+                        prefill_buckets=(32, 128, 512), flash_decode=flash_decode)
+    tag = "engine (flash_decode)" if flash_decode else "engine"
     eng = Engine(params, cfg, ecfg, device=dev)
     rng = np.random.default_rng(0)
     lens = (17, 64, 200, 333, 512, 700)
@@ -457,7 +770,7 @@ def phase_engine(params, cfg, dev, counters):
         fail(f"kernels not launched on the engine path: {zero}")
     ttft = sorted(r.first_token_t - r.arrival_t for r in reqs)
     p50 = float(np.percentile(ttft, 50))
-    print(f"engine: 6 requests + 2 radix resubmissions, wall {wall} s, TTFT p50 {p50} s, "
+    print(f"{tag}: 6 requests + 2 radix resubmissions, wall {wall} s, TTFT p50 {p50} s, "
           f"radix hit tokens {eng.stats['radix_hit_tokens'] - hit0}, resubmission agrees "
           f"with the first submission on its first {agree}/32 tokens, "
           f"launches per decode step {json.dumps(per_step)}, launches {json.dumps(launches)}")
@@ -492,15 +805,15 @@ def phase_engine(params, cfg, dev, counters):
             evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             dev_s = sum(e.device_time_total for e in evs) / 1e6
             top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
-            print(f"engine: decode window under the profiler, device busy {dev_s / dt} of "
+            print(f"{tag}: decode window under the profiler, device busy {dev_s / dt} of "
                   f"{dt} s ({dev_s / steps * 1e3} ms of device time per decode step); "
                   "device ms per decode step by kernel: " + json.dumps(
                       {e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
         else:
-            print(f"engine: decode window, 8 slots: "
+            print(f"{tag}: decode window, 8 slots: "
                   f"{(eng.stats['decode_tokens'] - tok0) / dt} tok/s, {dt / steps * 1e3} ms "
                   f"per decode step ({steps} steps)")
-    return launches
+    return launches, [r.output_ids for r in reqs]
 
 
 def main() -> int:
@@ -513,7 +826,8 @@ def main() -> int:
         return 2
     try:
         from wrinklefree_tpu_torch.config import BitNetConfig
-        from wrinklefree_tpu_torch.models.bitnet import fuse_projections, init_params
+        from wrinklefree_tpu_torch.models.bitnet import (
+            fuse_projections, init_params, quantize_lm_head)
         from wrinklefree_tpu_torch.ops import cuda_lib
         from wrinklefree_tpu_torch.ops import flash_attention as fa
         from wrinklefree_tpu_torch.ops import kv_update_cuda as kvu
@@ -536,19 +850,33 @@ def main() -> int:
 
     results = {}
     phase_kernels(params, cfg, dev, results)
-    phase_forward(params, cfg, dev)
-    counters = [tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel, kvu.kv_write,
-                fa.flash_paged_prefill]
-    launches = phase_engine(params, cfg, dev, counters)
+    floors = phase_forward(params, cfg, dev)
+    # the batch-1 path reads the int8 head (its exact head scans it); the
+    # engine's params keep the bf16 head only
+    batch1 = phase_batch1(quantize_lm_head(params, cfg), cfg, dev, floors,
+                          [tc.attn_block_megakernel, tc.mlp_block_megakernel,
+                           tc.ternary_matmul_stacked_fused])
+    serving = [tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel, kvu.kv_write,
+               fa.flash_paged_prefill]
+    launches, toks = phase_engine(params, cfg, dev, serving)
+    flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
+                                flash_decode=True)
+    same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+            for x, y in zip(toks, ftoks)]
+    print(f"engine: flash_decode=True beside the default run: leading tokens equal per request "
+          f"{same} of 32 (prompts 17/64/200/333/512/700)")
+    launches["attn_block_megakernel"] = batch1["attn_block_megakernel"]
+    launches["flash_paged_decode"] = flash["flash_paged_decode"]
 
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
         line.append({
-            "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "name": name, "route": "cuda", **meta, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            **({"library": r["library"]} if "library" in r else {}),
         })
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,7 @@ L, LAYER = 3, 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k5", "k6"])
 def test_kernel_matches_plain_on_card(kernel):
     """Each CUDA kernel against its plain version on the card, at a small
     size (chip_smoke.py holds them at BitNet-2B shapes)."""
@@ -62,6 +62,58 @@ def test_kernel_matches_plain_on_card(kernel):
         a = kv_update_cuda.kv_write(pool.clone(), vals, ids, offs)
         b = kv_update_cuda.kv_write_plain(pool.clone(), vals, ids, offs)
         assert torch.equal(a, b)
+    elif kernel == "k5":
+        g = torch.Generator(device=dev).manual_seed(5)
+        hd, nh, kvh, T = 512, 4, 2, 40
+        nq = nh * 128 + 2 * kvh * 128
+        qkv_qw = torch.randint(0, 256, (L, hd // 4, nq), generator=g, device=dev,
+                               dtype=torch.uint8)
+        o_qw = torch.randint(0, 256, (L, nh * 32, hd), generator=g, device=dev,
+                             dtype=torch.uint8)
+        qs = torch.rand((L, nq), generator=g, device=dev) * 80 + 10
+        osc = torch.rand((L, hd), generator=g, device=dev) * 80 + 10
+        ln = (1 + 0.1 * torch.randn((L, hd), generator=g, device=dev)).to(torch.bfloat16)
+        sn = (1 + 0.1 * torch.randn((L, nh * 128), generator=g, device=dev)).to(torch.bfloat16)
+        h = torch.randn((1, hd), generator=g, device=dev).to(torch.bfloat16)
+        ck = torch.randn((L, 1, T, kvh, 128), generator=g, device=dev).to(torch.bfloat16)
+        cv = torch.randn((L, 1, T, kvh, 128), generator=g, device=dev).to(torch.bfloat16)
+        cos = torch.rand(128, generator=g, device=dev).to(torch.bfloat16)
+        sin = torch.rand(128, generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(q_dim=nh * 128, n_kv=kvh, n_heads=nh, head_dim=128)
+        for pos in (0, 17, T - 1):
+            ka, va, kb, vb = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            a, ka, va = ternary_cuda.attn_block_megakernel(
+                h, ka, va, qkv_qw, o_qw, LAYER, p, qs, osc, ln, sn, cos, sin, **kw)
+            b, kb, vb = ternary_cuda.attn_block_megakernel_plain(
+                h, kb, vb, qkv_qw, o_qw, LAYER, p, qs, osc, ln, sn, cos, sin, **kw)
+            # the prologues' reductions run in another order than torch's
+            # (an int8 code may move by one), as for K1/K2
+            assert ((a.float() - b.float()).abs() <= 0.05 * b.float().abs().max()).all()
+            keep = torch.ones(L, T, dtype=torch.bool, device=dev)
+            keep[LAYER, pos] = False
+            assert torch.equal(ka[:, 0][keep], ck[:, 0][keep])
+            assert torch.equal(va[:, 0][keep], cv[:, 0][keep])
+            for x, y in ((ka, kb), (va, vb)):
+                r, s = x[LAYER, 0, pos].float(), y[LAYER, 0, pos].float()
+                assert ((r - s).abs() <= 0.03 * s.abs().max()).all()
+    elif kernel == "k6":
+        g = torch.Generator(device=dev).manual_seed(6)
+        B, kvh, nh, ps, mp, n_l = 3, 2, 8, 16, 8, 2
+        main = torch.randn((B * mp + 1, 2 * n_l, ps, kvh * 128), generator=g,
+                           device=dev).to(torch.bfloat16)
+        stage = torch.randn((B, ps, 2 * n_l, kvh * 128), generator=g,
+                            device=dev).to(torch.bfloat16)
+        q = torch.randn((B, nh, 128), generator=g, device=dev).to(torch.bfloat16)
+        kc = torch.randn((B, kvh, 128), generator=g, device=dev).to(torch.bfloat16)
+        vc = torch.randn((B, kvh, 128), generator=g, device=dev).to(torch.bfloat16)
+        pt = (torch.randperm(B * mp, generator=g, device=dev) + 1).reshape(B, mp).to(torch.int32)
+        sl = torch.tensor([0, 37, 127], dtype=torch.int32, device=dev)
+        for layer in (0, 1):
+            a = flash_attention.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+            b = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+            # probabilities round to bf16 against each tile's running max
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
     else:
         g = torch.Generator(device=dev).manual_seed(0)
         q = torch.randn(1, 96, 4, 128, device=dev, generator=g).to(torch.bfloat16)

@@ -137,6 +137,47 @@ def test_engine_radix_reuse_hits(ref_outputs, port_outputs):
     assert ref_outputs["radix_hit"] and port_outputs["radix_hit"]
 
 
+@pytest.fixture(scope="module")
+def port_flash_outputs(weights):
+    """The scenarios with ``flash_decode=True``: every decode step's attention
+    goes through ``flash_paged_decode`` (its plain version on the CPU),
+    counted through the name ``kv/paged.py`` calls."""
+    cfg = BitNetConfig.tiny()
+    eng = Engine(params_from_numpy(weights, cfg, device="cpu"), cfg,
+                 EngineConfig(flash_decode=True, **ECFG), device="cpu")
+    calls = []
+    orig = paged.flash_paged_decode
+    paged.flash_paged_decode = lambda *a: calls.append(1) or orig(*a)
+    try:
+        out = _scenarios(eng, SamplingParams)
+    finally:
+        paged.flash_paged_decode = orig
+    out["flash_calls"] = len(calls)
+    out["decode_steps"] = eng.stats["decode_steps"]
+    return out
+
+
+@pytest.mark.parametrize("scenario,prompts", [
+    ("sequential", PROMPTS), ("concurrent", CONCURRENT), ("radix", RADIX)])
+def test_engine_flash_decode_matches_reference(ref_outputs, port_flash_outputs, port_outputs,
+                                               weights, scenario, prompts):
+    """EngineConfig(flash_decode=True): the decode steps run the flash decode
+    attention (once per layer and step) and give the tokens of the default
+    run and of the reference, under the default run's rule: a sequence may
+    part only at a near-tie of the reference's own logits."""
+    assert port_flash_outputs["flash_calls"] == (
+        BitNetConfig.tiny().num_layers * port_flash_outputs["decode_steps"])
+    for other in (port_outputs, ref_outputs):
+        for prompt, (got, got_why), (want, want_why), (ref, _) in zip(
+                prompts, port_flash_outputs[scenario], other[scenario], ref_outputs[scenario]):
+            assert got_why == want_why and len(got) == len(want)
+            if got == want:
+                continue
+            step = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            gap = _ref_top2_gap(weights, prompt, ref, step)
+            assert gap < NEAR_TIE, f"prompt {prompt}: diverged at token {step}, top-2 gap {gap}"
+
+
 def test_paged_forward_logits_match_reference(weights):
     """One 128-token prefill chunk (flash path, 3 staging tokens left over),
     then 10 decode steps that cross a page, both packages teacher-forced with

@@ -1,13 +1,15 @@
-"""The port's four kernels — plain PyTorch versions on the CPU — vs the JAX
-reference (Pallas kernels in interpret mode, or the reference's plain
-path where the Pallas kernel has no interpret mode). The kernels
-themselves are held against these plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+"""The port's kernels of the serving path — plain PyTorch versions on the
+CPU — vs the JAX reference (Pallas kernels in interpret mode, or the
+reference's plain path where the Pallas kernel has no interpret mode). The
+kernels themselves are held against these plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py. K5 is held in
+tests/test_torch_batch1.py.
 
   K1 ternary_matmul_stacked_fused  vs ternary_pallas.ternary_matmul_stacked_fused
   K2 mlp_block_megakernel          vs ternary_pallas.mlp_block_megakernel
   K3 kv_write (via _dual_write)    vs kv.paged._dual_write(use_pallas=False)
   K4 flash_paged_prefill           vs flash_attention.flash_paged_prefill
+  K6 flash_paged_decode            vs flash_attention.flash_paged_decode
 """
 
 import jax.numpy as jnp
@@ -218,3 +220,70 @@ def test_k4_plain_vs_reference(dtype, tol):
     for b in range(B):
         np.testing.assert_allclose(got[b, :new_len[b]], ref[b, :new_len[b]],
                                    rtol=tol, atol=tol)
+
+
+def _decode_case(seq_lens, dtype, ps=8, mp=4, kv=2, g=2, d=32, n_l=4):
+    """tests/test_dual_kv.py::TestFlashPagedDecode's inputs: distinct pages
+    per slot, random pools and queries. The port's pool rows l and n_l + l
+    are the reference's rows for lp = n_l."""
+    rng = np.random.default_rng(0)
+    b = len(seq_lens)
+    p, kvd, nh = b * mp + 2, kv * d, kv * g
+    arrs = dict(
+        main=rng.standard_normal((p, 2 * n_l, ps, kvd)),
+        staging=rng.standard_normal((b, ps, 2 * n_l, kvd)),
+        q=rng.standard_normal((b, nh, d)),
+        k_cur=rng.standard_normal((b, kv, d)),
+        v_cur=rng.standard_normal((b, kv, d)),
+    )
+    pt = np.arange(1, b * mp + 1, dtype=np.int32).reshape(b, mp)
+    sl = np.asarray(seq_lens, np.int32)
+    if dtype == "bf16":
+        pair = {k: bf16(v) for k, v in arrs.items()}
+    else:
+        pair = {k: (jnp.asarray(v, jnp.float32), torch.from_numpy(v.astype(np.float32)))
+                for k, v in arrs.items()}
+    ref = {k: v[0] for k, v in pair.items()}
+    got = {k: v[1] for k, v in pair.items()}
+    return ref, got, pt, sl
+
+
+def _k6_pair(seq_lens, layer, dtype, pages_per_step=4):
+    ref_in, got_in, pt, sl = _decode_case(seq_lens, dtype)
+    ref = ref_flash.flash_paged_decode(
+        ref_in["q"], ref_in["k_cur"], ref_in["v_cur"], ref_in["main"], ref_in["staging"],
+        jnp.int32(layer), jnp.asarray(pt), jnp.asarray(sl), pages_per_step=pages_per_step,
+        interpret=True)
+    got = flash_attention.flash_paged_decode(
+        got_in["q"], got_in["k_cur"], got_in["v_cur"], got_in["main"], got_in["staging"],
+        layer, torch.from_numpy(pt), torch.from_numpy(sl))
+    return np.asarray(ref.astype(jnp.float32)), got.float().numpy()
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("seq_lens", [[0, 5, 27], [8, 16, 32], [31, 1, 7]],
+                         ids=["empty_staging_pages", "page_boundaries", "near_full_single"])
+def test_k6_plain_vs_reference(seq_lens, layer):
+    """K6: the plain decode (all committed pages as one online-softmax
+    update, then staging + current token) vs the reference kernel in
+    interpret mode, in f32: within 2e-5 (tests/test_dual_kv.py's bar; only
+    the f32 summation order differs)."""
+    ref, got = _k6_pair(seq_lens, layer, "f32")
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("pages_per_step", [1, 2, 4])
+def test_k6_plain_vs_reference_pages_per_step(pages_per_step):
+    """The reference's page grouping does not change its result beyond f32
+    order: the plain version meets every grouping within 2e-5."""
+    ref, got = _k6_pair([13, 29, 24], 1, "f32", pages_per_step)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_k6_plain_vs_reference_bf16():
+    """bf16 within 5e-2 (tests/test_dual_kv.py's bar): probabilities are
+    rounded to bf16 relative to each update's running max, which differs
+    between one update of all pages and the reference's page groups."""
+    ref, got = _k6_pair([0, 5, 27], 0, "bf16")
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=5e-2, atol=5e-2)

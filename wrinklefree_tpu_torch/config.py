@@ -111,11 +111,11 @@ class EngineConfig:
     """Continuous-batching engine configuration.
 
     The reference's fields and defaults, less the TPU-only path selectors
-    (``use_pallas``, ``flash_decode``, ``prefill_linear``, ``kv_layout``:
-    the port always runs its fused kernels over the dual KV layout) and the
-    tuning knobs of features not ported yet. Fields whose feature the port
-    does not run yet make ``Engine`` raise ``NotImplementedError`` when set
-    away from their default (see ``engine/engine.py``).
+    (``use_pallas``, ``prefill_linear``, ``kv_layout``: the port always runs
+    its fused kernels over the dual KV layout) and the tuning knobs of
+    features not ported yet. Fields whose feature the port does not run yet
+    make ``Engine`` raise ``NotImplementedError`` when set away from their
+    default (see ``engine/engine.py``).
     """
 
     max_batch_slots: int = 8
@@ -150,3 +150,7 @@ class EngineConfig:
     int8_logits: bool = False
     attn_window: int = 0
     attn_global_tokens: int = 0
+    # Decode attention with the page-table gather inside the kernel
+    # (ops.flash_attention.flash_paged_decode); off runs the plain gather
+    # attention. The reference's None means its env default, which is off.
+    flash_decode: bool = False

@@ -1,8 +1,15 @@
-// Fused packed-ternary linear (K1) and the one-launch MLP block (K2) for Hopper.
+// Fused packed-ternary linear (K1), the one-launch MLP block (K2) and the
+// one-launch batch-1 attention block (K5) for Hopper.
 //
 // K1 replaces wrinklefree_tpu/ops/ternary_pallas.py::ternary_matmul_stacked_fused
 // (kernel body _matmul_kernel_stacked_fused). K2 replaces mlp_block_megakernel
-// (_mlp_megakernel / _mlp_megakernel_manual).
+// (_mlp_megakernel / _mlp_megakernel_manual). K5 replaces attn_block_megakernel
+// (_attn_megakernel, joint-dot form) and attn_block_megakernel_manual_stacked
+// (_attn_megakernel_manual): one function over the 5-D or the flat cache,
+// which are the same bytes here. K5's bound is the weight stream (qkv + o,
+// 4.1 MB at BitNet-2B) plus 2*(pos+1)*KV*D*2 bytes of cache; its dots share
+// K1's latency limit (below), and its five stages sit behind four grid
+// barriers.
 //
 // Math, per row: x = act(h) -> optional RMS norm (f32 variance, IEEE 1/sqrt,
 // bf16 rounding, bf16 weight multiply) -> int8 absmax quant (127/clip(absmax,
@@ -79,7 +86,7 @@ __device__ float block_max(float v, float* red) {
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (threadIdx.x < 32) {
-    float t = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
+    float t = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : -INFINITY;
     for (int o = 16; o > 0; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
     if (threadIdx.x == 0) red[0] = t;
   }
@@ -370,6 +377,177 @@ __global__ void k2_mlp(const __nv_bfloat16* __restrict__ h, int B, int H, int I,
   }
 }
 
+// ---------------------------------------------------------------- K5 ------
+
+constexpr int HD = 128;     // head dim of the attention stages
+constexpr int ATT_CH = 64;  // cache rows per attention work unit
+constexpr int MAX_G = 8;    // query heads per KV head
+
+// Element d of a RoPE'd head row x (rotate-half), every op rounded to bf16.
+__device__ __forceinline__ float rope_at(const __nv_bfloat16* x, int d,
+                                         const __nv_bfloat16* __restrict__ cs,
+                                         const __nv_bfloat16* __restrict__ sn) {
+  const int half = HD / 2;
+  float xv = __bfloat162float(x[d]);
+  float rot = d < half ? -__bfloat162float(x[d + half]) : __bfloat162float(x[d - half]);
+  return bf16r(bf16r(xv * __bfloat162float(cs[d])) + bf16r(rot * __bfloat162float(sn[d])));
+}
+
+// The residual attention block of one decode token in one cooperative launch
+// (replaces attn_block_megakernel / attn_block_megakernel_manual_stacked):
+//   A: norm+quant of h (recomputed in every block that owns qkv tiles: a
+//      2560-wide row costs less than a grid barrier) -> qkv tiles -> bf16
+//      qkv in global scratch                                    | barrier |
+//   B: per (KV head, 64-row chunk of rows 0..pos): RoPE of the G packed q
+//      heads; the chunk holding pos writes the roped k row and the raw v
+//      row into the cache in place; f32 scores * 1/sqrt(D)      | barrier |
+//   C: per unit: row max and sum over rows 0..pos (fixed-order block
+//      reductions), p = bf16(e / sum), f32 PV partials of the chunk
+//                                                               | barrier |
+//   D: fixed-order sum of the chunk partials -> bf16 attention row
+//                                                               | barrier |
+//   E: sub-norm+quant of the attention row (recomputed per block, as in A)
+//      -> o tiles -> h + bf16(d).
+// The two-pass softmax keeps the TPU kernel's rounding points (probabilities
+// normalised, then rounded to bf16); an online softmax would move them. Only
+// cache rows 0..pos are read. The cache, the scratch buffers and the row
+// written at pos are read through plain (coherent) loads: they are written
+// inside this launch.
+__global__ void k5_attn(const __nv_bfloat16* __restrict__ h, int H, int Q, int NH, int KV, int T,
+                        int layer, const int* __restrict__ pos_p,
+                        const __nv_bfloat16* __restrict__ input_ln,
+                        const __nv_bfloat16* __restrict__ attn_sub, int norm2, float eps,
+                        const uint8_t* __restrict__ qw, const float* __restrict__ qsw,
+                        int qsw_stride, const uint8_t* __restrict__ ow,
+                        const float* __restrict__ osw, int osw_stride,
+                        const __nv_bfloat16* __restrict__ cs, const __nv_bfloat16* __restrict__ sn,
+                        float scale, __nv_bfloat16* ck, __nv_bfloat16* cv, __nv_bfloat16* qkv,
+                        float* sc, float* part, __nv_bfloat16* attn,
+                        __nv_bfloat16* __restrict__ out) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int KMAX = H > Q ? H : Q;
+  float* red = smem;                                            // 32
+  float* xs = red + 32;                                         // KMAX
+  int* codes = reinterpret_cast<int*>(xs + KMAX);               // KMAX / 4
+  int* dred = codes + KMAX / 4;                                 // KSPLIT * TILE_N
+  float* qs = reinterpret_cast<float*>(dred + KSPLIT * TILE_N);  // MAX_G * HD
+  float* ps = qs + MAX_G * HD;                                  // MAX_G * ATT_CH
+  float* pv = ps + MAX_G * ATT_CH;                              // MAX_G * HD
+  int* rs = reinterpret_cast<int*>(pv + MAX_G * HD);            // row sum
+  float* sxp = pv + MAX_G * HD + 1;                             // quant scale
+  const int G = NH / KV;
+  const int NQKV = Q + 2 * KV * HD;
+  const int pos = min(max(*pos_p, 0), T - 1);
+  const int nch = pos / ATT_CH + 1;  // chunks covering rows 0..pos
+  const int units = KV * nch;
+  const size_t row0 = (size_t)layer * T;  // this layer's first cache row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+
+  // A: qkv
+  const int tiles_q = (NQKV + TILE_N - 1) / TILE_N;
+  if (blockIdx.x < tiles_q) {
+    prologue_row(h, H, ACT_NONE, 1, input_ln, eps, xs, red, reinterpret_cast<int8_t*>(codes),
+                 rs, sxp);
+    for (int t = blockIdx.x; t < tiles_q; t += gridDim.x)
+      dot_tile<1>(qw, H / 4, NQKV, t * TILE_N, codes, 1, dred, [&](int, int n, int acc) {
+        qkv[n] = rescale(acc, *rs, *sxp, qsw[n * qsw_stride]);
+      });
+  }
+  grid.sync();
+
+  // B: RoPE, the cache-row write, scores
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int kvh = u / nch, c = u % nch;
+    const int t0 = c * ATT_CH, t1 = min(t0 + ATT_CH, pos + 1);
+    for (int i = threadIdx.x; i < G * HD; i += blockDim.x)
+      qs[i] = rope_at(qkv + (kvh * G + i / HD) * HD, i % HD, cs, sn);
+    if (pos < t1) {
+      const size_t row = ((row0 + pos) * KV + kvh) * HD;
+      for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+        ck[row + d] = __float2bfloat16_rn(rope_at(qkv + Q + kvh * HD, d, cs, sn));
+        cv[row + d] = qkv[Q + KV * HD + kvh * HD + d];
+      }
+    }
+    __syncthreads();
+    for (int t = t0 + warp; t < t1; t += nwarps) {
+      uint2 raw = *reinterpret_cast<const uint2*>(ck + ((row0 + t) * KV + kvh) * HD + lane * 4);
+      const __nv_bfloat16* k4 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      const float k0 = __bfloat162float(k4[0]), k1 = __bfloat162float(k4[1]);
+      const float k2 = __bfloat162float(k4[2]), k3 = __bfloat162float(k4[3]);
+      for (int g = 0; g < G; ++g) {
+        const float* qg = qs + g * HD + lane * 4;
+        float s = qg[0] * k0 + qg[1] * k1 + qg[2] * k2 + qg[3] * k3;
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) sc[(size_t)(kvh * G + g) * T + t] = s * scale;
+      }
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // C: softmax over rows 0..pos, PV partials of each chunk
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int kvh = u / nch, c = u % nch;
+    const int t0 = c * ATT_CH, n = min(ATT_CH, pos + 1 - t0);
+    for (int g = 0; g < G; ++g) {
+      const float* srow = sc + (size_t)(kvh * G + g) * T;
+      float m = -INFINITY;
+      for (int t = threadIdx.x; t <= pos; t += blockDim.x) m = fmaxf(m, srow[t]);
+      m = block_max(m, red);
+      float l = 0.f;
+      for (int t = threadIdx.x; t <= pos; t += blockDim.x) l += expf(srow[t] - m);
+      l = block_sum(l, red);
+      for (int j = threadIdx.x; j < n; j += blockDim.x)
+        ps[g * ATT_CH + j] = bf16r(expf(srow[t0 + j] - m) / l);
+    }
+    __syncthreads();
+    const int d = threadIdx.x % HD, half = threadIdx.x / HD;  // two row halves
+    float acc[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+    for (int j = half; j < n; j += 2) {
+      const float v = __bfloat162float(cv[((row0 + t0 + j) * KV + kvh) * HD + d]);
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) acc[g] += ps[g * ATT_CH + j] * v;
+    }
+    if (half == 1) {
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) pv[g * HD + d] = acc[g];
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) part[((size_t)c * NH + kvh * G + g) * HD + d] = acc[g] + pv[g * HD + d];
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // D: combine the chunks in order
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < NH * HD; i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < nch; ++c) s += part[(size_t)c * NH * HD + i];
+    attn[i] = __float2bfloat16_rn(s);
+  }
+  grid.sync();
+
+  // E: o and the residual
+  const int tiles_o = (H + TILE_N - 1) / TILE_N;
+  if (blockIdx.x < tiles_o) {
+    prologue_row(attn, Q, ACT_NONE, norm2, attn_sub, eps, xs, red,
+                 reinterpret_cast<int8_t*>(codes), rs, sxp);
+    for (int t = blockIdx.x; t < tiles_o; t += gridDim.x)
+      dot_tile<1>(ow, Q / 4, H, t * TILE_N, codes, 1, dred, [&](int, int n, int acc) {
+        float d = __bfloat162float(rescale(acc, *rs, *sxp, osw[n * osw_stride]));
+        out[n] = __float2bfloat16_rn(__bfloat162float(h[n]) + d);
+      });
+  }
+}
+
 size_t dot_smem(int R, int K) {
   return (size_t)R * (K / 4) * 4 + (size_t)KSPLIT * R * TILE_N * 4;
 }
@@ -423,6 +601,23 @@ cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
                                   smem, st);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// Largest grid whose blocks are all resident (a cooperative launch needs
+// that), capped at `want` and at least 1.
+cudaError_t resident_blocks(const void* kernel, size_t smem, int want, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+      cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = per_sm * sms < want ? per_sm * sms : want;
+  if (*blocks < 1) *blocks = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -480,6 +675,59 @@ int wf_mlp_mega(const void* h, int B, int H, int I, int act, const void* post_ln
   if (B <= 4) return WF_K2(4);
   return WF_K2(8);
 #undef WF_K2
+}
+
+// K5: out[1,H] = h + o(quant(subnorm(attention(rope(qkv(quant(norm(h)))))))) for one
+// decode token; writes row pos of `layer` of the [L,T,KV,128] caches ck/cv in
+// place. pos is a device int (clamped to [0,T-1]). Caller scratch: qkv
+// [Q+2*KV*128] bf16, sc [NH*T] f32, part [ceil(T/64)*NH*128] f32, attn [Q] bf16.
+int wf_attn_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer, const void* pos,
+                 const void* input_ln, const void* attn_sub, int norm2, float eps,
+                 const void* qw, const void* qsw, int qsw_stride, const void* ow, const void* osw,
+                 int osw_stride, const void* cs, const void* sn, float scale, void* ck, void* cv,
+                 void* qkv, void* sc, void* part, void* attn, void* out, void* stream) {
+  if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 4)
+    return cudaErrorInvalidValue;
+  const int KMAX = H > Q ? H : Q;
+  size_t smem = (size_t)(32 + KMAX + KMAX / 4 + KSPLIT * TILE_N + 2 * MAX_G * HD +
+                         MAX_G * ATT_CH + 2) * 4;
+  cudaError_t e = cudaFuncSetAttribute(k5_attn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int want = (Q + 2 * KV * HD + TILE_N - 1) / TILE_N;
+  int tiles_o = (H + TILE_N - 1) / TILE_N;
+  int units = KV * ((T + ATT_CH - 1) / ATT_CH);
+  if (tiles_o > want) want = tiles_o;
+  if (units > want) want = units;
+  int blocks = 0;
+  if ((e = resident_blocks((const void*)k5_attn, smem, want, &blocks)) != cudaSuccess) return e;
+  const __nv_bfloat16* hb = (const __nv_bfloat16*)h;
+  const int* pp = (const int*)pos;
+  const __nv_bfloat16* iln = (const __nv_bfloat16*)input_ln;
+  const __nv_bfloat16* sub = (const __nv_bfloat16*)attn_sub;
+  const uint8_t* qwb = (const uint8_t*)qw;
+  const float* qswf = (const float*)qsw;
+  const uint8_t* owb = (const uint8_t*)ow;
+  const float* oswf = (const float*)osw;
+  const __nv_bfloat16* csb = (const __nv_bfloat16*)cs;
+  const __nv_bfloat16* snb = (const __nv_bfloat16*)sn;
+  __nv_bfloat16* ckb = (__nv_bfloat16*)ck;
+  __nv_bfloat16* cvb = (__nv_bfloat16*)cv;
+  __nv_bfloat16* qkvb = (__nv_bfloat16*)qkv;
+  float* scf = (float*)sc;
+  float* partf = (float*)part;
+  __nv_bfloat16* attnb = (__nv_bfloat16*)attn;
+  __nv_bfloat16* outb = (__nv_bfloat16*)out;
+  void* args[] = {(void*)&hb,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
+                  (void*)&T,    (void*)&layer, (void*)&pp,     (void*)&iln,   (void*)&sub,
+                  (void*)&norm2, (void*)&eps,  (void*)&qwb,    (void*)&qswf,  (void*)&qsw_stride,
+                  (void*)&owb,  (void*)&oswf,  (void*)&osw_stride, (void*)&csb, (void*)&snb,
+                  (void*)&scale, (void*)&ckb,  (void*)&cvb,    (void*)&qkvb,  (void*)&scf,
+                  (void*)&partf, (void*)&attnb, (void*)&outb};
+  e = cudaLaunchCooperativeKernel((const void*)k5_attn, dim3(blocks), dim3(THREADS), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 const char* wf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -39,6 +39,7 @@ def build_decode(eng, burst_steps: int | None = None):
     tensors advanced on the device."""
     cfg = eng.cfg
     K = burst_steps or eng.ecfg.decode_burst
+    fd = eng.ecfg.flash_decode
 
     def burst(pools, last_tokens, page_table, seq_lens, slot_ids, ring, samp, gens):
         W = ring.shape[1]
@@ -53,7 +54,7 @@ def build_decode(eng, burst_steps: int | None = None):
             logits, pools = paged_forward(
                 eng.params, cfg, tok[:, None], pools, page_table, sl, ones,
                 linear_fn=eng._linear_fn, attention_fn=eng._attention_fn,
-                slot_ids=slot_ids,
+                slot_ids=slot_ids, flash_decode=fd,
             )
             tok = _sample(logits, ring, sl + 1, samp, gens)
             outs.append(tok)

@@ -26,7 +26,7 @@ import torch
 
 from ..config import BitNetConfig
 from ..models.bitnet import compute_logits
-from ..ops.flash_attention import flash_paged_prefill
+from ..ops.flash_attention import flash_paged_decode, flash_paged_prefill
 from ..ops.kv_update_cuda import kv_write as kv_write_kernel
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..ops.norms import rms_norm
@@ -158,6 +158,18 @@ def _paged_attention_dual_flash(
     return out.to(q.dtype)
 
 
+def _paged_attention_dual_flash_decode(
+    q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, new_lens, cfg
+):
+    """Decode-step (S == 1) attention with the page gather inside the kernel
+    (``ops.flash_attention.flash_paged_decode``): the history is read from
+    the pool once, without the gathered [B, MP*ps, KV, D] copies and the
+    concatenations of the plain path."""
+    out = flash_paged_decode(q[:, 0], k_cur[:, 0], v_cur[:, 0], main, staging_b, layer,
+                             page_table, seq_lens)
+    return out[:, None]
+
+
 def _dual_write(
     pools: PagedKV,
     vals: torch.Tensor,  # [B, S, 2L, KVD] token rows (k-layers then v-layers)
@@ -255,6 +267,7 @@ def paged_forward(
     attention_fn=None,
     kv_write=None,
     slot_ids: Optional[torch.Tensor] = None,  # [B] staging slots
+    flash_decode: bool = False,
 ):
     """Run S new tokens per slot against the paged cache.
 
@@ -264,10 +277,11 @@ def paged_forward(
 
     ``linear_fn`` defaults to the fused kernels (``make_linear_fused()``);
     ``attention_fn`` defaults to the flash prefill kernel for chunks of 128
-    tokens or more and to the plain dual-layout attention otherwise;
-    ``kv_write`` defaults to the in-place writer kernel. Each wrapper runs
-    its plain version on CPU tensors, and the plain functions can be passed
-    explicitly to run the plain path on the card.
+    tokens or more, to the flash decode kernel at S == 1 when
+    ``flash_decode`` is set, and to the plain dual-layout attention
+    otherwise; ``kv_write`` defaults to the in-place writer kernel. Each
+    wrapper runs its plain version on CPU tensors, and the plain functions
+    can be passed explicitly to run the plain path on the card.
     """
     lf = linear_fn or make_linear_fused()
     write = kv_write or kv_write_kernel
@@ -292,6 +306,8 @@ def paged_forward(
 
     if attention_fn is not None:
         attn_impl = attention_fn
+    elif S == 1 and flash_decode:
+        attn_impl = _paged_attention_dual_flash_decode
     else:
         attn_impl = _paged_attention_dual_flash if S >= 128 else _paged_attention_dual
 

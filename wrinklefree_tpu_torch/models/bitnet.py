@@ -1,19 +1,30 @@
-"""BitNet b1.58 parameters and head (PyTorch port).
+"""BitNet b1.58 model (PyTorch port).
 
-Counterpart of the parameter half of ``wrinklefree_tpu/models/bitnet.py``:
-embed -> N x { RMSNorm, GQA attention (RoPE), attn_sub_norm before o_proj,
-residual, RMSNorm, ReLU^2-gated MLP with ffn_sub_norm before down_proj,
-residual } -> final RMSNorm -> tied-embedding logits. Params are a dict of
-tensors with per-layer arrays stacked on a leading [L] axis, under the
-reference's key names. The paged forward lives in ``kv/paged.py``; the
-batch-1 dense-cache ``forward`` is not ported yet.
+Counterpart of ``wrinklefree_tpu/models/bitnet.py``: embed -> N x {
+RMSNorm, GQA attention (RoPE), attn_sub_norm before o_proj, residual,
+RMSNorm, ReLU^2-gated MLP with ffn_sub_norm before down_proj, residual } ->
+final RMSNorm -> tied-embedding logits. Params are a dict of tensors with
+per-layer arrays stacked on a leading [L] axis, under the reference's key
+names. This module holds the parameters, the heads and the dense-cache
+``forward``/``generate`` (batch-1 decode runs two kernels per layer); the
+paged forward of the serving engine lives in ``kv/paged.py``.
+
+Not ported: ``split_layers_for_decode`` and the unrolled static-weight
+decode path (a TPU scalar-prefetch workaround), tensor parallelism,
+activation/attention sparsity and MoE layers.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
 from ..config import BitNetConfig
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_rope, rope_cos_sin
 from ..ops.ternary import ternary_linear
 
 
@@ -30,6 +41,35 @@ def resolve_device(device) -> torch.device:
 def default_linear(x, qweight, scale, out_dtype=torch.bfloat16):
     """Unfused exact linear (quantize, integer dot, rescale)."""
     return ternary_linear(x, qweight, scale, out_dtype=out_dtype)
+
+
+class KVCache(NamedTuple):
+    """Contiguous per-layer KV cache [L, B, T, KV, D], or at batch 1 the flat
+    [L*T*KV, D] form of the same bytes (``flatten_cache_for_decode``)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: BitNetConfig, batch: int, max_len: int, dtype=None, device=None):
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        dtype = cfg.dtype if dtype is None else dtype
+        dev = resolve_device(device)
+        return cls(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def flatten_cache_for_decode(cache: KVCache) -> KVCache:
+    """The flat [L*T*KV, D] row form of a batch-1 cache.
+
+    On the card this is a view (``reshape`` of a contiguous tensor): the
+    reference's one-time relayout copy, forced there by the TPU's tile
+    padding of KV = 5 to 8, does not exist here, so the flat and the 5-D
+    cache are the same bytes and ``forward`` takes either."""
+    L, B, T, KV, D = cache.k.shape
+    if B != 1:
+        raise ValueError("the flat decode cache is batch-1 only")
+    return KVCache(cache.k.reshape(L * T * KV, D), cache.v.reshape(L * T * KV, D))
 
 
 def init_params(cfg: BitNetConfig, seed: int = 0, device=None, dtype=None):
@@ -129,8 +169,298 @@ def compute_logits(hidden, params, cfg: BitNetConfig) -> torch.Tensor:
     if "lm_head_q" in params:
         logits = _head_matmul(h2, params["lm_head_q"].to(cfg.dtype)) * params["lm_head_s"]
     else:
-        head = params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
-        logits = _head_matmul(h2, head)
+        logits = _head_matmul(h2, _bf16_head(params, cfg))
     return logits.reshape(*lead, -1)
+
+
+def _bf16_head(params, cfg: BitNetConfig) -> torch.Tensor:
+    return params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
+
+
+def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
+                      tp_axis: Optional[str] = None):
+    """Greedy next token via the int8 head scan and an exact bf16 rescore of
+    the top-k candidates, certified against the int8 error bound.
+
+    Same contract as the reference: the rescored winner (lowest id among
+    the exact maxima) is taken when ``exact_max > best_outside + eps`` for
+    every row, with ``eps = 0.5*s_max*||h||_1 + 1e-3*(|exact_max| + 1)``;
+    otherwise the full bf16 head decides, so the token always equals
+    ``argmax(compute_logits)`` of the bf16 head. The reference picks the
+    branch on the device with ``lax.cond``; here the host reads the
+    certificate, one device read per call, and runs the full head only when
+    it failed. ``approx_max_k`` becomes ``torch.topk``.
+
+    hidden: [B, H] post-final-norm. Returns (tokens [B] int32, certified
+    bool). Requires ``quantize_lm_head(params)``. Single device only."""
+    if tp_axis is not None:
+        raise NotImplementedError("greedy_exact_topk with tp_axis (tensor parallelism)")
+    if "lm_head_q" not in params:
+        raise ValueError("greedy_exact_topk requires quantize_lm_head(params)")
+    head = _bf16_head(params, cfg)
+    h = hidden.to(cfg.dtype)
+    approx = compute_logits(h, params, cfg)  # [B, V] int8 head
+    cand = torch.topk(approx, k, dim=-1).indices  # [B, k]
+    rows = head[cand].to(cfg.dtype)  # [B, k, H]
+    # bf16 products are exact in f32; sums in f32
+    exact = torch.einsum("bh,bkh->bk", h.float(), rows.float())
+    m_out = approx.scatter(-1, cand, float("-inf")).amax(dim=-1)
+    h1 = h.float().abs().sum(dim=-1)
+    s_max = params["lm_head_s"].amax()
+    exact_max = exact.amax(dim=-1)
+    sent = torch.iinfo(torch.int32).max
+    minid = torch.where(exact >= exact_max[:, None], cand,
+                        torch.full_like(cand, sent)).amin(dim=-1)
+    eps = 0.5 * s_max * h1 + 1e-3 * (exact_max.abs() + 1.0)
+    certified = bool((exact_max > m_out + eps).all())  # the one host read
+    if certified:
+        return minid.to(torch.int32), True
+    full = _head_matmul(h.reshape(-1, h.shape[-1]), head)
+    return torch.argmax(full, dim=-1).to(torch.int32), False
+
+
+# ---------------------------------------------------------------------------
+# Forward pass over the dense cache
+# ---------------------------------------------------------------------------
+
+
+def _attention(q, k_cache, v_cache, q_pos, cfg: BitNetConfig, attn_sparsity=None):
+    """GQA attention of q [B,S,NH,D] over cache [B,T,KV,D] (full history):
+    key t is visible iff t <= q_pos. Scores and softmax in f32 (inputs are
+    exact in f32), probabilities rounded to the cache dtype before PV."""
+    if attn_sparsity is not None:
+        raise NotImplementedError("attention sparsity is not ported yet")
+    B, S, NH, D = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = NH // KV
+    qg = q.reshape(B, S, KV, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float())
+    scores = scores * (1.0 / math.sqrt(D))
+    key_idx = torch.arange(T, device=q.device)
+    mask = key_idx[None, None, None, None, :] <= q_pos[:, None, None, :, None]
+    scores = torch.where(mask, scores, torch.tensor(float("-inf"), device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v_cache.float()).to(v_cache.dtype)
+    return out.reshape(B, S, NH, D)
+
+
+def forward(
+    params,
+    cfg: BitNetConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    cache: KVCache,  # [L, B, T, KV, D], or flat [L*T*KV, D] at B = 1
+    start_pos: torch.Tensor,  # [B] int: cache fill per sequence
+    *,
+    linear_fn=None,
+    logits_all: bool = True,
+    head_fn=None,  # (hidden [B, H], params) -> anything; replaces compute_logits
+    tp_axis: Optional[str] = None,
+    tp_kv_replicated: bool = False,
+    act_sparsity=None,
+    attn_sparsity=None,
+):
+    """Run S new tokens through the model, writing their k/v rows into the
+    cache. Covers prefill (S = prompt length, start_pos = 0) and decode
+    (S = 1). Returns (logits [B,S,V] f32 if ``logits_all`` else [B,V], or
+    ``head_fn``'s result; the cache).
+
+    The cache is updated in place and returned in the format it came in (the
+    reference donates it and returns a new one). Three branches, as in the
+    reference:
+
+    - the plain layer step: ``linear_fn`` unfused (``default_linear``, the
+      default) or stacked over fused projections;
+    - the prologue branch: a fused-prologue ``linear_fn``
+      (``ops.ternary_cuda.make_linear_fused``) runs norm, quant and dot in
+      one call per linear, and the MLP block in one call at <= 8 rows;
+    - the megakernel branch: at B = S = 1 with ``.attn_mega`` and
+      ``.mlp_mega`` on ``linear_fn``, two calls per layer (attention block,
+      then MLP block), the attention block writing the cache row in place.
+
+    The reference also gates the megakernel branch on the TPU's on-chip
+    memory (``_auto_cache_ok``, ``attn_manual_tile``) and picks between two
+    attention-block kernels that compute the same function; the port always
+    takes it at batch-1 decode with its one kernel. That changes the choice
+    of kernel, not the function computed. Tensor parallelism, activation or
+    attention sparsity and MoE raise ``NotImplementedError``.
+    """
+    if tp_axis is not None or tp_kv_replicated:
+        raise NotImplementedError("tensor parallelism is not ported yet")
+    if act_sparsity is not None:
+        raise NotImplementedError("activation sparsity is not ported yet")
+    if attn_sparsity is not None:
+        raise NotImplementedError("attention sparsity is not ported yet")
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE layers are not ported yet")
+    lf = linear_fn or default_linear
+    B, S = tokens.shape
+    dtype = cfg.dtype
+    dev = tokens.device
+    stack = params["layers"]
+    L = stack["o_qw"].shape[0]
+    KV, D = cfg.num_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    mlp_act = "silu" if cfg.mlp_act == "silu" else "relu2"
+
+    flat_cache = cache.k.dim() == 2
+    T = cache.k.shape[0] // (L * KV) if flat_cache else cache.k.shape[2]
+    ck5 = cache.k.view(L, 1, T, KV, D) if flat_cache else cache.k
+    cv5 = cache.v.view(L, 1, T, KV, D) if flat_cache else cache.v
+
+    start_pos = start_pos.to(device=dev, dtype=torch.int32)
+    hidden = params["embed"][tokens.long()].to(dtype)  # [B, S, H]
+    positions = start_pos[:, None] + torch.arange(S, device=dev, dtype=torch.int32)[None, :]
+    cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, dtype)
+
+    stacked = getattr(lf, "stacked", False)
+    fused = "qkv_qw" in stack
+    if fused and not stacked:
+        raise ValueError("fused projections require a stacked linear_fn")
+    prologue = fused and "gateup_qw" in stack and getattr(lf, "prologue", False)
+    attn_mega = getattr(lf, "attn_mega", None) if prologue else None
+    mlp_mega = getattr(lf, "mlp_mega", None) if prologue else None
+
+    def plf(x, name, l, norm_name=None, act="none"):
+        nw = stack[norm_name] if norm_name is not None else None
+        return lf(x, stack[name + "_qw"], stack[name + "_scale"], l, nw, act=act,
+                  norm=norm_name is not None, eps=eps)
+
+    def wlin(x, l, name, **kw):
+        if stacked:
+            return lf(x, stack[name + "_qw"], stack[name + "_scale"], l, **kw)
+        kw.setdefault("out_dtype", dtype)
+        return lf(x, stack[name + "_qw"][l], stack[name + "_scale"][l], **kw)
+
+    def split_qkv(qkv):
+        qd = qkv.shape[-1] - 2 * KV * D
+        return (qkv[..., :qd].reshape(B, S, -1, D),
+                qkv[..., qd:qd + KV * D].reshape(B, S, KV, D),
+                qkv[..., qd + KV * D:].reshape(B, S, KV, D))
+
+    def write_cache(l, k, v):
+        b_idx = torch.arange(B, device=dev)[:, None].expand(B, S)
+        ck5[l].index_put_((b_idx, positions.long()), k.to(ck5.dtype))
+        cv5[l].index_put_((b_idx, positions.long()), v.to(cv5.dtype))
+
+    def layer_step(h, l):
+        if prologue:
+            q, k, v = split_qkv(plf(h, "qkv", l, "input_ln"))
+            q, k = apply_rope(q, k, cos, sin)
+            write_cache(l, k, v)
+            attn = _attention(q, ck5[l], cv5[l], positions, cfg).reshape(B, S, -1)
+            h = h + plf(attn, "o", l, "attn_sub" if cfg.sub_norms else None)
+            if mlp_mega is not None and B * S <= 8:
+                return mlp_mega(
+                    h, stack["gateup_qw"], stack["down_qw"], l, stack["gateup_scale"],
+                    stack["down_scale"], stack["post_ln"],
+                    stack["ffn_sub"] if cfg.sub_norms else None,
+                    eps=eps, act=mlp_act, norm2=cfg.sub_norms)
+            gu = plf(h, "gateup", l, "post_ln")
+            return h + plf(gu, "down", l, "ffn_sub" if cfg.sub_norms else None, act=mlp_act)
+
+        normed = rms_norm(h, stack["input_ln"][l], eps)
+        if fused:
+            q, k, v = split_qkv(wlin(normed, l, "qkv"))
+        else:
+            q = wlin(normed, l, "q").reshape(B, S, -1, D)
+            k = wlin(normed, l, "k").reshape(B, S, -1, D)
+            v = wlin(normed, l, "v").reshape(B, S, -1, D)
+        q, k = apply_rope(q, k, cos, sin)
+        write_cache(l, k, v)
+        attn = _attention(q, ck5[l], cv5[l], positions, cfg).reshape(B, S, -1)
+        if cfg.sub_norms:
+            attn = rms_norm(attn, stack["attn_sub"][l], eps)
+        h = h + wlin(attn, l, "o", out_dtype=dtype).to(dtype)
+        normed = rms_norm(h, stack["post_ln"][l], eps)
+        if fused and "gateup_qw" in stack:
+            gu = wlin(normed, l, "gateup")
+            inter = gu.shape[-1] // 2
+            gate, up = gu[..., :inter], gu[..., inter:]
+        else:
+            gate = wlin(normed, l, "gate")
+            up = wlin(normed, l, "up")
+        if cfg.mlp_act == "silu":
+            act = torch.nn.functional.silu(gate) * up
+        else:
+            act = torch.square(torch.relu(gate)) * up
+        if cfg.sub_norms:
+            act = rms_norm(act, stack["ffn_sub"][l], eps)
+        return h + wlin(act, l, "down", out_dtype=dtype).to(dtype)
+
+    if attn_mega is not None and mlp_mega is not None and B == 1 and S == 1:
+        h2 = hidden.reshape(B, -1)
+        cos1, sin1 = cos.reshape(D), sin.reshape(D)
+        for l in range(L):
+            h2, _, _ = attn_mega(
+                h2, cache.k, cache.v, stack["qkv_qw"], stack["o_qw"], l, start_pos,
+                stack["qkv_scale"], stack["o_scale"], stack["input_ln"],
+                stack["attn_sub"] if cfg.sub_norms else None, cos1, sin1,
+                q_dim=cfg.q_dim, n_kv=KV, n_heads=cfg.num_heads, head_dim=D,
+                eps=eps, norm2=cfg.sub_norms)
+            h2 = mlp_mega(
+                h2, stack["gateup_qw"], stack["down_qw"], l, stack["gateup_scale"],
+                stack["down_scale"], stack["post_ln"],
+                stack["ffn_sub"] if cfg.sub_norms else None,
+                eps=eps, act=mlp_act, norm2=cfg.sub_norms)
+        hidden = h2.reshape(B, S, -1)
+    else:
+        for l in range(L):
+            hidden = layer_step(hidden, l)
+
+    hidden = rms_norm(hidden, params["final_norm"], eps)
+    if not logits_all:
+        hidden = hidden[:, -1]
+    out = head_fn(hidden, params) if head_fn is not None else compute_logits(hidden, params, cfg)
+    return out, KVCache(cache.k, cache.v)
+
+
+# ---------------------------------------------------------------------------
+# Simple generation loop (the serving path is the engine)
+# ---------------------------------------------------------------------------
+
+
+def generate(
+    params,
+    cfg: BitNetConfig,
+    prompt_ids,
+    max_new_tokens: int = 32,
+    max_len: Optional[int] = None,
+    temperature: float = 0.0,
+    top_p: float = 1.0,
+    seed: int = 0,
+    device=None,
+):
+    """Greedy/sampled batch-1 generation with a contiguous KV cache and the
+    default (plain) linear, as the reference's. Sampling draws from a
+    ``torch.Generator`` seeded with ``seed``; its numbers differ from the
+    reference's ``jax.random`` stream, so only greedy output is comparable
+    across the two packages. ``device`` defaults to CUDA."""
+    from ..ops.sampling import sample_token
+
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(np.asarray(prompt_ids, np.int64), device=dev)[None, :]
+    T = max_len or min(cfg.max_position, prompt.shape[1] + max_new_tokens)
+    # a multiple of 8, as the reference (its flat-cache TPU kernel writes
+    # aligned 8-row groups)
+    T = min(-(-T // 8) * 8, cfg.max_position)
+    cache = KVCache.zeros(cfg, 1, T, cfg.dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    logits, cache = forward(params, cfg, prompt, cache,
+                            torch.zeros(1, dtype=torch.int32, device=dev), logits_all=False)
+    out = [int(t) for t in prompt_ids]
+    pos = prompt.shape[1]
+    tok = sample_token(logits, [gen], temperature=temperature, top_p=top_p)
+    for _ in range(max_new_tokens):
+        out.append(int(tok[0]))
+        if pos + 1 >= T:
+            break
+        logits, cache = forward(params, cfg, tok[:, None], cache,
+                                torch.full((1,), pos, dtype=torch.int32, device=dev),
+                                logits_all=False)
+        tok = sample_token(logits, [gen], temperature=temperature, top_p=top_p)
+        pos += 1
+    return out
 
 

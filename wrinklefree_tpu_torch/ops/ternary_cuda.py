@@ -1,5 +1,5 @@
-"""Fused packed-ternary linear (K1) and MLP block (K2): CUDA kernels and
-their plain PyTorch versions.
+"""Fused packed-ternary linear (K1), MLP block (K2) and batch-1 attention
+block (K5): CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``wrinklefree_tpu/ops/ternary_pallas.py``:
 
@@ -9,6 +9,11 @@ Counterpart of ``wrinklefree_tpu/ops/ternary_pallas.py``:
 - :func:`mlp_block_megakernel` <- ``mlp_block_megakernel``
   (``h + down(quant(subnorm(act(bf16(gateup(quant(norm(h))))))))`` in one
   cooperative launch, at most 8 rows);
+- :func:`attn_block_megakernel` (K5) <- ``attn_block_megakernel`` and
+  ``attn_block_megakernel_manual_stacked`` (the batch-1 residual attention
+  block with the in-place cache-row write, in one cooperative launch; the
+  two TPU kernels compute the same function over the 5-D and the flat
+  cache, which on the card are the same bytes);
 - :func:`make_linear_fused` <- ``make_pallas_linear_fused``.
 
 Layouts differ from the TPU kernels only by dropping Mosaic's padding: the
@@ -23,12 +28,14 @@ keeps a plain integer ``launches`` counter, incremented once per launch.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from . import cuda_lib
 from .norms import rms_norm
+from .rope import apply_rope
 from .ternary import quantize_activations, ternary_matmul_reference
 
 _ACTS = {"none": 0, "relu2": 1, "silu": 2}
@@ -110,6 +117,53 @@ def mlp_block_megakernel_plain(
         gu, down_qw, layer, down_scale, ffn_sub if norm2 else None,
         eps=eps, act=act, norm=norm2)
     return h + d
+
+
+def _cache5(c: torch.Tensor, n_layers: int, n_kv: int, head_dim: int):
+    """A [L, 1, T, KV, D] view of a 5-D or flat [L*T*KV, D] cache, and T."""
+    if c.dim() == 2:
+        if c.shape[1] != head_dim or c.shape[0] % (n_layers * n_kv):
+            raise ValueError(f"flat cache {tuple(c.shape)} is not [L*T*{n_kv}, {head_dim}]")
+        t = c.shape[0] // (n_layers * n_kv)
+        return c.view(n_layers, 1, t, n_kv, head_dim), t
+    if c.dim() != 5 or tuple(c.shape[:2]) != (n_layers, 1) or tuple(c.shape[3:]) != (
+            n_kv, head_dim):
+        raise ValueError(f"cache {tuple(c.shape)} is not [{n_layers}, 1, T, {n_kv}, {head_dim}]")
+    return c, c.shape[2]
+
+
+def attn_block_megakernel_plain(
+    h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
+    *, q_dim, n_kv, n_heads, head_dim, eps=1e-5, norm2=True,
+):
+    """Plain version of K5, op for op the TPU kernel's joint-dot form: fused
+    qkv linear; RoPE of k and q in bf16; the roped k row and the raw v row
+    written at ``pos``; scores in f32 times 1/sqrt(D), masked to col <= pos
+    with -1e30; ``p = bf16(e / sum(e))``; PV in f32 rounded to bf16;
+    sub-norm (if ``norm2``), quant, o dot; ``h + bf16(d)``."""
+    L = qkv_qw.shape[0]
+    D, G = head_dim, n_heads // n_kv
+    ck5, T = _cache5(ck, L, n_kv, D)
+    cv5, _ = _cache5(cv, L, n_kv, D)
+    dt = h.dtype
+    qkv = ternary_matmul_stacked_fused_plain(h, qkv_qw, layer, qkv_scale, input_ln, eps=eps)[0]
+    kvd = n_kv * D
+    q, k = apply_rope(qkv[:q_dim].reshape(n_heads, D), qkv[q_dim:q_dim + kvd].reshape(n_kv, D),
+                      cos.to(dt).reshape(D), sin.to(dt).reshape(D))  # bf16 ops
+    v = qkv[q_dim + kvd:].reshape(n_kv, D)
+    p_idx = torch.as_tensor(pos, device=h.device).reshape(1).long()
+    ck5[layer, 0].index_copy_(0, p_idx, k[None].to(ck5.dtype))
+    cv5[layer, 0].index_copy_(0, p_idx, v[None].to(cv5.dtype))
+    kl, vl = ck5[layer, 0].float(), cv5[layer, 0].float()  # [T, KV, D]
+    sc = torch.einsum("kgd,tkd->kgt", q.reshape(n_kv, G, D).float(), kl) * (1.0 / math.sqrt(D))
+    ok = torch.arange(T, device=h.device) <= p_idx
+    sc = torch.where(ok, sc, torch.tensor(-1e30, device=h.device))
+    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(cv5.dtype)
+    attn = torch.einsum("kgt,tkd->kgd", p.float(), vl).to(dt).reshape(1, q_dim)
+    d = ternary_matmul_stacked_fused_plain(
+        attn, o_qw, layer, o_scale, attn_sub if norm2 else None, eps=eps, norm=norm2)
+    return h + d, ck, cv
 
 
 # ---------------------------------------------------------------------------
@@ -261,13 +315,112 @@ def mlp_block_megakernel(
 
 mlp_block_megakernel.launches = 0
 
+ATTN_CHUNK = 64  # cache rows per attention work unit of K5 (csrc/ternary.cu)
 
-def make_linear_fused(linear=ternary_matmul_stacked_fused, mlp=mlp_block_megakernel):
-    """Fused-prologue stacked ``linear_fn`` for ``paged_forward``:
-    ``callable(h, qw_stack, scale, layer, norm_w=None, *, act, norm, eps)``
-    with ``.stacked``/``.prologue`` set and ``.mlp_mega`` collapsing the MLP
-    block into one call. ``linear``/``mlp`` default to the kernel wrappers;
-    passing the ``*_plain`` functions gives the plain path on any device."""
+
+def attn_block_megakernel(
+    h: torch.Tensor,  # [1, H] bf16 pre-norm residual input
+    ck: torch.Tensor,  # [L, 1, T, KV, D] or flat [L*T*KV, D] bf16, row pos written in place
+    cv: torch.Tensor,
+    qkv_qw: torch.Tensor,  # [L, H//4, Q + 2*KV*D] uint8
+    o_qw: torch.Tensor,  # [L, Q//4, H] uint8
+    layer: int,
+    pos,  # int, or an int32 device tensor of one element: write/mask position
+    qkv_scale: torch.Tensor,  # [L] or [L, Q + 2*KV*D] f32
+    o_scale: torch.Tensor,  # [L] or [L, H] f32
+    input_ln: torch.Tensor,  # [L, H] bf16
+    attn_sub: Optional[torch.Tensor],  # [L, Q] bf16, or None (no sub-norm)
+    cos: torch.Tensor,  # [D] rope row of the current position (used as bf16)
+    sin: torch.Tensor,
+    *,
+    q_dim: int,
+    n_kv: int,
+    n_heads: int,
+    head_dim: int,
+    eps: float = 1e-5,
+    norm2: bool = True,
+):
+    """Residual attention block of one decode token as one launch: returns
+    ``(h', ck, cv)`` with row ``pos`` of layer ``layer`` written in place.
+
+    A tensor ``pos`` stays on the device (no host read, so a decode loop
+    queues without waiting); the kernel clamps it to [0, T-1]."""
+    if h.device.type == "cpu":
+        return attn_block_megakernel_plain(
+            h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub,
+            cos, sin, q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim,
+            eps=eps, norm2=norm2)
+    cuda_lib.require_cuda(h, "attn_block_megakernel")
+    sub = attn_sub if norm2 else None
+    _check_args(qkv_qw, qkv_scale, input_ln, layer)
+    _check_args(o_qw, o_scale, sub, layer)
+    _check_weights(qkv_qw)
+    _check_weights(o_qw)
+    L, h4, n_q = qkv_qw.shape
+    hd = 4 * h4
+    D, G = head_dim, n_heads // n_kv
+    if D != 128 or n_heads % n_kv or G > 8:
+        raise ValueError(f"the CUDA kernel takes head_dim 128 and <= 8 query heads per "
+                         f"KV head, got D={D}, {n_heads}/{n_kv} heads")
+    if (n_q != q_dim + 2 * n_kv * D or q_dim != n_heads * D
+            or tuple(o_qw.shape[1:]) != (q_dim // 4, hd) or tuple(h.shape) != (1, hd)):
+        raise ValueError(f"shapes disagree: h {tuple(h.shape)}, qkv {tuple(qkv_qw.shape)}, "
+                         f"o {tuple(o_qw.shape)}")
+    if h.dtype != torch.bfloat16 or ck.dtype != torch.bfloat16 or cv.dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernel takes bfloat16 activations and cache")
+    if not (ck.is_contiguous() and cv.is_contiguous()):
+        raise ValueError("the cache must be contiguous")
+    _, T = _cache5(ck, L, n_kv, D)
+    if _cache5(cv, L, n_kv, D)[1] != T:
+        raise ValueError("k and v caches differ in length")
+    _check_norm(input_ln, hd)
+    _check_norm(sub, q_dim)
+    dev = h.device
+    if isinstance(pos, torch.Tensor):
+        if pos.device != dev or pos.dtype != torch.int32 or pos.numel() != 1:
+            raise ValueError("pos must be an int or a one-element int32 tensor on h's device")
+        pos_t = pos
+    else:
+        if not 0 <= pos < T:
+            raise IndexError(f"pos {pos} out of range for a cache of {T} rows")
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    cb = cos.to(device=dev, dtype=torch.bfloat16).contiguous()
+    sb = sin.to(device=dev, dtype=torch.bfloat16).contiguous()
+    if cb.numel() != D or sb.numel() != D:
+        raise ValueError(f"cos/sin must hold {D} values")
+    h2 = h.contiguous()
+    nch = -(-T // ATTN_CHUNK)
+    qkv = torch.empty((n_q,), dtype=torch.bfloat16, device=dev)
+    scores = torch.empty((n_heads * T,), dtype=torch.float32, device=dev)
+    partial = torch.empty((nch * n_heads * D,), dtype=torch.float32, device=dev)
+    attn = torch.empty((q_dim,), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((1, hd), dtype=torch.bfloat16, device=dev)
+    qsw, qsw_stride = _scale_args(qkv_scale, layer, n_q)
+    osw, osw_stride = _scale_args(o_scale, layer, hd)
+    cuda_lib.call(
+        "wf_attn_mega", h2.data_ptr(), hd, q_dim, n_heads, n_kv, T, layer, pos_t.data_ptr(),
+        _layer_ptr(input_ln, layer), _layer_ptr(sub, layer) if sub is not None else None,
+        int(norm2), float(eps), _layer_ptr(qkv_qw, layer), qsw, qsw_stride,
+        _layer_ptr(o_qw, layer), osw, osw_stride, cb.data_ptr(), sb.data_ptr(),
+        1.0 / math.sqrt(D), ck.data_ptr(), cv.data_ptr(), qkv.data_ptr(), scores.data_ptr(),
+        partial.data_ptr(), attn.data_ptr(), out.data_ptr(), cuda_lib.stream(h),
+    )
+    attn_block_megakernel.launches += 1
+    return out, ck, cv
+
+
+attn_block_megakernel.launches = 0
+
+
+def make_linear_fused(linear=ternary_matmul_stacked_fused, mlp=mlp_block_megakernel,
+                      attn=attn_block_megakernel):
+    """Fused-prologue stacked ``linear_fn`` for ``paged_forward`` and
+    ``models.bitnet.forward``: ``callable(h, qw_stack, scale, layer,
+    norm_w=None, *, act, norm, eps)`` with ``.stacked``/``.prologue`` set,
+    ``.mlp_mega`` collapsing the MLP block into one call and ``.attn_mega``
+    the batch-1 attention block. ``linear``/``mlp``/``attn`` default to the
+    kernel wrappers; passing the ``*_plain`` functions gives the plain path
+    on any device."""
 
     def linear_fn(h, qw_stack, scale, layer, norm_w=None, *, act="none", norm=True,
                   eps=1e-5, out_dtype=torch.bfloat16):
@@ -282,4 +435,5 @@ def make_linear_fused(linear=ternary_matmul_stacked_fused, mlp=mlp_block_megaker
     linear_fn.stacked = True
     linear_fn.prologue = True
     linear_fn.mlp_mega = mlp_mega_fn
+    linear_fn.attn_mega = attn
     return linear_fn
