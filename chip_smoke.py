@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs five phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs six phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -25,7 +25,11 @@ vocab 128256) with random weights drawn on the card from seed 0:
               32 new tokens each) and two radix-cache resubmissions, every
               serving kernel's launch counter growing; then the six
               requests again with ``flash_decode=True``, whose decode
-              attention kernel must launch.
+              attention kernel must launch;
+6. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+              the unfused stacked linear and K7 experts: kernels vs plain,
+              the fake-MoE oracle bit for bit against the dense model, and
+              the engine phase with K7's launches per decode step counted.
 
 It exits non-zero on any failure (nothing is caught, nothing falls back)
 and when CUDA or the package is missing. The line before the last is a
@@ -72,6 +76,12 @@ KERNELS = {
         "source": "wrinklefree_tpu_torch/csrc/flash_decode.cu",
         "replaces": "wrinklefree_tpu/ops/flash_attention.py:382",
     },
+    "ternary_matmul_stacked": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:228",
+        # the same kernel on one [K/4, N] matrix (ROADMAP queue 2 row 5)
+        "also_replaces": "wrinklefree_tpu/ops/ternary_pallas.py:132",
+    },
 }
 
 
@@ -100,15 +110,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    if dev_us <= 0:
+    # an empty window (see start_profiler) is profiled again, up to three
+    # times, before that counts as a failure
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        if dev_us > 0:
+            break
+    else:
         fail("torch.profiler recorded no device time")
     return dev_us / 1e3 / iters, call_ms
+
+
+def start_profiler(dev) -> int:
+    """Profile a small matmul until torch.profiler records device activity:
+    the first sessions of a process can record none while CUPTI is still
+    starting. Returns the sessions it took; fails after five."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones((256, 256), device=dev)
+    for n in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            x @ x
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.key_averages()):
+            return n
+    fail("torch.profiler recorded no device activity in 5 sessions")
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -314,6 +347,7 @@ def phase_kernels(params, cfg, dev, results):
     results["flash_paged_prefill"] = r
     kernels_k5(params, cfg, dev, rnd, results)
     kernels_k6(cfg, dev, g, rnd, results)
+    kernels_k7(params, cfg, dev, g, results)
 
 
 def kernels_k5(params, cfg, dev, rnd, results):
@@ -483,6 +517,89 @@ def kernels_k6(cfg, dev, g, rnd, results):
     results["flash_paged_decode"] = r
 
 
+def kernels_k7(params, cfg, dev, g, results):
+    """K7, the packed-ternary matmul of quantized codes, against its plain
+    version at the MoE path's shapes: stacked with a per-layer scale at
+    q/o 2560->2560 and k 2560->640, stacked with per-column scales at the
+    fused qkv 2560->3840, one matrix at the experts' gate 2560->6912 and
+    down 6912->2560, and the exact int32 mode. Bar: bit for bit (exact
+    integer dot, the same IEEE rescale). Each shape cycles over enough
+    distinct weight matrices (>= 64 MB) that the weights stream from HBM;
+    the library yardstick is a bf16 matmul on unpacked weights, cycled the
+    same way."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.ternary import unpack_ternary
+
+    H, I, Q, KVD = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim, cfg.kv_dim
+
+    def stack(k, n, min_bytes=64e6):
+        nl = max(8, math.ceil(min_bytes / (k // 4 * n)))
+        return torch.randint(0, 256, (nl, k // 4, n), generator=g, device=dev, dtype=torch.uint8)
+
+    def library(qw, k, n):
+        nl = min(qw.shape[0], max(2, math.ceil(64e6 / (k * n * 2))))
+        return [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(nl)]
+
+    st = params["layers"]
+    cases = [  # name, weights, scales ([L], [L, N] or None: one matrix), rows, mode
+        ("q", (H, Q), "layer", (1, 8, 512), "bf16"),
+        ("k", (H, KVD), "layer", (1, 8, 512), "bf16"),
+        ("o", (Q, H), "layer", (1, 8, 512), "bf16"),
+        ("qkv", None, "column", (8,), "bf16"),
+        ("expert gate", (H, I), "matrix", (8, 512), "bf16"),
+        ("expert down", (I, H), "matrix", (8, 512), "bf16"),
+        ("q int32", (H, Q), "matrix", (8, 512), "int32"),
+    ]
+    rows_out, checks = [], 0
+    for name, dims, scale, all_rows, mode in cases:
+        if dims is None:  # the engine's fused stack and its column scales
+            qw, sw = st["qkv_qw"], st["qkv_scale"]
+        else:
+            qw = stack(*dims)
+            sw = torch.rand((qw.shape[0],), generator=g, device=dev) * 80 + 10
+        nl, k4, n = qw.shape
+        k = 4 * k4
+        lib_w = library(qw, k, n)
+        for rows in all_rows:
+            xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+            sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
+            lay, lib_lay = Cycle(nl), Cycle(len(lib_w))
+            if scale == "matrix":
+                args = (lambda i: (xq, qw[i]) if mode == "int32" else (xq, qw[i], sx, sw[i]))
+                ker, pla = tc.ternary_matmul, tc.ternary_matmul_plain
+            else:
+                args = (lambda i: (xq, qw, i, sx, sw))
+                ker, pla = tc.ternary_matmul_stacked, tc.ternary_matmul_stacked_plain
+            for i in (0, nl - 1):
+                a, b = ker(*args(i)), pla(*args(i))
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    fail(f"K7 {name} rows={rows} weights {i}: kernel and plain version differ by "
+                         f"{(a.float() - b.float()).abs().max().item()}")
+                checks += 1
+            ms, call_ms = cuda_ms(lambda: ker(*args(lay())))
+            plain_ms, _ = cuda_ms(lambda: pla(*args(lay())), iters=5, warmup=1)
+            xb = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+            lib_ms, _ = cuda_ms(lambda: torch.matmul(xb, lib_w[lib_lay()]))
+            out_bytes = 4 if mode == "int32" else 2
+            sw_bytes = 0 if mode == "int32" else (n * 4 if scale == "column" else 4)
+            nbytes = rows * k + (0 if mode == "int32" else rows * 4) + k4 * n + sw_bytes \
+                + rows * n * out_bytes
+            b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
+            rows_out.append(dict(shape=f"{name} {k}->{n} ({scale} scale, {mode}) rows={rows}",
+                                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))
+        del qw, lib_w
+    for r in rows_out:
+        print("kernels: K7 " + json.dumps(r))
+    print(f"kernels: K7 bitwise equal to its plain version in {checks}/{checks} checks")
+    # the MoE decode step's most frequent launch: an expert dot at 8 rows
+    results["ternary_matmul_stacked"] = next(
+        r for r in rows_out if r["shape"].startswith("expert gate") and r["shape"].endswith("=8"))
+
+
 def _prefill_attention_p_rounded(q, k_cur, v_cur, main, staging_b, layer, page_table,
                                  seq_lens, new_lens, cfg):
     """Plain causal attention of a first prefill chunk (empty history) that
@@ -520,11 +637,7 @@ def phase_forward(params, cfg, dev):
     holds the kernels to max(6e-2, 3 x floor) at 2 layers. Over 30
     random-weight layers the differences grow chaotically, so at full depth
     it reports them without a bar. Returns the noise floor by depth."""
-    import dataclasses
-
-    import torch
-
-    from wrinklefree_tpu_torch.kv.paged import PagedKV, _paged_attention_dual, paged_forward
+    from wrinklefree_tpu_torch.kv.paged import _paged_attention_dual
     from wrinklefree_tpu_torch.ops import kv_update_cuda as kvu
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
 
@@ -532,41 +645,58 @@ def phase_forward(params, cfg, dev):
         linear_fn=tc.make_linear_fused(tc.ternary_matmul_stacked_fused_plain,
                                        tc.mlp_block_megakernel_plain),
         attention_fn=_paged_attention_dual, kv_write=kvu.kv_write_plain)
-    g = torch.Generator(device="cpu").manual_seed(2)
-    prompt = torch.randint(1, cfg.vocab_size, (1, 128), generator=g).to(dev)
-    pt = torch.arange(1, 17, dtype=torch.int32, device=dev)[None]
-    slot = torch.zeros(1, dtype=torch.int32, device=dev)
-
-    def run(p, c, kw, forced=None, steps=5):
-        """A 128-token prefill chunk, then decode steps fed with `forced`
-        (or the run's own argmax)."""
-        pools = PagedKV.zeros_dual(c, 32, 16, 1, device=dev)
-        tok, sl, out = prompt, 0, []
-        for step in range(steps):
-            n = tok.shape[1]
-            logits, pools = paged_forward(
-                p, c, tok, pools, pt, torch.tensor([sl], device=dev),
-                torch.tensor([n], device=dev), slot_ids=slot, **kw)
-            out.append(logits.float())
-            sl += n
-            nxt = torch.argmax(logits, -1) if forced is None else forced[step]
-            tok = nxt.reshape(1, 1)
-        return out
-
     floors = {}
     for depth in (2, cfg.num_layers):
-        c = dataclasses.replace(cfg, num_layers=depth)
-        p = dict(params, layers={k: v[:depth] for k, v in params["layers"].items()})
-        ker = run(p, c, {})
-        pla = run(p, c, plain, forced=[torch.argmax(x, -1) for x in ker])
-        alt = run(p, c, dict(plain, attention_fn=_prefill_attention_p_rounded), steps=1)
-        floors[depth] = (alt[0] - pla[0]).abs().max().item()
-        worst, agree, bar, ties = compare_logits("forward", ker, pla, depth, floors[depth])
-        print(f"forward: {depth} layers at full width, 128-token prefill + 4 decode steps, "
-              f"kernels vs plain: max |logit diff| {worst}, noise floor {floors[depth]}, "
-              f"argmax equal at {agree}/5 steps"
-              + (f", bar {bar}, ties {json.dumps(ties)}" if depth == 2 else " (no bar)"))
+        floors[depth] = kernels_vs_plain("forward", params, cfg, dev, depth, plain)
     return floors
+
+
+def paged_run(p, c, dev, kw, forced=None, steps=5):
+    """paged_forward on one slot: a 128-token prefill chunk (seed 2), then
+    decode steps fed with `forced` (or the run's own argmax); the logits of
+    every step."""
+    import torch
+
+    from wrinklefree_tpu_torch.kv.paged import PagedKV, paged_forward
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    prompt = torch.randint(1, c.vocab_size, (1, 128), generator=g).to(dev)
+    pt = torch.arange(1, 17, dtype=torch.int32, device=dev)[None]
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    pools = PagedKV.zeros_dual(c, 32, 16, 1, device=dev)
+    tok, sl, out = prompt, 0, []
+    for step in range(steps):
+        n = tok.shape[1]
+        logits, pools = paged_forward(
+            p, c, tok, pools, pt, torch.tensor([sl], device=dev),
+            torch.tensor([n], device=dev), slot_ids=slot, **kw)
+        out.append(logits.float())
+        sl += n
+        nxt = torch.argmax(logits, -1) if forced is None else forced[step]
+        tok = nxt.reshape(1, 1)
+    return out
+
+
+def kernels_vs_plain(what, params, cfg, dev, depth, plain):
+    """paged_forward through the kernels (the defaults) and through `plain`
+    at `depth` layers, with the noise floor of the same run (see
+    phase_forward); returns the floor."""
+    import dataclasses
+
+    import torch
+
+    c = dataclasses.replace(cfg, num_layers=depth)
+    p = dict(params, layers={k: v[:depth] for k, v in params["layers"].items()})
+    ker = paged_run(p, c, dev, {})
+    pla = paged_run(p, c, dev, plain, forced=[torch.argmax(x, -1) for x in ker])
+    alt = paged_run(p, c, dev, dict(plain, attention_fn=_prefill_attention_p_rounded), steps=1)
+    floor = (alt[0] - pla[0]).abs().max().item()
+    worst, agree, bar, ties = compare_logits(what, ker, pla, depth, floor)
+    print(f"{what}: {depth} layers at full width, 128-token prefill + 4 decode steps, "
+          f"kernels vs plain: max |logit diff| {worst}, noise floor {floor}, "
+          f"argmax equal at {agree}/5 steps"
+          + (f", bar {bar}, ties {json.dumps(ties)}" if depth == 2 else " (no bar)"))
+    return floor
 
 
 def compare_logits(what, ker, pla, depth, floor):
@@ -707,9 +837,16 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
     return launches
 
 
-def phase_engine(params, cfg, dev, counters, flash_decode=False):
+def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=(),
+                 per_step_exact=None, resubmit=True):
     """The engine phase; with ``flash_decode`` the decode attention runs the
-    paged flash decode kernel. Returns (launches, the six requests' tokens)."""
+    paged flash decode kernel. Every counter in ``counters`` must launch and
+    every one in ``idle`` must not (all zeroed just before the six requests,
+    read after the resubmissions); ``per_step_exact`` ({name: n}) holds every
+    decode-only step of the six requests, and the decode window on average,
+    to exactly n launches;
+    ``resubmit=False`` skips the two radix resubmissions. Returns (launches,
+    the six requests' tokens)."""
     import numpy as np
     import torch
 
@@ -718,51 +855,68 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False):
 
     ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
                         prefill_buckets=(32, 128, 512), flash_decode=flash_decode)
-    tag = "engine (flash_decode)" if flash_decode else "engine"
+    tag = tag or ("engine (flash_decode)" if flash_decode else "engine")
     eng = Engine(params, cfg, ecfg, device=dev)
     rng = np.random.default_rng(0)
     lens = (17, 64, 200, 333, 512, 700)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
     sp = SamplingParams(max_new_tokens=32, temperature=0.0)
 
-    for c in counters:
+    for c in (*counters, *idle):
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, sp) for p in prompts]
-    per_step = None
+    per_step, decode_only = None, []
     while any(not r.finished for r in reqs):
         before = (eng.stats.get("prefill_rounds", 0), eng.stats["decode_steps"],
                   [c.launches for c in counters])
         eng.step()
         steps = eng.stats["decode_steps"] - before[1]
-        if eng.stats.get("prefill_rounds", 0) == before[0] and steps and per_step is None:
-            per_step = {c.__name__: (c.launches - n0) / steps  # a decode-only step
-                        for c, n0 in zip(counters, before[2])}
+        if eng.stats.get("prefill_rounds", 0) == before[0] and steps:
+            step_rate = {c.__name__: (c.launches - n0) / steps  # a decode-only step
+                         for c, n0 in zip(counters, before[2])}
+            decode_only.append(step_rate)
+            per_step = per_step or step_rate
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     hit0 = eng.stats["radix_hit_tokens"]
-    again = [eng.generate(prompts[-1], sp) for _ in range(2)]
+    again = [eng.generate(prompts[-1], sp) for _ in range(2 if resubmit else 0)]
     launches = {c.__name__: c.launches for c in counters}
+    busy = {c.__name__: c.launches for c in idle if c.launches}
+    if busy:
+        fail(f"{tag}: kernels off this path launched: {json.dumps(busy)}")
+    for name, n in (per_step_exact or {}).items():
+        seen = sorted({r[name] for r in decode_only})
+        if not decode_only or seen != [n]:
+            fail(f"{tag}: {name} launched {seen} times per decode step, expected {n}")
+        print(f"{tag}: {name} launched exactly {n} times in each of {len(decode_only)} "
+              "decode-only steps")
 
-    for p, r in zip(prompts + [prompts[-1]] * 2, reqs + again):
+    for p, r in zip(prompts + [prompts[-1]] * len(again), reqs + again):
         if r.finish_reason != "length" or len(r.output_ids) != 32:
             fail(f"request of {len(p)} tokens finished {r.finish_reason!r} "
                  f"with {len(r.output_ids)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.output_ids):
             fail("token id out of vocabulary")
-    if eng.stats["radix_hit_tokens"] < hit0 + 2 * 688:
-        fail("the resubmitted prompts did not reuse the 43 cached pages of the prompt")
-    # Two resubmissions run the same computation (688 cached tokens, a
-    # 12-token suffix): identical tokens. Against the first submission, which
-    # prefilled the same 700 tokens as chunks of 512 and 188 through the
-    # flash kernel, the suffix goes through the plain attention path; on
-    # random weights that moves the logits by about the forward phase's noise
-    # floor, so the agreement is reported, not required.
-    if again[0].output_ids != again[1].output_ids:
-        fail("two radix resubmissions of one prompt gave different tokens")
-    agree = next((i for i, (a, b) in enumerate(zip(again[0].output_ids, reqs[-1].output_ids))
-                  if a != b), 32)
+    resubmitted = ""
+    if again:
+        if eng.stats["radix_hit_tokens"] < hit0 + 2 * 688:
+            fail("the resubmitted prompts did not reuse the 43 cached pages of the prompt")
+        # Two resubmissions run the same computation (688 cached tokens, a
+        # 12-token suffix): identical tokens. Against the first submission,
+        # which prefilled the same 700 tokens as chunks of 512 and 188
+        # through the flash kernel, the suffix goes through the plain
+        # attention path; on random weights that moves the logits by about
+        # the forward phase's noise floor, so the agreement is reported, not
+        # required.
+        if again[0].output_ids != again[1].output_ids:
+            fail("two radix resubmissions of one prompt gave different tokens")
+        agree = next((i for i, (a, b) in enumerate(zip(again[0].output_ids,
+                                                          reqs[-1].output_ids)) if a != b), 32)
+        resubmitted = (f" + 2 radix resubmissions (radix hit tokens "
+                       f"{eng.stats['radix_hit_tokens'] - hit0}, resubmission agrees with the "
+                       f"first submission on its first {agree}/32 tokens)")
     if not (torch.isfinite(eng.pools.kv).all() and torch.isfinite(eng.pools.staging).all()):
         fail("non-finite values in the KV pools")
     zero = [n for n, v in launches.items() if v == 0]
@@ -770,9 +924,7 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False):
         fail(f"kernels not launched on the engine path: {zero}")
     ttft = sorted(r.first_token_t - r.arrival_t for r in reqs)
     p50 = float(np.percentile(ttft, 50))
-    print(f"{tag}: 6 requests + 2 radix resubmissions, wall {wall} s, TTFT p50 {p50} s, "
-          f"radix hit tokens {eng.stats['radix_hit_tokens'] - hit0}, resubmission agrees "
-          f"with the first submission on its first {agree}/32 tokens, "
+    print(f"{tag}: 6 requests{resubmitted}, wall {wall} s, TTFT p50 {p50} s, "
           f"launches per decode step {json.dumps(per_step)}, launches {json.dumps(launches)}")
 
     # decode window: all 8 slots busy with 17-token prompts; after the first
@@ -789,6 +941,7 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False):
         eng.step()
         torch.cuda.synchronize()
         tok0, steps0 = eng.stats["decode_tokens"], eng.stats["decode_steps"]
+        n0 = {c.__name__: c.launches for c in counters}
         t1 = time.perf_counter()
         if profiled:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -813,7 +966,151 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False):
             print(f"{tag}: decode window, 8 slots: "
                   f"{(eng.stats['decode_tokens'] - tok0) / dt} tok/s, {dt / steps * 1e3} ms "
                   f"per decode step ({steps} steps)")
+            for name, n in (per_step_exact or {}).items():
+                got = (next(c.launches for c in counters if c.__name__ == name)
+                       - n0[name]) / steps
+                if got != n:
+                    fail(f"{tag}: {name} launched {got} times per decode step in the window, "
+                         f"expected {n}")
     return launches, [r.output_ids for r in reqs]
+
+
+def routed_run(p, c, dev, kw, forced=None, steps=5, replay=None):
+    """paged_run on an MoE model that also records each call's routing (the
+    expert ids of ``models.moe.top_k_route``, one call per layer and step).
+    With ``replay`` (another run's record) the run takes those expert ids,
+    weighted by its own router's renormalised probabilities: the routing is
+    teacher-forced, as `forced` forces the tokens."""
+    import torch
+
+    from wrinklefree_tpu_torch.models import moe
+
+    orig, log = moe.top_k_route, []
+
+    def recorded(logits, k, **kw_route):
+        if replay is None:
+            w, i = orig(logits, k, **kw_route)
+        else:
+            i = replay[len(log)]
+            w = torch.softmax(logits.float(), dim=-1).gather(-1, i.long())
+            w = w / w.sum(dim=-1, keepdim=True)
+        log.append(i)
+        return w, i
+
+    moe.top_k_route = recorded
+    try:
+        out = paged_run(p, c, dev, kw, forced, steps)
+    finally:
+        moe.top_k_route = orig
+    return out, log
+
+
+def moe_kernels_vs_plain(params, cfg, dev, depth, plain):
+    """The MoE model's paged_forward through the kernels (K7, K4 at the
+    prefill chunk, K3) against, teacher-forced with the kernels' tokens:
+
+    - plain linears with the kernels' attention and KV writes: K7 is exact,
+      so the logits must be equal bit for bit at every step;
+    - the plain functions throughout, with the kernels' expert choices
+      replayed, under phase_forward's noise-floor rule. Top-k routing is
+      discontinuous: the bf16-level difference of K4's prefill rounding
+      flips expert choices at router near-ties, after which the two runs
+      compute different experts. How soon the plain run's own routing
+      leaves the kernels' is reported. Deeper than 2 layers only the first
+      check runs.""" 
+    import dataclasses
+
+    import torch
+
+    c = dataclasses.replace(cfg, num_layers=depth)
+    p = dict(params, layers={k: v[:depth] for k, v in params["layers"].items()})
+    ker, routes = routed_run(p, c, dev, {})
+    forced = [torch.argmax(x, -1) for x in ker]
+    mix, _ = routed_run(p, c, dev, {"linear_fn": plain["linear_fn"]}, forced=forced)
+    for step, (a, b) in enumerate(zip(ker, mix)):
+        if not torch.equal(a, b):
+            fail(f"moe depth {depth} step {step}: K7 and the plain linears give logits "
+                 f"{(a - b).abs().max().item()} apart")
+    if depth != 2:
+        print(f"moe: {depth} layers, 128-token prefill + 4 decode steps: kernels equal to plain "
+              f"linears bit for bit at {len(ker)}/{len(ker)} steps")
+        return
+    pla, _ = routed_run(p, c, dev, plain, forced=forced, replay=routes)
+    alt, _ = routed_run(p, c, dev, dict(plain, attention_fn=_prefill_attention_p_rounded),
+                        steps=1, replay=routes)
+    floor = (alt[0] - pla[0]).abs().max().item()
+    worst, agree, bar, ties = compare_logits("moe", ker, pla, depth, floor)
+    free, free_routes = routed_run(p, c, dev, plain, forced=forced)
+    moved = [i for i, (x, y) in enumerate(zip(routes, free_routes)) if not torch.equal(x, y)]
+    first = moved[0] if moved else None
+    print(f"moe: {depth} layers, 128-token prefill + 4 decode steps: kernels equal to plain "
+          f"linears bit for bit at {len(ker)}/{len(ker)} steps; against the plain functions "
+          f"with the kernels' routing: max |logit diff| {worst}, noise floor {floor}, argmax "
+          f"equal at {agree}/5 steps, bar {bar}, ties {json.dumps(ties)}; unforced, the plain "
+          f"run's routing leaves the kernels' at router call {first} of {len(routes)} (step "
+          f"{None if first is None else first // depth}) and its logits differ by up to "
+          f"{max((a - b).abs().max().item() for a, b in zip(ker, free))}")
+
+
+def phase_moe(dev):
+    """The repo's MoE configuration (``scripts/serving_bench.py --model
+    moe``): BitNet-2B geometry at 8 layers with 8 ternary experts and top-2
+    routing, random weights drawn on the card from seed 0. Unfused q/k/v/o
+    run the stacked K7 linear, the experts K7 on one matrix each.
+
+    1. paged_forward through the kernels against the plain linears (bit for
+       bit) and against the plain functions (moe_kernels_vs_plain), at 2
+       and 8 layers;
+    2. the fake-MoE oracle: the dense 8-layer model and the fake-MoE model
+       built from its weights (8 identical experts, a zero router), both
+       through the K7 path: logits equal bit for bit at every step;
+    3. the engine phase on the MoE model: K7, K3 and K4 launch, K1 and K2 do
+       not, and K7 launches exactly (4 + 3 E) L times per decode step.
+    Returns the engine's launches."""
+    import dataclasses
+
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.kv.paged import _paged_attention_dual
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.models.moe import fake_moe_model
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+    from wrinklefree_tpu_torch.ops import kv_update_cuda as kvu
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=8, num_experts=8,
+                              num_experts_per_tok=2)
+    params = init_params(cfg, seed=0, device=dev)
+    packed = sum(v.numel() for k, v in params["layers"].items() if k.endswith("_qw"))
+    print(f"moe: {cfg.num_layers} layers, {cfg.num_experts} experts, top-{cfg.num_experts_per_tok}:"
+          f" {packed / 1e9} GB of packed ternary weights")
+    plain_lf = tc.make_linear_stacked(tc.ternary_matmul_stacked_plain, tc.ternary_matmul_plain)
+    plain = dict(linear_fn=plain_lf, attention_fn=_paged_attention_dual,
+                 kv_write=kvu.kv_write_plain)
+    for depth in (2, cfg.num_layers):
+        moe_kernels_vs_plain(params, cfg, dev, depth, plain)
+
+    dcfg = dataclasses.replace(cfg, num_experts=0)
+    dense = init_params(dcfg, seed=1, device=dev)
+    mcfg, fake = fake_moe_model(dense, dcfg, cfg.num_experts)
+    lf = {"linear_fn": tc.make_linear_stacked()}
+    a = paged_run(dense, dcfg, dev, lf)
+    b = paged_run(fake, mcfg, dev, lf, forced=[torch.argmax(x, -1) for x in a])
+    for step, (x, y) in enumerate(zip(a, b)):
+        if not (torch.isfinite(x).all() and torch.equal(x, y)):
+            fail(f"moe: the fake-MoE model differs from the dense model at step {step} by "
+                 f"{(x - y).abs().max().item()}")
+    print(f"moe: fake-MoE oracle, {cfg.num_layers} layers, 128-token prefill + 4 decode steps: "
+          f"logits bitwise equal to the dense model's at {len(a)}/{len(a)} steps")
+    del dense, fake, a, b
+
+    per_step = (4 + 3 * cfg.num_experts) * cfg.num_layers
+    launches, _ = phase_engine(
+        params, cfg, dev, [tc.ternary_matmul_stacked, kvu.kv_write, fa.flash_paged_prefill],
+        tag="moe engine", idle=[tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel],
+        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False)
+    return launches
 
 
 def main() -> int:
@@ -841,8 +1138,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-
     dev = torch.device("cuda")
+    print(f"profiler: device activity recorded from session {start_profiler(dev)}")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = BitNetConfig.bitnet_2b()
     params = fuse_projections(init_params(cfg, seed=0, device=dev), cfg)
@@ -867,6 +1165,10 @@ def main() -> int:
           f"{same} of 32 (prompts 17/64/200/333/512/700)")
     launches["attn_block_megakernel"] = batch1["attn_block_megakernel"]
     launches["flash_paged_decode"] = flash["flash_paged_decode"]
+    del params
+    torch.cuda.empty_cache()
+    moe = phase_moe(dev)
+    launches["ternary_matmul_stacked"] = moe["ternary_matmul_stacked"]
 
     line = []
     for name, meta in KERNELS.items():

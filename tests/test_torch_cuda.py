@@ -19,7 +19,7 @@ L, LAYER = 3, 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k5", "k6"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k5", "k6", "k7"])
 def test_kernel_matches_plain_on_card(kernel):
     """Each CUDA kernel against its plain version on the card, at a small
     size (chip_smoke.py holds them at BitNet-2B shapes)."""
@@ -97,6 +97,31 @@ def test_kernel_matches_plain_on_card(kernel):
             for x, y in ((ka, kb), (va, vb)):
                 r, s = x[LAYER, 0, pos].float(), y[LAYER, 0, pos].float()
                 assert ((r - s).abs() <= 0.03 * s.abs().max()).all()
+    elif kernel == "k7":
+        # one stacked shape (per-layer and per-column scales, 1 / 8 / 40 rows)
+        # and one expert-shaped matrix (bf16, f32 and the int32 mode): the
+        # dot is exact integer math and the rescale the same IEEE operations,
+        # so bit for bit
+        g = torch.Generator(device=dev).manual_seed(7)
+        qw = torch.randint(0, 256, (L, 64, 384), generator=g, device=dev, dtype=torch.uint8)
+        sw_l = torch.rand((L,), generator=g, device=dev) * 80 + 10
+        sw_n = torch.rand((L, 384), generator=g, device=dev) * 80 + 10
+        ew = torch.randint(0, 256, (2, 3, 96, 256), generator=g, device=dev, dtype=torch.uint8)
+        esw = torch.rand((2, 3), generator=g, device=dev) * 80 + 10
+        for rows in (1, 8, 40):
+            xq = torch.randint(-128, 128, (rows, 256), generator=g, device=dev, dtype=torch.int8)
+            sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
+            for sw in (sw_l, sw_n):
+                a = ternary_cuda.ternary_matmul_stacked(xq, qw, LAYER, sx, sw)
+                b = ternary_cuda.ternary_matmul_stacked_plain(xq, qw, LAYER, sx, sw)
+                assert torch.equal(a, b)
+            xe = torch.randint(-128, 128, (rows, 384), generator=g, device=dev, dtype=torch.int8)
+            for dt in (torch.bfloat16, torch.float32):
+                a = ternary_cuda.ternary_matmul(xe, ew[1, 2], sx, esw[1, 2], out_dtype=dt)
+                b = ternary_cuda.ternary_matmul_plain(xe, ew[1, 2], sx, esw[1, 2], out_dtype=dt)
+                assert a.dtype == dt and torch.equal(a, b)
+            assert torch.equal(ternary_cuda.ternary_matmul(xe, ew[1, 2]),
+                               ternary_cuda.ternary_matmul_plain(xe, ew[1, 2]))
     elif kernel == "k6":
         g = torch.Generator(device=dev).manual_seed(6)
         B, kvh, nh, ps, mp, n_l = 3, 2, 8, 16, 8, 2
@@ -125,3 +150,38 @@ def test_kernel_matches_plain_on_card(kernel):
         b = flash_attention.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=64)
         torch.testing.assert_close(a[:, :90].float(), b[:, :90].float(), rtol=3e-2, atol=3e-2)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fake_moe_oracle_on_card():
+    """Two layers at a small width on the card: the dense model through
+    paged_forward with the stacked K7 linear, and the fake-MoE model built
+    from the same weights (4 identical experts, a zero router, experts
+    through K7): logits equal bit for bit (top-2 weights of exactly 0.5,
+    and 0.5*o + 0.5*o is exact in f32). chip_smoke.py repeats it at
+    BitNet-2B width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.kv import paged
+    from wrinklefree_tpu_torch.models import bitnet, moe
+
+    dev = torch.device("cuda")
+    cfg = BitNetConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                       num_heads=4, num_kv_heads=2, head_dim=64, max_position=256)
+    dense = bitnet.init_params(cfg, seed=0, device=dev)
+    mcfg, fake = moe.fake_moe_model(dense, cfg, 4)
+    lf = ternary_cuda.make_linear_stacked()
+    toks = torch.arange(1, 17, device=dev)[None]
+    out = []
+    for p, c in ((dense, cfg), (fake, mcfg)):
+        pools = paged.PagedKV.zeros_dual(c, 8, 8, 1, device=dev)
+        pt = torch.arange(1, 5, dtype=torch.int32, device=dev)[None]
+        lo, pools = paged.paged_forward(p, c, toks, pools, pt, torch.tensor([0], device=dev),
+                                        torch.tensor([16], device=dev), linear_fn=lf)
+        lo2, _ = paged.paged_forward(p, c, lo.argmax(-1)[:, None], pools, pt,
+                                     torch.tensor([16], device=dev),
+                                     torch.tensor([1], device=dev), linear_fn=lf)
+        out.append((lo, lo2))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])

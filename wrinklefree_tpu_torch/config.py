@@ -28,8 +28,8 @@ class BitNetConfig:
     max_position: int = 4096
     tie_word_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
-    # MoE (0 experts = dense). The port runs dense models only; the engine
-    # raises NotImplementedError for num_experts > 0.
+    # MoE (0 experts = dense); see wrinklefree_tpu_torch/models/moe.py. One
+    # device: expert parallelism is not ported.
     num_experts: int = 0
     num_experts_per_tok: int = 2
     # BitNet b1.58 uses a ReLU^2 gate + attn/ffn sub-norms; ternary-converted

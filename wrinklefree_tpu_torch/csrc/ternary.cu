@@ -1,5 +1,6 @@
-// Fused packed-ternary linear (K1), the one-launch MLP block (K2) and the
-// one-launch batch-1 attention block (K5) for Hopper.
+// Fused packed-ternary linear (K1), the one-launch MLP block (K2), the
+// one-launch batch-1 attention block (K5) and the prologue-free packed-ternary
+// matmul of caller-quantized codes (K7, see its section) for Hopper.
 //
 // K1 replaces wrinklefree_tpu/ops/ternary_pallas.py::ternary_matmul_stacked_fused
 // (kernel body _matmul_kernel_stacked_fused). K2 replaces mlp_block_megakernel
@@ -225,6 +226,25 @@ __device__ __forceinline__ __nv_bfloat16 rescale(int acc, int rowsum, float sx, 
   return __float2bfloat16_rn((float)(acc - rowsum) * inv);
 }
 
+constexpr int OUT_BF16 = 0;  // float(dot) * (1/(sx*sw)), rounded to nearest-even bf16
+constexpr int OUT_F32 = 1;   // the same product, stored as f32
+constexpr int OUT_I32 = 2;   // the exact int32 dot (sx and sw unused)
+
+// Store one output of the signed dot `dot` (row `row`, scale index `swi`).
+template <int MODE>
+__device__ __forceinline__ void emit_out(void* out, size_t idx, int dot, const float* sx, int row,
+                                         const float* sw, int swi) {
+  if constexpr (MODE == OUT_I32) {
+    static_cast<int*>(out)[idx] = dot;
+  } else {
+    const float y = (float)dot * (1.f / (sx[row] * sw[swi]));
+    if constexpr (MODE == OUT_F32)
+      static_cast<float*>(out)[idx] = y;
+    else
+      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
+  }
+}
+
 // ---------------------------------------------------------------- K1 ------
 
 __global__ void k1_prologue(const __nv_bfloat16* __restrict__ h, int kin, int K, int act,
@@ -256,11 +276,13 @@ __global__ void k1_dot_rows(const int8_t* __restrict__ x4, const int* __restrict
 }
 
 // Prefill: 64 rows x 64 columns per block, 16x16 threads of 4x4 outputs each,
-// K/4 streamed through shared memory in stages of 32.
+// K/4 streamed through shared memory in stages of 32. MODE picks the output
+// (K1 stores bf16; K7 any of the three).
+template <int MODE>
 __global__ void k1_dot_tiled(const int8_t* __restrict__ x4, const int* __restrict__ rowsum,
                              const float* __restrict__ sx, const uint8_t* __restrict__ w,
                              const float* __restrict__ sw, int sw_stride, int B, int K,
-                             int N, __nv_bfloat16* __restrict__ out) {
+                             int N, void* __restrict__ out) {
   __shared__ int xt[TILE_M][TILE_R + 1];
   __shared__ uint32_t wt[TILE_R][COL_GROUPS];
   const int K4 = K / 4;
@@ -311,9 +333,83 @@ __global__ void k1_dot_tiled(const int8_t* __restrict__ x4, const int* __restric
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       int n = n0 + tx * 4 + c;
-      if (n < N) out[(size_t)m * N + n] = rescale(acc[i][c], rowsum[m], sx[m], sw[n * sw_stride]);
+      if (n < N)
+        emit_out<MODE>(out, (size_t)m * N + n, acc[i][c] - rowsum[m], sx, m, sw, n * sw_stride);
     }
   }
+}
+
+// ---------------------------------------------------------------- K7 ------
+
+// The packed-ternary dot of caller-quantized int8 codes (no prologue):
+// replaces ternary_matmul_pallas (_matmul_kernel, _matmul_int_kernel) and
+// ternary_matmul_pallas_stacked (_matmul_kernel_stacked,
+// _matmul_kernel_stacked_rowscale). The layer, or the expert, is a byte
+// offset into the stack, computed by the caller. K1's dots want interleaved
+// codes and the row sum of x, which K1's prologue writes; K7 builds them
+// itself from x_q in natural order: in shared memory inside the decode
+// kernel (<= 8 rows, each block re-reads the B*K bytes of x from L2), and
+// in a small pre-pass before the tiled kernel above that. The bound and the
+// design limits are K1's (the note at the top).
+
+// R rows of natural-order codes -> interleaved words in shared memory (rows at
+// or beyond `rows` are zero), then each row's code sum (one warp per row).
+template <int R>
+__device__ void interleave_codes(const int8_t* __restrict__ xq, int rows, int K, int* x4s,
+                                 int* rsum) {
+  const int K4 = K / 4;
+  const uint8_t* xb = reinterpret_cast<const uint8_t*>(xq);
+  for (int i = threadIdx.x; i < R * K4; i += blockDim.x) {
+    const int row = i / K4, r = i - row * K4;
+    uint32_t v = 0u;
+    if (row < rows) {
+      const uint8_t* x = xb + (size_t)row * K + r;
+      v = (uint32_t)x[0] | ((uint32_t)x[K4] << 8) | ((uint32_t)x[2 * K4] << 16) |
+          ((uint32_t)x[3 * K4] << 24);
+    }
+    x4s[i] = (int)v;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < R; i += blockDim.x >> 5) {
+    int s = 0;
+    for (int r = lane; r < K4; r += 32) s = __dp4a(x4s[i * K4 + r], 0x01010101, s);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) rsum[i] = s;
+  }
+  __syncthreads();
+}
+
+template <int R, int MODE>
+__global__ void k7_dot_rows(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                            const uint8_t* __restrict__ w, const float* __restrict__ sw,
+                            int sw_stride, int B, int K, int N, void* __restrict__ out) {
+  extern __shared__ int ismem[];
+  const int K4 = K / 4;
+  int* x4s = ismem;                     // R * K4
+  int* red = x4s + R * K4;              // KSPLIT * R * TILE_N
+  int* rsum = red + KSPLIT * R * TILE_N;  // R
+  interleave_codes<R>(xq, B, K, x4s, rsum);
+  dot_tile<R>(w, K4, N, blockIdx.x * TILE_N, x4s, B, red, [&](int i, int n, int acc) {
+    emit_out<MODE>(out, (size_t)i * N + n, acc - rsum[i], sx, i, sw, n * sw_stride);
+  });
+}
+
+// Pre-pass of the tiled path: one block per row writes the interleaved codes
+// and the row's code sum.
+__global__ void k7_interleave(const int8_t* __restrict__ xq, int K, int8_t* __restrict__ x4,
+                              int* __restrict__ rowsum) {
+  __shared__ int red[32];
+  const int b = blockIdx.x, K4 = K / 4;
+  const int8_t* x = xq + (size_t)b * K;
+  int s = 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const int v = x[k];
+    x4[(size_t)b * K + (k % K4) * 4 + k / K4] = (int8_t)v;
+    s += v;
+  }
+  s = block_isum(s, red);
+  if (threadIdx.x == 0) rowsum[b] = s;
 }
 
 // ---------------------------------------------------------------- K2 ------
@@ -603,6 +699,46 @@ cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
   return cudaGetLastError();
 }
 
+struct Args7 {
+  const int8_t* xq;
+  const float* sx;
+  const uint8_t* w;
+  const float* sw;
+  int sw_stride, B, K, N;
+  int8_t* x4;
+  int* rowsum;
+  void* out;
+  cudaStream_t st;
+};
+
+template <int R, int MODE>
+cudaError_t launch_k7_rows(const Args7& a) {
+  size_t smem = dot_smem(R, a.K) + (size_t)R * 4;
+  cudaError_t e = cudaFuncSetAttribute(k7_dot_rows<R, MODE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.N + TILE_N - 1) / TILE_N);
+  k7_dot_rows<R, MODE><<<grid, THREADS, smem, a.st>>>(a.xq, a.sx, a.w, a.sw, a.sw_stride, a.B,
+                                                       a.K, a.N, a.out);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_k7(const Args7& a) {
+  if (a.B == 1) return launch_k7_rows<1, MODE>(a);
+  if (a.B == 2) return launch_k7_rows<2, MODE>(a);
+  if (a.B <= 4) return launch_k7_rows<4, MODE>(a);
+  if (a.B <= 8) return launch_k7_rows<8, MODE>(a);
+  if (a.x4 == nullptr || a.rowsum == nullptr) return cudaErrorInvalidValue;
+  k7_interleave<<<a.B, THREADS, 0, a.st>>>(a.xq, a.K, a.x4, a.rowsum);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.N + TILE_N - 1) / TILE_N, (a.B + TILE_M - 1) / TILE_M);
+  k1_dot_tiled<MODE><<<grid, THREADS, 0, a.st>>>(a.x4, a.rowsum, a.sx, a.w, a.sw, a.sw_stride,
+                                                 a.B, a.K, a.N, a.out);
+  return cudaGetLastError();
+}
+
 // Largest grid whose blocks are all resident (a cooperative launch needs
 // that), capped at `want` and at least 1.
 cudaError_t resident_blocks(const void* kernel, size_t smem, int want, int* blocks) {
@@ -652,8 +788,26 @@ int wf_ternary_fused(const void* h, int B, int kin, int K, int act, int norm, co
   if (B <= 4) return launch_k1_dot<4>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
   if (B <= 8) return launch_k1_dot<8>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
   dim3 grid((N + TILE_N - 1) / TILE_N, (B + TILE_M - 1) / TILE_M);
-  k1_dot_tiled<<<grid, THREADS, 0, st>>>(xq, rs, s, wb, swf, sw_stride, B, K, N, o);
+  k1_dot_tiled<OUT_BF16><<<grid, THREADS, 0, st>>>(xq, rs, s, wb, swf, sw_stride, B, K, N, o);
   return cudaGetLastError();
+}
+
+// K7: out[B,N] = the packed-ternary dot of int8 codes xq[B,K] (natural order)
+// with w[K/4,N] (the layer's or the expert's bytes). mode 0: bf16 and mode 1:
+// f32 of float(dot) * (1/(sx[b]*sw[n*sw_stride])) (sw_stride 1: per column,
+// 0: one scalar); mode 2: the exact int32 dot, sx and sw unused. x4/rowsum
+// are caller scratch of B*K bytes and B ints, used (and needed) only for
+// B > 8.
+int wf_ternary_matmul(const void* xq, int B, int K, const void* sx, const void* w, const void* sw,
+                      int sw_stride, int N, int mode, void* x4, void* rowsum, void* out,
+                      void* stream) {
+  if (B <= 0) return 0;
+  if (K % 4 || N % 4 || mode < OUT_BF16 || mode > OUT_I32) return cudaErrorInvalidValue;
+  const Args7 a{(const int8_t*)xq, (const float*)sx, (const uint8_t*)w, (const float*)sw,
+                sw_stride, B, K, N, (int8_t*)x4, (int*)rowsum, out, (cudaStream_t)stream};
+  if (mode == OUT_BF16) return launch_k7<OUT_BF16>(a);
+  if (mode == OUT_F32) return launch_k7<OUT_F32>(a);
+  return launch_k7<OUT_I32>(a);
 }
 
 // K2: out[B,H] = h + down(quant(subnorm(act(bf16(gateup(quant(norm(h)))))))), B <= 8.

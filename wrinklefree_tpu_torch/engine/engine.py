@@ -31,7 +31,7 @@ import torch
 from ..config import BitNetConfig, EngineConfig
 from ..kv.paged import PagedKV
 from ..models.bitnet import fuse_projections, resolve_device
-from ..ops.ternary_cuda import make_linear_fused
+from ..ops.ternary_cuda import make_linear_fused, make_linear_stacked
 from .page_allocator import PageAllocator
 from .programs import build_decode, prefill_for_bucket
 from .radix_cache import RadixCache
@@ -66,8 +66,6 @@ class Request:
 
 def _unsupported_config(cfg: BitNetConfig, e: EngineConfig) -> List[str]:
     out = []
-    if cfg.num_experts > 0:
-        out.append("num_experts > 0 (MoE)")
     if e.kv_dtype not in ("bf16", "f32"):
         out.append(f"kv_dtype {e.kv_dtype!r} (quantized KV)")
     if e.attn_window > 0:
@@ -97,11 +95,14 @@ class Engine:
         long_context_mesh=None,
         device=None,
     ):
-        """``params`` are the model's params (unfused: the engine fuses the
-        projections, as the reference does on its kernel path) on
-        ``device`` (default CUDA; raises without CUDA unless the caller asks
-        for ``device='cpu'``). ``linear_fn``/``attention_fn`` override the
-        kernels as in ``paged_forward``."""
+        """``params`` are the model's params on ``device`` (default CUDA;
+        raises without CUDA unless the caller asks for ``device='cpu'``).
+        As on the reference's kernel path, a dense model's projections are
+        fused and run the fused-prologue kernels (``make_linear_fused``); an
+        MoE model (``cfg.num_experts > 0``) keeps them unfused and runs the
+        stacked K7 linear (``make_linear_stacked``), its experts through K7
+        too. ``linear_fn``/``attention_fn`` override the kernels as in
+        ``paged_forward``."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
@@ -113,11 +114,12 @@ class Engine:
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: " + ", ".join(missing))
-        if "qkv_qw" not in params["layers"]:
+        moe = cfg.num_experts > 0
+        if not moe and "qkv_qw" not in params["layers"]:
             params = fuse_projections(params, cfg)
         self.params = params
         self.eos_token_id = eos_token_id
-        self._linear_fn = linear_fn or make_linear_fused()
+        self._linear_fn = linear_fn or (make_linear_stacked() if moe else make_linear_fused())
         self._attention_fn = attention_fn
 
         self.page_size = ps = e.page_size

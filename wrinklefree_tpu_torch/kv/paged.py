@@ -26,11 +26,12 @@ import torch
 
 from ..config import BitNetConfig
 from ..models.bitnet import compute_logits
+from ..models.moe import expert_linear, moe_layer
 from ..ops.flash_attention import flash_paged_decode, flash_paged_prefill
 from ..ops.kv_update_cuda import kv_write as kv_write_kernel
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..ops.norms import rms_norm
-from ..ops.ternary_cuda import make_linear_fused
+from ..ops.ternary_cuda import make_linear_fused, make_linear_stacked
 from .quantized import kv_torch_dtype, quantize_kv
 
 
@@ -275,24 +276,33 @@ def paged_forward(
     pools are written in place. Covers batched decode (S=1, new_lens=1) and
     chunked prefill (S=bucket, new_lens=true chunk length).
 
-    ``linear_fn`` defaults to the fused kernels (``make_linear_fused()``);
-    ``attention_fn`` defaults to the flash prefill kernel for chunks of 128
-    tokens or more, to the flash decode kernel at S == 1 when
-    ``flash_decode`` is set, and to the plain dual-layout attention
-    otherwise; ``kv_write`` defaults to the in-place writer kernel. Each
-    wrapper runs its plain version on CPU tensors, and the plain functions
-    can be passed explicitly to run the plain path on the card.
+    ``linear_fn`` defaults to the fused kernels (``make_linear_fused()``)
+    for fused dense params and to the stacked K7 linear
+    (``make_linear_stacked()``) otherwise. Two layer steps, as in the
+    reference: the prologue step for fused params with a fused-prologue
+    ``linear_fn``; the plain step (norm, quantize, linear, and the MoE MLP of
+    ``models/moe.py`` for ``cfg.num_experts > 0``) for a stacked or unstacked
+    ``linear_fn`` over unfused or fused params. ``attention_fn`` defaults to
+    the flash prefill kernel for chunks of 128 tokens or more, to the flash
+    decode kernel at S == 1 when ``flash_decode`` is set, and to the plain
+    dual-layout attention otherwise; ``kv_write`` defaults to the in-place
+    writer kernel. Each wrapper runs its plain version on CPU tensors, and
+    the plain functions can be passed explicitly to run the plain path on
+    the card.
     """
-    lf = linear_fn or make_linear_fused()
-    write = kv_write or kv_write_kernel
     stack = params["layers"]
-    if not (
-        "qkv_qw" in stack and "gateup_qw" in stack
-        and getattr(lf, "stacked", False) and getattr(lf, "prologue", False)
-    ):
-        raise ValueError(
-            "paged_forward needs fused params (models.bitnet.fuse_projections) "
-            "and a fused-prologue linear_fn (ops.ternary_cuda.make_linear_fused)")
+    fused = "qkv_qw" in stack
+    if linear_fn is None:
+        linear_fn = make_linear_fused() if "gateup_qw" in stack else make_linear_stacked()
+    lf = linear_fn
+    write = kv_write or kv_write_kernel
+    stacked = getattr(lf, "stacked", False)
+    if fused and not stacked:
+        raise ValueError("fused projections require a stacked linear_fn")
+    prologue = fused and "gateup_qw" in stack and getattr(lf, "prologue", False)
+    if getattr(lf, "prologue", False) and not prologue:
+        raise ValueError("a fused-prologue linear_fn needs fused q/k/v and gate/up params "
+                         "(models.bitnet.fuse_projections of a dense model)")
     B, S = tokens.shape
     ps = pools.page_size
     dtype = cfg.dtype
@@ -313,41 +323,84 @@ def paged_forward(
 
     # this batch's staging pages, gathered once for all layers
     staging_b = pools.staging[:B] if slot_ids is None else pools.staging[slot_ids.long()]
-    L = stack["qkv_qw"].shape[0]
+    L = stack["o_qw"].shape[0]
     eps = cfg.rms_norm_eps
     kvd = cfg.num_kv_heads * cfg.head_dim
     mlp_act = "silu" if cfg.mlp_act == "silu" else "relu2"
-    mega = getattr(lf, "mlp_mega", None) if B * S <= 8 else None
+    mega = getattr(lf, "mlp_mega", None) if prologue and B * S <= 8 else None
+    expert_lf = expert_linear(lf)
 
     def plf(x, name, l, norm_name=None, act="none"):
         nw = stack[norm_name] if norm_name is not None else None
         return lf(x, stack[name + "_qw"], stack[name + "_scale"], l, nw, act=act,
                   norm=norm_name is not None, eps=eps)
 
-    ks, vs = [], []
-    for l in range(L):
-        qkv = plf(hidden, "qkv", l, "input_ln")
+    def wlin(x, l, name):
+        if stacked:
+            return lf(x, stack[name + "_qw"], stack[name + "_scale"], l)
+        return lf(x, stack[name + "_qw"][l], stack[name + "_scale"][l])
+
+    def split_qkv(qkv):
         qd = qkv.shape[-1] - 2 * kvd
-        q = qkv[..., :qd].reshape(B, S, -1, cfg.head_dim)
-        k = qkv[..., qd:qd + kvd].reshape(B, S, -1, cfg.head_dim)
-        v = qkv[..., qd + kvd:].reshape(B, S, -1, cfg.head_dim)
+        return (qkv[..., :qd].reshape(B, S, -1, cfg.head_dim),
+                qkv[..., qd:qd + kvd].reshape(B, S, -1, cfg.head_dim),
+                qkv[..., qd + kvd:].reshape(B, S, -1, cfg.head_dim))
+
+    def attention(q, k, v, l):
         q, k = apply_rope(q, k, cos, sin)
         attn = attn_impl(q, k, v, pools.kv, staging_b, l, page_table, seq_lens, new_lens, cfg)
-        attn = attn.reshape(B, S, -1)
-        hidden = hidden + plf(attn, "o", l, "attn_sub" if cfg.sub_norms else None)
+        return attn.reshape(B, S, -1), k
+
+    def prologue_step(h, l):
+        q, k, v = split_qkv(plf(h, "qkv", l, "input_ln"))
+        attn, k = attention(q, k, v, l)
+        h = h + plf(attn, "o", l, "attn_sub" if cfg.sub_norms else None)
         # one launch for the whole MLP block at <= 8 rows; two fused linears
         # above that
         if mega is not None:
-            hidden = mega(
-                hidden, stack["gateup_qw"], stack["down_qw"], l, stack["gateup_scale"],
+            h = mega(
+                h, stack["gateup_qw"], stack["down_qw"], l, stack["gateup_scale"],
                 stack["down_scale"], stack["post_ln"],
                 stack["ffn_sub"] if cfg.sub_norms else None,
                 eps=eps, act=mlp_act, norm2=cfg.sub_norms,
             )
         else:
-            gu = plf(hidden, "gateup", l, "post_ln")
-            hidden = hidden + plf(
-                gu, "down", l, "ffn_sub" if cfg.sub_norms else None, act=mlp_act)
+            gu = plf(h, "gateup", l, "post_ln")
+            h = h + plf(gu, "down", l, "ffn_sub" if cfg.sub_norms else None, act=mlp_act)
+        return h, k, v
+
+    def plain_step(h, l):
+        normed = rms_norm(h, stack["input_ln"][l], eps)
+        if fused:
+            q, k, v = split_qkv(wlin(normed, l, "qkv"))
+        else:
+            q, k, v = (wlin(normed, l, n).reshape(B, S, -1, cfg.head_dim) for n in "qkv")
+        attn, k = attention(q, k, v, l)
+        if cfg.sub_norms:
+            attn = rms_norm(attn, stack["attn_sub"][l], eps)
+        h = h + wlin(attn, l, "o")
+        normed = rms_norm(h, stack["post_ln"][l], eps)
+        if cfg.num_experts > 0:
+            y = moe_layer(normed.reshape(B * S, -1), stack, l, cfg, expert_lf)
+            return h + y.reshape(B, S, -1).to(dtype), k, v
+        if "gateup_qw" in stack:
+            gu = wlin(normed, l, "gateup")
+            inter = gu.shape[-1] // 2
+            gate, up = gu[..., :inter], gu[..., inter:]
+        else:
+            gate, up = wlin(normed, l, "gate"), wlin(normed, l, "up")
+        if cfg.mlp_act == "silu":
+            act = torch.nn.functional.silu(gate) * up
+        else:
+            act = torch.square(torch.relu(gate)) * up
+        if cfg.sub_norms:
+            act = rms_norm(act, stack["ffn_sub"][l], eps)
+        return h + wlin(act, l, "down"), k, v
+
+    step = prologue_step if prologue else plain_step
+    ks, vs = [], []
+    for l in range(L):
+        hidden, k, v = step(hidden, l)
         ks.append(k)
         vs.append(v)
 

@@ -9,9 +9,11 @@ names. This module holds the parameters, the heads and the dense-cache
 ``forward``/``generate`` (batch-1 decode runs two kernels per layer); the
 paged forward of the serving engine lives in ``kv/paged.py``.
 
-Not ported: ``split_layers_for_decode`` and the unrolled static-weight
-decode path (a TPU scalar-prefetch workaround), tensor parallelism,
-activation/attention sparsity and MoE layers.
+MoE layers (``cfg.num_experts > 0``) run the plain layer step with the
+expert MLP of ``models/moe.py``. Not ported: ``split_layers_for_decode``
+and the unrolled static-weight decode path (a TPU scalar-prefetch
+workaround), tensor parallelism, expert parallelism and activation/attention
+sparsity.
 """
 
 from __future__ import annotations
@@ -75,7 +77,10 @@ def flatten_cache_for_decode(cache: KVCache) -> KVCache:
 def init_params(cfg: BitNetConfig, seed: int = 0, device=None, dtype=None):
     """Random ternary model drawn on ``device`` (default CUDA) from a seeded
     ``torch.Generator``: uniform ternary codes packed in the wf format,
-    per-layer scales 50.0, unit norms and N(0, 0.02) embeddings. The analog
+    per-layer scales 50.0, unit norms and N(0, 0.02) embeddings; with
+    ``cfg.num_experts > 0`` the dense MLP gives way to expert stacks
+    ``moe_{gate,up,down}_qw`` [L, E, K/4, N] with scales [L, E] of 50.0 and
+    an N(0, 0.02) f32 router [L, H, E]. The analog
     of the reference's on-device init; the values differ from the
     reference's, whose random streams torch cannot reproduce (tests carry
     the reference's weights over with ``weights.params_from_numpy``)."""
@@ -89,15 +94,28 @@ def init_params(cfg: BitNetConfig, seed: int = 0, device=None, dtype=None):
         "q": (H, Q), "k": (H, KV), "v": (H, KV), "o": (Q, H),
         "gate": (H, I), "up": (H, I), "down": (I, H),
     }
+    E = cfg.num_experts
+
+    def packed(lead, kk, nn):
+        qw = torch.zeros(lead + (kk // 4, nn), dtype=torch.uint8, device=dev)
+        for j in range(4):
+            enc = torch.randint(0, 3, qw.shape, generator=g, device=dev, dtype=torch.uint8)
+            qw |= enc << (2 * j)
+        return qw
+
     layers = {}
     for name, (kk, nn) in dims.items():
-        qw = torch.zeros((L, kk // 4, nn), dtype=torch.uint8, device=dev)
-        for j in range(4):
-            enc = torch.randint(0, 3, (L, kk // 4, nn), generator=g, device=dev,
-                                dtype=torch.uint8)
-            qw |= enc << (2 * j)
-        layers[f"{name}_qw"] = qw
+        if E > 0 and name in ("gate", "up", "down"):
+            # MoE: per-layer expert stacks [L, E, ...] replace the dense MLP
+            layers[f"moe_{name}_qw"] = packed((L, E), kk, nn)
+            layers[f"moe_{name}_scale"] = torch.full((L, E), 50.0, dtype=torch.float32,
+                                                     device=dev)
+            continue
+        layers[f"{name}_qw"] = packed((L,), kk, nn)
         layers[f"{name}_scale"] = torch.full((L,), 50.0, dtype=torch.float32, device=dev)
+    if E > 0:
+        layers["router"] = torch.randn((L, H, E), generator=g, device=dev,
+                                       dtype=torch.float32) * 0.02
     layers["input_ln"] = torch.ones((L, H), dtype=dtype, device=dev)
     layers["post_ln"] = torch.ones((L, H), dtype=dtype, device=dev)
     layers["attn_sub"] = torch.ones((L, Q), dtype=dtype, device=dev)
@@ -281,8 +299,10 @@ def forward(
     memory (``_auto_cache_ok``, ``attn_manual_tile``) and picks between two
     attention-block kernels that compute the same function; the port always
     takes it at batch-1 decode with its one kernel. That changes the choice
-    of kernel, not the function computed. Tensor parallelism, activation or
-    attention sparsity and MoE raise ``NotImplementedError``.
+    of kernel, not the function computed. MoE params take the plain layer
+    step, their MLP being ``models.moe.moe_ffn`` (the megakernel branch is
+    dense-only, as in the reference). Tensor parallelism and activation or
+    attention sparsity raise ``NotImplementedError``.
     """
     if tp_axis is not None or tp_kv_replicated:
         raise NotImplementedError("tensor parallelism is not ported yet")
@@ -290,8 +310,6 @@ def forward(
         raise NotImplementedError("activation sparsity is not ported yet")
     if attn_sparsity is not None:
         raise NotImplementedError("attention sparsity is not ported yet")
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet")
     lf = linear_fn or default_linear
     B, S = tokens.shape
     dtype = cfg.dtype
@@ -317,6 +335,9 @@ def forward(
     if fused and not stacked:
         raise ValueError("fused projections require a stacked linear_fn")
     prologue = fused and "gateup_qw" in stack and getattr(lf, "prologue", False)
+    if getattr(lf, "prologue", False) and not prologue:
+        raise ValueError("a fused-prologue linear_fn needs fused q/k/v and gate/up params "
+                         "(fuse_projections of a dense model)")
     attn_mega = getattr(lf, "attn_mega", None) if prologue else None
     mlp_mega = getattr(lf, "mlp_mega", None) if prologue else None
 
@@ -372,6 +393,12 @@ def forward(
             attn = rms_norm(attn, stack["attn_sub"][l], eps)
         h = h + wlin(attn, l, "o", out_dtype=dtype).to(dtype)
         normed = rms_norm(h, stack["post_ln"][l], eps)
+        if cfg.num_experts > 0:
+            # MoE MLP: ternary experts, top-k routing (models/moe.py)
+            from .moe import expert_linear, moe_layer
+
+            y = moe_layer(normed.reshape(B * S, -1), stack, l, cfg, expert_linear(lf))
+            return h + y.reshape(B, S, -1).to(dtype)
         if fused and "gateup_qw" in stack:
             gu = wlin(normed, l, "gateup")
             inter = gu.shape[-1] // 2

@@ -48,6 +48,7 @@ SIGNATURES = {
                      _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P],
+    "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

@@ -159,13 +159,18 @@ def ternary_linear(
     *,
     out_dtype: torch.dtype = torch.bfloat16,
     hf_exact: bool = False,
+    kernel=None,
 ) -> torch.Tensor:
     """Full BitLinear: quantize activations, integer matmul, rescale.
 
     y = (x_q @ W_ternary) / (act_scale * weight_scale)   [HF semantics]
+
+    ``kernel`` optionally replaces the integer matmul: ``(x_q, qweight) ->
+    int32``, for example ``ops.ternary_cuda.ternary_matmul`` (K7's exact
+    int32 mode).
     """
     x_q, act_scale = quantize_activations(x, hf_exact=hf_exact)
-    acc = ternary_matmul_reference(x_q, qweight)
+    acc = (kernel or ternary_matmul_reference)(x_q, qweight)
     if hf_exact:
         # HF casts the exact-integer accumulation to bf16, then divides by
         # bf16 scales

@@ -1,5 +1,6 @@
-"""Fused packed-ternary linear (K1), MLP block (K2) and batch-1 attention
-block (K5): CUDA kernels and their plain PyTorch versions.
+"""Fused packed-ternary linear (K1), MLP block (K2), batch-1 attention
+block (K5) and the packed-ternary matmul of quantized codes (K7): CUDA
+kernels and their plain PyTorch versions.
 
 Counterpart of ``wrinklefree_tpu/ops/ternary_pallas.py``:
 
@@ -14,7 +15,15 @@ Counterpart of ``wrinklefree_tpu/ops/ternary_pallas.py``:
   block with the in-place cache-row write, in one cooperative launch; the
   two TPU kernels compute the same function over the 5-D and the flat
   cache, which on the card are the same bytes);
-- :func:`make_linear_fused` <- ``make_pallas_linear_fused``.
+- :func:`ternary_matmul_stacked` (K7) <- ``ternary_matmul_pallas_stacked``
+  and :func:`ternary_matmul` (K7) <- ``ternary_matmul_pallas`` (int8 codes
+  and their scale from the caller, packed-ternary dot, ``acc * (1/(sx*sw))``
+  as bf16 or f32, or the exact int32 dot; the two TPU kernels differ only in
+  how the layer is chosen, which on the card is a pointer, so one kernel
+  serves both);
+- :func:`make_linear_fused` <- ``make_pallas_linear_fused``,
+  :func:`make_linear_stacked` <- ``make_pallas_linear_stacked``,
+  :func:`make_linear` <- ``make_pallas_linear``.
 
 Layouts differ from the TPU kernels only by dropping Mosaic's padding: the
 weight scale is ``[L]`` (one per layer) or ``[L, N]`` (per column, from
@@ -91,9 +100,7 @@ def ternary_matmul_stacked_fused_plain(
         else:
             x = rms_norm(x, torch.ones(x.shape[-1], dtype=x.dtype, device=x.device), eps)
     xq, sx = quantize_activations(x)
-    acc = ternary_matmul_reference(xq, qweight[layer])
-    inv = 1.0 / (sx * weight_scale[layer].float())
-    return (acc.float() * inv).to(out_dtype)
+    return ternary_matmul_stacked_plain(xq, qweight, layer, sx, weight_scale, out_dtype=out_dtype)
 
 
 def mlp_block_megakernel_plain(
@@ -410,6 +417,175 @@ def attn_block_megakernel(
 
 
 attn_block_megakernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the packed-ternary matmul of caller-quantized codes
+# ---------------------------------------------------------------------------
+
+_OUT_MODES = {torch.bfloat16: 0, torch.float32: 1}
+_OUT_I32 = 2
+
+
+def _rescale(acc: torch.Tensor, act_scale: torch.Tensor, sw: torch.Tensor, out_dtype):
+    """``acc * (1/(sx*sw))`` in f32, cast to ``out_dtype`` (the TPU kernels'
+    epilogue, ``ternary_pallas.py:101-102``)."""
+    sx = act_scale.float().reshape(*acc.shape[:-1], 1)
+    inv = 1.0 / (sx * sw.float())
+    return (acc.float() * inv).to(out_dtype)
+
+
+def ternary_matmul_stacked_plain(x_q, qweight, layer, act_scale, weight_scale, *,
+                                 out_dtype=torch.bfloat16):
+    """Plain version of K7 over a layer stack: the exact integer dot of
+    ``x_q`` with ``qweight[layer]``, then the rescale by the layer's scale
+    (``[L]``) or its column scales (``[L, N]``)."""
+    _check_args(qweight, weight_scale, None, layer)
+    return _rescale(ternary_matmul_reference(x_q, qweight[layer]), act_scale,
+                    weight_scale[layer], out_dtype)
+
+
+def ternary_matmul_plain(x_q, qweight, act_scale=None, weight_scale=None, *,
+                         out_dtype=torch.bfloat16):
+    """Plain version of K7 on one ``[K/4, N]`` matrix: the exact int32 dot
+    without scales, else its rescale (``weight_scale`` a scalar or ``[N]``)."""
+    acc = ternary_matmul_reference(x_q, qweight)
+    if act_scale is None:
+        return acc
+    return _rescale(acc, act_scale, weight_scale, out_dtype)
+
+
+def _launch_k7(x_q, w_ptr, k, n, act_scale, sw_ptr, sw_stride, out_dtype):
+    """Checks, scratch and the launch shared by K7's two wrappers."""
+    if x_q.dtype != torch.int8 or x_q.shape[-1] != k:
+        raise ValueError(f"x_q must be int8 [..., {k}], got {x_q.dtype} {tuple(x_q.shape)}")
+    lead = x_q.shape[:-1]
+    x2 = x_q.reshape(-1, k).contiguous()
+    b = x2.shape[0]
+    dev = x_q.device
+    if act_scale is None:
+        mode, dt, sx_ptr = _OUT_I32, torch.int32, None
+    else:
+        if out_dtype not in _OUT_MODES:
+            raise ValueError(f"the CUDA kernel returns bfloat16 or float32, not {out_dtype}")
+        if act_scale.device != dev or act_scale.numel() != b:
+            raise ValueError(f"act_scale must hold {b} values on {dev}")
+        sx = act_scale.reshape(b).float().contiguous()
+        mode, dt, sx_ptr = _OUT_MODES[out_dtype], out_dtype, sx.data_ptr()
+    out = torch.empty((b, n), dtype=dt, device=dev)
+    if b == 0:
+        return out.reshape(*lead, n)
+    x4 = rowsum = None
+    if b > 8:  # the tiled path's interleave pre-pass writes these
+        x4 = torch.empty((b, k), dtype=torch.int8, device=dev)
+        rowsum = torch.empty((b,), dtype=torch.int32, device=dev)
+    cuda_lib.call(
+        "wf_ternary_matmul", x2.data_ptr(), b, k, sx_ptr, w_ptr, sw_ptr, sw_stride, n, mode,
+        x4.data_ptr() if x4 is not None else None,
+        rowsum.data_ptr() if rowsum is not None else None, out.data_ptr(), cuda_lib.stream(x_q),
+    )
+    ternary_matmul_stacked.launches += 1
+    return out.reshape(*lead, n)
+
+
+def ternary_matmul_stacked(
+    x_q: torch.Tensor,  # [..., K] int8 codes
+    qweight: torch.Tensor,  # [L, K//4, N] uint8
+    layer: int,
+    act_scale: torch.Tensor,  # [..., 1] f32 (quantize_activations' scale)
+    weight_scale: torch.Tensor,  # [L] or [L, N] f32
+    *,
+    out_dtype: torch.dtype = torch.bfloat16,  # bfloat16 or float32
+) -> torch.Tensor:
+    """K7 against stacked weights: ``(x_q @ W[layer]) * (1/(sx*sw))``; the
+    layer is a Python int selecting ``qweight[layer]`` without a copy.
+    ``launches`` counts K7's launches from this wrapper and
+    :func:`ternary_matmul`."""
+    if x_q.device.type == "cpu":
+        return ternary_matmul_stacked_plain(x_q, qweight, layer, act_scale, weight_scale,
+                                            out_dtype=out_dtype)
+    cuda_lib.require_cuda(x_q, "ternary_matmul_stacked")
+    _check_args(qweight, weight_scale, None, layer)
+    _check_weights(qweight)
+    _, k4, n = qweight.shape
+    sw_ptr, sw_stride = _scale_args(weight_scale, layer, n)
+    return _launch_k7(x_q, _layer_ptr(qweight, layer), 4 * k4, n, act_scale, sw_ptr, sw_stride,
+                      out_dtype)
+
+
+ternary_matmul_stacked.launches = 0
+
+
+def ternary_matmul(
+    x_q: torch.Tensor,  # [..., K] int8 codes
+    qweight: torch.Tensor,  # [K//4, N] uint8, e.g. a view qw[l, e] of an expert stack
+    act_scale: Optional[torch.Tensor] = None,  # [..., 1] f32
+    weight_scale: Optional[torch.Tensor] = None,  # scalar or [N] f32
+    *,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """K7 on one matrix: with scales ``(x_q @ W) * (1/(sx*sw))`` in
+    ``out_dtype``, without them the exact int32 accumulator. Counted in
+    ``ternary_matmul_stacked.launches``."""
+    if x_q.device.type == "cpu":
+        return ternary_matmul_plain(x_q, qweight, act_scale, weight_scale, out_dtype=out_dtype)
+    cuda_lib.require_cuda(x_q, "ternary_matmul")
+    if qweight.dim() != 2:
+        raise ValueError(f"packed weights must be [K/4, N], got {tuple(qweight.shape)}")
+    _check_weights(qweight[None])
+    k4, n = qweight.shape
+    sw_ptr, sw_stride = None, 0
+    if act_scale is not None:
+        if weight_scale is None:
+            raise ValueError("act_scale needs a weight_scale")
+        if (weight_scale.dtype != torch.float32 or not weight_scale.is_contiguous()
+                or weight_scale.device != x_q.device or weight_scale.numel() not in (1, n)):
+            raise ValueError("weight scale must be one contiguous float32 value or [N] on "
+                             "x_q's device")
+        sw_ptr, sw_stride = weight_scale.data_ptr(), 1 if weight_scale.numel() > 1 else 0
+    return _launch_k7(x_q, qweight.data_ptr(), 4 * k4, n, act_scale, sw_ptr, sw_stride,
+                      out_dtype)
+
+
+def ternary_linear_stacked(x, qweight, weight_scale, layer, *, out_dtype=torch.bfloat16,
+                           matmul=ternary_matmul_stacked):
+    """Quantize ``x`` (torch, per row), then K7 on ``qweight[layer]``. The
+    quantization stays outside the kernel, as in the reference, where tensor
+    parallelism reduces the absmax over devices between the two."""
+    x_q, act_scale = quantize_activations(x)
+    return matmul(x_q, qweight, layer, act_scale, weight_scale, out_dtype=out_dtype)
+
+
+def make_linear(matmul=ternary_matmul):
+    """Unstacked ``linear_fn`` ``(x, qweight [K/4, N], scale, out_dtype)``:
+    quantize, then K7 on one matrix. ``matmul=ternary_matmul_plain`` gives the
+    plain path on any device."""
+
+    def linear_fn(x, qweight, scale, out_dtype=torch.bfloat16, quant_axis=None):
+        if quant_axis is not None:
+            raise NotImplementedError("quant_axis (tensor parallelism) is not ported yet")
+        x_q, act_scale = quantize_activations(x)
+        return matmul(x_q, qweight, act_scale, scale, out_dtype=out_dtype)
+
+    return linear_fn
+
+
+def make_linear_stacked(matmul=ternary_matmul_stacked, expert_matmul=ternary_matmul):
+    """Stacked ``linear_fn`` ``(x, qw_stack [L, K/4, N], scale_stack [L] or
+    [L, N], layer, out_dtype)`` with ``.stacked`` set, for unfused or
+    q/k/v-fused params. ``.expert_linear`` is ``make_linear(expert_matmul)``,
+    which ``paged_forward`` hands to the MoE experts. The ``*_plain``
+    functions give the plain path on any device."""
+
+    def linear_fn(x, qw_stack, scale_stack, layer, out_dtype=torch.bfloat16, quant_axis=None):
+        if quant_axis is not None:
+            raise NotImplementedError("quant_axis (tensor parallelism) is not ported yet")
+        return ternary_linear_stacked(x, qw_stack, scale_stack, layer, out_dtype=out_dtype,
+                                      matmul=matmul)
+
+    linear_fn.stacked = True
+    linear_fn.expert_linear = make_linear(expert_matmul)
+    return linear_fn
 
 
 def make_linear_fused(linear=ternary_matmul_stacked_fused, mlp=mlp_block_megakernel,
