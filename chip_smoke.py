@@ -2,34 +2,42 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs six phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs seven phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
-1. build    — compile the kernels (one nvcc per source, in parallel);
-2. kernels  — every kernel against its plain PyTorch version on the same
-              inputs at the main paths' shapes, timed beside its bound
-              (bytes over 3.35 TB/s or operations over the published dense
-              peak) and a PyTorch library call;
-3. forward  — ``paged_forward``: a 128-token prefill chunk and 4 decode
-              steps, once through the kernels and once through the plain
-              functions, logits compared;
-4. batch1   — ``models.bitnet.forward`` at batch 1 (the path of
-              ``wrinklefree_tpu_torch.bench.decode``): 8 decode steps
-              through the kernels vs the plain functions; a 64-token
-              prefill and 64 greedy steps whose exact head must equal the
-              bf16 head's argmax every step, with the attention and MLP
-              block kernels launched once per layer and step; then the
-              bench's timed windows and the device's busy share;
-5. engine   — ``Engine``: six greedy requests (prompts of 17..700 tokens,
-              32 new tokens each) and two radix-cache resubmissions, every
-              serving kernel's launch counter growing; then the six
-              requests again with ``flash_decode=True``, whose decode
-              attention kernel must launch;
-6. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
-              the unfused stacked linear and K7 experts: kernels vs plain,
-              the fake-MoE oracle bit for bit against the dense model, and
-              the engine phase with K7's launches per decode step counted.
+1. build     — compile the kernels (one nvcc per source, in parallel);
+2. kernels   — every kernel against its plain PyTorch version on the same
+               inputs at the main paths' shapes, timed beside its bound
+               (bytes over 3.35 TB/s or operations over the published dense
+               peak) and a PyTorch library call; the static wrappers also
+               bitwise against K5/K2, and the causal flash prefill, which no
+               path runs, only here;
+3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
+               steps, once through the kernels and once through the plain
+               functions, logits compared;
+4. batch1    — ``models.bitnet.forward`` at batch 1 (the path of
+               ``wrinklefree_tpu_torch.bench.decode``) in its three modes
+               (the default K5 + K2 pair, ``split``: the static wrappers on
+               per-layer views, ``layer_mega``: K8): 8 decode steps through
+               the kernels vs the plain functions per mode, ``split``
+               bitwise equal to the default; a 64-token prefill and 64
+               greedy steps whose exact head must equal the bf16 head's
+               argmax every step, with the mode's kernels launched once per
+               layer and step; then the bench's timed windows and the
+               device's busy share per mode;
+5. engine    — ``Engine``: six greedy requests (prompts of 17..700 tokens,
+               32 new tokens each) and two radix-cache resubmissions, every
+               serving kernel's launch counter growing; then the six
+               requests again with ``flash_decode=True``, whose decode
+               attention kernel must launch;
+6. moe       — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+               the unfused stacked linear and K7 experts: kernels vs plain,
+               the fake-MoE oracle bit for bit against the dense model, and
+               the engine phase with K7's launches per decode step counted;
+7. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+               chained in CUDA graphs) and the device's busy share over its
+               window, at least 90%.
 
 It exits non-zero on any failure (nothing is caught, nothing falls back)
 and when CUDA or the package is missing. The line before the last is a
@@ -47,7 +55,8 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}  # published dense tensor-core peaks
+# published dense peaks: tensor cores for int8 and bf16, CUDA cores for f32
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 KERNELS = {
     "ternary_matmul_stacked_fused": {
@@ -81,6 +90,27 @@ KERNELS = {
         "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:228",
         # the same kernel on one [K/4, N] matrix (ROADMAP queue 2 row 5)
         "also_replaces": "wrinklefree_tpu/ops/ternary_pallas.py:132",
+    },
+    "layer_block_megakernel": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:584",
+    },
+    # row 9: K5 and K2 launched on one layer's views by their own wrappers
+    "attn_block_megakernel_static": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:1298",
+    },
+    "mlp_block_megakernel_static": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:2181",
+    },
+    "flash_prefill": {
+        "source": "wrinklefree_tpu_torch/csrc/flash_prefill.cu",
+        "replaces": "wrinklefree_tpu/ops/flash_attention.py:88",
+    },
+    "measure_stream_us_per_layer": {
+        "source": "wrinklefree_tpu_torch/csrc/calibrate.cu",
+        "replaces": "wrinklefree_tpu/bench/calibrate.py:50",
     },
 }
 
@@ -254,8 +284,7 @@ def phase_kernels(params, cfg, dev, results):
             return h + torch.matmul(torch.square(torch.relu(gu[:, :I])) * gu[:, I:], wds[i])
 
         lib_ms, _ = cuda_ms(lib)
-        nbytes = rows * H * 2 * 2 + H // 4 * 2 * I + I // 4 * H + (2 * I + H) * 4 + (H + I) * 2
-        b_ms, b_by = bound(nbytes, 2 * rows * (H * 2 * I + I * H), "int8")
+        b_ms, b_by = _block_bytes_ops(st, cfg, 0, attn=False, rows=rows)
         k2_rows.append(dict(shape=f"mlp {H}->{2 * I}->{H} rows={rows}", ms=ms, call_ms=call_ms,
                             plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -348,6 +377,9 @@ def phase_kernels(params, cfg, dev, results):
     kernels_k5(params, cfg, dev, rnd, results)
     kernels_k6(cfg, dev, g, rnd, results)
     kernels_k7(params, cfg, dev, g, results)
+    kernels_k8_static(params, cfg, dev, rnd, results)
+    kernels_k9(cfg, dev, g, results)
+    kernels_k10(dev, results)
 
 
 def kernels_k5(params, cfg, dev, rnd, results):
@@ -427,13 +459,7 @@ def kernels_k5(params, cfg, dev, rnd, results):
                 return h + torch.matmul(o.reshape(1, Q), wo[i])
 
             lib_ms, _ = cuda_ms(lib)
-            n_q = st["qkv_qw"].shape[2]
-            nbytes = (H // 4 * n_q + Q // 4 * H + (n_q + H) * 4 + (H + Q) * 2 + 2 * H * 2
-                      + 2 * D * 2 + 2 * (pos + 1) * KV * D * 2)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = (2 * (H * n_q + Q * H) / PEAK_OPS["int8"]
-                     + 4 * NH * D * (pos + 1) / PEAK_OPS["bf16"]) * 1e3
-            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            b_ms, b_by = _block_bytes_ops(st, cfg, pos, mlp=False)
             rows.append(dict(shape=f"attention block T={T} pos={pos}", ms=ms, call_ms=call_ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              library="bf16 matmul qkv + SDPA over pos+1 rows + bf16 matmul o",
@@ -600,6 +626,266 @@ def kernels_k7(params, cfg, dev, g, results):
         r for r in rows_out if r["shape"].startswith("expert gate") and r["shape"].endswith("=8"))
 
 
+def _layer_library(cfg, wls, h, ck, cv, lay, pos, attn=True, mlp=True):
+    """The library yardstick of the attention and/or MLP block: bf16 matmuls
+    on unpacked weights, SDPA over the cache rows 0..pos, relu^2."""
+    import torch
+
+    Q, NH, D, I = cfg.q_dim, cfg.num_heads, cfg.head_dim, cfg.intermediate_size
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    i = lay()
+    if attn:
+        qkv = torch.matmul(h, wls["qkv"][i])
+        q = qkv[:, :Q].reshape(1, NH, 1, D)
+        k = ck[i, 0, :pos + 1].permute(1, 0, 2)[None]
+        v = cv[i, 0, :pos + 1].permute(1, 0, 2)[None]
+        h = h + torch.matmul(sdpa(q, k, v, enable_gqa=True).reshape(1, Q), wls["o"][i])
+    if mlp:
+        gu = torch.matmul(h, wls["gateup"][i])
+        h = h + torch.matmul(torch.square(torch.relu(gu[:, :I])) * gu[:, I:], wls["down"][i])
+    return h
+
+
+def _block_bytes_ops(st, cfg, pos, attn=True, mlp=True, rows=1):
+    """Bytes a block must move (packed weights, scales, norms, its input and
+    output rows, cos/sin and cache rows 0..pos once) and its operations
+    (int8 dots; bf16 scores and PV)."""
+    H, Q, I, NH, KV, D = (cfg.hidden_size, cfg.q_dim, cfg.intermediate_size, cfg.num_heads,
+                          cfg.num_kv_heads, cfg.head_dim)
+    nbytes, int8_ops, bf16_ops = rows * H * 2 * 2, 0, 0
+    if attn:
+        n_q = st["qkv_qw"].shape[2]
+        nbytes += (H // 4 * n_q + Q // 4 * H + (n_q + H) * 4 + (H + Q) * 2 + 2 * D * 2
+                   + 2 * (pos + 1) * KV * D * 2)
+        int8_ops += 2 * (H * n_q + Q * H)
+        bf16_ops += 4 * NH * D * (pos + 1)
+    if mlp:
+        nbytes += H // 4 * 2 * I + I // 4 * H + (2 * I + H) * 4 + (H + I) * 2
+        int8_ops += 2 * rows * (H * 2 * I + I * H)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (int8_ops / PEAK_OPS["int8"] + bf16_ops / PEAK_OPS["bf16"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernels_k8_static(params, cfg, dev, rnd, results):
+    """K8, the whole batch-1 decode layer, against its plain version (the
+    plain K5 then the plain K2, with the reference's per-KV-head softmax)
+    at 2B shapes: T 328 at pos 47 and 327, T 2048 at pos 2047, layers 0 and
+    29. K5's and K2's bars: the written k/v rows bitwise equal, every other
+    cache row unchanged, h' within 5% of each row's largest value (the
+    prologues' reductions run in another order than torch's, so an int8 code
+    can move by one). The static wrappers (row 9) launch K5 and K2 on one
+    layer's views: bitwise equal to K5 and K2 on the stack, the MLP also at
+    12 rows (two K2 launches)."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.rope import rope_cos_sin
+    from wrinklefree_tpu_torch.ops.ternary import unpack_ternary
+
+    st = params["layers"]
+    L, H = cfg.num_layers, cfg.hidden_size
+    KV, D = cfg.num_kv_heads, cfg.head_dim
+    kw = dict(q_dim=cfg.q_dim, n_kv=KV, n_heads=cfg.num_heads, head_dim=D, eps=cfg.rms_norm_eps)
+    w8 = [st[n] for n in ("qkv_qw", "o_qw", "gateup_qw", "down_qw")]
+    s8 = [st[n] for n in ("qkv_scale", "o_scale", "gateup_scale", "down_scale", "input_ln",
+                          "attn_sub", "post_ln", "ffn_sub")]
+
+    def k8(fn, h, ck, cv, layer, p, cos, sin):
+        return fn(h, ck, cv, *w8, layer, p, *s8, cos, sin, **kw)[0]
+
+    def k5_static(h, ck, cv, layer, p, cos, sin, fn=tc.attn_block_megakernel_static):
+        return fn(h, ck[layer], cv[layer], st["qkv_qw"][layer], st["o_qw"][layer], p,
+                  st["qkv_scale"][layer], st["o_scale"][layer], st["input_ln"][layer],
+                  st["attn_sub"][layer], cos, sin, **kw)[0]
+
+    def k2_static(h, layer, fn=tc.mlp_block_megakernel_static):
+        return fn(h, st["gateup_qw"][layer], st["down_qw"][layer], st["gateup_scale"][layer],
+                  st["down_scale"][layer], st["post_ln"][layer], st["ffn_sub"][layer])
+
+    wls = {n: [unpack_ternary(st[n + "_qw"][i]).to(torch.bfloat16) for i in range(L)]
+           for n in ("qkv", "o", "gateup", "down")}
+    rows8, rows_s, worst, checks = [], [], 0.0, 0
+    for T in (328, 2048):
+        ck0, cv0 = rnd(L, 1, T, KV, D), rnd(L, 1, T, KV, D)
+        h = rnd(1, H)
+        for pos in ((47, T - 1) if T == 328 else (T - 1,)):
+            cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), D, cfg.rope_theta,
+                                    torch.bfloat16)
+            cos, sin = cos[0], sin[0]
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            for layer in (0, L - 1):
+                ka, va, kb, vb = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+                a = k8(tc.layer_block_megakernel, h, ka, va, layer, p, cos, sin)
+                b = k8(tc.layer_block_megakernel_plain, h, kb, vb, layer, p, cos, sin)
+                torch.cuda.synchronize()
+                d = (a.float() - b.float()).abs().max().item()
+                if not (torch.isfinite(a).all() and d <= 0.05 * b.float().abs().max().item()):
+                    fail(f"K8 T={T} pos={pos} layer={layer}: h' differs by {d}")
+                if not (torch.equal(ka, kb) and torch.equal(va, vb)):
+                    fail(f"K8 T={T} pos={pos} layer={layer}: the caches differ from the plain "
+                         "version's")
+                keep = torch.ones(L, T, dtype=torch.bool, device=dev)
+                keep[layer, pos] = False
+                if not (torch.equal(ka[:, 0][keep], ck0[:, 0][keep])
+                        and torch.equal(va[:, 0][keep], cv0[:, 0][keep])):
+                    fail(f"K8 T={T} pos={pos} layer={layer}: a cache row other than pos changed")
+                worst = max(worst, d)
+                # row 9: the static attention block against K5 on the same inputs
+                kc, vc, kd, vd = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+                a = k5_static(h, kc, vc, layer, p, cos, sin)
+                b = tc.attn_block_megakernel(h, kd, vd, *w8[:2], layer, p, st["qkv_scale"],
+                                             st["o_scale"], st["input_ln"], st["attn_sub"], cos,
+                                             sin, **kw)[0]
+                torch.cuda.synchronize()
+                if not (torch.equal(a, b) and torch.equal(kc, kd) and torch.equal(vc, vd)):
+                    fail(f"static attention T={T} pos={pos} layer={layer}: differs from K5")
+                checks += 1
+            lay = Cycle(L)
+            ck, cv = ck0.clone(), cv0.clone()
+            ms, call_ms = cuda_ms(lambda: k8(tc.layer_block_megakernel, h, ck, cv, lay(), p, cos,
+                                             sin))
+            plain_ms, _ = cuda_ms(lambda: k8(tc.layer_block_megakernel_plain, h, ck, cv, lay(), p,
+                                             cos, sin), iters=5, warmup=1)
+            lib_ms, _ = cuda_ms(lambda: _layer_library(cfg, wls, h, ck, cv, lay, pos))
+            b_ms, b_by = _block_bytes_ops(st, cfg, pos)
+            rows8.append(dict(shape=f"decode layer T={T} pos={pos}", ms=ms, call_ms=call_ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              library="K5's and K2's library calls", bound_ms=b_ms,
+                              bound_by=b_by))
+            if T == 328 and pos == T - 1:  # the bench's shape
+                ms, call_ms = cuda_ms(lambda: k5_static(h, ck, cv, lay(), p, cos, sin))
+                plain_ms, _ = cuda_ms(lambda: k5_static(
+                    h, ck, cv, lay(), p, cos, sin, tc.attn_block_megakernel_static_plain),
+                    iters=5, warmup=1)
+                lib_ms, _ = cuda_ms(lambda: _layer_library(cfg, wls, h, ck, cv, lay, pos,
+                                                           mlp=False))
+                b_ms, b_by = _block_bytes_ops(st, cfg, pos, mlp=False)
+                rows_s.append(("attn_block_megakernel_static", dict(
+                    shape=f"attention block, one layer's views, T={T} pos={pos}", ms=ms,
+                    call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=0.0)))
+    for rows in (1, 12):
+        x = rnd(rows, H)
+        for layer in (0, L - 1):
+            a = k2_static(x, layer)
+            b = torch.cat([tc.mlp_block_megakernel(
+                x[r:r + 8], st["gateup_qw"], st["down_qw"], layer, st["gateup_scale"],
+                st["down_scale"], st["post_ln"], st["ffn_sub"]) for r in range(0, rows, 8)])
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"static MLP rows={rows} layer={layer}: differs from K2")
+            checks += 1
+        lay = Cycle(L)
+        ms, call_ms = cuda_ms(lambda: k2_static(x, lay()))
+        plain_ms, _ = cuda_ms(lambda: k2_static(x, lay(), tc.mlp_block_megakernel_static_plain),
+                              iters=5, warmup=1)
+        lib_ms, _ = cuda_ms(lambda: _layer_library(cfg, wls, x, None, None, lay, 0,
+                                                   attn=False))
+        b_ms, b_by = _block_bytes_ops(st, cfg, 0, attn=False, rows=rows)
+        rows_s.append(("mlp_block_megakernel_static", dict(
+            shape=f"MLP block, one layer's views, rows={rows}", ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=0.0)))
+    del wls
+    for r in rows8:
+        print("kernels: K8 " + json.dumps(r))
+    for name, r in rows_s:
+        print(f"kernels: {name} " + json.dumps(r))
+    print(f"kernels: K8 {len(rows8) * 2} checks, max |h' diff| {worst}, caches bitwise equal to the "
+          f"plain version's; static wrappers bitwise equal to K5/K2 in {checks}/{checks} checks")
+    results["layer_block_megakernel"] = dict(
+        next(r for r in rows8 if r["shape"].endswith("T=328 pos=327")), max_abs_err=worst)
+    for name, r in rows_s:
+        results.setdefault(name, r)  # the bench's shapes: T 328 pos 327, one row
+
+
+def kernels_k9(cfg, dev, g, results):
+    """K9, the causal flash prefill, against its plain version at BitNet-2B
+    heads (20/5 of 128): S 512 over T 512, and S 512 over T 1024 at q_offset
+    128, in bf16 and f32. The kernel walks 64-key tiles whatever the blocks,
+    so its plain version is held with 64-key blocks (the same running maxima
+    where p is rounded): f32 within 2e-5 (FMA sums in another order), bf16
+    within 2e-2 (a bf16 ulp of p or of the output)."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+
+    NH, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out, worst = [], {}
+    for dt, kind, tol in ((torch.bfloat16, "bf16", 2e-2), (torch.float32, "f32", 2e-5)):
+        for S, T, off in ((512, 512, 0), (512, 1024, 128)):
+            q = torch.randn((1, S, NH, D), generator=g, device=dev).to(dt)
+            k = torch.randn((1, T, KV, D), generator=g, device=dev).to(dt)
+            v = torch.randn((1, T, KV, D), generator=g, device=dev).to(dt)
+            a = fa.flash_prefill(q, k, v, off)
+            b = fa.flash_prefill_plain(q, k, v, off, block_k=64)
+            torch.cuda.synchronize()
+            d = (a.float() - b.float()).abs().max().item()
+            if not (torch.isfinite(a).all() and d <= tol):
+                fail(f"K9 {kind} S={S} T={T} q_offset={off}: max abs error {d}")
+            worst[kind] = max(worst.get(kind, 0.0), d)
+            ms, call_ms = cuda_ms(lambda: fa.flash_prefill(q, k, v, off))
+            plain_ms, _ = cuda_ms(lambda: fa.flash_prefill_plain(q, k, v, off), iters=5, warmup=1)
+            mask = (torch.arange(T, device=dev)[None, :]
+                    <= off + torch.arange(S, device=dev)[:, None])
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib_ms, _ = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            pairs = sum(min(T, off + s + 1) for s in range(S))  # visible (query, key) pairs
+            keys = min(T, off + S)
+            nbytes = (2 * S * NH * D + 2 * keys * KV * D) * q.element_size() + 4
+            b_ms, b_by = bound(nbytes, 4 * D * pairs * NH, kind)
+            out.append(dict(shape=f"{kind} S={S} T={T} q_offset={off} NH={NH} KV={KV} D={D}",
+                            ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            library="SDPA with the causal mask, enable_gqa", bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=d))
+    for r in out:
+        print("kernels: K9 " + json.dumps(r))
+    results["flash_prefill"] = dict(out[0], max_abs_err=worst["bf16"])
+
+
+def kernels_k10(dev, results):
+    """K10, the stream touch, against its plain version on the calibration's
+    own weights (the 2B MLP's int8 [30, 640, 13824] and [30, 1728, 2560]):
+    output and checksum bit for bit (exact integer sums), layers 0 and 29.
+    Timed cycling over the 30 layers (398 MB, so each call streams from
+    HBM); the library yardstick is one int32 sum over each layer's bytes."""
+    import torch
+
+    from wrinklefree_tpu_torch.bench import calibrate as cal
+
+    gw, dw = cal.stream_weights(dev)
+    L = gw.shape[0]
+    h = torch.randn((8, 128), device=dev)
+    for layer in (0, L - 1):
+        ca = torch.zeros(1, dtype=torch.int64, device=dev)
+        cb = torch.zeros(1, dtype=torch.int64, device=dev)
+        a = cal.touch(h, gw, dw, layer, ca)
+        b = cal.touch_plain(h, gw, dw, layer, cb)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(ca, cb)):
+            fail(f"K10 layer={layer}: kernel and plain version differ")
+    lay = Cycle(L)
+    cs = torch.zeros(1, dtype=torch.int64, device=dev)
+    ms, call_ms = cuda_ms(lambda: cal.touch(h, gw, dw, lay(), cs))
+    plain_ms, _ = cuda_ms(lambda: cal.touch_plain(h, gw, dw, lay(), cs), iters=5, warmup=1)
+
+    def lib():
+        i = lay()
+        return gw[i].view(torch.int32).sum() + dw[i].view(torch.int32).sum()
+
+    lib_ms, _ = cuda_ms(lib)
+    layer_bytes = gw[0].numel() + dw[0].numel()
+    b_ms, b_by = bound(layer_bytes + 2 * 8 * 128 * 4 + 8, 0, "f32")
+    r = dict(shape=f"one layer's packed MLP weights, {layer_bytes / 1e6} MB", ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+             library="int32 sums over the layer's bytes", bound_ms=b_ms, bound_by=b_by,
+             max_abs_err=0.0)
+    print("kernels: K10 " + json.dumps(r))
+    results["measure_stream_us_per_layer"] = r
+
+
 def _prefill_attention_p_rounded(q, k_cur, v_cur, main, staging_b, layer, page_table,
                                  seq_lens, new_lens, cfg):
     """Plain causal attention of a first prefill chunk (empty history) that
@@ -728,20 +1014,35 @@ def compare_logits(what, ker, pla, depth, floor):
     return worst, agree, bar, ties
 
 
+BATCH1_MODES = {  # bench.decode's modes -> the kernels each launches once per layer and token
+    "default": ("attn_block_megakernel", "mlp_block_megakernel"),
+    "split": ("attn_block_megakernel_static", "mlp_block_megakernel_static"),
+    "layer_mega": ("layer_block_megakernel",),
+}
+
+
 def phase_batch1(qparams, cfg, dev, floors, counters):
     """The batch-1 path of ``wrinklefree_tpu_torch.bench.decode`` on the
-    dense cache (T = 64 + 4 * 64 + 8 = 328, as the bench's):
+    dense cache (T = 64 + 4 * 64 + 8 = 328, as the bench's), in its three
+    modes: ``default`` (K5 then K2 per layer), ``split`` (the unrolled loop
+    over ``split_layers_for_decode``'s per-layer views: the static wrappers)
+    and ``layer_mega`` (K8 per layer):
 
-    - at 2 and 30 layers, a 64-token prefill and 8 greedy decode steps
-      through the kernels, then teacher-forced through the plain functions;
-      logits compared under phase_forward's noise-floor rule;
-    - at 30 layers, the prefill and 64 greedy steps through the exact head
-      (int8 scan + top-64 rescore), whose token must equal the argmax of the
-      bf16 head every step, with the attention and MLP block kernels
-      launched once per layer and step (counters zeroed just before);
-    - the bench itself (warm window, best of 3 windows of 64 steps) and the
-      device's busy share over one window under the profiler.
-    Returns the launches of the counted run."""
+    - at 2 and 30 layers, per mode, a 64-token prefill and 8 greedy decode
+      steps through the kernels, then teacher-forced through the plain
+      functions; logits compared under phase_forward's noise-floor rule.
+      ``split`` runs the default's kernels on the same bytes: its logits must
+      equal the default run's bit for bit. ``layer_mega`` (teacher-forced
+      with the default's tokens) is reported bitwise equal to the default,
+      or held to the noise-floor rule against it;
+    - at 30 layers, per mode, the prefill and 64 greedy steps through the
+      exact head (int8 scan + top-64 rescore), whose token must equal the
+      argmax of the bf16 head every step, with the mode's kernels launched
+      once per layer and step and the other batch-1 kernels not at all
+      (counters zeroed just before); ``split``'s tokens equal the default's;
+    - per mode, the bench itself (warm window, best of 3 windows of 64
+      steps) and the device's busy share over one window under the profiler.
+    Returns the launches of each mode's counted run."""
     import dataclasses
 
     import torch
@@ -750,16 +1051,26 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
 
     from wrinklefree_tpu_torch.bench import decode as bd
     from wrinklefree_tpu_torch.models.bitnet import (
-        KVCache, compute_logits, forward, greedy_exact_topk)
+        KVCache, compute_logits, forward, greedy_exact_topk, split_layers_for_decode)
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
 
     prompt_len, steps = 64, 64
     T = prompt_len + 4 * steps + 8
-    plain_lf = tc.make_linear_fused(tc.ternary_matmul_stacked_fused_plain,
-                                    tc.mlp_block_megakernel_plain,
-                                    tc.attn_block_megakernel_plain)
     g = torch.Generator(device="cpu").manual_seed(3)
     prompt = torch.randint(1, cfg.vocab_size, (1, prompt_len), generator=g).to(dev)
+
+    def linear_fns(mode):
+        """(the kernels' linear_fn, the plain functions' linear_fn) of a mode."""
+        mega = mode == "layer_mega"
+        plain = tc.make_linear_fused(
+            tc.ternary_matmul_stacked_fused_plain, tc.mlp_block_megakernel_plain,
+            tc.attn_block_megakernel_plain, layer=tc.layer_block_megakernel_plain,
+            attn_static=tc.attn_block_megakernel_static_plain,
+            mlp_static=tc.mlp_block_megakernel_static_plain, layer_mega=mega)
+        return tc.make_linear_fused(layer_mega=mega), plain
+
+    def mode_params(p, c, mode):
+        return split_layers_for_decode(p, c) if mode == "split" else p
 
     def logits_run(p, c, lf, forced=None, n=8):
         cache = KVCache.zeros(c, 1, T, device=dev)
@@ -773,67 +1084,129 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
             pos = pos + 1
         return out
 
-    kernels_lf = tc.make_linear_fused()
     for depth in (2, cfg.num_layers):
         c = dataclasses.replace(cfg, num_layers=depth)
         p = dict(qparams, layers={k: v[:depth] for k, v in qparams["layers"].items()})
-        ker = logits_run(p, c, kernels_lf)
-        pla = logits_run(p, c, plain_lf, forced=[torch.argmax(x, -1) for x in ker[:-1]])
-        worst, agree, bar, ties = compare_logits("batch1", ker, pla, depth, floors[depth])
-        print(f"batch1: {depth} layers, 64-token prefill + 8 decode steps, kernels vs plain: "
-              f"max |logit diff| {worst} (noise floor {floors[depth]}), argmax equal at "
-              f"{agree}/9 steps"
-              + (f", bar {bar}, ties {json.dumps(ties)}" if depth == 2 else " (no bar)"))
+        runs, default_toks = {}, None
+        for mode in BATCH1_MODES:
+            klf, plf = linear_fns(mode)
+            pm = mode_params(p, c, mode)
+            ker = logits_run(pm, c, klf, forced=default_toks if mode == "layer_mega" else None)
+            toks = [torch.argmax(x, -1) for x in ker[:-1]]
+            default_toks = default_toks or toks
+            pla = logits_run(pm, c, plf, forced=toks)
+            worst, agree, bar, ties = compare_logits(f"batch1 {mode}", ker, pla, depth,
+                                                     floors[depth])
+            print(f"batch1 {mode}: {depth} layers, 64-token prefill + 8 decode steps, kernels vs "
+                  f"plain: max |logit diff| {worst} (noise floor {floors[depth]}), argmax equal "
+                  f"at {agree}/9 steps"
+                  + (f", bar {bar}, ties {json.dumps(ties)}" if depth == 2 else " (no bar)"))
+            runs[mode] = ker
+        if not all(torch.equal(a, b) for a, b in zip(runs["split"], runs["default"])):
+            fail(f"batch1 split at {depth} layers: logits differ from the default run's")
+        print(f"batch1 split: {depth} layers: logits bitwise equal to the default run's at 9/9 "
+              "steps")
+        if all(torch.equal(a, b) for a, b in zip(runs["layer_mega"], runs["default"])):
+            print(f"batch1 layer_mega: {depth} layers: logits bitwise equal to the default "
+                  "run's at 9/9 steps")
+        else:
+            worst, agree, bar, ties = compare_logits("batch1 layer_mega vs default",
+                                                     runs["layer_mega"], runs["default"], depth,
+                                                     floors[depth])
+            print(f"batch1 layer_mega: {depth} layers: logits not bitwise equal to the default "
+                  f"run's (teacher-forced): max |logit diff| {worst}, argmax equal at {agree}/9 "
+                  "steps, under the noise-floor rule"
+                  + (f" (bar {bar}, ties {json.dumps(ties)})" if depth == 2 else " (no bar)"))
 
     # the exact head against the bf16 head, every step; launch counts
     clean = {k: v for k, v in qparams.items() if not k.startswith("lm_head_")}
-    checks = []
+    launches, states, mode_toks = {}, {}, {}
+    for mode, kernels in BATCH1_MODES.items():
+        klf, _ = linear_fns(mode)
+        pm = mode_params(qparams, cfg, mode)
+        checks = []
 
-    def checked_head(hidden, p):
-        tok, _ = greedy_exact_topk(hidden, p, cfg, k=bd.EXACT_HEAD_K)
-        checks.append(tok == torch.argmax(compute_logits(hidden, clean, cfg), -1))
-        return tok[:, None]
+        def checked_head(hidden, p):
+            tok, _ = greedy_exact_topk(hidden, p, cfg, k=bd.EXACT_HEAD_K)
+            checks.append(tok == torch.argmax(compute_logits(hidden, clean, cfg), -1))
+            return tok[:, None]
 
-    tok, cache = bd.prefill(qparams, cfg, kernels_lf, prompt, T)
-    pos = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    for cnt in counters:
-        cnt.launches = 0
-    toks, tok, cache, pos = bd.decode_window(qparams, cfg, kernels_lf, tok, cache, pos, steps,
-                                             checked_head)
-    torch.cuda.synchronize()
-    launches = {cnt.__name__: cnt.launches for cnt in counters}
-    per_step = {k: v / steps for k, v in launches.items()}
-    if not bool(torch.cat(checks).all()):
-        bad = [i for i, x in enumerate(checks) if not bool(x.all())]
-        fail(f"batch1: the exact head's token differs from the bf16 head's argmax at steps {bad}")
-    for name in ("attn_block_megakernel", "mlp_block_megakernel"):
-        if launches[name] != cfg.num_layers * steps:
-            fail(f"batch1: {name} launched {launches[name]} times in {steps} decode steps")
-    if not all(0 <= t < cfg.vocab_size for t in toks.tolist()):
-        fail("batch1: token id out of vocabulary")
-    print(f"batch1: {cfg.num_layers} layers, 64-token prefill + {steps} greedy steps: exact head == bf16 "
-          f"argmax at {len(checks)}/{steps} steps, launches per decode step "
-          f"{json.dumps(per_step)}")
-
-    res = bd.run("bitnet2b", prompt_len, steps, dev)
-    print("batch1: bench " + json.dumps(res))
-
-    # device busy share over one more window, under the profiler
-    head = bd.exact_head(cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, tok, cache, pos = bd.decode_window(qparams, cfg, kernels_lf, tok, cache, pos, steps,
-                                              head)
+        tok, cache = bd.prefill(pm, cfg, klf, prompt, T)
+        pos = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_s = sum(e.device_time_total for e in evs) / 1e6
-    top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
-    print(f"batch1: window under the profiler, device busy {dev_s / dt} of {dt} s "
-          f"({dev_s / steps * 1e3} ms of device time per token); device ms per token by "
-          "kernel: " + json.dumps({e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
+        for cnt in counters:
+            cnt.launches = 0
+        toks, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, steps,
+                                                 checked_head)
+        torch.cuda.synchronize()
+        launches[mode] = {cnt.__name__: cnt.launches for cnt in counters}
+        states[mode] = (pm, klf, tok, cache, pos)
+        mode_toks[mode] = toks
+        if not bool(torch.cat(checks).all()):
+            bad = [i for i, x in enumerate(checks) if not bool(x.all())]
+            fail(f"batch1 {mode}: the exact head's token differs from the bf16 head's argmax at "
+                 f"steps {bad}")
+        for name, n in launches[mode].items():
+            want = cfg.num_layers * steps if name in kernels else 0
+            if n != want:
+                fail(f"batch1 {mode}: {name} launched {n} times in {steps} decode steps, "
+                     f"expected {want}")
+        if not all(0 <= t < cfg.vocab_size for t in toks.tolist()):
+            fail(f"batch1 {mode}: token id out of vocabulary")
+        per_step = {k: v / steps for k, v in launches[mode].items()}
+        print(f"batch1 {mode}: {cfg.num_layers} layers, 64-token prefill + {steps} greedy steps: "
+              f"exact head == bf16 argmax at {len(checks)}/{steps} steps, launches per decode "
+              f"step {json.dumps(per_step)}")
+    if not torch.equal(mode_toks["split"], mode_toks["default"]):
+        fail("batch1 split: the 64 greedy tokens differ from the default run's")
+    same = next((i for i, (a, b) in enumerate(zip(mode_toks["layer_mega"].tolist(),
+                                                  mode_toks["default"].tolist())) if a != b), steps)
+    print(f"batch1: split's {steps} greedy tokens equal the default's; layer_mega's equal the "
+          f"default's on the first {same}/{steps}")
+
+    head = bd.exact_head(cfg)
+    for mode in BATCH1_MODES:
+        res = bd.run("bitnet2b", prompt_len, steps, dev, split=mode == "split",
+                     layer_mega=mode == "layer_mega")
+        print("batch1: bench " + json.dumps(res))
+        # device busy share over one more window, under the profiler
+        pm, klf, tok, cache, pos = states[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, steps, head)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_s = sum(e.device_time_total for e in evs) / 1e6
+        top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
+        print(f"batch1 {mode}: {res['value']} tok/s, {res['ms_per_token']} ms per token (bench); "
+              f"{dev_s / steps * 1e3} ms of device time per token, "
+              f"{dev_s / steps * 1e3 / res['ms_per_token']} of the bench's token; device busy "
+              f"{dev_s / dt} of {dt} s under the profiler; device ms per token by kernel: "
+              + json.dumps({e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
+    return launches
+
+
+def phase_calibrate(dev):
+    """``bench.calibrate.calibrate()``: its JSON line, with K10's launches
+    counted over it (the wrapper's calls, each graph's chain recorded once at
+    capture and replayed), then the device's busy share over one replayed
+    window of 512 touches, which must be at least 90% (else the slope would
+    time the host). Returns K10's launches."""
+    from wrinklefree_tpu_torch.bench import calibrate as cal
+
+    cal.touch.launches = 0
+    stamp = cal.calibrate(dev)
+    launches = cal.touch.launches
+    print("calibrate: " + json.dumps(stamp))
+    busy, dev_s, wall = cal.stream_busy_share(512, dev)
+    print(f"calibrate: device busy {busy} of a replayed 512-touch window ({dev_s} s of kernel "
+          f"time in a {wall} s window); K10 launched {launches} times through its wrapper")
+    if busy < 0.9:
+        fail(f"calibrate: the device was busy {busy} of the stream window (< 0.9)")
+    if stamp["stream_us_per_layer"] is None or not stamp["stream_us_per_layer"] > 0:
+        fail(f"calibrate: no stream measurement ({stamp})")
     return launches
 
 
@@ -1151,9 +1524,11 @@ def main() -> int:
     floors = phase_forward(params, cfg, dev)
     # the batch-1 path reads the int8 head (its exact head scans it); the
     # engine's params keep the bf16 head only
+    flash_prefill_launches = fa.flash_prefill.launches  # it has no path: the kernels phase's
     batch1 = phase_batch1(quantize_lm_head(params, cfg), cfg, dev, floors,
                           [tc.attn_block_megakernel, tc.mlp_block_megakernel,
-                           tc.ternary_matmul_stacked_fused])
+                           tc.ternary_matmul_stacked_fused, tc.layer_block_megakernel,
+                           tc.attn_block_megakernel_static, tc.mlp_block_megakernel_static])
     serving = [tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel, kvu.kv_write,
                fa.flash_paged_prefill]
     launches, toks = phase_engine(params, cfg, dev, serving)
@@ -1163,12 +1538,16 @@ def main() -> int:
             for x, y in zip(toks, ftoks)]
     print(f"engine: flash_decode=True beside the default run: leading tokens equal per request "
           f"{same} of 32 (prompts 17/64/200/333/512/700)")
-    launches["attn_block_megakernel"] = batch1["attn_block_megakernel"]
+    for mode, kernels in BATCH1_MODES.items():
+        for name in kernels:
+            launches.setdefault(name, batch1[mode][name])
     launches["flash_paged_decode"] = flash["flash_paged_decode"]
+    launches["flash_prefill"] = flash_prefill_launches
     del params
     torch.cuda.empty_cache()
     moe = phase_moe(dev)
     launches["ternary_matmul_stacked"] = moe["ternary_matmul_stacked"]
+    launches["measure_stream_us_per_layer"] = phase_calibrate(dev)
 
     line = []
     for name, meta in KERNELS.items():

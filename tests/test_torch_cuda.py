@@ -185,3 +185,118 @@ def test_fake_moe_oracle_on_card():
         out.append((lo, lo2))
     torch.cuda.synchronize()
     assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+def _block_weights(dev, seed, hd=512, nh=4, kvh=2, inter=384):
+    """Small stacked weights of one decode layer (head dim 128), as K5/K2 take them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nq = nh * 128 + 2 * kvh * 128
+
+    def packed(*shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+    def scales(n):
+        return torch.rand((L, n), generator=g, device=dev) * 80 + 10
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn((L, n), generator=g, device=dev)).to(torch.bfloat16)
+
+    return dict(
+        qkv_qw=packed(L, hd // 4, nq), o_qw=packed(L, nh * 32, hd),
+        gateup_qw=packed(L, hd // 4, 2 * inter), down_qw=packed(L, inter // 4, hd),
+        qkv_scale=scales(nq), o_scale=torch.rand((L,), generator=g, device=dev) * 80 + 10,
+        gateup_scale=scales(2 * inter), down_scale=scales(hd),
+        input_ln=norm(hd), attn_sub=norm(nh * 128), post_ln=norm(hd), ffn_sub=norm(inter),
+        heads=dict(q_dim=nh * 128, n_kv=kvh, n_heads=nh, head_dim=128),
+        h=torch.randn((12, hd), generator=g, device=dev).to(torch.bfloat16),
+        cos=torch.rand(128, generator=g, device=dev).to(torch.bfloat16),
+        sin=torch.rand(128, generator=g, device=dev).to(torch.bfloat16),
+        cache=torch.randn((2, L, 1, 40, kvh, 128), generator=g, device=dev).to(torch.bfloat16),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k8", "attn_static", "mlp_static", "k9", "k10"])
+def test_batch1_variant_kernels_match_plain_on_card(kernel):
+    """The whole-layer kernel (K8), the static wrappers over K5/K2, the causal
+    flash prefill (K9) and the stream touch (K10) against their plain
+    versions on the card, at small sizes (chip_smoke.py holds them at
+    BitNet-2B shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    if kernel in ("k8", "attn_static", "mlp_static"):
+        w = _block_weights(dev, 8)
+        h1, ck, cv = w["h"][:1], w["cache"][0], w["cache"][1]
+        T = ck.shape[2]
+        for pos in (0, 17, T - 1):
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            keep = torch.ones(L, T, dtype=torch.bool, device=dev)
+            keep[LAYER, pos] = False
+            ka, va, kb, vb = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+            if kernel == "k8":
+                args = [w[n] for n in ("qkv_qw", "o_qw", "gateup_qw", "down_qw")] + [LAYER, p] + [
+                    w[n] for n in ("qkv_scale", "o_scale", "gateup_scale", "down_scale",
+                                   "input_ln", "attn_sub", "post_ln", "ffn_sub")]
+                a, _, _ = ternary_cuda.layer_block_megakernel(h1, ka, va, *args, w["cos"],
+                                                              w["sin"], **w["heads"])
+                b, _, _ = ternary_cuda.layer_block_megakernel_plain(h1, kb, vb, *args, w["cos"],
+                                                                    w["sin"], **w["heads"])
+                # K5's and K2's bars: their prologues' reductions run in
+                # another order than torch's (an int8 code may move by one)
+                assert ((a.float() - b.float()).abs()
+                        <= 0.05 * b.float().abs().amax(dim=1, keepdim=True)).all()
+                assert torch.equal(ka[:, 0][keep], ck[:, 0][keep])
+                assert torch.equal(va[:, 0][keep], cv[:, 0][keep])
+                for x, y in ((ka, kb), (va, vb)):
+                    r, s = x[LAYER, 0, pos].float(), y[LAYER, 0, pos].float()
+                    assert ((r - s).abs() <= 0.03 * s.abs().max()).all()
+            elif kernel == "attn_static":
+                # the same kernel on the layer's views: bitwise equal to K5
+                a, _, _ = ternary_cuda.attn_block_megakernel_static(
+                    h1, ka[LAYER], va[LAYER], w["qkv_qw"][LAYER], w["o_qw"][LAYER], p,
+                    w["qkv_scale"][LAYER], w["o_scale"][LAYER], w["input_ln"][LAYER],
+                    w["attn_sub"][LAYER], w["cos"], w["sin"], **w["heads"])
+                b, _, _ = ternary_cuda.attn_block_megakernel(
+                    h1, kb, vb, w["qkv_qw"], w["o_qw"], LAYER, p, w["qkv_scale"], w["o_scale"],
+                    w["input_ln"], w["attn_sub"], w["cos"], w["sin"], **w["heads"])
+                assert torch.equal(a, b) and torch.equal(ka, kb) and torch.equal(va, vb)
+            else:
+                for rows in (1, 5, 12):
+                    x = w["h"][:rows]
+                    a = ternary_cuda.mlp_block_megakernel_static(
+                        x, w["gateup_qw"][LAYER], w["down_qw"][LAYER], w["gateup_scale"][LAYER],
+                        w["down_scale"][LAYER], w["post_ln"][LAYER], w["ffn_sub"][LAYER])
+                    b = torch.cat([ternary_cuda.mlp_block_megakernel(
+                        x[r:r + 8], w["gateup_qw"], w["down_qw"], LAYER, w["gateup_scale"],
+                        w["down_scale"], w["post_ln"], w["ffn_sub"]) for r in range(0, rows, 8)])
+                    assert torch.equal(a, b)
+                break
+    elif kernel == "k9":
+        g = torch.Generator(device=dev).manual_seed(9)
+        for dt, d, nh, kvh, s, t, off in ((torch.bfloat16, 128, 4, 2, 128, 128, 0),
+                                          (torch.float32, 128, 4, 1, 128, 256, 128),
+                                          (torch.bfloat16, 64, 2, 2, 64, 192, 64),
+                                          (torch.float32, 64, 4, 2, 128, 128, 0)):
+            q = torch.randn((1, s, nh, d), generator=g, device=dev).to(dt)
+            k = torch.randn((1, t, kvh, d), generator=g, device=dev).to(dt)
+            v = torch.randn((1, t, kvh, d), generator=g, device=dev).to(dt)
+            a = flash_attention.flash_prefill(q, k, v, off, block_q=64, block_k=64)
+            b = flash_attention.flash_prefill_plain(q, k, v, off, block_q=64, block_k=64)
+            # f32: FMA sums in another order; bf16: p rounds to bf16 against
+            # the same running max (64-key tiles on both sides)
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    else:
+        from wrinklefree_tpu_torch.bench import calibrate
+
+        g = torch.Generator(device=dev).manual_seed(10)
+        gw = torch.randint(-127, 127, (3, 16, 512), generator=g, device=dev, dtype=torch.int8)
+        dw = torch.randint(-127, 127, (3, 24, 256), generator=g, device=dev, dtype=torch.int8)
+        h = torch.randn((8, 128), generator=g, device=dev)
+        ca, cb = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
+        for layer in (0, 2):
+            a = calibrate.touch(h, gw, dw, layer, ca, tn_gu=256, tn_d=128)
+            b = calibrate.touch_plain(h, gw, dw, layer, cb, tn_gu=256, tn_d=128)
+            assert torch.equal(a, b) and torch.equal(ca, cb)
+    torch.cuda.synchronize()

@@ -11,11 +11,17 @@ cache holds prompt + 4 * steps + 8 positions, as ``bench.py``'s.
 
 The window runs eagerly, one step at a time (the exact head reads its
 certificate on the host every step); capturing it in a CUDA graph is later
-work. Prints one JSON line with ``bench.py``'s field names, the card's name
-and its power limit:
+work. Prints one JSON line with ``bench.py``'s field names, the two mode flags,
+the card's name and its power limit:
 
     python -m wrinklefree_tpu_torch.bench.decode [--model bitnet2b|tiny]
-        [--prompt 64] [--steps 64] [--device cuda]
+        [--prompt 64] [--steps 64] [--device cuda] [--split] [--layer-mega]
+
+``--split`` runs the unrolled decode over ``split_layers_for_decode``'s
+per-layer views (``bench.py``'s ``WF_BENCH_SPLIT=1`` at batch 1);
+``--layer-mega`` runs one whole-layer kernel per layer
+(``make_linear_fused(layer_mega=True)``, the reference's
+``WF_LAYER_MEGA=1``). Both are off by default, as in the reference.
 
 Throughput does not depend on the weights' values. ``--device cpu`` runs
 the plain versions of the kernels (a smoke of the path, not a measurement).
@@ -39,6 +45,7 @@ from ..models.bitnet import (
     init_params,
     quantize_lm_head,
     resolve_device,
+    split_layers_for_decode,
 )
 from ..ops.ternary_cuda import make_linear_fused
 
@@ -46,10 +53,11 @@ MODELS = {"bitnet2b": BitNetConfig.bitnet_2b, "tiny": BitNetConfig.tiny}
 EXACT_HEAD_K = 64
 
 
-def bench_params(cfg: BitNetConfig, device):
-    """Random weights from seed 0 with the int8 head and fused projections."""
-    params = quantize_lm_head(init_params(cfg, seed=0, device=device), cfg)
-    return fuse_projections(params, cfg)
+def bench_params(cfg: BitNetConfig, device, split: bool = False):
+    """Random weights from seed 0 with the int8 head and fused projections
+    (and the per-layer views of ``split_layers_for_decode`` with ``split``)."""
+    params = fuse_projections(quantize_lm_head(init_params(cfg, seed=0, device=device), cfg), cfg)
+    return split_layers_for_decode(params, cfg) if split else params
 
 
 def exact_head(cfg: BitNetConfig, k: int = EXACT_HEAD_K):
@@ -94,16 +102,17 @@ def card_info(dev: torch.device) -> dict:
     return {"device_name": name, "power_limit": limit}
 
 
-def run(model: str = "bitnet2b", prompt_len: int = 64, steps: int = 64, device=None) -> dict:
+def run(model: str = "bitnet2b", prompt_len: int = 64, steps: int = 64, device=None,
+        split: bool = False, layer_mega: bool = False) -> dict:
     """The benchmark; returns the result line as a dict."""
     dev = resolve_device(device)
     cfg = MODELS[model]()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    params = bench_params(cfg, dev)
+    params = bench_params(cfg, dev, split)
     sync()
     init_s = time.perf_counter() - t0
-    lf = make_linear_fused()
+    lf = make_linear_fused(layer_mega=layer_mega)
     head_fn = exact_head(cfg)
     max_len = prompt_len + 4 * steps + 8
     prompt = torch.ones((1, prompt_len), dtype=torch.long, device=dev)
@@ -132,6 +141,8 @@ def run(model: str = "bitnet2b", prompt_len: int = 64, steps: int = 64, device=N
         "prefill_first_call_s": prefill_s,
         "param_init_s": init_s,
         "exact_head_k": EXACT_HEAD_K,
+        "split": split,
+        "layer_mega": layer_mega,
     }
     if dev.type == "cuda":
         result.update(card_info(dev))
@@ -144,8 +155,12 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt", type=int, default=64, help="prompt tokens")
     ap.add_argument("--steps", type=int, default=64, help="decode steps per window")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--split", action="store_true",
+                    help="unrolled decode over split_layers_for_decode's per-layer views")
+    ap.add_argument("--layer-mega", action="store_true",
+                    help="one whole-layer kernel per layer at decode")
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.model, a.prompt, a.steps, a.device)))
+    print(json.dumps(run(a.model, a.prompt, a.steps, a.device, a.split, a.layer_mega)))
     return 0
 
 

@@ -1,6 +1,8 @@
 // Fused packed-ternary linear (K1), the one-launch MLP block (K2), the
-// one-launch batch-1 attention block (K5) and the prologue-free packed-ternary
-// matmul of caller-quantized codes (K7, see its section) for Hopper.
+// one-launch batch-1 attention block (K5), the one-launch batch-1 decode layer
+// (K8: K5's stages then K2's, see its section) and the prologue-free
+// packed-ternary matmul of caller-quantized codes (K7, see its section) for
+// Hopper.
 //
 // K1 replaces wrinklefree_tpu/ops/ternary_pallas.py::ternary_matmul_stacked_fused
 // (kernel body _matmul_kernel_stacked_fused). K2 replaces mlp_block_megakernel
@@ -113,7 +115,7 @@ __device__ int block_isum(int v, int* red) {
 // One row's prologue, run by a whole block. h: the row ([K] or [gate|up] of
 // 2K); nw: the bf16 norm weight row or null; xs: shared scratch of K floats.
 // Writes the interleaved int8 codes (K bytes), the code sum and the scale.
-__device__ void prologue_row(const __nv_bfloat16* __restrict__ h, int K, int act,
+__device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
                              int norm, const __nv_bfloat16* __restrict__ nw, float eps,
                              float* xs, float* red, int8_t* __restrict__ x4,
                              int* __restrict__ rowsum, float* __restrict__ sx) {
@@ -423,18 +425,21 @@ __global__ void k7_interleave(const int8_t* __restrict__ xq, int K, int8_t* __re
 // recomputed by every block: it needs the whole gu row, and recomputing it
 // in each of the ~100+ resident blocks would multiply the gu reads and the
 // reductions by the block count for the price of one barrier saved.
+//
+// The body is a device function so that K8 can run it after K5's body in one
+// launch; there h is written by the attention stages of the same launch, so
+// it is not declared __restrict__ (no read-only cache path).
 template <int R>
-__global__ void k2_mlp(const __nv_bfloat16* __restrict__ h, int B, int H, int I, int act,
-                       const __nv_bfloat16* __restrict__ post_ln,
-                       const __nv_bfloat16* __restrict__ ffn_sub, float eps,
-                       const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
-                       int gsw_stride, const uint8_t* __restrict__ dw,
-                       const float* __restrict__ dsw, int dsw_stride,
-                       int8_t* __restrict__ x4a, int* __restrict__ rsa, float* __restrict__ sxa,
-                       __nv_bfloat16* __restrict__ gu, int8_t* __restrict__ x4b,
-                       int* __restrict__ rsb, float* __restrict__ sxb,
-                       __nv_bfloat16* __restrict__ out) {
-  extern __shared__ float smem[];
+__device__ void mlp_block(float* smem, const __nv_bfloat16* h, int B, int H, int I, int act,
+                          const __nv_bfloat16* __restrict__ post_ln,
+                          const __nv_bfloat16* __restrict__ ffn_sub, float eps,
+                          const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
+                          int gsw_stride, const uint8_t* __restrict__ dw,
+                          const float* __restrict__ dsw, int dsw_stride,
+                          int8_t* __restrict__ x4a, int* __restrict__ rsa,
+                          float* __restrict__ sxa, __nv_bfloat16* __restrict__ gu,
+                          int8_t* __restrict__ x4b, int* __restrict__ rsb,
+                          float* __restrict__ sxb, __nv_bfloat16* __restrict__ out) {
   cg::grid_group grid = cg::this_grid();
   const int NG = 2 * I;
 
@@ -473,6 +478,22 @@ __global__ void k2_mlp(const __nv_bfloat16* __restrict__ h, int B, int H, int I,
   }
 }
 
+template <int R>
+__global__ void k2_mlp(const __nv_bfloat16* __restrict__ h, int B, int H, int I, int act,
+                       const __nv_bfloat16* __restrict__ post_ln,
+                       const __nv_bfloat16* __restrict__ ffn_sub, float eps,
+                       const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
+                       int gsw_stride, const uint8_t* __restrict__ dw,
+                       const float* __restrict__ dsw, int dsw_stride,
+                       int8_t* __restrict__ x4a, int* __restrict__ rsa, float* __restrict__ sxa,
+                       __nv_bfloat16* __restrict__ gu, int8_t* __restrict__ x4b,
+                       int* __restrict__ rsb, float* __restrict__ sxb,
+                       __nv_bfloat16* __restrict__ out) {
+  extern __shared__ float smem[];
+  mlp_block<R>(smem, h, B, H, I, act, post_ln, ffn_sub, eps, gw, gsw, gsw_stride, dw, dsw,
+               dsw_stride, x4a, rsa, sxa, gu, x4b, rsb, sxb, out);
+}
+
 // ---------------------------------------------------------------- K5 ------
 
 constexpr int HD = 128;     // head dim of the attention stages
@@ -509,18 +530,20 @@ __device__ __forceinline__ float rope_at(const __nv_bfloat16* x, int d,
 // cache rows 0..pos are read. The cache, the scratch buffers and the row
 // written at pos are read through plain (coherent) loads: they are written
 // inside this launch.
-__global__ void k5_attn(const __nv_bfloat16* __restrict__ h, int H, int Q, int NH, int KV, int T,
-                        int layer, const int* __restrict__ pos_p,
-                        const __nv_bfloat16* __restrict__ input_ln,
-                        const __nv_bfloat16* __restrict__ attn_sub, int norm2, float eps,
-                        const uint8_t* __restrict__ qw, const float* __restrict__ qsw,
-                        int qsw_stride, const uint8_t* __restrict__ ow,
-                        const float* __restrict__ osw, int osw_stride,
-                        const __nv_bfloat16* __restrict__ cs, const __nv_bfloat16* __restrict__ sn,
-                        float scale, __nv_bfloat16* ck, __nv_bfloat16* cv, __nv_bfloat16* qkv,
-                        float* sc, float* part, __nv_bfloat16* attn,
-                        __nv_bfloat16* __restrict__ out) {
-  extern __shared__ float smem[];
+#define WF_K5_PARAMS                                                                       \
+  const __nv_bfloat16 *__restrict__ h, int H, int Q, int NH, int KV, int T, int layer,        \
+      const int *__restrict__ pos_p, const __nv_bfloat16 *__restrict__ input_ln,              \
+      const __nv_bfloat16 *__restrict__ attn_sub, int norm2, float eps,                       \
+      const uint8_t *__restrict__ qw, const float *__restrict__ qsw, int qsw_stride,          \
+      const uint8_t *__restrict__ ow, const float *__restrict__ osw, int osw_stride,          \
+      const __nv_bfloat16 *__restrict__ cs, const __nv_bfloat16 *__restrict__ sn, float scale, \
+      __nv_bfloat16 *ck, __nv_bfloat16 *cv, __nv_bfloat16 *qkv, float *sc, float *part,       \
+      __nv_bfloat16 *attn, __nv_bfloat16 *out
+#define WF_K5_ARGS                                                                          \
+  h, H, Q, NH, KV, T, layer, pos_p, input_ln, attn_sub, norm2, eps, qw, qsw, qsw_stride, ow, \
+      osw, osw_stride, cs, sn, scale, ck, cv, qkv, sc, part, attn, out
+
+__device__ void attn_block(float* smem, WF_K5_PARAMS) {
   cg::grid_group grid = cg::this_grid();
   const int KMAX = H > Q ? H : Q;
   float* red = smem;                                            // 32
@@ -644,6 +667,40 @@ __global__ void k5_attn(const __nv_bfloat16* __restrict__ h, int H, int Q, int N
   }
 }
 
+__global__ void k5_attn(WF_K5_PARAMS) {
+  extern __shared__ float smem[];
+  attn_block(smem, WF_K5_ARGS);
+}
+
+// ---------------------------------------------------------------- K8 ------
+
+// A whole batch-1 decode layer in one cooperative launch (replaces
+// layer_block_megakernel / _layer_megakernel): K5's five stages write h' =
+// h + o(attention) to global scratch (`out` of the attention block), a grid
+// barrier, then K2's three stages on h' at one row. Eight grid barriers in
+// all; K2's prologue of h' runs in one block behind its own barrier, as in K2.
+// The attention takes K5's two-pass softmax per query head over cache rows
+// 0..pos: the TPU kernel's per-KV-head form (scores of the G heads over all
+// T rows, -1e30 above pos) without its masked columns, whose exp(-1e30 - m)
+// is exactly 0 in f32, so the two differ only in the order of f32 sums. The
+// bound is the sum of K5's and K2's: the layer's packed weights (17.4 MB at
+// BitNet-2B) plus 2*(pos+1)*KV*D*2 bytes of cache.
+__global__ void k8_layer(WF_K5_PARAMS, int I, int act, const __nv_bfloat16* __restrict__ post_ln,
+                         const __nv_bfloat16* __restrict__ ffn_sub, float eps2,
+                         const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
+                         int gsw_stride, const uint8_t* __restrict__ dw,
+                         const float* __restrict__ dsw, int dsw_stride, int8_t* __restrict__ x4a,
+                         int* __restrict__ rsa, float* __restrict__ sxa,
+                         __nv_bfloat16* __restrict__ gu, int8_t* __restrict__ x4b,
+                         int* __restrict__ rsb, float* __restrict__ sxb,
+                         __nv_bfloat16* __restrict__ out2) {
+  extern __shared__ float smem[];
+  attn_block(smem, WF_K5_ARGS);
+  cg::this_grid().sync();
+  mlp_block<1>(smem, out, 1, H, I, act, post_ln, ffn_sub, eps2, gw, gsw, gsw_stride, dw, dsw,
+               dsw_stride, x4a, rsa, sxa, gu, x4b, rsb, sxb, out2);
+}
+
 size_t dot_smem(int R, int K) {
   return (size_t)R * (K / 4) * 4 + (size_t)KSPLIT * R * TILE_N * 4;
 }
@@ -661,6 +718,32 @@ cudaError_t launch_k1_dot(const int8_t* x4, const int* rs, const float* sx, cons
   return cudaGetLastError();
 }
 
+// Dynamic shared memory of K2's stages at R rows: the larger dot's codes and
+// partial sums, or a prologue's reduction scratch and row.
+size_t k2_smem(int R, int H, int I) {
+  size_t smem = dot_smem(R, H);
+  size_t s2 = dot_smem(R, I);
+  if (s2 > smem) smem = s2;
+  size_t sp = (size_t)(32 + (H > I ? H : I)) * 4;
+  return sp > smem ? sp : smem;
+}
+
+// K5's dynamic shared memory (see the layout at the top of attn_block).
+size_t k5_smem(int H, int Q) {
+  const int KMAX = H > Q ? H : Q;
+  return (size_t)(32 + KMAX + KMAX / 4 + KSPLIT * TILE_N + 2 * MAX_G * HD + MAX_G * ATT_CH + 2) *
+         4;
+}
+
+// K5's useful grid: the larger of its qkv tiles, o tiles and attention units.
+int k5_want(int H, int Q, int KV, int T) {
+  int want = (Q + 2 * KV * HD + TILE_N - 1) / TILE_N;
+  int tiles_o = (H + TILE_N - 1) / TILE_N;
+  int units = KV * ((T + ATT_CH - 1) / ATT_CH);
+  if (tiles_o > want) want = tiles_o;
+  return units > want ? units : want;
+}
+
 template <int R>
 cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
                       const __nv_bfloat16* post_ln, const __nv_bfloat16* ffn_sub, float eps,
@@ -668,11 +751,7 @@ cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
                       const float* dsw, int dsw_stride, int8_t* x4a, int* rsa, float* sxa,
                       __nv_bfloat16* gu, int8_t* x4b, int* rsb, float* sxb,
                       __nv_bfloat16* out, cudaStream_t st) {
-  size_t smem = dot_smem(R, H);
-  size_t s2 = dot_smem(R, I);
-  if (s2 > smem) smem = s2;
-  size_t sp = (size_t)(32 + (H > I ? H : I)) * 4;  // prologue: reduction + row
-  if (sp > smem) smem = sp;
+  size_t smem = k2_smem(R, H, I);
   cudaError_t e = cudaFuncSetAttribute(k2_mlp<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -842,43 +921,63 @@ int wf_attn_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer, 
                  void* qkv, void* sc, void* part, void* attn, void* out, void* stream) {
   if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 4)
     return cudaErrorInvalidValue;
-  const int KMAX = H > Q ? H : Q;
-  size_t smem = (size_t)(32 + KMAX + KMAX / 4 + KSPLIT * TILE_N + 2 * MAX_G * HD +
-                         MAX_G * ATT_CH + 2) * 4;
+  size_t smem = k5_smem(H, Q);
   cudaError_t e = cudaFuncSetAttribute(k5_attn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  int want = (Q + 2 * KV * HD + TILE_N - 1) / TILE_N;
-  int tiles_o = (H + TILE_N - 1) / TILE_N;
-  int units = KV * ((T + ATT_CH - 1) / ATT_CH);
-  if (tiles_o > want) want = tiles_o;
-  if (units > want) want = units;
   int blocks = 0;
-  if ((e = resident_blocks((const void*)k5_attn, smem, want, &blocks)) != cudaSuccess) return e;
-  const __nv_bfloat16* hb = (const __nv_bfloat16*)h;
-  const int* pp = (const int*)pos;
-  const __nv_bfloat16* iln = (const __nv_bfloat16*)input_ln;
-  const __nv_bfloat16* sub = (const __nv_bfloat16*)attn_sub;
-  const uint8_t* qwb = (const uint8_t*)qw;
-  const float* qswf = (const float*)qsw;
-  const uint8_t* owb = (const uint8_t*)ow;
-  const float* oswf = (const float*)osw;
-  const __nv_bfloat16* csb = (const __nv_bfloat16*)cs;
-  const __nv_bfloat16* snb = (const __nv_bfloat16*)sn;
-  __nv_bfloat16* ckb = (__nv_bfloat16*)ck;
-  __nv_bfloat16* cvb = (__nv_bfloat16*)cv;
-  __nv_bfloat16* qkvb = (__nv_bfloat16*)qkv;
-  float* scf = (float*)sc;
-  float* partf = (float*)part;
-  __nv_bfloat16* attnb = (__nv_bfloat16*)attn;
-  __nv_bfloat16* outb = (__nv_bfloat16*)out;
-  void* args[] = {(void*)&hb,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
-                  (void*)&T,    (void*)&layer, (void*)&pp,     (void*)&iln,   (void*)&sub,
-                  (void*)&norm2, (void*)&eps,  (void*)&qwb,    (void*)&qswf,  (void*)&qsw_stride,
-                  (void*)&owb,  (void*)&oswf,  (void*)&osw_stride, (void*)&csb, (void*)&snb,
-                  (void*)&scale, (void*)&ckb,  (void*)&cvb,    (void*)&qkvb,  (void*)&scf,
-                  (void*)&partf, (void*)&attnb, (void*)&outb};
+  if ((e = resident_blocks((const void*)k5_attn, smem, k5_want(H, Q, KV, T), &blocks)) !=
+      cudaSuccess)
+    return e;
+  void* args[] = {(void*)&h,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
+                  (void*)&T,   (void*)&layer, (void*)&pos,    (void*)&input_ln, (void*)&attn_sub,
+                  (void*)&norm2, (void*)&eps, (void*)&qw,     (void*)&qsw,   (void*)&qsw_stride,
+                  (void*)&ow,  (void*)&osw,   (void*)&osw_stride, (void*)&cs, (void*)&sn,
+                  (void*)&scale, (void*)&ck,  (void*)&cv,     (void*)&qkv,   (void*)&sc,
+                  (void*)&part, (void*)&attn, (void*)&out};
   e = cudaLaunchCooperativeKernel((const void*)k5_attn, dim3(blocks), dim3(THREADS), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// K8: out2[1,H] = the MLP block of h' = the attention block of h, for one
+// decode token, in one launch; writes row pos of `layer` of ck/cv in place.
+// Arguments h..out are K5's (out is h', caller scratch [1,H] bf16), I..out2
+// are K2's at one row after its h/B/H (which are h', 1 and H).
+int wf_layer_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer, const void* pos,
+                  const void* input_ln, const void* attn_sub, int norm2, float eps,
+                  const void* qw, const void* qsw, int qsw_stride, const void* ow,
+                  const void* osw, int osw_stride, const void* cs, const void* sn, float scale,
+                  void* ck, void* cv, void* qkv, void* sc, void* part, void* attn, void* out,
+                  int I, int act, const void* post_ln, const void* ffn_sub, float eps2,
+                  const void* gw, const void* gsw, int gsw_stride, const void* dw,
+                  const void* dsw, int dsw_stride, void* x4a, void* rsa, void* sxa, void* gu,
+                  void* x4b, void* rsb, void* sxb, void* out2, void* stream) {
+  if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 4 || I % 4)
+    return cudaErrorInvalidValue;
+  size_t smem = k5_smem(H, Q);
+  const size_t s2 = k2_smem(1, H, I);
+  if (s2 > smem) smem = s2;
+  cudaError_t e = cudaFuncSetAttribute(k8_layer, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int want = k5_want(H, Q, KV, T);
+  const int tiles_gu = (2 * I + TILE_N - 1) / TILE_N;
+  if (tiles_gu > want) want = tiles_gu;
+  int blocks = 0;
+  if ((e = resident_blocks((const void*)k8_layer, smem, want, &blocks)) != cudaSuccess) return e;
+  void* args[] = {(void*)&h,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
+                  (void*)&T,   (void*)&layer, (void*)&pos,    (void*)&input_ln, (void*)&attn_sub,
+                  (void*)&norm2, (void*)&eps, (void*)&qw,     (void*)&qsw,   (void*)&qsw_stride,
+                  (void*)&ow,  (void*)&osw,   (void*)&osw_stride, (void*)&cs, (void*)&sn,
+                  (void*)&scale, (void*)&ck,  (void*)&cv,     (void*)&qkv,   (void*)&sc,
+                  (void*)&part, (void*)&attn, (void*)&out,
+                  (void*)&I,   (void*)&act,   (void*)&post_ln, (void*)&ffn_sub, (void*)&eps2,
+                  (void*)&gw,  (void*)&gsw,   (void*)&gsw_stride, (void*)&dw, (void*)&dsw,
+                  (void*)&dsw_stride, (void*)&x4a, (void*)&rsa, (void*)&sxa, (void*)&gu,
+                  (void*)&x4b, (void*)&rsb,   (void*)&sxb,    (void*)&out2};
+  e = cudaLaunchCooperativeKernel((const void*)k8_layer, dim3(blocks), dim3(THREADS), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

@@ -6,14 +6,14 @@ RMSNorm, ReLU^2-gated MLP with ffn_sub_norm before down_proj, residual } ->
 final RMSNorm -> tied-embedding logits. Params are a dict of tensors with
 per-layer arrays stacked on a leading [L] axis, under the reference's key
 names. This module holds the parameters, the heads and the dense-cache
-``forward``/``generate`` (batch-1 decode runs two kernels per layer); the
-paged forward of the serving engine lives in ``kv/paged.py``.
+``forward``/``generate`` (batch-1 decode runs two kernels per layer, or one
+with the layer megakernel, or two on each layer's views after
+``split_layers_for_decode``); the paged forward of the serving engine lives
+in ``kv/paged.py``.
 
 MoE layers (``cfg.num_experts > 0``) run the plain layer step with the
-expert MLP of ``models/moe.py``. Not ported: ``split_layers_for_decode``
-and the unrolled static-weight decode path (a TPU scalar-prefetch
-workaround), tensor parallelism, expert parallelism and activation/attention
-sparsity.
+expert MLP of ``models/moe.py``. Not ported: tensor parallelism, expert
+parallelism and activation/attention sparsity.
 """
 
 from __future__ import annotations
@@ -156,6 +156,32 @@ def fuse_projections(params, cfg: BitNetConfig):
     return {**params, "layers": layers}
 
 
+def split_layers_for_decode(params, cfg: BitNetConfig):
+    """Per-layer entries for the unrolled batch-1 decode path: adds
+    ``params["layers_split"]``, a tuple of one dict per layer under the
+    reference's keys (``qkv_qw``, ``o_qw``, ``gateup_qw``, ``down_qw``, their
+    ``*_scale``, ``input_ln``, ``post_ln`` and, with sub-norms, ``attn_sub``
+    and ``ffn_sub``). Requires ``fuse_projections``.
+
+    The reference copies the packed weights once (~0.5 GB at 2B) and
+    broadcasts scales and norms to 8 f32 rows, the TPU's tile; it does so
+    to make every index map of its kernels static, which the TPU's
+    scalar-prefetch grid made costly. On the card the layer is a pointer:
+    the entries are views of ``params["layers"]`` (no copy), the weight
+    scale of a layer one value (``o``, ``down``) or its column scales
+    (``qkv``, ``gateup``), norms their bf16 rows."""
+    stack = params["layers"]
+    if "qkv_qw" not in stack or "gateup_qw" not in stack:
+        raise ValueError("split_layers_for_decode requires fuse_projections")
+    names = ["qkv", "o", "gateup", "down"]
+    norms = ["input_ln", "post_ln"] + (["attn_sub", "ffn_sub"] if cfg.sub_norms else [])
+    split = tuple(
+        {**{f"{n}_{kind}": stack[f"{n}_{kind}"][l] for n in names for kind in ("qw", "scale")},
+         **{n: stack[n][l] for n in norms}}
+        for l in range(stack["o_qw"].shape[0]))
+    return {**params, "layers_split": split}
+
+
 def quantize_lm_head(params, cfg: BitNetConfig):
     """int8 per-row quantization of the output head (approximate): adds
     ``lm_head_q`` (int8) and ``lm_head_s`` ([V] f32), which
@@ -292,14 +318,19 @@ def forward(
       (``ops.ternary_cuda.make_linear_fused``) runs norm, quant and dot in
       one call per linear, and the MLP block in one call at <= 8 rows;
     - the megakernel branch: at B = S = 1 with ``.attn_mega`` and
-      ``.mlp_mega`` on ``linear_fn``, two calls per layer (attention block,
-      then MLP block), the attention block writing the cache row in place.
+      ``.mlp_mega`` on ``linear_fn``, in the reference's order: the unrolled
+      loop over ``params["layers_split"]`` (``split_layers_for_decode``) when
+      ``linear_fn`` has ``.attn_mega_static`` and ``.mlp_mega_static``; else
+      one ``.layer_mega`` call per layer when ``linear_fn`` has it; else two
+      calls per layer (attention block, then MLP block). The attention block
+      writes the cache row in place.
 
     The reference also gates the megakernel branch on the TPU's on-chip
-    memory (``_auto_cache_ok``, ``attn_manual_tile``) and picks between two
-    attention-block kernels that compute the same function; the port always
-    takes it at batch-1 decode with its one kernel. That changes the choice
-    of kernel, not the function computed. MoE params take the plain layer
+    memory (``_auto_cache_ok``, ``attn_manual_tile``) and picks between
+    attention-block kernels that compute the same function (its manual-DMA
+    variants); the port always takes it at batch-1 decode with its one
+    kernel per branch. That changes the choice of kernel, not the function
+    computed. MoE params take the plain layer
     step, their MLP being ``models.moe.moe_ffn`` (the megakernel branch is
     dense-only, as in the reference). Tensor parallelism and activation or
     attention sparsity raise ``NotImplementedError``.
@@ -417,18 +448,42 @@ def forward(
     if attn_mega is not None and mlp_mega is not None and B == 1 and S == 1:
         h2 = hidden.reshape(B, -1)
         cos1, sin1 = cos.reshape(D), sin.reshape(D)
-        for l in range(L):
-            h2, _, _ = attn_mega(
-                h2, cache.k, cache.v, stack["qkv_qw"], stack["o_qw"], l, start_pos,
-                stack["qkv_scale"], stack["o_scale"], stack["input_ln"],
-                stack["attn_sub"] if cfg.sub_norms else None, cos1, sin1,
-                q_dim=cfg.q_dim, n_kv=KV, n_heads=cfg.num_heads, head_dim=D,
-                eps=eps, norm2=cfg.sub_norms)
-            h2 = mlp_mega(
-                h2, stack["gateup_qw"], stack["down_qw"], l, stack["gateup_scale"],
-                stack["down_scale"], stack["post_ln"],
-                stack["ffn_sub"] if cfg.sub_norms else None,
-                eps=eps, act=mlp_act, norm2=cfg.sub_norms)
+        heads = dict(q_dim=cfg.q_dim, n_kv=KV, n_heads=cfg.num_heads, head_dim=D, eps=eps)
+        attn_sub = stack["attn_sub"] if cfg.sub_norms else None
+        ffn_sub = stack["ffn_sub"] if cfg.sub_norms else None
+        split = params.get("layers_split")
+        attn_static = getattr(lf, "attn_mega_static", None)
+        mlp_static = getattr(lf, "mlp_mega_static", None)
+        layer_mega = getattr(lf, "layer_mega", None)
+        if split is not None and attn_static is not None and mlp_static is not None:
+            if len(split) != L:
+                raise ValueError(f"layers_split holds {len(split)} layers, the stack {L}")
+            for l, sl in enumerate(split):
+                h2, _, _ = attn_static(
+                    h2, ck5[l], cv5[l], sl["qkv_qw"], sl["o_qw"], start_pos, sl["qkv_scale"],
+                    sl["o_scale"], sl["input_ln"], sl.get("attn_sub"), cos1, sin1,
+                    norm2=cfg.sub_norms, **heads)
+                h2 = mlp_static(
+                    h2, sl["gateup_qw"], sl["down_qw"], sl["gateup_scale"], sl["down_scale"],
+                    sl["post_ln"], sl.get("ffn_sub"), eps=eps, act=mlp_act, norm2=cfg.sub_norms)
+        elif layer_mega is not None:
+            for l in range(L):
+                h2, _, _ = layer_mega(
+                    h2, cache.k, cache.v, stack["qkv_qw"], stack["o_qw"], stack["gateup_qw"],
+                    stack["down_qw"], l, start_pos, stack["qkv_scale"], stack["o_scale"],
+                    stack["gateup_scale"], stack["down_scale"], stack["input_ln"], attn_sub,
+                    stack["post_ln"], ffn_sub, cos1, sin1, act=mlp_act, norm2=cfg.sub_norms,
+                    **heads)
+        else:
+            for l in range(L):
+                h2, _, _ = attn_mega(
+                    h2, cache.k, cache.v, stack["qkv_qw"], stack["o_qw"], l, start_pos,
+                    stack["qkv_scale"], stack["o_scale"], stack["input_ln"], attn_sub, cos1,
+                    sin1, norm2=cfg.sub_norms, **heads)
+                h2 = mlp_mega(
+                    h2, stack["gateup_qw"], stack["down_qw"], l, stack["gateup_scale"],
+                    stack["down_scale"], stack["post_ln"], ffn_sub,
+                    eps=eps, act=mlp_act, norm2=cfg.sub_norms)
         hidden = h2.reshape(B, S, -1)
     else:
         for l in range(L):

@@ -49,7 +49,11 @@ SIGNATURES = {
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P],
     "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "wf_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "wf_stream_touch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
+# K8 takes K5's arguments (without the stream), then K2's after h, B and H
+SIGNATURES["wf_layer_mega"] = SIGNATURES["wf_attn_mega"][:-1] + SIGNATURES["wf_mlp_mega"][3:]
 
 
 def _nvcc() -> str:

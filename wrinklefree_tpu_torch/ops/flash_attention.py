@@ -1,9 +1,10 @@
-"""Paged flash attention: prefill (K4) and decode (K6), CUDA kernels and
-their plain PyTorch versions.
+"""Flash attention: causal prefill (K9), paged prefill (K4) and paged decode
+(K6), CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``wrinklefree_tpu/ops/flash_attention.py``'s
-``flash_paged_prefill`` and ``flash_paged_decode`` (``flash_prefill`` is not
-ported yet). The plain prefill is the masked-softmax GQA core of the paged
+``flash_prefill``, ``flash_paged_prefill`` and ``flash_paged_decode``. The
+plain causal prefill is the TPU kernel's blockwise online softmax, block for
+block; the plain paged prefill is the masked-softmax GQA core of the paged
 forward (``kv/paged.py::_gqa_core``) on the same inputs; the plain decode
 is the TPU kernel's online softmax with all committed pages as one update
 and the staging prefix plus the current token as the last.
@@ -20,6 +21,99 @@ import math
 import torch
 
 from . import cuda_lib
+
+
+NEG_INF = -1e30
+
+
+def _prefill_tiles(S: int, T: int, block_q: int, block_k: int):
+    ts, tc = min(block_q, S), min(block_k, T)
+    if S % ts or T % tc:
+        raise ValueError(f"S ({S}) and T ({T}) must tile by ({ts},{tc}); pad upstream")
+    return ts, tc
+
+
+def flash_prefill_plain(q, k, v, q_offset=0, *, block_q: int = 256, block_k: int = 512):
+    """Plain version of K9, the TPU kernel's arithmetic block for block: q
+    scaled by 1/sqrt(D) in its own dtype; per key block of ``block_k``, f32
+    scores masked to ``t <= q_offset + s`` with -1e30, the running max and
+    sum in f32, ``p`` cast to v's dtype before PV; ``acc / max(l, 1e-30)``
+    cast to q's dtype. Blocks after the last visible key are skipped, as
+    the kernel's are (a wholly masked block leaves the state unchanged)."""
+    B, S, NH, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = NH // KV
+    _, tc = _prefill_tiles(S, T, block_q, block_k)
+    dev = q.device
+    off = int(q_offset)
+    qs = (q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype, device=dev)).float()
+    qs = qs.reshape(B, S, KV, G, D)
+    rows = off + torch.arange(S, device=dev)
+    m = torch.full((B, KV, G, S, 1), NEG_INF, device=dev)
+    l = torch.zeros((B, KV, G, S, 1), device=dev)
+    acc = torch.zeros((B, KV, G, S, D), device=dev)
+    for c in range(min(-(-(off + S) // tc), T // tc)):
+        kb, vb = k[:, c * tc:(c + 1) * tc], v[:, c * tc:(c + 1) * tc]
+        s = torch.einsum("bskgd,btkd->bkgst", qs, kb.float())
+        ok = (c * tc + torch.arange(tc, device=dev))[None, :] <= rows[:, None]
+        s = torch.where(ok, s, torch.tensor(NEG_INF, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype).float(), vb.float())
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, NH, D)
+
+
+def flash_prefill(
+    q: torch.Tensor,  # [B, S, NH, D] bf16 or f32
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    q_offset=0,  # int, or a one-element integer tensor: query row s sees key t iff t <= q_offset + s
+    *,
+    block_q: int = 256,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Causal GQA flash attention over contiguous keys with an offset for
+    chunked prefill, without materializing the [S, T] scores. ``S`` and
+    ``T`` must tile by ``block_q``/``block_k`` (capped at S and T), as the
+    reference requires, so that both packages accept the same calls; the
+    kernel walks its own 64-key tiles."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, q_offset, block_q=block_q, block_k=block_k)
+    cuda_lib.require_cuda(q, "flash_prefill")
+    B, S, NH, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    _prefill_tiles(S, T, block_q, block_k)
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("the CUDA kernel takes q, k and v all bfloat16 or all float32")
+    if D not in (64, 128) or NH % KV or k.shape != v.shape or tuple(k.shape) != (B, T, KV, D):
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
+        raise ValueError("the CUDA kernel reads 16-byte aligned rows")
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.numel() != 1 or q_offset.dtype.is_floating_point:
+            raise ValueError("q_offset must be an int or a one-element integer tensor")
+        qoff = q_offset.to(device=q.device, dtype=torch.int32).reshape(1)
+    else:
+        if q_offset < 0:
+            raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+        qoff = torch.tensor([q_offset], dtype=torch.int32, device=q.device)
+    out = torch.empty_like(qc)
+    cuda_lib.call(
+        "wf_flash_prefill", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), qoff.data_ptr(),
+        out.data_ptr(), B, S, NH, KV, D, T, int(q.dtype == torch.float32), 1.0 / math.sqrt(D),
+        cuda_lib.stream(q),
+    )
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0
 
 
 def _lengths(x, b: int, device) -> torch.Tensor:
@@ -80,8 +174,6 @@ def flash_paged_prefill(
 
 
 flash_paged_prefill.launches = 0
-
-NEG_INF = -1e30
 
 
 def flash_paged_decode_plain(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens):

@@ -1,6 +1,6 @@
 """Fused packed-ternary linear (K1), MLP block (K2), batch-1 attention
-block (K5) and the packed-ternary matmul of quantized codes (K7): CUDA
-kernels and their plain PyTorch versions.
+block (K5), batch-1 decode layer (K8) and the packed-ternary matmul of
+quantized codes (K7): CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``wrinklefree_tpu/ops/ternary_pallas.py``:
 
@@ -15,6 +15,14 @@ Counterpart of ``wrinklefree_tpu/ops/ternary_pallas.py``:
   block with the in-place cache-row write, in one cooperative launch; the
   two TPU kernels compute the same function over the 5-D and the flat
   cache, which on the card are the same bytes);
+- :func:`layer_block_megakernel` (K8) <- ``layer_block_megakernel`` (K5's
+  stages then K2's at one row: a whole batch-1 decode layer in one
+  cooperative launch);
+- :func:`attn_block_megakernel_static` <- ``attn_block_megakernel_static``
+  and :func:`mlp_block_megakernel_static` <- ``mlp_block_megakernel_static``
+  (the same functions on one layer's tensors: the TPU needed them to avoid
+  its scalar-prefetch grid; on the card the layer is a pointer, so they
+  launch K5 and K2 on the layer's views, K2 once per group of 8 rows);
 - :func:`ternary_matmul_stacked` (K7) <- ``ternary_matmul_pallas_stacked``
   and :func:`ternary_matmul` (K7) <- ``ternary_matmul_pallas`` (int8 codes
   and their scale from the caller, packed-ternary dot, ``acc * (1/(sx*sw))``
@@ -139,15 +147,8 @@ def _cache5(c: torch.Tensor, n_layers: int, n_kv: int, head_dim: int):
     return c, c.shape[2]
 
 
-def attn_block_megakernel_plain(
-    h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
-    *, q_dim, n_kv, n_heads, head_dim, eps=1e-5, norm2=True,
-):
-    """Plain version of K5, op for op the TPU kernel's joint-dot form: fused
-    qkv linear; RoPE of k and q in bf16; the roped k row and the raw v row
-    written at ``pos``; scores in f32 times 1/sqrt(D), masked to col <= pos
-    with -1e30; ``p = bf16(e / sum(e))``; PV in f32 rounded to bf16;
-    sub-norm (if ``norm2``), quant, o dot; ``h + bf16(d)``."""
+def _attn_block_plain(h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub,
+                      cos, sin, *, q_dim, n_kv, n_heads, head_dim, eps, norm2, per_kv_head):
     L = qkv_qw.shape[0]
     D, G = head_dim, n_heads // n_kv
     ck5, T = _cache5(ck, L, n_kv, D)
@@ -162,15 +163,96 @@ def attn_block_megakernel_plain(
     ck5[layer, 0].index_copy_(0, p_idx, k[None].to(ck5.dtype))
     cv5[layer, 0].index_copy_(0, p_idx, v[None].to(cv5.dtype))
     kl, vl = ck5[layer, 0].float(), cv5[layer, 0].float()  # [T, KV, D]
-    sc = torch.einsum("kgd,tkd->kgt", q.reshape(n_kv, G, D).float(), kl) * (1.0 / math.sqrt(D))
     ok = torch.arange(T, device=h.device) <= p_idx
-    sc = torch.where(ok, sc, torch.tensor(-1e30, device=h.device))
-    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(cv5.dtype)
-    attn = torch.einsum("kgt,tkd->kgd", p.float(), vl).to(dt).reshape(1, q_dim)
+    neg = torch.tensor(-1e30, device=h.device)
+    qg = q.reshape(n_kv, G, D).float()
+    if per_kv_head:
+        heads = []
+        for kvh in range(n_kv):
+            sc = torch.where(ok, (qg[kvh] @ kl[:, kvh].t()) * (1.0 / math.sqrt(D)), neg)
+            e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+            p = (e / e.sum(dim=-1, keepdim=True)).to(cv5.dtype)
+            heads.append((p.float() @ vl[:, kvh]).to(dt))
+        attn = torch.stack(heads).reshape(1, q_dim)
+    else:
+        sc = torch.where(ok, torch.einsum("kgd,tkd->kgt", qg, kl) * (1.0 / math.sqrt(D)), neg)
+        e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        p = (e / e.sum(dim=-1, keepdim=True)).to(cv5.dtype)
+        attn = torch.einsum("kgt,tkd->kgd", p.float(), vl).to(dt).reshape(1, q_dim)
     d = ternary_matmul_stacked_fused_plain(
         attn, o_qw, layer, o_scale, attn_sub if norm2 else None, eps=eps, norm=norm2)
     return h + d, ck, cv
+
+
+def attn_block_megakernel_plain(
+    h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
+    *, q_dim, n_kv, n_heads, head_dim, eps=1e-5, norm2=True,
+):
+    """Plain version of K5, op for op the TPU kernel's joint-dot form: fused
+    qkv linear; RoPE of k and q in bf16; the roped k row and the raw v row
+    written at ``pos``; scores in f32 times 1/sqrt(D), masked to col <= pos
+    with -1e30; ``p = bf16(e / sum(e))``; PV in f32 rounded to bf16;
+    sub-norm (if ``norm2``), quant, o dot; ``h + bf16(d)``."""
+    return _attn_block_plain(
+        h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
+        q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2,
+        per_kv_head=False)
+
+
+def layer_block_megakernel_plain(
+    h, ck, cv, qkv_qw, o_qw, gateup_qw, down_qw, layer, pos, qkv_scale, o_scale, gateup_scale,
+    down_scale, input_ln, attn_sub, post_ln, ffn_sub, cos, sin,
+    *, q_dim, n_kv, n_heads, head_dim, eps=1e-5, act="relu2", norm2=True,
+):
+    """Plain version of K8: the plain K5 followed by the plain K2, with the
+    attention in ``_layer_megakernel``'s per-KV-head form
+    (``ternary_pallas.py:492-511``): for each KV head, the scores of its G
+    query heads over all T rows, -1e30 above ``pos``, softmax per row,
+    ``p = bf16(e / sum(e))``, PV. K5's joint-dot form takes one row of KV*T
+    columns per query head, the other heads' columns masked too; their
+    ``exp(-1e30 - m)`` is exactly 0 in f32, so the two forms differ only in
+    the order of their f32 sums. Returns ``(h', ck, cv)``."""
+    h1, ck, cv = _attn_block_plain(
+        h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
+        q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2,
+        per_kv_head=True)
+    out = mlp_block_megakernel_plain(h1, gateup_qw, down_qw, layer, gateup_scale, down_scale,
+                                     post_ln, ffn_sub, eps=eps, act=act, norm2=norm2)
+    return out, ck, cv
+
+
+def _scale1(s: torch.Tensor) -> torch.Tensor:
+    """One layer's weight scale as a one-layer stack: one value -> [1], N
+    column scales -> [1, N] (a view)."""
+    return s.reshape(1) if s.numel() == 1 else s.reshape(1, -1)
+
+
+def _row1(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t[None]
+
+
+def attn_block_megakernel_static_plain(
+    h, ck_l, cv_l, qkv_qw_l, o_qw_l, pos, qkv_scale_l, o_scale_l, input_ln_l, attn_sub_l, cos,
+    sin, *, q_dim, n_kv, n_heads, head_dim, eps=1e-5, norm2=True,
+):
+    """Plain version of the static attention block: K5's plain version on
+    one layer's tensors (``ck_l``/``cv_l`` [1, T, KV, D], weights [K/4, N],
+    scales of one value or [N], norm rows [K]). Returns ``(h', ck_l, cv_l)``."""
+    out, _, _ = attn_block_megakernel_plain(
+        h, ck_l[None], cv_l[None], qkv_qw_l[None], o_qw_l[None], 0, pos, _scale1(qkv_scale_l),
+        _scale1(o_scale_l), input_ln_l[None], _row1(attn_sub_l), cos, sin, q_dim=q_dim,
+        n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2)
+    return out, ck_l, cv_l
+
+
+def mlp_block_megakernel_static_plain(h, gateup_qw_l, down_qw_l, gateup_scale_l, down_scale_l,
+                                      post_ln_l, ffn_sub_l, *, eps=1e-5, act="relu2",
+                                      norm2=True):
+    """Plain version of the static MLP block: K2's plain version on one
+    layer's tensors, at any number of rows."""
+    return mlp_block_megakernel_plain(
+        h, gateup_qw_l[None], down_qw_l[None], 0, _scale1(gateup_scale_l),
+        _scale1(down_scale_l), post_ln_l[None], _row1(ffn_sub_l), eps=eps, act=act, norm2=norm2)
 
 
 # ---------------------------------------------------------------------------
@@ -257,26 +339,10 @@ def ternary_matmul_stacked_fused(
 ternary_matmul_stacked_fused.launches = 0
 
 
-def mlp_block_megakernel(
-    h: torch.Tensor,  # [..., H] bf16 pre-norm residual input, <= 8 rows
-    gateup_qw: torch.Tensor,  # [L, H//4, 2I] uint8
-    down_qw: torch.Tensor,  # [L, I//4, H] uint8
-    layer: int,
-    gateup_scale: torch.Tensor,  # [L] or [L, 2I] f32
-    down_scale: torch.Tensor,  # [L] or [L, H] f32
-    post_ln: torch.Tensor,  # [L, H] bf16
-    ffn_sub: Optional[torch.Tensor],  # [L, I] bf16 or None (no sub-norm)
-    *,
-    eps: float = 1e-5,
-    act: str = "relu2",  # relu2 | silu
-    norm2: bool = True,
-) -> torch.Tensor:
-    """Residual MLP block ``h + down(act(gateup(norm(h))))`` as one launch."""
-    if h.device.type == "cpu":
-        return mlp_block_megakernel_plain(
-            h, gateup_qw, down_qw, layer, gateup_scale, down_scale, post_ln, ffn_sub,
-            eps=eps, act=act, norm2=norm2)
-    cuda_lib.require_cuda(h, "mlp_block_megakernel")
+def _k2_prep(h, gateup_qw, down_qw, layer, gateup_scale, down_scale, post_ln, ffn_sub, *, eps,
+             act, norm2):
+    """Checks and scratch of K2 at <= 8 rows: (``wf_mlp_mega``'s arguments
+    before the stream, the output, the tensors that must outlive the launch)."""
     _check_args(gateup_qw, gateup_scale, post_ln, layer)
     _check_args(down_qw, down_scale, ffn_sub if norm2 else None, layer)
     _check_weights(gateup_qw)
@@ -308,16 +374,41 @@ def mlp_block_megakernel(
     out = torch.empty((b, hd), dtype=torch.bfloat16, device=dev)
     gsw, gsw_stride = _scale_args(gateup_scale, layer, n_gu)
     dsw, dsw_stride = _scale_args(down_scale, layer, hd)
-    cuda_lib.call(
-        "wf_mlp_mega", h2.data_ptr(), b, hd, inter, _ACTS[act], _layer_ptr(post_ln, layer),
+    args = [
+        h2.data_ptr(), b, hd, inter, _ACTS[act], _layer_ptr(post_ln, layer),
         _layer_ptr(sub, layer) if sub is not None else None, float(eps),
         _layer_ptr(gateup_qw, layer), gsw, gsw_stride, _layer_ptr(down_qw, layer), dsw,
         dsw_stride, x4a.data_ptr(), ints[0].data_ptr(), scales[0].data_ptr(), gu.data_ptr(),
         x4b.data_ptr(), ints[1].data_ptr(), scales[1].data_ptr(), out.data_ptr(),
-        cuda_lib.stream(h),
-    )
+    ]
+    return args, out.reshape(*lead, hd), (h2, x4a, x4b, ints, scales, gu)
+
+
+def mlp_block_megakernel(
+    h: torch.Tensor,  # [..., H] bf16 pre-norm residual input, <= 8 rows
+    gateup_qw: torch.Tensor,  # [L, H//4, 2I] uint8
+    down_qw: torch.Tensor,  # [L, I//4, H] uint8
+    layer: int,
+    gateup_scale: torch.Tensor,  # [L] or [L, 2I] f32
+    down_scale: torch.Tensor,  # [L] or [L, H] f32
+    post_ln: torch.Tensor,  # [L, H] bf16
+    ffn_sub: Optional[torch.Tensor],  # [L, I] bf16 or None (no sub-norm)
+    *,
+    eps: float = 1e-5,
+    act: str = "relu2",  # relu2 | silu
+    norm2: bool = True,
+) -> torch.Tensor:
+    """Residual MLP block ``h + down(act(gateup(norm(h))))`` as one launch."""
+    if h.device.type == "cpu":
+        return mlp_block_megakernel_plain(
+            h, gateup_qw, down_qw, layer, gateup_scale, down_scale, post_ln, ffn_sub,
+            eps=eps, act=act, norm2=norm2)
+    cuda_lib.require_cuda(h, "mlp_block_megakernel")
+    args, out, _scratch = _k2_prep(h, gateup_qw, down_qw, layer, gateup_scale, down_scale,
+                                   post_ln, ffn_sub, eps=eps, act=act, norm2=norm2)
+    cuda_lib.call("wf_mlp_mega", *args, cuda_lib.stream(h))
     mlp_block_megakernel.launches += 1
-    return out.reshape(*lead, hd)
+    return out
 
 
 mlp_block_megakernel.launches = 0
@@ -325,39 +416,10 @@ mlp_block_megakernel.launches = 0
 ATTN_CHUNK = 64  # cache rows per attention work unit of K5 (csrc/ternary.cu)
 
 
-def attn_block_megakernel(
-    h: torch.Tensor,  # [1, H] bf16 pre-norm residual input
-    ck: torch.Tensor,  # [L, 1, T, KV, D] or flat [L*T*KV, D] bf16, row pos written in place
-    cv: torch.Tensor,
-    qkv_qw: torch.Tensor,  # [L, H//4, Q + 2*KV*D] uint8
-    o_qw: torch.Tensor,  # [L, Q//4, H] uint8
-    layer: int,
-    pos,  # int, or an int32 device tensor of one element: write/mask position
-    qkv_scale: torch.Tensor,  # [L] or [L, Q + 2*KV*D] f32
-    o_scale: torch.Tensor,  # [L] or [L, H] f32
-    input_ln: torch.Tensor,  # [L, H] bf16
-    attn_sub: Optional[torch.Tensor],  # [L, Q] bf16, or None (no sub-norm)
-    cos: torch.Tensor,  # [D] rope row of the current position (used as bf16)
-    sin: torch.Tensor,
-    *,
-    q_dim: int,
-    n_kv: int,
-    n_heads: int,
-    head_dim: int,
-    eps: float = 1e-5,
-    norm2: bool = True,
-):
-    """Residual attention block of one decode token as one launch: returns
-    ``(h', ck, cv)`` with row ``pos`` of layer ``layer`` written in place.
-
-    A tensor ``pos`` stays on the device (no host read, so a decode loop
-    queues without waiting); the kernel clamps it to [0, T-1]."""
-    if h.device.type == "cpu":
-        return attn_block_megakernel_plain(
-            h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub,
-            cos, sin, q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim,
-            eps=eps, norm2=norm2)
-    cuda_lib.require_cuda(h, "attn_block_megakernel")
+def _k5_prep(h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos,
+             sin, *, q_dim, n_kv, n_heads, head_dim, eps, norm2):
+    """Checks and scratch of K5: (``wf_attn_mega``'s arguments before the
+    stream, the output h', the tensors that must outlive the launch)."""
     sub = attn_sub if norm2 else None
     _check_args(qkv_qw, qkv_scale, input_ln, layer)
     _check_args(o_qw, o_scale, sub, layer)
@@ -404,19 +466,193 @@ def attn_block_megakernel(
     out = torch.empty((1, hd), dtype=torch.bfloat16, device=dev)
     qsw, qsw_stride = _scale_args(qkv_scale, layer, n_q)
     osw, osw_stride = _scale_args(o_scale, layer, hd)
-    cuda_lib.call(
-        "wf_attn_mega", h2.data_ptr(), hd, q_dim, n_heads, n_kv, T, layer, pos_t.data_ptr(),
+    args = [
+        h2.data_ptr(), hd, q_dim, n_heads, n_kv, T, layer, pos_t.data_ptr(),
         _layer_ptr(input_ln, layer), _layer_ptr(sub, layer) if sub is not None else None,
         int(norm2), float(eps), _layer_ptr(qkv_qw, layer), qsw, qsw_stride,
         _layer_ptr(o_qw, layer), osw, osw_stride, cb.data_ptr(), sb.data_ptr(),
         1.0 / math.sqrt(D), ck.data_ptr(), cv.data_ptr(), qkv.data_ptr(), scores.data_ptr(),
-        partial.data_ptr(), attn.data_ptr(), out.data_ptr(), cuda_lib.stream(h),
-    )
+        partial.data_ptr(), attn.data_ptr(), out.data_ptr(),
+    ]
+    return args, out, (h2, pos_t, cb, sb, qkv, scores, partial, attn)
+
+
+def attn_block_megakernel(
+    h: torch.Tensor,  # [1, H] bf16 pre-norm residual input
+    ck: torch.Tensor,  # [L, 1, T, KV, D] or flat [L*T*KV, D] bf16, row pos written in place
+    cv: torch.Tensor,
+    qkv_qw: torch.Tensor,  # [L, H//4, Q + 2*KV*D] uint8
+    o_qw: torch.Tensor,  # [L, Q//4, H] uint8
+    layer: int,
+    pos,  # int, or an int32 device tensor of one element: write/mask position
+    qkv_scale: torch.Tensor,  # [L] or [L, Q + 2*KV*D] f32
+    o_scale: torch.Tensor,  # [L] or [L, H] f32
+    input_ln: torch.Tensor,  # [L, H] bf16
+    attn_sub: Optional[torch.Tensor],  # [L, Q] bf16, or None (no sub-norm)
+    cos: torch.Tensor,  # [D] rope row of the current position (used as bf16)
+    sin: torch.Tensor,
+    *,
+    q_dim: int,
+    n_kv: int,
+    n_heads: int,
+    head_dim: int,
+    eps: float = 1e-5,
+    norm2: bool = True,
+):
+    """Residual attention block of one decode token as one launch: returns
+    ``(h', ck, cv)`` with row ``pos`` of layer ``layer`` written in place.
+
+    A tensor ``pos`` stays on the device (no host read, so a decode loop
+    queues without waiting); the kernel clamps it to [0, T-1]."""
+    if h.device.type == "cpu":
+        return attn_block_megakernel_plain(
+            h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub,
+            cos, sin, q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim,
+            eps=eps, norm2=norm2)
+    cuda_lib.require_cuda(h, "attn_block_megakernel")
+    args, out, _scratch = _k5_prep(
+        h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
+        q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2)
+    cuda_lib.call("wf_attn_mega", *args, cuda_lib.stream(h))
     attn_block_megakernel.launches += 1
     return out, ck, cv
 
 
 attn_block_megakernel.launches = 0
+
+
+def layer_block_megakernel(
+    h: torch.Tensor,  # [1, H] bf16 pre-norm residual input
+    ck: torch.Tensor,  # [L, 1, T, KV, D] or flat [L*T*KV, D] bf16, row pos written in place
+    cv: torch.Tensor,
+    qkv_qw: torch.Tensor,  # [L, H//4, Q + 2*KV*D] uint8
+    o_qw: torch.Tensor,  # [L, Q//4, H] uint8
+    gateup_qw: torch.Tensor,  # [L, H//4, 2I] uint8
+    down_qw: torch.Tensor,  # [L, I//4, H] uint8
+    layer: int,
+    pos,  # int, or an int32 device tensor of one element
+    qkv_scale: torch.Tensor,  # [L] or [L, Q + 2*KV*D] f32
+    o_scale: torch.Tensor,  # [L] or [L, H] f32
+    gateup_scale: torch.Tensor,  # [L] or [L, 2I] f32
+    down_scale: torch.Tensor,  # [L] or [L, H] f32
+    input_ln: torch.Tensor,  # [L, H] bf16
+    attn_sub: Optional[torch.Tensor],  # [L, Q] bf16 or None
+    post_ln: torch.Tensor,  # [L, H] bf16
+    ffn_sub: Optional[torch.Tensor],  # [L, I] bf16 or None
+    cos: torch.Tensor,  # [D] rope row of the current position (used as bf16)
+    sin: torch.Tensor,
+    *,
+    q_dim: int,
+    n_kv: int,
+    n_heads: int,
+    head_dim: int,
+    eps: float = 1e-5,
+    act: str = "relu2",  # relu2 | silu
+    norm2: bool = True,
+):
+    """A whole batch-1 decode layer as one launch (K8): the attention block
+    and the MLP block of one token. Returns ``(h', ck, cv)`` with row ``pos``
+    of layer ``layer`` written in place. Batch 1 only, as the reference."""
+    if h.device.type == "cpu":
+        return layer_block_megakernel_plain(
+            h, ck, cv, qkv_qw, o_qw, gateup_qw, down_qw, layer, pos, qkv_scale, o_scale,
+            gateup_scale, down_scale, input_ln, attn_sub, post_ln, ffn_sub, cos, sin,
+            q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, act=act,
+            norm2=norm2)
+    cuda_lib.require_cuda(h, "layer_block_megakernel")
+    a5, h1, _scratch5 = _k5_prep(
+        h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
+        q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2)
+    a2, out, _scratch2 = _k2_prep(h1, gateup_qw, down_qw, layer, gateup_scale, down_scale,
+                                  post_ln, ffn_sub, eps=eps, act=act, norm2=norm2)
+    # K2's arguments after h', B = 1 and H, which K8 takes from K5's
+    cuda_lib.call("wf_layer_mega", *a5, *a2[3:], cuda_lib.stream(h))
+    layer_block_megakernel.launches += 1
+    return out, ck, cv
+
+
+layer_block_megakernel.launches = 0
+
+
+def attn_block_megakernel_static(
+    h: torch.Tensor,  # [1, H] bf16
+    ck_l: torch.Tensor,  # [1, T, KV, D] bf16: this layer's cache, row pos written in place
+    cv_l: torch.Tensor,
+    qkv_qw_l: torch.Tensor,  # [H//4, Q + 2*KV*D] uint8
+    o_qw_l: torch.Tensor,  # [Q//4, H] uint8
+    pos,  # int, or an int32 device tensor of one element
+    qkv_scale_l: torch.Tensor,  # one f32 value or [Q + 2*KV*D]
+    o_scale_l: torch.Tensor,  # one f32 value or [H]
+    input_ln_l: torch.Tensor,  # [H] bf16
+    attn_sub_l: Optional[torch.Tensor],  # [Q] bf16 or None
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    q_dim: int,
+    n_kv: int,
+    n_heads: int,
+    head_dim: int,
+    eps: float = 1e-5,
+    norm2: bool = True,
+):
+    """The attention block on one layer's tensors (the unrolled decode
+    path's): K5 launched on the layer's pointers, counted here and not in
+    ``attn_block_megakernel.launches``. Returns ``(h', ck_l, cv_l)``."""
+    if h.device.type == "cpu":
+        return attn_block_megakernel_static_plain(
+            h, ck_l, cv_l, qkv_qw_l, o_qw_l, pos, qkv_scale_l, o_scale_l, input_ln_l, attn_sub_l,
+            cos, sin, q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps,
+            norm2=norm2)
+    cuda_lib.require_cuda(h, "attn_block_megakernel_static")
+    args, out, _scratch = _k5_prep(
+        h, ck_l[None], cv_l[None], qkv_qw_l[None], o_qw_l[None], 0, pos, _scale1(qkv_scale_l),
+        _scale1(o_scale_l), input_ln_l[None], _row1(attn_sub_l), cos, sin, q_dim=q_dim,
+        n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2)
+    cuda_lib.call("wf_attn_mega", *args, cuda_lib.stream(h))
+    attn_block_megakernel_static.launches += 1
+    return out, ck_l, cv_l
+
+
+attn_block_megakernel_static.launches = 0
+
+
+def mlp_block_megakernel_static(
+    h: torch.Tensor,  # [..., H] bf16, any number of rows
+    gateup_qw_l: torch.Tensor,  # [H//4, 2I] uint8
+    down_qw_l: torch.Tensor,  # [I//4, H] uint8
+    gateup_scale_l: torch.Tensor,  # one f32 value or [2I]
+    down_scale_l: torch.Tensor,  # one f32 value or [H]
+    post_ln_l: torch.Tensor,  # [H] bf16
+    ffn_sub_l: Optional[torch.Tensor],  # [I] bf16 or None
+    *,
+    eps: float = 1e-5,
+    act: str = "relu2",
+    norm2: bool = True,
+) -> torch.Tensor:
+    """The MLP block on one layer's tensors at any number of rows: K2
+    launched on the layer's pointers once per group of 8 rows, counted here
+    and not in ``mlp_block_megakernel.launches``."""
+    if h.device.type == "cpu":
+        return mlp_block_megakernel_static_plain(
+            h, gateup_qw_l, down_qw_l, gateup_scale_l, down_scale_l, post_ln_l, ffn_sub_l,
+            eps=eps, act=act, norm2=norm2)
+    cuda_lib.require_cuda(h, "mlp_block_megakernel_static")
+    layer_args = (gateup_qw_l[None], down_qw_l[None], 0, _scale1(gateup_scale_l),
+                  _scale1(down_scale_l), post_ln_l[None], _row1(ffn_sub_l))
+    lead, hd = h.shape[:-1], h.shape[-1]
+    h2 = h.reshape(-1, hd)
+    outs = []
+    for r0 in range(0, h2.shape[0], 8):
+        args, out, _scratch = _k2_prep(h2[r0:r0 + 8], *layer_args, eps=eps, act=act, norm2=norm2)
+        cuda_lib.call("wf_mlp_mega", *args, cuda_lib.stream(h))
+        mlp_block_megakernel_static.launches += 1
+        outs.append(out)
+    if not outs:
+        return torch.empty_like(h)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)).reshape(*lead, hd)
+
+
+mlp_block_megakernel_static.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -589,14 +825,19 @@ def make_linear_stacked(matmul=ternary_matmul_stacked, expert_matmul=ternary_mat
 
 
 def make_linear_fused(linear=ternary_matmul_stacked_fused, mlp=mlp_block_megakernel,
-                      attn=attn_block_megakernel):
+                      attn=attn_block_megakernel, layer=layer_block_megakernel,
+                      attn_static=attn_block_megakernel_static,
+                      mlp_static=mlp_block_megakernel_static, layer_mega=False):
     """Fused-prologue stacked ``linear_fn`` for ``paged_forward`` and
     ``models.bitnet.forward``: ``callable(h, qw_stack, scale, layer,
     norm_w=None, *, act, norm, eps)`` with ``.stacked``/``.prologue`` set,
-    ``.mlp_mega`` collapsing the MLP block into one call and ``.attn_mega``
-    the batch-1 attention block. ``linear``/``mlp``/``attn`` default to the
-    kernel wrappers; passing the ``*_plain`` functions gives the plain path
-    on any device."""
+    ``.mlp_mega`` collapsing the MLP block into one call, ``.attn_mega`` the
+    batch-1 attention block, ``.attn_mega_static``/``.mlp_mega_static`` the
+    two blocks on one layer's tensors (the unrolled decode over
+    ``split_layers_for_decode``'s params) and, with ``layer_mega=True`` (the
+    reference's ``WF_LAYER_MEGA=1``), ``.layer_mega`` the whole batch-1 decode
+    layer. The functions default to the kernel wrappers; passing the
+    ``*_plain`` functions gives the plain path on any device."""
 
     def linear_fn(h, qw_stack, scale, layer, norm_w=None, *, act="none", norm=True,
                   eps=1e-5, out_dtype=torch.bfloat16):
@@ -612,4 +853,8 @@ def make_linear_fused(linear=ternary_matmul_stacked_fused, mlp=mlp_block_megaker
     linear_fn.prologue = True
     linear_fn.mlp_mega = mlp_mega_fn
     linear_fn.attn_mega = attn
+    linear_fn.attn_mega_static = attn_static
+    linear_fn.mlp_mega_static = mlp_static
+    if layer_mega:
+        linear_fn.layer_mega = layer
     return linear_fn
