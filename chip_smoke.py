@@ -11,11 +11,14 @@ vocab 128256) with random weights drawn on the card from seed 0:
                inputs at the main paths' shapes, timed beside its bound
                (bytes over 3.35 TB/s or operations over the published dense
                peak) and a PyTorch library call; the static wrappers also
-               bitwise against K5/K2, and the causal flash prefill, which no
-               path runs, only here;
+               bitwise against K5/K2, K1 above 8 rows (the tensor-core GEMM)
+               bitwise against K1 over its 8-row slices, and the causal
+               flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
-               functions, logits compared;
+               functions, logits compared; then one 512-token chunk under
+               the profiler (the ``prefill:`` line: its device ms and K1's
+               share);
 4. batch1    — ``models.bitnet.forward`` at batch 1 (the path of
                ``wrinklefree_tpu_torch.bench.decode``) in its three modes
                (the default K5 + K2 pair, ``split``: the static wrappers on
@@ -28,7 +31,8 @@ vocab 128256) with random weights drawn on the card from seed 0:
                device's busy share per mode;
 5. engine    — ``Engine``: six greedy requests (prompts of 17..700 tokens,
                32 new tokens each) and two radix-cache resubmissions, every
-               serving kernel's launch counter growing; then the six
+               serving kernel's launch counter growing (K1's GEMM in the
+               prefills: ``tiled_launches``); then the six
                requests again with ``flash_decode=True``, whose decode
                attention kernel must launch;
 6. moe       — the repo's MoE configuration (8 layers, 8 experts, top-2) on
@@ -112,6 +116,17 @@ KERNELS = {
         "source": "wrinklefree_tpu_torch/csrc/calibrate.cu",
         "replaces": "wrinklefree_tpu/bench/calibrate.py:50",
     },
+    # K1 and K7 above 8 rows: their wrappers' calls that end in the
+    # tensor-core GEMM, counted in each wrapper's tiled_launches
+    "ternary_matmul_stacked_fused/tiled": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary_gemm.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:353",
+    },
+    "ternary_matmul_stacked/tiled": {
+        "source": "wrinklefree_tpu_torch/csrc/ternary_gemm.cu",
+        "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:228",
+        "also_replaces": "wrinklefree_tpu/ops/ternary_pallas.py:132",
+    },
 }
 
 
@@ -180,6 +195,33 @@ def bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the library yardstick of K1 and K7 above 8 rows (library_bf16_ms: the bf16
+# matmul on unpacked weights that they are timed against at <= 8 rows)
+INT_MM = "torch._int_mm (int8 codes x signed int8 weights, int32 out)"
+
+
+def tc_share(ops: float, ms: float) -> float:
+    """Share of the int8 tensor-core peak that `ops` operations in `ms` reach."""
+    return ops / (ms * 1e-3 * PEAK_OPS["int8"])
+
+
+class TiledCounter:
+    """A wrapper's ``tiled_launches`` (its calls above 8 rows, which end in
+    the tensor-core GEMM), zeroed and read like a wrapper's ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = fn.__name__ + "/tiled"
+
+    @property
+    def launches(self):
+        return self.fn.tiled_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.tiled_launches = n
+
+
 class Cycle:
     """Layer index that advances on every call, so each launch streams
     another layer's weights (the stacks exceed the 50 MB L2, as in decode)."""
@@ -209,25 +251,38 @@ def phase_kernels(params, cfg, dev, results):
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    # ---- K1 at the four linears of a layer, at 1, 8 and 512 rows
+    # ---- K1 at the four linears of a layer, at 1, 8, 64 and 512 rows; above
+    # 8 rows (the tensor-core GEMM) also bit for bit against K1 over its
+    # 8-row slices (the same prologue per row, exact dot and epilogue)
     shapes = [  # name, weights, scales, norm row, act, input width
         ("qkv", "qkv", "input_ln", "none", H),
         ("o", "o", "attn_sub", "none", Q),
         ("gateup", "gateup", "post_ln", "none", H),
         ("down", "down", "ffn_sub", "relu2", 2 * I),
     ]
-    k1_rows, k1_err = [], 0.0
+    k1_rows, k1_err, slice_checks = [], 0.0, 0
     for name, w, nrm, act, kin in shapes:
         qw, sw, nw = st[w + "_qw"], st[w + "_scale"], st[nrm]
         k, n = 4 * qw.shape[1], qw.shape[2]
-        # the library yardstick: bf16 matmul against every layer's unpacked
-        # weight, cycled like the kernel's layers
+        # the library yardsticks, cycled like the kernel's layers: bf16 matmul
+        # against every layer's unpacked weight and, above 8 rows,
+        # torch._int_mm of int8 codes with the signed int8 weights (the exact
+        # int32 dot at the int8 peak; stored [N, K], K-major)
         wls = [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(L)]
-        for rows in (1, 8, 512):
+        wis = [w.to(torch.int8).t().contiguous() for w in wls]
+        for rows in (1, 8, 64, 512):
             x = rnd(rows, kin)
             lay = Cycle(L)
             a = tc.ternary_matmul_stacked_fused(x, qw, 3, sw, nw, act=act)
             b = tc.ternary_matmul_stacked_fused_plain(x, qw, 3, sw, nw, act=act)
+            if rows > 8:
+                sl = torch.cat([tc.ternary_matmul_stacked_fused(x[r:r + 8], qw, 3, sw, nw, act=act)
+                                for r in range(0, rows, 8)])
+                torch.cuda.synchronize()
+                if not torch.equal(a, sl):
+                    fail(f"K1 {name} rows={rows}: differs from K1 over its 8-row slices by "
+                         f"{(a.float() - sl.float()).abs().max().item()}")
+                slice_checks += 1
             torch.cuda.synchronize()
             d = (a.float() - b.float()).abs()
             rel = (d / b.float().abs().amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
@@ -245,17 +300,28 @@ def phase_kernels(params, cfg, dev, results):
                 iters=5, warmup=1)
             xl = x[:, :k].contiguous()
             lib_ms, _ = cuda_ms(lambda: torch.matmul(xl, wls[lay()]))
+            lib = dict(library_ms=lib_ms)
+            if rows > 8:
+                xi = torch.randint(-128, 128, (rows, k), generator=g, device=dev,
+                                   dtype=torch.int8)
+                int_ms, _ = cuda_ms(lambda: torch._int_mm(xi, wis[lay()].t()))
+                lib = dict(library_ms=int_ms, library_bf16_ms=lib_ms, library=INT_MM,
+                           tc_share=tc_share(2 * rows * k * n, ms))
             nbytes = rows * kin * 2 + k // 4 * n + n * 4 + k * 2 + rows * n * 2
             b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
             k1_rows.append(dict(shape=f"{name} {k}->{n} rows={rows}", ms=ms, call_ms=call_ms,
-                                plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=d.max().item(), exact_share=eq))
-        del wls
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                max_abs_err=d.max().item(), exact_share=eq, **lib))
+        del wls, wis
     for r in k1_rows:
         print("kernels: K1 " + json.dumps(r))
+    print(f"kernels: K1 above 8 rows bitwise equal to K1 over its 8-row slices in "
+          f"{slice_checks}/{slice_checks} checks")
     pick = next(r for r in k1_rows if r["shape"].startswith("qkv") and r["shape"].endswith("=8"))
     results["ternary_matmul_stacked_fused"] = dict(pick, max_abs_err=k1_err)
+    results["ternary_matmul_stacked_fused/tiled"] = dict(
+        next(r for r in k1_rows if r["shape"].startswith("qkv") and r["shape"].endswith("=512")),
+        max_abs_err=max(r["max_abs_err"] for r in k1_rows if int(r["shape"].split("=")[-1]) > 8))
 
     # ---- K2 at 1 and 8 rows
     k2_rows, k2_err = [], 0.0
@@ -552,7 +618,8 @@ def kernels_k7(params, cfg, dev, g, results):
     integer dot, the same IEEE rescale). Each shape cycles over enough
     distinct weight matrices (>= 64 MB) that the weights stream from HBM;
     the library yardstick is a bf16 matmul on unpacked weights, cycled the
-    same way."""
+    same way, and above 8 rows ``torch._int_mm`` on the signed int8 weights
+    (in the int32 mode first checked equal to the kernel)."""
     import torch
 
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
@@ -564,18 +631,19 @@ def kernels_k7(params, cfg, dev, g, results):
         nl = max(8, math.ceil(min_bytes / (k // 4 * n)))
         return torch.randint(0, 256, (nl, k // 4, n), generator=g, device=dev, dtype=torch.uint8)
 
-    def library(qw, k, n):
+    def library(qw, k, n):  # bf16 [K, N] and signed int8 [N, K] (K-major)
         nl = min(qw.shape[0], max(2, math.ceil(64e6 / (k * n * 2))))
-        return [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(nl)]
+        ws = [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(nl)]
+        return ws, [w.to(torch.int8).t().contiguous() for w in ws]
 
     st = params["layers"]
     cases = [  # name, weights, scales ([L], [L, N] or None: one matrix), rows, mode
-        ("q", (H, Q), "layer", (1, 8, 512), "bf16"),
-        ("k", (H, KVD), "layer", (1, 8, 512), "bf16"),
-        ("o", (Q, H), "layer", (1, 8, 512), "bf16"),
-        ("qkv", None, "column", (8,), "bf16"),
-        ("expert gate", (H, I), "matrix", (8, 512), "bf16"),
-        ("expert down", (I, H), "matrix", (8, 512), "bf16"),
+        ("q", (H, Q), "layer", (1, 8, 64, 512), "bf16"),
+        ("k", (H, KVD), "layer", (1, 8, 64, 512), "bf16"),
+        ("o", (Q, H), "layer", (1, 8, 64, 512), "bf16"),
+        ("qkv", None, "column", (8, 512), "bf16"),
+        ("expert gate", (H, I), "matrix", (8, 64, 512), "bf16"),
+        ("expert down", (I, H), "matrix", (8, 64, 512), "bf16"),
         ("q int32", (H, Q), "matrix", (8, 512), "int32"),
     ]
     rows_out, checks = [], 0
@@ -587,7 +655,7 @@ def kernels_k7(params, cfg, dev, g, results):
             sw = torch.rand((qw.shape[0],), generator=g, device=dev) * 80 + 10
         nl, k4, n = qw.shape
         k = 4 * k4
-        lib_w = library(qw, k, n)
+        lib_w, lib_i = library(qw, k, n)
         for rows in all_rows:
             xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
             sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
@@ -609,21 +677,31 @@ def kernels_k7(params, cfg, dev, g, results):
             plain_ms, _ = cuda_ms(lambda: pla(*args(lay())), iters=5, warmup=1)
             xb = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
             lib_ms, _ = cuda_ms(lambda: torch.matmul(xb, lib_w[lib_lay()]))
+            lib = dict(library_ms=lib_ms)
+            if rows > 8:  # the int8 yardstick, the exact int32 dot of the same codes
+                if mode == "int32" and not torch.equal(ker(*args(0)),
+                                                       torch._int_mm(xq, lib_i[0].t())):
+                    fail(f"K7 {name} rows={rows}: torch._int_mm is not the function timed")
+                int_ms, _ = cuda_ms(lambda: torch._int_mm(xq, lib_i[lib_lay()].t()))
+                lib = dict(library_ms=int_ms, library_bf16_ms=lib_ms, library=INT_MM,
+                           tc_share=tc_share(2 * rows * k * n, ms))
             out_bytes = 4 if mode == "int32" else 2
             sw_bytes = 0 if mode == "int32" else (n * 4 if scale == "column" else 4)
             nbytes = rows * k + (0 if mode == "int32" else rows * 4) + k4 * n + sw_bytes \
                 + rows * n * out_bytes
             b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
             rows_out.append(dict(shape=f"{name} {k}->{n} ({scale} scale, {mode}) rows={rows}",
-                                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))
-        del qw, lib_w
+                                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=0.0, **lib))
+        del qw, lib_w, lib_i
     for r in rows_out:
         print("kernels: K7 " + json.dumps(r))
     print(f"kernels: K7 bitwise equal to its plain version in {checks}/{checks} checks")
     # the MoE decode step's most frequent launch: an expert dot at 8 rows
     results["ternary_matmul_stacked"] = next(
         r for r in rows_out if r["shape"].startswith("expert gate") and r["shape"].endswith("=8"))
+    results["ternary_matmul_stacked/tiled"] = next(
+        r for r in rows_out if r["shape"].startswith("expert gate") and r["shape"].endswith("=512"))
 
 
 def _layer_library(cfg, wls, h, ck, cv, lay, pos, attn=True, mlp=True):
@@ -1012,6 +1090,48 @@ def compare_logits(what, ker, pla, depth, floor):
                 fail(f"{what} step {step}: argmax {ia} vs {ib} with top-2 gap {gap}")
             ties.append(dict(step=step, kernels=ia, plain=ib, top2_gap=gap))
     return worst, agree, bar, ties
+
+
+def phase_prefill(params, cfg, dev):
+    """One 512-token prefill chunk of ``paged_forward`` (the engine's
+    largest bucket) at full width and depth, under the profiler: its device
+    ms and the share of it in K1 (``k1_prologue`` and the tensor-core GEMM,
+    four K1 calls per layer). Returns the device ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wrinklefree_tpu_torch.kv.paged import PagedKV, paged_forward
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 512), generator=g).to(dev)
+    pt = torch.arange(1, 33, dtype=torch.int32, device=dev)[None]
+    pools = PagedKV.zeros_dual(cfg, 40, 16, 1, device=dev)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    seq, n_new = torch.tensor([0], device=dev), torch.tensor([512], device=dev)
+
+    def chunk():
+        return paged_forward(params, cfg, prompt, pools, pt, seq, n_new, slot_ids=slot)[0]
+
+    logits = chunk()
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all():
+        fail("prefill: non-finite logits")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.device_time_total for e in evs) / 1e3
+    k1 = sum(e.device_time_total for e in evs
+             if "k1_prologue" in e.key or "k_ternary_gemm" in e.key) / 1e3
+    if not (total > 0 and k1 > 0):
+        fail(f"prefill: no device time recorded for the chunk or its K1 calls ({total}, {k1})")
+    top = sorted(evs, key=lambda e: -e.device_time_total)[:6]
+    print(f"prefill: one 512-token chunk of paged_forward, {cfg.num_layers} layers at full width: "
+          f"{total} ms of device time, K1 (prologue + tensor-core GEMM) {k1} ms ({k1 / total} of "
+          "it); device ms by kernel: "
+          + json.dumps({e.key[:60]: e.device_time_total / 1e3 for e in top}))
+    return total
 
 
 BATCH1_MODES = {  # bench.decode's modes -> the kernels each launches once per layer and token
@@ -1437,8 +1557,9 @@ def phase_moe(dev):
     2. the fake-MoE oracle: the dense 8-layer model and the fake-MoE model
        built from its weights (8 identical experts, a zero router), both
        through the K7 path: logits equal bit for bit at every step;
-    3. the engine phase on the MoE model: K7, K3 and K4 launch, K1 and K2 do
-       not, and K7 launches exactly (4 + 3 E) L times per decode step.
+    3. the engine phase on the MoE model: K7 (its prefills through the
+       tensor-core GEMM), K3 and K4 launch, K1 and K2 do not, and K7 launches
+       exactly (4 + 3 E) L times per decode step.
     Returns the engine's launches."""
     import dataclasses
 
@@ -1480,7 +1601,8 @@ def phase_moe(dev):
 
     per_step = (4 + 3 * cfg.num_experts) * cfg.num_layers
     launches, _ = phase_engine(
-        params, cfg, dev, [tc.ternary_matmul_stacked, kvu.kv_write, fa.flash_paged_prefill],
+        params, cfg, dev, [tc.ternary_matmul_stacked, TiledCounter(tc.ternary_matmul_stacked),
+                           kvu.kv_write, fa.flash_paged_prefill],
         tag="moe engine", idle=[tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel],
         per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False)
     return launches
@@ -1507,7 +1629,10 @@ def main() -> int:
         return 2
 
     secs = cuda_lib.timed_build()
-    print(f"build: {secs} s ({cuda_lib.build()})")
+    report = cuda_lib.BUILD_DIR / "ptxas.txt"
+    per = ([line[3:] for line in report.read_text().splitlines() if line.startswith("== ")]
+           if report.exists() else [])
+    print(f"build: {secs} s ({cuda_lib.build()}); per source: {', '.join(per)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
@@ -1522,6 +1647,7 @@ def main() -> int:
     results = {}
     phase_kernels(params, cfg, dev, results)
     floors = phase_forward(params, cfg, dev)
+    phase_prefill(params, cfg, dev)
     # the batch-1 path reads the int8 head (its exact head scans it); the
     # engine's params keep the bf16 head only
     flash_prefill_launches = fa.flash_prefill.launches  # it has no path: the kernels phase's
@@ -1529,8 +1655,8 @@ def main() -> int:
                           [tc.attn_block_megakernel, tc.mlp_block_megakernel,
                            tc.ternary_matmul_stacked_fused, tc.layer_block_megakernel,
                            tc.attn_block_megakernel_static, tc.mlp_block_megakernel_static])
-    serving = [tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel, kvu.kv_write,
-               fa.flash_paged_prefill]
+    serving = [tc.ternary_matmul_stacked_fused, TiledCounter(tc.ternary_matmul_stacked_fused),
+               tc.mlp_block_megakernel, kvu.kv_write, fa.flash_paged_prefill]
     launches, toks = phase_engine(params, cfg, dev, serving)
     flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
                                 flash_decode=True)
@@ -1547,6 +1673,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_moe(dev)
     launches["ternary_matmul_stacked"] = moe["ternary_matmul_stacked"]
+    launches["ternary_matmul_stacked/tiled"] = moe["ternary_matmul_stacked/tiled"]
     launches["measure_stream_us_per_layer"] = phase_calibrate(dev)
 
     line = []

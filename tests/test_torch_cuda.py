@@ -153,6 +153,56 @@ def test_kernel_matches_plain_on_card(kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [9, 40, 64, 65, 130, 512])
+@pytest.mark.parametrize("kernel", ["k1", "k7"])
+def test_gemm_rows_match_on_card(kernel, rows):
+    """Above 8 rows K1 and K7 run the tensor-core GEMM (csrc/ternary_gemm.cu),
+    here at a ragged K/4 (84, not a multiple of its 32-row stage) and N (272,
+    not a multiple of its 128-column tile), and at an even shape. K7 bit for
+    bit against its plain version in bf16, f32 and int32 (exact integer dot,
+    the same IEEE rescale). K1 bit for bit against itself over its 8-row
+    slices (the same per-row prologue, exact dot and epilogue formula, through
+    the decode dot), and within K1's 3% of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11 + rows)
+    counter = (ternary_cuda.ternary_matmul_stacked_fused if kernel == "k1"
+               else ternary_cuda.ternary_matmul_stacked)
+    for k, n, act in ((336, 272, "relu2"), (256, 384, "none")):
+        qw = torch.randint(0, 256, (L, k // 4, n), generator=g, device=dev, dtype=torch.uint8)
+        sw_l = torch.rand((L,), generator=g, device=dev) * 80 + 10
+        sw_n = torch.rand((L, n), generator=g, device=dev) * 80 + 10
+        n0 = counter.tiled_launches
+        if kernel == "k7":
+            xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+            sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
+            for dt in (torch.bfloat16, torch.float32):
+                for sw in (sw_l, sw_n):
+                    a = ternary_cuda.ternary_matmul_stacked(xq, qw, LAYER, sx, sw, out_dtype=dt)
+                    b = ternary_cuda.ternary_matmul_stacked_plain(xq, qw, LAYER, sx, sw,
+                                                                  out_dtype=dt)
+                    assert a.dtype == dt and torch.equal(a, b)
+            a = ternary_cuda.ternary_matmul(xq, qw[LAYER])
+            assert a.dtype == torch.int32
+            assert torch.equal(a, ternary_cuda.ternary_matmul_plain(xq, qw[LAYER]))
+            assert counter.tiled_launches - n0 == 5
+        else:
+            ln = (1 + 0.1 * torch.randn((L, k), generator=g, device=dev)).to(torch.bfloat16)
+            kin = 2 * k if act == "relu2" else k
+            x = torch.randn((rows, kin), generator=g, device=dev).to(torch.bfloat16)
+            a = ternary_cuda.ternary_matmul_stacked_fused(x, qw, LAYER, sw_n, ln, act=act)
+            assert counter.tiled_launches - n0 == 1
+            slices = torch.cat([ternary_cuda.ternary_matmul_stacked_fused(
+                x[r:r + 8], qw, LAYER, sw_n, ln, act=act) for r in range(0, rows, 8)])
+            assert torch.equal(a, slices)
+            b = ternary_cuda.ternary_matmul_stacked_fused_plain(x, qw, LAYER, sw_n, ln, act=act)
+            assert ((a.float() - b.float()).abs()
+                    <= 0.03 * b.float().abs().amax(dim=1, keepdim=True)).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_fake_moe_oracle_on_card():
     """Two layers at a small width on the card: the dense model through
     paged_forward with the stacked K7 linear, and the fake-MoE model built

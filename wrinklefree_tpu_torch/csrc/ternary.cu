@@ -27,12 +27,14 @@
 // (same algebra as the TPU kernel's _planes_dot).
 //
 // Bound: at decode (<= 8 rows) the work is bound by the weight stream
-// (K*N/4 bytes per call); prefill rows (64 x 64 shared-memory tiles) by
-// operations. This first version reaches neither: on an H100 a decode call
-// takes about the same time for 2.5 MB (qkv) as for 8.8 MB (gateup) of
-// weights, because each thread keeps one dependent 4-byte weight load in
-// flight per iteration, so the loop is latency-bound. More loads in flight
-// per thread, then tensor-core int8 (wgmma) for prefill, are later work.
+// (K*N/4 bytes per call). This first version does not reach it: on an H100
+// a decode call takes about the same time for 2.5 MB (qkv) as for 8.8 MB
+// (gateup) of weights, because each thread keeps one dependent 4-byte
+// weight load in flight per iteration, so the loop is latency-bound. More
+// loads in flight per thread are later work. Above 8 rows K1 and K7 hand
+// their interleaved codes to the tensor-core GEMM of ternary_gemm.cu
+// (TMA, an mbarrier ring and wgmma s8 x s8 -> s32; bound by operations),
+// whose signed codes need no row sum.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -44,6 +46,11 @@
 
 namespace cg = cooperative_groups;
 
+// ternary_gemm.cu: the tensor-core dot of interleaved codes above 8 rows
+extern "C" int wf_ternary_gemm(const void* x4, int B, int K, const void* sx, const void* w,
+                               const void* sw, int sw_stride, int N, int mode, void* out,
+                               void* stream);
+
 namespace {
 
 constexpr int ACT_NONE = 0;
@@ -54,8 +61,6 @@ constexpr int THREADS = 256;
 constexpr int TILE_N = 64;                    // columns per dot tile
 constexpr int COL_GROUPS = TILE_N / 4;        // 16 threads x 4 columns
 constexpr int KSPLIT = THREADS / COL_GROUPS;  // 16 row groups over K/4
-constexpr int TILE_M = 64;                    // prefill rows per block
-constexpr int TILE_R = 32;                    // K/4 rows per prefill stage
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -114,7 +119,8 @@ __device__ int block_isum(int v, int* red) {
 
 // One row's prologue, run by a whole block. h: the row ([K] or [gate|up] of
 // 2K); nw: the bf16 norm weight row or null; xs: shared scratch of K floats.
-// Writes the interleaved int8 codes (K bytes), the code sum and the scale.
+// Writes the interleaved int8 codes (K bytes), the scale and, unless rowsum is
+// null, the code sum.
 __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
                              int norm, const __nv_bfloat16* __restrict__ nw, float eps,
                              float* xs, float* red, int8_t* __restrict__ x4,
@@ -159,11 +165,11 @@ __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
     x4[(k % K4) * 4 + k / K4] = (int8_t)qi;
     qs += qi;
   }
-  qs = block_isum(qs, (int*)red);
-  if (threadIdx.x == 0) {
-    *rowsum = qs;
-    *sx = s;
+  if (rowsum != nullptr) {  // uniform over the block: null when the dot needs no row sum
+    qs = block_isum(qs, (int*)red);
+    if (threadIdx.x == 0) *rowsum = qs;
   }
+  if (threadIdx.x == 0) *sx = s;
   __syncthreads();
 }
 
@@ -258,7 +264,7 @@ __global__ void k1_prologue(const __nv_bfloat16* __restrict__ h, int kin, int K,
   float* xs = smem + 32;
   const int b = blockIdx.x;
   prologue_row(h + (size_t)b * kin, K, act, norm, nw, eps, xs, red, x4 + (size_t)b * K,
-               rowsum + b, sx + b);
+               rowsum == nullptr ? nullptr : rowsum + b, sx + b);
 }
 
 template <int R>
@@ -277,70 +283,6 @@ __global__ void k1_dot_rows(const int8_t* __restrict__ x4, const int* __restrict
   });
 }
 
-// Prefill: 64 rows x 64 columns per block, 16x16 threads of 4x4 outputs each,
-// K/4 streamed through shared memory in stages of 32. MODE picks the output
-// (K1 stores bf16; K7 any of the three).
-template <int MODE>
-__global__ void k1_dot_tiled(const int8_t* __restrict__ x4, const int* __restrict__ rowsum,
-                             const float* __restrict__ sx, const uint8_t* __restrict__ w,
-                             const float* __restrict__ sw, int sw_stride, int B, int K,
-                             int N, void* __restrict__ out) {
-  __shared__ int xt[TILE_M][TILE_R + 1];
-  __shared__ uint32_t wt[TILE_R][COL_GROUPS];
-  const int K4 = K / 4;
-  const int tx = threadIdx.x % COL_GROUPS;  // 4 columns
-  const int ty = threadIdx.x / COL_GROUPS;  // 4 rows
-  const int m0 = blockIdx.y * TILE_M;
-  const int n0 = blockIdx.x * TILE_N;
-  const int* xw = reinterpret_cast<const int*>(x4);
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
-  for (int r0 = 0; r0 < K4; r0 += TILE_R) {
-    for (int i = threadIdx.x; i < TILE_M * TILE_R; i += blockDim.x) {
-      int row = i / TILE_R, r = i % TILE_R;
-      int gm = m0 + row, gr = r0 + r;
-      xt[row][r] = (gm < B && gr < K4) ? xw[(size_t)gm * K4 + gr] : 0;
-    }
-    for (int i = threadIdx.x; i < TILE_R * COL_GROUPS; i += blockDim.x) {
-      int r = i / COL_GROUPS, c = i % COL_GROUPS;
-      int gr = r0 + r, gn = n0 + c * 4;
-      // columns beyond N are never emitted; rows beyond K/4 are never read
-      wt[r][c] = (gr < K4 && gn < N)
-                     ? __ldg(reinterpret_cast<const uint32_t*>(w + (size_t)gr * N + gn))
-                     : 0u;
-    }
-    __syncthreads();
-    const int rmax = min(TILE_R, K4 - r0);
-    for (int r = 0; r < rmax; ++r) {
-      uint32_t wv = wt[r][tx];
-      int e0 = spread(wv, 0), e1 = spread(wv, 1), e2 = spread(wv, 2), e3 = spread(wv, 3);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int xv = xt[ty * 4 + i][r];
-        acc[i][0] = __dp4a(xv, e0, acc[i][0]);
-        acc[i][1] = __dp4a(xv, e1, acc[i][1]);
-        acc[i][2] = __dp4a(xv, e2, acc[i][2]);
-        acc[i][3] = __dp4a(xv, e3, acc[i][3]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty * 4 + i;
-    if (m >= B) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int n = n0 + tx * 4 + c;
-      if (n < N)
-        emit_out<MODE>(out, (size_t)m * N + n, acc[i][c] - rowsum[m], sx, m, sw, n * sw_stride);
-    }
-  }
-}
-
 // ---------------------------------------------------------------- K7 ------
 
 // The packed-ternary dot of caller-quantized int8 codes (no prologue):
@@ -351,8 +293,9 @@ __global__ void k1_dot_tiled(const int8_t* __restrict__ x4, const int* __restric
 // codes and the row sum of x, which K1's prologue writes; K7 builds them
 // itself from x_q in natural order: in shared memory inside the decode
 // kernel (<= 8 rows, each block re-reads the B*K bytes of x from L2), and
-// in a small pre-pass before the tiled kernel above that. The bound and the
-// design limits are K1's (the note at the top).
+// in a small pre-pass (B*K bytes read and written) before ternary_gemm.cu
+// above that: the GEMM's TMA loads can copy tiles but not interleave them.
+// The bound and the design limits are K1's (the note at the top).
 
 // R rows of natural-order codes -> interleaved words in shared memory (rows at
 // or beyond `rows` are zero), then each row's code sum (one warp per row).
@@ -397,21 +340,15 @@ __global__ void k7_dot_rows(const int8_t* __restrict__ xq, const float* __restri
   });
 }
 
-// Pre-pass of the tiled path: one block per row writes the interleaved codes
-// and the row's code sum.
-__global__ void k7_interleave(const int8_t* __restrict__ xq, int K, int8_t* __restrict__ x4,
-                              int* __restrict__ rowsum) {
-  __shared__ int red[32];
+// Pre-pass of the GEMM path: one block per row writes the interleaved codes,
+// one 4-byte word x4[r] = (x[r], x[K/4+r], x[2K/4+r], x[3K/4+r]) per thread.
+__global__ void k7_interleave(const int8_t* __restrict__ xq, int K, int8_t* __restrict__ x4) {
   const int b = blockIdx.x, K4 = K / 4;
-  const int8_t* x = xq + (size_t)b * K;
-  int s = 0;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const int v = x[k];
-    x4[(size_t)b * K + (k % K4) * 4 + k / K4] = (int8_t)v;
-    s += v;
-  }
-  s = block_isum(s, red);
-  if (threadIdx.x == 0) rowsum[b] = s;
+  const uint8_t* x = reinterpret_cast<const uint8_t*>(xq) + (size_t)b * K;
+  uint32_t* o = reinterpret_cast<uint32_t*>(x4 + (size_t)b * K);
+  for (int r = threadIdx.x; r < K4; r += blockDim.x)
+    o[r] = (uint32_t)x[r] | ((uint32_t)x[K4 + r] << 8) | ((uint32_t)x[2 * K4 + r] << 16) |
+           ((uint32_t)x[3 * K4 + r] << 24);
 }
 
 // ---------------------------------------------------------------- K2 ------
@@ -785,7 +722,6 @@ struct Args7 {
   const float* sw;
   int sw_stride, B, K, N;
   int8_t* x4;
-  int* rowsum;
   void* out;
   cudaStream_t st;
 };
@@ -808,14 +744,12 @@ cudaError_t launch_k7(const Args7& a) {
   if (a.B == 2) return launch_k7_rows<2, MODE>(a);
   if (a.B <= 4) return launch_k7_rows<4, MODE>(a);
   if (a.B <= 8) return launch_k7_rows<8, MODE>(a);
-  if (a.x4 == nullptr || a.rowsum == nullptr) return cudaErrorInvalidValue;
-  k7_interleave<<<a.B, THREADS, 0, a.st>>>(a.xq, a.K, a.x4, a.rowsum);
+  if (a.x4 == nullptr) return cudaErrorInvalidValue;
+  k7_interleave<<<a.B, THREADS, 0, a.st>>>(a.xq, a.K, a.x4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dim3 grid((a.N + TILE_N - 1) / TILE_N, (a.B + TILE_M - 1) / TILE_M);
-  k1_dot_tiled<MODE><<<grid, THREADS, 0, a.st>>>(a.x4, a.rowsum, a.sx, a.w, a.sw, a.sw_stride,
-                                                 a.B, a.K, a.N, a.out);
-  return cudaGetLastError();
+  return (cudaError_t)wf_ternary_gemm(a.x4, a.B, a.K, a.sx, a.w, a.sw, a.sw_stride, a.N, MODE,
+                                      a.out, a.st);
 }
 
 // Largest grid whose blocks are all resident (a cooperative launch needs
@@ -842,7 +776,8 @@ extern "C" {
 // K1: out[B,N] = fused linear of h[B,kin]. w points at the layer's [K/4,N]
 // bytes, sw at the layer's scales (sw_stride 1: per column, 0: one scalar),
 // nw at the layer's bf16 norm row or null. x4/rowsum/sx are caller scratch of
-// B*K bytes, B ints and B floats.
+// B*K bytes, B ints and B floats; rowsum is used (and needed) only for B <= 8
+// (the tensor-core GEMM's signed codes need no row sum), else null.
 int wf_ternary_fused(const void* h, int B, int kin, int K, int act, int norm, const void* nw,
                      float eps, const void* w, const void* sw, int sw_stride, int N, void* x4,
                      void* rowsum, void* sx, void* out, void* stream) {
@@ -866,24 +801,20 @@ int wf_ternary_fused(const void* h, int B, int kin, int K, int act, int norm, co
   if (B == 2) return launch_k1_dot<2>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
   if (B <= 4) return launch_k1_dot<4>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
   if (B <= 8) return launch_k1_dot<8>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
-  dim3 grid((N + TILE_N - 1) / TILE_N, (B + TILE_M - 1) / TILE_M);
-  k1_dot_tiled<OUT_BF16><<<grid, THREADS, 0, st>>>(xq, rs, s, wb, swf, sw_stride, B, K, N, o);
-  return cudaGetLastError();
+  return wf_ternary_gemm(xq, B, K, s, wb, swf, sw_stride, N, OUT_BF16, o, stream);
 }
 
 // K7: out[B,N] = the packed-ternary dot of int8 codes xq[B,K] (natural order)
 // with w[K/4,N] (the layer's or the expert's bytes). mode 0: bf16 and mode 1:
 // f32 of float(dot) * (1/(sx[b]*sw[n*sw_stride])) (sw_stride 1: per column,
-// 0: one scalar); mode 2: the exact int32 dot, sx and sw unused. x4/rowsum
-// are caller scratch of B*K bytes and B ints, used (and needed) only for
-// B > 8.
+// 0: one scalar); mode 2: the exact int32 dot, sx and sw unused. x4 is
+// caller scratch of B*K bytes, used (and needed) only for B > 8.
 int wf_ternary_matmul(const void* xq, int B, int K, const void* sx, const void* w, const void* sw,
-                      int sw_stride, int N, int mode, void* x4, void* rowsum, void* out,
-                      void* stream) {
+                      int sw_stride, int N, int mode, void* x4, void* out, void* stream) {
   if (B <= 0) return 0;
   if (K % 4 || N % 4 || mode < OUT_BF16 || mode > OUT_I32) return cudaErrorInvalidValue;
   const Args7 a{(const int8_t*)xq, (const float*)sx, (const uint8_t*)w, (const float*)sw,
-                sw_stride, B, K, N, (int8_t*)x4, (int*)rowsum, out, (cudaStream_t)stream};
+                sw_stride, B, K, N, (int8_t*)x4, out, (cudaStream_t)stream};
   if (mode == OUT_BF16) return launch_k7<OUT_BF16>(a);
   if (mode == OUT_F32) return launch_k7<OUT_F32>(a);
   return launch_k7<OUT_I32>(a);

@@ -48,7 +48,7 @@ SIGNATURES = {
                      _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P],
-    "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "wf_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "wf_stream_touch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
@@ -78,7 +78,8 @@ def _library_path() -> Path:
 def build() -> Path:
     """Compile every source in parallel and link the shared library (skipped
     when the library for these sources already exists). The compiler's
-    register and shared-memory report goes to ``ptxas.txt`` beside it."""
+    register and shared-memory report, with each source's compile seconds,
+    goes to ``ptxas.txt`` beside it."""
     so = _library_path()
     if so.exists():
         return so
@@ -86,18 +87,23 @@ def build() -> Path:
     nvcc = _nvcc()
     sources = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / (s.stem + "-" + so.stem[-12:] + ".o") for s in sources]
-    procs = [
-        subprocess.Popen(
-            [nvcc, *FLAGS, "-c", str(s), "-o", str(o)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for s, o in zip(sources, objs)
-    ]
+    logs = [o.with_suffix(".log") for o in objs]
+    t0 = time.perf_counter()
+    procs = []
+    for s, o, log in zip(sources, objs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen([nvcc, *FLAGS, "-c", str(s), "-o", str(o)],
+                                          stdout=f, stderr=subprocess.STDOUT))
+    secs = {}
+    while len(secs) < len(procs):
+        for s, p in zip(sources, procs):
+            if s.name not in secs and p.poll() is not None:
+                secs[s.name] = time.perf_counter() - t0
+        time.sleep(0.02)
     report = []
     failed = []
-    for s, p in zip(sources, procs):
-        out, _ = p.communicate()
-        report.append(f"== {s.name}\n{out}")
+    for s, p, log in zip(sources, procs, logs):
+        report.append(f"== {s.name} ({secs[s.name]:.1f} s)\n{log.read_text()}")
         if p.returncode != 0:
             failed.append(s.name)
     (BUILD_DIR / "ptxas.txt").write_text("\n".join(report))

@@ -41,6 +41,11 @@ model stores them.
 Each wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel (sources in ``csrc/ternary.cu``) or raises. Each
 keeps a plain integer ``launches`` counter, incremented once per launch.
+Above 8 rows K1 and K7 end in the tensor-core GEMM of
+``csrc/ternary_gemm.cu``, on the interleaved codes
+(:func:`interleave_codes`) and the signed weight codes in the layout of
+:func:`unpack_signed_interleaved`; their ``tiled_launches`` counts those
+calls (also counted in ``launches``). It needs K and N multiples of 16.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .rope import apply_rope
 from .ternary import quantize_activations, ternary_matmul_reference
 
 _ACTS = {"none": 0, "relu2": 1, "silu": 2}
+DECODE_ROWS = 8  # at most this many rows take the decode dots; more, the GEMM
 
 
 def _check_args(qweight, weight_scale, norm_w, layer):
@@ -221,6 +227,29 @@ def layer_block_megakernel_plain(
     return out, ck, cv
 
 
+def interleave_codes(x_q: torch.Tensor) -> torch.Tensor:
+    """The codes in the order the GEMM reads them (what K1's prologue and
+    K7's pre-pass write): ``x4[..., 4r + p] = x_q[..., p*K/4 + r]``."""
+    k = x_q.shape[-1]
+    return x_q.reshape(*x_q.shape[:-1], 4, k // 4).transpose(-1, -2).reshape(x_q.shape)
+
+
+def unpack_signed_interleaved(qweight: torch.Tensor) -> torch.Tensor:
+    """The GEMM's weight operand in PyTorch: packed ``[K/4, N]`` -> int8
+    ``[N, K]`` with ``Bt[n, 4r + p]`` = code ``p`` of byte ``qweight[r, n]``
+    minus 1, so that ``interleave_codes(x_q) @ Bt.T`` is the exact dot."""
+    k4, n = qweight.shape
+    codes = torch.stack([((qweight >> (2 * p)) & 3).to(torch.int8) - 1 for p in range(4)], -1)
+    return codes.permute(1, 0, 2).reshape(n, 4 * k4)
+
+
+def _check_gemm(k: int, n: int, w_ptr: int, what: str):
+    """The GEMM's TMA loads need 16-byte aligned rows and bases."""
+    if k % 16 or n % 16 or w_ptr % 16:
+        raise ValueError(f"{what}: above {DECODE_ROWS} rows the tensor-core GEMM needs K and N "
+                         f"multiples of 16 and 16-byte aligned weights, got K={k}, N={n}")
+
+
 def _scale1(s: torch.Tensor) -> torch.Tensor:
     """One layer's weight scale as a one-layer stack: one value -> [1], N
     column scales -> [1, N] (a view)."""
@@ -320,23 +349,30 @@ def ternary_matmul_stacked_fused(
     lead = h.shape[:-1]
     h2 = h.reshape(-1, kin).contiguous()
     b = h2.shape[0]
+    w_ptr = _layer_ptr(qweight, layer)
+    if b > DECODE_ROWS:
+        _check_gemm(k, n, w_ptr, "ternary_matmul_stacked_fused")
     dev = h.device
     x4 = torch.empty((b, k), dtype=torch.int8, device=dev)
-    rowsum = torch.empty((b,), dtype=torch.int32, device=dev)
+    # the row sum corrects the {0,1,2} codes of the <= 8-row dot only
+    rowsum = torch.empty((b,), dtype=torch.int32, device=dev) if b <= DECODE_ROWS else None
     sx = torch.empty((b,), dtype=torch.float32, device=dev)
     out = torch.empty((b, n), dtype=torch.bfloat16, device=dev)
     sw_ptr, sw_stride = _scale_args(weight_scale, layer, n)
     nw_ptr = _layer_ptr(norm_w, layer) if (norm and norm_w is not None) else None
     cuda_lib.call(
         "wf_ternary_fused", h2.data_ptr(), b, kin, k, _ACTS[act], int(norm), nw_ptr,
-        float(eps), _layer_ptr(qweight, layer), sw_ptr, sw_stride, n, x4.data_ptr(),
-        rowsum.data_ptr(), sx.data_ptr(), out.data_ptr(), cuda_lib.stream(h),
+        float(eps), w_ptr, sw_ptr, sw_stride, n, x4.data_ptr(),
+        None if rowsum is None else rowsum.data_ptr(), sx.data_ptr(), out.data_ptr(),
+        cuda_lib.stream(h),
     )
     ternary_matmul_stacked_fused.launches += 1
+    ternary_matmul_stacked_fused.tiled_launches += b > DECODE_ROWS
     return out.reshape(*lead, n)
 
 
 ternary_matmul_stacked_fused.launches = 0
+ternary_matmul_stacked_fused.tiled_launches = 0
 
 
 def _k2_prep(h, gateup_qw, down_qw, layer, gateup_scale, down_scale, post_ln, ffn_sub, *, eps,
@@ -711,16 +747,16 @@ def _launch_k7(x_q, w_ptr, k, n, act_scale, sw_ptr, sw_stride, out_dtype):
     out = torch.empty((b, n), dtype=dt, device=dev)
     if b == 0:
         return out.reshape(*lead, n)
-    x4 = rowsum = None
-    if b > 8:  # the tiled path's interleave pre-pass writes these
+    x4 = None
+    if b > DECODE_ROWS:  # the GEMM's interleave pre-pass writes the codes here
+        _check_gemm(k, n, w_ptr, "ternary_matmul")
         x4 = torch.empty((b, k), dtype=torch.int8, device=dev)
-        rowsum = torch.empty((b,), dtype=torch.int32, device=dev)
     cuda_lib.call(
         "wf_ternary_matmul", x2.data_ptr(), b, k, sx_ptr, w_ptr, sw_ptr, sw_stride, n, mode,
-        x4.data_ptr() if x4 is not None else None,
-        rowsum.data_ptr() if rowsum is not None else None, out.data_ptr(), cuda_lib.stream(x_q),
+        x4.data_ptr() if x4 is not None else None, out.data_ptr(), cuda_lib.stream(x_q),
     )
     ternary_matmul_stacked.launches += 1
+    ternary_matmul_stacked.tiled_launches += b > DECODE_ROWS
     return out.reshape(*lead, n)
 
 
@@ -736,7 +772,7 @@ def ternary_matmul_stacked(
     """K7 against stacked weights: ``(x_q @ W[layer]) * (1/(sx*sw))``; the
     layer is a Python int selecting ``qweight[layer]`` without a copy.
     ``launches`` counts K7's launches from this wrapper and
-    :func:`ternary_matmul`."""
+    :func:`ternary_matmul`, ``tiled_launches`` those above 8 rows."""
     if x_q.device.type == "cpu":
         return ternary_matmul_stacked_plain(x_q, qweight, layer, act_scale, weight_scale,
                                             out_dtype=out_dtype)
@@ -750,6 +786,7 @@ def ternary_matmul_stacked(
 
 
 ternary_matmul_stacked.launches = 0
+ternary_matmul_stacked.tiled_launches = 0
 
 
 def ternary_matmul(
