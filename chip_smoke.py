@@ -10,10 +10,12 @@ vocab 128256) with random weights drawn on the card from seed 0:
 2. kernels   — every kernel against its plain PyTorch version on the same
                inputs at the main paths' shapes, timed beside its bound
                (bytes over 3.35 TB/s or operations over the published dense
-               peak) and a PyTorch library call; the static wrappers also
+               peak) and a PyTorch library call; K1 and K7 at every row
+               count 1-8 (the GEMV of csrc/ternary_gemv.cu; K7 bitwise in
+               bf16, f32 and int32), 64 and 512; the static wrappers also
                bitwise against K5/K2, K1 above 8 rows (the tensor-core GEMM)
-               bitwise against K1 over its 8-row slices, and the causal
-               flash prefill, which no path runs, only here;
+               bitwise against K1 over its 8-row slices (the GEMV), and the
+               causal flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
                functions, logits compared; then one 512-token chunk under
@@ -40,8 +42,9 @@ vocab 128256) with random weights drawn on the card from seed 0:
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
 7. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
-               chained in CUDA graphs) and the device's busy share over its
-               window, at least 90%.
+               chained in CUDA graphs) and the device's busy share of its
+               window (median of 5 traced replays, kernel time over the same
+               replay's device span), at least 90%.
 
 It exits non-zero on any failure (nothing is caught, nothing falls back)
 and when CUDA or the package is missing. The line before the last is a
@@ -63,8 +66,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 KERNELS = {
+    # K1 and K7 at <= 8 rows: the GEMV (K1 after its prologue in ternary.cu)
     "ternary_matmul_stacked_fused": {
-        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "source": "wrinklefree_tpu_torch/csrc/ternary_gemv.cu",
+        "also_source": "wrinklefree_tpu_torch/csrc/ternary.cu",
         "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:353",
     },
     "mlp_block_megakernel": {
@@ -90,7 +95,7 @@ KERNELS = {
         "replaces": "wrinklefree_tpu/ops/flash_attention.py:382",
     },
     "ternary_matmul_stacked": {
-        "source": "wrinklefree_tpu_torch/csrc/ternary.cu",
+        "source": "wrinklefree_tpu_torch/csrc/ternary_gemv.cu",
         "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:228",
         # the same kernel on one [K/4, N] matrix (ROADMAP queue 2 row 5)
         "also_replaces": "wrinklefree_tpu/ops/ternary_pallas.py:132",
@@ -134,14 +139,35 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3):
-    """(device ms, call ms) per call of fn. Device ms is the sum of the
-    device activity (kernels, copies, sets) that torch.profiler records over
-    `iters` calls; call ms is CUDA-event time between the first and the last
-    call, which includes the host's launch overhead when that is the
-    longer of the two."""
-    import torch
+def busy_us(events) -> float:
+    """The time in which at least one of the device events (kernels, copies,
+    sets) ran: the union of their intervals. It is their sum where they do
+    not overlap; a grid launched with programmatic dependent launch (the
+    decode GEMV after K1's prologue) may start while the grid before it
+    still runs, and its wait for that grid is not device work of its own."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
+def device_events(prof):
     from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, call ms) per call of fn. Device ms is the time the device
+    was busy (busy_us over the kernels, copies and sets that torch.profiler
+    records) over `iters` calls; call ms is CUDA-event time between the
+    first and the last call, which includes the host's launch overhead when
+    that is the longer of the two."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -162,8 +188,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        dev_us = sum(e.device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA)
+        dev_us = busy_us(device_events(prof))
         if dev_us > 0:
             break
     else:
@@ -251,16 +276,18 @@ def phase_kernels(params, cfg, dev, results):
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    # ---- K1 at the four linears of a layer, at 1, 8, 64 and 512 rows; above
-    # 8 rows (the tensor-core GEMM) also bit for bit against K1 over its
-    # 8-row slices (the same prologue per row, exact dot and epilogue)
+    # ---- K1 at the four linears of a layer, at 1-8 rows (the GEMV), 64 and
+    # 512 rows; above 8 rows (the tensor-core GEMM) also bit for bit against
+    # K1 over its 8-row slices (the same prologue per row, exact dot and
+    # epilogue; so the GEMM against the GEMV). At 2-7 rows only the kernel is
+    # timed (its plain and library times follow the row count as at 1 and 8).
     shapes = [  # name, weights, scales, norm row, act, input width
         ("qkv", "qkv", "input_ln", "none", H),
         ("o", "o", "attn_sub", "none", Q),
         ("gateup", "gateup", "post_ln", "none", H),
         ("down", "down", "ffn_sub", "relu2", 2 * I),
     ]
-    k1_rows, k1_err, slice_checks = [], 0.0, 0
+    k1_rows, k1_mid, k1_err, slice_checks = [], [], 0.0, 0
     for name, w, nrm, act, kin in shapes:
         qw, sw, nw = st[w + "_qw"], st[w + "_scale"], st[nrm]
         k, n = 4 * qw.shape[1], qw.shape[2]
@@ -270,7 +297,7 @@ def phase_kernels(params, cfg, dev, results):
         # int32 dot at the int8 peak; stored [N, K], K-major)
         wls = [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(L)]
         wis = [w.to(torch.int8).t().contiguous() for w in wls]
-        for rows in (1, 8, 64, 512):
+        for rows in (*range(1, 9), 64, 512):
             x = rnd(rows, kin)
             lay = Cycle(L)
             a = tc.ternary_matmul_stacked_fused(x, qw, 3, sw, nw, act=act)
@@ -295,6 +322,12 @@ def phase_kernels(params, cfg, dev, results):
             k1_err = max(k1_err, d.max().item())
             ms, call_ms = cuda_ms(
                 lambda: tc.ternary_matmul_stacked_fused(x, qw, lay(), sw, nw, act=act))
+            nbytes = rows * kin * 2 + k // 4 * n + n * 4 + k * 2 + rows * n * 2
+            b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
+            if 1 < rows < 8:
+                k1_mid.append(dict(shape=f"{name} {k}->{n} rows={rows}", ms=ms, bound_ms=b_ms,
+                                   max_abs_err=d.max().item()))
+                continue
             plain_ms, _ = cuda_ms(
                 lambda: tc.ternary_matmul_stacked_fused_plain(x, qw, lay(), sw, nw, act=act),
                 iters=5, warmup=1)
@@ -307,13 +340,13 @@ def phase_kernels(params, cfg, dev, results):
                 int_ms, _ = cuda_ms(lambda: torch._int_mm(xi, wis[lay()].t()))
                 lib = dict(library_ms=int_ms, library_bf16_ms=lib_ms, library=INT_MM,
                            tc_share=tc_share(2 * rows * k * n, ms))
-            nbytes = rows * kin * 2 + k // 4 * n + n * 4 + k * 2 + rows * n * 2
-            b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
             k1_rows.append(dict(shape=f"{name} {k}->{n} rows={rows}", ms=ms, call_ms=call_ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                 max_abs_err=d.max().item(), exact_share=eq, **lib))
         del wls, wis
     for r in k1_rows:
+        print("kernels: K1 " + json.dumps(r))
+    for r in k1_mid:
         print("kernels: K1 " + json.dumps(r))
     print(f"kernels: K1 above 8 rows bitwise equal to K1 over its 8-row slices in "
           f"{slice_checks}/{slice_checks} checks")
@@ -615,11 +648,13 @@ def kernels_k7(params, cfg, dev, g, results):
     q/o 2560->2560 and k 2560->640, stacked with per-column scales at the
     fused qkv 2560->3840, one matrix at the experts' gate 2560->6912 and
     down 6912->2560, and the exact int32 mode. Bar: bit for bit (exact
-    integer dot, the same IEEE rescale). Each shape cycles over enough
-    distinct weight matrices (>= 64 MB) that the weights stream from HBM;
-    the library yardstick is a bf16 matmul on unpacked weights, cycled the
-    same way, and above 8 rows ``torch._int_mm`` on the signed int8 weights
-    (in the int32 mode first checked equal to the kernel)."""
+    integer dot, the same IEEE rescale); at every row count 1-8 (the GEMV)
+    each shape is checked in bf16, f32 and int32. Each shape cycles over
+    enough distinct weight matrices (>= 64 MB) that the weights stream from
+    HBM; the library yardstick is a bf16 matmul on unpacked weights, cycled
+    the same way, and above 8 rows ``torch._int_mm`` on the signed int8
+    weights (in the int32 mode first checked equal to the kernel). At 2-7
+    rows only the kernel is timed."""
     import torch
 
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
@@ -637,16 +672,18 @@ def kernels_k7(params, cfg, dev, g, results):
         return ws, [w.to(torch.int8).t().contiguous() for w in ws]
 
     st = params["layers"]
+    gemv_rows = tuple(range(1, 9))
     cases = [  # name, weights, scales ([L], [L, N] or None: one matrix), rows, mode
-        ("q", (H, Q), "layer", (1, 8, 64, 512), "bf16"),
-        ("k", (H, KVD), "layer", (1, 8, 64, 512), "bf16"),
-        ("o", (Q, H), "layer", (1, 8, 64, 512), "bf16"),
-        ("qkv", None, "column", (8, 512), "bf16"),
-        ("expert gate", (H, I), "matrix", (8, 64, 512), "bf16"),
-        ("expert down", (I, H), "matrix", (8, 64, 512), "bf16"),
+        ("q", (H, Q), "layer", (*gemv_rows, 64, 512), "bf16"),
+        ("k", (H, KVD), "layer", (*gemv_rows, 64, 512), "bf16"),
+        ("o", (Q, H), "layer", (*gemv_rows, 64, 512), "bf16"),
+        ("qkv", None, "column", (*gemv_rows, 512), "bf16"),
+        ("expert gate", (H, I), "matrix", (*gemv_rows, 64, 512), "bf16"),
+        ("expert down", (I, H), "matrix", (*gemv_rows, 64, 512), "bf16"),
         ("q int32", (H, Q), "matrix", (8, 512), "int32"),
     ]
-    rows_out, checks = [], 0
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    rows_out, mid, checks = [], [], 0
     for name, dims, scale, all_rows, mode in cases:
         if dims is None:  # the engine's fused stack and its column scales
             qw, sw = st["qkv_qw"], st["qkv_scale"]
@@ -660,20 +697,39 @@ def kernels_k7(params, cfg, dev, g, results):
             xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
             sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
             lay, lib_lay = Cycle(nl), Cycle(len(lib_w))
-            if scale == "matrix":
-                args = (lambda i: (xq, qw[i]) if mode == "int32" else (xq, qw[i], sx, sw[i]))
-                ker, pla = tc.ternary_matmul, tc.ternary_matmul_plain
-            else:
-                args = (lambda i: (xq, qw, i, sx, sw))
-                ker, pla = tc.ternary_matmul_stacked, tc.ternary_matmul_stacked_plain
-            for i in (0, nl - 1):
-                a, b = ker(*args(i)), pla(*args(i))
-                torch.cuda.synchronize()
-                if not torch.equal(a, b):
-                    fail(f"K7 {name} rows={rows} weights {i}: kernel and plain version differ by "
-                         f"{(a.float() - b.float()).abs().max().item()}")
-                checks += 1
+
+            def args_of(m):  # the call's arguments in mode m, for weights i
+                if m == "int32":
+                    return tc.ternary_matmul, tc.ternary_matmul_plain, lambda i: (xq, qw[i])
+                kw = dict(out_dtype=dtypes[m])
+                if scale == "matrix":
+                    return (lambda *a: tc.ternary_matmul(*a, **kw),
+                            lambda *a: tc.ternary_matmul_plain(*a, **kw),
+                            lambda i: (xq, qw[i], sx, sw[i]))
+                return (lambda *a: tc.ternary_matmul_stacked(*a, **kw),
+                        lambda *a: tc.ternary_matmul_stacked_plain(*a, **kw),
+                        lambda i: (xq, qw, i, sx, sw))
+
+            for m in ("bf16", "f32", "int32") if rows <= 8 and mode == "bf16" else (mode,):
+                ker, pla, args = args_of(m)
+                for i in (0, nl - 1):
+                    a, b = ker(*args(i)), pla(*args(i))
+                    torch.cuda.synchronize()
+                    if not torch.equal(a, b):
+                        fail(f"K7 {name} {m} rows={rows} weights {i}: kernel and plain version "
+                             f"differ by {(a.float() - b.float()).abs().max().item()}")
+                    checks += 1
+            ker, pla, args = args_of(mode)
             ms, call_ms = cuda_ms(lambda: ker(*args(lay())))
+            out_bytes = 4 if mode == "int32" else 2
+            sw_bytes = 0 if mode == "int32" else (n * 4 if scale == "column" else 4)
+            nbytes = rows * k + (0 if mode == "int32" else rows * 4) + k4 * n + sw_bytes \
+                + rows * n * out_bytes
+            b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
+            shape = f"{name} {k}->{n} ({scale} scale, {mode}) rows={rows}"
+            if 1 < rows < 8:
+                mid.append(dict(shape=shape, ms=ms, bound_ms=b_ms))
+                continue
             plain_ms, _ = cuda_ms(lambda: pla(*args(lay())), iters=5, warmup=1)
             xb = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
             lib_ms, _ = cuda_ms(lambda: torch.matmul(xb, lib_w[lib_lay()]))
@@ -685,18 +741,13 @@ def kernels_k7(params, cfg, dev, g, results):
                 int_ms, _ = cuda_ms(lambda: torch._int_mm(xq, lib_i[lib_lay()].t()))
                 lib = dict(library_ms=int_ms, library_bf16_ms=lib_ms, library=INT_MM,
                            tc_share=tc_share(2 * rows * k * n, ms))
-            out_bytes = 4 if mode == "int32" else 2
-            sw_bytes = 0 if mode == "int32" else (n * 4 if scale == "column" else 4)
-            nbytes = rows * k + (0 if mode == "int32" else rows * 4) + k4 * n + sw_bytes \
-                + rows * n * out_bytes
-            b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
-            rows_out.append(dict(shape=f"{name} {k}->{n} ({scale} scale, {mode}) rows={rows}",
-                                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, max_abs_err=0.0, **lib))
+            rows_out.append(dict(shape=shape, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, **lib))
         del qw, lib_w, lib_i
-    for r in rows_out:
+    for r in rows_out + mid:
         print("kernels: K7 " + json.dumps(r))
-    print(f"kernels: K7 bitwise equal to its plain version in {checks}/{checks} checks")
+    print(f"kernels: K7 bitwise equal to its plain version in {checks}/{checks} checks (rows 1-8 "
+          "in bf16, f32 and int32 at every shape)")
     # the MoE decode step's most frequent launch: an expert dot at 8 rows
     results["ternary_matmul_stacked"] = next(
         r for r in rows_out if r["shape"].startswith("expert gate") and r["shape"].endswith("=8"))
@@ -1311,18 +1362,21 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
 def phase_calibrate(dev):
     """``bench.calibrate.calibrate()``: its JSON line, with K10's launches
     counted over it (the wrapper's calls, each graph's chain recorded once at
-    capture and replayed), then the device's busy share over one replayed
-    window of 512 touches, which must be at least 90% (else the slope would
-    time the host). Returns K10's launches."""
+    capture and replayed), then the device's busy share of a replayed window
+    of 512 touches, which must be at least 90% (else the slope would time
+    the host): ``stream_busy_share``'s statistic, the median over five
+    traced replays of the kernels' busy time over the same replay's device
+    span. Returns K10's launches."""
     from wrinklefree_tpu_torch.bench import calibrate as cal
 
     cal.touch.launches = 0
     stamp = cal.calibrate(dev)
     launches = cal.touch.launches
     print("calibrate: " + json.dumps(stamp))
-    busy, dev_s, wall = cal.stream_busy_share(512, dev)
-    print(f"calibrate: device busy {busy} of a replayed 512-touch window ({dev_s} s of kernel "
-          f"time in a {wall} s window); K10 launched {launches} times through its wrapper")
+    busy, dev_s, span = cal.stream_busy_share(512, dev)
+    print(f"calibrate: device busy {busy} of a replayed 512-touch window (the median of 5 traced "
+          f"replays: {dev_s} s of kernel time in a {span} s device span); K10 launched "
+          f"{launches} times through its wrapper")
     if busy < 0.9:
         fail(f"calibrate: the device was busy {busy} of the stream window (< 0.9)")
     if stamp["stream_us_per_layer"] is None or not stamp["stream_us_per_layer"] > 0:
@@ -1331,15 +1385,16 @@ def phase_calibrate(dev):
 
 
 def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=(),
-                 per_step_exact=None, resubmit=True):
+                 per_step_exact=None, resubmit=True, step_ref=None):
     """The engine phase; with ``flash_decode`` the decode attention runs the
     paged flash decode kernel. Every counter in ``counters`` must launch and
     every one in ``idle`` must not (all zeroed just before the six requests,
     read after the resubmissions); ``per_step_exact`` ({name: n}) holds every
     decode-only step of the six requests, and the decode window on average,
     to exactly n launches;
-    ``resubmit=False`` skips the two radix resubmissions. Returns (launches,
-    the six requests' tokens)."""
+    ``resubmit=False`` skips the two radix resubmissions; ``step_ref`` is
+    the device ms per decode step of the same window before the decode GEMV
+    (PERF.md section 5), printed beside this run's. Returns (launches, the six requests' tokens)."""
     import numpy as np
     import torch
 
@@ -1449,10 +1504,18 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=
         steps = eng.stats["decode_steps"] - steps0
         if profiled:
             evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            dev_s = sum(e.device_time_total for e in evs) / 1e6
+            sum_s = sum(e.device_time_total for e in evs) / 1e6
+            dev_s = busy_us(device_events(prof)) / 1e6
             top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
+            # K1 at <= 8 rows is k1_prologue + the GEMV; K7 the GEMV alone
+            dot = sum(e.device_time_total for e in evs
+                      if "k1_prologue" in e.key or "k_ternary_gemv" in e.key) / 1e6
             print(f"{tag}: decode window under the profiler, device busy {dev_s / dt} of "
-                  f"{dt} s ({dev_s / steps * 1e3} ms of device time per decode step); "
+                  f"{dt} s ({dev_s / steps * 1e3} ms of device time per decode step, "
+                  f"{step_ref} ms before the decode GEMV; kernel durations summed "
+                  f"{sum_s / steps * 1e3} ms); the <= 8-row K1/K7 kernels "
+                  f"(k1_prologue, k_ternary_gemv) {dot / steps * 1e3} ms per decode step "
+                  f"({dot / sum_s} of the summed durations); "
                   "device ms per decode step by kernel: " + json.dumps(
                       {e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
         else:
@@ -1604,7 +1667,7 @@ def phase_moe(dev):
         params, cfg, dev, [tc.ternary_matmul_stacked, TiledCounter(tc.ternary_matmul_stacked),
                            kvu.kv_write, fa.flash_paged_prefill],
         tag="moe engine", idle=[tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel],
-        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False)
+        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False, step_ref=18.14)
     return launches
 
 
@@ -1657,9 +1720,11 @@ def main() -> int:
                            tc.attn_block_megakernel_static, tc.mlp_block_megakernel_static])
     serving = [tc.ternary_matmul_stacked_fused, TiledCounter(tc.ternary_matmul_stacked_fused),
                tc.mlp_block_megakernel, kvu.kv_write, fa.flash_paged_prefill]
-    launches, toks = phase_engine(params, cfg, dev, serving)
+    # the two windows' device ms per decode step before the decode GEMV
+    # (PERF.md section 5)
+    launches, toks = phase_engine(params, cfg, dev, serving, step_ref=9.76)
     flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
-                                flash_decode=True)
+                                flash_decode=True, step_ref=7.42)
     same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
             for x, y in zip(toks, ftoks)]
     print(f"engine: flash_decode=True beside the default run: leading tokens equal per request "

@@ -162,7 +162,7 @@ def test_gemm_rows_match_on_card(kernel, rows):
     bit against its plain version in bf16, f32 and int32 (exact integer dot,
     the same IEEE rescale). K1 bit for bit against itself over its 8-row
     slices (the same per-row prologue, exact dot and epilogue formula, through
-    the decode dot), and within K1's 3% of its plain version."""
+    the GEMV of csrc/ternary_gemv.cu), and within K1's 3% of its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -199,6 +199,64 @@ def test_gemm_rows_match_on_card(kernel, rows):
             b = ternary_cuda.ternary_matmul_stacked_fused_plain(x, qw, LAYER, sw_n, ln, act=act)
             assert ((a.float() - b.float()).abs()
                     <= 0.03 * b.float().abs().amax(dim=1, keepdim=True)).all()
+    torch.cuda.synchronize()
+
+
+# (K, N, K1's activation): BitNet-2B's qkv, expert (and K1's relu^2) down and
+# k; ragged: K/4 = 84 and 100 (not multiples of the GEMV's 8-row k-step or of
+# its split), N = 272 and 144 (not multiples of its 128-column tile)
+GEMV_SHAPES = [(2560, 3840, "none"), (6912, 2560, "relu2"), (2560, 640, "none"),
+               (336, 272, "relu2"), (400, 144, "none")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("kernel", ["k1", "k7"])
+def test_gemv_rows_match_on_card(kernel, rows):
+    """At 8 rows or fewer K1 and K7 run the packed-ternary GEMV
+    (csrc/ternary_gemv.cu), here at 2B shapes and ragged ones. K7 bit for bit
+    against its plain version in bf16, f32 (per-layer and per-column scales)
+    and int32 (exact integer dot, the same IEEE rescale). K1 bit for bit
+    against the tensor-core GEMM's rows (its first `rows` rows of a 16-row
+    call: the same per-row prologue, exact dot and epilogue), and within K1's
+    3% of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23 + rows)
+    counter = (ternary_cuda.ternary_matmul_stacked_fused if kernel == "k1"
+               else ternary_cuda.ternary_matmul_stacked)
+    for k, n, act in GEMV_SHAPES:
+        qw = torch.randint(0, 256, (L, k // 4, n), generator=g, device=dev, dtype=torch.uint8)
+        sw_l = torch.rand((L,), generator=g, device=dev) * 80 + 10
+        sw_n = torch.rand((L, n), generator=g, device=dev) * 80 + 10
+        n0, t0 = counter.launches, counter.tiled_launches
+        if kernel == "k7":
+            xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+            sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
+            for dt in (torch.bfloat16, torch.float32):
+                for sw in (sw_l, sw_n):
+                    a = ternary_cuda.ternary_matmul_stacked(xq, qw, LAYER, sx, sw, out_dtype=dt)
+                    b = ternary_cuda.ternary_matmul_stacked_plain(xq, qw, LAYER, sx, sw,
+                                                                  out_dtype=dt)
+                    assert a.dtype == dt and torch.equal(a, b), (k, n, dt)
+            a = ternary_cuda.ternary_matmul(xq, qw[LAYER])
+            assert a.dtype == torch.int32
+            assert torch.equal(a, ternary_cuda.ternary_matmul_plain(xq, qw[LAYER])), (k, n)
+            assert counter.launches - n0 == 5
+        else:
+            ln = (1 + 0.1 * torch.randn((L, k), generator=g, device=dev)).to(torch.bfloat16)
+            kin = 2 * k if act == "relu2" else k
+            x = torch.randn((16, kin), generator=g, device=dev).to(torch.bfloat16)
+            a = ternary_cuda.ternary_matmul_stacked_fused(x[:rows], qw, LAYER, sw_n, ln, act=act)
+            assert counter.launches - n0 == 1 and counter.tiled_launches == t0
+            gemm = ternary_cuda.ternary_matmul_stacked_fused(x, qw, LAYER, sw_n, ln, act=act)
+            assert counter.tiled_launches - t0 == 1
+            assert torch.equal(a, gemm[:rows]), (k, n)
+            b = ternary_cuda.ternary_matmul_stacked_fused_plain(x[:rows], qw, LAYER, sw_n, ln,
+                                                                act=act)
+            assert ((a.float() - b.float()).abs()
+                    <= 0.03 * b.float().abs().amax(dim=1, keepdim=True)).all(), (k, n)
     torch.cuda.synchronize()
 
 

@@ -72,10 +72,12 @@ def test_gemm_operands_give_the_exact_dot(rows, k, n):
     assert np.array_equal(np.asarray(ref), got.numpy())
 
 
-@pytest.mark.parametrize("k,n", [(20, 64), (64, 40)])
+@pytest.mark.parametrize("k,n", [(20, 64), (64, 40), (256, 20), (256, 264), (100, 64),
+                                 (264, 128), (2560, 3848)])
 def test_gemm_shape_check(k, n):
-    """Above 8 rows the wrappers refuse a K or N the GEMM's TMA cannot load
-    (not a multiple of 16) with a ValueError, before any launch."""
+    """At any row count the wrappers refuse a K or N that the GEMV's 16-byte
+    loads and the GEMM's TMA cannot load (not a multiple of 16) with a
+    ValueError, before any launch."""
     with pytest.raises(ValueError, match="multiples of 16"):
-        ternary_cuda._check_gemm(k, n, 0, "ternary_matmul")
-    ternary_cuda._check_gemm(2560, 3840, 256, "ternary_matmul")
+        ternary_cuda._check_rows16(k, n, 0, "ternary_matmul")
+    ternary_cuda._check_rows16(2560, 3840, 256, "ternary_matmul")

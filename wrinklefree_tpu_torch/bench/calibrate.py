@@ -11,7 +11,7 @@ The stream is the slope between two windows of chained K10 launches
 and timed by its replay: one layer's 13.27 MB take about 4 us at 3.35 TB/s,
 less than an eager launch from Python, so an eager chain would time the
 host (the reference chains its windows in one jitted ``scan`` for the same
-reason). ``stream_busy_share`` profiles a replay to show that the card, not
+reason). ``stream_busy_share`` profiles replays to show that the card, not
 the host, fills the window.
 
 The reference stream time and the health bounds are this port's own,
@@ -19,9 +19,10 @@ measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit by
 ``chip_smoke.py``'s calibrate phase; the bounds keep the reference's
 margins (2x for the round trip, 25/18.16 for the stream).
 
-    python -m wrinklefree_tpu_torch.bench.calibrate [--device cuda]
+    python -m wrinklefree_tpu_torch.bench.calibrate [--device cuda] [--busy N]
 
-prints one JSON line with the reference's keys. On a CPU device the stream
+prints one JSON line with the reference's keys (and, with ``--busy N``, N
+readings of the busy share, one line each). On a CPU device the stream
 is not measured (``None``), as the reference off the TPU.
 """
 
@@ -170,13 +171,18 @@ def measure_stream_us_per_layer(windows=(64, 512), reps: int = 3, device=None):
     return slope * 1e6, layer_bytes / slope / 1e9
 
 
-def stream_busy_share(steps: int = 512, device=None):
-    """The device's busy share of one window of ``steps`` chained touches:
-    the kernel time ``torch.profiler`` records over one replay of the
-    window's graph, over the wall time of a replay and its synchronisation
-    without the profiler (the best of three: tracing a graph's kernels
-    slows its replay, so the traced replay's own wall time would understate
-    the share). Returns (share, kernel seconds, window seconds)."""
+def stream_busy_share(steps: int = 512, device=None, replays: int = 5):
+    """The device's busy share of a window of ``steps`` chained touches, the
+    median over ``replays`` traced replays of the window's graph. Each
+    replay's share is the time in which a touch kernel ran (the union of the
+    kernels' intervals that ``torch.profiler`` records) over that replay's
+    device span, from the first kernel's start to the last one's end: both
+    come from the same replay. (Dividing one traced replay's kernel time by
+    the host wall of other, untraced replays mixed two clocks and two sets
+    of replays, and its reading moved with the host's timing of the
+    replay.) A host that cannot feed the chain shows as gaps between the
+    kernels. Returns (the median share, kernel seconds and span seconds of
+    that replay)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,13 +192,22 @@ def stream_busy_share(steps: int = 512, device=None):
     gw, dw = stream_weights(dev)
     graph, io = _chain_graph(gw, dw, steps)
     _replay_s(graph)
-    wall = min(_replay_s(graph) for _ in range(3))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _replay_s(graph)
-    dev_s = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA) / 1e6
+    readings = []
+    for _ in range(replays):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _replay_s(graph)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if not spans:
+            raise RuntimeError("torch.profiler recorded no kernel of the window")
+        busy, end = 0.0, spans[0][0]
+        for a, b in spans:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        window = spans[-1][1] - spans[0][0]
+        readings.append((busy / window, busy / 1e6, window / 1e6))
     del io  # the graph's tensors outlive every replay
-    return dev_s / wall, dev_s, wall
+    return sorted(readings)[len(readings) // 2]
 
 
 def calibrate(device=None) -> dict:
@@ -215,8 +230,14 @@ def calibrate(device=None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--busy", type=int, default=0, metavar="N",
+                    help="also print N readings of stream_busy_share(512), one JSON line each")
     a = ap.parse_args(argv)
     print(json.dumps(calibrate(a.device)))
+    for i in range(a.busy):
+        share, kernel_s, span_s = stream_busy_share(512, a.device)
+        print(json.dumps({"busy_reading": i, "share": share, "kernel_s": kernel_s,
+                          "span_s": span_s}))
     return 0
 
 

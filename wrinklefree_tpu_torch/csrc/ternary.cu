@@ -27,14 +27,14 @@
 // (same algebra as the TPU kernel's _planes_dot).
 //
 // Bound: at decode (<= 8 rows) the work is bound by the weight stream
-// (K*N/4 bytes per call). This first version does not reach it: on an H100
-// a decode call takes about the same time for 2.5 MB (qkv) as for 8.8 MB
-// (gateup) of weights, because each thread keeps one dependent 4-byte
-// weight load in flight per iteration, so the loop is latency-bound. More
-// loads in flight per thread are later work. Above 8 rows K1 and K7 hand
-// their interleaved codes to the tensor-core GEMM of ternary_gemm.cu
-// (TMA, an mbarrier ring and wgmma s8 x s8 -> s32; bound by operations),
-// whose signed codes need no row sum.
+// (K*N/4 bytes per call). K1 and K7 run their <= 8-row dot in the GEMV of
+// ternary_gemv.cu (16-byte weight loads in flight, a split over K/4 in
+// thread-block clusters, mma.sync on the codes in this interleaved order)
+// and above 8 rows in the tensor-core GEMM of ternary_gemm.cu (TMA, an
+// mbarrier ring and wgmma s8 x s8 -> s32; bound by operations); neither
+// needs a row sum. The dot inside K2, K5 and K8 (dot_tile) does not reach
+// the bound: each thread keeps one dependent 4-byte weight load in flight
+// per iteration, so its loop is latency-bound.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -50,6 +50,10 @@ namespace cg = cooperative_groups;
 extern "C" int wf_ternary_gemm(const void* x4, int B, int K, const void* sx, const void* w,
                                const void* sw, int sw_stride, int N, int mode, void* out,
                                void* stream);
+// ternary_gemv.cu: the dot of 1-8 rows of interleaved or natural-order codes
+extern "C" int wf_ternary_gemv(const void* codes, int natural, int B, int K, const void* sx,
+                               const void* w, const void* sw, int sw_stride, int N, int mode,
+                               int split, void* out, void* stream);
 
 namespace {
 
@@ -234,53 +238,52 @@ __device__ __forceinline__ __nv_bfloat16 rescale(int acc, int rowsum, float sx, 
   return __float2bfloat16_rn((float)(acc - rowsum) * inv);
 }
 
+// K1's and K7's output modes (their epilogues are in ternary_gemv.cu and
+// ternary_gemm.cu)
 constexpr int OUT_BF16 = 0;  // float(dot) * (1/(sx*sw)), rounded to nearest-even bf16
 constexpr int OUT_F32 = 1;   // the same product, stored as f32
 constexpr int OUT_I32 = 2;   // the exact int32 dot (sx and sw unused)
 
-// Store one output of the signed dot `dot` (row `row`, scale index `swi`).
-template <int MODE>
-__device__ __forceinline__ void emit_out(void* out, size_t idx, int dot, const float* sx, int row,
-                                         const float* sw, int swi) {
-  if constexpr (MODE == OUT_I32) {
-    static_cast<int*>(out)[idx] = dot;
+// ---------------------------------------------------------------- K1 ------
+
+// Start copying n bf16 values from global to shared memory: cp.async, 16
+// bytes a copy, all in flight at once (where both are 16-byte aligned),
+// else plain loads. The caller waits with cp.async.wait_all.
+__device__ void copy_row_async(const __nv_bfloat16* __restrict__ src, int n,
+                               __nv_bfloat16* dst) {
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && n % 8 == 0) {
+    for (int i = threadIdx.x; i < n / 8; i += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       static_cast<uint32_t>(__cvta_generic_to_shared(dst + 8 * i))),
+                   "l"(src + 8 * i)
+                   : "memory");
   } else {
-    const float y = (float)dot * (1.f / (sx[row] * sw[swi]));
-    if constexpr (MODE == OUT_F32)
-      static_cast<float*>(out)[idx] = y;
-    else
-      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
 }
 
-// ---------------------------------------------------------------- K1 ------
-
+// One block per row: prologue_row on a copy of the row and of the norm row in
+// shared memory (all their loads in flight at once, where prologue_row's
+// loops would wait for one global load per iteration; the arithmetic and its
+// order are prologue_row's). The decode GEMV is launched after this grid
+// with programmatic stream serialization: it may start streaming its weights
+// at once, and waits for this grid's stores before it reads the codes.
 __global__ void k1_prologue(const __nv_bfloat16* __restrict__ h, int kin, int K, int act,
                             int norm, const __nv_bfloat16* __restrict__ nw, float eps,
-                            int8_t* __restrict__ x4, int* __restrict__ rowsum,
-                            float* __restrict__ sx) {
+                            int8_t* __restrict__ x4, float* __restrict__ sx) {
+  asm volatile("griddepcontrol.launch_dependents;");
   extern __shared__ float smem[];
   float* red = smem;
   float* xs = smem + 32;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(xs + K);
+  __nv_bfloat16* ns = hs + (kin + 7) / 8 * 8;
   const int b = blockIdx.x;
-  prologue_row(h + (size_t)b * kin, K, act, norm, nw, eps, xs, red, x4 + (size_t)b * K,
-               rowsum == nullptr ? nullptr : rowsum + b, sx + b);
-}
-
-template <int R>
-__global__ void k1_dot_rows(const int8_t* __restrict__ x4, const int* __restrict__ rowsum,
-                            const float* __restrict__ sx, const uint8_t* __restrict__ w,
-                            const float* __restrict__ sw, int sw_stride, int B, int K,
-                            int N, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ int ismem[];
-  const int K4 = K / 4;
-  int* x4s = ismem;
-  int* red = ismem + R * K4;
-  load_codes<R>(x4, B, K4, x4s);
-  const int n0 = blockIdx.x * TILE_N;
-  dot_tile<R>(w, K4, N, n0, x4s, B, red, [&](int i, int n, int acc) {
-    out[(size_t)i * N + n] = rescale(acc, rowsum[i], sx[i], sw[n * sw_stride]);
-  });
+  copy_row_async(h + (size_t)b * kin, kin, hs);
+  if (nw != nullptr) copy_row_async(nw, K, ns);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  prologue_row(hs, K, act, norm, nw == nullptr ? nullptr : ns, eps, xs, red,
+               x4 + (size_t)b * K, nullptr, sx + b);
 }
 
 // ---------------------------------------------------------------- K7 ------
@@ -289,56 +292,11 @@ __global__ void k1_dot_rows(const int8_t* __restrict__ x4, const int* __restrict
 // replaces ternary_matmul_pallas (_matmul_kernel, _matmul_int_kernel) and
 // ternary_matmul_pallas_stacked (_matmul_kernel_stacked,
 // _matmul_kernel_stacked_rowscale). The layer, or the expert, is a byte
-// offset into the stack, computed by the caller. K1's dots want interleaved
-// codes and the row sum of x, which K1's prologue writes; K7 builds them
-// itself from x_q in natural order: in shared memory inside the decode
-// kernel (<= 8 rows, each block re-reads the B*K bytes of x from L2), and
-// in a small pre-pass (B*K bytes read and written) before ternary_gemm.cu
-// above that: the GEMM's TMA loads can copy tiles but not interleave them.
-// The bound and the design limits are K1's (the note at the top).
-
-// R rows of natural-order codes -> interleaved words in shared memory (rows at
-// or beyond `rows` are zero), then each row's code sum (one warp per row).
-template <int R>
-__device__ void interleave_codes(const int8_t* __restrict__ xq, int rows, int K, int* x4s,
-                                 int* rsum) {
-  const int K4 = K / 4;
-  const uint8_t* xb = reinterpret_cast<const uint8_t*>(xq);
-  for (int i = threadIdx.x; i < R * K4; i += blockDim.x) {
-    const int row = i / K4, r = i - row * K4;
-    uint32_t v = 0u;
-    if (row < rows) {
-      const uint8_t* x = xb + (size_t)row * K + r;
-      v = (uint32_t)x[0] | ((uint32_t)x[K4] << 8) | ((uint32_t)x[2 * K4] << 16) |
-          ((uint32_t)x[3 * K4] << 24);
-    }
-    x4s[i] = (int)v;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < R; i += blockDim.x >> 5) {
-    int s = 0;
-    for (int r = lane; r < K4; r += 32) s = __dp4a(x4s[i * K4 + r], 0x01010101, s);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) rsum[i] = s;
-  }
-  __syncthreads();
-}
-
-template <int R, int MODE>
-__global__ void k7_dot_rows(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                            const uint8_t* __restrict__ w, const float* __restrict__ sw,
-                            int sw_stride, int B, int K, int N, void* __restrict__ out) {
-  extern __shared__ int ismem[];
-  const int K4 = K / 4;
-  int* x4s = ismem;                     // R * K4
-  int* red = x4s + R * K4;              // KSPLIT * R * TILE_N
-  int* rsum = red + KSPLIT * R * TILE_N;  // R
-  interleave_codes<R>(xq, B, K, x4s, rsum);
-  dot_tile<R>(w, K4, N, blockIdx.x * TILE_N, x4s, B, red, [&](int i, int n, int acc) {
-    emit_out<MODE>(out, (size_t)i * N + n, acc - rsum[i], sx, i, sw, n * sw_stride);
-  });
-}
+// offset into the stack, computed by the caller. At <= 8 rows the GEMV of
+// ternary_gemv.cu gathers each block's slice of x_q (natural order) into
+// the interleaved words itself; above 8 rows a small pre-pass (B*K bytes
+// read and written) interleaves the codes for ternary_gemm.cu, whose TMA
+// loads can copy tiles but not interleave them.
 
 // Pre-pass of the GEMM path: one block per row writes the interleaved codes,
 // one 4-byte word x4[r] = (x[r], x[K/4+r], x[2K/4+r], x[3K/4+r]) per thread.
@@ -642,19 +600,6 @@ size_t dot_smem(int R, int K) {
   return (size_t)R * (K / 4) * 4 + (size_t)KSPLIT * R * TILE_N * 4;
 }
 
-template <int R>
-cudaError_t launch_k1_dot(const int8_t* x4, const int* rs, const float* sx, const uint8_t* w,
-                          const float* sw, int sw_stride, int B, int K, int N,
-                          __nv_bfloat16* out, cudaStream_t st) {
-  size_t smem = dot_smem(R, K);
-  cudaError_t e = cudaFuncSetAttribute(k1_dot_rows<R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + TILE_N - 1) / TILE_N);
-  k1_dot_rows<R><<<grid, THREADS, smem, st>>>(x4, rs, sx, w, sw, sw_stride, B, K, N, out);
-  return cudaGetLastError();
-}
-
 // Dynamic shared memory of K2's stages at R rows: the larger dot's codes and
 // partial sums, or a prologue's reduction scratch and row.
 size_t k2_smem(int R, int H, int I) {
@@ -715,43 +660,6 @@ cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
   return cudaGetLastError();
 }
 
-struct Args7 {
-  const int8_t* xq;
-  const float* sx;
-  const uint8_t* w;
-  const float* sw;
-  int sw_stride, B, K, N;
-  int8_t* x4;
-  void* out;
-  cudaStream_t st;
-};
-
-template <int R, int MODE>
-cudaError_t launch_k7_rows(const Args7& a) {
-  size_t smem = dot_smem(R, a.K) + (size_t)R * 4;
-  cudaError_t e = cudaFuncSetAttribute(k7_dot_rows<R, MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.N + TILE_N - 1) / TILE_N);
-  k7_dot_rows<R, MODE><<<grid, THREADS, smem, a.st>>>(a.xq, a.sx, a.w, a.sw, a.sw_stride, a.B,
-                                                       a.K, a.N, a.out);
-  return cudaGetLastError();
-}
-
-template <int MODE>
-cudaError_t launch_k7(const Args7& a) {
-  if (a.B == 1) return launch_k7_rows<1, MODE>(a);
-  if (a.B == 2) return launch_k7_rows<2, MODE>(a);
-  if (a.B <= 4) return launch_k7_rows<4, MODE>(a);
-  if (a.B <= 8) return launch_k7_rows<8, MODE>(a);
-  if (a.x4 == nullptr) return cudaErrorInvalidValue;
-  k7_interleave<<<a.B, THREADS, 0, a.st>>>(a.xq, a.K, a.x4);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return (cudaError_t)wf_ternary_gemm(a.x4, a.B, a.K, a.sx, a.w, a.sw, a.sw_stride, a.N, MODE,
-                                      a.out, a.st);
-}
-
 // Largest grid whose blocks are all resident (a cooperative launch needs
 // that), capped at `want` and at least 1.
 cudaError_t resident_blocks(const void* kernel, size_t smem, int want, int* blocks) {
@@ -775,49 +683,49 @@ extern "C" {
 
 // K1: out[B,N] = fused linear of h[B,kin]. w points at the layer's [K/4,N]
 // bytes, sw at the layer's scales (sw_stride 1: per column, 0: one scalar),
-// nw at the layer's bf16 norm row or null. x4/rowsum/sx are caller scratch of
-// B*K bytes, B ints and B floats; rowsum is used (and needed) only for B <= 8
-// (the tensor-core GEMM's signed codes need no row sum), else null.
+// nw at the layer's bf16 norm row or null. x4/sx are caller scratch of B*K
+// bytes and B floats. split: the GEMV's blocks per column tile (B <= 8).
 int wf_ternary_fused(const void* h, int B, int kin, int K, int act, int norm, const void* nw,
                      float eps, const void* w, const void* sw, int sw_stride, int N, void* x4,
-                     void* rowsum, void* sx, void* out, void* stream) {
+                     void* sx, int split, void* out, void* stream) {
+  static int psmem_limit = 48 * 1024;  // raised once per process when a width needs it
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
-  size_t psmem = (size_t)(32 + K) * 4;
-  cudaError_t e =
-      cudaFuncSetAttribute(k1_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)psmem);
-  if (e != cudaSuccess) return e;
+  const int psmem = (32 + K) * 4 + ((kin + 7) / 8 * 8 + K) * 2;
+  cudaError_t e;
+  if (psmem > psmem_limit) {
+    if ((e = cudaFuncSetAttribute(k1_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  psmem)) != cudaSuccess)
+      return e;
+    psmem_limit = psmem;
+  }
   k1_prologue<<<B, THREADS, psmem, st>>>((const __nv_bfloat16*)h, kin, K, act, norm,
                                          (const __nv_bfloat16*)nw, eps, (int8_t*)x4,
-                                         (int*)rowsum, (float*)sx);
+                                         (float*)sx);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int8_t* xq = (const int8_t*)x4;
-  const int* rs = (const int*)rowsum;
-  const float* s = (const float*)sx;
-  const uint8_t* wb = (const uint8_t*)w;
-  const float* swf = (const float*)sw;
-  __nv_bfloat16* o = (__nv_bfloat16*)out;
-  if (B == 1) return launch_k1_dot<1>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
-  if (B == 2) return launch_k1_dot<2>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
-  if (B <= 4) return launch_k1_dot<4>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
-  if (B <= 8) return launch_k1_dot<8>(xq, rs, s, wb, swf, sw_stride, B, K, N, o, st);
-  return wf_ternary_gemm(xq, B, K, s, wb, swf, sw_stride, N, OUT_BF16, o, stream);
+  if (B <= 8)
+    return wf_ternary_gemv(x4, 0, B, K, sx, w, sw, sw_stride, N, OUT_BF16, split, out, stream);
+  return wf_ternary_gemm(x4, B, K, sx, w, sw, sw_stride, N, OUT_BF16, out, stream);
 }
 
 // K7: out[B,N] = the packed-ternary dot of int8 codes xq[B,K] (natural order)
 // with w[K/4,N] (the layer's or the expert's bytes). mode 0: bf16 and mode 1:
 // f32 of float(dot) * (1/(sx[b]*sw[n*sw_stride])) (sw_stride 1: per column,
-// 0: one scalar); mode 2: the exact int32 dot, sx and sw unused. x4 is
-// caller scratch of B*K bytes, used (and needed) only for B > 8.
+// 0: one scalar); mode 2: the exact int32 dot, sx and sw unused. split: the
+// GEMV's blocks per column tile (B <= 8). x4 is caller scratch of B*K bytes,
+// used (and needed) only for B > 8.
 int wf_ternary_matmul(const void* xq, int B, int K, const void* sx, const void* w, const void* sw,
-                      int sw_stride, int N, int mode, void* x4, void* out, void* stream) {
+                      int sw_stride, int N, int mode, int split, void* x4, void* out,
+                      void* stream) {
   if (B <= 0) return 0;
   if (K % 4 || N % 4 || mode < OUT_BF16 || mode > OUT_I32) return cudaErrorInvalidValue;
-  const Args7 a{(const int8_t*)xq, (const float*)sx, (const uint8_t*)w, (const float*)sw,
-                sw_stride, B, K, N, (int8_t*)x4, out, (cudaStream_t)stream};
-  if (mode == OUT_BF16) return launch_k7<OUT_BF16>(a);
-  if (mode == OUT_F32) return launch_k7<OUT_F32>(a);
-  return launch_k7<OUT_I32>(a);
+  if (B <= 8) return wf_ternary_gemv(xq, 1, B, K, sx, w, sw, sw_stride, N, mode, split, out, stream);
+  if (x4 == nullptr) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  k7_interleave<<<B, THREADS, 0, st>>>((const int8_t*)xq, K, (int8_t*)x4);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return wf_ternary_gemm(x4, B, K, sx, w, sw, sw_stride, N, mode, out, stream);
 }
 
 // K2: out[B,H] = h + down(quant(subnorm(act(bf16(gateup(quant(norm(h)))))))), B <= 8.

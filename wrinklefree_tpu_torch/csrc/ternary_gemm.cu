@@ -5,12 +5,12 @@
 // It serves ternary_matmul_stacked_fused (K1, after k1_prologue), and
 // ternary_matmul_pallas / ternary_matmul_pallas_stacked (K7, after
 // k7_interleave) of wrinklefree_tpu/ops/ternary_pallas.py above 8 rows; the
-// <= 8-row decode dots stay in ternary.cu.
+// <= 8-row decode dots are the GEMV of ternary_gemv.cu.
 //
 // What it computes: out[m, n] = float(dot) * (1/(sx[m] * sw[n*sw_stride]))
 // as bf16 or f32, or the exact int32 dot, where dot is the signed integer
 // product of row m of the interleaved codes x4 [B, K] with column n of the
-// packed weights w [K/4, N] (the same epilogue as ternary.cu's emit_out, so
+// packed weights w [K/4, N] (the same epilogue as ternary_gemv.cu's emit_out, so
 // the output is bit for bit that of the CUDA-core dot it replaced). x4 holds
 // x4[m, 4r+p] = x[m, p*K/4 + r], and weight byte w[r, n] holds the 2-bit
 // codes (+1) of exactly those four k, so packed rows r0..r0+31 meet one
@@ -70,7 +70,7 @@ constexpr int CONSUMERS = 256;              // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;     // + the producer warp
 constexpr int W_TILE = KR * BN;             // bytes of a packed weight tile
 
-constexpr int OUT_BF16 = 0;  // the modes of ternary.cu's emit_out
+constexpr int OUT_BF16 = 0;  // the modes of ternary_gemv.cu's emit_out
 constexpr int OUT_F32 = 1;
 constexpr int OUT_I32 = 2;
 

@@ -39,7 +39,7 @@ FLAGS = (
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
-    "wf_ternary_fused": [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "wf_ternary_fused": [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P, _I, _I, _P, _P, _I, _P, _P],
     "wf_mlp_mega": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P, _P, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_kv_write": [_P, _P, _P, _P, _I, _I, _LL, _LL, _P],
@@ -48,7 +48,7 @@ SIGNATURES = {
                      _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P],
-    "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "wf_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "wf_stream_touch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
@@ -152,6 +152,16 @@ def call(name: str, *args) -> None:
 def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of t's device, as the C entry points take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:

@@ -41,11 +41,13 @@ model stores them.
 Each wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel (sources in ``csrc/ternary.cu``) or raises. Each
 keeps a plain integer ``launches`` counter, incremented once per launch.
-Above 8 rows K1 and K7 end in the tensor-core GEMM of
-``csrc/ternary_gemm.cu``, on the interleaved codes
+At 8 rows or fewer K1 and K7 end in the packed-ternary GEMV of
+``csrc/ternary_gemv.cu`` (each 128-column tile split over
+:func:`gemv_split` blocks along K/4), above 8 rows in the tensor-core GEMM
+of ``csrc/ternary_gemm.cu``, on the interleaved codes
 (:func:`interleave_codes`) and the signed weight codes in the layout of
 :func:`unpack_signed_interleaved`; their ``tiled_launches`` counts those
-calls (also counted in ``launches``). It needs K and N multiples of 16.
+calls (also counted in ``launches``). Both need K and N multiples of 16.
 """
 
 from __future__ import annotations
@@ -61,7 +63,10 @@ from .rope import apply_rope
 from .ternary import quantize_activations, ternary_matmul_reference
 
 _ACTS = {"none": 0, "relu2": 1, "silu": 2}
-DECODE_ROWS = 8  # at most this many rows take the decode dots; more, the GEMM
+DECODE_ROWS = 8  # at most this many rows take the GEMV; more, the GEMM
+GEMV_TILE_N = 128  # the GEMV's columns per block
+GEMV_STEP = 8  # its packed rows per k-step
+GEMV_MAX_SPLIT = 8  # its blocks per cluster
 
 
 def _check_args(qweight, weight_scale, norm_w, layer):
@@ -243,11 +248,27 @@ def unpack_signed_interleaved(qweight: torch.Tensor) -> torch.Tensor:
     return codes.permute(1, 0, 2).reshape(n, 4 * k4)
 
 
-def _check_gemm(k: int, n: int, w_ptr: int, what: str):
-    """The GEMM's TMA loads need 16-byte aligned rows and bases."""
+def gemv_split(k: int, n: int, sms: int) -> int:
+    """Blocks per 128-column tile of the decode GEMV, each taking a slice of
+    the K/4 packed rows: the largest power of two that keeps the grid within
+    one block per SM of the card's ``sms`` (a second block on an SM, or a
+    second wave, costs more than the smaller split's longer slices), at most
+    8 (the cluster's portable size) and at most the k-steps of 8 packed
+    rows; at least 1."""
+    tiles = -(-n // GEMV_TILE_N)
+    steps = -(-(k // 4) // GEMV_STEP)
+    split = 1
+    while split < GEMV_MAX_SPLIT and 2 * tiles * split <= sms and 2 * split <= steps:
+        split *= 2
+    return split
+
+
+def _check_rows16(k: int, n: int, w_ptr: int, what: str):
+    """The GEMV's 16-byte loads of weight rows and codes, and the GEMM's TMA
+    loads, need 16-byte aligned rows and bases."""
     if k % 16 or n % 16 or w_ptr % 16:
-        raise ValueError(f"{what}: above {DECODE_ROWS} rows the tensor-core GEMM needs K and N "
-                         f"multiples of 16 and 16-byte aligned weights, got K={k}, N={n}")
+        raise ValueError(f"{what}: the GEMV and the GEMM load 16-byte rows: K and N must be "
+                         f"multiples of 16 and the weights 16-byte aligned, got K={k}, N={n}")
 
 
 def _scale1(s: torch.Tensor) -> torch.Tensor:
@@ -350,21 +371,18 @@ def ternary_matmul_stacked_fused(
     h2 = h.reshape(-1, kin).contiguous()
     b = h2.shape[0]
     w_ptr = _layer_ptr(qweight, layer)
-    if b > DECODE_ROWS:
-        _check_gemm(k, n, w_ptr, "ternary_matmul_stacked_fused")
+    _check_rows16(k, n, w_ptr, "ternary_matmul_stacked_fused")
     dev = h.device
+    split = gemv_split(k, n, cuda_lib.sm_count(dev)) if b <= DECODE_ROWS else 0
     x4 = torch.empty((b, k), dtype=torch.int8, device=dev)
-    # the row sum corrects the {0,1,2} codes of the <= 8-row dot only
-    rowsum = torch.empty((b,), dtype=torch.int32, device=dev) if b <= DECODE_ROWS else None
     sx = torch.empty((b,), dtype=torch.float32, device=dev)
     out = torch.empty((b, n), dtype=torch.bfloat16, device=dev)
     sw_ptr, sw_stride = _scale_args(weight_scale, layer, n)
     nw_ptr = _layer_ptr(norm_w, layer) if (norm and norm_w is not None) else None
     cuda_lib.call(
         "wf_ternary_fused", h2.data_ptr(), b, kin, k, _ACTS[act], int(norm), nw_ptr,
-        float(eps), w_ptr, sw_ptr, sw_stride, n, x4.data_ptr(),
-        None if rowsum is None else rowsum.data_ptr(), sx.data_ptr(), out.data_ptr(),
-        cuda_lib.stream(h),
+        float(eps), w_ptr, sw_ptr, sw_stride, n, x4.data_ptr(), sx.data_ptr(), split,
+        out.data_ptr(), cuda_lib.stream(h),
     )
     ternary_matmul_stacked_fused.launches += 1
     ternary_matmul_stacked_fused.tiled_launches += b > DECODE_ROWS
@@ -747,13 +765,17 @@ def _launch_k7(x_q, w_ptr, k, n, act_scale, sw_ptr, sw_stride, out_dtype):
     out = torch.empty((b, n), dtype=dt, device=dev)
     if b == 0:
         return out.reshape(*lead, n)
-    x4 = None
+    _check_rows16(k, n, w_ptr, "ternary_matmul")
+    x4, split = None, 0
     if b > DECODE_ROWS:  # the GEMM's interleave pre-pass writes the codes here
-        _check_gemm(k, n, w_ptr, "ternary_matmul")
         x4 = torch.empty((b, k), dtype=torch.int8, device=dev)
+    else:
+        split = gemv_split(k, n, cuda_lib.sm_count(dev))
+        if x2.data_ptr() % 16:  # the GEMV reads the codes in 16-byte items
+            x2 = x2.clone()
     cuda_lib.call(
         "wf_ternary_matmul", x2.data_ptr(), b, k, sx_ptr, w_ptr, sw_ptr, sw_stride, n, mode,
-        x4.data_ptr() if x4 is not None else None, out.data_ptr(), cuda_lib.stream(x_q),
+        split, x4.data_ptr() if x4 is not None else None, out.data_ptr(), cuda_lib.stream(x_q),
     )
     ternary_matmul_stacked.launches += 1
     ternary_matmul_stacked.tiled_launches += b > DECODE_ROWS
