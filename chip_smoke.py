@@ -14,7 +14,9 @@ vocab 128256) with random weights drawn on the card from seed 0:
                count 1-8 (the GEMV of csrc/ternary_gemv.cu; K7 bitwise in
                bf16, f32 and int32), 64 and 512; the static wrappers also
                bitwise against K5/K2, K1 above 8 rows (the tensor-core GEMM)
-               bitwise against K1 over its 8-row slices (the GEMV), and the
+               bitwise against K1 over its 8-row slices (the GEMV), K6 at
+               three history shapes (with its split, and checked for
+               determinism and for NaN rows past the valid tokens), and the
                causal flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
@@ -36,7 +38,7 @@ vocab 128256) with random weights drawn on the card from seed 0:
                serving kernel's launch counter growing (K1's GEMM in the
                prefills: ``tiled_launches``); then the six
                requests again with ``flash_decode=True``, whose decode
-               attention kernel must launch;
+               attention kernel must launch once per layer and decode step;
 6. moe       — the repo's MoE configuration (8 layers, 8 experts, top-2) on
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
@@ -474,7 +476,7 @@ def phase_kernels(params, cfg, dev, results):
     print("kernels: K4 " + json.dumps(r))
     results["flash_paged_prefill"] = r
     kernels_k5(params, cfg, dev, rnd, results)
-    kernels_k6(cfg, dev, g, rnd, results)
+    kernels_k6(cfg, dev, results)
     kernels_k7(params, cfg, dev, g, results)
     kernels_k8_static(params, cfg, dev, rnd, results)
     kernels_k9(cfg, dev, g, results)
@@ -572,74 +574,103 @@ def kernels_k5(params, cfg, dev, rnd, results):
     results["attn_block_megakernel"] = dict(pick, max_abs_err=worst)
 
 
-def kernels_k6(cfg, dev, g, rnd, results):
-    """K6, the paged flash decode, against its plain version: 8 slots,
-    page_size 16, histories of 17..2000 tokens, layers 0 and 29. Bar: 2e-2
-    absolute (probabilities round to bf16 against each 64-token tile's
-    running max in the kernel, against one max over all committed pages in
-    the plain version)."""
+def kernels_k6(cfg, dev, results):
+    """K6, the paged flash decode, against its plain version at the shapes of
+    ``wrinklefree_tpu_torch/bench/flash_decode.py`` (2B attention, page size
+    16, 128 pages per slot): 8 slots of 17..2000 tokens, 8 slots of 2000 and
+    1 slot of 2000; layers 0 and 29. Bar: 2e-2 absolute (probabilities round
+    to bf16 against each warp's running max over its rows of a rank's tiles
+    in the kernel, against one max over all committed pages in the plain
+    version). At each shape two calls must give the same bits, and with the
+    pool pages past each slot's committed span and the staging rows from its
+    offset on set to NaN the output must be finite and bitwise equal to the
+    run with those rows zero. Each shape prints its time, SDPA's, the bound,
+    the split the wrapper picked and the error."""
     import torch
 
+    from wrinklefree_tpu_torch.bench import flash_decode as bench
+    from wrinklefree_tpu_torch.ops import cuda_lib
     from wrinklefree_tpu_torch.ops import flash_attention as fa
 
-    L, NH, KV, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    B, ps, MP = 8, 16, 128
-    lens = [17, 100, 255, 512, 777, 1024, 1500, 2000]
-    P = B * MP + 1
-    main = torch.empty((P, 2 * L, ps, KV * D), dtype=torch.bfloat16, device=dev)
-    for i in range(0, P, 128):  # filled in slabs (one randn of 1.2 GB would double it)
-        main[i:i + 128] = rnd(min(128, P - i), 2 * L, ps, KV * D)
-    stage = rnd(B, ps, 2 * L, KV * D)
-    q, kc, vc = rnd(B, NH, D), rnd(B, KV, D), rnd(B, KV, D)
-    pt = (torch.randperm(B * MP, generator=g, device=dev) + 1).reshape(B, MP).to(torch.int32)
-    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    worst = 0.0
-    for layer in (0, L - 1):
-        a = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
-        b = fa.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
-        torch.cuda.synchronize()
-        d = (a.float() - b.float()).abs().max().item()
-        if not (torch.isfinite(a).all() and d <= 2e-2):
-            fail(f"K6 layer={layer}: max abs error {d}")
-        worst = max(worst, d)
-    lay = Cycle(L)
-    ms, call_ms = cuda_ms(lambda: fa.flash_paged_decode(q, kc, vc, main, stage, lay(), pt, sl))
-    plain_ms, _ = cuda_ms(
-        lambda: fa.flash_paged_decode_plain(q, kc, vc, main, stage, lay(), pt, sl),
-        iters=5, warmup=1)
-    # the yardstick: SDPA over contiguous copies of the same histories (made
-    # untimed; four layers' copies, 164 MB, so repeats miss the 50 MB L2)
-    Tm = max(lens) + 1
-    n_l = min(4, L)
-    ks = torch.zeros((n_l, B, KV, Tm, D), dtype=torch.bfloat16, device=dev)
-    vs = torch.zeros_like(ks)
-    for li in range(n_l):
-        for bi, n in enumerate(lens):
-            full, off = n // ps * ps, n % ps
-            pages = pt[bi, :full // ps].long()
-            kk = main[pages, li].reshape(full, KV, D)
-            vv = main[pages, L + li].reshape(full, KV, D)
-            ks_ = torch.cat([kk, stage[bi, :off, li].reshape(off, KV, D), kc[bi][None]])
-            vs_ = torch.cat([vv, stage[bi, :off, L + li].reshape(off, KV, D), vc[bi][None]])
-            ks[li, bi, :, :n + 1] = ks_.permute(1, 0, 2)
-            vs[li, bi, :, :n + 1] = vs_.permute(1, 0, 2)
-    mask = (torch.arange(Tm, device=dev)[None, :] <= sl[:, None])[:, None, None, :]
+    L, NH, KV, D, ps, MP = bench.L, bench.NH, bench.KV, bench.D, bench.PS, bench.MP
+    if (L, NH, KV, D) != (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim):
+        fail("K6: the bench's shapes are not the model's")
+    inp = bench.make_inputs(dev, seed=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cyc = Cycle(n_l)
+    rows, worst = [], 0.0
+    for name, lens in bench.SHAPES.items():
+        (q, kc, vc, main, stage), (pt, sl) = bench.case(inp, lens)
+        B = len(lens)
+        err = 0.0
+        for layer in (0, L - 1):
+            a = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+            again = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+            b = fa.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+            torch.cuda.synchronize()
+            d = (a.float() - b.float()).abs().max().item()
+            if not (torch.isfinite(a).all() and d <= 2e-2):
+                fail(f"K6 {name} layer={layer}: max abs error {d}")
+            if not torch.equal(a, again):
+                fail(f"K6 {name} layer={layer}: two calls differ")
+            err = max(err, d)
+        # the rows no slot may read: zero, then NaN (on a copy of the pool)
+        pm, psg = main.clone(), stage.clone()
+        past = [pt[i, n // ps:].long() for i, n in enumerate(lens)]
+        outs = {}
+        for fill in (0.0, float("nan")):
+            for i, n in enumerate(lens):
+                pm[past[i]] = fill
+                psg[i, n % ps:] = fill
+            for layer in (0, L - 1):
+                o = fa.flash_paged_decode(q, kc, vc, pm, psg, layer, pt, sl)
+                if fill == 0.0:
+                    outs[layer] = o
+                elif not (torch.isfinite(o).all() and torch.equal(o, outs[layer])):
+                    fail(f"K6 {name} layer={layer}: the NaN rows past the valid tokens changed "
+                         "the output")
+        del pm, psg
+        lay = Cycle(L)
+        ms, call_ms = cuda_ms(
+            lambda: fa.flash_paged_decode(q, kc, vc, main, stage, lay(), pt, sl))
+        plain_ms, _ = cuda_ms(
+            lambda: fa.flash_paged_decode_plain(q, kc, vc, main, stage, lay(), pt, sl),
+            iters=5, warmup=1)
+        # the yardstick: SDPA over contiguous copies of the same histories
+        # (made untimed; four layers' copies, so repeats miss the 50 MB L2)
+        Tm = max(lens) + 1
+        n_l = min(4, L)
+        ks = torch.zeros((n_l, B, KV, Tm, D), dtype=torch.bfloat16, device=dev)
+        vs = torch.zeros_like(ks)
+        for li in range(n_l):
+            for bi, n in enumerate(lens):
+                full, off = n // ps * ps, n % ps
+                pages = pt[bi, :full // ps].long()
+                kk = main[pages, li].reshape(full, KV, D)
+                vv = main[pages, L + li].reshape(full, KV, D)
+                ks_ = torch.cat([kk, stage[bi, :off, li].reshape(off, KV, D), kc[bi][None]])
+                vs_ = torch.cat([vv, stage[bi, :off, L + li].reshape(off, KV, D), vc[bi][None]])
+                ks[li, bi, :, :n + 1] = ks_.permute(1, 0, 2)
+                vs[li, bi, :, :n + 1] = vs_.permute(1, 0, 2)
+        mask = (torch.arange(Tm, device=dev)[None, :] <= sl[:, None])[:, None, None, :]
+        cyc = Cycle(n_l)
 
-    def lib():
-        i = cyc()
-        return sdpa(q[:, :, None], ks[i], vs[i], attn_mask=mask, enable_gqa=True)
+        def lib():
+            i = cyc()
+            return sdpa(q[:, :, None], ks[i], vs[i], attn_mask=mask, enable_gqa=True)
 
-    lib_ms, _ = cuda_ms(lib)
-    tokens = sum(n + 1 for n in lens)
-    nbytes = 2 * tokens * KV * D * 2 + 2 * B * NH * D * 2 + B * MP * 4 + B * 4
-    b_ms, b_by = bound(nbytes, 4 * NH * D * tokens, "bf16")
-    r = dict(shape=f"decode B={B} ps={ps} seq_lens={lens}", ms=ms, call_ms=call_ms,
-             plain_ms=plain_ms, library_ms=lib_ms, library="SDPA over contiguous histories",
-             bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
-    print("kernels: K6 " + json.dumps(r))
-    results["flash_paged_decode"] = r
+        lib_ms, _ = cuda_ms(lib)
+        del ks, vs
+        tokens = sum(n + 1 for n in lens)
+        b_ms, b_by = bound(bench.nbytes(lens), 4 * NH * D * tokens, "bf16")
+        split = fa.flash_decode_split(B, KV, MP * ps, cuda_lib.sm_count(dev))
+        rows.append(dict(shape=f"decode {name} B={B} ps={ps} MP={MP} seq_lens={lens}", ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library="SDPA over contiguous histories", bound_ms=b_ms, bound_by=b_by,
+                         split=split, max_abs_err=err, deterministic=True, nan_rows_unread=True))
+        worst = max(worst, err)
+    for r in rows:
+        print("kernels: K6 " + json.dumps(r))
+    results["flash_paged_decode"] = dict(rows[0], max_abs_err=worst)
 
 
 def kernels_k7(params, cfg, dev, g, results):
@@ -1385,7 +1416,7 @@ def phase_calibrate(dev):
 
 
 def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=(),
-                 per_step_exact=None, resubmit=True, step_ref=None):
+                 per_step_exact=None, resubmit=True, step_ref=None, kernel_refs=None):
     """The engine phase; with ``flash_decode`` the decode attention runs the
     paged flash decode kernel. Every counter in ``counters`` must launch and
     every one in ``idle`` must not (all zeroed just before the six requests,
@@ -1393,8 +1424,10 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=
     decode-only step of the six requests, and the decode window on average,
     to exactly n launches;
     ``resubmit=False`` skips the two radix resubmissions; ``step_ref`` is
-    the device ms per decode step of the same window before the decode GEMV
-    (PERF.md section 5), printed beside this run's. Returns (launches, the six requests' tokens)."""
+    the device ms per decode step of the same window in the reference run
+    (PERF.md section 5), printed beside this run's, and ``kernel_refs``
+    ({kernel name: ms}) the same for single kernels. Returns (launches, the six
+    requests' tokens)."""
     import numpy as np
     import torch
 
@@ -1512,12 +1545,15 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=
                       if "k1_prologue" in e.key or "k_ternary_gemv" in e.key) / 1e6
             print(f"{tag}: decode window under the profiler, device busy {dev_s / dt} of "
                   f"{dt} s ({dev_s / steps * 1e3} ms of device time per decode step, "
-                  f"{step_ref} ms before the decode GEMV; kernel durations summed "
+                  f"{step_ref} ms in the reference run; kernel durations summed "
                   f"{sum_s / steps * 1e3} ms); the <= 8-row K1/K7 kernels "
                   f"(k1_prologue, k_ternary_gemv) {dot / steps * 1e3} ms per decode step "
                   f"({dot / sum_s} of the summed durations); "
                   "device ms per decode step by kernel: " + json.dumps(
                       {e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
+            for name, ref in (kernel_refs or {}).items():
+                ms = sum(e.device_time_total for e in evs if name in e.key) / 1e3 / steps
+                print(f"{tag}: {name} {ms} ms per decode step ({ref} ms in the reference run)")
         else:
             print(f"{tag}: decode window, 8 slots: "
                   f"{(eng.stats['decode_tokens'] - tok0) / dt} tok/s, {dt / steps * 1e3} ms "
@@ -1667,7 +1703,7 @@ def phase_moe(dev):
         params, cfg, dev, [tc.ternary_matmul_stacked, TiledCounter(tc.ternary_matmul_stacked),
                            kvu.kv_write, fa.flash_paged_prefill],
         tag="moe engine", idle=[tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel],
-        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False, step_ref=18.14)
+        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False, step_ref=10.87)
     return launches
 
 
@@ -1720,11 +1756,13 @@ def main() -> int:
                            tc.attn_block_megakernel_static, tc.mlp_block_megakernel_static])
     serving = [tc.ternary_matmul_stacked_fused, TiledCounter(tc.ternary_matmul_stacked_fused),
                tc.mlp_block_megakernel, kvu.kv_write, fa.flash_paged_prefill]
-    # the two windows' device ms per decode step before the decode GEMV
-    # (PERF.md section 5)
-    launches, toks = phase_engine(params, cfg, dev, serving, step_ref=9.76)
+    # the two windows' device ms per decode step in the reference run
+    # (PERF.md section 5); the flash_decode window also K6's
+    launches, toks = phase_engine(params, cfg, dev, serving, step_ref=8.26)
     flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
-                                flash_decode=True, step_ref=7.42)
+                                flash_decode=True, step_ref=5.96,
+                                per_step_exact={"flash_paged_decode": cfg.num_layers},
+                                kernel_refs={"k6_decode": 0.35})
     same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
             for x, y in zip(toks, ftoks)]
     print(f"engine: flash_decode=True beside the default run: leading tokens equal per request "

@@ -408,3 +408,99 @@ def test_batch1_variant_kernels_match_plain_on_card(kernel):
             b = calibrate.touch_plain(h, gw, dw, layer, cb, tn_gu=256, tn_d=128)
             assert torch.equal(a, b) and torch.equal(ca, cb)
     torch.cuda.synchronize()
+
+
+def _k6_mp_for_split(b, kv, ps, split, sms):
+    """The largest page-table width (<= 128 pages) at which the wrapper picks
+    `split` (from the shape alone), or None."""
+    mps = [mp for mp in range(1, 129)
+           if flash_attention.flash_decode_split(b, kv, mp * ps, sms) == split]
+    return max(mps) if mps else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_k6_split_matches_plain_on_card(g, b, split):
+    """K6 split over 1, 2, 4 and 8 blocks per slot (the page-table width
+    picks the split, as in the engine) against its plain version within 2e-2
+    (probabilities round to bf16 against each warp's running max, and the
+    states combine in warp and rank order), at seq_lens 0, 1, ps-1, ps,
+    ps+1, 63, 64, 65 and MP*ps-1, G query heads per KV head, B slots, the
+    first and the last layer. Two calls give the same bits. With the pool
+    pages past each slot's committed span and the staging rows from its
+    offset on set to NaN, the output is finite and bitwise equal to the run
+    with those rows zero (the kernel never reads them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    kv, ps, n_l = 2, 16, 3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mp = _k6_mp_for_split(b, kv, ps, split, sms)
+    if mp is None:
+        pytest.skip(f"no page-table width gives split {split} at B={b} on {sms} SMs")
+    gen = torch.Generator(device=dev).manual_seed(60 + 8 * g + b + split)
+    lens = [n for n in (0, 1, ps - 1, ps, ps + 1, 63, 64, 65, mp * ps - 1) if n < mp * ps]
+    rows = [lens[i % len(lens)] for i in range(max(b, len(lens)))]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for c in range(0, len(rows), b):
+        sl = torch.tensor((rows[c:] + rows)[:b], dtype=torch.int32, device=dev)
+        main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
+        stage = rnd(b, ps, 2 * n_l, kv * 128)
+        q, kc, vc = rnd(b, kv * g, 128), rnd(b, kv, 128), rnd(b, kv, 128)
+        pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).to(torch.int32)
+        zero_m, nan_m, zero_s, nan_s = main.clone(), main.clone(), stage.clone(), stage.clone()
+        for i, n in enumerate(sl.tolist()):
+            past = pt[i, n // ps:].long()
+            zero_m[past], nan_m[past] = 0, float("nan")
+            zero_s[i, n % ps:], nan_s[i, n % ps:] = 0, float("nan")
+        for layer in (0, n_l - 1):
+            n0 = flash_attention.flash_paged_decode.launches
+            a = flash_attention.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+            again = flash_attention.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+            ref = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+            z = flash_attention.flash_paged_decode(q, kc, vc, zero_m, zero_s, layer, pt, sl)
+            p = flash_attention.flash_paged_decode(q, kc, vc, nan_m, nan_s, layer, pt, sl)
+            assert flash_attention.flash_paged_decode.launches - n0 == 4
+            torch.testing.assert_close(a.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            assert torch.equal(a, again)
+            assert torch.isfinite(p).all() and torch.equal(p, z)
+            assert torch.equal(a, z)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 12, 32, 64])
+def test_k6_page_sizes_on_card(ps):
+    """K6 at page sizes other than the engine's 16: committed rows row by row
+    where a page does not hold whole 16-row boxes (8, 12), by box at an
+    offset inside the page (32, 64); against its plain version within 2e-2,
+    at seq_lens around the page and the 64-token tile, both layers, a split
+    above 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(70 + ps)
+    b, kv, g, n_l = 6, 2, 4, 2
+    mp = -(-512 // ps)
+    lens = [0, ps - 1, ps + 1, 63, 65, mp * ps - 1]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
+    stage = rnd(b, ps, 2 * n_l, kv * 128)
+    q, kc, vc = rnd(b, kv * g, 128), rnd(b, kv, 128), rnd(b, kv, 128)
+    pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert flash_attention.flash_decode_split(b, kv, mp * ps, sms) > 1
+    for layer in (0, n_l - 1):
+        a = flash_attention.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+        ref = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+        torch.testing.assert_close(a.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()

@@ -9,54 +9,83 @@
 // the staging page holds the next n % ps; the current token's k/v come in as
 // k_cur/v_cur. q is scaled by 1/sqrt(D) in bf16 before the dot; scores, the
 // running max and sum are f32; masked scores are -1e30 and masked
-// probabilities are forced to 0 (so a fully masked tile leaves the state
+// probabilities are forced to 0 (so a fully masked update leaves the state
 // unchanged); probabilities are rounded to bf16 before the PV product; the
 // output is acc / max(l, 1e-30). As in the TPU kernel, the staging prefix
 // and the current token form the last online-softmax update.
 //
-// Design: one block (4 warps) per (KV head, slot), holding that head's G
-// query rows. Tiles of 64 tokens of K and V (16 KB each) are double-buffered
-// in shared memory with cp.async, so the next tile's loads are in flight
-// while this one is scored; a thread scores one token for half of the G
-// query heads (the whole 128-dim dot in registers: summing each dot across
-// a warp instead costs five dependent shuffles per head and token, which
-// measured twice as slow), a warp per query head updates the online
-// softmax, and a thread per dim accumulates PV for the G heads in registers.
-//
-// Bound: bytes (2 * n * KV * D * 2 per layer and slot). At 8 slots x 5 KV
-// heads this is 40 blocks on 132 SMs; splitting the history over more blocks
-// (and a combine) is later work.
+// Bound: bytes, 2 * n * D * 2 per slot and KV head (the history's k and v
+// rows, each read once); 4 * G * D operations per token are far below the
+// tensor cores' rate. What it takes to get near the bytes bound, and what
+// the design does:
+// - Enough blocks. A slot's tiles of 64 tokens (its committed tiles, then
+//   the tail: the staging prefix and the current token) are dealt out in
+//   equal contiguous shares over `split` blocks (1-8, a power of two chosen
+//   on the host from static shapes: flash_attention.py::flash_decode_split),
+//   which form one thread-block cluster; the grid is (split, KV, B). A rank
+//   reads its share from seq_lens on the device; one with no tiles
+//   contributes m = -1e30, l = 0, acc = 0. The last rank ends with the tail.
+// - Large copies. One SM streams copies of 256 bytes (one token's row of one
+//   KV head) at about half its rate in copies of 1 KB or more (a scratch copy
+//   benchmark on the H100). So the committed rows come by copy engine (TMA)
+//   in boxes of 16 rows x 64 dims (2 KB; row by row where the page size is
+//   not a multiple of 16) of the pool seen as [P*2L*ps rows, KV*D], in the
+//   128-byte swizzle that keeps ldmatrix free of bank conflicts; the pages
+//   of the boxes a warp will load are read from the page table at the start,
+//   into its lanes' registers. The tail rows come by cp.async, 16 bytes a
+//   copy. Rows past a slot's valid tokens are zero and are never read from
+//   memory.
+// - No block-wide barrier per tile. Each of the 4 warps owns 16 tokens of
+//   every tile: it issues their copies into its own two-stage ring, waits
+//   for them on the stage's mbarrier and keeps its own online-softmax state,
+//   so no tile needs a block-wide max.
+// - Tensor cores for both products (mma.sync m16n8k16 bf16 x bf16 -> f32).
+//   Scores: the K rows (ldmatrix) are A (M = 16 tokens), the G <= 8 scaled
+//   query heads are B (N = 8, zero past G), D = 128 is K in 8 steps. PV: V^T
+//   (ldmatrix.trans) is A (M = 16 dims, 8 of them), the bf16-rounded
+//   probabilities are B: the scores' accumulator rows are tokens, and
+//   movmatrix.trans turns them into B fragments in registers. The products
+//   are exact in f32; only the order of the f32 sums differs from the plain
+//   version.
+// - The combine, deterministic and without global scratch. Each block sums
+//   its warps' states in warp order in shared memory; the other ranks write
+//   their (m, l, acc[G][128]) into rank 0's shared memory (distributed shared
+//   memory, after every block of the cluster has started), and after one
+//   cluster barrier rank 0 rescales and sums them in rank order, acc_r *
+//   exp(m_r - m), and stores the output. 99 KB of shared memory: two blocks
+//   per SM.
 //
 // Launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// cudaGetLastError() or the launch's error.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int HD = 128;     // head dim
-constexpr int TK = 64;      // tokens per tile
+constexpr int HD = 128;                // head dim
+constexpr int TK = 64;                 // tokens per tile
 constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;  // = HD: one thread per dim in PV
-constexpr int MAX_G = 8;    // query heads per KV head
+constexpr int THREADS = WARPS * 32;    // = HD: one thread per dim in the combine
+constexpr int WROWS = TK / WARPS;      // tokens per warp per tile: one mma's M
+constexpr int MAX_G = 8;               // query heads per KV head: the mma's N
+constexpr int STAGES = 2;
+constexpr int MAX_SPLIT = 8;           // blocks per cluster (the portable limit)
+constexpr int HALF = WROWS * 128;      // bytes of 64 dims of a warp's 16 rows
+constexpr int WSTAGE = 4 * HALF;       // a warp's K and V rows of one tile: 8 KB
+constexpr int ACC_LD = HD + 4;         // row stride of a stored acc (f32)
+constexpr int PART = 2 * MAX_G + MAX_G * ACC_LD;  // one stored state: m[8], l[8], acc[8][ACC_LD]
+constexpr int RING = WARPS * STAGES * WSTAGE;     // 64 KB
+constexpr int RANKS = MAX_SPLIT * PART * 4;       // rank 0's slots for the ranks' states
+constexpr int SMEM = RING + RANKS + 1024;         // and the 1024-byte alignment of the swizzle
+static_assert(WARPS * PART * 4 <= RING, "the warps' states fit in the ring");
 constexpr float NEG = -1e30f;
-
-constexpr int LDK = HD + 8;  // k row stride: 16-byte row loads of 8 lanes hit distinct banks
-
-struct Smem {
-  __nv_bfloat16 k[2][TK][LDK];
-  __nv_bfloat16 v[2][TK][HD];
-  float q[MAX_G][HD];
-  float s[MAX_G][TK];  // scores, then the bf16-rounded probabilities
-  float m[MAX_G], l[MAX_G], alpha[MAX_G];
-};
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 struct Args {
   const __nv_bfloat16* q;      // [B, NH, D]
@@ -67,165 +96,428 @@ struct Args {
   const int* page_table;       // [B, MP]
   const int* seq_lens;         // [B]
   __nv_bfloat16* out;          // [B, NH, D]
-  int NH, KV, L, layer, ps, MP;
+  int NH, KV, L, layer, ps, MP, split;
+  int boxes;                   // committed rows come by copy-engine box (ps % 16 == 0)
   float scale;
 };
 
-// Issue the copies of tile i (tokens i*TK.. of the committed history for
-// i < ntm, else the staging prefix and the current token) into buffer buf;
-// rows past the tile's valid tokens are zero.
-__device__ void load_tile(const Args& a, Smem& sm, int buf, int i, int ntm, int full, int off,
-                          int b, int kvh) {
-  const size_t kvd = (size_t)a.KV * HD;
-  for (int c = threadIdx.x; c < TK * (HD / 8); c += THREADS) {
-    const int j = c / (HD / 8), part = (c % (HD / 8)) * 8;
-    const __nv_bfloat16* ks = nullptr;
-    const __nv_bfloat16* vs = nullptr;
-    if (i < ntm) {
-      const int t = i * TK + j;
-      if (t < full) {
-        const size_t page = (size_t)a.page_table[(size_t)b * a.MP + t / a.ps];
-        const size_t o = t % a.ps;
-        ks = a.main + ((page * 2 * a.L + a.layer) * a.ps + o) * kvd + kvh * HD;
-        vs = a.main + ((page * 2 * a.L + a.L + a.layer) * a.ps + o) * kvd + kvh * HD;
-      }
-    } else if (j < off) {
-      ks = a.stage + (((size_t)b * a.ps + j) * 2 * a.L + a.layer) * kvd + kvh * HD;
-      vs = a.stage + (((size_t)b * a.ps + j) * 2 * a.L + a.L + a.layer) * kvd + kvh * HD;
-    } else if (j == off) {
-      ks = a.k_cur + ((size_t)b * a.KV + kvh) * HD;
-      vs = a.v_cur + ((size_t)b * a.KV + kvh) * HD;
-    }
-    __nv_bfloat16* kd = &sm.k[buf][j][part];
-    __nv_bfloat16* vd = &sm.v[buf][j][part];
-    if (ks != nullptr) {
-      __pipeline_memcpy_async(kd, ks + part, 16);
-      __pipeline_memcpy_async(vd, vs + part, 16);
-    } else {
-      *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
-    }
-  }
-  __pipeline_commit();
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS) k6_decode(Args a) {
-  extern __shared__ __align__(16) unsigned char raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(raw);
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = a.NH / a.KV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_hist = max(a.seq_lens[b], 0);
-  const int full = min((n_hist / a.ps) * a.ps, a.MP * a.ps);  // committed tokens
-  const int off = n_hist % a.ps;  // staging tokens
-  const int ntm = (full + TK - 1) / TK;
-  const int ntiles = ntm + 1;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
 
-  const __nv_bfloat16 sb = __float2bfloat16_rn(a.scale);
-  for (int i = threadIdx.x; i < G * HD; i += THREADS) {
-    const int g = i / HD, d = i % HD;
-    sm.q[g][d] = __bfloat162float(__hmul(a.q[((size_t)b * a.NH + kvh * G + g) * HD + d], sb));
+// arrive on bar, which then also waits for `bytes` from the copy engine
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `phase` of the barrier has completed. A
+// wait of more than ~2^34 cycles (seconds) traps, so that a fault in the ring
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  do {
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34))
+      __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// 2-D copy-engine load of one box at (c0 elements, c1 rows) into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// bar also waits for this thread's cp.async copies issued so far
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the transpose of an 8x8 bf16 fragment (thread 4r + c holds row r, columns
+// 2c and 2c + 1)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of the 16-byte chunk c (dims 8c..8c+7) of row r (0-15) in a
+// warp's K or V rows of a tile: [64-dim half][16 rows][128 bytes] in the copy
+// engine's 128-byte swizzle (chunk c & 7 of a row stored at (c & 7) ^ (r & 7)
+// within each 1 KB), so that ldmatrix's eight 16-byte rows hit distinct banks.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (((c >> 3) * WROWS + r) << 7) + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Issue the copies of a warp's rows r0.. of tile i (tokens i*TK.. of the
+// committed history for i < ntm, else the staging prefix and the current
+// token), of which the first nv > 0 are valid, into kd and vd (4 KB each),
+// completing on bar. Committed rows come by copy-engine box (16 rows x 64
+// dims, from `page`, when a page holds whole boxes), the others row by row
+// with cp.async (16 bytes a copy; lane j < 16 copies K row j, lane 16 + j V
+// row j). Rows from nv on are zero and are not read from memory.
+__device__ __forceinline__ void load_rows(const Args& a, const CUtensorMap* map, char* kd,
+                                          char* vd, uint64_t* bar, int i, int r0, int nv, int ntm,
+                                          int off, int b, int kvh, int lane, int page) {
+  const size_t kvd = (size_t)a.KV * HD;
+  const bool boxed = i < ntm && a.boxes;
+  {
+    const int j = lane & 15, v = lane >> 4;  // v: 0 for K, 1 for V
+    char* dst = v ? vd : kd;
+    if (j >= nv) {
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<uint4*>(dst + swz(j, c)) = make_uint4(0, 0, 0, 0);
+      // order these writes before the copy engine's later writes to the row
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    } else if (!boxed) {
+      const int row = r0 + j;
+      const __nv_bfloat16* src;
+      if (i < ntm) {
+        const int t = i * TK + row;
+        const size_t pt = (size_t)__ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
+        src = a.main + ((pt * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd;
+      } else if (row < off) {
+        src = a.stage + (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd;
+      } else {  // row == off: the current token
+        src = (v ? a.v_cur : a.k_cur) + (size_t)b * kvd;
+      }
+      src += kvh * HD;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) cp_async16(dst + swz(j, c), src + 8 * c);
+      cp_async_arrive(bar);
+    }
   }
-  if (threadIdx.x < MAX_G) {
-    sm.m[threadIdx.x] = NEG;
-    sm.l[threadIdx.x] = 0.f;
+  __syncwarp();  // the row copies have joined bar before its arrival below
+  // (nv is 16 when boxed: a.ps and so the committed span are multiples of 16)
+  if (lane == 0) mbar_expect_tx(bar, boxed ? 4 * HALF : 0);
+  __syncwarp();
+  if (boxed && lane < 4) {  // lane: (K or V, half of the dims)
+    const int v = lane >> 1, h = lane & 1;
+    tma_load((v ? vd : kd) + h * HALF, map, kvh * HD + h * 64,
+             (page * 2 * a.L + v * a.L + a.layer) * a.ps + (i * TK + r0) % a.ps, bar);
   }
-  float acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+}
 
-  load_tile(a, sm, 0, 0, ntm, full, off, b, kvh);
-  for (int i = 0; i < ntiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < ntiles) {
-      load_tile(a, sm, buf ^ 1, i + 1, ntm, full, off, b, kvh);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const int n = i < ntm ? min(TK, full - i * TK) : off + 1;  // valid tokens
-
-    // scores: a thread per (token, half of the heads), the whole 128-dim dot
-    // in registers (16-byte k loads; the q reads are warp broadcasts)
-    {
-      const int j = threadIdx.x % TK, gh = threadIdx.x / TK;
-      float s[MAX_G / 2];
+// States r = 0..count-1 at base + r * stride (floats; m[8], l[8],
+// acc[8][ACC_LD]) rescaled to their common max and summed in order r = 0,
+// 1, ...: thread d's dim of every head.
+__device__ __forceinline__ void combine(const float* base, int stride, int count, int d, int G,
+                                        float (&M)[MAX_G], float (&L)[MAX_G], float (&A)[MAX_G]) {
 #pragma unroll
-      for (int gi = 0; gi < MAX_G / 2; ++gi) s[gi] = 0.f;
-#pragma unroll 4
-      for (int d0 = 0; d0 < HD; d0 += 8) {
-        const uint4 raw8 = *reinterpret_cast<const uint4*>(&sm.k[buf][j][d0]);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw8);
-        float kf[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(k2[e]);
-          kf[2 * e] = f.x;
-          kf[2 * e + 1] = f.y;
-        }
-#pragma unroll
-        for (int gi = 0; gi < MAX_G / 2; ++gi) {
-          const int g = gh + 2 * gi;
-          if (g < G) {
-            const float4 qa = *reinterpret_cast<const float4*>(&sm.q[g][d0]);
-            const float4 qb = *reinterpret_cast<const float4*>(&sm.q[g][d0 + 4]);
-            s[gi] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                     qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-          }
-        }
-      }
-#pragma unroll
-      for (int gi = 0; gi < MAX_G / 2; ++gi) {
-        const int g = gh + 2 * gi;
-        if (g < G) sm.s[g][j] = j < n ? s[gi] : NEG;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: a warp per query head, two tokens per lane
-    for (int g = warp; g < G; g += WARPS) {
-      const bool ok0 = lane < n, ok1 = lane + 32 < n;
-      const float s0 = sm.s[g][lane], s1 = sm.s[g][lane + 32];
-      float mx = fmaxf(s0, s1);
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = sm.m[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      float psum = p0 + p1;
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      sm.s[g][lane] = bf16r(p0);
-      sm.s[g][lane + 32] = bf16r(p1);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sm.l[g] = sm.l[g] * alpha + psum;
-        sm.m[g] = m_new;
-        sm.alpha[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // PV: a thread per dim, the G heads in registers
-    const int d = threadIdx.x;
+  for (int g = 0; g < MAX_G; ++g) {
+    M[g] = NEG;
+    L[g] = 0.f;
+    A[g] = 0.f;
+  }
+  for (int r = 0; r < count; ++r)
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g)
-      if (g < G) acc[g] *= sm.alpha[g];
-    for (int j = 0; j < n; ++j) {
-      const float v = __bfloat162float(sm.v[buf][j][d]);
+      if (g < G) M[g] = fmaxf(M[g], base[r * stride + g]);
+  for (int r = 0; r < count; ++r) {
+    const float* p = base + r * stride;
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) acc[g] += sm.s[g][j] * v;
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g < G) {
+        const float e = expf(p[g] - M[g]);
+        L[g] += p[MAX_G + g] * e;
+        A[g] += p[2 * MAX_G + g * ACC_LD + d] * e;
+      }
     }
-    __syncthreads();
+  }
+}
+
+// Grid (split, KV, B); cluster (split, 1, 1) when split > 1. map: the main
+// pool as rows of KV*D bf16 in boxes of 16 rows x 64 dims, 128-byte swizzle.
+__global__ void __launch_bounds__(THREADS, 2)
+    k6_decode(const __grid_constant__ CUtensorMap map, Args a) {
+  extern __shared__ unsigned char raw[];
+  // the warps' rings [WARPS][STAGES] of K then V rows (WSTAGE bytes each),
+  // 1024-byte aligned for the swizzle, and after the loop the warps' states;
+  // then rank 0's slots for the ranks' states
+  char* ring = reinterpret_cast<char*>(raw) + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[WARPS][STAGES];  // a warp's stage: its copies are in
+  float* states = reinterpret_cast<float*>(ring);
+  float* ranks = reinterpret_cast<float*>(ring + RING);
+  const int rank = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.NH / a.KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, t4 = lane & 3;
+  char* wring = ring + warp * STAGES * WSTAGE;
+  const int n_hist = max(a.seq_lens[b], 0);
+  const int full = min((n_hist / a.ps) * a.ps, a.MP * a.ps);  // committed tokens
+  const int off = n_hist % a.ps;                              // staging tokens
+  const int ntm = (full + TK - 1) / TK;
+  const int nt = ntm + 1;  // the committed tiles, then the tail
+  const int i0 = rank * nt / a.split, i1 = (rank + 1) * nt / a.split;  // this rank's share
+  const int r0 = warp * WROWS;  // this warp's rows of every tile
+  auto valid = [&](int i) { return i < ntm ? min(TK, full - i * TK) : off + 1; };
+  // this warp's rows of tile i that are valid (<= 0: none)
+  auto rows_of = [&](int i) { return min(WROWS, valid(i) - r0); };
+
+  // tells the cluster this block has started (its shared memory may be written)
+  if (a.split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  if (lane == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&bars[warp][s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // lane k holds the page of this warp's rows of tile i0 + k (committed
+  // tiles), so that a copy does not wait for the page table
+  int pg = 0;
+  if (a.boxes && i0 + lane < min(i1, ntm)) {
+    prefetch_map(&map);
+    const int t = (i0 + lane) * TK + r0;
+    if (t < full) pg = __ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
+  }
+  __syncwarp();
+  // issue the copies of tile i into stage st (when the warp has rows in it)
+  auto issue = [&](int i, int st) {
+    const int nv = rows_of(i);
+    if (nv <= 0) return;
+    int page = __shfl_sync(0xffffffffu, pg, (i - i0) & 31);
+    if (i - i0 >= 32 && i < ntm && a.boxes)  // past the held pages
+      page = __ldg(a.page_table + (size_t)b * a.MP + (i * TK + r0) / a.ps);
+    load_rows(a, &map, wring + st * WSTAGE, wring + st * WSTAGE + 2 * HALF, &bars[warp][st], i,
+              r0, nv, ntm, off, b, kvh, lane, page);
+  };
+  for (int s = 0; s < STAGES && i0 + s < i1; ++s) issue(i0 + s, s);
+
+  // q of head gid (zero past G), scaled in bf16, as the B fragments of the
+  // score mma's 8 k-steps: (dims 16k + 2t4, +1) and (16k + 8 + 2t4, +1)
+  uint32_t qf[HD / 16][2];
+  {
+    const __nv_bfloat162 sc = __bfloat162bfloat162(__float2bfloat16_rn(a.scale));
+    const __nv_bfloat16* qr = a.q + ((size_t)b * a.NH + kvh * G + gid) * HD + 2 * t4;
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) {
+      if (gid < G) {
+        const __nv_bfloat162 lo = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(qr + 16 * k), sc);
+        const __nv_bfloat162 hi =
+            __hmul2(*reinterpret_cast<const __nv_bfloat162*>(qr + 16 * k + 8), sc);
+        qf[k][0] = *reinterpret_cast<const uint32_t*>(&lo);
+        qf[k][1] = *reinterpret_cast<const uint32_t*>(&hi);
+      } else {
+        qf[k][0] = qf[k][1] = 0u;
+      }
+    }
   }
 
+  // this warp's state for heads 2t4 and 2t4 + 1 (l: over this lane's tokens
+  // until the loop ends); acc[j] holds dims 16j + gid ([0], [1]) and
+  // 16j + 8 + gid ([2], [3])
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[HD / 16][4];
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  // The warp's own pipeline: it copies and reads only its rows and waits for
+  // them on its stage's barrier; a warp barrier orders its ring. Every stage
+  // is filled before the loop; a stage is refilled once it has been read.
+  uint32_t phase = 0;  // bit s: the parity of stage s's next phase
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) % STAGES;
+    __syncwarp();  // the lanes are done with tile i - 1's stage
+    if (i > i0 && i - 1 + STAGES < i1) issue(i - 1 + STAGES, (i - 1 - i0) % STAGES);
+    const int nv = rows_of(i);
+    if (nv > 0) {
+      mbar_wait(&bars[warp][st], (phase >> st) & 1);
+      phase ^= 1u << st;
+    }
+    if (nv <= 0) continue;  // all masked: the state stays as it is
+    const char* kt = wring + st * WSTAGE;
+    const char* vt = kt + 2 * HALF;
+
+    // scores of tokens r0 + gid ([0], [1]) and r0 + 8 + gid ([2], [3]) for
+    // heads 2t4 and 2t4 + 1, in two chains of four k-steps
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < HD / 16; k += 2) {
+      uint32_t ka[4], kb[4];
+      ldmatrix_x4(ka, kt + swz(lane & 15, 2 * k + (lane >> 4)));
+      ldmatrix_x4(kb, kt + swz(lane & 15, 2 * k + 2 + (lane >> 4)));
+      mma_bf16(s, ka, qf[k][0], qf[k][1]);
+      mma_bf16(s2, kb, qf[k + 1][0], qf[k + 1][1]);
+    }
+    const bool ok0 = gid < nv, ok1 = 8 + gid < nv;
+    float p[4], alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float sa = ok0 ? s[e] + s2[e] : NEG;
+      const float sb = ok1 ? s[2 + e] + s2[2 + e] : NEG;
+      float mx = fmaxf(sa, sb);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[e], mx);
+      p[e] = ok0 ? expf(sa - m_new) : 0.f;
+      p[2 + e] = ok1 ? expf(sb - m_new) : 0.f;
+      alpha[e] = expf(m[e] - m_new);
+      l[e] = l[e] * alpha[e] + (p[e] + p[2 + e]);  // this lane's tokens; summed at the end
+      m[e] = m_new;
+    }
+    // the bf16 probabilities as the PV mma's B fragments (tokens x heads):
+    // the transposes of the (token, head) fragments of rows gid and 8 + gid
+    const uint32_t b0 = movmatrix_trans(pack_bf16(p[0], p[1]));
+    const uint32_t b1 = movmatrix_trans(pack_bf16(p[2], p[3]));
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[1];
+      acc[j][2] *= alpha[0];
+      acc[j][3] *= alpha[1];
+      uint32_t va[4];
+      ldmatrix_x4_trans(va, vt + swz((lane & 7) + ((lane >> 4) << 3), 2 * j + ((lane >> 3) & 1)));
+      mma_bf16(acc[j], va, b0, b1);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 4);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 8);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 16);
+  }
+  __syncthreads();  // every warp is done with its ring: the states go over them
+
+  {
+    float* w = states + warp * PART;
+    if (gid == 0) {
+      w[2 * t4] = m[0];
+      w[2 * t4 + 1] = m[1];
+      w[MAX_G + 2 * t4] = l[0];
+      w[MAX_G + 2 * t4 + 1] = l[1];
+    }
+    float* wa = w + 2 * MAX_G;
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      const int d = 16 * j + gid;
+      wa[(2 * t4) * ACC_LD + d] = acc[j][0];
+      wa[(2 * t4 + 1) * ACC_LD + d] = acc[j][1];
+      wa[(2 * t4) * ACC_LD + d + 8] = acc[j][2];
+      wa[(2 * t4 + 1) * ACC_LD + d + 8] = acc[j][3];
+    }
+  }
+  __syncthreads();
+
+  // The block's state, thread d holding dim d of every head: the warps'
+  // states summed in warp order. Then rank 0 sums the ranks' states in rank
+  // order in the same way.
   const int d = threadIdx.x;
+  float M[MAX_G], Ls[MAX_G], A[MAX_G];
+  combine(states, PART, WARPS, d, G, M, Ls, A);
+
+  if (a.split > 1) {
+    // every block of the cluster has started: write this rank's state into
+    // rank 0's slot for it
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    float* dst = rank == 0 ? ranks : cg::this_cluster().map_shared_rank(ranks, 0) + rank * PART;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g < G) dst[2 * MAX_G + g * ACC_LD + d] = A[g];
+      if (g < G && d == g) {  // (static indices keep M and Ls in registers)
+        dst[g] = M[g];
+        dst[MAX_G + g] = Ls[g];
+      }
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    if (rank != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    combine(ranks, PART, a.split, d, G, M, Ls, A);
+  }
+
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g)
     if (g < G)
       a.out[((size_t)b * a.NH + kvh * G + g) * HD + d] =
-          __float2bfloat16_rn(acc[g] / fmaxf(sm.l[g], 1e-30f));
+          __float2bfloat16_rn(A[g] / fmaxf(Ls[g], 1e-30f));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The main pool [P * 2L * ps rows, KV*D] as boxes of 16 rows x 64 bf16 in the
+// 128-byte swizzle, through cuTensorMapEncodeTiled (looked up through the
+// runtime's entry-point query, so that the library needs no -lcuda).
+cudaError_t pool_map(CUtensorMap* map, const void* main, int P, int L, int ps, int KV) {
+  static EncodeTiled enc = nullptr;
+  if (enc == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    enc = reinterpret_cast<EncodeTiled>(p);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)KV * HD, (cuuint64_t)P * 2 * L * ps};
+  const cuuint64_t strides[1] = {(cuuint64_t)KV * HD * 2};
+  const cuuint32_t box[2] = {64, WROWS};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(main), dims,
+                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -234,25 +526,46 @@ extern "C" {
 
 // out [B,NH,128] = paged decode attention of layer `layer`; q [B,NH,128],
 // k_cur/v_cur [B,KV,128], main [P,2L,ps,KV*128], staging_b [B,ps,2L,KV*128]
-// bf16; page_table [B,MP], seq_lens [B] int32 on the device.
+// bf16; page_table [B,MP], seq_lens [B] int32 on the device. split: the
+// blocks (1-8) that share each slot's history, as one cluster.
 int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, const void* main,
                           const void* staging_b, const void* page_table, const void* seq_lens,
                           void* out, int B, int NH, int KV, int L, int layer, int ps, int MP,
-                          int D, float scale, void* stream) {
+                          int D, int P, float scale, int split, void* stream) {
   if (B <= 0) return 0;
   if (D != HD || KV <= 0 || NH % KV || NH / KV > MAX_G || ps <= 0 || ps > TK || MP <= 0 ||
-      layer < 0 || layer >= L)
+      P <= 0 || layer < 0 || layer >= L || split < 1 || split > MAX_SPLIT || (split & (split - 1)))
     return cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t e =
-      cudaFuncSetAttribute(k6_decode, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
+  static bool smem_set = false;  // raised once per process
+  cudaError_t e;
+  if (!smem_set) {
+    if ((e = cudaFuncSetAttribute(k6_decode, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SMEM)) != cudaSuccess)
+      return e;
+    smem_set = true;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  const int boxes = ps % WROWS == 0;  // a box of a warp's 16 rows lies in one page
+  if (boxes && (e = pool_map(&map, main, P, L, ps, KV)) != cudaSuccess) return e;
   Args a{(const __nv_bfloat16*)q,          (const __nv_bfloat16*)k_cur,
          (const __nv_bfloat16*)v_cur,      (const __nv_bfloat16*)main,
          (const __nv_bfloat16*)staging_b,  (const int*)page_table,
          (const int*)seq_lens,             (__nv_bfloat16*)out,
-         NH, KV, L, layer, ps, MP, scale};
-  k6_decode<<<dim3(KV, B), THREADS, smem, (cudaStream_t)stream>>>(a);
+         NH, KV, L, layer, ps, MP, split, boxes, scale};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, KV, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = split;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  if ((e = cudaLaunchKernelEx(&cfg, k6_decode, map, a)) != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

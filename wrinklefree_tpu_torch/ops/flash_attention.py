@@ -221,6 +221,29 @@ def flash_paged_decode_plain(q, k_cur, v_cur, main, staging_b, layer, page_table
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype).reshape(B, NH, D)
 
 
+DECODE_TILE = 64  # tokens per tile of csrc/flash_decode.cu
+DECODE_MAX_SPLIT = 8  # blocks per cluster (the portable limit)
+DECODE_BLOCKS_PER_SM = 2  # the kernel's 99 KB of shared memory fits twice on an SM
+
+
+def flash_decode_split(b: int, kv: int, hist_tokens: int, sms: int) -> int:
+    """Blocks that share each slot's history in the paged flash decode, from
+    static shapes only (the batch ``b``, the KV heads ``kv``, the page
+    table's ``MP * ps`` tokens and the card's ``sms``; never the lengths,
+    which stay on the device): the largest power of two whose grid of
+    ``b * kv * split`` blocks the card holds at once (two per SM), at most 8
+    (the cluster's portable size), and that leaves every block at least two
+    of the 64-token tiles of the longest history the page table can hold (a
+    cluster's barriers and combine cost more than a block's second tile); at
+    least 1."""
+    tiles = -(-hist_tokens // DECODE_TILE)
+    split = 1
+    while (split < DECODE_MAX_SPLIT and 4 * split <= tiles
+           and b * kv * 2 * split <= DECODE_BLOCKS_PER_SM * sms):
+        split *= 2
+    return split
+
+
 def flash_paged_decode(
     q: torch.Tensor,  # [B, NH, D] roped decode queries
     k_cur: torch.Tensor,  # [B, KV, D] roped current-token keys
@@ -233,7 +256,8 @@ def flash_paged_decode(
 ) -> torch.Tensor:
     """Decode-step paged GQA attention with the page-table gather inside the
     kernel: each history row moves from the pool once, with no gathered copy
-    of the history. Returns [B, NH, D]."""
+    of the history; each slot's history is split over
+    ``flash_decode_split(B, KV, MP * ps, SMs)`` blocks. Returns [B, NH, D]."""
     if q.device.type == "cpu":
         return flash_paged_decode_plain(q, k_cur, v_cur, main, staging_b, layer, page_table,
                                         seq_lens)
@@ -257,13 +281,16 @@ def flash_paged_decode(
     if any(t.device != q.device for t in (k_cur, v_cur, main, staging_b, page_table, seq_lens)):
         raise ValueError("flash_paged_decode: every input must be on q's device")
     qc, kc, vc, sc = (t.contiguous() for t in (q, k_cur, v_cur, staging_b))
+    if any(t.data_ptr() % 16 for t in (qc, kc, vc, main, sc)):
+        raise ValueError("the CUDA kernel reads 16-byte aligned rows")
     pt = page_table.to(torch.int32).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(qc)
+    split = flash_decode_split(B, KV, MP * ps, cuda_lib.sm_count(q.device))
     cuda_lib.call(
         "wf_flash_paged_decode", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), main.data_ptr(),
         sc.data_ptr(), pt.data_ptr(), sl.data_ptr(), out.data_ptr(), B, NH, KV, n_l, layer,
-        ps, MP, D, 1.0 / math.sqrt(D), cuda_lib.stream(q),
+        ps, MP, D, P, 1.0 / math.sqrt(D), split, cuda_lib.stream(q),
     )
     flash_paged_decode.launches += 1
     return out
