@@ -16,13 +16,14 @@ vocab 128256) with random weights drawn on the card from seed 0:
                bitwise against K5/K2, K1 above 8 rows (the tensor-core GEMM)
                bitwise against K1 over its 8-row slices (the GEMV), K6 at
                three history shapes (with its split, and checked for
-               determinism and for NaN rows past the valid tokens), and the
-               causal flash prefill, which no path runs, only here;
+               determinism and for NaN rows past the valid tokens), K4 over
+               contiguous keys and over the pool (checked likewise), and
+               the causal flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
                functions, logits compared; then one 512-token chunk under
-               the profiler (the ``prefill:`` line: its device ms and K1's
-               share);
+               the profiler (the ``prefill:`` line: its device ms, K1's
+               share and K4's ms, exactly one K4 launch per layer);
 4. batch1    — ``models.bitnet.forward`` at batch 1 (the path of
                ``wrinklefree_tpu_torch.bench.decode``) in its three modes
                (the default K5 + K2 pair, ``split``: the static wrappers on
@@ -83,7 +84,7 @@ KERNELS = {
         "replaces": "wrinklefree_tpu/ops/kv_update_pallas.py:57",
     },
     "flash_paged_prefill": {
-        "source": "wrinklefree_tpu_torch/csrc/flash_prefill.cu",
+        "source": "wrinklefree_tpu_torch/csrc/flash_paged_prefill.cu",
         "replaces": "wrinklefree_tpu/ops/flash_attention.py:219",
     },
     "attn_block_megakernel": {
@@ -444,43 +445,162 @@ def phase_kernels(params, cfg, dev, results):
     results["kv_write"] = dict(k3_rows[1])
     del pools
 
-    # ---- K4: a 512-token chunk over a 512-slot history, kv_valid < T, new_len < S
-    B, S, T = 1, 512, 512
-    NH, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = rnd(B, S, NH, D)
-    kf, vf = rnd(B, T + S, KV, D), rnd(B, T + S, KV, D)
-    kvv = torch.tensor([400], device=dev, dtype=torch.int32)
-    nl = torch.tensor([500], device=dev, dtype=torch.int32)
-    a = fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T)
-    b = fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T)
-    torch.cuda.synchronize()
-    d = (a[:, :500].float() - b[:, :500].float()).abs()
-    # p is rounded to bf16 before PV in the kernel, after normalization in
-    # the plain softmax
-    if not (torch.isfinite(a).all() and d.max().item() <= 3e-2):
-        fail(f"K4: max abs error {d.max().item()}")
-    ms, call_ms = cuda_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T))
-    plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T))
-    col = torch.arange(T + S, device=dev)
-    row = torch.arange(S, device=dev)[:, None]
-    mask = torch.where(col[None] < T, col[None] < 400, ((col - T)[None] <= row) & ((col - T)[None] < 500))
-    qs, ks, vs = q.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms, _ = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask[None, None], enable_gqa=True))
-    pairs = sum(400 + min(r + 1, 500) for r in range(500))  # visible (query, key) pairs
-    nbytes = (S * NH * D * 2) * 2 + (400 + 500) * KV * D * 2 * 2
-    b_ms, b_by = bound(nbytes, 4 * D * pairs * NH, "bf16")
-    r = dict(shape=f"S={S} T={T} kv_valid=400 new_len=500 NH={NH} KV={KV}", ms=ms,
-             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-             max_abs_err=d.max().item())
-    print("kernels: K4 " + json.dumps(r))
-    results["flash_paged_prefill"] = r
+    kernels_k4(cfg, dev, results)
     kernels_k5(params, cfg, dev, rnd, results)
     kernels_k6(cfg, dev, results)
     kernels_k7(params, cfg, dev, g, results)
     kernels_k8_static(params, cfg, dev, rnd, results)
     kernels_k9(cfg, dev, g, results)
     kernels_k10(dev, results)
+
+
+def kernels_k4(cfg, dev, results):
+    """K4, the paged flash prefill, against its plain versions at the shapes
+    of ``wrinklefree_tpu_torch/bench/flash_prefill.py`` (2B attention): over
+    contiguous keys (a 512-token chunk over a 512-slot history, kv_valid 400,
+    new_len 500: the kernels phase's first K4 shape) and over the pool at
+    the engine's widest table (page size 16, 128 pages per row): one row of a
+    512-token chunk after 1024 tokens, and four rows of 128-token chunks
+    after 0/320/1024/1904 tokens; pool shapes at layers 0 and 29. Bar: 3e-2
+    absolute on the real query rows (the kernel rounds probabilities to bf16
+    against its running max, the plain softmax after normalization). At each
+    shape two calls must give the same bits, and with NaN in every row the
+    kernel may not read (history from kv_valid or seq_lens on, chunk keys
+    from new_len on) the real rows must be finite and bitwise equal to the
+    run with zeros there. Each shape prints its time, SDPA's over contiguous
+    copies, the plain version's, the bound, the query tokens per block and
+    the error."""
+    import torch
+
+    from wrinklefree_tpu_torch.bench import flash_prefill as bench
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+
+    L, NH, KV, D, ps = bench.L, bench.NH, bench.KV, bench.D, bench.PS
+    if (L, NH, KV, D) != (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim):
+        fail("K4: the bench's shapes are not the model's")
+    inp = bench.make_inputs(dev, seed=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def checked(name, run, plain, poisoned, new_lens):
+        """Max abs error of run() against plain() on the real rows, after
+        the determinism and poison checks."""
+        a, again, b = run(), run(), plain()
+        torch.cuda.synchronize()
+        err = max((a[i, :n].float() - b[i, :n].float()).abs().max().item()
+                  for i, n in enumerate(new_lens))
+        if not (all(torch.isfinite(a[i, :n]).all() for i, n in enumerate(new_lens))
+                and err <= 3e-2):
+            fail(f"K4 {name}: max abs error {err}")
+        if not torch.equal(a, again):
+            fail(f"K4 {name}: two calls differ")
+        z, nan = (r() for r in poisoned)
+        for i, n in enumerate(new_lens):
+            if not (torch.isfinite(nan[i, :n]).all() and torch.equal(nan[i, :n], z[i, :n])
+                    and torch.equal(a[i, :n], z[i, :n])):
+                fail(f"K4 {name}: the NaN rows past the valid keys changed the output")
+        return err
+
+    def library_ms(q, ks, vs, mask):
+        """SDPA over contiguous per-layer copies [n_l, B, KV, T, D], cycled."""
+        cyc = Cycle(ks.shape[0])
+        qs = q.transpose(1, 2)
+
+        def lib():
+            i = cyc()
+            return sdpa(qs, ks[i], vs[i], attn_mask=mask, enable_gqa=True)
+
+        return cuda_ms(lib)[0]
+
+    rows = []
+    # contiguous keys
+    c = bench.CONTIGUOUS
+    S, T = c["S"], c["T"]
+    q, kf, vf, kvv, nl = bench.contiguous_case(inp)
+    fills = []
+    for fill in (0.0, float("nan")):
+        k2, v2 = kf.clone(), vf.clone()
+        k2[:, c["kv_valid"]:T], v2[:, c["kv_valid"]:T] = fill, fill
+        k2[:, T + c["new_len"]:], v2[:, T + c["new_len"]:] = fill, fill
+        fills.append((k2, v2))
+    err = checked("contiguous", lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T),
+                  lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T),
+                  [lambda f=f: fa.flash_paged_prefill(q, *f, kvv, nl, hist_len=T)
+                   for f in fills], [c["new_len"]])
+    del fills
+    ms, call_ms = cuda_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T))
+    plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T))
+    col = torch.arange(T + S, device=dev)
+    row = torch.arange(S, device=dev)[:, None]
+    mask = torch.where(col[None] < T, col[None] < c["kv_valid"],
+                       ((col - T)[None] <= row) & ((col - T)[None] < c["new_len"]))
+    lib_ms = library_ms(q, kf.transpose(1, 2)[None], vf.transpose(1, 2)[None], mask[None, None])
+    b_ms, b_by = bench.bound(S, [c["kv_valid"]], [c["new_len"]])
+    rows.append(dict(shape=f"contiguous S={S} T={T} kv_valid={c['kv_valid']} "
+                           f"new_len={c['new_len']} NH={NH} KV={KV}",
+                     ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     library="SDPA", bound_ms=b_ms, bound_by=b_by,
+                     bq=fa.flash_prefill_bq(NH // KV), max_abs_err=err,
+                     deterministic=True, nan_rows_unread=True))
+    # the pool
+    for name, (S, sl, nls) in bench.POOL.items():
+        (q, kc, vc, main), (pt, slt, nlt) = bench.pool_case(inp, name)
+        B = len(sl)
+        pm = main.clone()
+        curs = []
+        for fill in (0.0, float("nan")):
+            k2, v2 = kc.clone(), vc.clone()
+            for i in range(B):
+                k2[i, nls[i]:], v2[i, nls[i]:] = fill, fill
+            curs.append((k2, v2))
+        err = 0.0
+        for layer in (0, L - 1):
+            def poisoned(fill, layer=layer, kv_=None):
+                for i, n in enumerate(sl):
+                    pm[pt[i, n // ps:].long()] = fill
+                return fa.flash_paged_prefill_pool(q, *kv_, pm, layer, pt, slt, nlt)
+
+            err = max(err, checked(
+                f"{name} layer={layer}",
+                lambda: fa.flash_paged_prefill_pool(q, kc, vc, main, layer, pt, slt, nlt),
+                lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, layer, pt, slt, nlt),
+                [lambda f=f, k=k: poisoned(f, kv_=k)
+                 for f, k in zip((0.0, float("nan")), curs)], nls))
+        del pm, curs
+        lay = Cycle(L)
+        ms, call_ms = cuda_ms(
+            lambda: fa.flash_paged_prefill_pool(q, kc, vc, main, lay(), pt, slt, nlt))
+        plain_ms, _ = cuda_ms(
+            lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, lay(), pt, slt, nlt),
+            iters=5, warmup=1)
+        # the yardstick: SDPA over contiguous copies of each row's history and
+        # chunk (made untimed; four layers' copies, so repeats miss the L2)
+        Tm = max(sl) + S
+        n_l = min(4, L)
+        ks = torch.zeros((n_l, B, KV, Tm, D), dtype=torch.bfloat16, device=dev)
+        vs = torch.zeros_like(ks)
+        mask = torch.zeros((B, 1, S, Tm), dtype=torch.bool, device=dev)
+        r = torch.arange(S, device=dev)[:, None]
+        for i, (n, m) in enumerate(zip(sl, nls)):
+            pages = pt[i, :n // ps].long()
+            for li in range(n_l):
+                ks[li, i, :, :n] = main[pages, li].reshape(n, KV, D).permute(1, 0, 2)
+                vs[li, i, :, :n] = main[pages, L + li].reshape(n, KV, D).permute(1, 0, 2)
+                ks[li, i, :, n:n + S] = kc[i].permute(1, 0, 2)
+                vs[li, i, :, n:n + S] = vc[i].permute(1, 0, 2)
+            rel = torch.arange(Tm, device=dev)[None, :] - n
+            mask[i, 0] = (rel < 0) | ((rel <= r) & (rel < m))
+        lib_ms = library_ms(q, ks, vs, mask)
+        del ks, vs
+        b_ms, b_by = bench.bound(S, sl, nls)
+        rows.append(dict(shape=f"pool {name} B={B} S={S} ps={ps} MP={bench.MP} seq_lens={sl} "
+                               f"new_lens={nls}",
+                         ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library="SDPA over contiguous copies", bound_ms=b_ms, bound_by=b_by,
+                         bq=fa.flash_prefill_bq(NH // KV), max_abs_err=err,
+                         deterministic=True, nan_rows_unread=True))
+    for r in rows:
+        print("kernels: K4 " + json.dumps(r))
+    results["flash_paged_prefill"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
 def kernels_k5(params, cfg, dev, rnd, results):
@@ -1177,13 +1297,15 @@ def compare_logits(what, ker, pla, depth, floor):
 def phase_prefill(params, cfg, dev):
     """One 512-token prefill chunk of ``paged_forward`` (the engine's
     largest bucket) at full width and depth, under the profiler: its device
-    ms and the share of it in K1 (``k1_prologue`` and the tensor-core GEMM,
-    four K1 calls per layer). Returns the device ms."""
+    ms, the share of it in K1 (``k1_prologue`` and the tensor-core GEMM,
+    four K1 calls per layer) and K4's ms, which must be exactly one launch
+    per layer (reading the history from the pool). Returns the device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from wrinklefree_tpu_torch.kv.paged import PagedKV, paged_forward
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cpu").manual_seed(4)
     prompt = torch.randint(1, cfg.vocab_size, (1, 512), generator=g).to(dev)
@@ -1199,19 +1321,26 @@ def phase_prefill(params, cfg, dev):
     torch.cuda.synchronize()
     if not torch.isfinite(logits).all():
         fail("prefill: non-finite logits")
+    fa.flash_paged_prefill.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         chunk()
         torch.cuda.synchronize()
+    k4_launches = fa.flash_paged_prefill.launches
+    if k4_launches != cfg.num_layers:
+        fail(f"prefill: {k4_launches} K4 launches in a {cfg.num_layers}-layer chunk")
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.device_time_total for e in evs) / 1e3
     k1 = sum(e.device_time_total for e in evs
              if "k1_prologue" in e.key or "k_ternary_gemm" in e.key) / 1e3
-    if not (total > 0 and k1 > 0):
-        fail(f"prefill: no device time recorded for the chunk or its K1 calls ({total}, {k1})")
+    k4 = sum(e.device_time_total for e in evs if "k4_prefill" in e.key) / 1e3
+    if not (total > 0 and k1 > 0 and k4 > 0):
+        fail(f"prefill: no device time recorded for the chunk or its K1/K4 calls "
+             f"({total}, {k1}, {k4})")
     top = sorted(evs, key=lambda e: -e.device_time_total)[:6]
     print(f"prefill: one 512-token chunk of paged_forward, {cfg.num_layers} layers at full width: "
           f"{total} ms of device time, K1 (prologue + tensor-core GEMM) {k1} ms ({k1 / total} of "
-          "it); device ms by kernel: "
+          f"it), K4 {k4} ms in {k4_launches} launches (3.23 ms before K4 read the pool, PERF.md "
+          "section 5); device ms by kernel: "
           + json.dumps({e.key[:60]: e.device_time_total / 1e3 for e in top}))
     return total
 

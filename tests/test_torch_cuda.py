@@ -504,3 +504,113 @@ def test_k6_page_sizes_on_card(ps):
         ref = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
         torch.testing.assert_close(a.float(), ref.float(), rtol=2e-2, atol=2e-2)
     torch.cuda.synchronize()
+
+
+def _k4_check(run, plain, real_rows, poison_runs):
+    """K4 against its plain version within 3e-2 on the real query rows; two
+    calls bitwise equal; with NaN in every row the kernel may not read, the
+    real rows finite and bitwise equal to the run with zeros there."""
+    a, again, ref = run(), run(), plain()
+    for b, n in enumerate(real_rows):
+        # probabilities round to bf16 against the running max in the kernel,
+        # after normalization in the plain softmax
+        torch.testing.assert_close(a[b, :n].float(), ref[b, :n].float(), rtol=3e-2, atol=3e-2)
+    assert torch.equal(a, again)
+    z, p = (r() for r in poison_runs)
+    for b, n in enumerate(real_rows):
+        assert torch.isfinite(p[b, :n]).all() and torch.equal(p[b, :n], z[b, :n])
+        assert torch.equal(a[b, :n], z[b, :n])
+
+
+# (query heads per KV head, page size, chunk, batch)
+K4_POOL_CASES = [(1, 16, 512, 1), (4, 16, 512, 1), (8, 16, 512, 1), (4, 16, 128, 4),
+                 (1, 16, 128, 4), (8, 16, 128, 4), (4, 8, 128, 4), (4, 64, 128, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,ps,s,b", K4_POOL_CASES,
+                         ids=[f"G{g}-ps{ps}-S{s}-B{b}" for g, ps, s, b in K4_POOL_CASES])
+def test_k4_pool_matches_plain_on_card(g, ps, s, b):
+    """K4 reading its history from the pool (``flash_paged_prefill_pool``)
+    against its plain version (the gathered history, as the paged forward
+    had it) at seq_lens 0, ps, 5 ps and the full table (256 tokens), new_lens
+    1, 63, 64, 65 and S, different per row, the first and the last layer;
+    boxes of 16 rows (ps 16, 64) and rows one by one (ps 8). Deterministic,
+    and blind to NaN in the pool pages from each row's seq_lens on and in
+    the chunk's rows from its new_lens on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(80 + g + ps + s + b)
+    kv, n_l, mp = 2, 3, 256 // ps
+    sls, nls = [0, ps, 5 * ps, mp * ps], [1, 63, 64, 65, s]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
+    pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).to(torch.int32)
+    fa = flash_attention
+    for c in range(5):
+        sl = [sls[(c + i) % len(sls)] for i in range(b)]
+        nl = [nls[(c + 2 * i) % len(nls)] for i in range(b)]
+        q, kc, vc = rnd(b, s, kv * g, 128), rnd(b, s, kv, 128), rnd(b, s, kv, 128)
+        slt, nlt = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (sl, nl))
+        pools, curs = [], []
+        for fill in (0.0, float("nan")):
+            m, k2, v2 = main.clone(), kc.clone(), vc.clone()
+            for i in range(b):
+                m[pt[i, sl[i] // ps:].long()] = fill
+                k2[i, nl[i]:], v2[i, nl[i]:] = fill, fill
+            pools.append(m)
+            curs.append((k2, v2))
+        for layer in (0, n_l - 1):
+            n0 = fa.flash_paged_prefill.launches
+            _k4_check(
+                lambda: fa.flash_paged_prefill_pool(q, kc, vc, main, layer, pt, slt, nlt),
+                lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, layer, pt, slt, nlt),
+                nl,
+                [lambda m=m, kv_=kv_: fa.flash_paged_prefill_pool(q, *kv_, m, layer, pt, slt, nlt)
+                 for m, kv_ in zip(pools, curs)])
+            assert fa.flash_paged_prefill.launches - n0 == 4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("s,b", [(128, 4), (512, 1)])
+def test_k4_contiguous_matches_plain_on_card(g, s, b):
+    """K4 over contiguous keys (``flash_paged_prefill``, the reference's
+    signature) against its plain version at kv_valid 0, 16, 80 and the whole
+    history (hist_len 256), new_len 1, 63, 64, 65 and S; deterministic, and
+    blind to NaN in the history columns from kv_valid on and in the chunk's
+    columns from new_len on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(90 + g + s + b)
+    kv, T = 2, 256
+    kvs, nls = [0, 16, 80, T], [1, 63, 64, 65, s]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    fa = flash_attention
+    for c in range(5):
+        kvv = [kvs[(c + i) % len(kvs)] for i in range(b)]
+        nl = [nls[(c + 2 * i) % len(nls)] for i in range(b)]
+        q, kf, vf = rnd(b, s, kv * g, 128), rnd(b, T + s, kv, 128), rnd(b, T + s, kv, 128)
+        kvt, nlt = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (kvv, nl))
+        fills = []
+        for fill in (0.0, float("nan")):
+            k2, v2 = kf.clone(), vf.clone()
+            for i in range(b):
+                k2[i, kvv[i]:T], v2[i, kvv[i]:T] = fill, fill
+                k2[i, T + nl[i]:], v2[i, T + nl[i]:] = fill, fill
+            fills.append((k2, v2))
+        _k4_check(lambda: fa.flash_paged_prefill(q, kf, vf, kvt, nlt, hist_len=T),
+                  lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvt, nlt, hist_len=T),
+                  nl,
+                  [lambda f=f: fa.flash_paged_prefill(q, *f, kvt, nlt, hist_len=T)
+                   for f in fills])
+    torch.cuda.synchronize()

@@ -1,17 +1,11 @@
-// Paged-prefill flash attention (K4) and causal flash prefill (K9) for Hopper.
+// Causal flash prefill (K9) for Hopper.
 //
-// K4 replaces wrinklefree_tpu/ops/flash_attention.py::flash_paged_prefill
-// (kernel body _paged_flash_kernel): online-softmax GQA of a prefill chunk's
-// queries q[B,S,NH,D] over keys [history(hist_len) ++ chunk(S)] given as
-// k, v [B,Tt,KV,D] (Tt = hist_len + S). Per batch row: history key col is
-// visible iff col < kv_valid; chunk key rel = col - hist_len is visible iff
-// rel <= query row and rel < new_len.
+// K9 replaces wrinklefree_tpu/ops/flash_attention.py::flash_prefill (kernel
+// body _flash_kernel): causal GQA of q[B,S,NH,D] over contiguous k, v
+// [B,T,KV,D]; query row s sees key t iff t <= q_offset + s. bf16 and f32,
+// head dim 64 or 128. (The paged prefill, K4, is flash_paged_prefill.cu.)
 //
-// K9 replaces flash_attention.py::flash_prefill (kernel body _flash_kernel):
-// causal GQA of q[B,S,NH,D] over contiguous k, v [B,T,KV,D]; query row s sees
-// key t iff t <= q_offset + s. bf16 and f32, head dim 64 or 128.
-//
-// Both keep the TPU kernels' rounding points: masked scores are -1e30 (not
+// It keeps the TPU kernel's rounding points: masked scores are -1e30 (not
 // -inf) and the divisor is max(l, 1e-30), so a fully masked padding row stays
 // finite; q is scaled by 1/sqrt(D) in the input type before the dot; scores
 // and the running max/sum are f32; p is cast to v's type before the PV
@@ -21,14 +15,12 @@
 // dim and the key rule (which keys of a tile a query row sees, which tiles a
 // q tile visits). One block (4 warps) per (64-row q tile, head, batch row);
 // the kv head is h / (NH/KV). Key tiles of 64 go through shared memory, and
-// tiles wholly masked for the q tile are skipped (K4: the history between
-// kv_valid and hist_len and keys after the last visible chunk key; K9: keys
-// above the q tile's diagonal). bf16 runs QK^T and PV on the tensor cores
-// through WMMA 16x16x16 fragments with f32 accumulation. f32 runs both on the
-// CUDA cores with FMAs: the tensor cores take f32 only as TF32 (about three
-// decimal digits), and the f32 reference holds the result to 2e-5. The output
-// accumulator lives in shared memory so each row can be rescaled by its
-// online-softmax factor between tiles.
+// tiles above the q tile's diagonal are skipped. bf16 runs QK^T and PV on the
+// tensor cores through WMMA 16x16x16 fragments with f32 accumulation. f32
+// runs both on the CUDA cores with FMAs: the tensor cores take f32 only as
+// TF32 (about three decimal digits), and the f32 reference holds the result
+// to 2e-5. The output accumulator lives in shared memory so each row can be
+// rescaled by its online-softmax factor between tiles.
 //
 // Bound: operations at 512-token chunks (4*S*T*D flops per head, half of
 // them under the causal mask); plain WMMA without TMA or warp specialisation
@@ -94,19 +86,6 @@ __device__ __forceinline__ __nv_bfloat16 scaled(__nv_bfloat16 x, float s) {
   return __hmul(x, __float2bfloat16_rn(s));  // the product rounded to bf16
 }
 __device__ __forceinline__ float scaled(float x, float s) { return x * s; }
-
-// K4's keys: a gathered history then the chunk.
-struct PagedKeys {
-  int hist_len, kvv, nl;
-  __device__ bool visible(int col, int srow) const {
-    if (col < hist_len) return col < kvv;
-    const int rel = col - hist_len;
-    return rel <= srow && rel < nl;
-  }
-  __device__ bool skip(int c0) const {  // wholly masked history tile
-    return c0 >= min(kvv, hist_len) && c0 + BK <= hist_len;
-  }
-};
 
 // K9's keys: causal with an offset, T keys.
 struct CausalKeys {
@@ -306,24 +285,6 @@ __device__ void flash_rows(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const int* __restrict__ kv_valid, const int* __restrict__ new_len,
-                           __nv_bfloat16* __restrict__ out, int S, int NH, int KV, int Tt,
-                           int hist_len, float scale) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  const int b = blockIdx.z;
-  const PagedKeys keys{hist_len, kv_valid[b], new_len[b]};
-  const int s0 = blockIdx.x * BQ;
-  const int hist_end = min(keys.kvv, hist_len);  // visible history keys
-  const int cur_end = hist_len + min(s0 + BQ, keys.nl);
-  const int last_key = max(hist_end, cur_end);
-  const int ntiles = min((last_key + BK - 1) / BK, (Tt + BK - 1) / BK);
-  flash_rows<__nv_bfloat16, 128>(q, k, v, out, S, NH, KV, Tt, scale, keys, ntiles, raw);
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -353,25 +314,6 @@ cudaError_t launch_k9(const void* q, const void* k, const void* v, const void* q
 }  // namespace
 
 extern "C" {
-
-// q, out: [B,S,NH,128] bf16; k, v: [B,Tt,KV,128] bf16; kv_valid, new_len: [B]
-// int32 on the device.
-int wf_flash_paged_prefill(const void* q, const void* k, const void* v, const void* kv_valid,
-                           const void* new_len, void* out, int B, int S, int NH, int KV, int D,
-                           int Tt, int hist_len, float scale, void* stream) {
-  if (B <= 0 || S <= 0) return 0;
-  if (D != 128 || NH % KV) return cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem<__nv_bfloat16, 128>);
-  cudaError_t e = cudaFuncSetAttribute(flash_paged_prefill_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, NH, B);
-  flash_paged_prefill_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int*)kv_valid, (const int*)new_len, (__nv_bfloat16*)out, S, NH, KV, Tt, hist_len,
-      scale);
-  return cudaGetLastError();
-}
 
 // K9: q, out [B,S,NH,D]; k, v [B,T,KV,D], all contiguous and 16-byte aligned;
 // f32 (is_f32 = 1) or bf16; D 64 or 128; q_offset: one int32 on the device.

@@ -27,7 +27,7 @@ import torch
 from ..config import BitNetConfig
 from ..models.bitnet import compute_logits
 from ..models.moe import expert_linear, moe_layer
-from ..ops.flash_attention import flash_paged_decode, flash_paged_prefill
+from ..ops.flash_attention import flash_paged_decode, flash_paged_prefill_pool
 from ..ops.kv_update_cuda import kv_write as kv_write_kernel
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..ops.norms import rms_norm
@@ -147,15 +147,12 @@ def _paged_attention_dual_flash(
 ):
     """Flash (online-softmax) prefill over the dual layout. Prefill chunks
     start page-aligned, so staging is empty and valid history is exactly
-    the seq_lens-token prefix of the gathered main pages."""
-    B, S, NH, D = q.shape
-    KV = k_cur.shape[2]
-    T = page_table.shape[1] * main.shape[2]
-    k_hist, v_hist = _history(main, page_table, layer, KV, D)
-    k_full = torch.cat([k_hist, k_cur.to(k_hist.dtype)], dim=1)
-    v_full = torch.cat([v_hist, v_cur.to(v_hist.dtype)], dim=1)
-    out = flash_paged_prefill(
-        q.to(k_full.dtype), k_full, v_full, seq_lens, new_lens, hist_len=T)
+    the seq_lens-token prefix of the table's main pages, which the kernel
+    reads from the pool (``flash_paged_prefill_pool``; its plain version
+    gathers them)."""
+    dt = main.dtype
+    out = flash_paged_prefill_pool(
+        q.to(dt), k_cur.to(dt), v_cur.to(dt), main, layer, page_table, seq_lens, new_lens)
     return out.to(q.dtype)
 
 

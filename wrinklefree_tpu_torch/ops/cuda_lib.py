@@ -4,7 +4,7 @@ The sources have a plain C interface and are bound with ctypes: each ``.cu``
 compiles to an object with ``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3`` (all sources at once, one process each), and the objects link into one
 shared library under ``build/wf_torch_kernels/``, named by a hash of the
-sources and flags so an edited source never loads a stale build. The build
+sources, their headers (``*.cuh``) and flags so an edited source never loads a stale build. The build
 runs at first use, never at import: this module imports on hosts without
 ``nvcc`` or a GPU.
 
@@ -43,7 +43,9 @@ SIGNATURES = {
     "wf_mlp_mega": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P, _P, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_kv_write": [_P, _P, _P, _P, _I, _I, _LL, _LL, _P],
-    "wf_flash_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "wf_flash_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "wf_flash_paged_prefill_pool": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _I, _P],
     "wf_attn_mega": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I,
                      _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -67,7 +69,7 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha1(" ".join(FLAGS).encode())
     for s in sources:
         h.update(s.name.encode())

@@ -7,11 +7,15 @@ plain causal prefill is the TPU kernel's blockwise online softmax, block for
 block; the plain paged prefill is the masked-softmax GQA core of the paged
 forward (``kv/paged.py::_gqa_core``) on the same inputs; the plain decode
 is the TPU kernel's online softmax with all committed pages as one update
-and the staging prefix plus the current token as the last.
+and the staging prefix plus the current token as the last. K4 also reads
+its history straight from the pool (``flash_paged_prefill_pool``, the paged
+forward's prefill attention), whose plain version gathers it first.
 
 Each wrapper runs the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel (``csrc/flash_prefill.cu``, ``csrc/flash_decode.cu``)
-or raises. ``<wrapper>.launches`` counts launches.
+it launches the kernel (``csrc/flash_prefill.cu``,
+``csrc/flash_paged_prefill.cu``, ``csrc/flash_decode.cu``) or raises.
+``<wrapper>.launches`` counts launches (both K4 wrappers count in
+``flash_paged_prefill.launches``).
 """
 
 from __future__ import annotations
@@ -134,6 +138,31 @@ def flash_paged_prefill_plain(q, k_full, v_full, kv_valid, new_len, *, hist_len:
     )
 
 
+PREFILL_BQ = (16, 32, 64, 128)  # query tokens per block of csrc/flash_paged_prefill.cu
+
+
+def flash_prefill_bq(g: int) -> int:
+    """Query tokens per block of the paged flash prefill for ``g`` query
+    heads per KV head (1-8), a static shape: the smallest of 16, 32, 64 and
+    128 that gives the block at least 4 warps (``g * bq / 16``, one per 16
+    tokens of one query head; at most 8), so the grid has the most blocks.
+    The kernel is bound by each warp's chain of dependent instructions, and
+    timings on the H100 at the 2B engine's shapes found the smallest block
+    as fast as or faster than the next (PERF.md section 6)."""
+    fits = [bq for bq in PREFILL_BQ if 4 <= g * bq // 16 <= 8]
+    if not 1 <= g <= 8 or not fits:
+        raise ValueError(f"the paged flash prefill takes 1-8 query heads per KV head, got {g}")
+    return min(fits)
+
+
+def _prefill_checks(what, q, tensors):
+    cuda_lib.require_cuda(q, what)
+    if any(t.dtype != torch.bfloat16 for t in (q, *tensors)):
+        raise ValueError("the CUDA kernel takes bfloat16")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: every input must be on q's device")
+
+
 def flash_paged_prefill(
     q: torch.Tensor,  # [B, S, NH, D] current chunk queries
     k_full: torch.Tensor,  # [B, Tt, KV, D] history(hist_len) ++ current(S)
@@ -144,36 +173,105 @@ def flash_paged_prefill(
     hist_len: int,
 ) -> torch.Tensor:
     """Online-softmax attention for chunked-prefill rows over a gathered
-    paged history, without materializing the [B, S, T] scores."""
+    paged history, without materializing the [B, S, T] scores. One block per
+    ``flash_prefill_bq`` query tokens, KV head and batch row serves all of
+    the KV head's query heads."""
     if q.device.type == "cpu":
         return flash_paged_prefill_plain(q, k_full, v_full, kv_valid, new_len,
                                          hist_len=hist_len)
-    cuda_lib.require_cuda(q, "flash_paged_prefill")
+    _prefill_checks("flash_paged_prefill", q, (k_full, v_full))
     B, S, NH, D = q.shape
     Tt, KV = k_full.shape[1], k_full.shape[2]
-    if (
-        q.dtype != torch.bfloat16 or k_full.dtype != torch.bfloat16
-        or v_full.dtype != torch.bfloat16
-    ):
-        raise ValueError("the CUDA kernel takes bfloat16")
-    if D != 128 or NH % KV or k_full.shape != v_full.shape or k_full.shape[0] != B:
+    if (D != 128 or NH % KV or NH // KV > 8 or k_full.shape != v_full.shape
+            or tuple(k_full.shape) != (B, Tt, KV, D)):
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k_full.shape)}")
-    if not hist_len + S <= Tt:
+    if not (0 <= hist_len and hist_len + S <= Tt):
         raise ValueError(f"hist_len {hist_len} + S {S} exceeds key length {Tt}")
     qc, kc, vc = q.contiguous(), k_full.contiguous(), v_full.contiguous()
+    if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
+        raise ValueError("the CUDA kernel reads 16-byte aligned rows")
     kvv = _lengths(kv_valid, B, q.device).contiguous()
     nl = _lengths(new_len, B, q.device).contiguous()
     out = torch.empty_like(qc)
+    bq = flash_prefill_bq(NH // KV)
     cuda_lib.call(
         "wf_flash_paged_prefill", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         kvv.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S, NH, KV, D, Tt, hist_len,
-        1.0 / math.sqrt(D), cuda_lib.stream(q),
+        1.0 / math.sqrt(D), bq, cuda_lib.stream(q),
     )
     flash_paged_prefill.launches += 1
     return out
 
 
 flash_paged_prefill.launches = 0
+
+
+def flash_paged_prefill_pool_plain(q, k_cur, v_cur, main, layer, page_table, seq_lens,
+                                   new_lens):
+    """Plain version of the pool path: layer ``layer``'s history of every
+    table page gathered (``kv/paged.py::_history``), the chunk appended, and
+    ``flash_paged_prefill_plain`` over them with ``seq_lens`` valid history
+    tokens per row."""
+    from ..kv.paged import _history
+
+    KV, D = k_cur.shape[2], k_cur.shape[3]
+    T = page_table.shape[1] * main.shape[2]
+    k_hist, v_hist = _history(main, page_table.long(), layer, KV, D)
+    k_full = torch.cat([k_hist, k_cur.to(k_hist.dtype)], dim=1)
+    v_full = torch.cat([v_hist, v_cur.to(v_hist.dtype)], dim=1)
+    return flash_paged_prefill_plain(q, k_full, v_full, seq_lens, new_lens, hist_len=T)
+
+
+def flash_paged_prefill_pool(
+    q: torch.Tensor,  # [B, S, NH, D] current chunk queries
+    k_cur: torch.Tensor,  # [B, S, KV, D] the chunk's keys
+    v_cur: torch.Tensor,  # [B, S, KV, D]
+    main: torch.Tensor,  # [P, 2L, ps, KV*D] layer-major main pool
+    layer: int,
+    page_table: torch.Tensor,  # [B, MP] int32
+    seq_lens: torch.Tensor,  # [B] int32 valid history tokens (page-aligned chunk start)
+    new_lens: torch.Tensor,  # [B] int32 real tokens in each row's chunk
+) -> torch.Tensor:
+    """``flash_paged_prefill`` over [history ++ chunk] with the history read
+    from the pool inside the kernel: history token t of row b is layer
+    ``layer``'s row of page ``page_table[b, t // ps]``, valid for t <
+    ``seq_lens[b]``; no gathered copy of the history is made. Counts in
+    ``flash_paged_prefill.launches``. Returns [B, S, NH, D]."""
+    if q.device.type == "cpu":
+        return flash_paged_prefill_pool_plain(q, k_cur, v_cur, main, layer, page_table,
+                                              seq_lens, new_lens)
+    _prefill_checks("flash_paged_prefill_pool", q, (k_cur, v_cur, main))
+    B, S, NH, D = q.shape
+    KV = k_cur.shape[2]
+    P, two_l, ps, kvd = main.shape
+    n_l = two_l // 2
+    MP = page_table.shape[1]
+    if (D != 128 or NH % KV or NH // KV > 8 or kvd != KV * D or ps > 64
+            or tuple(k_cur.shape) != (B, S, KV, D) or k_cur.shape != v_cur.shape
+            or page_table.shape[0] != B):
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k_cur {tuple(k_cur.shape)} "
+                         f"main {tuple(main.shape)}")
+    if not 0 <= layer < n_l:
+        raise IndexError(f"layer {layer} out of range for {n_l} layers")
+    if not main.is_contiguous():
+        raise ValueError("the main pool must be contiguous")
+    if any(t.device != q.device for t in (page_table, seq_lens, new_lens)):
+        raise ValueError("flash_paged_prefill_pool: every input must be on q's device")
+    qc, kc, vc = q.contiguous(), k_cur.contiguous(), v_cur.contiguous()
+    if any(t.data_ptr() % 16 for t in (qc, kc, vc, main)):
+        raise ValueError("the CUDA kernel reads 16-byte aligned rows")
+    pt = page_table.to(torch.int32).contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    nl = new_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(qc)
+    bq = flash_prefill_bq(NH // KV)
+    cuda_lib.call(
+        "wf_flash_paged_prefill_pool", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        main.data_ptr(), pt.data_ptr(), sl.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S,
+        NH, KV, D, n_l, layer, ps, MP, P, 1.0 / math.sqrt(D), bq, cuda_lib.stream(q),
+    )
+    flash_paged_prefill.launches += 1
+    return out
 
 
 def flash_paged_decode_plain(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens):
