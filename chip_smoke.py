@@ -12,7 +12,9 @@ vocab 128256) with random weights drawn on the card from seed 0:
                (bytes over 3.35 TB/s or operations over the published dense
                peak) and a PyTorch library call; K1 and K7 at every row
                count 1-8 (the GEMV of csrc/ternary_gemv.cu; K7 bitwise in
-               bf16, f32 and int32), 64 and 512; the static wrappers also
+               bf16, f32 and int32), 64 and 512; K2 at every row count
+               1-8 bitwise against h + K1(K1(h)) and across two calls (its
+               streamed dots' int32 merge); the static wrappers also
                bitwise against K5/K2, K1 above 8 rows (the tensor-core GEMM)
                bitwise against K1 over its 8-row slices (the GEMV), K6 at
                three history shapes (with its split, and checked for
@@ -359,10 +361,29 @@ def phase_kernels(params, cfg, dev, results):
         next(r for r in k1_rows if r["shape"].startswith("qkv") and r["shape"].endswith("=512")),
         max_abs_err=max(r["max_abs_err"] for r in k1_rows if int(r["shape"].split("=")[-1]) > 8))
 
-    # ---- K2 at 1 and 8 rows
+    # ---- K2: at every row count 1-8 bit for bit the composition of K1 calls
+    # (h + K1(K1(h, gateup), down, relu^2, ffn_sub)) and the same over two
+    # calls, as its streamed dots are exact int32 sums in any order; timed at
+    # 1 and 8 rows
     k2_rows, k2_err = [], 0.0
     gw, dw = st["gateup_qw"], st["down_qw"]
     gs, ds, pl, fs = st["gateup_scale"], st["down_scale"], st["post_ln"], st["ffn_sub"]
+    k2_checks = 0
+    g2 = torch.Generator(device=dev).manual_seed(2)  # leaves rnd's stream to the later rows
+    for rows in range(1, 9):
+        for layer in (0, L - 1):
+            h = torch.randn((rows, H), generator=g2, device=dev).to(torch.bfloat16)
+            a = tc.mlp_block_megakernel(h, gw, dw, layer, gs, ds, pl, fs)
+            a2 = tc.mlp_block_megakernel(h, gw, dw, layer, gs, ds, pl, fs)
+            gu = tc.ternary_matmul_stacked_fused(h, gw, layer, gs, pl)
+            want = h + tc.ternary_matmul_stacked_fused(gu, dw, layer, ds, fs, act="relu2")
+            torch.cuda.synchronize()
+            if not (torch.equal(a, want) and torch.equal(a, a2)):
+                fail(f"K2 rows={rows} layer={layer}: not bitwise the K1 composition (max "
+                     f"{(a.float() - want.float()).abs().max().item()}) or not deterministic")
+            k2_checks += 1
+    print(f"kernels: K2 bitwise equal to h + K1(K1(h)) and across two calls in "
+          f"{k2_checks}/{k2_checks} checks (rows 1-8, layers 0 and {L - 1})")
     wgs = [unpack_ternary(gw[i]).to(torch.bfloat16) for i in range(L)]
     wds = [unpack_ternary(dw[i]).to(torch.bfloat16) for i in range(L)]
     for rows in (1, 8):
@@ -370,6 +391,8 @@ def phase_kernels(params, cfg, dev, results):
         lay = Cycle(L)
         a = tc.mlp_block_megakernel(h, gw, dw, 3, gs, ds, pl, fs)
         b = tc.mlp_block_megakernel_plain(h, gw, dw, 3, gs, ds, pl, fs)
+        gu = tc.ternary_matmul_stacked_fused(h, gw, 3, gs, pl)
+        want = h + tc.ternary_matmul_stacked_fused(gu, dw, 3, ds, fs, act="relu2")
         torch.cuda.synchronize()
         d = (a.float() - b.float()).abs()
         rel = (d / b.float().abs().amax(dim=1, keepdim=True)).max().item()
@@ -390,7 +413,8 @@ def phase_kernels(params, cfg, dev, results):
         k2_rows.append(dict(shape=f"mlp {H}->{2 * I}->{H} rows={rows}", ms=ms, call_ms=call_ms,
                             plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                            max_abs_err=d.max().item(), exact_share=(a == b).float().mean().item()))
+                            max_abs_err=d.max().item(), exact_share=(a == b).float().mean().item(),
+                            exact_share_k1=(a == want).float().mean().item()))
     del wgs, wds
     for r in k2_rows:
         print("kernels: K2 " + json.dumps(r))
@@ -1832,7 +1856,7 @@ def phase_moe(dev):
         params, cfg, dev, [tc.ternary_matmul_stacked, TiledCounter(tc.ternary_matmul_stacked),
                            kvu.kv_write, fa.flash_paged_prefill],
         tag="moe engine", idle=[tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel],
-        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False, step_ref=10.87)
+        per_step_exact={"ternary_matmul_stacked": per_step}, resubmit=False, step_ref=10.82)
     return launches
 
 
@@ -1887,11 +1911,12 @@ def main() -> int:
                tc.mlp_block_megakernel, kvu.kv_write, fa.flash_paged_prefill]
     # the two windows' device ms per decode step in the reference run
     # (PERF.md section 5); the flash_decode window also K6's
-    launches, toks = phase_engine(params, cfg, dev, serving, step_ref=8.26)
+    launches, toks = phase_engine(params, cfg, dev, serving, step_ref=5.23,
+                                  kernel_refs={"k2_mlp": 0.92})
     flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
-                                flash_decode=True, step_ref=5.96,
+                                flash_decode=True, step_ref=2.82,
                                 per_step_exact={"flash_paged_decode": cfg.num_layers},
-                                kernel_refs={"k6_decode": 0.35})
+                                kernel_refs={"k6_decode": 0.17, "k2_mlp": 0.91})
     same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
             for x, y in zip(toks, ftoks)]
     print(f"engine: flash_decode=True beside the default run: leading tokens equal per request "

@@ -260,6 +260,49 @@ def test_gemv_rows_match_on_card(kernel, rows):
     torch.cuda.synchronize()
 
 
+# (H, I): a small MLP (6 gateup and 2 down tiles of the streamed dot), and
+# BitNet-2B's (108 and 20 tiles; K/4 = 640 and 1728)
+K2_SHAPES = [(256, 384), (2560, 6912)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,norm2", [("relu2", True), ("silu", False)])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_k2_equals_k1_composition_on_card(rows, act, norm2):
+    """K2's dots are exact int32 sums in any order, and its prologues and
+    epilogues are K1's arithmetic: so K2 is bit for bit h + K1(K1(h, gateup,
+    post_ln), down, act, ffn_sub) through the port's own K1, and two calls
+    are bitwise equal (the streamed dots' int32 merge order does not show)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41 + rows)
+    for hd, inter in K2_SHAPES:
+        gw = torch.randint(0, 256, (L, hd // 4, 2 * inter), generator=g, device=dev,
+                           dtype=torch.uint8)
+        dw = torch.randint(0, 256, (L, inter // 4, hd), generator=g, device=dev,
+                           dtype=torch.uint8)
+        gs = torch.rand((L, 2 * inter), generator=g, device=dev) * 80 + 10
+        ds = torch.rand((L,), generator=g, device=dev) * 80 + 10
+        ln = (1 + 0.1 * torch.randn((L, hd), generator=g, device=dev)).to(torch.bfloat16)
+        sn = (1 + 0.1 * torch.randn((L, inter), generator=g, device=dev)).to(torch.bfloat16)
+        h = torch.randn((rows, hd), generator=g, device=dev).to(torch.bfloat16)
+        sub = sn if norm2 else None
+        n0 = ternary_cuda.mlp_block_megakernel.launches
+        a = ternary_cuda.mlp_block_megakernel(h, gw, dw, LAYER, gs, ds, ln, sub, act=act,
+                                              norm2=norm2)
+        b = ternary_cuda.mlp_block_megakernel(h, gw, dw, LAYER, gs, ds, ln, sub, act=act,
+                                              norm2=norm2)
+        assert ternary_cuda.mlp_block_megakernel.launches - n0 == 2
+        gu = ternary_cuda.ternary_matmul_stacked_fused(h, gw, LAYER, gs, ln)
+        want = h + ternary_cuda.ternary_matmul_stacked_fused(gu, dw, LAYER, ds, sub, act=act,
+                                                             norm=norm2)
+        torch.cuda.synchronize()
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, want), (hd, inter, (a.float() - want.float()).abs().max().item())
+        assert torch.equal(a, b), (hd, inter)
+
+
 @pytest.mark.cuda
 def test_fake_moe_oracle_on_card():
     """Two layers at a small width on the card: the dense model through

@@ -32,9 +32,11 @@
 // thread-block clusters, mma.sync on the codes in this interleaved order)
 // and above 8 rows in the tensor-core GEMM of ternary_gemm.cu (TMA, an
 // mbarrier ring and wgmma s8 x s8 -> s32; bound by operations); neither
-// needs a row sum. The dot inside K2, K5 and K8 (dot_tile) does not reach
-// the bound: each thread keeps one dependent 4-byte weight load in flight
-// per iteration, so its loop is latency-bound.
+// needs a row sum. K2's two dots (and K8's, which runs K2's stages) stream
+// the weights over the whole grid on the GEMV's warp-level pieces
+// (ternary_dot.cuh; see stream_dot). The dot inside K5 (dot_tile) does not
+// reach the bound: each thread keeps one dependent 4-byte weight load in
+// flight per iteration, so its loop is latency-bound.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -42,7 +44,10 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "ternary_dot.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -123,8 +128,10 @@ __device__ int block_isum(int v, int* red) {
 
 // One row's prologue, run by a whole block. h: the row ([K] or [gate|up] of
 // 2K); nw: the bf16 norm weight row or null; xs: shared scratch of K floats.
-// Writes the interleaved int8 codes (K bytes), the scale and, unless rowsum is
-// null, the code sum.
+// Writes the interleaved int8 codes (K bytes, a word x4[r] = (x[r], x[K/4+r],
+// x[2K/4+r], x[3K/4+r]) per store), the scale and, unless rowsum is null, the
+// code sum. The sums of squares keep their order; the absmax, a max, and the
+// per-element quantization do not depend on theirs.
 __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
                              int norm, const __nv_bfloat16* __restrict__ nw, float eps,
                              float* xs, float* red, int8_t* __restrict__ x4,
@@ -149,6 +156,7 @@ __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
     xs[k] = x;
     ss += x * x;
   }
+  float am = 0.f;
   if (norm) {
     float var = block_sum(ss, red) / (float)K;
     float r = 1.f / sqrtf(var + eps);
@@ -156,36 +164,29 @@ __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
       float x = bf16r(xs[k] * r);
       if (nw != nullptr) x = bf16r(x * __bfloat162float(nw[k]));
       xs[k] = x;
+      am = fmaxf(am, fabsf(x));
     }
+  } else {
+    for (int k = threadIdx.x; k < K; k += blockDim.x) am = fmaxf(am, fabsf(xs[k]));
   }
-  float am = 0.f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) am = fmaxf(am, fabsf(xs[k]));
   am = fmaxf(block_max(am, red), 1e-5f);
   const float s = 127.f / am;
   int qs = 0;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float q = fminf(fmaxf(rintf(xs[k] * s), -128.f), 127.f);
-    int qi = (int)q;
-    x4[(k % K4) * 4 + k / K4] = (int8_t)qi;
-    qs += qi;
+  for (int r = threadIdx.x; r < K4; r += blockDim.x) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int qi = (int)fminf(fmaxf(rintf(xs[p * K4 + r] * s), -128.f), 127.f);
+      word |= (uint32_t)(qi & 0xff) << (8 * p);
+      qs += qi;
+    }
+    reinterpret_cast<uint32_t*>(x4)[r] = word;
   }
   if (rowsum != nullptr) {  // uniform over the block: null when the dot needs no row sum
     qs = block_isum(qs, (int*)red);
     if (threadIdx.x == 0) *rowsum = qs;
   }
   if (threadIdx.x == 0) *sx = s;
-  __syncthreads();
-}
-
-// Copy R rows of interleaved codes (K4 words each) to shared memory; rows at
-// or beyond `rows` are zero.
-template <int R>
-__device__ void load_codes(const int8_t* __restrict__ x4, int rows, int K4, int* x4s) {
-  const int* src = reinterpret_cast<const int*>(x4);
-  for (int i = threadIdx.x; i < R * K4; i += blockDim.x) {
-    int row = i / K4;
-    x4s[i] = row < rows ? src[i] : 0;
-  }
   __syncthreads();
 }
 
@@ -262,28 +263,41 @@ __device__ void copy_row_async(const __nv_bfloat16* __restrict__ src, int n,
   }
 }
 
-// One block per row: prologue_row on a copy of the row and of the norm row in
-// shared memory (all their loads in flight at once, where prologue_row's
-// loops would wait for one global load per iteration; the arithmetic and its
-// order are prologue_row's). The decode GEMV is launched after this grid
-// with programmatic stream serialization: it may start streaming its weights
-// at once, and waits for this grid's stores before it reads the codes.
+// Shared memory of stage_prologue for K codes of a kin-wide input row: the
+// reduction scratch, the f32 row, and the staged input and norm rows.
+size_t prologue_smem(int kin, int K) { return (size_t)(32 + K) * 4 + ((kin + 7) / 8 * 8 + K) * 2; }
+
+// prologue_row on copies of the row and of the norm row in shared memory
+// (all their loads in flight at once, where prologue_row's loops would wait
+// for one global load per iteration; the arithmetic and its order are
+// prologue_row's), run by a whole block. The copies go through L2
+// (cp.async.cg), so the row may have been written earlier in the same
+// launch. smem: prologue_smem(kin, K) bytes.
+__device__ void stage_prologue(const __nv_bfloat16* h, int kin, int K, int act, int norm,
+                               const __nv_bfloat16* __restrict__ nw, float eps, float* smem,
+                               int8_t* __restrict__ x4, float* __restrict__ sx) {
+  float* red = smem;
+  float* xs = smem + 32;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(xs + K);
+  __nv_bfloat16* ns = hs + (kin + 7) / 8 * 8;
+  copy_row_async(h, kin, hs);
+  if (nw != nullptr) copy_row_async(nw, K, ns);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  prologue_row(hs, K, act, norm, nw == nullptr ? nullptr : ns, eps, xs, red, x4, nullptr, sx);
+}
+
+// One block per row: stage_prologue. The decode GEMV is launched after this
+// grid with programmatic stream serialization: it may start streaming its
+// weights at once, and waits for this grid's stores before it reads the codes.
 __global__ void k1_prologue(const __nv_bfloat16* __restrict__ h, int kin, int K, int act,
                             int norm, const __nv_bfloat16* __restrict__ nw, float eps,
                             int8_t* __restrict__ x4, float* __restrict__ sx) {
   asm volatile("griddepcontrol.launch_dependents;");
   extern __shared__ float smem[];
-  float* red = smem;
-  float* xs = smem + 32;
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(xs + K);
-  __nv_bfloat16* ns = hs + (kin + 7) / 8 * 8;
   const int b = blockIdx.x;
-  copy_row_async(h + (size_t)b * kin, kin, hs);
-  if (nw != nullptr) copy_row_async(nw, K, ns);
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncthreads();
-  prologue_row(hs, K, act, norm, nw == nullptr ? nullptr : ns, eps, xs, red,
-               x4 + (size_t)b * K, nullptr, sx + b);
+  stage_prologue(h + (size_t)b * kin, kin, K, act, norm, nw, eps, smem, x4 + (size_t)b * K,
+                 sx + b);
 }
 
 // ---------------------------------------------------------------- K7 ------
@@ -312,18 +326,168 @@ __global__ void k7_interleave(const int8_t* __restrict__ xq, int K, int8_t* __re
 // ---------------------------------------------------------------- K2 ------
 
 // Whole MLP block in one cooperative launch:
-//   A-prologue (norm+quant of h, one block per row) | grid barrier |
-//   gateup tiles -> bf16 gu in global scratch | grid barrier |
+//   A-prologue (norm+quant of h, one block per row; every block zeroes its
+//   share of the int32 accumulators)                            | grid barrier |
+//   gateup: streamed dot into int32 sums                         | grid barrier |
+//   gateup epilogue: bf16 gu = float(sum) * (1/(sx*sw)), over the whole grid
+//                                                               | grid barrier |
 //   B-prologue (act + sub-norm + quant of gu, one block per row) | grid barrier |
-//   down tiles + bf16 residual.
+//   down: streamed dot into int32 sums                           | grid barrier |
+//   down epilogue: out = h + bf16 rescale, over the whole grid.
 // The B-prologue runs once per row behind its own barrier rather than being
 // recomputed by every block: it needs the whole gu row, and recomputing it
 // in each of the ~100+ resident blocks would multiply the gu reads and the
-// reductions by the block count for the price of one barrier saved.
+// reductions by the block count for the price of one barrier saved. Each
+// prologue works on copies of its row and norm row in shared memory
+// (stage_prologue, as K1's).
+//
+// The streamed dot (stream_dot). Each matrix is cut into work items of one
+// 128-column tile and one slice of its K/4 packed rows. A tile has as many
+// slices as the grid has blocks per tile, and the first (grid % tiles) tiles
+// one more, so that each block has exactly one item in both dots whatever
+// the grid's size (K8's is set by K5's stages too), as long as it holds one
+// block per tile (a smaller grid deals whole tiles out): at 264 blocks the
+// gateup's 108 tiles take 2-3 slices of 27-40 k-steps and the down's 20
+// tiles 13-14 slices of 15-17 k-steps.
+// Within an item each warp takes every 8th k-step of 8 packed rows x 128
+// columns (1 KB) and keeps four in flight, as the GEMV of ternary_gemv.cu
+// does: 16-byte ld.global.nc weight loads, and beside them the two code
+// words of the lane's row (read through L2: the prologue wrote them in this
+// launch), so no code is staged in shared memory. The weights are unpacked
+// to unsigned codes for mma.sync m16n8k32 u8 x s8 -> s32, and each warp
+// subtracts its rows' code sums over the k it covered: no row sum is needed.
+// The eight warps' partials are summed in shared memory and added to the
+// dot's int32 sums with red.global.add: an integer sum, so the result does
+// not depend on the order of arrival. A barrier, then the epilogue over the
+// whole grid: that costs less than a per-tile arrival counter whose last
+// block applies the epilogue (a fence, the counter and the reload in a
+// chain: 35.8 against 32.1 us at 8 rows on an H100, PERF.md). The sums are
+// zeroed by the kernel's first stage: no host memset, and nothing is left
+// for the next launch, so a CUDA graph may replay it.
 //
 // The body is a device function so that K8 can run it after K5's body in one
 // launch; there h is written by the attention stages of the same launch, so
 // it is not declared __restrict__ (no read-only cache path).
+
+constexpr int WARPS = THREADS / 32;
+constexpr int ST_TN = 128;   // columns per streamed tile: 8 lane groups x 16
+constexpr int ST_STEP = 8;   // packed rows per k-step (one mma's 32 k)
+constexpr int ST_UNR = 4;    // k-steps whose loads a warp keeps in flight
+
+// Slot of (row m, tile column cc) in a warp's partials: row-major, the low
+// five column bits XOR-swizzled so that the warps' stores (lanes over 8
+// column groups x 4 row pairs) and the sums' loads (lanes over 32 columns of
+// one row) are both free of bank conflicts.
+__device__ __forceinline__ int part_slot(int m, int cc) {
+  return m * ST_TN + (cc & 96) + ((cc & 31) ^ (((cc >> 5) & 3) | (((m >> 1) & 3) << 2)));
+}
+
+__device__ __forceinline__ void red_add(int* p, int v) {
+  asm volatile("red.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// One streamed dot (above): acc [B, N] += the signed dot of the rows'
+// interleaved codes x4 [B, 4*K4] (written earlier in this launch) with w
+// [K4, N]. part: WARPS * R * ST_TN ints of shared memory. Needs N % 16 == 0
+// and 16-byte aligned weight rows.
+template <int R>
+__device__ void stream_dot(const uint8_t* __restrict__ w, int K4, int N, const int8_t* x4, int B,
+                           int* acc, int* part) {
+  const int tiles = (N + ST_TN - 1) / ST_TN, steps = (K4 + ST_STEP - 1) / ST_STEP;
+  // slices per tile: base, and base + 1 for the first `extra` tiles
+  int base = (int)gridDim.x / tiles, extra = (int)gridDim.x % tiles;
+  if (base == 0 || base >= steps) {
+    base = base == 0 ? 1 : steps;
+    extra = 0;
+  }
+  const int big = extra * (base + 1);  // the items of those first tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // the lane's row of codes for the B fragments (row g; zeros past the rows)
+  const int* xr = g < R && g < B ? reinterpret_cast<const int*>(x4 + (size_t)g * 4 * K4) : nullptr;
+  for (int it = blockIdx.x; it < big + (tiles - extra) * base; it += gridDim.x) {
+    const bool in_big = it < big;
+    const int split = in_big ? base + 1 : base;
+    const int tile = in_big ? it / split : extra + (it - big) / split;
+    const int sl = in_big ? it % split : (it - big) % split;
+    const int n0 = tile * ST_TN, col = n0 + 16 * g;
+    const int s0 = sl * steps / split, nsb = (sl + 1) * steps / split - s0;
+    const int r0 = s0 * ST_STEP;
+    // a ring of ST_UNR k-steps: slot u holds packed rows t and t+4 of the
+    // warp's step warp + (i*ST_UNR + u)*WARPS in round i, refilled with its
+    // step of round i+1 as soon as it is used
+    uint4 wl[ST_UNR], wh[ST_UNR];
+    uint32_t xl[ST_UNR], xh[ST_UNR];
+    auto load = [&](int u, int s) {
+      const int r = r0 + s * ST_STEP + t;
+      const bool lo = s < nsb && r < K4, hi = s < nsb && r + 4 < K4;
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      wl[u] = lo && col < N ? ld_stream(w + (size_t)r * N + col) : z;
+      wh[u] = hi && col < N ? ld_stream(w + (size_t)(r + 4) * N + col) : z;
+      xl[u] = lo && xr != nullptr ? (uint32_t)__ldcg(xr + r) : 0u;
+      xh[u] = hi && xr != nullptr ? (uint32_t)__ldcg(xr + r + 4) : 0u;
+    };
+#pragma unroll
+    for (int u = 0; u < ST_UNR; ++u) load(u, warp + u * WARPS);
+
+    int a[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[j][c] = 0;
+    int rs = 0;  // row g's code sum over the k this warp covers
+    for (int first = warp; first < nsb; first += WARPS * ST_UNR) {
+#pragma unroll
+      for (int u = 0; u < ST_UNR; ++u) {
+        const int s = first + u * WARPS;
+        if (s < nsb) {
+          const uint32_t b0 = xl[u], b1 = xh[u];
+          rs = __dp4a((int)b0, 0x01010101, rs);
+          rs = __dp4a((int)b1, 0x01010101, rs);
+          const uint32_t lo[4] = {wl[u].x, wl[u].y, wl[u].z, wl[u].w};
+          const uint32_t hi[4] = {wh[u].x, wh[u].y, wh[u].z, wh[u].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t al[4], ah[4];
+            unpack4(lo[i], al);
+            unpack4(hi[i], ah);
+            mma_u8s8(a[2 * i], al[0], al[1], ah[0], ah[1], b0, b1);
+            mma_u8s8(a[2 * i + 1], al[2], al[3], ah[2], ah[3], b0, b1);
+          }
+          load(u, s + WARPS * ST_UNR);
+        }
+      }
+    }
+
+    // unsigned codes -> the signed dot: subtract the rows' code sums (this
+    // thread's accumulators are rows 2t and 2t+1; group g holds row g's sum);
+    // accumulator c of mma j is column 16g + 2j + c/2, row 2t + c%2
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    const int rs0 = __shfl_sync(0xffffffffu, rs, 8 * t), rs1 = __shfl_sync(0xffffffffu, rs, 8 * t + 4);
+    __syncthreads();  // the previous item's partials have been summed
+    int* pw = part + warp * R * ST_TN;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = 2 * t + (c & 1);
+        if (m < R) pw[part_slot(m, 16 * g + 2 * j + (c >> 1))] = a[j][c] - (c & 1 ? rs1 : rs0);
+      }
+    __syncthreads();
+    for (int o = threadIdx.x; o < R * ST_TN; o += THREADS) {
+      const int m = o / ST_TN, cc = o % ST_TN;
+      if (m < B && n0 + cc < N) {
+        const int slot = part_slot(m, cc);
+        int sum = 0;
+#pragma unroll
+        for (int q = 0; q < WARPS; ++q) sum += part[q * R * ST_TN + slot];
+        red_add(acc + (size_t)m * N + n0 + cc, sum);
+      }
+    }
+  }
+}
+
+// acc: int32 scratch [B, 2I + H]: the gateup's sums, then the down's (zeroed here).
 template <int R>
 __device__ void mlp_block(float* smem, const __nv_bfloat16* h, int B, int H, int I, int act,
                           const __nv_bfloat16* __restrict__ post_ln,
@@ -331,62 +495,54 @@ __device__ void mlp_block(float* smem, const __nv_bfloat16* h, int B, int H, int
                           const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
                           int gsw_stride, const uint8_t* __restrict__ dw,
                           const float* __restrict__ dsw, int dsw_stride,
-                          int8_t* __restrict__ x4a, int* __restrict__ rsa,
-                          float* __restrict__ sxa, __nv_bfloat16* __restrict__ gu,
-                          int8_t* __restrict__ x4b, int* __restrict__ rsb,
-                          float* __restrict__ sxb, __nv_bfloat16* __restrict__ out) {
+                          int8_t* __restrict__ x4a, float* __restrict__ sxa,
+                          __nv_bfloat16* __restrict__ gu, int8_t* __restrict__ x4b,
+                          float* __restrict__ sxb, int* __restrict__ acc,
+                          __nv_bfloat16* __restrict__ out) {
   cg::grid_group grid = cg::this_grid();
   const int NG = 2 * I;
+  int* accg = acc;
+  int* accd = accg + B * NG;
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * (NG + H); i += gridDim.x * THREADS)
+    acc[i] = 0;
 
   for (int b = blockIdx.x; b < B; b += gridDim.x)
-    prologue_row(h + (size_t)b * H, H, ACT_NONE, 1, post_ln, eps, smem + 32, smem,
-                 x4a + (size_t)b * H, rsa + b, sxa + b);
+    stage_prologue(h + b * H, H, H, ACT_NONE, 1, post_ln, eps, smem, x4a + b * H, sxa + b);
   grid.sync();
 
-  {
-    int* x4s = reinterpret_cast<int*>(smem);
-    int* red = x4s + R * (H / 4);
-    load_codes<R>(x4a, B, H / 4, x4s);
-    for (int t = blockIdx.x; t * TILE_N < NG; t += gridDim.x) {
-      dot_tile<R>(gw, H / 4, NG, t * TILE_N, x4s, B, red, [&](int i, int n, int acc) {
-        gu[(size_t)i * NG + n] = rescale(acc, rsa[i], sxa[i], gsw[n * gsw_stride]);
-      });
-    }
-  }
+  int* part = reinterpret_cast<int*>(smem);
+  stream_dot<R>(gw, H / 4, NG, x4a, B, accg, part);
+  grid.sync();
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * NG; i += gridDim.x * THREADS)
+    gu[i] = rescale(__ldcg(accg + i), 0, __ldcg(sxa + i / NG), gsw[i % NG * gsw_stride]);
   grid.sync();
 
   for (int b = blockIdx.x; b < B; b += gridDim.x)
-    prologue_row(gu + (size_t)b * NG, I, act, ffn_sub != nullptr, ffn_sub, eps, smem + 32,
-                 smem, x4b + (size_t)b * I, rsb + b, sxb + b);
+    stage_prologue(gu + b * NG, NG, I, act, ffn_sub != nullptr, ffn_sub, eps, smem, x4b + b * I,
+                   sxb + b);
   grid.sync();
 
-  {
-    int* x4s = reinterpret_cast<int*>(smem);
-    int* red = x4s + R * (I / 4);
-    load_codes<R>(x4b, B, I / 4, x4s);
-    for (int t = blockIdx.x; t * TILE_N < H; t += gridDim.x) {
-      dot_tile<R>(dw, I / 4, H, t * TILE_N, x4s, B, red, [&](int i, int n, int acc) {
-        float d = __bfloat162float(rescale(acc, rsb[i], sxb[i], dsw[n * dsw_stride]));
-        out[(size_t)i * H + n] = __float2bfloat16_rn(__bfloat162float(h[(size_t)i * H + n]) + d);
-      });
-    }
+  stream_dot<R>(dw, I / 4, H, x4b, B, accd, part);
+  grid.sync();
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * H; i += gridDim.x * THREADS) {
+    const float y =
+        __bfloat162float(rescale(__ldcg(accd + i), 0, __ldcg(sxb + i / H), dsw[i % H * dsw_stride]));
+    out[i] = __float2bfloat16_rn(__bfloat162float(h[i]) + y);
   }
 }
 
 template <int R>
-__global__ void k2_mlp(const __nv_bfloat16* __restrict__ h, int B, int H, int I, int act,
-                       const __nv_bfloat16* __restrict__ post_ln,
-                       const __nv_bfloat16* __restrict__ ffn_sub, float eps,
-                       const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
-                       int gsw_stride, const uint8_t* __restrict__ dw,
-                       const float* __restrict__ dsw, int dsw_stride,
-                       int8_t* __restrict__ x4a, int* __restrict__ rsa, float* __restrict__ sxa,
-                       __nv_bfloat16* __restrict__ gu, int8_t* __restrict__ x4b,
-                       int* __restrict__ rsb, float* __restrict__ sxb,
-                       __nv_bfloat16* __restrict__ out) {
+__global__ void __launch_bounds__(THREADS, 2)
+k2_mlp(const __nv_bfloat16* __restrict__ h, int B, int H, int I, int act,
+       const __nv_bfloat16* __restrict__ post_ln, const __nv_bfloat16* __restrict__ ffn_sub,
+       float eps, const uint8_t* __restrict__ gw, const float* __restrict__ gsw, int gsw_stride,
+       const uint8_t* __restrict__ dw, const float* __restrict__ dsw, int dsw_stride,
+       int8_t* __restrict__ x4a, float* __restrict__ sxa, __nv_bfloat16* __restrict__ gu,
+       int8_t* __restrict__ x4b, float* __restrict__ sxb, int* __restrict__ acc,
+       __nv_bfloat16* __restrict__ out) {
   extern __shared__ float smem[];
   mlp_block<R>(smem, h, B, H, I, act, post_ln, ffn_sub, eps, gw, gsw, gsw_stride, dw, dsw,
-               dsw_stride, x4a, rsa, sxa, gu, x4b, rsb, sxb, out);
+               dsw_stride, x4a, sxa, gu, x4b, sxb, acc, out);
 }
 
 // ---------------------------------------------------------------- K5 ------
@@ -585,29 +741,23 @@ __global__ void k8_layer(WF_K5_PARAMS, int I, int act, const __nv_bfloat16* __re
                          const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
                          int gsw_stride, const uint8_t* __restrict__ dw,
                          const float* __restrict__ dsw, int dsw_stride, int8_t* __restrict__ x4a,
-                         int* __restrict__ rsa, float* __restrict__ sxa,
-                         __nv_bfloat16* __restrict__ gu, int8_t* __restrict__ x4b,
-                         int* __restrict__ rsb, float* __restrict__ sxb,
-                         __nv_bfloat16* __restrict__ out2) {
+                         float* __restrict__ sxa, __nv_bfloat16* __restrict__ gu,
+                         int8_t* __restrict__ x4b, float* __restrict__ sxb,
+                         int* __restrict__ acc, __nv_bfloat16* __restrict__ out2) {
   extern __shared__ float smem[];
   attn_block(smem, WF_K5_ARGS);
   cg::this_grid().sync();
   mlp_block<1>(smem, out, 1, H, I, act, post_ln, ffn_sub, eps2, gw, gsw, gsw_stride, dw, dsw,
-               dsw_stride, x4a, rsa, sxa, gu, x4b, rsb, sxb, out2);
+               dsw_stride, x4a, sxa, gu, x4b, sxb, acc, out2);
 }
 
-size_t dot_smem(int R, int K) {
-  return (size_t)R * (K / 4) * 4 + (size_t)KSPLIT * R * TILE_N * 4;
-}
-
-// Dynamic shared memory of K2's stages at R rows: the larger dot's codes and
-// partial sums, or a prologue's reduction scratch and row.
+// Dynamic shared memory of K2's stages at R rows: the streamed dots' warp
+// partials, or a prologue's scratch and staged rows.
 size_t k2_smem(int R, int H, int I) {
-  size_t smem = dot_smem(R, H);
-  size_t s2 = dot_smem(R, I);
-  if (s2 > smem) smem = s2;
-  size_t sp = (size_t)(32 + (H > I ? H : I)) * 4;
-  return sp > smem ? sp : smem;
+  size_t smem = (size_t)WARPS * R * ST_TN * 4;
+  const size_t sa = prologue_smem(H, H), sb = prologue_smem(2 * I, I);
+  if (sa > smem) smem = sa;
+  return sb > smem ? sb : smem;
 }
 
 // K5's dynamic shared memory (see the layout at the top of attn_block).
@@ -624,40 +774,6 @@ int k5_want(int H, int Q, int KV, int T) {
   int units = KV * ((T + ATT_CH - 1) / ATT_CH);
   if (tiles_o > want) want = tiles_o;
   return units > want ? units : want;
-}
-
-template <int R>
-cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
-                      const __nv_bfloat16* post_ln, const __nv_bfloat16* ffn_sub, float eps,
-                      const uint8_t* gw, const float* gsw, int gsw_stride, const uint8_t* dw,
-                      const float* dsw, int dsw_stride, int8_t* x4a, int* rsa, float* sxa,
-                      __nv_bfloat16* gu, int8_t* x4b, int* rsb, float* sxb,
-                      __nv_bfloat16* out, cudaStream_t st) {
-  size_t smem = k2_smem(R, H, I);
-  cudaError_t e = cudaFuncSetAttribute(k2_mlp<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_mlp<R>, THREADS, smem)) !=
-      cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  int tiles = (2 * I + TILE_N - 1) / TILE_N;
-  int blocks = per_sm * sms;
-  if (blocks > tiles) blocks = tiles;
-  if (blocks < B) blocks = B;
-  void* args[] = {(void*)&h,   (void*)&B,      (void*)&H,   (void*)&I,          (void*)&act,
-                  (void*)&post_ln, (void*)&ffn_sub, (void*)&eps, (void*)&gw,   (void*)&gsw,
-                  (void*)&gsw_stride, (void*)&dw, (void*)&dsw, (void*)&dsw_stride,
-                  (void*)&x4a, (void*)&rsa,   (void*)&sxa, (void*)&gu,         (void*)&x4b,
-                  (void*)&rsb, (void*)&sxb,   (void*)&out};
-  e = cudaLaunchCooperativeKernel((const void*)k2_mlp<R>, dim3(blocks), dim3(THREADS), args,
-                                  smem, st);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
 }
 
 // Largest grid whose blocks are all resident (a cooperative launch needs
@@ -677,6 +793,32 @@ cudaError_t resident_blocks(const void* kernel, size_t smem, int want, int* bloc
   return cudaSuccess;
 }
 
+// K2 on every resident block: the streamed dots give each one work.
+template <int R>
+cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
+                      const __nv_bfloat16* post_ln, const __nv_bfloat16* ffn_sub, float eps,
+                      const uint8_t* gw, const float* gsw, int gsw_stride, const uint8_t* dw,
+                      const float* dsw, int dsw_stride, int8_t* x4a, float* sxa,
+                      __nv_bfloat16* gu, int8_t* x4b, float* sxb, int* acc,
+                      __nv_bfloat16* out, cudaStream_t st) {
+  size_t smem = k2_smem(R, H, I);
+  cudaError_t e = cudaFuncSetAttribute(k2_mlp<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  if ((e = resident_blocks((const void*)k2_mlp<R>, smem, INT_MAX, &blocks)) != cudaSuccess)
+    return e;
+  void* args[] = {(void*)&h,   (void*)&B,      (void*)&H,   (void*)&I,          (void*)&act,
+                  (void*)&post_ln, (void*)&ffn_sub, (void*)&eps, (void*)&gw,   (void*)&gsw,
+                  (void*)&gsw_stride, (void*)&dw, (void*)&dsw, (void*)&dsw_stride,
+                  (void*)&x4a, (void*)&sxa,   (void*)&gu,  (void*)&x4b,        (void*)&sxb,
+                  (void*)&acc, (void*)&out};
+  e = cudaLaunchCooperativeKernel((const void*)k2_mlp<R>, dim3(blocks), dim3(THREADS), args,
+                                  smem, st);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -691,7 +833,7 @@ int wf_ternary_fused(const void* h, int B, int kin, int K, int act, int norm, co
   static int psmem_limit = 48 * 1024;  // raised once per process when a width needs it
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
-  const int psmem = (32 + K) * 4 + ((kin + 7) / 8 * 8 + K) * 2;
+  const int psmem = (int)prologue_smem(kin, K);
   cudaError_t e;
   if (psmem > psmem_limit) {
     if ((e = cudaFuncSetAttribute(k1_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -729,19 +871,24 @@ int wf_ternary_matmul(const void* xq, int B, int K, const void* sx, const void* 
 }
 
 // K2: out[B,H] = h + down(quant(subnorm(act(bf16(gateup(quant(norm(h)))))))), B <= 8.
+// Caller scratch: x4a [B,H] and x4b [B,I] int8, sxa and sxb [B] f32, gu [B,2I]
+// bf16, acc [B,2I+H] int32 (see mlp_block). H and I multiples
+// of 16, the weights 16-byte aligned.
 int wf_mlp_mega(const void* h, int B, int H, int I, int act, const void* post_ln,
                 const void* ffn_sub, float eps, const void* gw, const void* gsw, int gsw_stride,
-                const void* dw, const void* dsw, int dsw_stride, void* x4a, void* rsa, void* sxa,
-                void* gu, void* x4b, void* rsb, void* sxb, void* out, void* stream) {
+                const void* dw, const void* dsw, int dsw_stride, void* x4a, void* sxa, void* gu,
+                void* x4b, void* sxb, void* acc, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
-  if (B > 8) return cudaErrorInvalidValue;
+  if (B > 8 || H % 16 || I % 16 || reinterpret_cast<uintptr_t>(gw) % 16 ||
+      reinterpret_cast<uintptr_t>(dw) % 16)
+    return cudaErrorInvalidValue;
 #define WF_K2(R)                                                                              \
   launch_k2<R>((const __nv_bfloat16*)h, B, H, I, act, (const __nv_bfloat16*)post_ln,         \
                (const __nv_bfloat16*)ffn_sub, eps, (const uint8_t*)gw, (const float*)gsw,     \
                gsw_stride, (const uint8_t*)dw, (const float*)dsw, dsw_stride, (int8_t*)x4a,  \
-               (int*)rsa, (float*)sxa, (__nv_bfloat16*)gu, (int8_t*)x4b, (int*)rsb,           \
-               (float*)sxb, (__nv_bfloat16*)out, st)
+               (float*)sxa, (__nv_bfloat16*)gu, (int8_t*)x4b, (float*)sxb, (int*)acc,         \
+               (__nv_bfloat16*)out, st)
   if (B == 1) return WF_K2(1);
   if (B == 2) return WF_K2(2);
   if (B <= 4) return WF_K2(4);
@@ -791,9 +938,10 @@ int wf_layer_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer,
                   void* ck, void* cv, void* qkv, void* sc, void* part, void* attn, void* out,
                   int I, int act, const void* post_ln, const void* ffn_sub, float eps2,
                   const void* gw, const void* gsw, int gsw_stride, const void* dw,
-                  const void* dsw, int dsw_stride, void* x4a, void* rsa, void* sxa, void* gu,
-                  void* x4b, void* rsb, void* sxb, void* out2, void* stream) {
-  if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 4 || I % 4)
+                  const void* dsw, int dsw_stride, void* x4a, void* sxa, void* gu, void* x4b,
+                  void* sxb, void* acc, void* out2, void* stream) {
+  if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 16 || I % 16 ||
+      reinterpret_cast<uintptr_t>(gw) % 16 || reinterpret_cast<uintptr_t>(dw) % 16)
     return cudaErrorInvalidValue;
   size_t smem = k5_smem(H, Q);
   const size_t s2 = k2_smem(1, H, I);
@@ -801,11 +949,10 @@ int wf_layer_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer,
   cudaError_t e = cudaFuncSetAttribute(k8_layer, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  int want = k5_want(H, Q, KV, T);
-  const int tiles_gu = (2 * I + TILE_N - 1) / TILE_N;
-  if (tiles_gu > want) want = tiles_gu;
+  // every resident block: K5's stages use k5_want of them, the MLP's all
   int blocks = 0;
-  if ((e = resident_blocks((const void*)k8_layer, smem, want, &blocks)) != cudaSuccess) return e;
+  if ((e = resident_blocks((const void*)k8_layer, smem, INT_MAX, &blocks)) != cudaSuccess)
+    return e;
   void* args[] = {(void*)&h,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
                   (void*)&T,   (void*)&layer, (void*)&pos,    (void*)&input_ln, (void*)&attn_sub,
                   (void*)&norm2, (void*)&eps, (void*)&qw,     (void*)&qsw,   (void*)&qsw_stride,
@@ -814,8 +961,8 @@ int wf_layer_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer,
                   (void*)&part, (void*)&attn, (void*)&out,
                   (void*)&I,   (void*)&act,   (void*)&post_ln, (void*)&ffn_sub, (void*)&eps2,
                   (void*)&gw,  (void*)&gsw,   (void*)&gsw_stride, (void*)&dw, (void*)&dsw,
-                  (void*)&dsw_stride, (void*)&x4a, (void*)&rsa, (void*)&sxa, (void*)&gu,
-                  (void*)&x4b, (void*)&rsb,   (void*)&sxb,    (void*)&out2};
+                  (void*)&dsw_stride, (void*)&x4a, (void*)&sxa, (void*)&gu, (void*)&x4b,
+                  (void*)&sxb, (void*)&acc,   (void*)&out2};
   e = cudaLaunchCooperativeKernel((const void*)k8_layer, dim3(blocks), dim3(THREADS), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return e;

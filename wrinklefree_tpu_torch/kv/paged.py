@@ -280,12 +280,13 @@ def paged_forward(
     ``linear_fn``; the plain step (norm, quantize, linear, and the MoE MLP of
     ``models/moe.py`` for ``cfg.num_experts > 0``) for a stacked or unstacked
     ``linear_fn`` over unfused or fused params. ``attention_fn`` defaults to
-    the flash prefill kernel for chunks of 128 tokens or more, to the flash
-    decode kernel at S == 1 when ``flash_decode`` is set, and to the plain
-    dual-layout attention otherwise; ``kv_write`` defaults to the in-place
-    writer kernel. Each wrapper runs its plain version on CPU tensors, and
-    the plain functions can be passed explicitly to run the plain path on
-    the card.
+    the flash prefill kernel for chunks of 128 tokens or more whose table
+    width times the page size plus S is a multiple of 128 (the reference's
+    condition), to the flash decode kernel at S == 1 when ``flash_decode``
+    is set, and to the plain dual-layout attention otherwise; ``kv_write``
+    defaults to the in-place writer kernel. Each wrapper runs its plain
+    version on CPU tensors, and the plain functions can be passed explicitly
+    to run the plain path on the card.
     """
     stack = params["layers"]
     fused = "qkv_qw" in stack
@@ -316,7 +317,12 @@ def paged_forward(
     elif S == 1 and flash_decode:
         attn_impl = _paged_attention_dual_flash_decode
     else:
-        attn_impl = _paged_attention_dual_flash if S >= 128 else _paged_attention_dual
+        # the reference's condition (its kernel path, kv_write="pallas"): the
+        # flash prefill only where the table's tokens plus the chunk fill
+        # whole 128-token tiles; the two paths round attention differently
+        hist_tokens = page_table.shape[1] * ps
+        use_flash = S >= 128 and (hist_tokens + S) % 128 == 0
+        attn_impl = _paged_attention_dual_flash if use_flash else _paged_attention_dual
 
     # this batch's staging pages, gathered once for all layers
     staging_b = pools.staging[:B] if slot_ids is None else pools.staging[slot_ids.long()]

@@ -41,7 +41,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES = {
     "wf_ternary_fused": [_P, _I, _I, _I, _I, _I, _P, _F, _P, _P, _I, _I, _P, _P, _I, _P, _P],
     "wf_mlp_mega": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P, _P, _I,
-                    _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                    _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_kv_write": [_P, _P, _P, _P, _I, _I, _LL, _LL, _P],
     "wf_flash_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "wf_flash_paged_prefill_pool": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

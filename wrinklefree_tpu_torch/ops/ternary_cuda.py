@@ -264,10 +264,10 @@ def gemv_split(k: int, n: int, sms: int) -> int:
 
 
 def _check_rows16(k: int, n: int, w_ptr: int, what: str):
-    """The GEMV's 16-byte loads of weight rows and codes, and the GEMM's TMA
-    loads, need 16-byte aligned rows and bases."""
+    """The 16-byte loads of weight rows and codes (the GEMV, K2's streamed
+    dots) and the GEMM's TMA loads need 16-byte aligned rows and bases."""
     if k % 16 or n % 16 or w_ptr % 16:
-        raise ValueError(f"{what}: the GEMV and the GEMM load 16-byte rows: K and N must be "
+        raise ValueError(f"{what}: the kernels load 16-byte rows: K and N must be "
                          f"multiples of 16 and the weights 16-byte aligned, got K={k}, N={n}")
 
 
@@ -420,22 +420,25 @@ def _k2_prep(h, gateup_qw, down_qw, layer, gateup_scale, down_scale, post_ln, ff
     if b > 8:
         raise ValueError(f"mlp_block_megakernel takes at most 8 rows, got {b}")
     dev = h.device
+    gw_ptr, dw_ptr = _layer_ptr(gateup_qw, layer), _layer_ptr(down_qw, layer)
+    _check_rows16(hd, n_gu, gw_ptr, "mlp_block_megakernel")
+    _check_rows16(inter, hd, dw_ptr, "mlp_block_megakernel")
     x4a = torch.empty((b, hd), dtype=torch.int8, device=dev)
     x4b = torch.empty((b, inter), dtype=torch.int8, device=dev)
-    ints = torch.empty((2, b), dtype=torch.int32, device=dev)
     scales = torch.empty((2, b), dtype=torch.float32, device=dev)
     gu = torch.empty((b, n_gu), dtype=torch.bfloat16, device=dev)
+    # the int32 sums of both dots (csrc/ternary.cu::mlp_block), zeroed by the kernel
+    acc = torch.empty((b * (2 * inter + hd),), dtype=torch.int32, device=dev)
     out = torch.empty((b, hd), dtype=torch.bfloat16, device=dev)
     gsw, gsw_stride = _scale_args(gateup_scale, layer, n_gu)
     dsw, dsw_stride = _scale_args(down_scale, layer, hd)
     args = [
         h2.data_ptr(), b, hd, inter, _ACTS[act], _layer_ptr(post_ln, layer),
-        _layer_ptr(sub, layer) if sub is not None else None, float(eps),
-        _layer_ptr(gateup_qw, layer), gsw, gsw_stride, _layer_ptr(down_qw, layer), dsw,
-        dsw_stride, x4a.data_ptr(), ints[0].data_ptr(), scales[0].data_ptr(), gu.data_ptr(),
-        x4b.data_ptr(), ints[1].data_ptr(), scales[1].data_ptr(), out.data_ptr(),
+        _layer_ptr(sub, layer) if sub is not None else None, float(eps), gw_ptr, gsw,
+        gsw_stride, dw_ptr, dsw, dsw_stride, x4a.data_ptr(), scales[0].data_ptr(),
+        gu.data_ptr(), x4b.data_ptr(), scales[1].data_ptr(), acc.data_ptr(), out.data_ptr(),
     ]
-    return args, out.reshape(*lead, hd), (h2, x4a, x4b, ints, scales, gu)
+    return args, out.reshape(*lead, hd), (h2, x4a, x4b, scales, gu, acc)
 
 
 def mlp_block_megakernel(
