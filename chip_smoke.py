@@ -14,7 +14,10 @@ vocab 128256) with random weights drawn on the card from seed 0:
                count 1-8 (the GEMV of csrc/ternary_gemv.cu; K7 bitwise in
                bf16, f32 and int32), 64 and 512; K2 at every row count
                1-8 bitwise against h + K1(K1(h)) and across two calls (its
-               streamed dots' int32 merge); the static wrappers also
+               streamed dots' int32 merge); K5's qkv row and output bitwise
+               against K1(h) and h + K1(its attention row) and across two
+               calls; K8's attention half bitwise K5 and its output K2 of
+               it; the static wrappers also
                bitwise against K5/K2, K1 above 8 rows (the tensor-core GEMM)
                bitwise against K1 over its 8-row slices (the GEMV), K6 at
                three history shapes (with its split, and checked for
@@ -633,7 +636,11 @@ def kernels_k5(params, cfg, dev, rnd, results):
     T - 1, layers 0 and 29. Bars: h' within 5% of its largest value and the
     written k/v rows within 3% of theirs (the prologues' variance and the
     scores sum in another order than torch's, so an int8 code can move by
-    one, as for K1/K2); every other cache row bitwise unchanged."""
+    one, as for K1/K2); every other cache row bitwise unchanged. Its streamed
+    qkv and o dots are exact int32 sums and its prologues and epilogues K1's
+    arithmetic, so in every case its bf16 qkv row is bitwise K1(h, qkv), h'
+    bitwise h + K1(its attention row, o), and a second call bitwise the
+    first."""
     import torch
 
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
@@ -645,14 +652,15 @@ def kernels_k5(params, cfg, dev, rnd, results):
     NH, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kw = dict(q_dim=Q, n_kv=KV, n_heads=NH, head_dim=D, eps=cfg.rms_norm_eps)
 
-    def call(fn, h, ck, cv, layer, pos, cos, sin):
+    def call(fn, h, ck, cv, layer, pos, cos, sin, **extra):
         return fn(h, ck, cv, st["qkv_qw"], st["o_qw"], layer, pos, st["qkv_scale"],
-                  st["o_scale"], st["input_ln"], st["attn_sub"], cos, sin, **kw)[0]
+                  st["o_scale"], st["input_ln"], st["attn_sub"], cos, sin, **kw, **extra)[0]
 
     wq = [unpack_ternary(st["qkv_qw"][i]).to(torch.bfloat16) for i in range(L)]
     wo = [unpack_ternary(st["o_qw"][i]).to(torch.bfloat16) for i in range(L)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows, worst, exact_rows, checks = [], 0.0, 0, 0
+    rows, worst, exact_rows, checks, k1_checks = [], 0.0, 0, 0, 0
+    eps = cfg.rms_norm_eps
     for T in (328, 2048):
         ck0, cv0 = rnd(L, 1, T, KV, D), rnd(L, 1, T, KV, D)
         h = rnd(1, H)
@@ -663,9 +671,24 @@ def kernels_k5(params, cfg, dev, rnd, results):
             p = torch.tensor([pos], dtype=torch.int32, device=dev)
             for layer in (0, L - 1):
                 ka, va, kb, vb = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-                a = call(tc.attn_block_megakernel, h, ka, va, layer, p, cos, sin)
+                s1, s2 = {}, {}
+                a = call(tc.attn_block_megakernel, h, ka, va, layer, p, cos, sin, scratch=s1)
+                a2 = call(tc.attn_block_megakernel, h, ck0.clone(), cv0.clone(), layer, p, cos,
+                          sin, scratch=s2)
                 b = call(tc.attn_block_megakernel_plain, h, kb, vb, layer, p, cos, sin)
+                want_qkv = tc.ternary_matmul_stacked_fused(h, st["qkv_qw"], layer,
+                                                           st["qkv_scale"], st["input_ln"], eps=eps)
+                want = h + tc.ternary_matmul_stacked_fused(s1["attn"], st["o_qw"], layer,
+                                                           st["o_scale"], st["attn_sub"], eps=eps)
                 torch.cuda.synchronize()
+                if not (torch.equal(s1["qkv"], want_qkv) and torch.equal(a, want)):
+                    fail(f"K5 T={T} pos={pos} layer={layer}: not bitwise the K1 composition "
+                         f"(qkv {(s1['qkv'].float() - want_qkv.float()).abs().max().item()}, "
+                         f"h' {(a.float() - want.float()).abs().max().item()})")
+                if not all(torch.equal(x, y) for x, y in ((a, a2), (s1["qkv"], s2["qkv"]),
+                                                          (s1["attn"], s2["attn"]))):
+                    fail(f"K5 T={T} pos={pos} layer={layer}: two calls differ")
+                k1_checks += 1
                 d = (a.float() - b.float()).abs().max().item()
                 if not (torch.isfinite(a).all() and d <= 0.05 * b.float().abs().max().item()):
                     fail(f"K5 T={T} pos={pos} layer={layer}: h' differs by {d}")
@@ -713,7 +736,8 @@ def kernels_k5(params, cfg, dev, rnd, results):
     for r in rows:
         print("kernels: K5 " + json.dumps(r))
     print(f"kernels: K5 {checks} checks, max |h' diff| {worst}, written rows bitwise equal to "
-          f"the plain version's {exact_rows}/{2 * checks}")
+          f"the plain version's {exact_rows}/{2 * checks}; qkv row and h' bitwise the K1 "
+          f"composition and across two calls in {k1_checks}/{k1_checks} checks")
     pick = next(r for r in rows if r["shape"].endswith("T=328 pos=327"))
     results["attn_block_megakernel"] = dict(pick, max_abs_err=worst)
 
@@ -978,9 +1002,11 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
     29. K5's and K2's bars: the written k/v rows bitwise equal, every other
     cache row unchanged, h' within 5% of each row's largest value (the
     prologues' reductions run in another order than torch's, so an int8 code
-    can move by one). The static wrappers (row 9) launch K5 and K2 on one
-    layer's views: bitwise equal to K5 and K2 on the stack, the MLP also at
-    12 rows (two K2 launches)."""
+    can move by one). K8 runs K5's body then K2's: its h' (the attention
+    half's output) is bitwise K5's and its output bitwise K2 of that h'.
+    The static wrappers (row 9) launch K5 and K2 on one layer's views:
+    bitwise equal to K5 and K2 on the stack, the MLP also at 12 rows (two K2
+    launches)."""
     import torch
 
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
@@ -995,8 +1021,8 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
     s8 = [st[n] for n in ("qkv_scale", "o_scale", "gateup_scale", "down_scale", "input_ln",
                           "attn_sub", "post_ln", "ffn_sub")]
 
-    def k8(fn, h, ck, cv, layer, p, cos, sin):
-        return fn(h, ck, cv, *w8, layer, p, *s8, cos, sin, **kw)[0]
+    def k8(fn, h, ck, cv, layer, p, cos, sin, **extra):
+        return fn(h, ck, cv, *w8, layer, p, *s8, cos, sin, **kw, **extra)[0]
 
     def k5_static(h, ck, cv, layer, p, cos, sin, fn=tc.attn_block_megakernel_static):
         return fn(h, ck[layer], cv[layer], st["qkv_qw"][layer], st["o_qw"][layer], p,
@@ -1009,7 +1035,7 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
 
     wls = {n: [unpack_ternary(st[n + "_qw"][i]).to(torch.bfloat16) for i in range(L)]
            for n in ("qkv", "o", "gateup", "down")}
-    rows8, rows_s, worst, checks = [], [], 0.0, 0
+    rows8, rows_s, worst, checks, k8_checks = [], [], 0.0, 0, 0
     for T in (328, 2048):
         ck0, cv0 = rnd(L, 1, T, KV, D), rnd(L, 1, T, KV, D)
         h = rnd(1, H)
@@ -1020,7 +1046,11 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
             p = torch.tensor([pos], dtype=torch.int32, device=dev)
             for layer in (0, L - 1):
                 ka, va, kb, vb = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-                a = k8(tc.layer_block_megakernel, h, ka, va, layer, p, cos, sin)
+                s8k = {}
+                a = a8 = k8(tc.layer_block_megakernel, h, ka, va, layer, p, cos, sin,
+                            scratch=s8k)
+                a_k2 = tc.mlp_block_megakernel(s8k["h1"], *w8[2:], layer, *s8[2:4], *s8[6:],
+                                               eps=cfg.rms_norm_eps)
                 b = k8(tc.layer_block_megakernel_plain, h, kb, vb, layer, p, cos, sin)
                 torch.cuda.synchronize()
                 d = (a.float() - b.float()).abs().max().item()
@@ -1044,7 +1074,12 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
                 torch.cuda.synchronize()
                 if not (torch.equal(a, b) and torch.equal(kc, kd) and torch.equal(vc, vd)):
                     fail(f"static attention T={T} pos={pos} layer={layer}: differs from K5")
+                # K8's attention half is K5's body, its MLP half K2's
+                if not (torch.equal(s8k["h1"], b) and torch.equal(a8, a_k2)):
+                    fail(f"K8 T={T} pos={pos} layer={layer}: h' not bitwise K5's or the output "
+                         "not bitwise K2(h')")
                 checks += 1
+                k8_checks += 1
             lay = Cycle(L)
             ck, cv = ck0.clone(), cv0.clone()
             ms, call_ms = cuda_ms(lambda: k8(tc.layer_block_megakernel, h, ck, cv, lay(), p, cos,
@@ -1097,7 +1132,9 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
     for name, r in rows_s:
         print(f"kernels: {name} " + json.dumps(r))
     print(f"kernels: K8 {len(rows8) * 2} checks, max |h' diff| {worst}, caches bitwise equal to the "
-          f"plain version's; static wrappers bitwise equal to K5/K2 in {checks}/{checks} checks")
+          f"plain version's; h' bitwise K5's and the output bitwise K2(h') in "
+          f"{k8_checks}/{k8_checks} checks; static wrappers bitwise equal to K5/K2 in "
+          f"{checks}/{checks} checks")
     results["layer_block_megakernel"] = dict(
         next(r for r in rows8 if r["shape"].endswith("T=328 pos=327")), max_abs_err=worst)
     for name, r in rows_s:

@@ -303,6 +303,65 @@ def test_k2_equals_k1_composition_on_card(rows, act, norm2):
         assert torch.equal(a, b), (hd, inter)
 
 
+# (H, query heads, KV heads) of 128: a small block (4 qkv and 4 o tiles of
+# the streamed dot) and BitNet-2B's (30 and 20 tiles; K/4 = 640 for both)
+K5_SHAPES = [(512, 4, 2), (2560, 20, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [328, 2048])
+@pytest.mark.parametrize("norm2", [True, False])
+@pytest.mark.parametrize("hd,nh,kvh", K5_SHAPES)
+def test_k5_equals_k1_composition_on_card(hd, nh, kvh, norm2, T):
+    """K5's qkv and o dots are exact int32 sums in any order, and its
+    prologues and epilogues are K1's arithmetic: so its bf16 qkv row is bit
+    for bit K1(h, qkv, input_ln), its output bit for bit h + K1(its attention
+    row, o, attn_sub) through the port's own K1, and two calls are bitwise
+    equal (the streamed dots' int32 merge order does not show), at pos 0, 47
+    and T - 1 and the first and last layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51 + T + hd)
+    nq = nh * 128 + 2 * kvh * 128
+    qkv_qw = torch.randint(0, 256, (L, hd // 4, nq), generator=g, device=dev, dtype=torch.uint8)
+    o_qw = torch.randint(0, 256, (L, nh * 32, hd), generator=g, device=dev, dtype=torch.uint8)
+    qs = torch.rand((L, nq), generator=g, device=dev) * 80 + 10
+    osc = torch.rand((L,), generator=g, device=dev) * 80 + 10
+    ln = (1 + 0.1 * torch.randn((L, hd), generator=g, device=dev)).to(torch.bfloat16)
+    sn = (1 + 0.1 * torch.randn((L, nh * 128), generator=g, device=dev)).to(torch.bfloat16)
+    sub = sn if norm2 else None
+    h = torch.randn((1, hd), generator=g, device=dev).to(torch.bfloat16)
+    ck = torch.randn((L, 1, T, kvh, 128), generator=g, device=dev).to(torch.bfloat16)
+    cv = torch.randn((L, 1, T, kvh, 128), generator=g, device=dev).to(torch.bfloat16)
+    cos = torch.rand(128, generator=g, device=dev).to(torch.bfloat16)
+    sin = torch.rand(128, generator=g, device=dev).to(torch.bfloat16)
+    kw = dict(q_dim=nh * 128, n_kv=kvh, n_heads=nh, head_dim=128, norm2=norm2)
+    for pos in (0, 47, T - 1):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        for layer in (0, L - 1):
+            outs, scr = [], []
+            n0 = ternary_cuda.attn_block_megakernel.launches
+            for _ in range(2):
+                s = {}
+                a, _, _ = ternary_cuda.attn_block_megakernel(
+                    h, ck.clone(), cv.clone(), qkv_qw, o_qw, layer, p, qs, osc, ln, sub, cos, sin,
+                    scratch=s, **kw)
+                outs.append(a)
+                scr.append(s)
+            assert ternary_cuda.attn_block_megakernel.launches - n0 == 2
+            want_qkv = ternary_cuda.ternary_matmul_stacked_fused(h, qkv_qw, layer, qs, ln)
+            want = h + ternary_cuda.ternary_matmul_stacked_fused(
+                scr[0]["attn"], o_qw, layer, osc, sub, norm=norm2)
+            torch.cuda.synchronize()
+            assert torch.isfinite(outs[0]).all()
+            assert torch.equal(scr[0]["qkv"], want_qkv), (pos, layer)
+            assert torch.equal(outs[0], want), (pos, layer, (outs[0].float() - want.float())
+                                                .abs().max().item())
+            assert torch.equal(outs[0], outs[1]) and torch.equal(scr[0]["qkv"], scr[1]["qkv"])
+            assert torch.equal(scr[0]["attn"], scr[1]["attn"]), (pos, layer)
+
+
 @pytest.mark.cuda
 def test_fake_moe_oracle_on_card():
     """Two layers at a small width on the card: the dense model through

@@ -1,6 +1,7 @@
-"""The work split and the integer arithmetic of K2's streamed dots
-(``wrinklefree_tpu_torch/csrc/ternary.cu::stream_dot``, the gateup and down
-dots of the MLP block megakernel, also run by K8), written in PyTorch.
+"""The work split and the integer arithmetic of the streamed dots
+(``wrinklefree_tpu_torch/csrc/ternary.cu::stream_dot``: the gateup and down
+dots of the MLP block megakernel K2, the qkv and o dots of the attention
+block megakernel K5, all four also run by K8), written in PyTorch.
 
 The kernel cuts a [K/4, N] packed matrix into items of one 128-column tile
 and one slice of its k-steps (8 packed rows each): every tile gets grid //
@@ -12,8 +13,8 @@ its eight warps' int32 partials and then adds them to the int32 accumulator,
 in whatever order the blocks arrive. Here that order is shuffled, and the
 sum must be bit for bit the port's plain int32 dot
 (``ternary_matmul_plain``, the dot of ``ternary_matmul_stacked_plain``) at
-BitNet-2B widths. The kernel is held against the composition of K1 calls on
-the card by tests/test_torch_cuda.py and chip_smoke.py.
+BitNet-2B widths. The kernels are held against the composition of K1 calls
+on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import numpy as np
@@ -24,10 +25,11 @@ from wrinklefree_tpu_torch.ops import ternary_cuda
 from wrinklefree_tpu_torch.ops.ternary import pack_ternary_np
 
 TILE_N, STEP, WARPS = 128, 8, 8
-# BitNet-2B's two MLP dots: (K/4, N)
-DOTS_2B = {"gateup": (640, 13824), "down": (1728, 2560)}
-# K2's grid on an H100 (two blocks per SM), K8's when it holds one per SM,
-# a grid of 216, and grids smaller than the gateup's tiles
+# BitNet-2B's two MLP dots and its two attention dots: (K/4, N)
+DOTS_2B = {"gateup": (640, 13824), "down": (1728, 2560), "qkv": (640, 3840), "o": (640, 2560)}
+# K2's and K5's grid on an H100 (two blocks per SM), K8's (one per SM), a
+# grid of 216, one smaller than the gateup's 108 tiles but larger than the
+# other dots' 20-30, and one block
 GRIDS = [264, 132, 216, 37, 1]
 
 

@@ -10,9 +10,8 @@
 // (_attn_megakernel, joint-dot form) and attn_block_megakernel_manual_stacked
 // (_attn_megakernel_manual): one function over the 5-D or the flat cache,
 // which are the same bytes here. K5's bound is the weight stream (qkv + o,
-// 4.1 MB at BitNet-2B) plus 2*(pos+1)*KV*D*2 bytes of cache; its dots share
-// K1's latency limit (below), and its five stages sit behind four grid
-// barriers.
+// 4.1 MB at BitNet-2B) plus 2*(pos+1)*KV*D*2 bytes of cache; its eight
+// stages sit behind seven grid barriers, which cost more than the stream.
 //
 // Math, per row: x = act(h) -> optional RMS norm (f32 variance, IEEE 1/sqrt,
 // bf16 rounding, bf16 weight multiply) -> int8 absmax quant (127/clip(absmax,
@@ -20,23 +19,19 @@
 // int32 -> y = bf16_rne(float(acc) * (1/(sx*sw[n]))). Weights are the wf
 // "plane-major K" format: byte w[r,n] holds the 2-bit codes (w+1) of inputs
 // k = r, K/4+r, 2K/4+r, 3K/4+r. The prologue stores each row's int8 codes
-// interleaved as x4[r] = (x[r], x[K/4+r], x[2K/4+r], x[3K/4+r]), so one weight
-// byte spread to four 2-bit lanes, e = (b | b<<6 | b<<12 | b<<18) & 0x03030303,
-// meets its four activations in one __dp4a. The codes are {0,1,2}, so the dot
-// is corrected by the row sum of x: sum_k x*(e-1) = dp4a-sum - sum_k x
-// (same algebra as the TPU kernel's _planes_dot).
+// interleaved as x4[r] = (x[r], x[K/4+r], x[2K/4+r], x[3K/4+r]), so that the
+// four activations of one weight byte sit in one word, as the dots' mma.sync
+// B fragments take them (same algebra as the TPU kernel's _planes_dot).
 //
 // Bound: at decode (<= 8 rows) the work is bound by the weight stream
 // (K*N/4 bytes per call). K1 and K7 run their <= 8-row dot in the GEMV of
 // ternary_gemv.cu (16-byte weight loads in flight, a split over K/4 in
 // thread-block clusters, mma.sync on the codes in this interleaved order)
 // and above 8 rows in the tensor-core GEMM of ternary_gemm.cu (TMA, an
-// mbarrier ring and wgmma s8 x s8 -> s32; bound by operations); neither
-// needs a row sum. K2's two dots (and K8's, which runs K2's stages) stream
-// the weights over the whole grid on the GEMV's warp-level pieces
-// (ternary_dot.cuh; see stream_dot). The dot inside K5 (dot_tile) does not
-// reach the bound: each thread keeps one dependent 4-byte weight load in
-// flight per iteration, so its loop is latency-bound.
+// mbarrier ring and wgmma s8 x s8 -> s32; bound by operations). The dots of
+// K2 and K5 (and so of K8, which runs both bodies) stream the weights over
+// the whole grid on the GEMV's warp-level pieces (ternary_dot.cuh; see
+// stream_dot). None of them needs a row sum of the codes.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -44,7 +39,6 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "ternary_dot.cuh"
@@ -67,17 +61,9 @@ constexpr int ACT_RELU2 = 1;
 constexpr int ACT_SILU = 2;
 
 constexpr int THREADS = 256;
-constexpr int TILE_N = 64;                    // columns per dot tile
-constexpr int COL_GROUPS = TILE_N / 4;        // 16 threads x 4 columns
-constexpr int KSPLIT = THREADS / COL_GROUPS;  // 16 row groups over K/4
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ int spread(uint32_t word, int c) {
-  uint32_t b = (word >> (8 * c)) & 0xffu;
-  return (int)((b | (b << 6) | (b << 12) | (b << 18)) & 0x03030303u);
 }
 
 // Block-wide reductions in a fixed order (deterministic run to run).
@@ -111,31 +97,16 @@ __device__ float block_max(float v, float* red) {
   return red[0];
 }
 
-__device__ int block_isum(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int t = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0;
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (threadIdx.x == 0) red[0] = t;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 // One row's prologue, run by a whole block. h: the row ([K] or [gate|up] of
 // 2K); nw: the bf16 norm weight row or null; xs: shared scratch of K floats.
 // Writes the interleaved int8 codes (K bytes, a word x4[r] = (x[r], x[K/4+r],
-// x[2K/4+r], x[3K/4+r]) per store), the scale and, unless rowsum is null, the
-// code sum. The sums of squares keep their order; the absmax, a max, and the
-// per-element quantization do not depend on theirs.
+// x[2K/4+r], x[3K/4+r]) per store) and the scale. The sums of squares keep
+// their order; the absmax, a max, and the per-element quantization do not
+// depend on theirs.
 __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
                              int norm, const __nv_bfloat16* __restrict__ nw, float eps,
                              float* xs, float* red, int8_t* __restrict__ x4,
-                             int* __restrict__ rowsum, float* __restrict__ sx) {
+                             float* __restrict__ sx) {
   const int K4 = K / 4;
   float ss = 0.f;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
@@ -171,72 +142,23 @@ __device__ void prologue_row(const __nv_bfloat16* h, int K, int act,
   }
   am = fmaxf(block_max(am, red), 1e-5f);
   const float s = 127.f / am;
-  int qs = 0;
   for (int r = threadIdx.x; r < K4; r += blockDim.x) {
     uint32_t word = 0;
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int qi = (int)fminf(fmaxf(rintf(xs[p * K4 + r] * s), -128.f), 127.f);
       word |= (uint32_t)(qi & 0xff) << (8 * p);
-      qs += qi;
     }
     reinterpret_cast<uint32_t*>(x4)[r] = word;
-  }
-  if (rowsum != nullptr) {  // uniform over the block: null when the dot needs no row sum
-    qs = block_isum(qs, (int*)red);
-    if (threadIdx.x == 0) *rowsum = qs;
   }
   if (threadIdx.x == 0) *sx = s;
   __syncthreads();
 }
 
-// One 64-column tile for up to R rows: every thread owns 4 columns of one
-// K/4 slice; the slices are summed in shared memory in a fixed order. `emit`
-// receives (row, column, exact int32 accumulator).
-template <int R, typename Emit>
-__device__ void dot_tile(const uint8_t* __restrict__ w, int K4, int N, int n0,
-                         const int* x4s, int rows, int* red, Emit emit) {
-  const int cgi = threadIdx.x % COL_GROUPS;
-  const int ks = threadIdx.x / COL_GROUPS;
-  const int n = n0 + cgi * 4;
-  int acc[R][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
-  if (n < N) {
-    for (int r = ks; r < K4; r += KSPLIT) {
-      uint32_t wv = __ldg(reinterpret_cast<const uint32_t*>(w + (size_t)r * N + n));
-      int e0 = spread(wv, 0), e1 = spread(wv, 1), e2 = spread(wv, 2), e3 = spread(wv, 3);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        int xv = x4s[i * K4 + r];
-        acc[i][0] = __dp4a(xv, e0, acc[i][0]);
-        acc[i][1] = __dp4a(xv, e1, acc[i][1]);
-        acc[i][2] = __dp4a(xv, e2, acc[i][2]);
-        acc[i][3] = __dp4a(xv, e3, acc[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[(ks * R + i) * TILE_N + cgi * 4 + c] = acc[i][c];
-  __syncthreads();
-  for (int o = threadIdx.x; o < R * TILE_N; o += blockDim.x) {
-    int i = o / TILE_N, col = o % TILE_N;
-    if (i < rows && n0 + col < N) {
-      int s = 0;
-      for (int k = 0; k < KSPLIT; ++k) s += red[(k * R + i) * TILE_N + col];
-      emit(i, n0 + col, s);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ __nv_bfloat16 rescale(int acc, int rowsum, float sx, float sw) {
+// The epilogue of every dot here: bf16_rne(float(acc) * (1/(sx*sw))), as K1's.
+__device__ __forceinline__ __nv_bfloat16 rescale(int acc, float sx, float sw) {
   float inv = 1.f / (sx * sw);
-  return __float2bfloat16_rn((float)(acc - rowsum) * inv);
+  return __float2bfloat16_rn((float)acc * inv);
 }
 
 // K1's and K7's output modes (their epilogues are in ternary_gemv.cu and
@@ -284,7 +206,7 @@ __device__ void stage_prologue(const __nv_bfloat16* h, int kin, int K, int act, 
   if (nw != nullptr) copy_row_async(nw, K, ns);
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
-  prologue_row(hs, K, act, norm, nw == nullptr ? nullptr : ns, eps, xs, red, x4, nullptr, sx);
+  prologue_row(hs, K, act, norm, nw == nullptr ? nullptr : ns, eps, xs, red, x4, sx);
 }
 
 // One block per row: stage_prologue. The decode GEMV is launched after this
@@ -344,11 +266,12 @@ __global__ void k7_interleave(const int8_t* __restrict__ xq, int K, int8_t* __re
 // The streamed dot (stream_dot). Each matrix is cut into work items of one
 // 128-column tile and one slice of its K/4 packed rows. A tile has as many
 // slices as the grid has blocks per tile, and the first (grid % tiles) tiles
-// one more, so that each block has exactly one item in both dots whatever
-// the grid's size (K8's is set by K5's stages too), as long as it holds one
-// block per tile (a smaller grid deals whole tiles out): at 264 blocks the
-// gateup's 108 tiles take 2-3 slices of 27-40 k-steps and the down's 20
-// tiles 13-14 slices of 15-17 k-steps.
+// one more, so that each block has exactly one item in every dot whatever
+// the grid's size (K8's holds one block per SM, K2's and K5's two), as long
+// as it holds one block per tile (a smaller grid deals whole tiles out): at
+// 264 blocks the gateup's 108 tiles take 2-3 slices of 27-40 k-steps, the
+// down's 20 tiles 13-14 slices of 15-17 k-steps, K5's qkv 30 tiles 8-9
+// slices of 8-10 k-steps and its o 20 tiles 13-14 slices of 5-7 k-steps.
 // Within an item each warp takes every 8th k-step of 8 packed rows x 128
 // columns (1 KB) and keeps four in flight, as the GEMV of ternary_gemv.cu
 // does: 16-byte ld.global.nc weight loads, and beside them the two code
@@ -514,7 +437,7 @@ __device__ void mlp_block(float* smem, const __nv_bfloat16* h, int B, int H, int
   stream_dot<R>(gw, H / 4, NG, x4a, B, accg, part);
   grid.sync();
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * NG; i += gridDim.x * THREADS)
-    gu[i] = rescale(__ldcg(accg + i), 0, __ldcg(sxa + i / NG), gsw[i % NG * gsw_stride]);
+    gu[i] = rescale(__ldcg(accg + i), __ldcg(sxa + i / NG), gsw[i % NG * gsw_stride]);
   grid.sync();
 
   for (int b = blockIdx.x; b < B; b += gridDim.x)
@@ -526,7 +449,7 @@ __device__ void mlp_block(float* smem, const __nv_bfloat16* h, int B, int H, int
   grid.sync();
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * H; i += gridDim.x * THREADS) {
     const float y =
-        __bfloat162float(rescale(__ldcg(accd + i), 0, __ldcg(sxb + i / H), dsw[i % H * dsw_stride]));
+        __bfloat162float(rescale(__ldcg(accd + i), __ldcg(sxb + i / H), dsw[i % H * dsw_stride]));
     out[i] = __float2bfloat16_rn(__bfloat162float(h[i]) + y);
   }
 }
@@ -562,25 +485,60 @@ __device__ __forceinline__ float rope_at(const __nv_bfloat16* x, int d,
 }
 
 // The residual attention block of one decode token in one cooperative launch
-// (replaces attn_block_megakernel / attn_block_megakernel_manual_stacked):
-//   A: norm+quant of h (recomputed in every block that owns qkv tiles: a
-//      2560-wide row costs less than a grid barrier) -> qkv tiles -> bf16
-//      qkv in global scratch                                    | barrier |
-//   B: per (KV head, 64-row chunk of rows 0..pos): RoPE of the G packed q
-//      heads; the chunk holding pos writes the roped k row and the raw v
-//      row into the cache in place; f32 scores * 1/sqrt(D)      | barrier |
-//   C: per unit: row max and sum over rows 0..pos (fixed-order block
-//      reductions), p = bf16(e / sum), f32 PV partials of the chunk
-//                                                               | barrier |
-//   D: fixed-order sum of the chunk partials -> bf16 attention row
-//                                                               | barrier |
-//   E: sub-norm+quant of the attention row (recomputed per block, as in A)
-//      -> o tiles -> h + bf16(d).
+// (replaces attn_block_megakernel / attn_block_megakernel_manual_stacked), on
+// every resident block:
+//   A0: every block zeroes its share of both dots' int32 sums; one block:
+//       norm+quant of h (stage_prologue) -> codes in global scratch
+//                                                                | barrier |
+//   A1: qkv: streamed dot (stream_dot) into int32 sums           | barrier |
+//   B:  per (KV head, 64-row chunk of rows 0..pos): the qkv epilogue of the
+//       head's G q heads, k and v (K1's rescale), RoPE of the q heads; the
+//       chunk holding pos also stores the head's columns of the bf16 qkv row
+//       to scratch and writes the roped k row and the raw v row into the
+//       cache in place; f32 scores * 1/sqrt(D)                   | barrier |
+//   C:  per unit: row max and sum over rows 0..pos (fixed-order block
+//       reductions), p = bf16(e / sum), f32 PV partials of the chunk
+//                                                                | barrier |
+//   D:  fixed-order sum of the chunk partials -> bf16 attention row in
+//       global scratch, over the whole grid                      | barrier |
+//   E0: one block: sub-norm+quant of the attention row (stage_prologue)
+//       -> codes in global scratch                               | barrier |
+//   E1: o: streamed dot into int32 sums                          | barrier |
+//   E2: out = h + bf16 rescale, over the whole grid.
+// Seven barriers. Each prologue runs once behind its barrier (K2's reasoning:
+// recomputing it in each of ~264 blocks multiplies its reads and
+// reductions). B applies the qkv epilogue itself, as it needs only its
+// head's (G+2)*128 columns, so no barrier stands between them. D's combine
+// reads nch*Q f32 partials (61 KB at pos 327, 328 KB at pos 2047): in the
+// one block that quantizes the row it saves a barrier but costs as much up
+// to 6 chunks and 3 us more at 32 (PERF.md), so the grid does it. The dots'
+// sums are exact integers in any order of arrival and every rounding point
+// is K1's, so the qkv row is bit for bit K1(h) and the output bit for bit
+// h + K1(attention row).
 // The two-pass softmax keeps the TPU kernel's rounding points (probabilities
 // normalised, then rounded to bf16); an online softmax would move them. Only
-// cache rows 0..pos are read. The cache, the scratch buffers and the row
-// written at pos are read through plain (coherent) loads: they are written
-// inside this launch.
+// cache rows 0..pos are read. Everything written inside this launch (codes,
+// scales, sums, scores, partials, the cache row at pos) is read through L2
+// (__ldcg, cp.async.cg), never through the read-only path.
+//
+// A measurement build for bench/attn_block.py --stamps, off in the port:
+// with WF_K5_STAMPS, block 0 adds the ns from its start to the end of each
+// stage (after each barrier, and at its own end) into k5_stamps[1..8], and
+// counts the launches in k5_stamps[0], until wf_k5_stamps reads and clears
+// them.
+#ifdef WF_K5_STAMPS
+__device__ unsigned long long k5_stamps[9];
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define WF_K5_STAMP(i) \
+  if (blockIdx.x == 0 && threadIdx.x == 0) k5_stamps[i] += globaltimer() - stamp0
+#else
+#define WF_K5_STAMP(i)
+#endif
+
 #define WF_K5_PARAMS                                                                       \
   const __nv_bfloat16 *__restrict__ h, int H, int Q, int NH, int KV, int T, int layer,        \
       const int *__restrict__ pos_p, const __nv_bfloat16 *__restrict__ input_ln,              \
@@ -589,59 +547,82 @@ __device__ __forceinline__ float rope_at(const __nv_bfloat16* x, int d,
       const uint8_t *__restrict__ ow, const float *__restrict__ osw, int osw_stride,          \
       const __nv_bfloat16 *__restrict__ cs, const __nv_bfloat16 *__restrict__ sn, float scale, \
       __nv_bfloat16 *ck, __nv_bfloat16 *cv, __nv_bfloat16 *qkv, float *sc, float *part,       \
-      __nv_bfloat16 *attn, __nv_bfloat16 *out
+      __nv_bfloat16 *attn, int8_t *x4, float *sx, int *acc, __nv_bfloat16 *out
 #define WF_K5_ARGS                                                                          \
   h, H, Q, NH, KV, T, layer, pos_p, input_ln, attn_sub, norm2, eps, qw, qsw, qsw_stride, ow, \
-      osw, osw_stride, cs, sn, scale, ck, cv, qkv, sc, part, attn, out
+      osw, osw_stride, cs, sn, scale, ck, cv, qkv, sc, part, attn, x4, sx, acc, out
 
+// Shared memory of stages B and C: the reduction scratch, the roped q heads,
+// the probabilities, the PV halves and the bf16 qkv columns of one KV head.
+constexpr size_t ATT_SMEM = (32 + 2 * MAX_G * HD + MAX_G * ATT_CH) * 4 + (MAX_G + 2) * HD * 2;
+
+// Scratch (the caller's): x4 [H + Q] int8 (the codes of h, then of the
+// attention row), sx [2] f32 (their scales), acc [Q + 2*KV*128 + H] int32
+// (the qkv dot's sums, then the o dot's; zeroed here).
 __device__ void attn_block(float* smem, WF_K5_PARAMS) {
   cg::grid_group grid = cg::this_grid();
-  const int KMAX = H > Q ? H : Q;
-  float* red = smem;                                            // 32
-  float* xs = red + 32;                                         // KMAX
-  int* codes = reinterpret_cast<int*>(xs + KMAX);               // KMAX / 4
-  int* dred = codes + KMAX / 4;                                 // KSPLIT * TILE_N
-  float* qs = reinterpret_cast<float*>(dred + KSPLIT * TILE_N);  // MAX_G * HD
-  float* ps = qs + MAX_G * HD;                                  // MAX_G * ATT_CH
-  float* pv = ps + MAX_G * ATT_CH;                              // MAX_G * HD
-  int* rs = reinterpret_cast<int*>(pv + MAX_G * HD);            // row sum
-  float* sxp = pv + MAX_G * HD + 1;                             // quant scale
   const int G = NH / KV;
   const int NQKV = Q + 2 * KV * HD;
   const int pos = min(max(*pos_p, 0), T - 1);
   const int nch = pos / ATT_CH + 1;  // chunks covering rows 0..pos
   const int units = KV * nch;
   const size_t row0 = (size_t)layer * T;  // this layer's first cache row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = blockIdx.x * THREADS + threadIdx.x, nthr = gridDim.x * THREADS;
+  int* accq = acc;         // [NQKV]
+  int* acco = acc + NQKV;  // [H]
+  int8_t* x4q = x4;        // [H]
+  int8_t* x4o = x4 + H;    // [Q]
+  float* red = smem;                                                          // 32
+  float* qs = red + 32;                                                       // MAX_G * HD
+  float* ps = qs + MAX_G * HD;                                                // MAX_G * ATT_CH
+  float* pv = ps + MAX_G * ATT_CH;                                            // MAX_G * HD
+  __nv_bfloat16* hq = reinterpret_cast<__nv_bfloat16*>(pv + MAX_G * HD);      // (MAX_G + 2) * HD
+  int* dpart = reinterpret_cast<int*>(smem);  // the streamed dots' partials
+#ifdef WF_K5_STAMPS
+  const unsigned long long stamp0 = globaltimer();
+  if (blockIdx.x == 0 && threadIdx.x == 0) k5_stamps[0] += 1;
+#endif
 
-  // A: qkv
-  const int tiles_q = (NQKV + TILE_N - 1) / TILE_N;
-  if (blockIdx.x < tiles_q) {
-    prologue_row(h, H, ACT_NONE, 1, input_ln, eps, xs, red, reinterpret_cast<int8_t*>(codes),
-                 rs, sxp);
-    for (int t = blockIdx.x; t < tiles_q; t += gridDim.x)
-      dot_tile<1>(qw, H / 4, NQKV, t * TILE_N, codes, 1, dred, [&](int, int n, int acc) {
-        qkv[n] = rescale(acc, *rs, *sxp, qsw[n * qsw_stride]);
-      });
-  }
+  // A0: the sums, the codes of h
+  for (int i = tid; i < NQKV + H; i += nthr) acc[i] = 0;
+  if (blockIdx.x == 0)
+    stage_prologue(h, H, H, ACT_NONE, 1, input_ln, eps, smem, x4q, sx);
   grid.sync();
+  WF_K5_STAMP(1);
 
-  // B: RoPE, the cache-row write, scores
+  // A1: qkv
+  stream_dot<1>(qw, H / 4, NQKV, x4q, 1, accq, dpart);
+  grid.sync();
+  WF_K5_STAMP(2);
+
+  // B: the qkv epilogue, RoPE, the qkv row and cache-row writes, scores
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int kvh = u / nch, c = u % nch;
     const int t0 = c * ATT_CH, t1 = min(t0 + ATT_CH, pos + 1);
+    const bool at_pos = pos < t1;  // this chunk holds row pos
+    const float sxq = __ldcg(sx);
+    // the head's columns: its G q heads, then its k head, then its v head
+    for (int i = threadIdx.x; i < (G + 2) * HD; i += blockDim.x) {
+      const int n = i < G * HD ? kvh * G * HD + i : Q + (i / HD - G) * KV * HD + kvh * HD + i % HD;
+      const __nv_bfloat16 y = rescale(__ldcg(accq + n), sxq, qsw[n * qsw_stride]);
+      hq[i] = y;
+      if (at_pos) qkv[n] = y;
+    }
+    __syncthreads();
     for (int i = threadIdx.x; i < G * HD; i += blockDim.x)
-      qs[i] = rope_at(qkv + (kvh * G + i / HD) * HD, i % HD, cs, sn);
-    if (pos < t1) {
+      qs[i] = rope_at(hq + (i / HD) * HD, i % HD, cs, sn);
+    if (at_pos) {
       const size_t row = ((row0 + pos) * KV + kvh) * HD;
       for (int d = threadIdx.x; d < HD; d += blockDim.x) {
-        ck[row + d] = __float2bfloat16_rn(rope_at(qkv + Q + kvh * HD, d, cs, sn));
-        cv[row + d] = qkv[Q + KV * HD + kvh * HD + d];
+        ck[row + d] = __float2bfloat16_rn(rope_at(hq + G * HD, d, cs, sn));
+        cv[row + d] = hq[(G + 1) * HD + d];
       }
     }
     __syncthreads();
-    for (int t = t0 + warp; t < t1; t += nwarps) {
-      uint2 raw = *reinterpret_cast<const uint2*>(ck + ((row0 + t) * KV + kvh) * HD + lane * 4);
+    for (int t = t0 + warp; t < t1; t += WARPS) {
+      const uint2 raw =
+          __ldcg(reinterpret_cast<const uint2*>(ck + ((row0 + t) * KV + kvh) * HD + lane * 4));
       const __nv_bfloat16* k4 = reinterpret_cast<const __nv_bfloat16*>(&raw);
       const float k0 = __bfloat162float(k4[0]), k1 = __bfloat162float(k4[1]);
       const float k2 = __bfloat162float(k4[2]), k3 = __bfloat162float(k4[3]);
@@ -655,6 +636,7 @@ __device__ void attn_block(float* smem, WF_K5_PARAMS) {
     __syncthreads();
   }
   grid.sync();
+  WF_K5_STAMP(3);
 
   // C: softmax over rows 0..pos, PV partials of each chunk
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
@@ -663,62 +645,73 @@ __device__ void attn_block(float* smem, WF_K5_PARAMS) {
     for (int g = 0; g < G; ++g) {
       const float* srow = sc + (size_t)(kvh * G + g) * T;
       float m = -INFINITY;
-      for (int t = threadIdx.x; t <= pos; t += blockDim.x) m = fmaxf(m, srow[t]);
+      for (int t = threadIdx.x; t <= pos; t += blockDim.x) m = fmaxf(m, __ldcg(srow + t));
       m = block_max(m, red);
       float l = 0.f;
-      for (int t = threadIdx.x; t <= pos; t += blockDim.x) l += expf(srow[t] - m);
+      for (int t = threadIdx.x; t <= pos; t += blockDim.x) l += expf(__ldcg(srow + t) - m);
       l = block_sum(l, red);
       for (int j = threadIdx.x; j < n; j += blockDim.x)
-        ps[g * ATT_CH + j] = bf16r(expf(srow[t0 + j] - m) / l);
+        ps[g * ATT_CH + j] = bf16r(expf(__ldcg(srow + t0 + j) - m) / l);
     }
     __syncthreads();
     const int d = threadIdx.x % HD, half = threadIdx.x / HD;  // two row halves
-    float acc[MAX_G];
+    float pacc[MAX_G];
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+    for (int g = 0; g < MAX_G; ++g) pacc[g] = 0.f;
     for (int j = half; j < n; j += 2) {
-      const float v = __bfloat162float(cv[((row0 + t0 + j) * KV + kvh) * HD + d]);
+      const float v = __bfloat162float(__ldcg(cv + ((row0 + t0 + j) * KV + kvh) * HD + d));
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
-        if (g < G) acc[g] += ps[g * ATT_CH + j] * v;
+        if (g < G) pacc[g] += ps[g * ATT_CH + j] * v;
     }
     if (half == 1) {
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
-        if (g < G) pv[g * HD + d] = acc[g];
+        if (g < G) pv[g * HD + d] = pacc[g];
     }
     __syncthreads();
     if (half == 0) {
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
-        if (g < G) part[((size_t)c * NH + kvh * G + g) * HD + d] = acc[g] + pv[g * HD + d];
+        if (g < G) part[((size_t)c * NH + kvh * G + g) * HD + d] = pacc[g] + pv[g * HD + d];
     }
     __syncthreads();
   }
   grid.sync();
+  WF_K5_STAMP(4);
 
   // D: combine the chunks in order
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < NH * HD; i += gridDim.x * blockDim.x) {
+  for (int i = tid; i < Q; i += nthr) {
     float s = 0.f;
-    for (int c = 0; c < nch; ++c) s += part[(size_t)c * NH * HD + i];
+    for (int c = 0; c < nch; ++c) s += __ldcg(part + (size_t)c * Q + i);
     attn[i] = __float2bfloat16_rn(s);
   }
   grid.sync();
+  WF_K5_STAMP(5);
 
-  // E: o and the residual
-  const int tiles_o = (H + TILE_N - 1) / TILE_N;
-  if (blockIdx.x < tiles_o) {
-    prologue_row(attn, Q, ACT_NONE, norm2, attn_sub, eps, xs, red,
-                 reinterpret_cast<int8_t*>(codes), rs, sxp);
-    for (int t = blockIdx.x; t < tiles_o; t += gridDim.x)
-      dot_tile<1>(ow, Q / 4, H, t * TILE_N, codes, 1, dred, [&](int, int n, int acc) {
-        float d = __bfloat162float(rescale(acc, *rs, *sxp, osw[n * osw_stride]));
-        out[n] = __float2bfloat16_rn(__bfloat162float(h[n]) + d);
-      });
+  // E0: the codes of the attention row
+  if (blockIdx.x == 0)
+    stage_prologue(attn, Q, Q, ACT_NONE, norm2, attn_sub, eps, smem, x4o, sx + 1);
+  grid.sync();
+  WF_K5_STAMP(6);
+
+  // E1: o
+  stream_dot<1>(ow, Q / 4, H, x4o, 1, acco, dpart);
+  grid.sync();
+  WF_K5_STAMP(7);
+
+  // E2: the o epilogue and the residual
+  for (int i = tid; i < H; i += nthr) {
+    const float d = __bfloat162float(rescale(__ldcg(acco + i), __ldcg(sx + 1), osw[i * osw_stride]));
+    out[i] = __float2bfloat16_rn(__bfloat162float(h[i]) + d);
   }
+#ifdef WF_K5_STAMPS
+  __syncthreads();
+  WF_K5_STAMP(8);
+#endif
 }
 
-__global__ void k5_attn(WF_K5_PARAMS) {
+__global__ void __launch_bounds__(THREADS, 2) k5_attn(WF_K5_PARAMS) {
   extern __shared__ float smem[];
   attn_block(smem, WF_K5_ARGS);
 }
@@ -726,16 +719,18 @@ __global__ void k5_attn(WF_K5_PARAMS) {
 // ---------------------------------------------------------------- K8 ------
 
 // A whole batch-1 decode layer in one cooperative launch (replaces
-// layer_block_megakernel / _layer_megakernel): K5's five stages write h' =
+// layer_block_megakernel / _layer_megakernel): K5's seven stages write h' =
 // h + o(attention) to global scratch (`out` of the attention block), a grid
-// barrier, then K2's three stages on h' at one row. Eight grid barriers in
-// all; K2's prologue of h' runs in one block behind its own barrier, as in K2.
-// The attention takes K5's two-pass softmax per query head over cache rows
-// 0..pos: the TPU kernel's per-KV-head form (scores of the G heads over all
-// T rows, -1e30 above pos) without its masked columns, whose exp(-1e30 - m)
-// is exactly 0 in f32, so the two differ only in the order of f32 sums. The
-// bound is the sum of K5's and K2's: the layer's packed weights (17.4 MB at
-// BitNet-2B) plus 2*(pos+1)*KV*D*2 bytes of cache.
+// barrier, then K2's stages on h' at one row: thirteen grid barriers in all.
+// The grid (one block per SM at K8's registers) is dealt both bodies' four
+// streamed dots; K5's attention stages use as many blocks as they have
+// units. The attention takes K5's two-pass softmax per query head over cache
+// rows 0..pos: the TPU kernel's per-KV-head form (scores of the G heads over
+// all T rows, -1e30 above pos) without its masked columns, whose
+// exp(-1e30 - m) is exactly 0 in f32, so the two differ only in the order of
+// f32 sums. The bound is the sum of K5's and K2's: the layer's packed weights
+// (17.4 MB at BitNet-2B) plus 2*(pos+1)*KV*D*2 bytes of cache. K5's scratch
+// (x4, sx, acc) and K2's (x4a, sxa, x4b, sxb, acc2) are separate buffers.
 __global__ void k8_layer(WF_K5_PARAMS, int I, int act, const __nv_bfloat16* __restrict__ post_ln,
                          const __nv_bfloat16* __restrict__ ffn_sub, float eps2,
                          const uint8_t* __restrict__ gw, const float* __restrict__ gsw,
@@ -743,12 +738,12 @@ __global__ void k8_layer(WF_K5_PARAMS, int I, int act, const __nv_bfloat16* __re
                          const float* __restrict__ dsw, int dsw_stride, int8_t* __restrict__ x4a,
                          float* __restrict__ sxa, __nv_bfloat16* __restrict__ gu,
                          int8_t* __restrict__ x4b, float* __restrict__ sxb,
-                         int* __restrict__ acc, __nv_bfloat16* __restrict__ out2) {
+                         int* __restrict__ acc2, __nv_bfloat16* __restrict__ out2) {
   extern __shared__ float smem[];
   attn_block(smem, WF_K5_ARGS);
   cg::this_grid().sync();
   mlp_block<1>(smem, out, 1, H, I, act, post_ln, ffn_sub, eps2, gw, gsw, gsw_stride, dw, dsw,
-               dsw_stride, x4a, sxa, gu, x4b, sxb, acc, out2);
+               dsw_stride, x4a, sxa, gu, x4b, sxb, acc2, out2);
 }
 
 // Dynamic shared memory of K2's stages at R rows: the streamed dots' warp
@@ -760,25 +755,19 @@ size_t k2_smem(int R, int H, int I) {
   return sb > smem ? sb : smem;
 }
 
-// K5's dynamic shared memory (see the layout at the top of attn_block).
+// K5's dynamic shared memory: the largest of its stages' (the streamed dots'
+// partials at one row, the two prologues', the attention stages').
 size_t k5_smem(int H, int Q) {
-  const int KMAX = H > Q ? H : Q;
-  return (size_t)(32 + KMAX + KMAX / 4 + KSPLIT * TILE_N + 2 * MAX_G * HD + MAX_G * ATT_CH + 2) *
-         4;
+  size_t smem = (size_t)WARPS * ST_TN * 4;
+  const size_t sizes[] = {prologue_smem(H, H), prologue_smem(Q, Q), ATT_SMEM};
+  for (size_t s : sizes)
+    if (s > smem) smem = s;
+  return smem;
 }
 
-// K5's useful grid: the larger of its qkv tiles, o tiles and attention units.
-int k5_want(int H, int Q, int KV, int T) {
-  int want = (Q + 2 * KV * HD + TILE_N - 1) / TILE_N;
-  int tiles_o = (H + TILE_N - 1) / TILE_N;
-  int units = KV * ((T + ATT_CH - 1) / ATT_CH);
-  if (tiles_o > want) want = tiles_o;
-  return units > want ? units : want;
-}
-
-// Largest grid whose blocks are all resident (a cooperative launch needs
-// that), capped at `want` and at least 1.
-cudaError_t resident_blocks(const void* kernel, size_t smem, int want, int* blocks) {
+// Every block that can be resident at once (a cooperative launch needs
+// that): the streamed dots give each one work.
+cudaError_t resident_blocks(const void* kernel, size_t smem, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -788,12 +777,11 @@ cudaError_t resident_blocks(const void* kernel, size_t smem, int want, int* bloc
       cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = per_sm * sms < want ? per_sm * sms : want;
-  if (*blocks < 1) *blocks = 1;
+  *blocks = per_sm * sms;
   return cudaSuccess;
 }
 
-// K2 on every resident block: the streamed dots give each one work.
+// K2 on every resident block.
 template <int R>
 cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
                       const __nv_bfloat16* post_ln, const __nv_bfloat16* ffn_sub, float eps,
@@ -806,7 +794,7 @@ cudaError_t launch_k2(const __nv_bfloat16* h, int B, int H, int I, int act,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   int blocks = 0;
-  if ((e = resident_blocks((const void*)k2_mlp<R>, smem, INT_MAX, &blocks)) != cudaSuccess)
+  if ((e = resident_blocks((const void*)k2_mlp<R>, smem, &blocks)) != cudaSuccess)
     return e;
   void* args[] = {(void*)&h,   (void*)&B,      (void*)&H,   (void*)&I,          (void*)&act,
                   (void*)&post_ln, (void*)&ffn_sub, (void*)&eps, (void*)&gw,   (void*)&gsw,
@@ -899,28 +887,31 @@ int wf_mlp_mega(const void* h, int B, int H, int I, int act, const void* post_ln
 // K5: out[1,H] = h + o(quant(subnorm(attention(rope(qkv(quant(norm(h)))))))) for one
 // decode token; writes row pos of `layer` of the [L,T,KV,128] caches ck/cv in
 // place. pos is a device int (clamped to [0,T-1]). Caller scratch: qkv
-// [Q+2*KV*128] bf16, sc [NH*T] f32, part [ceil(T/64)*NH*128] f32, attn [Q] bf16.
+// [Q+2*KV*128] bf16, sc [NH*T] f32, part [ceil(T/64)*NH*128] f32, attn [Q] bf16,
+// x4 [H+Q] int8, sx [2] f32, acc [Q+2*KV*128+H] int32 (see attn_block). H a
+// multiple of 16, the weights 16-byte aligned.
 int wf_attn_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer, const void* pos,
                  const void* input_ln, const void* attn_sub, int norm2, float eps,
                  const void* qw, const void* qsw, int qsw_stride, const void* ow, const void* osw,
                  int osw_stride, const void* cs, const void* sn, float scale, void* ck, void* cv,
-                 void* qkv, void* sc, void* part, void* attn, void* out, void* stream) {
-  if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 4)
+                 void* qkv, void* sc, void* part, void* attn, void* x4, void* sx, void* acc,
+                 void* out, void* stream) {
+  if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 16 ||
+      reinterpret_cast<uintptr_t>(qw) % 16 || reinterpret_cast<uintptr_t>(ow) % 16)
     return cudaErrorInvalidValue;
   size_t smem = k5_smem(H, Q);
   cudaError_t e = cudaFuncSetAttribute(k5_attn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   int blocks = 0;
-  if ((e = resident_blocks((const void*)k5_attn, smem, k5_want(H, Q, KV, T), &blocks)) !=
-      cudaSuccess)
-    return e;
+  if ((e = resident_blocks((const void*)k5_attn, smem, &blocks)) != cudaSuccess) return e;
   void* args[] = {(void*)&h,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
                   (void*)&T,   (void*)&layer, (void*)&pos,    (void*)&input_ln, (void*)&attn_sub,
                   (void*)&norm2, (void*)&eps, (void*)&qw,     (void*)&qsw,   (void*)&qsw_stride,
                   (void*)&ow,  (void*)&osw,   (void*)&osw_stride, (void*)&cs, (void*)&sn,
                   (void*)&scale, (void*)&ck,  (void*)&cv,     (void*)&qkv,   (void*)&sc,
-                  (void*)&part, (void*)&attn, (void*)&out};
+                  (void*)&part, (void*)&attn, (void*)&x4,     (void*)&sx,    (void*)&acc,
+                  (void*)&out};
   e = cudaLaunchCooperativeKernel((const void*)k5_attn, dim3(blocks), dim3(THREADS), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
@@ -935,12 +926,14 @@ int wf_layer_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer,
                   const void* input_ln, const void* attn_sub, int norm2, float eps,
                   const void* qw, const void* qsw, int qsw_stride, const void* ow,
                   const void* osw, int osw_stride, const void* cs, const void* sn, float scale,
-                  void* ck, void* cv, void* qkv, void* sc, void* part, void* attn, void* out,
-                  int I, int act, const void* post_ln, const void* ffn_sub, float eps2,
-                  const void* gw, const void* gsw, int gsw_stride, const void* dw,
-                  const void* dsw, int dsw_stride, void* x4a, void* sxa, void* gu, void* x4b,
-                  void* sxb, void* acc, void* out2, void* stream) {
+                  void* ck, void* cv, void* qkv, void* sc, void* part, void* attn, void* x4,
+                  void* sx, void* acc, void* out, int I, int act, const void* post_ln,
+                  const void* ffn_sub, float eps2, const void* gw, const void* gsw,
+                  int gsw_stride, const void* dw, const void* dsw, int dsw_stride, void* x4a,
+                  void* sxa, void* gu, void* x4b, void* sxb, void* acc2, void* out2,
+                  void* stream) {
   if (T <= 0 || KV <= 0 || NH % KV || NH / KV > MAX_G || Q != NH * HD || H % 16 || I % 16 ||
+      reinterpret_cast<uintptr_t>(qw) % 16 || reinterpret_cast<uintptr_t>(ow) % 16 ||
       reinterpret_cast<uintptr_t>(gw) % 16 || reinterpret_cast<uintptr_t>(dw) % 16)
     return cudaErrorInvalidValue;
   size_t smem = k5_smem(H, Q);
@@ -949,25 +942,34 @@ int wf_layer_mega(const void* h, int H, int Q, int NH, int KV, int T, int layer,
   cudaError_t e = cudaFuncSetAttribute(k8_layer, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  // every resident block: K5's stages use k5_want of them, the MLP's all
   int blocks = 0;
-  if ((e = resident_blocks((const void*)k8_layer, smem, INT_MAX, &blocks)) != cudaSuccess)
-    return e;
+  if ((e = resident_blocks((const void*)k8_layer, smem, &blocks)) != cudaSuccess) return e;
   void* args[] = {(void*)&h,   (void*)&H,     (void*)&Q,      (void*)&NH,    (void*)&KV,
                   (void*)&T,   (void*)&layer, (void*)&pos,    (void*)&input_ln, (void*)&attn_sub,
                   (void*)&norm2, (void*)&eps, (void*)&qw,     (void*)&qsw,   (void*)&qsw_stride,
                   (void*)&ow,  (void*)&osw,   (void*)&osw_stride, (void*)&cs, (void*)&sn,
                   (void*)&scale, (void*)&ck,  (void*)&cv,     (void*)&qkv,   (void*)&sc,
-                  (void*)&part, (void*)&attn, (void*)&out,
+                  (void*)&part, (void*)&attn, (void*)&x4,     (void*)&sx,    (void*)&acc,
+                  (void*)&out,
                   (void*)&I,   (void*)&act,   (void*)&post_ln, (void*)&ffn_sub, (void*)&eps2,
                   (void*)&gw,  (void*)&gsw,   (void*)&gsw_stride, (void*)&dw, (void*)&dsw,
                   (void*)&dsw_stride, (void*)&x4a, (void*)&sxa, (void*)&gu, (void*)&x4b,
-                  (void*)&sxb, (void*)&acc,   (void*)&out2};
+                  (void*)&sxb, (void*)&acc2,  (void*)&out2};
   e = cudaLaunchCooperativeKernel((const void*)k8_layer, dim3(blocks), dim3(THREADS), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
+
+#ifdef WF_K5_STAMPS
+// K5's stage stamps (see WF_K5_STAMPS) into out[9], then cleared.
+int wf_k5_stamps(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k5_stamps, sizeof(k5_stamps));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[9] = {};
+  return cudaMemcpyToSymbol(k5_stamps, zero, sizeof(zero));
+}
+#endif
 
 const char* wf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -47,7 +47,7 @@ SIGNATURES = {
     "wf_flash_paged_prefill_pool": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _P],
     "wf_attn_mega": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I,
-                     _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+                     _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _I, _P],
     "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],

@@ -476,7 +476,8 @@ ATTN_CHUNK = 64  # cache rows per attention work unit of K5 (csrc/ternary.cu)
 def _k5_prep(h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos,
              sin, *, q_dim, n_kv, n_heads, head_dim, eps, norm2):
     """Checks and scratch of K5: (``wf_attn_mega``'s arguments before the
-    stream, the output h', the tensors that must outlive the launch)."""
+    stream, the output h', its scratch: the bf16 ``qkv`` [1, Q + 2*KV*D] and
+    ``attn`` [1, Q] rows and, under ``keep``, the rest)."""
     sub = attn_sub if norm2 else None
     _check_args(qkv_qw, qkv_scale, input_ln, layer)
     _check_args(o_qw, o_scale, sub, layer)
@@ -501,6 +502,9 @@ def _k5_prep(h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, 
         raise ValueError("k and v caches differ in length")
     _check_norm(input_ln, hd)
     _check_norm(sub, q_dim)
+    qw_ptr, ow_ptr = _layer_ptr(qkv_qw, layer), _layer_ptr(o_qw, layer)
+    _check_rows16(hd, n_q, qw_ptr, "attn_block_megakernel")
+    _check_rows16(q_dim, hd, ow_ptr, "attn_block_megakernel")
     dev = h.device
     if isinstance(pos, torch.Tensor):
         if pos.device != dev or pos.dtype != torch.int32 or pos.numel() != 1:
@@ -520,18 +524,25 @@ def _k5_prep(h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, 
     scores = torch.empty((n_heads * T,), dtype=torch.float32, device=dev)
     partial = torch.empty((nch * n_heads * D,), dtype=torch.float32, device=dev)
     attn = torch.empty((q_dim,), dtype=torch.bfloat16, device=dev)
+    # the codes of h and of the attention row, their scales, and the int32
+    # sums of the qkv and o dots (csrc/ternary.cu::attn_block, zeroed by the kernel)
+    x4 = torch.empty((hd + q_dim,), dtype=torch.int8, device=dev)
+    sx = torch.empty((2,), dtype=torch.float32, device=dev)
+    acc = torch.empty((n_q + hd,), dtype=torch.int32, device=dev)
     out = torch.empty((1, hd), dtype=torch.bfloat16, device=dev)
     qsw, qsw_stride = _scale_args(qkv_scale, layer, n_q)
     osw, osw_stride = _scale_args(o_scale, layer, hd)
     args = [
         h2.data_ptr(), hd, q_dim, n_heads, n_kv, T, layer, pos_t.data_ptr(),
         _layer_ptr(input_ln, layer), _layer_ptr(sub, layer) if sub is not None else None,
-        int(norm2), float(eps), _layer_ptr(qkv_qw, layer), qsw, qsw_stride,
-        _layer_ptr(o_qw, layer), osw, osw_stride, cb.data_ptr(), sb.data_ptr(),
-        1.0 / math.sqrt(D), ck.data_ptr(), cv.data_ptr(), qkv.data_ptr(), scores.data_ptr(),
-        partial.data_ptr(), attn.data_ptr(), out.data_ptr(),
+        int(norm2), float(eps), qw_ptr, qsw, qsw_stride, ow_ptr, osw, osw_stride,
+        cb.data_ptr(), sb.data_ptr(), 1.0 / math.sqrt(D), ck.data_ptr(), cv.data_ptr(),
+        qkv.data_ptr(), scores.data_ptr(), partial.data_ptr(), attn.data_ptr(), x4.data_ptr(),
+        sx.data_ptr(), acc.data_ptr(), out.data_ptr(),
     ]
-    return args, out, (h2, pos_t, cb, sb, qkv, scores, partial, attn)
+    scratch = dict(qkv=qkv[None], attn=attn[None], keep=(h2, pos_t, cb, sb, scores, partial, x4,
+                                                         sx, acc))
+    return args, out, scratch
 
 
 def attn_block_megakernel(
@@ -555,23 +566,29 @@ def attn_block_megakernel(
     head_dim: int,
     eps: float = 1e-5,
     norm2: bool = True,
+    scratch: Optional[dict] = None,
 ):
     """Residual attention block of one decode token as one launch: returns
     ``(h', ck, cv)`` with row ``pos`` of layer ``layer`` written in place.
 
     A tensor ``pos`` stays on the device (no host read, so a decode loop
-    queues without waiting); the kernel clamps it to [0, T-1]."""
+    queues without waiting); the kernel clamps it to [0, T-1]. On the card,
+    a dict passed as ``scratch`` receives the launch's bf16 ``qkv`` row
+    [1, Q + 2*KV*D] and attention row ``attn`` [1, Q] (the card checks hold
+    them against K1)."""
     if h.device.type == "cpu":
         return attn_block_megakernel_plain(
             h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub,
             cos, sin, q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim,
             eps=eps, norm2=norm2)
     cuda_lib.require_cuda(h, "attn_block_megakernel")
-    args, out, _scratch = _k5_prep(
+    args, out, scr = _k5_prep(
         h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
         q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2)
     cuda_lib.call("wf_attn_mega", *args, cuda_lib.stream(h))
     attn_block_megakernel.launches += 1
+    if scratch is not None:
+        scratch.update(qkv=scr["qkv"], attn=scr["attn"])
     return out, ck, cv
 
 
@@ -606,10 +623,13 @@ def layer_block_megakernel(
     eps: float = 1e-5,
     act: str = "relu2",  # relu2 | silu
     norm2: bool = True,
+    scratch: Optional[dict] = None,
 ):
     """A whole batch-1 decode layer as one launch (K8): the attention block
     and the MLP block of one token. Returns ``(h', ck, cv)`` with row ``pos``
-    of layer ``layer`` written in place. Batch 1 only, as the reference."""
+    of layer ``layer`` written in place. Batch 1 only, as the reference. On
+    the card, a dict passed as ``scratch`` receives K5's (see
+    :func:`attn_block_megakernel`) and the attention block's output ``h1``."""
     if h.device.type == "cpu":
         return layer_block_megakernel_plain(
             h, ck, cv, qkv_qw, o_qw, gateup_qw, down_qw, layer, pos, qkv_scale, o_scale,
@@ -617,14 +637,17 @@ def layer_block_megakernel(
             q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, act=act,
             norm2=norm2)
     cuda_lib.require_cuda(h, "layer_block_megakernel")
-    a5, h1, _scratch5 = _k5_prep(
+    a5, h1, scr = _k5_prep(
         h, ck, cv, qkv_qw, o_qw, layer, pos, qkv_scale, o_scale, input_ln, attn_sub, cos, sin,
         q_dim=q_dim, n_kv=n_kv, n_heads=n_heads, head_dim=head_dim, eps=eps, norm2=norm2)
     a2, out, _scratch2 = _k2_prep(h1, gateup_qw, down_qw, layer, gateup_scale, down_scale,
                                   post_ln, ffn_sub, eps=eps, act=act, norm2=norm2)
-    # K2's arguments after h', B = 1 and H, which K8 takes from K5's
+    # K2's arguments after h', B = 1 and H, which K8 takes from K5's; its
+    # scratch is separate from K5's
     cuda_lib.call("wf_layer_mega", *a5, *a2[3:], cuda_lib.stream(h))
     layer_block_megakernel.launches += 1
+    if scratch is not None:
+        scratch.update(qkv=scr["qkv"], attn=scr["attn"], h1=h1)
     return out, ck, cv
 
 
