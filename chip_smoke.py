@@ -1144,10 +1144,14 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
 def kernels_k9(cfg, dev, g, results):
     """K9, the causal flash prefill, against its plain version at BitNet-2B
     heads (20/5 of 128): S 512 over T 512, and S 512 over T 1024 at q_offset
-    128, in bf16 and f32. The kernel walks 64-key tiles whatever the blocks,
-    so its plain version is held with 64-key blocks (the same running maxima
-    where p is rounded): f32 within 2e-5 (FMA sums in another order), bf16
-    within 2e-2 (a bf16 ulp of p or of the output)."""
+    128, in bf16 and f32, timed; then, checked only, S 512 over T 1024 at
+    q_offset 100 (not a multiple of 64: the tiles' boundaries fall inside the
+    rows' diagonals) and at q_offset 128 read from a device tensor. The
+    kernel walks 64-key tiles whatever the blocks, so its plain version is
+    held with 64-key blocks (the same running maxima where p is rounded):
+    f32 within 2e-5 (FMA sums in another order), bf16 within 2e-2 (a bf16
+    ulp of p or of the output). Every output is finite and two calls are
+    bitwise equal."""
     import torch
 
     from wrinklefree_tpu_torch.ops import flash_attention as fa
@@ -1156,17 +1160,29 @@ def kernels_k9(cfg, dev, g, results):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out, worst = [], {}
     for dt, kind, tol in ((torch.bfloat16, "bf16", 2e-2), (torch.float32, "f32", 2e-5)):
-        for S, T, off in ((512, 512, 0), (512, 1024, 128)):
+        for S, T, off, timed in ((512, 512, 0, True), (512, 1024, 128, True),
+                                 (512, 1024, 100, False), (512, 1024, "dev128", False)):
             q = torch.randn((1, S, NH, D), generator=g, device=dev).to(dt)
             k = torch.randn((1, T, KV, D), generator=g, device=dev).to(dt)
             v = torch.randn((1, T, KV, D), generator=g, device=dev).to(dt)
-            a = fa.flash_prefill(q, k, v, off)
+            on_dev = off == "dev128"
+            if on_dev:
+                off = 128
+            qoff = torch.tensor([off], dtype=torch.int32, device=dev) if on_dev else off
+            a = fa.flash_prefill(q, k, v, qoff)
+            again = fa.flash_prefill(q, k, v, qoff)
             b = fa.flash_prefill_plain(q, k, v, off, block_k=64)
             torch.cuda.synchronize()
             d = (a.float() - b.float()).abs().max().item()
+            where = f"K9 {kind} S={S} T={T} q_offset={off}{' on the device' if on_dev else ''}"
             if not (torch.isfinite(a).all() and d <= tol):
-                fail(f"K9 {kind} S={S} T={T} q_offset={off}: max abs error {d}")
+                fail(f"{where}: max abs error {d}")
+            if not torch.equal(a, again):
+                fail(f"{where}: two calls differ")
             worst[kind] = max(worst.get(kind, 0.0), d)
+            if not timed:
+                print(f"kernels: K9 {where}: max abs error {d} (bar {tol}), deterministic")
+                continue
             ms, call_ms = cuda_ms(lambda: fa.flash_prefill(q, k, v, off))
             plain_ms, _ = cuda_ms(lambda: fa.flash_prefill_plain(q, k, v, off), iters=5, warmup=1)
             mask = (torch.arange(T, device=dev)[None, :]

@@ -716,3 +716,45 @@ def test_k4_contiguous_matches_plain_on_card(g, s, b):
                   [lambda f=f: fa.flash_paged_prefill(q, *f, kvt, nlt, hist_len=T)
                    for f in fills])
     torch.cuda.synchronize()
+
+
+# (query heads per KV head, batch, query tokens, keys, q_offset, offset on the device)
+K9_CASES = [(1, 1, 128, 128, 0, False), (4, 2, 128, 256, 128, False),
+            (8, 1, 64, 192, 100, False), (4, 2, 40, 40, 0, False), (2, 2, 24, 64, 40, True),
+            (3, 1, 96, 128, 32, False), (16, 1, 64, 128, 64, True), (4, 1, 128, 128, 100, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,b,s,t,off,on_device", K9_CASES,
+                         ids=[f"G{g}-B{b}-S{s}-T{t}-off{o}{'-dev' if d else ''}"
+                              for g, b, s, t, o, d in K9_CASES])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k9_matches_plain_on_card(dtype, d, g, b, s, t, off, on_device):
+    """K9, the causal flash prefill, against its plain version with 64-key
+    blocks (the kernel's tiles, so p rounds against the same running max) at
+    G 1-16 (G 16 in two blocks of 8 heads in bf16, four of 4 in f32), B 1-2,
+    S below 64 and not a multiple of 16, q_offset 0, 128, a multiple of 64,
+    one that is not, one past T - S, and offsets read from the device. The
+    largest absolute error: f32 within 2e-5 (sums in another order), bf16
+    within 2e-2 (a bf16 ulp of p or of the output); finite, and two calls
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(130 + g + s + t + off + d)
+    kv = 2 if g < 8 else 1
+    q = torch.randn((b, s, kv * g, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kv, d), generator=gen, device=dev).to(dtype)
+    qoff = torch.tensor([off], device=dev) if on_device else off
+    n0 = flash_attention.flash_prefill.launches
+    a = flash_attention.flash_prefill(q, k, v, qoff, block_q=s, block_k=64)
+    again = flash_attention.flash_prefill(q, k, v, qoff, block_q=s, block_k=64)
+    assert flash_attention.flash_prefill.launches - n0 == 2
+    ref = flash_attention.flash_prefill_plain(q, k, v, off, block_q=s, block_k=64)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(a).all()
+    assert (a.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(a, again)
+    torch.cuda.synchronize()

@@ -90,3 +90,124 @@ def test_matches_dense_causal_softmax():
     p = np.exp(s - s.max(-1, keepdims=True))
     o = np.einsum("bkgst,btkd->bskgd", p / p.sum(-1, keepdims=True), v).reshape(got.shape)
     np.testing.assert_allclose(got, o, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("g", list(range(1, 17)))
+def test_block_rule(g, f32, d):
+    """The kernel's block (query heads, query tokens, warps) for G 1-16: the
+    KV head's heads in the fewest blocks of at most 8 (bf16) or 4 (f32),
+    evenly; bf16 groups of 16 tokens of a head, two warps a group (each
+    half of every key tile) up to 4 heads and 64 / heads tokens, one warp a
+    group from 5 heads and 16 tokens, at most 8 warps; f32 one warp per 8
+    tokens, the most tokens that keep the block at 32 query rows or fewer."""
+    gb, bq, warps = flash_attention.causal_prefill_block(g, d, f32)
+    cap = 4 if f32 else 8
+    blocks = -(-g // cap)
+    assert gb <= cap and blocks * gb >= g and (blocks - 1) * gb < g
+    if f32:
+        assert bq in (8, 16, 32) and gb * bq <= 32 and (bq == 32 or gb * 2 * bq > 32)
+        assert warps == gb * bq // 8
+    elif gb <= 4:
+        assert bq == 16 * max(1, 4 // gb) and warps == 2 * gb * bq // 16 and warps in (6, 8)
+    else:
+        assert bq == 16 and warps == gb
+
+
+def test_block_rule_at_2b_heads():
+    """BitNet-2B's 4 query heads per KV head: one block per KV head and 16
+    tokens in bf16 (8 warps, two a group of 16 rows), 8 tokens in f32 (4
+    warps); its grid at a 512-token chunk has 5 x 32 and 5 x 64 blocks."""
+    assert flash_attention.causal_prefill_block(4, 128, False) == (4, 16, 8)
+    assert flash_attention.causal_prefill_block(4, 128, True) == (4, 8, 4)
+
+
+@pytest.mark.parametrize("g,d", [(0, 128), (4, 96), (4, 256)])
+def test_block_rule_refuses(g, d):
+    with pytest.raises(ValueError):
+        flash_attention.causal_prefill_block(g, d, False)
+
+
+def _inputs(dtype=torch.bfloat16, d=128, s=64, t=128, nh=4, kv=2):
+    return (torch.zeros(1, s, nh, d, dtype=dtype), torch.zeros(1, t, kv, d, dtype=dtype),
+            torch.zeros(1, t, kv, d, dtype=dtype))
+
+
+@pytest.mark.parametrize("what", ["f16", "f64", "mixed", "d96", "d256", "heads", "kv_shape",
+                                  "tiles", "negative", "float_offset", "two_offsets"])
+def test_kernel_input_checks(what):
+    """What the kernel refuses raises ValueError before any launch: a dtype
+    other than bf16 or f32 (or mixed), D other than 64 or 128, KV not
+    dividing NH, k and v of other shapes, S or T not tiled by the blocks, a
+    negative int offset, a float or multi-element offset tensor."""
+    q, k, v = _inputs()
+    off = 0
+    if what in ("f16", "f64"):
+        q, k, v = (x.to(torch.float16 if what == "f16" else torch.float64) for x in (q, k, v))
+    elif what == "mixed":
+        k = k.float()
+    elif what in ("d96", "d256"):
+        q, k, v = _inputs(d=int(what[1:]))
+    elif what == "heads":
+        q, k, v = _inputs(nh=5)
+    elif what == "kv_shape":
+        v = v[:, :64]
+    elif what == "tiles":
+        q, k, v = _inputs(s=96)
+    elif what == "negative":
+        off = -1
+    elif what == "float_offset":
+        off = torch.tensor([1.0])
+    else:
+        off = torch.tensor([1, 2])
+    with pytest.raises(ValueError):
+        flash_attention.flash_prefill_checks(q, k, v, off, block_q=64, block_k=64)
+
+
+def test_kernel_input_checks_pass():
+    """Shapes the kernel takes: its block and the offset (an int, or the
+    tensor itself, never read here)."""
+    q, k, v = _inputs(torch.float32, d=64)
+    assert (flash_attention.flash_prefill_checks(q, k, v, 3, block_q=64, block_k=64)
+            == (2, 16, 4, 3))
+    off = torch.tensor([5], dtype=torch.int64)
+    *block, got = flash_attention.flash_prefill_checks(q, k, v, off, block_q=64, block_k=64)
+    assert block == [2, 16, 4] and got is off
+
+
+@pytest.mark.parametrize("dtype,g,d,s,t,off", [
+    ("bf16", 8, 64, 64, 192, 100),  # 8 heads a KV head, offset not a multiple of 64
+    ("f32", 8, 64, 64, 192, 100),
+    ("bf16", 1, 128, 40, 40, 0),    # S below 64, not a multiple of 16
+    ("f32", 16, 64, 64, 128, 64),   # G 16: more than one block's heads
+])
+def test_64_key_blocks_vs_reference(dtype, g, d, s, t, off):
+    """The plain version with 64-key blocks, which the kernel is held to on
+    the card, against the reference with the same blocks at the card tests'
+    new shapes: f32 within 2e-5, bf16 within 1e-2 (as above)."""
+    kv = 2 if g < 8 else 1
+    q, k, v = _case(1, s, t, kv * g, kv, d, seed=g + s + off)
+    ref, got = _both(q, k, v, off, dtype, block_q=s, block_k=64)
+    tol = 2e-5 if dtype == "f32" else 1e-2
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
+
+
+def test_offset_tensor_equals_int():
+    """On the CPU an offset tensor gives the int offset's result."""
+    q, k, v = (torch.from_numpy(x).float() for x in _case(1, 64, 192, 4, 2, 64, seed=3))
+    a = flash_attention.flash_prefill(q, k, v, torch.tensor([100]), block_q=64, block_k=64)
+    b = flash_attention.flash_prefill(q, k, v, 100, block_q=64, block_k=64)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("s,t,off", [(512, 512, 0), (512, 1024, 128), (40, 40, 0), (64, 192, 100)])
+def test_bench_counts_visible_pairs(s, t, off):
+    """bench/causal_prefill.py's bound counts the (query, key) pairs the
+    causal mask leaves visible, as a dense mask does."""
+    from wrinklefree_tpu_torch.bench import causal_prefill
+
+    mask = np.arange(t)[None, :] <= off + np.arange(s)[:, None]
+    assert causal_prefill.pairs(s, t, off) == int(mask.sum())
+    ms, by = causal_prefill.bound("bf16", s, t, off)
+    assert ms > 0 and by in ("bytes", "operations")

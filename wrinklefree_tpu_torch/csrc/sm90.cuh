@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the paged flash decode (K6,
-// flash_decode.cu) and the paged flash prefill (K4, flash_paged_prefill.cu):
-// mbarriers, copy-engine (TMA) and cp.async loads, ldmatrix, mma.sync
-// m16n8k16 bf16 -> f32, and the 2-D tensor maps of [rows, KV*128] bf16
-// arrays in boxes of 16 rows x 64 dims with the 128-byte swizzle.
+// flash_decode.cu), the paged flash prefill (K4, flash_paged_prefill.cu) and
+// the causal flash prefill (K9, flash_prefill.cu): mbarriers, copy-engine
+// (TMA) and cp.async loads, ldmatrix, mma.sync m16n8k16 bf16 -> f32, and the
+// tensor maps, all in the 128-byte swizzle, of [rows, KV*128] bf16 arrays in
+// boxes of 16 rows x 64 dims and of [batch, rows, KV*D] bf16 or f32 arrays
+// in boxes of n rows x 128 bytes.
 
 #pragma once
 
@@ -71,6 +73,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// 3-D copy-engine load of one box at (c0 elements, c1 rows, c2 batch row);
+// elements outside the array arrive as zeros.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
@@ -131,11 +144,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A bf16 array [rows, cols] (rows of cols elements, contiguous) as boxes of
-// 16 rows x 64 elements in the 128-byte swizzle, through
-// cuTensorMapEncodeTiled (looked up through the runtime's entry-point query,
-// so that the library needs no -lcuda).
-cudaError_t rows_map(CUtensorMap* map, const void* base, long long rows, int cols) {
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query, so that the library needs no -lcuda.
+cudaError_t encode_tiled(EncodeTiled* out) {
   static EncodeTiled enc = nullptr;
   if (enc == nullptr) {
     void* p = nullptr;
@@ -150,12 +161,44 @@ cudaError_t rows_map(CUtensorMap* map, const void* base, long long rows, int col
     if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
     enc = reinterpret_cast<EncodeTiled>(p);
   }
+  *out = enc;
+  return cudaSuccess;
+}
+
+// A bf16 array [rows, cols] (rows of cols elements, contiguous) as boxes of
+// 16 rows x 64 elements in the 128-byte swizzle.
+cudaError_t rows_map(CUtensorMap* map, const void* base, long long rows, int cols) {
+  EncodeTiled enc;
+  const cudaError_t e = encode_tiled(&enc);
+  if (e != cudaSuccess) return e;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, 16};
   const cuuint32_t elem[2] = {1, 1};
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                    strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 (elem_bytes 2) or f32 (4) array [batch, rows, cols] as boxes of
+// box_rows rows x 128 bytes of one batch row in the 128-byte swizzle: a
+// box's rows from `rows` on arrive as zeros.
+cudaError_t batched_rows_map(CUtensorMap* map, const void* base, int batch, long long rows,
+                             int cols, int elem_bytes, int box_rows) {
+  EncodeTiled enc;
+  const cudaError_t e = encode_tiled(&enc);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = enc(map,
+                   elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   3, const_cast<void*>(base), dims, strides, box, elem,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

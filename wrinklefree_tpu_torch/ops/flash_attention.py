@@ -15,7 +15,9 @@ Each wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel (``csrc/flash_prefill.cu``,
 ``csrc/flash_paged_prefill.cu``, ``csrc/flash_decode.cu``) or raises.
 ``<wrapper>.launches`` counts launches (both K4 wrappers count in
-``flash_paged_prefill.launches``).
+``flash_paged_prefill.launches``). K9's block shape is
+``causal_prefill_block``, K4's ``flash_prefill_bq``, K6's split
+``flash_decode_split``: static shapes, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -71,6 +73,68 @@ def flash_prefill_plain(q, k, v, q_offset=0, *, block_q: int = 256, block_k: int
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, NH, D)
 
 
+def causal_prefill_block(g: int, d: int, f32: bool) -> tuple:
+    """(query heads, query tokens, warps) of one block of the causal flash
+    prefill (``csrc/flash_prefill.cu``) for ``g`` query heads per KV head and
+    head dim ``d`` (64 or 128), a static shape. A KV head's query heads go
+    into ``ceil(g / ceil(g / cap))`` heads a block, so that every block of
+    the KV head stages each K/V tile once for all its rows: ``cap`` 8 in
+    bf16, 4 in f32.
+
+    - bf16: rows in groups of 16 tokens of one head. Up to 4 heads, the
+      tokens are 64 / heads (16 at 3 or 4), four groups or three, and two
+      warps a group, each scoring half of every 64-key tile (8 or 6 warps):
+      a warp's chain of dependent instructions per tile bounds the kernel,
+      and the causal grid's longest q tiles wait on it. From 5 heads, 16
+      tokens and one warp a group (5-8 warps).
+    - f32: one warp per 8 tokens of one head, at most 32 query rows a block
+      (the tokens the most of 8, 16 and 32 that keep heads x tokens <= 32),
+      so that Q, P^T and the K/V ring fit twice in an SM's shared memory at
+      D 128."""
+    if d not in (64, 128) or g < 1:
+        raise ValueError(f"the causal flash prefill takes D 64 or 128 and G >= 1, got {d}, {g}")
+    cap = 4 if f32 else 8
+    gb = -(-g // -(-g // cap))
+    if f32:
+        bq = 8
+        while gb * bq * 2 <= 32:
+            bq *= 2
+        return gb, bq, gb * bq // 8
+    if gb > 4:
+        return gb, 16, gb
+    bq = 16 * max(1, 4 // gb)
+    return gb, bq, 2 * gb * bq // 16
+
+
+def flash_prefill_checks(q, k, v, q_offset, *, block_q: int = 256, block_k: int = 512):
+    """The inputs the causal flash prefill kernel takes, checked without
+    touching the data: q, k, v all bf16 or all f32 on one device, [B, S, NH,
+    D] and [B, T, KV, D] with D 64 or 128 and KV dividing NH, S and T tiled
+    by the blocks as the reference requires, and q_offset an int >= 0 or a
+    one-element integer tensor (read on the device, never here). Raises
+    ``ValueError``; returns ``causal_prefill_block``'s (heads, tokens, warps)
+    and the offset (an int, or the tensor)."""
+    B, S, NH, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    _prefill_tiles(S, T, block_q, block_k)
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("the CUDA kernel takes q, k and v all bfloat16 or all float32")
+    if D not in (64, 128) or NH % KV or k.shape != v.shape or tuple(k.shape) != (B, T, KV, D):
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_prefill: every input must be on q's device")
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.numel() != 1 or q_offset.dtype.is_floating_point:
+            raise ValueError("q_offset must be an int or a one-element integer tensor")
+        qoff = q_offset
+    else:
+        qoff = int(q_offset)
+        if qoff < 0:
+            raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return (*causal_prefill_block(NH // KV, D, q.dtype == torch.float32), qoff)
+
+
 def flash_prefill(
     q: torch.Tensor,  # [B, S, NH, D] bf16 or f32
     k: torch.Tensor,  # [B, T, KV, D]
@@ -84,34 +148,28 @@ def flash_prefill(
     chunked prefill, without materializing the [S, T] scores. ``S`` and
     ``T`` must tile by ``block_q``/``block_k`` (capped at S and T), as the
     reference requires, so that both packages accept the same calls; the
-    kernel walks its own 64-key tiles."""
+    kernel walks its own 64-key tiles, in blocks of ``causal_prefill_block``.
+    A tensor ``q_offset`` is read by the kernel on the device."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, q_offset, block_q=block_q, block_k=block_k)
     cuda_lib.require_cuda(q, "flash_prefill")
+    gb, bq, warps, qoff = flash_prefill_checks(q, k, v, q_offset, block_q=block_q,
+                                               block_k=block_k)
     B, S, NH, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    _prefill_tiles(S, T, block_q, block_k)
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("the CUDA kernel takes q, k and v all bfloat16 or all float32")
-    if D not in (64, 128) or NH % KV or k.shape != v.shape or tuple(k.shape) != (B, T, KV, D):
-        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
         raise ValueError("the CUDA kernel reads 16-byte aligned rows")
-    if isinstance(q_offset, torch.Tensor):
-        if q_offset.numel() != 1 or q_offset.dtype.is_floating_point:
-            raise ValueError("q_offset must be an int or a one-element integer tensor")
-        qoff = q_offset.to(device=q.device, dtype=torch.int32).reshape(1)
+    if isinstance(qoff, torch.Tensor):
+        qoff = qoff.to(device=q.device, dtype=torch.int32).reshape(1)
+        qoff_ptr, qoff_int = qoff.data_ptr(), 0
     else:
-        if q_offset < 0:
-            raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-        qoff = torch.tensor([q_offset], dtype=torch.int32, device=q.device)
+        qoff_ptr, qoff_int = None, qoff
     out = torch.empty_like(qc)
     cuda_lib.call(
-        "wf_flash_prefill", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), qoff.data_ptr(),
+        "wf_flash_prefill", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), qoff_ptr, qoff_int,
         out.data_ptr(), B, S, NH, KV, D, T, int(q.dtype == torch.float32), 1.0 / math.sqrt(D),
-        cuda_lib.stream(q),
+        gb, bq, warps, cuda_lib.stream(q),
     )
     flash_prefill.launches += 1
     return out
