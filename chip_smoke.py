@@ -37,8 +37,13 @@ vocab 128256) with random weights drawn on the card from seed 0:
                bitwise equal to the default; a 64-token prefill and 64
                greedy steps whose exact head must equal the bf16 head's
                argmax every step, with the mode's kernels launched once per
-               layer and step; then the bench's timed windows and the
-               device's busy share per mode;
+               layer and step; the bench's window captured in a CUDA graph
+               from the same start state: its tokens and cache equal the
+               eager window's, the capture records the mode's kernels 30 x 64
+               times and the other batch-1 kernels never, and a window with a
+               one-candidate shortlist repairs to the same tokens; then the
+               bench (the captured window), the eager window timed beside
+               it, and the device's busy share per mode;
 5. engine    — ``Engine``: six greedy requests (prompts of 17..700 tokens,
                32 new tokens each) and two radix-cache resubmissions, every
                serving kernel's launch counter growing (K1's GEMM in the
@@ -1448,9 +1453,15 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
       argmax of the bf16 head every step, with the mode's kernels launched
       once per layer and step and the other batch-1 kernels not at all
       (counters zeroed just before); ``split``'s tokens equal the default's;
-    - per mode, the bench itself (warm window, best of 3 windows of 64
-      steps) and the device's busy share over one window under the profiler.
-    Returns the launches of each mode's counted run."""
+    - per mode, the bench's captured window (``captured_window``) from that
+      run's start state: tokens and cache equal to the eager window's, the
+      capture's launch counts, a k = 1 window that must repair;
+    - the int8 head's bf16 copy timed alone (once per token in the head);
+    - per mode, the bench itself (its captured window: a warm replay, the
+      best of 3 replays of 64 steps), the eager window timed as the bench
+      would time it uncaptured, and the device's busy share over one
+      eager window under the profiler, side by side with the replay's.
+    Returns the launches of each mode's counted (eager) run."""
     import dataclasses
 
     import torch
@@ -1526,21 +1537,24 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
                   "steps, under the noise-floor rule"
                   + (f" (bar {bar}, ties {json.dumps(ties)})" if depth == 2 else " (no bar)"))
 
-    # the exact head against the bf16 head, every step; launch counts
+    # the exact head against the bf16 head, every step; launch counts; the
+    # captured window against the eager one
     clean = {k: v for k, v in qparams.items() if not k.startswith("lm_head_")}
-    launches, states, mode_toks = {}, {}, {}
+    launches, states, mode_toks, captured = {}, {}, {}, {}
     for mode, kernels in BATCH1_MODES.items():
         klf, _ = linear_fns(mode)
         pm = mode_params(qparams, cfg, mode)
-        checks = []
+        checks, fell_back = [], []
 
         def checked_head(hidden, p):
-            tok, _ = greedy_exact_topk(hidden, p, cfg, k=bd.EXACT_HEAD_K)
+            tok, certified = greedy_exact_topk(hidden, p, cfg, k=bd.EXACT_HEAD_K)
             checks.append(tok == torch.argmax(compute_logits(hidden, clean, cfg), -1))
+            fell_back.append(not certified)
             return tok[:, None]
 
         tok, cache = bd.prefill(pm, cfg, klf, prompt, T)
         pos = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
+        start = (tok.clone(), KVCache(cache.k.clone(), cache.v.clone()), pos.clone())
         torch.cuda.synchronize()
         for cnt in counters:
             cnt.launches = 0
@@ -1548,7 +1562,9 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
                                                  checked_head)
         torch.cuda.synchronize()
         launches[mode] = {cnt.__name__: cnt.launches for cnt in counters}
-        states[mode] = (pm, klf, tok, cache, pos)
+        captured[mode] = captured_window(pm, cfg, klf, mode, kernels, start, toks, cache,
+                                         counters)
+        states[mode] = (pm, klf)
         mode_toks[mode] = toks
         if not bool(torch.cat(checks).all()):
             bad = [i for i, x in enumerate(checks) if not bool(x.all())]
@@ -1563,7 +1579,8 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
             fail(f"batch1 {mode}: token id out of vocabulary")
         per_step = {k: v / steps for k, v in launches[mode].items()}
         print(f"batch1 {mode}: {cfg.num_layers} layers, 64-token prefill + {steps} greedy steps: "
-              f"exact head == bf16 argmax at {len(checks)}/{steps} steps, launches per decode "
+              f"exact head == bf16 argmax at {len(checks)}/{steps} steps (its certificate failed "
+              f"at {sum(fell_back)}: the full head decided), launches per decode "
               f"step {json.dumps(per_step)}")
     if not torch.equal(mode_toks["split"], mode_toks["default"]):
         fail("batch1 split: the 64 greedy tokens differ from the default run's")
@@ -1573,12 +1590,28 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
           f"default's on the first {same}/{steps}")
 
     head = bd.exact_head(cfg)
+    copy_dev, copy_call = cuda_ms(lambda: qparams["lm_head_q"].to(torch.bfloat16))
+    copy_bytes = qparams["lm_head_q"].numel() * 3  # int8 read, bf16 written
+    print(f"batch1: the int8 head's bf16 copy (compute_logits, once per token): {copy_dev} device "
+          f"ms per token ({copy_call} ms by CUDA events), bound {bound(copy_bytes, 0, 'bf16')[0]} "
+          f"ms ({copy_bytes / 1e9} GB moved)")
     for mode in BATCH1_MODES:
         res = bd.run("bitnet2b", prompt_len, steps, dev, split=mode == "split",
                      layer_mega=mode == "layer_mega")
+        if not res["captured"]:
+            fail(f"batch1 {mode}: the bench's window was not captured")
         print("batch1: bench " + json.dumps(res))
-        # device busy share over one more window, under the profiler
-        pm, klf, tok, cache, pos = states[mode]
+        # the eager window as the bench ran it before its capture (a warm
+        # step, the best of 3 windows), then one more under the profiler
+        pm, klf = states[mode]
+        tok, cache = bd.prefill(pm, cfg, klf, prompt, T)
+        pos = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
+        _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, 1, head)
+        eager_ms = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, steps, head)
+            eager_ms = min(eager_ms, (time.perf_counter() - t0) / steps * 1e3)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1586,14 +1619,107 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_s = sum(e.device_time_total for e in evs) / 1e6
-        top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
-        print(f"batch1 {mode}: {res['value']} tok/s, {res['ms_per_token']} ms per token (bench); "
-              f"{dev_s / steps * 1e3} ms of device time per token, "
-              f"{dev_s / steps * 1e3 / res['ms_per_token']} of the bench's token; device busy "
-              f"{dev_s / dt} of {dt} s under the profiler; device ms per token by kernel: "
-              + json.dumps({e.key[:60]: e.device_time_total / 1e3 / steps for e in top}))
+        dev_ms = sum(e.device_time_total for e in evs) / 1e3 / steps
+        print(f"batch1 {mode}: eager window {eager_ms} ms per token ({1e3 / eager_ms} tok/s, best "
+              f"of 3 windows of {steps}); {dev_ms} ms of device time per token, "
+              f"{dev_ms / eager_ms} of the eager token; device busy {dev_ms * steps / 1e3 / dt} of "
+              f"{dt} s under the profiler; device ms per token by kernel: "
+              + json.dumps(by_kernel(device_events(prof), steps)))
+        print(f"batch1 {mode}: side by side, ms per token: eager {eager_ms}, captured "
+              f"{res['ms_per_token']} (the bench, best of 3 windows of {steps}); device ms per "
+              f"token: eager {dev_ms} (profiler, summed), captured "
+              f"{res['replay_device_ms_per_token']} (CUDA events over the bench's best replay), "
+              f"captured {captured[mode]['busy_ms_per_token']} (profiler busy over one replay of "
+              f"the graph alone); repaired steps {res['repaired_steps']} in the bench's 4 windows")
     return launches
+
+
+def by_kernel(evs, steps, n=8):
+    """The n largest device times per token by kernel name (cut to 60
+    characters; events of one cut name summed)."""
+    out = {}
+    for e in evs:
+        out[e.name[:60]] = out.get(e.name[:60], 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
+
+
+def captured_window(pm, cfg, klf, mode, kernels, start, toks, cache, counters):
+    """The bench's captured window (``bench.decode.DecodeGraph``) against the
+    eager window ``toks``/``cache`` from the same start state (token, cache,
+    position): the 64-step window captured once, the capture recording the
+    mode's kernels once per layer and step and no other batch-1 kernel; its
+    replay's tokens and cache equal the eager window's. Then one profiled
+    replay of the graph alone (a report: its kernels and busy time), and a
+    window captured with a one-candidate shortlist (k = 1), which must
+    repair and still give the eager tokens and cache. Returns the replay's
+    numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wrinklefree_tpu_torch.bench import decode as bd
+    from wrinklefree_tpu_torch.models.bitnet import KVCache
+
+    tok0, cache0, pos0 = start
+    steps = len(toks)
+
+    def window(k):
+        gcache = KVCache(cache0.k.clone(), cache0.v.clone())
+        graph = bd.DecodeGraph(pm, cfg, klf, gcache, steps, k=k)
+        graph.warm_up(tok0, pos0)
+        torch.cuda.synchronize()
+        for cnt in counters:
+            cnt.launches = 0
+        t0 = time.perf_counter()
+        graph.capture(tok0, pos0)
+        capture_s = time.perf_counter() - t0
+        recorded = {cnt.__name__: cnt.launches for cnt in counters}
+        for name, n in recorded.items():
+            want = cfg.num_layers * steps if name in kernels else 0
+            if n != want:
+                fail(f"batch1 {mode}: the capture (k = {k}) recorded {name} {n} times, "
+                     f"expected {want}")
+        got, last, _, nxt, repaired = graph.run(tok0, pos0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, toks):
+            bad = (got != toks).nonzero()[:, 0].tolist()
+            fail(f"batch1 {mode}: the captured window's tokens (k = {k}) differ from the eager "
+                 f"window's at steps {bad}")
+        if not (torch.equal(gcache.k, cache.k) and torch.equal(gcache.v, cache.v)):
+            fail(f"batch1 {mode}: the captured window's cache (k = {k}) differs from the eager "
+                 "window's")
+        return graph, last, nxt, repaired, capture_s, recorded
+
+    graph, last, nxt, repaired, capture_s, recorded = window(bd.EXACT_HEAD_K)
+    print(f"batch1 {mode}: captured {steps}-step window (k = {bd.EXACT_HEAD_K}): tokens and cache "
+          f"equal the eager window's; capture {capture_s} s recorded "
+          f"{json.dumps({k: v for k, v in recorded.items() if v})} launches (the other batch-1 "
+          f"kernels 0); repaired_steps {repaired}; replay {graph.replay_ms / steps} device ms per "
+          "token (CUDA events)")
+    # the graph replayed once more from the window's end, under the profiler
+    # (a report: the replay alone, without the repair that ends a run)
+    graph.tok.copy_(last)
+    graph.pos.copy_(nxt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    busy = busy_us(evs) / 1e3 / steps
+    print(f"batch1 {mode}: a profiled replay of the graph: {busy} busy device ms per token over "
+          f"{len(evs)} device events; device ms per token by kernel (a report): "
+          f"{json.dumps(by_kernel(evs, steps))}")
+    out = {"replay_ms_per_token": graph.replay_ms / steps, "busy_ms_per_token": busy,
+           "repaired_steps": repaired}
+    del graph
+    graph, _, _, repaired1, _, _ = window(1)
+    if repaired1 < 1:
+        fail(f"batch1 {mode}: the k = 1 window repaired no step")
+    print(f"batch1 {mode}: captured window with k = 1: repaired_steps {repaired1}, tokens and "
+          "cache equal the eager window's")
+    del graph
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_calibrate(dev):

@@ -758,3 +758,134 @@ def test_k9_matches_plain_on_card(dtype, d, g, b, s, t, off, on_device):
     assert (a.float() - ref.float()).abs().max().item() <= tol
     assert torch.equal(a, again)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the captured batch-1 decode window (bench.decode.DecodeGraph)
+# ---------------------------------------------------------------------------
+
+WINDOW_MODES = ["default", "split", "layer_mega"]
+
+
+@pytest.fixture(scope="module")
+def window_2b():
+    """Two layers of BitNet-2B width with the int8 head and fused projections
+    (bench.decode's params, cut to two layers), a 16-token prompt's cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the window's kernels have no CPU mode)")
+    import dataclasses
+
+    from wrinklefree_tpu_torch.bench import decode as bd
+    from wrinklefree_tpu_torch.config import BitNetConfig
+
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=2)
+    dev = torch.device("cuda")
+    params = bd.bench_params(cfg, dev)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 16), generator=g).to(dev)
+    return cfg, params, prompt
+
+
+def _window_start(window_2b, mode, steps):
+    """(params, linear_fn, first token, cache, position) of a mode after the prompt."""
+    from wrinklefree_tpu_torch.bench import decode as bd
+    from wrinklefree_tpu_torch.models.bitnet import split_layers_for_decode
+
+    cfg, params, prompt = window_2b
+    if mode == "split":
+        params = split_layers_for_decode(params, cfg)
+    lf = ternary_cuda.make_linear_fused(layer_mega=mode == "layer_mega")
+    tok, cache = bd.prefill(params, cfg, lf, prompt, prompt.shape[1] + 2 * steps + 8)
+    pos = torch.full((1,), prompt.shape[1], dtype=torch.int32, device=prompt.device)
+    return params, lf, tok, cache, pos
+
+
+def _copy(cache):
+    from wrinklefree_tpu_torch.models.bitnet import KVCache
+
+    return KVCache(cache.k.clone(), cache.v.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", WINDOW_MODES)
+def test_captured_window_equals_eager_on_card(window_2b, mode):
+    """Per mode, at 2 layers of 2B width: the captured 16-step window's tokens
+    and final cache equal the eager window's from the same state, bit for
+    bit; the capture records each of the mode's kernels once per layer and
+    step; two replays from one state are bitwise equal; a window that was
+    not captured does not run on the card."""
+    from wrinklefree_tpu_torch.bench import decode as bd
+
+    cfg, _, _ = window_2b
+    steps = 16
+    params, lf, tok, cache, pos = _window_start(window_2b, mode, steps)
+    start = _copy(cache)
+    want, _, wcache, _ = bd.decode_window(params, cfg, lf, tok, _copy(start), pos, steps,
+                                          bd.exact_head(cfg))
+    graph = bd.DecodeGraph(params, cfg, lf, cache, steps)
+    with pytest.raises(RuntimeError, match="capture"):
+        graph.run(tok, pos)  # no uncaptured window on the card
+    counters = {"default": [ternary_cuda.attn_block_megakernel,
+                            ternary_cuda.mlp_block_megakernel],
+                "split": [ternary_cuda.attn_block_megakernel_static,
+                          ternary_cuda.mlp_block_megakernel_static],
+                "layer_mega": [ternary_cuda.layer_block_megakernel]}[mode]
+    graph.warm_up(tok, pos)
+    before = [c.launches for c in counters]
+    graph.capture(tok, pos)
+    assert [c.launches - b for c, b in zip(counters, before)] == [cfg.num_layers * steps] * len(
+        counters)
+    got, last, gcache, nxt, repaired = graph.run(tok, pos)
+    torch.cuda.synchronize()
+    assert gcache is cache and int(nxt) == int(pos) + steps
+    assert torch.equal(got, want), (got, want)
+    assert torch.equal(cache.k, wcache.k) and torch.equal(cache.v, wcache.v)
+    first_cache = _copy(cache)
+    cache.k.copy_(start.k)
+    cache.v.copy_(start.v)
+    again, *_ = graph.run(tok, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    assert torch.equal(cache.k, first_cache.k) and torch.equal(cache.v, first_cache.v)
+
+
+@pytest.mark.cuda
+def test_captured_window_repair_on_card(window_2b):
+    """A window captured with a one-candidate shortlist (k = 1), whose
+    certificate fails: the repair gives the eager window's tokens and cache
+    (the eager window through the bench's k = 64 head)."""
+    from wrinklefree_tpu_torch.bench import decode as bd
+
+    cfg, _, _ = window_2b
+    steps = 16
+    params, lf, tok, cache, pos = _window_start(window_2b, "default", steps)
+    start = _copy(cache)
+    want, _, wcache, _ = bd.decode_window(params, cfg, lf, tok, _copy(start), pos, steps,
+                                          bd.exact_head(cfg))
+    graph = bd.DecodeGraph(params, cfg, lf, cache, steps, k=1).capture(tok, pos)
+    got, _, _, _, repaired = graph.run(tok, pos)
+    torch.cuda.synchronize()
+    assert repaired > 0
+    assert torch.equal(got, want)
+    assert torch.equal(cache.k, wcache.k) and torch.equal(cache.v, wcache.v)
+
+
+@pytest.mark.cuda
+def test_host_read_fails_capture_on_card(window_2b):
+    """A step that reads the device on the host (the eager exact head's
+    certificate read) cannot be captured: the capture raises."""
+    from wrinklefree_tpu_torch.bench import decode as bd
+    from wrinklefree_tpu_torch.models.bitnet import forward
+
+    class HostRead(bd.DecodeGraph):
+        def _step(self, tok, i):
+            tok, _ = forward(self.params, self.cfg, tok, self.cache, self.pos + i,
+                             linear_fn=self.lf, logits_all=False,
+                             head_fn=bd.exact_head(self.cfg, self.k))
+            return tok
+
+    cfg, _, _ = window_2b
+    params, lf, tok, cache, pos = _window_start(window_2b, "default", 2)
+    with pytest.raises(RuntimeError):
+        HostRead(params, cfg, lf, cache, 2).capture(tok, pos)
+    torch.cuda.synchronize()

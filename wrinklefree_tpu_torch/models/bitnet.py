@@ -221,26 +221,20 @@ def _bf16_head(params, cfg: BitNetConfig) -> torch.Tensor:
     return params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
 
 
-def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
-                      tp_axis: Optional[str] = None):
-    """Greedy next token via the int8 head scan and an exact bf16 rescore of
-    the top-k candidates, certified against the int8 error bound.
+def exact_topk_shortlist(hidden, params, cfg: BitNetConfig, k: int = 128):
+    """The exact head up to its branch: the int8 head scan, the exact bf16
+    rescore of the top-k candidates and the certificate, with no host read
+    (the reference's ``greedy_exact_topk`` up to its ``lax.cond``).
 
-    Same contract as the reference: the rescored winner (lowest id among
-    the exact maxima) is taken when ``exact_max > best_outside + eps`` for
-    every row, with ``eps = 0.5*s_max*||h||_1 + 1e-3*(|exact_max| + 1)``;
-    otherwise the full bf16 head decides, so the token always equals
-    ``argmax(compute_logits)`` of the bf16 head. The reference picks the
-    branch on the device with ``lax.cond``; here the host reads the
-    certificate, one device read per call, and runs the full head only when
-    it failed. ``approx_max_k`` becomes ``torch.topk``.
+    The rescored winner is the lowest id among the exact maxima; it is the
+    greedy token when ``certified``: ``exact_max > best_outside + eps`` for
+    every row, with ``eps = 0.5*s_max*||h||_1 + 1e-3*(|exact_max| + 1)``.
+    ``approx_max_k`` becomes ``torch.topk``.
 
     hidden: [B, H] post-final-norm. Returns (tokens [B] int32, certified
-    bool). Requires ``quantize_lm_head(params)``. Single device only."""
-    if tp_axis is not None:
-        raise NotImplementedError("greedy_exact_topk with tp_axis (tensor parallelism)")
+    0-d bool), both on hidden's device. Requires ``quantize_lm_head(params)``."""
     if "lm_head_q" not in params:
-        raise ValueError("greedy_exact_topk requires quantize_lm_head(params)")
+        raise ValueError("the exact head requires quantize_lm_head(params)")
     head = _bf16_head(params, cfg)
     h = hidden.to(cfg.dtype)
     approx = compute_logits(h, params, cfg)  # [B, V] int8 head
@@ -256,11 +250,41 @@ def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
     minid = torch.where(exact >= exact_max[:, None], cand,
                         torch.full_like(cand, sent)).amin(dim=-1)
     eps = 0.5 * s_max * h1 + 1e-3 * (exact_max.abs() + 1.0)
-    certified = bool((exact_max > m_out + eps).all())  # the one host read
-    if certified:
-        return minid.to(torch.int32), True
-    full = _head_matmul(h.reshape(-1, h.shape[-1]), head)
-    return torch.argmax(full, dim=-1).to(torch.int32), False
+    return minid.to(torch.int32), (exact_max > m_out + eps).all()
+
+
+def full_head_argmax(hidden, params, cfg: BitNetConfig) -> torch.Tensor:
+    """The exact head's fallback branch (the reference's ``full_head``,
+    single device): argmax of the f32 product of hidden [B, H] with the bf16
+    head; tokens [B] int32 (the lowest id among equal maxima)."""
+    h = hidden.to(cfg.dtype)
+    full = _head_matmul(h.reshape(-1, h.shape[-1]), _bf16_head(params, cfg))
+    return torch.argmax(full, dim=-1).to(torch.int32)
+
+
+def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
+                      tp_axis: Optional[str] = None):
+    """Greedy next token via the int8 head scan and an exact bf16 rescore of
+    the top-k candidates, certified against the int8 error bound.
+
+    Same contract as the reference: the rescored winner is taken when the
+    certificate holds (``exact_topk_shortlist``); otherwise the full bf16
+    head decides (``full_head_argmax``), so the token always equals
+    ``argmax(compute_logits)`` of the bf16 head. The reference picks the
+    branch on the device with ``lax.cond``; here the host reads the
+    certificate, one device read per call, and runs the full head only when
+    it failed (the captured decode window of ``bench.decode`` keeps that read
+    out of the window and repairs after it).
+
+    hidden: [B, H] post-final-norm. Returns (tokens [B] int32, certified
+    0-d bool tensor). Requires ``quantize_lm_head(params)``. Single device
+    only."""
+    if tp_axis is not None:
+        raise NotImplementedError("greedy_exact_topk with tp_axis (tensor parallelism)")
+    minid, certified = exact_topk_shortlist(hidden, params, cfg, k)
+    if bool(certified):  # the one host read
+        return minid, certified
+    return full_head_argmax(hidden, params, cfg), certified
 
 
 # ---------------------------------------------------------------------------
