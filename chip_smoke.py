@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs seven phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs nine phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -50,11 +50,23 @@ vocab 128256) with random weights drawn on the card from seed 0:
                prefills: ``tiled_launches``); then the six
                requests again with ``flash_decode=True``, whose decode
                attention kernel must launch once per layer and decode step;
-6. moe       — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+6. server    — the port's HTTP server (``create_server("synth:bitnet_2b")``
+               with the engine phase's configuration) on a free 127.0.0.1
+               port, driven by the port's client: health, models, the
+               tokenizer round trip, a greedy completion whose token ids equal
+               ``Engine.generate``'s, the same request streamed (the same
+               text), a chat completion, a stop string, an embedding of unit
+               norm, /metrics, a logprobs request answered 501 and
+               ``run_server_benchmark`` (16 requests at concurrency 8), every
+               serving kernel launched;
+7. serving   — ``bench.serving`` (the port of scripts/serving_bench.py) at
+               16 streams x 128 + 32 tokens on 8 slots: its JSON line, no
+               build or new program inside its measured window;
+8. moe       — the repo's MoE configuration (8 layers, 8 experts, top-2) on
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-7. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+9. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -1899,6 +1911,209 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=
     return launches, [r.output_ids for r in reqs]
 
 
+def phase_server(dev, counters):
+    """The port's HTTP server (``server.http.create_server("synth:bitnet_2b")``
+    with the engine phase's EngineConfig: BitNet-2B at full width and depth,
+    random weights from seed 0, the byte tokenizer), served on a free
+    127.0.0.1 port in a thread and driven by the port's own client and
+    urllib: /health, /v1/models, /tokenize and /detokenize round trip; a
+    greedy /v1/completions whose token ids equal ``Engine.generate`` on the
+    same ids (prefix cache reset between them: a radix hit changes tokens on
+    random weights, ROADMAP queue 3); the same request streamed, the same
+    text; a chat completion; a stop string that trims; /v1/embeddings of
+    unit norm and equal to the plain masked mean (``embedding_vs_plain``);
+    /metrics; a logprobs request answered 501;
+    ``run_server_benchmark`` with 16 requests at concurrency 8. Every
+    counter in ``counters`` (zeroed just before) must launch. Returns the
+    launches."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.bench.runner import run_server_benchmark
+    from wrinklefree_tpu_torch.client import InferenceClient
+    from wrinklefree_tpu_torch.client.client import _sse_data
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.server._web import ServerThread
+    from wrinklefree_tpu_torch.server.http import ByteTokenizer, build_app, create_server
+
+    t0 = time.perf_counter()
+    ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
+                        prefill_buckets=(32, 128, 512))
+    server = create_server("synth:bitnet_2b", engine_config=ecfg, device=dev)
+    eng = server.async_engine.engine
+    reqs = []
+    submit = eng.submit
+
+    def record(*a, **kw):
+        reqs.append(submit(*a, **kw))
+        return reqs[-1]
+
+    eng.submit = record
+    for c in counters:
+        c.launches = 0
+    st = ServerThread(build_app(server))
+    try:
+        url = st.url
+        client = InferenceClient(url, timeout=600)
+
+        def post(path, body):
+            req = urllib.request.Request(f"{url}{path}", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=600)
+
+        def reset():
+            with post("/admin/reset-cache", {}) as r:
+                return json.loads(r.read())["dropped_pages"]
+
+        if not client.health() or client.models() != ["synth:bitnet_2b"]:
+            fail("server: /health or /v1/models")
+        ids = client.tokenize("hello world")
+        if client.detokenize(ids) != "hello world" or ids != ByteTokenizer().encode("hello world"):
+            fail(f"server: tokenize/detokenize round trip gave {ids}")
+        # 600 bytes: a 512-token chunk (the flash prefill) and a 128-token one
+        prompt = "".join(chr(33 + (i * 7919) % 90) for i in range(600))
+        body = {"model": "m", "prompt": prompt, "max_tokens": 32, "temperature": 0.0,
+                "ignore_eos": True}
+        reset()
+        with post("/v1/completions", body) as r:
+            full = json.loads(r.read())
+        served = reqs[-1]
+        text = full["choices"][0]["text"]
+        if (full["choices"][0]["finish_reason"] != "length"
+                or full["usage"]["completion_tokens"] != 32 or len(served.output_ids) != 32):
+            fail(f"server: greedy completion {full['choices'][0]}, usage {full['usage']}")
+        reset()
+        want = eng.generate(served.prompt_ids, served.sampling).output_ids
+        if want != served.output_ids:
+            fail(f"server: served tokens {served.output_ids} differ from Engine.generate's {want}")
+        reset()
+        with post("/v1/completions", {**body, "stream": True}) as r:
+            events = [json.loads(d) for d in _sse_data(r) if d != b"[DONE]"]
+        streamed = "".join(e["choices"][0]["text"] for e in events)
+        if streamed != text or reqs[-1].output_ids != want:
+            fail(f"server: streamed text {streamed!r} differs from the non-streamed {text!r}")
+        stop = text[5:8]
+        reset()
+        with post("/v1/completions", {**body, "stop": stop}) as r:
+            cut = json.loads(r.read())["choices"][0]
+        if cut["text"] != text[: text.index(stop)] or cut["finish_reason"] != "stop":
+            fail(f"server: stop string {stop!r} gave {cut}")
+        chat = client.chat([{"role": "user", "content": "hello"}], max_tokens=16,
+                           temperature=0.0, ignore_eos=True)
+        if len(reqs[-1].output_ids) != 16 or not isinstance(chat, str):
+            fail("server: chat completion")
+        (emb,) = client.embeddings("hello world")
+        norm = float(np.linalg.norm(np.asarray(emb)))
+        if len(emb) != 2560 or abs(norm - 1.0) > 1e-3:
+            fail(f"server: embedding of {len(emb)} values, norm {norm}")
+        emb_check = embedding_vs_plain(post, eng, ByteTokenizer().encode(prompt)[:40])
+        with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        if "wf_requests_total" not in metrics or "wf_ttft_seconds" not in metrics:
+            fail("server: /metrics")
+        try:
+            post("/v1/completions", {**body, "logprobs": 2})
+            fail("server: a logprobs request was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 501:
+                fail(f"server: a logprobs request got {e.code}, expected 501")
+        bench = run_server_benchmark(url, num_requests=16, max_tokens=32, concurrency=8)
+        if bench["total_tokens"] <= 0 or not bench["tokens_per_s"] > 0:
+            fail(f"server: run_server_benchmark {bench}")
+    finally:
+        st.stop()
+        server.async_engine.shutdown()
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    zero = [n for n, v in launches.items() if v == 0]
+    if zero:
+        fail(f"server: kernels not launched on the server path: {zero}")
+    stats = {k: v for k, v in eng.stats.items() if k in ("requests", "decode_tokens",
+                                                          "prefill_tokens")}
+    print(f"server: 2B, {eng.cfg.num_layers} layers: health, models, tokenize round trip; greedy /v1/completions "
+          f"of 600 + 32 tokens equal to Engine.generate's; streamed text equal; stop string "
+          f"{stop!r} trims; chat; embedding norm {norm}; {emb_check}; /metrics; "
+          f"logprobs -> 501; "
+          f"run_server_benchmark 16 requests x 32 tokens at concurrency 8: "
+          f"{bench['tokens_per_s']} tok/s, TTFT p50 {bench['ttft_p50_s']} s; engine {stats}; "
+          f"launches {json.dumps(launches)}; {time.perf_counter() - t0} s")
+    return launches
+
+
+# the served embedding against the plain masked mean: cosine and max
+# |difference| per component of the unit vectors (the CPU tests' bar)
+EMBED_COS, EMBED_TOL = 0.999, 2e-2
+
+
+def embedding_vs_plain(post, eng, ids):
+    """/v1/embeddings of the token ids ``ids`` (40 ids: the 64-token bucket,
+    24 padded rows) against the plain masked mean: ``forward(...,
+    head_fn=identity)`` on the unpadded ids with the engine's linear, the
+    f32 mean of the hidden rows, L2-normalized. Fails past ``EMBED_COS`` /
+    ``EMBED_TOL``; reports both and, to show the bar sees the mask, the
+    cosine of the mean taken over the padded bucket's 64 rows."""
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, forward
+
+    with post("/v1/embeddings", {"input": ids}) as r:
+        served = torch.tensor(json.loads(r.read())["data"][0]["embedding"])
+    cfg, dev = eng.cfg, eng.device
+
+    def pooled(toks, rows):
+        cache = KVCache.zeros(cfg, 1, len(toks), device=dev)
+        with torch.no_grad():
+            hidden, _ = forward(eng.params, cfg, torch.tensor([toks], dtype=torch.int32,
+                                                               device=dev), cache,
+                                torch.zeros((1,), dtype=torch.int32, device=dev),
+                                logits_all=True, head_fn=lambda h, p: h,
+                                linear_fn=eng._linear_fn)
+        s = hidden[0, :rows].float().mean(0).cpu()
+        return s / s.norm()
+
+    want = pooled(ids, len(ids))
+    unmasked = pooled(ids + [0] * (64 - len(ids)), 64)
+    cos = float(served @ want)
+    err = float((served - want).abs().max())
+    if not (cos >= EMBED_COS and err <= EMBED_TOL):
+        fail(f"server: embedding vs the plain masked mean: cosine {cos}, max abs {err} "
+             f"(bars {EMBED_COS}, {EMBED_TOL})")
+    return (f"embedding of {len(ids)} ids vs the plain masked mean: cosine {cos}, "
+            f"max abs {err} (bars {EMBED_COS}, {EMBED_TOL}; unmasked mean's cosine "
+            f"{float(served @ unmasked)})")
+
+
+def phase_serving_bench(dev, counters):
+    """``python -m wrinklefree_tpu_torch.bench.serving`` at a reduced
+    scenario (16 streams x 128 prompt x 32 new tokens on 8 slots), in
+    process: its JSON line, no kernel build or new program inside its
+    measured window, every counter in ``counters`` (zeroed just before)
+    launched. Returns the launches."""
+    import torch
+
+    from wrinklefree_tpu_torch.bench import serving
+
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    rep = serving.main(["--streams", "16", "--prompt-len", "128", "--new-tokens", "32",
+                        "--slots", "8", "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    zero = [n for n, v in launches.items() if v == 0]
+    if zero:
+        fail(f"serving bench: kernels not launched: {zero}")
+    if rep["in_window_compiles"] != 0:
+        fail(f"serving bench: {rep['in_window_compiles']} builds or new programs in the window")
+    if not (rep["decode_tok_s"] > 0 and rep["decode_steps"] > 0):
+        fail(f"serving bench: {rep}")
+    print(f"serving bench: launches {json.dumps(launches)}; {time.perf_counter() - t0} s")
+    return launches
+
+
 def routed_run(p, c, dev, kw, forced=None, steps=5, replay=None):
     """paged_run on an MoE model that also records each call's routing (the
     expert ids of ``models.moe.top_k_route``, one call per layer and step).
@@ -2106,6 +2321,10 @@ def main() -> int:
     launches["flash_paged_decode"] = flash["flash_paged_decode"]
     launches["flash_prefill"] = flash_prefill_launches
     del params
+    torch.cuda.empty_cache()
+    phase_server(dev, serving)
+    torch.cuda.empty_cache()
+    phase_serving_bench(dev, serving)
     torch.cuda.empty_cache()
     moe = phase_moe(dev)
     launches["ternary_matmul_stacked"] = moe["ternary_matmul_stacked"]

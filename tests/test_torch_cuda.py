@@ -889,3 +889,91 @@ def test_host_read_fails_capture_on_card(window_2b):
     with pytest.raises(RuntimeError):
         HostRead(params, cfg, lf, cache, 2).capture(tok, pos)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The port's HTTP server on the card (two layers of BitNet-2B width)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def server_2b():
+    """The port's server around an Engine at two layers of 2B width, served
+    on a free port in a thread; a second Engine on the same weights is the
+    oracle (Engine.generate). Yields (url, the served engine's requests,
+    oracle)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the serving kernels have no CPU mode)")
+    import dataclasses
+
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine
+    from wrinklefree_tpu_torch.models.bitnet import fuse_projections, init_params
+    from wrinklefree_tpu_torch.server._web import ServerThread
+    from wrinklefree_tpu_torch.server.http import ByteTokenizer, InferenceServer, build_app
+
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=2)
+    dev = torch.device("cuda")
+    params = fuse_projections(init_params(cfg, seed=0, device=dev), cfg)
+    ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=256, max_context=512,
+                        prefill_buckets=(32, 128))
+    eng = Engine(params, cfg, ecfg, eos_token_id=0, device=dev)
+    reqs = []
+    submit = eng.submit
+
+    def record(*a, **kw):
+        reqs.append(submit(*a, **kw))
+        return reqs[-1]
+
+    eng.submit = record
+    server = InferenceServer(eng, ByteTokenizer(), "synth:2-layer-2b")
+    st = ServerThread(build_app(server))
+    yield st.url, reqs, Engine(params, cfg, ecfg, eos_token_id=0, device=dev)
+    st.stop()
+    server.async_engine.shutdown()
+
+
+def _reset(url, oracle):
+    import urllib.request
+
+    urllib.request.urlopen(urllib.request.Request(f"{url}/admin/reset-cache", data=b"",
+                                                  method="POST"), timeout=30).read()
+    oracle.reset_prefix_cache()
+
+
+@pytest.mark.cuda
+def test_server_greedy_equals_engine_on_card(server_2b):
+    """A greedy completion served over HTTP gives Engine.generate's tokens."""
+    from wrinklefree_tpu_torch.client import InferenceClient
+
+    url, reqs, oracle = server_2b
+    c = InferenceClient(url)
+    prompt = "The serving front end of a ternary model, driven on the card. " * 3
+    _reset(url, oracle)
+    n0 = len(reqs)
+    text = c.chat([{"role": "user", "content": prompt}], max_tokens=24, temperature=0.0,
+                  ignore_eos=True)
+    (req,) = reqs[n0:]
+    assert len(req.output_ids) == 24 and req.finish_reason == "length"
+    assert oracle.generate(req.prompt_ids, req.sampling).output_ids == req.output_ids
+    assert text == "".join(chr((t - 1) % 250) for t in req.output_ids)
+
+
+@pytest.mark.cuda
+def test_server_stream_equals_engine_on_card(server_2b):
+    """The same request streamed (SSE): the text of Engine.generate's
+    tokens, equal to the non-streamed answer."""
+    from wrinklefree_tpu_torch.client import InferenceClient
+    from wrinklefree_tpu_torch.server.http import ByteTokenizer
+
+    url, reqs, oracle = server_2b
+    c = InferenceClient(url)
+    prompt = "Stream these tokens one event at a time. " * 4
+    _reset(url, oracle)
+    streamed = "".join(c.generate_stream(prompt, max_tokens=20, temperature=0.0))
+    req = reqs[-1]
+    want = oracle.generate(req.prompt_ids, req.sampling).output_ids
+    assert req.output_ids == want
+    assert streamed == ByteTokenizer().decode(want)
+    _reset(url, oracle)
+    assert c.generate(prompt, max_tokens=20, temperature=0.0) == streamed

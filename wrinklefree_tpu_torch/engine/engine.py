@@ -81,6 +81,22 @@ def _unsupported_config(cfg: BitNetConfig, e: EngineConfig) -> List[str]:
     return out
 
 
+def check_sampling_supported(sampling: SamplingParams) -> None:
+    """Raise ``NotImplementedError`` for a request feature the port's engine
+    does not run yet (``submit`` calls it; the server calls it before a
+    stream's headers go out)."""
+    missing = []
+    if sampling.constrained:
+        missing.append("json_mode/grammar (constrained decoding)")
+    if sampling.logprobs_k > 0:
+        missing.append("logprobs")
+    if sampling.mirostat:
+        missing.append("mirostat")
+    if missing:
+        raise NotImplementedError(
+            "not ported to the PyTorch engine yet: " + ", ".join(missing))
+
+
 class Engine:
     def __init__(
         self,
@@ -187,16 +203,7 @@ class Engine:
             raise ValueError(
                 f"logit_bias has {len(sampling.logit_bias)} entries; engine supports "
                 f"{self.ecfg.logit_bias_slots} (EngineConfig.logit_bias_slots)")
-        missing = []
-        if sampling.constrained:
-            missing.append("json_mode/grammar (constrained decoding)")
-        if sampling.logprobs_k > 0:
-            missing.append("logprobs")
-        if sampling.mirostat:
-            missing.append("mirostat")
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: " + ", ".join(missing))
+        check_sampling_supported(sampling)
 
     def submit(
         self,
@@ -222,6 +229,43 @@ class Engine:
             if not self.step():
                 time.sleep(0.001)
         return req
+
+    def has_work(self) -> bool:
+        return (
+            not self.waiting.empty()
+            or bool(self._backlog)
+            or any(s is not None for s in self.slots)
+        )
+
+    def prefix_match_len(self, prompt_ids) -> int:
+        """Length (tokens) of this engine's cached radix prefix for the
+        prompt: a read-only probe (0 without a radix cache)."""
+        if self.radix is None:
+            return 0
+        with self._lock:
+            matched, _pages, _nodes = self.radix.match(list(prompt_ids))
+        return matched
+
+    def reset_prefix_cache(self) -> int:
+        """Drop every radix-cached page, returning them to the free pool;
+        returns the number of pages released. Radix pages outlive their
+        requests, so a warmed engine near pool capacity would evict inside a
+        measured window. Refuses while any request is active or queued."""
+        with self._lock:
+            if self.has_work():
+                raise RuntimeError("reset_prefix_cache requires an idle engine")
+            if self.radix is None:
+                return 0
+            n = self.radix.num_cached_pages
+            self.radix.reset()
+            return n
+
+    def warmup(self) -> Dict[str, float]:
+        """Build the kernels and run every serving program once on scratch
+        pools (``engine/programs.py::warmup``); returns {program: seconds}."""
+        from .programs import warmup
+
+        return warmup(self)
 
     def snapshot(self) -> dict:
         raise NotImplementedError("snapshot/restore is not ported to the PyTorch engine yet")
@@ -533,10 +577,7 @@ class Engine:
                     ring[j, p % W] = stream[p]
 
         dev = self.device
-        fn = self._prefill_fns.get(bucket)
-        if fn is None:
-            fn = self._prefill_fns[bucket] = prefill_for_bucket(self, bucket)
-        nxt, self.pools = fn(
+        nxt, self.pools = self._prefill_fn(bucket)(
             self.pools, torch.as_tensor(toks, device=dev), torch.as_tensor(pt, device=dev),
             torch.as_tensor(seq, device=dev), torch.as_tensor(new, device=dev),
             torch.as_tensor(sids, device=dev), torch.as_tensor(ring, device=dev), samp, gens,
@@ -564,6 +605,18 @@ class Engine:
         self.stats["prefill_rounds"] = self.stats.get("prefill_rounds", 0) + 1
         self._dirty = True
         return True
+
+    def _prefill_fn(self, bucket: int) -> Callable:
+        fn = self._prefill_fns.get(bucket)
+        if fn is None:
+            fn = self._prefill_fns[bucket] = prefill_for_bucket(self, bucket)
+        return fn
+
+    def _decode_fn(self, K: int) -> Callable:
+        fn = self._decode_fns.get(K)
+        if fn is None:
+            fn = self._decode_fns[K] = build_decode(self, burst_steps=K)
+        return fn
 
     def _pick_bucket(self, n: int) -> int:
         for b in self.ecfg.prefill_buckets:
@@ -649,9 +702,7 @@ class Engine:
                                    room_cap - r.seq_len))
             while K // 2 >= max(8, rem):
                 K //= 2
-        fn = self._decode_fns.get(K)
-        if fn is None:
-            fn = self._decode_fns[K] = build_decode(self, burst_steps=K)
+        fn = self._decode_fn(K)
         # only decoding rows sample (a masked mid-prefill row must not draw
         # from its request's generator)
         on = np.zeros((len(self.slots),), bool)

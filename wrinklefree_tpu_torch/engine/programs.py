@@ -83,3 +83,62 @@ def prefill_for_bucket(eng, bucket: int):
         return nxt.cpu().numpy().astype(np.int32), pools
 
     return prefill
+
+
+def warmup(eng):
+    """Run the serving programs once ahead of the first request, as the
+    reference's ``warmup`` compiles them: build the kernels, then run the
+    decode burst (K = ``decode_burst``, page-table width 8) and every
+    prefill bucket (batch 1, the fresh request's table width) on zero
+    tokens. Eager programs take any table width or burst length with no
+    further build, so one run of each is the whole warmup. The programs run
+    on scratch pools, so the engine's pools, radix cache, allocator and
+    stats are left as they were. Returns {program: seconds}."""
+    import time
+
+    from ..kv.paged import PagedKV
+
+    dev = eng.device
+    if dev.type == "cuda":
+        from ..ops import cuda_lib
+
+        cuda_lib.library()
+    S = len(eng.slots)
+    W = eng.ecfg.penalty_window
+    Kb = eng.ecfg.logit_bias_slots
+    K = eng.ecfg.decode_burst
+    buckets = eng.ecfg.prefill_buckets
+    widths = {8} | {eng._pages_bucket(b + 1) for b in buckets}
+    scratch = PagedKV.zeros_dual(eng.cfg, max(widths) + 1, eng.page_size, S,
+                                 eng.ecfg.kv_dtype, device=dev)
+
+    def samp(B):
+        return {
+            "temps": np.zeros((B,), np.float32), "tps": np.ones((B,), np.float32),
+            "topks": np.zeros((B,), np.int32), "minps": np.zeros((B,), np.float32),
+            "typps": np.ones((B,), np.float32), "tfs": np.ones((B,), np.float32),
+            "reps": np.ones((B,), np.float32), "pres": np.zeros((B,), np.float32),
+            "freqs": np.zeros((B,), np.float32), "lastn": np.zeros((B,), np.int32),
+            "bias_ids": np.full((B, Kb), -1, np.int32),
+            "bias_vals": np.zeros((B, Kb), np.float32),
+        }
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    def table(B, mp):
+        return t(np.tile(np.arange(1, mp + 1), (B, 1)))
+
+    timings = {}
+    t0 = time.perf_counter()
+    eng._decode_fn(K)(scratch, t(np.zeros(S)), table(S, 8), t(np.zeros(S)), t(np.arange(S)),
+                      t(np.full((S, W), -1)), samp(S), [None] * S)
+    timings[f"decode_burst[K={K}]"] = time.perf_counter() - t0
+    for bucket in buckets:
+        t0 = time.perf_counter()
+        eng._prefill_fn(bucket)(
+            scratch, t(np.zeros((1, bucket))), table(1, eng._pages_bucket(bucket + 1)),
+            t(np.zeros(1)), t(np.full(1, bucket)), t(np.zeros(1)), t(np.full((1, W), -1)),
+            samp(1), [None])
+        timings[f"prefill[{bucket}]"] = time.perf_counter() - t0
+    return timings

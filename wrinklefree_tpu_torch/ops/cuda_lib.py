@@ -78,6 +78,11 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libwf_torch_kernels-{h.hexdigest()[:12]}.so"
 
 
+# builds this process ran (a library already on disk is no build), and their
+# seconds: the serving bench counts those inside its measured window
+BUILDS = {"count": 0, "seconds": 0.0}
+
+
 def build() -> Path:
     """Compile every source in parallel and link the shared library (skipped
     when the library for these sources already exists). The compiler's
@@ -121,6 +126,8 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
     tmp.replace(so)
+    BUILDS["count"] += 1
+    BUILDS["seconds"] += time.perf_counter() - t0
     return so
 
 
