@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs nine phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs eleven phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -50,7 +50,22 @@ vocab 128256) with random weights drawn on the card from seed 0:
                prefills: ``tiled_launches``); then the six
                requests again with ``flash_decode=True``, whose decode
                attention kernel must launch once per layer and decode step;
-6. server    — the port's HTTP server (``create_server("synth:bitnet_2b")``
+6. preempt   — retraction on a dry KV pool: eight 200-token prompts x 64
+               greedy tokens on 8 slots, page size 16, decode bursts of 20,
+               a 137-page pool (admits all eight, dry at the top-up of each
+               request's fourth burst) beside a roomy one: at least one
+               retraction, every request finished by length, each request's
+               streamed tokens equal to its output ids, every request never
+               retracted equal to the roomy run, the serving kernels launched;
+7. load      — seed-made 2B params written as an HF directory, its packed
+               cache (``convert_and_save``) and its i2_s GGUF
+               (``convert_hf_to_gguf``), each loaded onto the card bit-equal
+               to the in-memory params (the GGUF against their f16 round
+               trip, its storage of norms and embedding), an ``Engine`` on
+               each giving the in-memory params' greedy tokens for prompts of
+               17 and 512 tokens with K1, K2, K3 and K4 launched; each
+               format's bytes, write and load seconds;
+8. server    — the port's HTTP server (``create_server("synth:bitnet_2b")``
                with the engine phase's configuration) on a free 127.0.0.1
                port, driven by the port's client: health, models, the
                tokenizer round trip, a greedy completion whose token ids equal
@@ -59,14 +74,14 @@ vocab 128256) with random weights drawn on the card from seed 0:
                norm, /metrics, a logprobs request answered 501 and
                ``run_server_benchmark`` (16 requests at concurrency 8), every
                serving kernel launched;
-7. serving   — ``bench.serving`` (the port of scripts/serving_bench.py) at
+9. serving   — ``bench.serving`` (the port of scripts/serving_bench.py) at
                16 streams x 128 + 32 tokens on 8 slots: its JSON line, no
                build or new program inside its measured window;
-8. moe       — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+10. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-9. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+11. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -1911,6 +1926,274 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=
     return launches, [r.output_ids for r in reqs]
 
 
+def phase_preempt(params, cfg, dev, counters):
+    """Retraction on a dry KV pool at 2B width: eight 200-token prompts, 64
+    greedy tokens each, 8 slots at page size 16 with ``decode_burst`` 20.
+    Admission gives each request the pages of its budget (264 tokens: 17
+    pages); the fourth burst, from position 260, needs an 18th. A pool of
+    137 pages (136 usable = 8 x 17) admits all eight and is dry at that
+    top-up, so the engine retracts requests, which re-prefill later (their
+    full pages come back from the radix cache). The same requests on a
+    roomy pool (1024 pages) give the reference tokens. Gates: every request
+    finishes by length with 64 tokens, at least one retraction, each
+    request's on_token stream equals its output_ids, every request never
+    retracted has the roomy run's tokens, and every kernel in ``counters``
+    (zeroed just before the contended run) launches. For a retracted request
+    the count of leading tokens equal to the roomy run is printed: its
+    re-prefill runs its history through K1's GEMM and K4 instead of the
+    decode path, so bf16 rounding may move a late token. Returns the
+    contended run's launches."""
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, 200).tolist() for _ in range(8)]
+    sp = SamplingParams(max_new_tokens=64, temperature=0.0)
+    runs = {}
+    for tag, pages in (("roomy", 1024), ("contended", 137)):
+        eng = Engine(params, cfg, EngineConfig(max_batch_slots=8, page_size=16,
+                                               num_pages=pages, max_context=2048,
+                                               prefill_buckets=(32, 128, 512),
+                                               decode_burst=20), device=dev)
+        retracted = set()
+        preempt = eng._preempt
+        eng._preempt = lambda r, preempt=preempt: (retracted.add(r.rid), preempt(r))[1]
+        streams = [[] for _ in prompts]
+        if tag == "contended":
+            for c in counters:
+                c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, sp, on_token=lambda t, fin, i=i: streams[i].append(t))
+                for i, p in enumerate(prompts)]
+        while any(not r.finished for r in reqs):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        for r, s in zip(reqs, streams):
+            if r.finish_reason != "length" or len(r.output_ids) != 64:
+                fail(f"preempt ({tag}): a request finished {r.finish_reason!r} with "
+                     f"{len(r.output_ids)} tokens")
+            if s != r.output_ids:
+                fail(f"preempt ({tag}): request {r.rid}'s on_token stream differs from its "
+                     "output_ids (a token emitted twice or lost)")
+        runs[tag] = (eng, reqs, retracted, wall)
+        del eng
+    (_, roomy, _, roomy_wall), (eng, reqs, retracted, wall) = runs["roomy"], runs["contended"]
+    n = eng.stats.get("preemptions", 0)
+    if n < 1 or runs["roomy"][0].stats.get("preemptions", 0):
+        fail(f"preempt: {n} retractions on the dry pool (and "
+             f"{runs['roomy'][0].stats.get('preemptions', 0)} on the roomy one)")
+    agree = {}
+    for i, (r, w) in enumerate(zip(reqs, roomy)):
+        lead = next((k for k, (a, b) in enumerate(zip(r.output_ids, w.output_ids)) if a != b),
+                    64)
+        if r.rid in retracted:
+            agree[i] = lead
+        elif lead != 64:
+            fail(f"preempt: request {i} was never retracted but parts from the roomy run at "
+                 f"token {lead} (a result that depends on the batch)")
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        fail(f"preempt: kernels not launched: {zero}")
+    print(f"preempt: 8 x (200 + 64) tokens, 137 pages: {n} retractions of {len(retracted)} "
+          f"requests, all finished by length; the {8 - len(retracted)} never retracted equal "
+          f"the roomy run (1024 pages); the retracted agree with it on their leading tokens "
+          f"{json.dumps(agree)} of 64; prefill tokens {eng.stats['prefill_tokens']} (roomy "
+          f"{runs['roomy'][0].stats['prefill_tokens']}), radix hit tokens "
+          f"{eng.stats['radix_hit_tokens']}; wall {wall} s (roomy {roomy_wall} s); launches "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def write_hf_dir(params, cfg, path):
+    """The port's unfused params as an HF BitNet directory, written with the
+    port's safetensors writer: projections ``uint8 [out/4, in]`` (the out
+    axis in four planes, value + 1 in bits 2i..2i+1) with an f32
+    ``weight_scale`` each, bf16 norms and embedding, and a ``config.json``
+    from ``cfg``. Returns the directory."""
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.convert.safetensors_io import BF16, save_file
+    from wrinklefree_tpu_torch.models.loader import NORMS, PROJS
+    from wrinklefree_tpu_torch.ops.ternary import unpack_ternary
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps({
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "hidden_act": cfg.mlp_act,
+        "model_type": "bitnet" if cfg.sub_norms else "llama"}, indent=2))
+
+    def bits(t):
+        return t.to(torch.bfloat16).cpu().view(torch.int16).numpy().view(BF16)
+
+    lay = params["layers"]
+    t = {"model.embed_tokens.weight": bits(params["embed"]),
+         "model.norm.weight": bits(params["final_norm"])}
+    if "lm_head" in params:
+        t["lm_head.weight"] = bits(params["lm_head"])
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        for short, sub in NORMS.items():
+            t[f"{p}.{sub}"] = bits(lay[short][i])
+        for short, sub in PROJS.items():
+            w = unpack_ternary(lay[f"{short}_qw"][i]).T  # [out, in] int8
+            n, k = w.shape
+            e = (w + 1).to(torch.uint8).reshape(4, n // 4, k)
+            t[f"{p}.{sub}.weight"] = (e[0] | (e[1] << 2) | (e[2] << 4)
+                                      | (e[3] << 6)).cpu().numpy()
+            t[f"{p}.{sub}.weight_scale"] = np.asarray(
+                [lay[f"{short}_scale"][i].item()], np.float32)
+    save_file(t, path / "model.safetensors")
+    return path
+
+
+def same_config(got, want) -> bool:
+    """Equal configs, float fields compared in f32 (a GGUF stores them so)."""
+    import dataclasses
+
+    import numpy as np
+
+    a, b = dataclasses.asdict(got), dataclasses.asdict(want)
+    return a.keys() == b.keys() and all(
+        np.float32(a[k]) == np.float32(b[k]) if isinstance(b[k], float) else a[k] == b[k]
+        for k in b)
+
+
+def tensor_diffs(got, want, prefix=""):
+    """Names of the tensors of ``want`` that ``got`` lacks or holds with
+    other bits (dtype, shape or values)."""
+    import torch
+
+    out = [] if sorted(got) == sorted(want) else [f"{prefix}keys"]
+    for k, w in want.items():
+        g = got.get(k)
+        if isinstance(w, dict):
+            out += tensor_diffs(g or {}, w, f"{prefix}{k}.")
+        elif not (isinstance(g, torch.Tensor) and g.dtype == w.dtype and torch.equal(g, w)):
+            out.append(prefix + k)
+    return out
+
+
+def phase_load(cfg, dev, counters, smi):
+    """Loading weights at 2B width and depth: seed-made params (``init_params``,
+    unfused) written under a temporary directory of ``build/`` (removed
+    afterwards) as (a) an HF BitNet directory (``write_hf_dir``), (b) the
+    packed cache, ``convert_and_save`` of (a), and (c) an i2_s GGUF,
+    ``convert_hf_to_gguf`` of (a); each loaded onto the card with the
+    port's loaders. Gates: (a) and (b) load bit-equal (``torch.equal``,
+    dtype included) to the in-memory params; (c) bit-equal to the in-memory
+    params with their norms and embedding passed through f16, which is how
+    the GGUF stores every non-projection tensor (the count of values f16
+    moved is printed); an ``Engine`` under the engine phase's configuration
+    on each loaded set gives the greedy tokens of one on the params it must
+    equal, for prompts of 17 and 512 tokens; K1 (with its GEMM), K2, K3 and
+    K4 launch in the loaded runs (counters zeroed just before them). Prints
+    each format's bytes on disk, its write and load seconds, and the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.convert.convert import convert_and_save
+    from wrinklefree_tpu_torch.convert.gguf import convert_hf_to_gguf, load_params_gguf
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.models.loader import load_params
+
+    params = init_params(cfg, seed=0, device=dev)  # unfused, as a loader returns them
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (17, 512)]
+    ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
+                        prefill_buckets=(32, 128, 512))
+
+    def tokens(p, c=cfg):
+        eng = Engine(p, c, ecfg, device=dev)
+        out = [eng.generate(q, SamplingParams(max_new_tokens=16, temperature=0.0)).output_ids
+               for q in prompts]
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    def f16_stored(p):  # what the GGUF keeps of a non-projection tensor
+        return p.float().half().float().to(p.dtype)
+
+    gguf_want = {k: (v if k == "layers" else f16_stored(v)) for k, v in params.items()}
+    gguf_want["layers"] = {k: (v if k.endswith(("_qw", "_scale")) else f16_stored(v))
+                           for k, v in params["layers"].items()}
+    moved = sum(int((f16_stored(v) != v).sum()) for v in
+                [params[k] for k in params if k != "layers"]
+                + [v for k, v in params["layers"].items() if not k.endswith(("_qw", "_scale"))])
+    want_toks = tokens(params)
+    gguf_toks = want_toks if moved == 0 else tokens(gguf_want)
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="load_phase_", dir=root))
+    report = {}
+    try:
+        fmts = {}
+        t0 = time.perf_counter()
+        fmts["hf"] = write_hf_dir(params, cfg, tmp / "hf")
+        written = {"hf": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        fmts["packed"] = convert_and_save(fmts["hf"], tmp / "packed")
+        written["packed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fmts["gguf"] = convert_hf_to_gguf(fmts["hf"], tmp / "model.gguf", quant_type="i2_s")
+        written["gguf"] = time.perf_counter() - t0
+        for c in counters:
+            c.launches = 0
+        for name, path in fmts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "gguf":
+                loaded, lcfg = load_params_gguf(path, device=dev)
+            else:
+                loaded, lcfg = load_params(path, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not same_config(lcfg, cfg):
+                fail(f"load ({name}): config {lcfg} differs from {cfg}")
+            bad = tensor_diffs(loaded, gguf_want if name == "gguf" else params)
+            if bad:
+                fail(f"load ({name}): tensors not bit-equal to the in-memory params: {bad[:8]}")
+            got = tokens(loaded, lcfg)
+            if got != (gguf_toks if name == "gguf" else want_toks):
+                fail(f"load ({name}): greedy tokens differ from the in-memory params'")
+            size = sum(f.stat().st_size for f in (path.rglob("*") if path.is_dir() else [path])
+                       if f.is_file())
+            report[name] = {"bytes": size, "write_s": written[name], "load_s": secs}
+            del loaded
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {c.__name__: c.launches for c in counters}
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        fail(f"load: kernels not launched on the loaded weights: {zero}")
+    print(f"load: {cfg.num_layers} layers at H {cfg.hidden_size} ({smi}): (a) HF directory, "
+          f"(b) packed cache, (c) i2_s GGUF, each bit-equal to the in-memory params (the "
+          f"GGUF's f16 storage moved {moved} values of the norms and embedding, held against "
+          f"the same f16 round trip) and giving their greedy tokens for prompts of 17 and 512 "
+          f"tokens: {json.dumps(report)}; launches {json.dumps(launches)}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_server(dev, counters):
     """The port's HTTP server (``server.http.create_server("synth:bitnet_2b")``
     with the engine phase's EngineConfig: BitNet-2B at full width and depth,
@@ -2320,7 +2603,10 @@ def main() -> int:
             launches.setdefault(name, batch1[mode][name])
     launches["flash_paged_decode"] = flash["flash_paged_decode"]
     launches["flash_prefill"] = flash_prefill_launches
+    phase_preempt(params, cfg, dev, serving)
     del params
+    torch.cuda.empty_cache()
+    phase_load(cfg, dev, serving, smi.splitlines()[0])
     torch.cuda.empty_cache()
     phase_server(dev, serving)
     torch.cuda.empty_cache()

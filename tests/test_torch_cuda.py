@@ -977,3 +977,47 @@ def test_server_stream_equals_engine_on_card(server_2b):
     assert streamed == ByteTokenizer().decode(want)
     _reset(url, oracle)
     assert c.generate(prompt, max_tokens=20, temperature=0.0) == streamed
+
+
+# -- loading weights onto the card -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["directory", "packed_cache", "gguf"])
+def test_loaded_weights_on_card(tmp_path, fmt):
+    """A tiny model written as an HF directory (chip_smoke.write_hf_dir, the
+    port's safetensors writer), as its packed cache and as its i2_s GGUF
+    loads onto the card bit-equal to the same file loaded on the CPU, and
+    (directory, packed cache) to the params it was written from."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the loaders' default device)")
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import tensor_diffs, write_hf_dir
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.convert.convert import convert_and_save
+    from wrinklefree_tpu_torch.convert.gguf import convert_hf_to_gguf, load_params_gguf
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.models.loader import load_params
+
+    cfg = BitNetConfig.tiny()
+    params = init_params(cfg, seed=3, device="cuda")
+    path = write_hf_dir(params, cfg, tmp_path / "hf")
+    load = load_params
+    if fmt == "packed_cache":
+        path = convert_and_save(path, tmp_path / "packed")
+    elif fmt == "gguf":
+        path, load = convert_hf_to_gguf(path, tmp_path / "m.gguf"), load_params_gguf
+    on_card, card_cfg = load(path)
+    on_cpu, cpu_cfg = load(path, device="cpu")
+    assert card_cfg == cpu_cfg
+    assert all(t.is_cuda for t in [*on_card["layers"].values(), on_card["embed"]])
+
+    def cuda(p):
+        return {k: cuda(v) if isinstance(v, dict) else v.cuda() for k, v in p.items()}
+
+    assert tensor_diffs(on_card, cuda(on_cpu)) == []
+    if fmt != "gguf":
+        assert tensor_diffs(on_card, params) == []

@@ -258,14 +258,23 @@ def test_mesh_and_exhausted_pool_raise(weights):
         eng.snapshot()
     # 4 usable pages: two 9-token prompts take 2 pages each at admission; the
     # first decode burst needs a third page per slot and the pool is dry. The
-    # reference would preempt a request there; the port raises.
+    # engine retracts a request there, as the reference does, and both finish
+    # with the reference's tokens.
     small = dict(ECFG, num_pages=5, enable_radix_cache=False)
+    prompts = ([1, 2, 3, 4, 5, 6, 7, 8, 9], [3, 4, 5, 6, 7, 8, 9, 10, 11])
     eng = Engine(params, cfg, EngineConfig(**small), device="cpu")
-    reqs = [eng.submit(p, SamplingParams(max_new_tokens=4))
-            for p in ([1, 2, 3, 4, 5, 6, 7, 8, 9], [3, 4, 5, 6, 7, 8, 9, 10, 11])]
-    with pytest.raises(NotImplementedError, match="preemption"):
+    rcfg = RefConfig.tiny()
+    ref = RefEngine(ref_fuse(jax.tree.map(jnp.asarray, weights), rcfg),
+                    rcfg, RefEngineConfig(kv_layout="layer", **small),
+                    linear_fn=make_pallas_linear_fused(interpret=True))
+    outs = []
+    for e, sp_cls in ((eng, SamplingParams), (ref, RefSampling)):
+        reqs = [e.submit(p, sp_cls(max_new_tokens=4)) for p in prompts]
         while not all(r.finished for r in reqs):
-            eng.step()
+            e.step()
+        outs.append([(r.output_ids, r.finish_reason) for r in reqs])
+    assert outs[0] == outs[1]
+    assert eng.stats["preemptions"] == ref.stats["preemptions"] == 1
 
 
 def test_cancel_and_latency_summary(weights):

@@ -884,10 +884,169 @@ def test_cli_benchmark_cost_matches_reference(capsys):
     assert outs[1] == outs[0]
 
 
-@pytest.mark.parametrize("argv", [["convert", "m", "out"], ["convert-gguf", "m", "o.gguf"],
-                                  ["validate-model", "m"], ["validate"], ["list-models"]])
-def test_cli_tools_not_ported(argv):
-    from wrinklefree_tpu_torch import cli
+# -- a loaded model ----------------------------------------------------------
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+
+def _start_ref(server):
+    """Serve the reference's InferenceServer (aiohttp) on a free port;
+    returns (url, stop)."""
+    from aiohttp import web
+
+    port = _free_port()
+    runner = web.AppRunner(ref_build_app(server))
+    loop = asyncio.new_event_loop()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+        loop.run_forever()
+
+    threading.Thread(target=run, daemon=True).start()
+    url = f"http://127.0.0.1:{port}"
+    _wait_health(url)
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        server.async_engine.shutdown()
+
+    return url, stop
+
+
+@pytest.fixture(scope="module")
+def model_dir(weights, tmp_path_factory):
+    """The reference's tiny weights written as an HF BitNet directory
+    (``uint8 [out/4, in]`` projections, f32 ``weight_scale``, bf16 norms and
+    embedding, config.json) beside a WordLevel tokenizer built with
+    ``tokenizers`` (ids inside the tiny vocabulary)."""
+    pytest.importorskip("transformers")
+    tokenizers = pytest.importorskip("tokenizers")
+    from safetensors.numpy import save_file
+
+    from wrinklefree_tpu_torch.ops.ternary import unpack_ternary_np
+
+    d = tmp_path_factory.mktemp("loaded") / "model"
+    d.mkdir()
+    cfg = RefConfig.tiny()
+    (d / "config.json").write_text(json.dumps({
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position,
+        "tie_word_embeddings": True, "hidden_act": "relu2", "model_type": "bitnet"}))
+    lay = weights["layers"]
+    t = {"model.embed_tokens.weight": weights["embed"],
+         "model.norm.weight": weights["final_norm"]}
+    projs = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj"}
+    norms = {"input_ln": "input_layernorm", "post_ln": "post_attention_layernorm",
+             "attn_sub": "self_attn.attn_sub_norm", "ffn_sub": "mlp.ffn_sub_norm"}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        for short, name in projs.items():
+            w = unpack_ternary_np(lay[f"{short}_qw"][i]).T  # [out, in]
+            planes = (w + 1).astype(np.uint8).reshape(4, w.shape[0] // 4, w.shape[1])
+            t[f"{p}.{name}.weight"] = (planes[0] | (planes[1] << 2) | (planes[2] << 4)
+                                       | (planes[3] << 6))
+            t[f"{p}.{name}.weight_scale"] = np.asarray(
+                [np.asarray(lay[f"{short}_scale"]).reshape(cfg.num_layers, -1)[i, 0]],
+                np.float32)
+        for short, name in norms.items():
+            t[f"{p}.{name}.weight"] = lay[short][i]
+    save_file(t, str(d / "model.safetensors"))
+    words = ("<unk> <s> </s> hello world the quick brown fox jumps over lazy dog "
+             "a b c d e f g h i j k . , ! ?").split()
+    tok = tokenizers.Tokenizer(tokenizers.models.WordLevel(
+        {w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    tok.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "<unk>",
+        "bos_token": "<s>", "eos_token": "</s>", "clean_up_tokenization_spaces": False}))
+    return d
+
+
+@pytest.mark.parametrize("kind", ["directory", "gguf"])
+def test_create_server_serves_a_loaded_model(model_dir, tmp_path, kind):
+    """create_server on a model directory (its tokenizer beside it) and on a
+    .gguf (tokenizer_path given) serves, on the CPU, the completion the
+    reference's create_server gives on the same files: equal token ids,
+    text and usage."""
+    from wrinklefree_tpu.config import EngineConfig as RefEngineConfig
+    from wrinklefree_tpu.convert.gguf import convert_hf_to_gguf
+    from wrinklefree_tpu_torch.server.http import create_server
+
+    path = str(model_dir)
+    kw = {}
+    if kind == "gguf":
+        path = str(convert_hf_to_gguf(model_dir, tmp_path / "m.gguf", quant_type="i2_s"))
+        kw = {"tokenizer_path": str(model_dir)}
+    port_srv = create_server(path, engine_config=EngineConfig(**TINY_ECFG), device="cpu", **kw)
+    ref_srv = ref_create_server(path, engine_config=RefEngineConfig(use_pallas=False,
+                                                                    **TINY_ECFG), **kw)
+    assert port_srv.tokenizer.eos_token_id == ref_srv.tokenizer.eos_token_id == 2
+    reqs = [_record(port_srv.async_engine.engine), _record(ref_srv.async_engine.engine)]
+    st = ServerThread(build_app(port_srv))
+    ref_url, ref_stop = _start_ref(ref_srv)
+    body = {"prompt": "hello world the quick brown fox", "max_tokens": 8, "temperature": 0}
+    try:
+        got, want = (requests.post(f"{u}/v1/completions", json=body, timeout=120,
+                                   headers={"Connection": "close"})
+                     for u in (st.url, ref_url))
+    finally:
+        st.stop()
+        port_srv.async_engine.shutdown()
+        ref_stop()
+    assert got.status_code == want.status_code == 200
+    a, b = reqs[0][-1], reqs[1][-1]
+    assert a.prompt_ids == b.prompt_ids and len(a.prompt_ids) == 6
+    assert a.output_ids == b.output_ids and len(a.output_ids) == 8
+    assert got.json()["choices"][0]["text"] == want.json()["choices"][0]["text"]
+    assert got.json()["usage"] == want.json()["usage"]
+
+
+@pytest.mark.parametrize("argv", [["convert", "{m}", "{o}"], ["convert-gguf", "{m}", "{o}.gguf"],
+                                  ["validate-model", "{m}"], ["validate"], ["list-models"]])
+def test_cli_tools_not_ported(argv, model_dir, tmp_path, monkeypatch, capsys):
+    """Of the CLI's tools only ``validate`` (the KV-cache validator) is still
+    not ported and raises; ``convert``, ``convert-gguf``, ``validate-model``
+    and ``list-models`` run on a model directory and give the reference CLI's
+    files, report and listing."""
+    from wrinklefree_tpu import cli as ref_cli
+    from wrinklefree_tpu.convert import loader as ref_cloader
+    from wrinklefree_tpu_torch import cli
+    from wrinklefree_tpu_torch.convert import loader as cloader
+
+    if argv == ["validate"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+            cli.main(argv)
+        return
+    cache = tmp_path / "cache"
+    for mod in (cloader, ref_cloader):
+        monkeypatch.setattr(mod, "LOCAL_CACHE", cache)
+    outs = []
+    for tag, mod in (("port", cli), ("ref", ref_cli)):
+        args = [a.format(m=model_dir, o=tmp_path / tag) for a in argv]
+        try:
+            mod.main(args)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        text = capsys.readouterr().out
+        outs.append((code, text.replace(str(tmp_path / tag), "OUT")))
+    assert outs[0] == outs[1]
+    if argv[0] == "convert":
+        for f in (tmp_path / "ref").iterdir():
+            assert (tmp_path / "port" / f.name).read_bytes() == f.read_bytes(), f.name
+    elif argv[0] == "convert-gguf":
+        assert (tmp_path / "port.gguf").read_bytes() == (tmp_path / "ref.gguf").read_bytes()
+    elif argv[0] == "validate-model":
+        assert outs[0][0] == 0 and json.loads(outs[0][1])["valid"]
+    else:  # list-models over a cache that holds one converted model
+        cloader.get_cached_or_convert(str(model_dir), skip_gcs=True)
         cli.main(argv)
+        listed = capsys.readouterr().out
+        ref_cli.main(argv)
+        assert listed == capsys.readouterr().out and listed.count("\n") == 1

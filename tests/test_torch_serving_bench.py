@@ -252,7 +252,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "wrinklefree_tpu", "aiohttp", "requests", "httpx", "transformers",
-    "yaml"))
+    "yaml", "safetensors", "huggingface_hub", "ml_dtypes"))
 print(len(names), bad)
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -1,11 +1,11 @@
 """Command-line interface (PyTorch port of ``wrinklefree_tpu/cli.py``).
 
-``serve``, ``generate``, ``chat``, ``benchmark`` and ``benchmark-cost`` as
+``serve``, ``generate``, ``chat``, ``convert``, ``convert-gguf``,
+``validate-model``, ``list-models``, ``benchmark`` and ``benchmark-cost`` as
 the reference's; ``serve`` starts the port's server (``--tiny --device cpu``
-off the card, ``--model synth:bitnet_2b`` on it). ``convert``,
-``convert-gguf``, ``validate-model``, ``validate`` and ``list-models``
-exist and raise ``NotImplementedError``: the weight tools are not ported
-yet (ROADMAP queue 1 items 4 and 13).
+off the card; on it ``--model synth:bitnet_2b``, a model directory or a
+``.gguf``). ``validate`` (the KV-cache validator) exists and raises
+``NotImplementedError``: it is not ported yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -78,6 +78,37 @@ def cmd_chat(args):
         messages.append({"role": "assistant", "content": "".join(parts)})
 
 
+def cmd_convert(args):
+    from .convert.convert import convert_and_save
+
+    out = convert_and_save(args.model, args.output, revision=args.revision,
+                           ternarize=getattr(args, "ternarize", False))
+    print(f"converted -> {out}")
+
+
+def cmd_convert_gguf(args):
+    from .convert.gguf import convert_hf_to_gguf, validate_gguf
+
+    out = convert_hf_to_gguf(args.model, args.output, quant_type=args.quant_type)
+    info = validate_gguf(out)
+    print(f"wrote {out} ({info['n_tensors']} tensors, {info['size_bytes']} bytes)")
+
+
+def cmd_validate_model(args):
+    from .convert.validate import validate_model
+
+    rep = validate_model(args.model)
+    print(json.dumps(rep, indent=2))
+    sys.exit(0 if rep["valid"] else 1)
+
+
+def cmd_list_models(args):
+    from .convert.loader import list_cached_models
+
+    for m in list_cached_models():
+        print(m)
+
+
 def cmd_not_ported(args):
     raise NotImplementedError(
         f"`{args.cmd}` is not ported to the PyTorch package yet (ROADMAP queue 1 "
@@ -104,12 +135,14 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     s = sub.add_parser("serve", help="start the inference server")
-    s.add_argument("--model", help="synth:<BitNetConfig classmethod>, e.g. synth:bitnet_2b")
+    s.add_argument("--model", help="a model directory, a .gguf file, or "
+                   "synth:<BitNetConfig classmethod>, e.g. synth:bitnet_2b")
     s.add_argument("--tiny", action="store_true")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=30000)
     s.add_argument("--kv-dtype", default=None)
-    s.add_argument("--tokenizer", default=None, help="not ported: raises")
+    s.add_argument("--tokenizer", default=None,
+                   help="tokenizer.json dir (default: the model dir)")
     s.add_argument("--device", default=None, help="torch device (default: cuda)")
     s.set_defaults(fn=cmd_serve)
 
@@ -126,12 +159,31 @@ def main(argv=None):
     s.add_argument("--temperature", type=float, default=0.7)
     s.set_defaults(fn=cmd_chat)
 
-    # the weight and validation tools: not ported yet
-    for name, item in (("convert-gguf", 4), ("convert", 4), ("validate-model", 13),
-                       ("validate", 13), ("list-models", 13)):
-        s = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item {item})")
-        s.add_argument("rest", nargs="*")
-        s.set_defaults(fn=cmd_not_ported, item=item)
+    s = sub.add_parser("convert-gguf", help="export HF/packed model to GGUF")
+    s.add_argument("model")
+    s.add_argument("output")
+    s.add_argument("--quant-type", default="i2_s",
+                   choices=["i2_s", "tl1", "tl2", "f16", "f32"])
+    s.set_defaults(fn=cmd_convert_gguf)
+
+    s = sub.add_parser("convert", help="convert HF model to packed cache")
+    s.add_argument("model")
+    s.add_argument("output")
+    s.add_argument("--revision", default=None)
+    s.add_argument("--ternarize", action="store_true",
+                   help="naive FP16->ternary conversion of a dense model")
+    s.set_defaults(fn=cmd_convert)
+
+    s = sub.add_parser("validate-model", help="validate a ternary model directory")
+    s.add_argument("model")
+    s.set_defaults(fn=cmd_validate_model)
+
+    s = sub.add_parser("validate", help="not ported (ROADMAP queue 1 item 13)")
+    s.add_argument("rest", nargs="*")
+    s.set_defaults(fn=cmd_not_ported, item=13)
+
+    s = sub.add_parser("list-models", help="list locally cached converted models")
+    s.set_defaults(fn=cmd_list_models)
 
     s = sub.add_parser("benchmark", help="benchmark a live server")
     s.add_argument("--url", default="http://127.0.0.1:30000")

@@ -5,7 +5,8 @@ scheduler: fixed ``max_batch_slots`` decode slots; queued requests admitted
 into free slots (fifo or sjf); chunked prefill at bucketed lengths, one
 batched round per step (stagger / bucket / all), interleaved with decode; a
 radix prefix cache over full KV pages with eager publish and in-queue
-re-match; K-step decode bursts with one host read each; page 0 as trash.
+re-match; K-step decode bursts with one host read each; page 0 as trash;
+a dry page pool retracts a victim request, which re-prefills later.
 
 The device half is ``paged_forward`` over the dual KV layout with the fused
 kernels (``ops/ternary_cuda.py``, ``ops/kv_update_cuda.py``,
@@ -669,17 +670,25 @@ class Engine:
             return False
         K = self.ecfg.decode_burst
         ps = self.page_size
-        # pages must cover the burst's maximum advance per slot
+        # pages must cover the burst's maximum advance per slot; a dry pool
+        # retracts a victim instead of failing anything
         for i in active:
             req = self.slots[i]
+            if req is None:  # retracted as a victim earlier in this loop
+                continue
             lp_lo = req.seq_len // ps
             lp_hi = min((req.seq_len + K - 1) // ps, self.max_pages_per_seq - 1)
             for lp in range(lp_lo, lp_hi + 1):
                 if self.page_table[i, lp] == 0:
                     pg = self._alloc_or_preempt(req)
+                    if pg is None:  # req itself was the retracted victim
+                        break
                     req.pages.append(pg)
                     self.page_table[i, lp] = pg
                     self._dirty = True
+        active = [i for i, r in enumerate(self.slots) if r is not None and not r.pending]
+        if not active:
+            return True
         max_seq = max(self.seq_lens[i] for i in active)
         mp = self._pages_bucket(int(max_seq) + K)
         if self._dirty or self._dstate is None or mp != self._mp_bucket:
@@ -762,16 +771,65 @@ class Engine:
         if finished:
             self._finish(req, reason)
 
-    def _alloc_or_preempt(self, req: Request) -> int:
-        """Allocate one KV page. The reference retracts a victim request
-        when the pool is dry; the port does not preempt yet."""
-        try:
-            (pg,) = self._alloc_pages(1)
-            return pg
-        except MemoryError:
-            raise NotImplementedError(
-                "KV pool exhausted during decode: preemption is not ported to the "
-                "PyTorch engine yet (raise EngineConfig.num_pages)") from None
+    def _pick_victim(self, prefer_not: Optional[Request] = None) -> Optional[Request]:
+        """Retraction victim under page pressure: the occupied slot with the
+        most remaining token budget, ties broken toward the youngest arrival;
+        ``prefer_not`` itself only when it is the only occupied slot."""
+        cands = [r for r in self.slots if r is not None]
+        if not cands:
+            return None
+        others = [r for r in cands if r is not prefer_not]
+        return max(others or cands,
+                   key=lambda r: (r.sampling.max_new_tokens - len(r.output_ids), r.arrival_t))
+
+    def _alloc_or_preempt(self, req: Request) -> Optional[int]:
+        """Allocate one KV page; on a dry pool, retract victims until the
+        allocation succeeds. Returns None iff ``req`` itself was the victim."""
+        while True:
+            try:
+                (pg,) = self._alloc_pages(1)
+                return pg
+            except MemoryError:
+                victim = self._pick_victim(prefer_not=req)
+                if victim is None:
+                    return None
+                self._preempt(victim)
+                if victim is req:
+                    return None
+
+    def _preempt(self, req: Request):
+        """Retract ``req`` under page pressure: free its slot and pages (its
+        full pages feed the radix tree: they are valid KV for the stream so
+        far) and requeue it at the front. Re-admission re-prefills prompt +
+        generated tokens (``_start_request`` folds ``output_ids`` in), and
+        the request keeps its generator, so a seeded stream resumes where it
+        stopped; emitted tokens are never emitted again."""
+        self._dirty = True
+        slot = req.slot
+        if slot >= 0 and self.slots[slot] is req:
+            self.slots[slot] = None
+            self.page_table[slot] = 0
+            self.seq_lens[slot] = 0
+            self.last_tokens[slot] = 0
+        req.slot = -1
+        seq_tokens = req.prompt_ids + req.output_ids
+        full = req.seq_len // self.page_size
+        if self.radix is not None:
+            if full > 0:
+                all_pages = req.matched_pages + req.pages
+                self.radix.insert(seq_tokens[: full * self.page_size], all_pages[:full])
+            self.radix.unlock(req.matched_nodes)
+        self.allocator.release_all(req.pages)
+        req.pages = []
+        req.matched_nodes = []
+        req.matched_pages = []
+        req.matched_tokens = 0
+        req.seq_len = 0
+        req.pending = []
+        self.stats["preemptions"] = self.stats.get("preemptions", 0) + 1
+        logger.info("retracted request %d under page pressure (%d tokens generated so far)",
+                    req.rid, len(req.output_ids))
+        self._requeue(req)
 
     def cancel(self, req: Request, reason: str = "abort") -> bool:
         """Terminate an in-flight or queued request. Thread-safe; no-op if

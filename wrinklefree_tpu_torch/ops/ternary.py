@@ -29,6 +29,8 @@ __all__ = [
     "unpack_ternary",
     "pack_ternary_np",
     "unpack_ternary_np",
+    "pack_i2s_np",
+    "unpack_i2s_np",
     "unpack_hf_packed",
     "hf_packed_to_wf",
     "quantize_weights_ternary",
@@ -70,6 +72,34 @@ def unpack_ternary_np(qweight: np.ndarray) -> np.ndarray:
     q = np.asarray(qweight)
     planes = [((q >> (2 * j)) & 3).astype(np.int8) - 1 for j in range(4)]
     return np.concatenate(planes, axis=0)
+
+
+def pack_i2s_np(w_nk: np.ndarray) -> np.ndarray:
+    """Pack ternary ``[N, K]`` (llama.cpp row-major [out, in], values in
+    {-1,0,+1}) into BitNet.cpp/llama.cpp **i2_s** bytes ``[N, K//4]``: byte
+    ``c`` packs input columns ``4c..4c+3`` encoded as ``w+1`` in {0,1,2},
+    column ``4c+i`` at bit shift ``6-2i`` (the first column in the top
+    bits). This is the wire format of BitNet.cpp artifacts, distinct from
+    the plane-major kernel layout (:func:`pack_ternary_np`)."""
+    n, k = w_nk.shape
+    if k % 4 != 0:
+        raise ValueError(f"K ({k}) must be divisible by 4")
+    enc = (np.asarray(w_nk).astype(np.int8, copy=False) + 1).astype(np.uint8)
+    b = enc.reshape(n, k // 4, 4)
+    return np.ascontiguousarray(
+        (b[..., 0] << 6) | (b[..., 1] << 4) | (b[..., 2] << 2) | b[..., 3]
+    )
+
+
+def unpack_i2s_np(qbytes: np.ndarray) -> np.ndarray:
+    """Unpack i2_s bytes ``[N, K//4]`` to int8 ternary ``[N, K]`` (inverse
+    of :func:`pack_i2s_np`)."""
+    q = np.asarray(qbytes)
+    n, k4 = q.shape
+    cols = np.stack(
+        [((q >> s) & 3).astype(np.int8) - 1 for s in (6, 4, 2, 0)], axis=-1
+    )
+    return cols.reshape(n, 4 * k4)
 
 
 def unpack_hf_packed(hf_packed: np.ndarray) -> np.ndarray:

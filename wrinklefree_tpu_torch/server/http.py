@@ -28,9 +28,11 @@ import numpy as np
 import torch
 
 from ..config import BitNetConfig, EngineConfig
+from ..convert.gguf import load_params_gguf
 from ..engine.engine import Engine, check_sampling_supported
 from ..engine.sampling_params import SamplingParams
 from ..models.bitnet import KVCache, forward, fuse_projections, init_params, resolve_device
+from ..models.loader import load_params, load_tokenizer
 from . import _web as web
 from .api_types import (
     chat_chunk,
@@ -838,16 +840,15 @@ def create_server(
     tiny config; ``model_path="synth:<BitNetConfig classmethod>"`` (e.g.
     ``synth:bitnet_2b``): that configuration at full size. Both take random
     ternary weights drawn on ``device`` (default CUDA) from seed 0 and the
-    byte tokenizer. ``dp > 1`` serves that many replicas on the one device,
-    sharing the weights, each with its own KV pool. Loading a checkpoint, a
-    tokenizer, tensor parallelism, long context and sliding-window
-    attention raise ``NotImplementedError``."""
+    byte tokenizer, or the tokenizer at ``tokenizer_path``. Any other
+    ``model_path`` is an HF or packed-cache directory (``models.loader``,
+    its tokenizer from ``tokenizer_path`` or the directory) or a ``.gguf``
+    file (``convert.gguf``, which carries no tokenizer: pass
+    ``tokenizer_path``); loading a tokenizer needs ``transformers``.
+    ``dp > 1`` serves that many replicas on the one device, sharing the
+    weights, each with its own KV pool. Tensor parallelism, long context
+    and sliding-window attention raise ``NotImplementedError``."""
     missing = []
-    if tokenizer_path:
-        missing.append("tokenizer_path (loading a tokenizer: ROADMAP queue 1 item 4)")
-    if not tiny and not str(model_path or "").startswith("synth:"):
-        missing.append(f"model {model_path!r} (loading weights, a model directory or a "
-                       ".gguf: ROADMAP queue 1 item 4)")
     if tp > 1:
         missing.append("tp > 1 (tensor parallelism: ROADMAP queue 1 item 12)")
     if long_context:
@@ -862,23 +863,39 @@ def create_server(
     if dp < 1:
         raise ValueError(f"dp must be >= 1, got {dp}")
     dev = resolve_device(device)
+    synthetic = tiny or str(model_path or "").startswith("synth:")
+    gguf = not synthetic and str(model_path or "").endswith(".gguf")
+    if not synthetic and not model_path:
+        raise ValueError("a model path is required unless tiny=True")
+    if gguf and not tokenizer_path:
+        raise ValueError("a .gguf model needs tokenizer_path (the file carries no tokenizer)")
+    # the tokenizer first: a missing transformers fails before any weights load
+    if tokenizer_path or not synthetic:
+        tokenizer = load_tokenizer(tokenizer_path or model_path)
+    else:
+        tokenizer = ByteTokenizer()
+    if synthetic:
+        # random weights (the tiny model, or a configuration at real geometry:
+        # throughput does not depend on the weights' values)
+        cfg = (BitNetConfig.tiny() if tiny
+               else getattr(BitNetConfig, str(model_path).split(":", 1)[1])())
+        params = init_params(cfg, seed=0, device=dev)
+    elif gguf:
+        params, cfg = load_params_gguf(model_path, device=dev)
+    else:
+        params, cfg = load_params(model_path, device=dev)
     if tiny:
-        cfg = BitNetConfig.tiny()
         ecfg = engine_config or EngineConfig(
             max_batch_slots=4, page_size=8, num_pages=256, max_context=256,
             prefill_buckets=(16, 64, 128))
         name = "wrinklefree-tiny-test"
     else:
-        # synthetic random-weight model at real geometry (throughput does
-        # not depend on the weights' values)
-        cfg = getattr(BitNetConfig, str(model_path).split(":", 1)[1])()
         ecfg = engine_config or EngineConfig()
         name = str(model_path)
-    params = init_params(cfg, seed=0, device=dev)
     if cfg.num_experts == 0:
         params = fuse_projections(params, cfg)  # once, shared by every replica
-    tokenizer = ByteTokenizer()
-    engines = [Engine(params, cfg, ecfg, eos_token_id=tokenizer.eos_token_id, device=dev)
+    eos = getattr(tokenizer, "eos_token_id", None)
+    engines = [Engine(params, cfg, ecfg, eos_token_id=eos, device=dev)
                for _ in range(dp)]
     return InferenceServer(engines[0] if dp == 1 else engines, tokenizer, name)
 
@@ -886,9 +903,12 @@ def create_server(
 def main(argv=None):
     p = argparse.ArgumentParser("wrinklefree_tpu_torch server")
     p.add_argument("--model", default=None,
-                   help="synth:<BitNetConfig classmethod>, e.g. synth:bitnet_2b (random "
-                        "weights at that geometry; loading checkpoints is not ported)")
-    p.add_argument("--tokenizer", default=None, help="not ported: raises")
+                   help="an HF or packed-cache model directory, a .gguf file, or "
+                        "synth:<BitNetConfig classmethod>, e.g. synth:bitnet_2b (random "
+                        "weights at that geometry)")
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer directory (default: the model directory; needs "
+                        "transformers)")
     p.add_argument("--tiny", action="store_true", help="tiny random model (testing)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=30000)
