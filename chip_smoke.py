@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs eleven phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs twelve phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -57,7 +57,17 @@ vocab 128256) with random weights drawn on the card from seed 0:
                retraction, every request finished by length, each request's
                streamed tokens equal to its output ids, every request never
                retracted equal to the roomy run, the serving kernels launched;
-7. load      — seed-made 2B params written as an HF directory, its packed
+7. features  — the request features on the engine phase's configuration:
+               counter-keyed draws on the card bit-equal to the CPU's; a
+               logprobs request (top-1 = emitted token, the same tokens as
+               without logprobs) and the logprobs decode window beside the
+               plain one; json_mode, GBNF and json_schema requests (valid
+               text; ms per constrained token); a seeded mirostat request
+               equal alone and beside three others; a snapshot after two
+               bursts of six requests restored on a fresh engine to the
+               uninterrupted run's tokens; the serving kernels launched in
+               every variant;
+8. load      — seed-made 2B params written as an HF directory, its packed
                cache (``convert_and_save``) and its i2_s GGUF
                (``convert_hf_to_gguf``), each loaded onto the card bit-equal
                to the in-memory params (the GGUF against their f16 round
@@ -65,23 +75,23 @@ vocab 128256) with random weights drawn on the card from seed 0:
                each giving the in-memory params' greedy tokens for prompts of
                17 and 512 tokens with K1, K2, K3 and K4 launched; each
                format's bytes, write and load seconds;
-8. server    — the port's HTTP server (``create_server("synth:bitnet_2b")``
+9. server    — the port's HTTP server (``create_server("synth:bitnet_2b")``
                with the engine phase's configuration) on a free 127.0.0.1
                port, driven by the port's client: health, models, the
                tokenizer round trip, a greedy completion whose token ids equal
                ``Engine.generate``'s, the same request streamed (the same
                text), a chat completion, a stop string, an embedding of unit
-               norm, /metrics, a logprobs request answered 501 and
+               norm, /metrics, a logprobs chat request answered 200 and
                ``run_server_benchmark`` (16 requests at concurrency 8), every
                serving kernel launched;
-9. serving   — ``bench.serving`` (the port of scripts/serving_bench.py) at
+10. serving  — ``bench.serving`` (the port of scripts/serving_bench.py) at
                16 streams x 128 + 32 tokens on 8 slots: its JSON line, no
                build or new program inside its measured window;
-10. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+11. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-11. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+12. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -94,6 +104,8 @@ JSON object with each kernel's numbers; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -221,9 +233,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    # an empty window (see start_profiler) is profiled again, up to three
-    # times, before that counts as a failure
-    for _ in range(3):
+    # an empty window (CUPTI can drop a session, see start_profiler) is
+    # profiled again after start_profiler's warm-up, up to five times, before
+    # that counts as a failure
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -231,6 +244,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3):
         dev_us = busy_us(device_events(prof))
         if dev_us > 0:
             break
+        start_profiler(torch.device("cuda"))
     else:
         fail("torch.profiler recorded no device time")
     return dev_us / 1e3 / iters, call_ms
@@ -2010,6 +2024,363 @@ def phase_preempt(params, cfg, dev, counters):
     return launches
 
 
+def phase_features(params, cfg, dev, counters, smi):
+    """The request features at 2B width and depth (the engine phase's
+    EngineConfig, random weights from seed 0, the byte tokenizer's pieces for
+    the 128256 ids), each on 200-token prompts so every variant's prefill
+    runs K1's GEMM and K4 and its decode K1, K2 and K3; every counter in
+    ``counters`` must grow in each variant (zeroed before each):
+
+    - the draws: ``per_request_keys`` and ``random_bits`` for 64 (seed,
+      counter) pairs on the card bit-equal to the CPU's, the Gumbel floats
+      within 1e-6;
+    - logprobs: a greedy ``logprobs_k=4`` request whose top-1 id is the
+      emitted token and whose chosen logprob is the top-1's (<= 0) at every
+      step, its tokens those of the same request without logprobs; a decode
+      window of 8 slots with logprobs timed beside the plain one;
+    - json_mode: the text a JSON prefix under the validator, finished by stop
+      or length, ms per constrained token; GBNF ``root ::= "yes" | "no"``
+      ending in one of the two; a json_schema request whose text parses when
+      it ends by stop;
+    - mirostat: a seeded ``mirostat=2`` request, the same tokens alone and
+      beside three other requests;
+    - snapshot/restore: a snapshot after two bursts of four seeded sampled and
+      two greedy requests holds each request's emitted tokens and
+      ``counter_base`` = their count; restored on a fresh engine alone and
+      behind three other requests it continues every request to its length
+      with the same tokens both times. The restore re-prefills the history
+      (K1's GEMM and K4) where the uninterrupted run wrote it in decode steps
+      (the GEMV and the plain attention), and on random 30-layer weights that
+      rounding moves the logits enough to part a stream. So where a restored
+      stream parts from the uninterrupted one (at step j), the logits of both
+      runs there (recorded by ``LogitsRecorder``) must lie within twice the
+      bound, the largest distance between each request's decode logits at 16
+      tokens and its prompt + 16 tokens prefilled afresh, while the
+      uninterrupted run's logits one step earlier (a history short of its
+      last token) must lie further; each run's token must be its own logits'
+      pick under the draw for step j, at a near-tie (``near_tie``). The
+      exact continuation is held on the CPU (``tests/test_torch_snapshot.py``,
+      the full tiny model).
+    Returns the launches summed over the variants."""
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.engine.gbnf import GbnfValidator
+    from wrinklefree_tpu_torch.engine.json_constraint import JsonPrefixValidator
+    from wrinklefree_tpu_torch.engine.schema_to_gbnf import schema_to_gbnf
+    from wrinklefree_tpu_torch.ops import sampling
+    from wrinklefree_tpu_torch.server.http import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    # the draws: the card's words against the CPU's
+    rng = np.random.default_rng(18)
+    seeds = torch.from_numpy(np.concatenate([
+        [0, 1, 2**31 - 1, 2**32 - 1], rng.integers(0, 2**32, 60, dtype=np.uint64)]).astype(np.int64))
+    ctrs = torch.from_numpy(np.concatenate([[0, 1, 2**20 - 1, 2**20],
+                                            rng.integers(0, 2**20, 60)]).astype(np.int64))
+    keys = sampling.per_request_keys(seeds, ctrs)
+    keys_dev = sampling.per_request_keys(seeds.to(dev), ctrs.to(dev))
+    bits_equal = (torch.equal(keys, keys_dev.cpu()) and torch.equal(
+        sampling.random_bits(keys, 256), sampling.random_bits(keys_dev, 256).cpu()))
+    if not bits_equal:
+        fail("features: the card's per_request_keys/random_bits words differ from the CPU's")
+    g_cpu, g_dev = sampling.gumbel(keys, 256), sampling.gumbel(keys_dev, 256).cpu()
+    # relative to max(|g|, 1): an ulp of a Gumbel draw near 16 is 2e-6
+    g_err = float(((g_cpu - g_dev).abs() / g_cpu.abs().clamp_min(1.0)).max())
+    g_same = float((g_cpu == g_dev).float().mean())
+    if g_err > 1e-6:
+        fail(f"features: the card's Gumbel floats differ from the CPU's by {g_err} (relative)")
+
+    ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
+                        prefill_buckets=(32, 128, 512))
+    pieces = [ByteTokenizer().decode([i]) for i in range(cfg.vocab_size)]
+
+    def engine(**over):
+        eng = Engine(params, cfg, dataclasses.replace(ecfg, **over), device=dev)
+        eng.token_pieces = pieces
+        return eng
+
+    def prompt():
+        return rng.integers(1, cfg.vocab_size, 200).tolist()
+
+    def run(eng, jobs):
+        reqs = [eng.submit(p, sp) for p, sp in jobs]
+        while any(not r.finished for r in reqs):
+            eng.step()
+        torch.cuda.synchronize()
+        return reqs
+
+    total = {c.__name__: 0 for c in counters}
+    grown = {}
+
+    def variant(name, fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        zero = [k for k, v in got.items() if v == 0]
+        if zero:
+            fail(f"features ({name}): kernels not launched: {zero}")
+        for k, v in got.items():
+            total[k] += v
+        grown[name] = got
+        return out
+
+    eng = engine()
+    text = lambda ids: "".join(pieces[t] for t in ids)  # noqa: E731
+
+    # logprobs
+    p_lp = prompt()
+    (lp,) = variant("logprobs", lambda: run(eng, [(p_lp, SamplingParams(max_new_tokens=40,
+                                                                         logprobs_k=4))]))
+    eng.reset_prefix_cache()
+    (plain,) = run(eng, [(p_lp, SamplingParams(max_new_tokens=40))])
+    eng.reset_prefix_cache()
+    if lp.output_ids != plain.output_ids or len(lp.logprobs_seq) != 40:
+        fail(f"features: logprobs stream {lp.output_ids} vs plain {plain.output_ids}, "
+             f"{len(lp.logprobs_seq)} logprob entries")
+    for tok, (chosen, tops) in zip(lp.output_ids, lp.logprobs_seq):
+        if tops[0][0] != tok or chosen != tops[0][1] or chosen > 0 or len(tops) != 4:
+            fail(f"features: logprobs entry {(chosen, tops)} for token {tok}")
+    # decode windows of 8 slots (17-token prompts, 48 decode steps), plain
+    # and with logprobs in turns: wall ms per step, then one profiled window
+    # each for the device's ms per step
+    from torch.profiler import ProfilerActivity, profile
+
+    windows = {"plain": [], "logprobs": []}
+    device_ms = {}
+    for tag in ("plain", "logprobs", "logprobs", "plain", "plain", "logprobs"):
+        profiled = len(windows[tag]) == 2
+        batch = [eng.submit(rng.integers(1, cfg.vocab_size, 17).tolist(),
+                            SamplingParams(max_new_tokens=49,
+                                           logprobs_k=4 if tag == "logprobs" else 0))
+                 for _ in range(8)]
+        eng.step()
+        torch.cuda.synchronize()
+        steps0, t1 = eng.stats["decode_steps"], time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext() as prof:
+            while any(not r.finished for r in batch):
+                eng.step()
+            torch.cuda.synchronize()
+        steps = eng.stats["decode_steps"] - steps0
+        if profiled:
+            device_ms[tag] = busy_us(device_events(prof)) / 1e3 / steps
+        else:
+            windows[tag].append((time.perf_counter() - t1) / steps * 1e3)
+
+    # constrained: json_mode, GBNF, json_schema
+    def constrained():
+        js = run(eng, [(prompt(), SamplingParams(max_new_tokens=48, json_mode=True))])[0]
+        yn = run(eng, [(prompt(), SamplingParams(max_new_tokens=8,
+                                                 grammar='root ::= "yes" | "no"'))])[0]
+        schema = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                                   "n": {"type": "integer"}},
+                  "required": ["ok", "n"]}
+        sc = run(eng, [(prompt(), SamplingParams(max_new_tokens=48, temperature=0.7, seed=5,
+                                                 grammar=schema_to_gbnf(schema)))])[0]
+        return js, yn, sc, schema
+
+    js, yn, sc, schema = variant("constrained", constrained)
+    if (JsonPrefixValidator().advance(text(js.output_ids)) not in ("ok", "complete")
+            or js.finish_reason not in ("stop", "length")):
+        fail(f"features: json_mode text {text(js.output_ids)!r} ({js.finish_reason})")
+    if js.finish_reason == "stop":
+        json.loads(text(js.output_ids))
+    constrained_ms = (js.finish_t - js.first_token_t) / max(len(js.output_ids) - 1, 1) * 1e3
+    if text(yn.output_ids) not in ("yes", "no") or yn.finish_reason != "stop":
+        fail(f"features: GBNF yes/no gave {text(yn.output_ids)!r} ({yn.finish_reason})")
+    sc_status = GbnfValidator(schema_to_gbnf(schema)).advance(text(sc.output_ids))
+    if sc_status == "dead" or (sc.finish_reason == "stop" and not isinstance(
+            json.loads(text(sc.output_ids)), dict)):
+        fail(f"features: json_schema text {text(sc.output_ids)!r} ({sc.finish_reason})")
+
+    # mirostat: alone and beside three other requests
+    p_miro = prompt()
+    miro = SamplingParams(max_new_tokens=40, temperature=1.0, seed=77, mirostat=2)
+
+    def mirostat():
+        eng.reset_prefix_cache()
+        (alone,) = run(eng, [(p_miro, miro)])
+        eng.reset_prefix_cache()
+        others = [(prompt(), SamplingParams(max_new_tokens=40, temperature=t, seed=i))
+                  for i, t in enumerate((0.0, 0.8, 1.2))]
+        beside = run(eng, [others[0], (p_miro, miro), *others[1:]])[1]
+        return alone, beside
+
+    alone, beside = variant("mirostat", mirostat)
+    if alone.output_ids != beside.output_ids or len(alone.output_ids) != 40:
+        fail(f"features: mirostat alone {alone.output_ids} beside others {beside.output_ids}")
+
+    # snapshot after two bursts; a fresh engine's restore
+    jobs = [(prompt(), SamplingParams(max_new_tokens=64, temperature=t, seed=100 + i,
+                                      top_p=0.95 if t else 1.0))
+            for i, t in enumerate((0.7, 1.0, 0.9, 1.2, 0.0, 0.0))]
+    rec = LogitsRecorder()
+
+    def snapshot_restore():
+        with rec.on(engine()) as eng0:
+            want = run(eng0, jobs)
+        # the bound: each request's history of prompt + 16 tokens prefilled
+        # afresh, against the uninterrupted run's decode step there
+        with rec.on(engine()) as eng0:
+            run(eng0, [(p + w.output_ids[:16], dataclasses.replace(sp, max_new_tokens=1))
+                       for (p, sp), w in zip(jobs, want)])
+        eng1 = engine()
+        reqs = [eng1.submit(p, sp) for p, sp in jobs]
+        while eng1.stats["decode_steps"] < 2 * ecfg.decode_burst:
+            eng1.step()
+        snap = eng1.snapshot()
+        emitted = [list(r.output_ids) for r in reqs]
+        del eng1, reqs
+        restores = []
+        for extra in (0, 3):  # restored alone, and behind three other requests
+            eng2 = engine()
+            others = [eng2.submit(prompt(), SamplingParams(max_new_tokens=20, temperature=0.9,
+                                                           seed=i)) for i in range(extra)]
+            with rec.on(eng2 if not extra else None):
+                restored = eng2.restore(snap)
+                while any(not r.finished for r in restored + others):
+                    eng2.step()
+            restores.append([(r.output_ids, r.finish_reason) for r in restored])
+        torch.cuda.synchronize()
+        return want, snap, emitted, restores
+
+    want, snap, emitted, restores = variant("snapshot_restore", snapshot_restore)
+    if restores[0] != restores[1]:
+        fail("features: the snapshot restored alone and behind three other requests gave "
+             "different tokens")
+    # runs recorded: 0 the uninterrupted one, 1 the bound's prefills, 2 the
+    # restored one
+    runs = rec.runs
+    bound = max(float((runs[1][(sp.seed, len(p) + 16)] - runs[0][(sp.seed, len(p) + 16)])
+                      .abs().max()) for p, sp in jobs)
+    agree, apart, wrong = [], [], []
+    for (p, sp), w, d, e, (ids, why) in zip(jobs, want, snap["requests"], emitted,
+                                            restores[0]):
+        if (d["output_ids"] != e or d["counter_base"] != len(e) or not e
+                or d["max_new_tokens"] != 64 - len(e)):
+            fail(f"features: snapshot entry {d['output_ids']}, counter_base "
+                 f"{d['counter_base']}, for the {len(e)} tokens emitted")
+        if len(ids) != 64 - len(e) or why != "length":
+            fail(f"features: a restored request ended {why!r} after {len(ids)} more tokens")
+        got = d["output_ids"] + ids
+        j = next((i for i, (a, b) in enumerate(zip(got, w.output_ids)) if a != b), len(got))
+        agree.append(j)
+        if j < len(e):
+            fail(f"features: the interrupted run parted from the uninterrupted one at step {j}, "
+                 f"before the snapshot")
+        if j == len(got):
+            continue
+        # where the restored stream parts from the uninterrupted one: its
+        # logits there lie within 2x the bound of the uninterrupted run's
+        # (a history missing its last token lies further), and each token is
+        # its own run's pick under the draw for step j at a near-tie
+        l_dec, l_res = runs[0][(sp.seed, len(p) + j)], runs[2][(sp.seed, len(p) + j)]
+        dist = float((l_res - l_dec).abs().max())
+        off = float((l_res - runs[0][(sp.seed, len(p) + j - 1)]).abs().max())
+        apart.append(dist)
+        wrong.append(off)
+        if dist > 2 * bound or off <= 2 * bound:
+            fail(f"features: restored logits at step {j} {dist} from the uninterrupted "
+                 f"run's (the bound {bound}; a history short of its last token {off})")
+        why = near_tie(sampling, l_dec, l_res, sp, j, w.output_ids[j], got[j], dist)
+        if why:
+            fail(f"features: the restored stream parts at step {j}: {why}")
+    print(f"features: 2B, {cfg.num_layers} layers ({smi}): draws on the card bit-equal to the "
+          f"CPU's (64 keys, 64 x 256 words; Gumbel floats max relative diff {g_err}, "
+          f"{g_same} bit-equal); logprobs: 40 steps, top-1 = emitted, stream = plain; decode window, 8 "
+          f"slots, in turns: plain {windows['plain']} ms per step ({device_ms['plain']} device ms), "
+          f"logprobs_k=4 {windows['logprobs']} ms per step ({device_ms['logprobs']} device ms); "
+          f"json_mode {len(js.output_ids)} tokens ({js.finish_reason}) at "
+          f"{constrained_ms} ms per constrained token, text {text(js.output_ids)!r}; GBNF yes/no "
+          f"-> {text(yn.output_ids)!r}; json_schema -> {text(sc.output_ids)!r} "
+          f"({sc.finish_reason}); mirostat alone = beside three others (40 tokens); "
+          f"snapshot after {2 * ecfg.decode_burst} decode steps of 6 requests "
+          f"({[len(d['output_ids']) for d in snap['requests']]} tokens each, counter_base "
+          f"equal), restored on a fresh engine alone and behind three other requests: the same "
+          f"tokens, each to its length; the uninterrupted run agrees on {agree} of 64 tokens; "
+          f"where they part the restored logits lie {apart} from the uninterrupted run's "
+          f"(bound: prefill vs decode at 16 tokens {bound}, doubled; a history short of its "
+          f"last token {wrong}), each token its run's pick at a near-tie; launches per "
+          f"variant {json.dumps(grown)}; {time.perf_counter() - t_phase} s")
+    return total
+
+
+class LogitsRecorder:
+    """Records, while ``on(eng)``, the logits the serving programs compute
+    for ``eng``'s requests: ``runs[-1][(seed, n)]`` is the f32 row [V] after
+    n tokens of the request with that seed (the logits its token n is drawn
+    from). It wraps ``programs.paged_forward`` and reads each call's slots and
+    lengths on the host; ``on(None)`` records nothing."""
+
+    def __init__(self):
+        self.runs = []
+
+    @contextlib.contextmanager
+    def on(self, eng):
+        from wrinklefree_tpu_torch.engine import programs
+
+        forward = programs.paged_forward
+        run = {}
+
+        def recorded(params, cfg, tokens, pools, page_table, seq_len, new_len, **kw):
+            logits, pools = forward(params, cfg, tokens, pools, page_table, seq_len, new_len,
+                                    **kw)
+            ns = len(eng.slots)
+            for b, (slot, n) in enumerate(zip(kw["slot_ids"].tolist(),
+                                              (seq_len + new_len).tolist())):
+                req = eng.slots[slot] if slot < ns else None
+                if req is not None:
+                    run[(req.seed, n)] = logits[b].float().clone()
+            return logits, pools
+
+        if eng is not None:
+            programs.paged_forward = recorded
+            self.runs.append(run)
+        try:
+            yield eng
+        finally:
+            programs.paged_forward = forward
+
+
+def near_tie(sampling, l_a, l_b, sp, step, tok_a, tok_b, dist):
+    """Why ``tok_a`` (drawn from logits ``l_a``) and ``tok_b`` (from ``l_b``,
+    ``dist`` apart at most) are not two picks of one near-tie, or "": each
+    must be its logits' pick under the request's draw for ``step``, and the
+    two must lie within 2 ``dist`` of each other in ``l_a`` (the sampler's
+    noise goes by candidate rank, and a rounding can trade their ranks), or
+    the two best perturbed scores of ``l_a`` (masked logits / T + noise)
+    within 2 ``dist`` / T."""
+    import numpy as np
+    import torch
+
+    T = sp.temperature
+    c = min(sampling.NUCLEUS_CANDIDATES, l_a.shape[0])
+    noise = None
+    if T > 0:
+        keys = sampling.per_request_keys(torch.tensor([sp.seed], device=l_a.device),
+                                         torch.tensor([step], device=l_a.device))
+        noise = sampling.gumbel(keys, c)
+    kw = dict(temperature=T, top_p=sp.top_p, top_k=sp.top_k, min_p=sp.min_p,
+              typical_p=sp.typical_p, tfs_z=sp.tfs_z)
+    picks = [int(sampling.sample_token(lg[None], noise, **kw)[0]) for lg in (l_a, l_b)]
+    if picks != [tok_a, tok_b]:
+        return f"the picks under the draw are {picks}, the runs' tokens {[tok_a, tok_b]}"
+    if abs(float(l_a[tok_a] - l_a[tok_b])) <= 2 * dist:
+        return ""
+    if T > 0:
+        masked, _ = sampling._filtered_candidates(
+            l_a[None], np.asarray([T], np.float32), sp.top_p, sp.top_k, sp.min_p,
+            sp.typical_p, sp.tfs_z, c)
+        top2 = torch.topk(masked + noise, 2).values[0]
+        if float(top2[0] - top2[1]) <= 2 * dist / T:
+            return ""
+    return f"{tok_a} and {tok_b} are no near-tie at distance {dist}"
+
+
 def write_hf_dir(params, cfg, path):
     """The port's unfused params as an HF BitNet directory, written with the
     port's safetensors writer: projections ``uint8 [out/4, in]`` (the out
@@ -2205,11 +2576,11 @@ def phase_server(dev, counters):
     random weights, ROADMAP queue 3); the same request streamed, the same
     text; a chat completion; a stop string that trims; /v1/embeddings of
     unit norm and equal to the plain masked mean (``embedding_vs_plain``);
-    /metrics; a logprobs request answered 501;
+    /metrics; a greedy chat request with logprobs answered 200 with one
+    ``choices[0].logprobs.content`` entry per token (16);
     ``run_server_benchmark`` with 16 requests at concurrency 8. Every
     counter in ``counters`` (zeroed just before) must launch. Returns the
     launches."""
-    import urllib.error
     import urllib.request
 
     import numpy as np
@@ -2297,12 +2668,13 @@ def phase_server(dev, counters):
             metrics = r.read().decode()
         if "wf_requests_total" not in metrics or "wf_ttft_seconds" not in metrics:
             fail("server: /metrics")
-        try:
-            post("/v1/completions", {**body, "logprobs": 2})
-            fail("server: a logprobs request was served")
-        except urllib.error.HTTPError as e:
-            if e.code != 501:
-                fail(f"server: a logprobs request got {e.code}, expected 501")
+        with post("/v1/chat/completions", {"model": "m", "messages": [
+                {"role": "user", "content": "hello"}], "max_tokens": 16, "temperature": 0.0,
+                "ignore_eos": True, "logprobs": True, "top_logprobs": 2}) as r:
+            lp_content = json.loads(r.read())["choices"][0]["logprobs"]["content"]
+        if (len(lp_content) != 16 or reqs[-1].output_ids[0] != reqs[-1].logprobs_seq[0][1][0][0]
+                or any(len(e["top_logprobs"]) != 2 or e["logprob"] > 0 for e in lp_content)):
+            fail(f"server: logprobs chat gave {len(lp_content)} entries: {lp_content[:2]}")
         bench = run_server_benchmark(url, num_requests=16, max_tokens=32, concurrency=8)
         if bench["total_tokens"] <= 0 or not bench["tokens_per_s"] > 0:
             fail(f"server: run_server_benchmark {bench}")
@@ -2319,7 +2691,7 @@ def phase_server(dev, counters):
     print(f"server: 2B, {eng.cfg.num_layers} layers: health, models, tokenize round trip; greedy /v1/completions "
           f"of 600 + 32 tokens equal to Engine.generate's; streamed text equal; stop string "
           f"{stop!r} trims; chat; embedding norm {norm}; {emb_check}; /metrics; "
-          f"logprobs -> 501; "
+          f"logprobs chat -> 16 logprobs.content entries; "
           f"run_server_benchmark 16 requests x 32 tokens at concurrency 8: "
           f"{bench['tokens_per_s']} tok/s, TTFT p50 {bench['ttft_p50_s']} s; engine {stats}; "
           f"launches {json.dumps(launches)}; {time.perf_counter() - t0} s")
@@ -2604,6 +2976,7 @@ def main() -> int:
     launches["flash_paged_decode"] = flash["flash_paged_decode"]
     launches["flash_prefill"] = flash_prefill_launches
     phase_preempt(params, cfg, dev, serving)
+    phase_features(params, cfg, dev, serving, smi.splitlines()[0])
     del params
     torch.cuda.empty_cache()
     phase_load(cfg, dev, serving, smi.splitlines()[0])

@@ -1021,3 +1021,90 @@ def test_loaded_weights_on_card(tmp_path, fmt):
     assert tensor_diffs(on_card, cuda(on_cpu)) == []
     if fmt != "gguf":
         assert tensor_diffs(on_card, params) == []
+
+
+@pytest.mark.cuda
+def test_keyed_draws_on_card():
+    """The counter-keyed draws on the card: keys and words bit-equal to the
+    CPU's, Gumbel floats within 1e-6 relative, and the sampler's tokens on
+    the same logits and keys equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wrinklefree_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(18)
+    seeds = torch.randint(0, 2**32, (64,), generator=g, dtype=torch.int64)
+    ctrs = torch.randint(0, 2**20, (64,), generator=g, dtype=torch.int64)
+    keys = sampling.per_request_keys(seeds, ctrs)
+    keys_dev = sampling.per_request_keys(seeds.to(dev), ctrs.to(dev))
+    assert torch.equal(keys_dev.cpu(), keys)
+    assert torch.equal(sampling.random_bits(keys_dev, 300).cpu(), sampling.random_bits(keys, 300))
+    a, b = sampling.gumbel(keys, 300), sampling.gumbel(keys_dev, 300).cpu()
+    assert ((a - b).abs() <= 1e-6 * a.abs().clamp_min(1.0)).all()
+    logits = torch.randn((64, 5000), generator=g) * 3
+    kw = dict(temperature=[0.8] * 32 + [0.0] * 32, top_k=[0, 40] * 32)
+    assert torch.equal(sampling.sample_token(logits.to(dev), sampling.gumbel(keys_dev, 256),
+                                             **kw).cpu(),
+                       sampling.sample_token(logits, sampling.gumbel(keys, 256), **kw))
+
+
+@pytest.mark.cuda
+def test_request_features_on_card():
+    """The tiny engine on the card: a logprobs request's top-1 id is its
+    token at every step and its tokens those of the plain request; a seeded
+    mirostat request draws the same tokens alone and beside others; a GBNF
+    request ends in one of its two words; a snapshot restored on two fresh
+    engines continues every request with the same tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+
+    cfg = BitNetConfig.tiny()
+    params = init_params(cfg, seed=0, device="cuda")
+    pieces = [chr(i) if 32 <= i < 127 else "" for i in range(cfg.vocab_size)]
+
+    def engine():
+        e = Engine(params, cfg, EngineConfig(max_batch_slots=4, page_size=8, num_pages=64,
+                                             max_context=64, prefill_buckets=(8, 16, 32),
+                                             decode_burst=4), device="cuda")
+        e.token_pieces = pieces
+        return e
+
+    def run(e, jobs):
+        reqs = [e.submit(p, sp) for p, sp in jobs]
+        while not all(r.finished for r in reqs):
+            e.step()
+        return reqs
+
+    eng = engine()
+    (lp,) = run(eng, [([1, 5, 9, 2], SamplingParams(max_new_tokens=12, logprobs_k=3))])
+    eng.reset_prefix_cache()
+    (plain,) = run(eng, [([1, 5, 9, 2], SamplingParams(max_new_tokens=12))])
+    assert lp.output_ids == plain.output_ids
+    assert all(tops[0][0] == t and c == tops[0][1] <= 0
+               for t, (c, tops) in zip(lp.output_ids, lp.logprobs_seq))
+    miro = SamplingParams(max_new_tokens=12, temperature=1.5, seed=3, mirostat=2)
+    (alone,) = run(engine(), [([4, 4, 2], miro)])
+    beside = run(engine(), [([7, 8], SamplingParams(max_new_tokens=9, temperature=1.0, seed=1)),
+                            ([4, 4, 2], miro)])[1]
+    assert alone.output_ids == beside.output_ids
+    (yn,) = run(eng, [([3, 3], SamplingParams(max_new_tokens=6,
+                                              grammar='root ::= "yes" | "no"'))])
+    assert "".join(pieces[t] for t in yn.output_ids) in ("yes", "no")
+    e1 = engine()
+    reqs = [e1.submit([1 + i, 2, 3], SamplingParams(max_new_tokens=20, temperature=0.9, seed=i))
+            for i in range(3)]
+    while min(len(r.output_ids) for r in reqs) < 5:
+        e1.step()
+    snap = e1.snapshot()
+    outs = []
+    for e in (engine(), engine()):
+        restored = e.restore(snap)
+        while not all(r.finished for r in restored):
+            e.step()
+        outs.append([r.output_ids for r in restored])
+    assert outs[0] == outs[1]
+    assert [len(o) for o in outs[0]] == [20 - len(d["output_ids"]) for d in snap["requests"]]

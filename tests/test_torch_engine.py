@@ -8,6 +8,9 @@ the MLP megakernel) over the dual ("layer") KV layout. The port runs the
 plain versions of its kernels, which its wrappers take for CPU tensors.
 """
 
+import functools
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +27,11 @@ from wrinklefree_tpu.models.bitnet import init_params as ref_init
 from wrinklefree_tpu.ops.ternary_pallas import make_pallas_linear_fused
 from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
 from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+from wrinklefree_tpu_torch.engine import programs
+from wrinklefree_tpu_torch.engine.constrained import make_validator, select_constrained
 from wrinklefree_tpu_torch.kv import paged
 from wrinklefree_tpu_torch.models.bitnet import fuse_projections
+from wrinklefree_tpu_torch.ops import sampling
 from wrinklefree_tpu_torch.weights import params_from_numpy
 
 ECFG = dict(max_batch_slots=4, page_size=8, num_pages=64, max_context=64,
@@ -39,6 +45,8 @@ PROMPTS = [
     list(range(1, 25)),       # multi-bucket chunked prefill
 ]
 SHARED = list(range(1, 17))  # two full pages
+# id i -> chr(i) over printable ASCII, for the constrained requests
+PIECES = [chr(i) if 32 <= i < 127 else "" for i in range(256)]
 
 
 @pytest.fixture(scope="module")
@@ -212,8 +220,8 @@ def test_paged_forward_logits_match_reference(weights):
 
 
 def test_seeded_sampling_independent_of_schedule(weights):
-    """Per-request generators: a seeded sampling request draws the same
-    tokens alone as beside other requests."""
+    """Counter-keyed draws: a seeded sampling request draws the same tokens
+    alone as beside other requests."""
     cfg = BitNetConfig.tiny()
     params = params_from_numpy(weights, cfg, device="cpu")
     sp = SamplingParams(max_new_tokens=12, temperature=0.9, top_p=0.95, top_k=40, seed=123)
@@ -228,6 +236,231 @@ def test_seeded_sampling_independent_of_schedule(weights):
     assert mine.output_ids == alone
 
 
+SAMPLED = [dict(temperature=0.8), dict(temperature=1.3, top_k=40, top_p=0.9),
+           dict(temperature=1.0, min_p=0.05, repetition_penalty=1.3, presence_penalty=0.5),
+           dict(temperature=1.5, typical_p=0.9, logit_bias=[(7, 3.0), (9, -1e9)]),
+           dict(temperature=2.0, tfs_z=0.9, frequency_penalty=0.4)]
+
+
+@pytest.mark.parametrize("schedule", ["stagger", "radix", "retraction"])
+def test_seeded_sampling_matches_reference(weights, schedule):
+    """Seeded sampled streams of the port Engine equal the reference Engine's
+    on the layer-free weights, token for token: 8 requests over 4 slots with
+    prompts of 3..30 tokens (staggered multi-chunk prefill rounds), the same
+    with every prompt sharing a two-page prefix (radix sharing, in-queue
+    re-match), and a dry pool that retracts requests (each resumes its stream
+    at counter_base + #sampled)."""
+    prefix = SHARED if schedule == "radix" else []
+    prompts = [prefix + list(range(i + 1, i + 4 + 3 * i)) for i in range(8)]
+    new = [14 + i for i in range(8)]
+    over = {}
+    if schedule == "retraction":
+        # tests/test_torch_preemption.py's contended pool: each request's
+        # last burst needs a page past its budget and the pool is dry
+        over = dict(num_pages=18, decode_burst=8)
+        prompts, new = [[1 + i, 2, 3, 4, 5, 6] for i in range(8)], [26] * 8
+    port, ref = _feature_engines(_layer_free(weights), **over)
+    outs, stats = [], []
+    for eng, sp_cls in ((port, SamplingParams), (ref, RefSampling)):
+        reqs = [eng.submit(p, sp_cls(max_new_tokens=n, seed=100 + i, ignore_eos=True,
+                                     **SAMPLED[i % len(SAMPLED)]))
+                for i, (p, n) in enumerate(zip(prompts, new))]
+        while not all(r.finished for r in reqs):
+            eng.step()
+        outs.append([(r.output_ids, r.finish_reason) for r in reqs])
+        stats.append({k: eng.stats.get(k, 0) for k in ("radix_hit_tokens", "preemptions",
+                                                        "decode_tokens")})
+    assert outs[0] == outs[1]
+    assert stats[0] == stats[1]
+    if schedule == "radix":
+        assert stats[0]["radix_hit_tokens"] > 0
+    if schedule == "retraction":
+        assert stats[0]["preemptions"] > 0
+
+
+def _port_engine(weights, **over):
+    cfg = BitNetConfig.tiny()
+    eng = Engine(params_from_numpy(weights, cfg, device="cpu"), cfg,
+                 EngineConfig(**dict(ECFG, **over)), eos_token_id=0, device="cpu")
+    eng.token_pieces = PIECES
+    return eng
+
+
+@functools.lru_cache(maxsize=1)
+def _ref_forward():
+    """The reference's paged forward, jitted as its engine's programs are
+    (interpret-mode kernels): compiled once per token shape."""
+    return jax.jit(functools.partial(ref_paged.paged_forward, cfg=RefConfig.tiny(),
+                                     linear_fn=make_pallas_linear_fused(interpret=True)))
+
+
+def _forced_logits(weights, prompt, tokens):
+    """Both packages' logits [V] for the token after prompt + tokens,
+    teacher-forced through their paged forwards (one slot): the prompt in
+    one prefill chunk of 48, then one decode step per token. Returns
+    (reference, port)."""
+    rcfg, cfg = RefConfig.tiny(), BitNetConfig.tiny()
+    r_params = ref_fuse(jax.tree.map(jnp.asarray, weights), rcfg)
+    p_params = params_from_numpy(weights, cfg, device="cpu")
+    r_pools = ref_paged.PagedKV.zeros_dual(rcfg, 16, 8, num_slots=1)
+    p_pools = paged.PagedKV.zeros_dual(cfg, 16, 8, 1, device="cpu")
+    pt = np.arange(1, 9, dtype=np.int32)[None]
+    chunk = np.zeros((1, 48), np.int32)
+    chunk[0, :len(prompt)] = prompt
+    feed = [(chunk, 0, len(prompt))] + [
+        (np.asarray([[t]], np.int32), len(prompt) + i, 1) for i, t in enumerate(tokens)]
+    for toks, sl, n in feed:
+        lr, r_pools = _ref_forward()(
+            r_params, tokens=jnp.asarray(toks), pools=r_pools, page_table=jnp.asarray(pt),
+            seq_lens=jnp.asarray([sl]), new_lens=jnp.asarray([n]), slot_ids=jnp.asarray([0]))
+        lp, p_pools = paged.paged_forward(
+            p_params, cfg, torch.from_numpy(toks), p_pools, torch.from_numpy(pt),
+            torch.tensor([sl]), torch.tensor([n]), slot_ids=torch.tensor([0]))
+    return np.asarray(lr)[0], lp[0].numpy()
+
+
+def _penalised(eng, logits, sp, hist):
+    """A row's post-penalty logits [1, V] after the tokens ``hist`` and its
+    sampler settings, as ``eng``'s programs make them."""
+    samp, window = eng._samp_arrays(1), eng.ecfg.penalty_window
+    for key, v in (("temps", sp.temperature), ("tps", sp.top_p), ("topks", max(0, sp.top_k)),
+                   ("minps", max(0.0, sp.min_p)), ("typps", sp.typical_p), ("tfs", sp.tfs_z),
+                   ("reps", sp.repetition_penalty), ("pres", sp.presence_penalty),
+                   ("freqs", sp.frequency_penalty),
+                   ("lastn", window if sp.penalty_last_n < 0 else min(sp.penalty_last_n,
+                                                                       window))):
+        samp[key][0] = v
+    for k, (tid, b) in enumerate(sp.logit_bias or []):
+        samp["bias_ids"][0, k], samp["bias_vals"][0, k] = tid, b
+    n = len(hist)
+    ring = torch.full((1, window), -1, dtype=torch.int32)
+    for p in range(max(0, n - window), n):
+        ring[0, p % window] = hist[p]
+    return programs._penalised(torch.from_numpy(logits.copy())[None], ring, torch.tensor([n]),
+                               samp), samp
+
+
+def _assert_divergence_is_a_near_tie(weights, eng, prompt, sp, seed, want, got):
+    """The port's stream ``got`` against the reference's ``want`` for one
+    request on the full model. Where they part (at step j), both packages'
+    logits for prompt + want[:j], teacher-forced, must agree within the
+    paged forward's NEAR_TIE bar (eps apart at most); each package's sampler,
+    on its own logits and the request's draw for step j, must pick its own
+    engine's token (so each engine's history and counter were right); and
+    the pick must be a near-tie that eps can flip: for the device sampler,
+    whose Gumbel noise goes by candidate rank, the two tokens' penalised
+    logits lie within 2 eps (a rounding can trade their ranks, and with them
+    their noise) or the reference's perturbed scores (masked logits / T +
+    noise) lie within 2 eps / T at the top; for a constrained row, whose
+    noise goes by token id, the two tokens' scores (logits / T + noise;
+    logits when greedy) lie within 2 eps (/ T)."""
+    j = next((k for k, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        assert len(want) == len(got)
+        return
+    lr, lp = _forced_logits(weights, prompt, want[:j])
+    eps = float(np.abs(lp - lr).max())
+    assert eps <= NEAR_TIE, f"step {j}: logits {eps} apart"
+    hist = prompt + want[:j]
+    (pr, samp), (pp, _) = (_penalised(eng, lg, sp, hist) for lg in (lr, lp))
+    T = sp.temperature
+    if sp.constrained:
+        picks = []
+        for row in (pr, pp):
+            req = types.SimpleNamespace(sampling=sp, seed=seed, counter_base=0,
+                                        output_ids=list(want[:j]),
+                                        grammar=make_validator(eng, sp))
+            for t in want[:j]:
+                req.grammar.advance(PIECES[t])
+            picks.append(select_constrained(eng, req, row[0].numpy())[0])
+        assert picks == [want[j], got[j]], f"step {j}: picks {picks}"
+        score = pr[0].double().numpy() / (T or 1.0)
+        if T > 0:
+            score = score + np.random.default_rng((seed << 20) ^ j).gumbel(size=score.shape[0])
+        assert score[want[j]] - score[got[j]] <= 2 * eps / (T or 1.0), f"step {j}"
+        return
+    c = min(sampling.NUCLEUS_CANDIDATES, pr.shape[1])
+    noise = (sampling.gumbel(sampling.per_request_keys(torch.tensor([seed]), torch.tensor([j])),
+                             c) if T > 0 else None)
+    kw = programs._sampler_kw(samp)
+    picks = [int(sampling.sample_token(row, noise, **kw)[0]) for row in (pr, pp)]
+    assert picks == [want[j], got[j]], f"step {j}: picks {picks}"
+    trade = abs(float(pr[0, want[j]] - pr[0, got[j]])) <= 2 * eps
+    if T > 0 and not trade:
+        masked, _ = sampling._filtered_candidates(
+            pr, np.asarray([T], np.float32), samp["tps"], samp["topks"], samp["minps"],
+            samp["typps"], samp["tfs"], c)
+        top2 = torch.topk(masked + noise, 2).values[0]
+        trade = float(top2[0] - top2[1]) <= 2 * eps / T
+    assert trade, f"step {j}: {want[j]} vs {got[j]} is no near-tie at eps {eps}"
+
+
+@pytest.mark.parametrize("schedule", ["stagger", "radix", "retraction"])
+def test_seeded_sampling_full_model(weights, schedule):
+    """The schedules of test_seeded_sampling_matches_reference on the full
+    tiny model, where the KV history and the page tables shape every logit:
+    each scheduled port stream equals the same request run alone on a fresh
+    engine, token for token, and where it parts from the reference Engine's
+    stream the divergence is a near-tie (_assert_divergence_is_a_near_tie)."""
+    prefix = SHARED if schedule == "radix" else []
+    prompts = [prefix + list(range(i + 1, i + 4 + 3 * i)) for i in range(8)]
+    new = [14 + i for i in range(8)]
+    over = {}
+    if schedule == "retraction":
+        over = dict(num_pages=18, decode_burst=8)
+        prompts, new = [[1 + i, 2, 3, 4, 5, 6] for i in range(8)], [26] * 8
+    jobs = [(p, dict(max_new_tokens=n, seed=100 + i, ignore_eos=True,
+                     **SAMPLED[i % len(SAMPLED)]))
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    port, ref = _feature_engines(weights, **over)
+    got = _run_jobs(port, SamplingParams, jobs)
+    want = _run_jobs(ref, RefSampling, jobs)
+    if schedule == "radix":
+        assert port.stats["radix_hit_tokens"] > 0
+    if schedule == "retraction":
+        assert port.stats["preemptions"] > 0
+    for (p, kw), g, w in zip(jobs, got, want):
+        (alone,) = _run_jobs(_port_engine(weights), SamplingParams, [(p, kw)])
+        assert g == alone
+        assert g[1] == w[1] == "length"
+        _assert_divergence_is_a_near_tie(weights, port, p, SamplingParams(**kw), kw["seed"],
+                                         w[0], g[0])
+
+
+def test_segregated_constrained_step_full_model(weights):
+    """Constrained rows (json_mode and a json_schema grammar, sampled; a
+    GBNF grammar, greedy) step one token at a time on their own view beside
+    unconstrained rows' bursts, on the full tiny model: every port stream
+    equals the request run alone, and its divergence from the reference
+    Engine's is a near-tie."""
+    from wrinklefree_tpu_torch.engine.schema_to_gbnf import schema_to_gbnf
+
+    schema = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                               "n": {"type": "integer"}},
+              "required": ["ok", "n"]}
+    jobs = [([1, 5, 9], dict(json_mode=True, max_new_tokens=24, temperature=1.5, seed=11)),
+            ([4, 4, 4], dict(max_new_tokens=20, ignore_eos=True, seed=1)),
+            ([7, 8, 9, 10], dict(max_new_tokens=20, temperature=1.0, seed=9)),
+            ([2, 3], dict(grammar='root ::= "yes" | "no"', max_new_tokens=8, seed=2)),
+            ([6, 1, 6], dict(grammar=schema_to_gbnf(schema), max_new_tokens=30,
+                             temperature=1.3, seed=5))]
+    port, ref = _feature_engines(weights, decode_burst=8)
+    got = _run_jobs(port, SamplingParams, jobs)
+    want = _run_jobs(ref, RefSampling, jobs)
+    for (p, kw), g, w in zip(jobs, got, want):
+        (alone,) = _run_jobs(_port_engine(weights, decode_burst=8), SamplingParams, [(p, kw)])
+        assert g == alone
+        _assert_divergence_is_a_near_tie(weights, port, p, SamplingParams(**kw), kw["seed"],
+                                         w[0], g[0])
+
+
+def _run_jobs(eng, sp_cls, jobs):
+    reqs = [eng.submit(p, sp_cls(**kw)) for p, kw in jobs]
+    while not all(r.finished for r in reqs):
+        eng.step()
+    return [(r.output_ids, r.finish_reason) for r in reqs]
+
+
 @pytest.mark.parametrize("kw", [
     dict(kv_dtype="int8"), dict(speculative_k=2), dict(attn_window=16),
     dict(exact_head_k=64), dict(int8_logits=True), dict(use_native_runtime=True),
@@ -239,13 +472,56 @@ def test_out_of_slice_config_raises(weights, kw):
         Engine(params, cfg, EngineConfig(**ECFG, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(logprobs_k=2), dict(json_mode=True), dict(mirostat=2)])
+def _layer_free(weights):
+    """The tiny weights with the o and down projections set to ternary zeros
+    (0x55: code 1 in every 2-bit field): the residual stream is the token
+    embedding, so both packages compute the same logits up to f32 rounding
+    and sampled, logprobs and constrained streams compare token for token
+    (the full model's logits part by up to 6e-2, which reorders the near-equal
+    candidates of a sampled draw)."""
+    w = jax.tree.map(np.copy, weights)
+    for name in ("o_qw", "down_qw"):
+        w["layers"][name] = np.full_like(w["layers"][name], 0x55)
+    return w
+
+
+def _feature_engines(weights, **over):
+    e = dict(ECFG, **over)
+    cfg, rcfg = BitNetConfig.tiny(), RefConfig.tiny()
+    port = Engine(params_from_numpy(weights, cfg, device="cpu"), cfg, EngineConfig(**e),
+                  eos_token_id=0, device="cpu")
+    ref = RefEngine(ref_fuse(jax.tree.map(jnp.asarray, weights), rcfg), rcfg,
+                    RefEngineConfig(kv_layout="layer", **e), eos_token_id=0,
+                    linear_fn=make_pallas_linear_fused(interpret=True))
+    port.token_pieces = ref.token_pieces = PIECES
+    return port, ref
+
+
+@pytest.mark.parametrize("kw", [dict(logprobs_k=2),
+                                dict(json_mode=True, temperature=1.5, seed=4),
+                                dict(mirostat=2, temperature=2.0, seed=3)])
 def test_out_of_slice_request_raises(weights, kw):
-    cfg = BitNetConfig.tiny()
-    eng = Engine(params_from_numpy(weights, cfg, device="cpu"), cfg, EngineConfig(**ECFG),
-                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2, 3], SamplingParams(**kw))
+    """These request features (logprobs, json_mode, mirostat), which the
+    port's engine once refused, run: on the layer-free weights each request,
+    alone and beside a plain sampled one, gives the reference Engine's tokens,
+    finish reasons and logprob ids (values within 1e-4)."""
+    port, ref = _feature_engines(_layer_free(weights))
+    outs = []
+    for eng, sp_cls in ((port, SamplingParams), (ref, RefSampling)):
+        reqs = [eng.submit([1, 2, 3, 9], sp_cls(max_new_tokens=20, ignore_eos=True, **kw)),
+                eng.submit([5, 6], sp_cls(max_new_tokens=12, temperature=1.0, seed=8))]
+        while not all(r.finished for r in reqs):
+            eng.step()
+        outs.append(reqs)
+    for got, want in zip(*outs):
+        assert (got.output_ids, got.finish_reason) == (want.output_ids, want.finish_reason)
+        assert len(got.logprobs_seq) == len(want.logprobs_seq)
+        for (c, tops), (rc, rtops) in zip(got.logprobs_seq, want.logprobs_seq):
+            assert [t for t, _ in tops] == [t for t, _ in rtops]
+            np.testing.assert_allclose([c] + [v for _, v in tops],
+                                       [rc] + [v for _, v in rtops], rtol=0, atol=1e-4)
+    if kw.get("logprobs_k"):
+        assert len(outs[0][0].logprobs_seq) == 20
 
 
 def test_mesh_and_exhausted_pool_raise(weights):
@@ -253,9 +529,8 @@ def test_mesh_and_exhausted_pool_raise(weights):
     params = params_from_numpy(weights, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(params, cfg, EngineConfig(**ECFG), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng = Engine(params, cfg, EngineConfig(**ECFG), device="cpu")
-        eng.snapshot()
+    assert Engine(params, cfg, EngineConfig(**ECFG), device="cpu").snapshot() == {
+        "version": 1, "requests": []}
     # 4 usable pages: two 9-token prompts take 2 pages each at admission; the
     # first decode burst needs a third page per slot and the pool is dry. The
     # engine retracts a request there, as the reference does, and both finish

@@ -216,13 +216,15 @@ def test_greedy_and_seeded_sampling():
     assert torch.equal(greedy, torch.argmax(lg, -1).int())
 
     def draw(seed):
-        gens = [None, torch.Generator().manual_seed(seed), None, torch.Generator().manual_seed(7)]
-        return sampling.sample_token(lg, gens, temperature=[0.0, 0.9, 0.0, 1.2],
+        keys = sampling.per_request_keys(torch.tensor([0, seed, 0, 7]), torch.tensor([0, 3, 0, 3]))
+        return sampling.sample_token(lg, sampling.gumbel(keys, 256), temperature=[0.0, 0.9, 0.0, 1.2],
                                      top_p=0.9, top_k=[0, 20, 0, 0], min_p=0.02,
                                      typical_p=[1.0, 0.95, 1.0, 1.0], tfs_z=[1.0, 1.0, 1.0, 0.9])
     a, b = draw(11), draw(11)
     assert torch.equal(a, b)
     assert a[0] == greedy[0] and a[2] == greedy[2]
+    # the keys are the draws: another seed, another sample somewhere
+    assert any(not torch.equal(draw(11), draw(s)) for s in (12, 13, 14))
     with pytest.raises(ValueError):
         sampling.sample_token(lg, None, temperature=0.5)
 

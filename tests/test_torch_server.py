@@ -11,9 +11,8 @@ status codes, JSON keys, ``finish_reason``, ``usage`` and error bodies must
 be equal. Greedy token ids (read from the engines' requests) must equal a
 port ``Engine.generate`` on the same ids exactly; against the reference
 they are equal, or part only where the reference's own top-2 logits are
-closer than 6e-2 (the rule of ``tests/test_torch_engine.py``). Features the
-port's engine lacks answer 501. The port's client, manager and CLI are
-driven against the port's server.
+closer than 6e-2 (the rule of ``tests/test_torch_engine.py``). The port's
+client, manager and CLI are driven against the port's server.
 """
 
 import asyncio
@@ -737,35 +736,206 @@ class TestTimings:
         assert "predicted_per_second" in t
 
 
-# -- what the port's engine lacks: 501 -------------------------------------
+# -- the request features the port once answered 501 for -------------------
 
 
-@pytest.mark.parametrize("path,body", [
-    ("/v1/chat/completions", {"messages": HI, "logprobs": True, "top_logprobs": 2}),
-    ("/v1/completions", {"prompt": "hello", "logprobs": 2}),
-    ("/completion", {"prompt": "hello", "n_probs": 3}),
-    ("/v1/completions", {"prompt": "j", "response_format": {"type": "json_object"}}),
-    ("/v1/chat/completions", {"messages": HI, "response_format": {
+def ref_logits(weights, ids, n):
+    """The reference's logits for the token after ids[:n] (its dense forward
+    on the same weights)."""
+    cfg = RefConfig.tiny()
+    params = jax.tree.map(jnp.asarray, weights)
+    cache = RefKVCache.zeros(cfg, 1, -(-n // 8) * 8)
+    logits, _ = ref_forward(params, cfg, jnp.asarray([ids[:n]], jnp.int32), cache,
+                            jnp.zeros((1,), jnp.int32), logits_all=False)
+    return np.asarray(logits)[0]
+
+
+def _legal(sampling, pieces, text, vocab):
+    """The tokens a constrained request may emit after ``text`` (all tokens
+    for an unconstrained one)."""
+    if not sampling.constrained:
+        return np.arange(vocab)
+    from wrinklefree_tpu_torch.engine.constrained import make_validator
+
+    v = make_validator(None, sampling)
+    v.advance(text)
+    return np.asarray([t for t, piece in enumerate(pieces)
+                       if piece and v.clone().advance(piece) != "dead"])
+
+
+FEATURES = [
+    ("/v1/chat/completions", {"messages": HI, "logprobs": True, "top_logprobs": 2,
+                              "temperature": 0.0}),
+    ("/v1/completions", {"prompt": "hello", "logprobs": 2, "temperature": 0.0}),
+    ("/completion", {"prompt": "hello", "n_probs": 3, "temperature": 0.0}),
+    ("/v1/completions", {"prompt": "j", "response_format": {"type": "json_object"},
+                         "temperature": 0.0}),
+    ("/v1/chat/completions", {"messages": HI, "temperature": 0.0, "response_format": {
         "type": "json_schema", "json_schema": {"name": "n", "schema": {"type": "object"}}}}),
-    ("/completion", {"prompt": "x", "grammar": 'root ::= "yes" | "no"'}),
-    ("/completion", {"prompt": "x", "json_schema": {}}),
+    ("/completion", {"prompt": "x", "grammar": 'root ::= "yes" | "no"', "temperature": 0.0}),
+    ("/completion", {"prompt": "x", "json_schema": {}, "temperature": 0.0}),
     ("/completion", {"prompt": "hello", "temperature": 1.0, "seed": 11, "mirostat": 2}),
-    ("/v1/chat/completions", {"messages": HI, "stream": True, "logprobs": True}),
+    ("/v1/chat/completions", {"messages": HI, "stream": True, "logprobs": True,
+                              "temperature": 0.0}),
     ("/admin/snapshot", None),
     ("/admin/restore", {"version": 1, "requests": []}),
-])
-def test_missing_features_answer_501(ref, port, path, body):
-    """The reference serves these (200); the port answers 501 with the
-    reference's error body, naming what is not ported, and serves on."""
-    if body is not None and path != "/admin/restore":
-        body = {**body, "max_tokens": 4, "n_predict": 4}
-    r = requests.post(f"{ref.url}{path}", json=body, timeout=300)
-    p = requests.post(f"{port.url}{path}", json=body, timeout=60)
-    assert r.status_code == 200
-    assert p.status_code == 501
-    assert set(p.json()) == {"error"} and set(p.json()["error"]) == {"message"}
-    assert "not ported" in p.json()["error"]["message"]
-    assert requests.get(f"{port.url}/health", timeout=10).status_code == 200
+]
+
+
+@pytest.mark.parametrize("path,body", FEATURES)
+def test_missing_features_answer_501(ref, port, oracle, weights, path, body):
+    """Requests the port once answered 501 (logprobs in the three dialects,
+    json_object / json_schema / GBNF, mirostat, a streamed chat with logprobs,
+    /admin/snapshot and /admin/restore): both servers answer 200 with bodies
+    of the same JSON key structure (a stream: the same events' structure).
+    A greedy request's token ids equal the oracle Engine.generate's and the
+    reference's, parting from the reference only at a near-tie of its own
+    logits among the tokens the request may emit; equal ids, equal text."""
+    if path.startswith("/admin"):
+        r, p = both(ref, port, path, body)
+        assert p.status_code == 200
+        assert p.json() == r.json()  # idle servers: no requests to snapshot, none restored
+        return
+    body = {**body, "max_tokens": 4, "n_predict": 4}
+    for s in (ref, port):
+        assert requests.post(f"{s.url}/admin/reset-cache", timeout=30).status_code == 200
+    r, p = both(ref, port, path, body, stream=bool(body.get("stream")))
+    assert p.status_code == 200
+    if body.get("stream"):
+        (r_ev, r_done), (p_ev, p_done) = sse(r), sse(p)
+        assert r_done and p_done
+        assert [shape(e) for e in p_ev] == [shape(e) for e in r_ev]
+        content = [e["choices"][0]["logprobs"]["content"][0] for e in p_ev
+                   if e["choices"] and e["choices"][0].get("logprobs")]
+        assert [c["logprob"] for c in content] == [c for c, _ in last_req(port).logprobs_seq]
+        assert len(content) == len(last_req(port).output_ids)
+    else:
+        rj, pj = r.json(), p.json()
+        assert shape(pj) == shape(rj), (rj, pj)
+    got, want = last_req(port), last_req(ref)
+    assert got.prompt_ids == want.prompt_ids
+    assert len(got.logprobs_seq) == (len(got.output_ids) if got.sampling.logprobs_k else 0)
+    for (c, tops), tok in zip(got.logprobs_seq, got.output_ids):
+        assert tops[0][0] == tok and c == tops[0][1] and c <= 0
+    if got.sampling.temperature > 0:
+        return  # sampled: the full model's logits part by up to 6e-2 (see the module doc)
+    pieces = port.engine.token_pieces or ref.server.async_engine.engine.token_pieces
+    oracle.token_pieces = pieces
+    oracle.reset_prefix_cache()
+    assert oracle.generate(got.prompt_ids, got.sampling).output_ids == got.output_ids
+    a, b = got.output_ids, want.output_ids
+    step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if step is not None:
+        text = ByteTokenizer().decode(b[:step])
+        legal = _legal(want.sampling, pieces, text, oracle.cfg.vocab_size)
+        lg = ref_logits(weights, want.prompt_ids + b, len(want.prompt_ids) + step)[legal]
+        top2 = np.sort(lg)[-2:]
+        assert top2[1] - top2[0] < NEAR_TIE, f"diverged at token {step}"
+    else:
+        assert len(a) == len(b) and len(got.logprobs_seq) == len(want.logprobs_seq)
+    if step is None and not body.get("stream"):
+        text = {"/completion": lambda j: j["content"],
+                "/v1/completions": lambda j: j["choices"][0]["text"],
+                "/v1/chat/completions": lambda j: j["choices"][0]["message"]["content"]}[path]
+        assert text(pj) == text(rj)
+
+
+RESTORE_ENTRY = {
+    "prompt_ids": [105, 106], "output_ids": [], "counter_base": 0, "seed": 1,
+    "max_new_tokens": 3, "temperature": 0.0, "top_p": 1.0, "top_k": 0, "min_p": 0.0,
+    "stop_token_ids": [], "ignore_eos": True, "repetition_penalty": 1.0,
+    "presence_penalty": 0.0, "frequency_penalty": 0.0, "penalty_last_n": 64,
+    "logprobs_k": 0, "logit_bias": [], "json_mode": False,
+}
+
+
+class TestAdminSnapshot:
+    """/admin/snapshot captures in-flight requests (token ids and sampler
+    state); /admin/restore resubmits them (tests/test_server.py's cases)."""
+
+    def test_snapshot_captures_inflight_and_restores(self, ref, port):
+        def long_req():
+            return requests.post(f"{port.url}/v1/completions",
+                                 json={"model": "m", "prompt": "slow", "max_tokens": 200,
+                                       "temperature": 0.0, "ignore_eos": True}, timeout=300)
+
+        with cf.ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(long_req)
+            snap = None
+            for _ in range(200):
+                snap = requests.post(f"{port.url}/admin/snapshot", timeout=30).json()
+                if snap["requests"]:
+                    break
+                time.sleep(0.02)
+            assert snap and len(snap["requests"]) == 1
+            d = snap["requests"][0]
+            assert d["prompt_ids"] == ByteTokenizer().encode("slow")
+            assert d["max_new_tokens"] + len(d["output_ids"]) == 200
+            assert d["counter_base"] == len(d["output_ids"])
+            assert fut.result().status_code == 200
+        body = {"version": 1, "requests": [RESTORE_ENTRY]}
+        n0, tok0 = port.engine.stats["requests"], port.engine.stats["decode_tokens"]
+        rj, pj = both_json(ref, port, "/admin/restore", body)
+        assert pj == rj == {"restored": 1}
+        for _ in range(200):  # the restored request runs on the scheduler thread
+            if not port.engine.has_work():
+                break
+            time.sleep(0.05)
+        assert not port.engine.has_work() and port.engine.stats["requests"] == n0 + 1
+        # 3 tokens: the prefill's first and 2 decoded
+        assert port.engine.stats["decode_tokens"] == tok0 + 2
+
+    @pytest.mark.parametrize("body", [{"version": 99},
+                                      {"version": 1, "requests": [{"prompt_ids": [1]}]}])
+    def test_restore_bad_snapshot_400(self, ref, port, body):
+        rj, pj = both_json(ref, port, "/admin/restore", body)
+        assert set(pj) == {"error"}
+        assert not port.engine.has_work()
+
+
+def test_streamed_completion_logprobs(ref, port):
+    """Streamed legacy completions with ``logprobs`` and llama.cpp
+    /completion with ``n_probs``: the same events' structure as the
+    reference's, one logprobs object per token."""
+    for path, body in (("/v1/completions", {"prompt": "hello", "logprobs": 2}),
+                       ("/completion", {"prompt": "hello", "n_probs": 2})):
+        body = {**body, "max_tokens": 5, "n_predict": 5, "temperature": 0.0,
+                "ignore_eos": True, "stream": True}
+        r, p = both(ref, port, path, body, stream=True)
+        (r_ev, _), (p_ev, _) = sse(r), sse(p)
+        assert p.status_code == 200
+        assert [shape(e) for e in p_ev] == [shape(e) for e in r_ev]
+        key = "completion_probabilities" if path == "/completion" else "choices"
+        assert sum(1 for e in p_ev if key in e and (
+            key != "choices" or e["choices"][0]["logprobs"])) == 5
+
+
+def test_logprobs_stay_aligned_while_json_mode_active(port):
+    """A logprobs request decoding beside a json_mode request (segregated
+    decode) gets one logprobs entry per token."""
+    def json_req():
+        return requests.post(f"{port.url}/v1/completions",
+                             json={"model": "m", "prompt": "j", "max_tokens": 40,
+                                   "temperature": 0.0, "ignore_eos": True,
+                                   "response_format": {"type": "json_object"}},
+                             timeout=300).json()
+
+    def lp_req():
+        return requests.post(f"{port.url}/v1/completions",
+                             json={"model": "m", "prompt": "lp", "max_tokens": 8,
+                                   "temperature": 0.0, "ignore_eos": True, "logprobs": 2},
+                             timeout=300).json()
+
+    with cf.ThreadPoolExecutor(2) as ex:
+        fj = ex.submit(json_req)
+        time.sleep(0.2)
+        lp = ex.submit(lp_req).result()
+        text = fj.result()["choices"][0]["text"]
+    from wrinklefree_tpu_torch.engine.json_constraint import JsonPrefixValidator
+
+    assert JsonPrefixValidator().advance(text) in ("ok", "complete")
+    c = lp["choices"][0]["logprobs"]
+    assert len(c["tokens"]) == len(c["token_logprobs"]) == len(c["top_logprobs"]) == 8
 
 
 # -- data-parallel replicas ------------------------------------------------
@@ -843,8 +1013,11 @@ def test_async_client(port, client):
 def test_client_http_error(port, client):
     import urllib.error
 
-    with pytest.raises(urllib.error.HTTPError):
-        client._json("/v1/completions", {"prompt": "x", "logprobs": 2})
+    # json_mode with logprobs: the reference's 400
+    with pytest.raises(urllib.error.HTTPError) as e:
+        client._json("/v1/completions", {"prompt": "x", "logprobs": 2,
+                                          "response_format": {"type": "json_object"}})
+    assert e.value.code == 400
     assert not InferenceClient(f"http://127.0.0.1:{_free_port()}").health()
 
 

@@ -168,7 +168,8 @@ def test_warmup_leaves_the_engine_as_it_was(engines):
                          eng.radix.num_cached_pages, eng.prefix_match_len(prompt))
     # every prefill bucket and the decode burst ran once
     assert set(timings) == {"prefill[8]", "prefill[16]", "prefill[32]", "decode_burst[K=16]"}
-    assert set(eng._prefill_fns) == {8, 16, 32} and 16 in eng._decode_fns
+    assert {n for kind, n, *_ in eng._programs if kind == "prefill"} == {8, 16, 32}
+    assert ("decode", 16) in eng._programs
     eng.reset_prefix_cache()
     assert eng.generate(prompt, sp).output_ids == first
 
@@ -216,7 +217,7 @@ def test_serving_bench_counts_new_programs_in_the_window(monkeypatch):
     def spy(eng):
         calls.append(eng)
         if len(calls) == 2:  # the window's end: pretend a bucket appeared
-            eng._prefill_fns[-1] = None
+            eng._programs[("prefill", -1)] = None
         return state(eng)
 
     monkeypatch.setattr(serving, "compile_state", spy)

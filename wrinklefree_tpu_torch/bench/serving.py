@@ -83,7 +83,7 @@ def check_supported(args) -> None:
     if args.window:
         missing.append("--window (sliding-window attention: ROADMAP queue 1 item 6)")
     if args.exact_head:
-        missing.append("--exact-head (the engine's exact head: ROADMAP queue 1 item 5)")
+        missing.append("--exact-head (the engine's exact head: ROADMAP queue 1 item 5a)")
     if args.use_pallas == "0" or args.prefill_linear == "xla":
         missing.append("--use-pallas 0 / --prefill-linear xla (the kernels' plain twins "
                        "are their CPU path and oracle, not a serving path on the card)")
@@ -107,8 +107,7 @@ def device_label(dev: torch.device) -> str:
 
 def compile_state(eng: Engine):
     """(kernel builds + program variants, build seconds) so far."""
-    return (cuda_lib.BUILDS["count"] + len(eng._decode_fns) + len(eng._prefill_fns),
-            cuda_lib.BUILDS["seconds"])
+    return cuda_lib.BUILDS["count"] + len(eng._programs), cuda_lib.BUILDS["seconds"]
 
 
 def model_config(args) -> BitNetConfig:

@@ -128,6 +128,9 @@ class EngineConfig:
     exact_head_k: int = 0
     # Ring-buffer width for repetition/presence/frequency penalties.
     penalty_window: int = 64
+    # Top-N width of the logprobs program variants (per-request logprobs_k
+    # clamps to it).
+    logprobs_top: int = 8
     # Max distinct (token_id, bias) logit-bias pairs per request.
     logit_bias_slots: int = 16
     # Cap on concurrently-prefilling slots (None = no cap).

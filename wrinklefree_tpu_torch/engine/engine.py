@@ -8,11 +8,19 @@ radix prefix cache over full KV pages with eager publish and in-queue
 re-match; K-step decode bursts with one host read each; page 0 as trash;
 a dry page pool retracts a victim request, which re-prefills later.
 
+Request features as the reference's: counter-keyed sampling (a request's
+n-th sampled token draws from ``fold_in(PRNGKey(seed), counter_base + n)``,
+so a seeded stream does not depend on the batch, and a retracted or restored
+request resumes it), logprobs, mirostat v2, constrained decoding (json_mode,
+GBNF grammars; ``engine/constrained.py``) on single-step dispatches segregated
+from the other rows' bursts, and request-level snapshot/restore
+(``engine/snapshot.py``).
+
 The device half is ``paged_forward`` over the dual KV layout with the fused
 kernels (``ops/ternary_cuda.py``, ``ops/kv_update_cuda.py``,
 ``ops/flash_attention.py``); on the CPU the same calls run their plain
-versions. Features outside this slice raise ``NotImplementedError`` at
-construction or at ``submit``.
+versions. Engine configurations outside the port raise
+``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -56,13 +64,21 @@ class Request:
     matched_tokens: int = 0
     seq_len: int = 0
     pending: List[int] = dataclasses.field(default_factory=list)  # prompt not yet prefilled
+    # per emitted token, when sampling.logprobs_k > 0: (chosen_logprob,
+    # [(token_id, logprob), ...] top-k), appended before on_token fires
+    logprobs_seq: List[tuple] = dataclasses.field(default_factory=list)
+    # sampling-stream offset of a request restored from a snapshot: its key
+    # is fold_in(PRNGKey(seed), counter_base + #sampled)
+    counter_base: int = 0
     seed: int = 0  # per-request sampling stream (sampling.seed or derived from rid)
-    generator: Optional[torch.Generator] = None  # created at admission when sampling
     finished: bool = False
     finish_reason: str = ""
     arrival_t: float = dataclasses.field(default_factory=time.monotonic)
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
+    # constrained decoding's validator over the text emitted so far
+    # (json_mode / grammar), created at admission
+    grammar: object = None
 
 
 def _unsupported_config(cfg: BitNetConfig, e: EngineConfig) -> List[str]:
@@ -80,22 +96,6 @@ def _unsupported_config(cfg: BitNetConfig, e: EngineConfig) -> List[str]:
     if e.use_native_runtime:
         out.append("use_native_runtime (the C++ host runtime is not bound yet)")
     return out
-
-
-def check_sampling_supported(sampling: SamplingParams) -> None:
-    """Raise ``NotImplementedError`` for a request feature the port's engine
-    does not run yet (``submit`` calls it; the server calls it before a
-    stream's headers go out)."""
-    missing = []
-    if sampling.constrained:
-        missing.append("json_mode/grammar (constrained decoding)")
-    if sampling.logprobs_k > 0:
-        missing.append("logprobs")
-    if sampling.mirostat:
-        missing.append("mirostat")
-    if missing:
-        raise NotImplementedError(
-            "not ported to the PyTorch engine yet: " + ", ".join(missing))
 
 
 class Engine:
@@ -160,6 +160,8 @@ class Engine:
         self.seq_lens = np.zeros((S,), np.int32)
         self.slots: List[Optional[Request]] = [None] * S
         self.last_tokens = np.zeros((S,), np.int32)
+        self.slot_seeds = np.zeros((S,), np.uint32)
+        self.slot_counters = np.zeros((S,), np.int64)
         self.slot_temps = np.zeros((S,), np.float32)
         self.slot_tps = np.ones((S,), np.float32)
         self.slot_topks = np.zeros((S,), np.int32)
@@ -171,12 +173,18 @@ class Engine:
         self.slot_pres = np.zeros((S,), np.float32)
         self.slot_freqs = np.zeros((S,), np.float32)
         self.slot_lastn = np.zeros((S,), np.int32)
+        self.slot_miro = np.zeros((S,), np.int32)
+        self.slot_mtau = np.full((S,), 5.0, np.float32)
+        self.slot_meta = np.full((S,), 0.1, np.float32)
+        self.slot_mu = np.zeros((S,), np.float32)  # mirostat state (2 * tau at admission)
+        self._mu_fresh = set()  # slots whose mu was (re)initialised since the last upload
         Kb = e.logit_bias_slots
         self.slot_bias_ids = np.full((S, Kb), -1, np.int32)
         self.slot_bias_vals = np.zeros((S, Kb), np.float32)
         # device copies of the scheduling state, uploaded after scheduling
         # events; the page table is sliced to the active-history bucket
         self._dstate = None
+        self._dstate_cand = None  # the constrained rows' view (segregated decode)
         self._mp_bucket = 0
         self._dirty = True
 
@@ -184,8 +192,12 @@ class Engine:
         self._backlog: List[Request] = []  # drained from `waiting`, policy-ordered
         self._rid = itertools.count()
         self._lock = threading.Lock()
-        self._decode_fns: Dict[int, Callable] = {}
-        self._prefill_fns: Dict[int, Callable] = {}
+        # serving programs, built lazily: (kind, burst length or bucket,
+        # *the variant's flags that are on)
+        self._programs: Dict[tuple, Callable] = {}
+        # id -> decoded text piece, set by the embedder (the server) before
+        # constrained requests can run
+        self.token_pieces: Optional[List[str]] = None
 
         self.stats = {"decode_steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
                       "radix_hit_tokens": 0, "requests": 0}
@@ -204,7 +216,20 @@ class Engine:
             raise ValueError(
                 f"logit_bias has {len(sampling.logit_bias)} entries; engine supports "
                 f"{self.ecfg.logit_bias_slots} (EngineConfig.logit_bias_slots)")
-        check_sampling_supported(sampling)
+        if sampling.constrained:
+            if self.token_pieces is None:
+                raise ValueError("constrained decoding (json_mode/grammar) requires "
+                                 "Engine.token_pieces (id -> decoded text) to be set")
+            if sampling.logprobs_k > 0:
+                raise ValueError("constrained decoding with logprobs not supported")
+            if sampling.grammar and not sampling.json_mode:
+                from .gbnf import GbnfValidator
+
+                GbnfValidator(sampling.grammar)  # raises on parse errors
+            if sampling.mirostat:
+                raise ValueError("mirostat with constrained decoding not supported")
+        if sampling.mirostat and sampling.logprobs_k > 0:
+            raise ValueError("mirostat with logprobs not supported")
 
     def submit(
         self,
@@ -214,11 +239,17 @@ class Engine:
     ) -> Request:
         sampling = sampling or SamplingParams()
         self._validate_submit(prompt_ids, sampling)
+        return self._enqueue(self._new_request(prompt_ids, sampling, on_token))
+
+    def _new_request(self, prompt_ids, sampling: SamplingParams, on_token=None) -> Request:
         req = Request(next(self._rid), list(prompt_ids), sampling, on_token)
         req.seed = (
             sampling.seed if sampling.seed is not None
             else ((req.rid + 1) * 2654435761) % (2**32)
         )
+        return req
+
+    def _enqueue(self, req: Request) -> Request:
         self.waiting.put(req, timeout=5)
         self.stats["requests"] += 1
         return req
@@ -269,10 +300,16 @@ class Engine:
         return warmup(self)
 
     def snapshot(self) -> dict:
-        raise NotImplementedError("snapshot/restore is not ported to the PyTorch engine yet")
+        """Request-level state capture (``engine/snapshot.py``)."""
+        from .snapshot import snapshot
 
-    def restore(self, snap: dict, on_token_factory=None):
-        raise NotImplementedError("snapshot/restore is not ported to the PyTorch engine yet")
+        return snapshot(self)
+
+    def restore(self, snap: dict, on_token_factory=None) -> List[Request]:
+        """Resubmit a snapshot's requests (``engine/snapshot.py``)."""
+        from .snapshot import restore
+
+        return restore(self, snap, on_token_factory)
 
     # ------------------------------------------------------------------
     # scheduling
@@ -402,9 +439,10 @@ class Engine:
         self.seq_lens[slot] = matched
         self.slots[slot] = req
         s = req.sampling
-        if s.temperature > 0 and req.generator is None:
-            req.generator = torch.Generator(device=self.device)
-            req.generator.manual_seed(int(req.seed))
+        self.slot_seeds[slot] = req.seed
+        # counter = counter_base + #sampled so far: a retracted request
+        # resumes its seeded stream where it stopped
+        self.slot_counters[slot] = req.counter_base + len(req.output_ids)
         self.slot_temps[slot] = s.temperature
         self.slot_tps[slot] = s.top_p
         self.slot_topks[slot] = max(0, s.top_k)
@@ -417,6 +455,16 @@ class Engine:
         W = self.ecfg.penalty_window
         ln = s.penalty_last_n
         self.slot_lastn[slot] = W if ln < 0 else min(ln, W)
+        self.slot_miro[slot] = s.mirostat
+        self.slot_mtau[slot] = s.mirostat_tau
+        self.slot_meta[slot] = s.mirostat_eta
+        self.slot_mu[slot] = 2.0 * s.mirostat_tau
+        self._mu_fresh.add(slot)
+        if s.constrained and req.grammar is None:
+            req.grammar = self._make_validator(s)
+            # a continued request replays the text generated so far
+            for t in req.output_ids:
+                req.grammar.advance(self.token_pieces[t])
         self.slot_bias_ids[slot] = -1
         self.slot_bias_vals[slot] = 0.0
         if s.logit_bias:
@@ -537,30 +585,23 @@ class Engine:
         pt = np.zeros((B, mp_pre), np.int32)
         seq = np.zeros((B,), np.int32)
         new = np.zeros((B,), np.int32)
+        seeds = np.zeros((B,), np.int64)
+        ctrs = np.zeros((B,), np.int64)
         sids = np.full((B,), NS, np.int32)  # dummy rows -> trash staging
         W = self.ecfg.penalty_window
-        Kb = self.ecfg.logit_bias_slots
-        samp = {
-            "temps": np.zeros((B,), np.float32), "tps": np.ones((B,), np.float32),
-            "topks": np.zeros((B,), np.int32), "minps": np.zeros((B,), np.float32),
-            "typps": np.ones((B,), np.float32), "tfs": np.ones((B,), np.float32),
-            "reps": np.ones((B,), np.float32), "pres": np.zeros((B,), np.float32),
-            "freqs": np.zeros((B,), np.float32), "lastn": np.zeros((B,), np.int32),
-            "bias_ids": np.full((B, Kb), -1, np.int32),
-            "bias_vals": np.zeros((B, Kb), np.float32),
-        }
+        samp = self._samp_arrays(B)
         ring = np.full((B, W), -1, np.int32)
-        gens: List[Optional[torch.Generator]] = [None] * B
         for j, (i, r, chunk) in enumerate(chunks):
             toks[j, : len(chunk)] = chunk
             pt[j] = self.page_table[i, :mp_pre]
             seq[j] = r.seq_len
             new[j] = len(chunk)
             sids[j] = i
+            seeds[j] = r.seed
+            ctrs[j] = r.counter_base + len(r.output_ids)
             if len(chunk) < len(r.pending):
                 continue  # no token is sampled for this row this round
             # this chunk completes the prompt: its row samples the first token
-            gens[j] = r.generator
             for key, arr in (("temps", self.slot_temps), ("tps", self.slot_tps),
                              ("topks", self.slot_topks), ("minps", self.slot_minps),
                              ("typps", self.slot_typps), ("tfs", self.slot_tfs),
@@ -577,12 +618,29 @@ class Engine:
                 for p in range(max(0, n - W), min(n, len(stream))):
                     ring[j, p % W] = stream[p]
 
+        want_lp = any(r.sampling.logprobs_k > 0 and len(r.pending) <= bucket
+                      for _, r, _ in chunks)
+        want_cand = any(r.sampling.constrained and len(r.pending) <= bucket
+                        for _, r, _ in chunks)
+        # a round mixing logprobs rows and constrained rows runs the
+        # full-logits variant; the logprobs are then computed on the host from
+        # the same logits
+        fn = self._prefill_fn(bucket, with_logprobs=want_lp and not want_cand,
+                              return_logits=want_cand)
         dev = self.device
-        nxt, self.pools = self._prefill_fn(bucket)(
+        out, self.pools = fn(
             self.pools, torch.as_tensor(toks, device=dev), torch.as_tensor(pt, device=dev),
             torch.as_tensor(seq, device=dev), torch.as_tensor(new, device=dev),
-            torch.as_tensor(sids, device=dev), torch.as_tensor(ring, device=dev), samp, gens,
+            torch.as_tensor(seeds, device=dev), torch.as_tensor(ctrs, device=dev),
+            torch.as_tensor(sids, device=dev), torch.as_tensor(ring, device=dev), samp,
         )
+        logits_d = lp_np = None
+        if want_cand:
+            nxt, logits_d = out
+        elif want_lp:
+            nxt, lp_np = out[0], out[1:]
+        else:
+            nxt = out
         for j, (i, r, chunk) in enumerate(chunks):
             r.pending = r.pending[len(chunk):]
             r.seq_len += len(chunk)
@@ -599,25 +657,81 @@ class Engine:
                             src_r[: fullp * self.page_size],
                             (r.matched_pages + r.pages)[:fullp],
                         )
-                first_tok = int(nxt[j])
-                self._emit_token(r, first_tok)
+                row = None
+                if logits_d is not None and (r.sampling.constrained
+                                             or r.sampling.logprobs_k > 0):
+                    row = logits_d[j].cpu().numpy()  # this row only
+                status = ""
+                if r.sampling.constrained:
+                    first_tok, status = self._select_constrained(r, row)
+                    if first_tok is None:
+                        self._finish_notify(r, "stop")
+                        continue
+                else:
+                    first_tok = int(nxt[j])
+                lp = None
+                if r.sampling.logprobs_k > 0:
+                    if lp_np is not None:
+                        lp = (lp_np[0][j], lp_np[1][j], lp_np[2][j])
+                    elif row is not None:
+                        # mixed round: logprobs from the full logits
+                        lg = row.astype(np.float64)
+                        lsm = lg - (lg.max() + np.log(np.exp(lg - lg.max()).sum()))
+                        top = np.argsort(-lsm)[: self.ecfg.logprobs_top]
+                        lp = (lsm[first_tok], top, lsm[top])
+                self._emit_token(r, first_tok, lp)
+                if not r.finished and status == "complete":
+                    self._finish_notify(r, "stop")
                 if not r.finished:
                     self.last_tokens[i] = first_tok
+                self.slot_counters[i] = r.counter_base + len(r.output_ids)
         self.stats["prefill_rounds"] = self.stats.get("prefill_rounds", 0) + 1
         self._dirty = True
         return True
 
-    def _prefill_fn(self, bucket: int) -> Callable:
-        fn = self._prefill_fns.get(bucket)
-        if fn is None:
-            fn = self._prefill_fns[bucket] = prefill_for_bucket(self, bucket)
-        return fn
+    def _samp_arrays(self, B: int) -> Dict[str, np.ndarray]:
+        """Per-row sampler settings at their identity values; mirostat runs
+        from the first decode step, so the prefill sampler never uses it."""
+        Kb = self.ecfg.logit_bias_slots
+        return {
+            "temps": np.zeros((B,), np.float32), "tps": np.ones((B,), np.float32),
+            "topks": np.zeros((B,), np.int32), "minps": np.zeros((B,), np.float32),
+            "typps": np.ones((B,), np.float32), "tfs": np.ones((B,), np.float32),
+            "reps": np.ones((B,), np.float32), "pres": np.zeros((B,), np.float32),
+            "freqs": np.zeros((B,), np.float32), "lastn": np.zeros((B,), np.int32),
+            "bias_ids": np.full((B, Kb), -1, np.int32),
+            "bias_vals": np.zeros((B, Kb), np.float32),
+            "miro": np.zeros((B,), np.int32), "mtau": np.full((B,), 5.0, np.float32),
+            "meta": np.full((B,), 0.1, np.float32),
+        }
 
-    def _decode_fn(self, K: int) -> Callable:
-        fn = self._decode_fns.get(K)
-        if fn is None:
-            fn = self._decode_fns[K] = build_decode(self, burst_steps=K)
-        return fn
+    def _slot_samp(self, on: np.ndarray) -> Dict[str, np.ndarray]:
+        """The slots' sampler settings for a decode dispatch; only the rows in
+        ``on`` sample (the others are masked out of the dispatch)."""
+        return {
+            "temps": np.where(on, self.slot_temps, 0.0).astype(np.float32),
+            "tps": self.slot_tps, "topks": self.slot_topks, "minps": self.slot_minps,
+            "typps": self.slot_typps, "tfs": self.slot_tfs, "reps": self.slot_reps,
+            "pres": self.slot_pres, "freqs": self.slot_freqs, "lastn": self.slot_lastn,
+            "bias_ids": self.slot_bias_ids, "bias_vals": self.slot_bias_vals,
+            "miro": self.slot_miro, "mtau": self.slot_mtau, "meta": self.slot_meta,
+        }
+
+    def _program(self, kind: str, size: int, build: Callable, **flags) -> Callable:
+        key = (kind, size, *sorted(k for k, on in flags.items() if on))
+        if key not in self._programs:
+            self._programs[key] = build(self, size, **flags)
+        return self._programs[key]
+
+    def _prefill_fn(self, bucket: int, with_logprobs: bool = False,
+                    return_logits: bool = False) -> Callable:
+        return self._program("prefill", bucket, prefill_for_bucket,
+                             with_logprobs=with_logprobs, return_logits=return_logits)
+
+    def _decode_fn(self, K: int, with_logprobs: bool = False, return_logits: bool = False,
+                   with_mirostat: bool = False) -> Callable:
+        return self._program("decode", K, build_decode, with_logprobs=with_logprobs,
+                             return_logits=return_logits, with_mirostat=with_mirostat)
 
     def _pick_bucket(self, n: int) -> int:
         for b in self.ecfg.prefill_buckets:
@@ -637,7 +751,11 @@ class Engine:
     def _upload_state(self, mp: int):
         """Device copies of the decode state. Mid-prefill slots are masked
         out of decode bursts: zeroed page-table row (writes land in the trash
-        page), zeroed length/last token, trash staging slot NS."""
+        page), zeroed length/last token, trash staging slot NS. While a
+        constrained request decodes, its row is masked the same way in the
+        burst view, and a second view (``_dstate_cand``) masks every other
+        row: the other slots keep their K-step bursts while the constrained
+        rows step one token at a time through the full-logits program."""
         NS = len(self.slots)
         pt = self.page_table[:, :mp].copy()
         sl = self.seq_lens.copy()
@@ -657,9 +775,37 @@ class Engine:
                 n = int(self.seq_lens[i])
                 for p in range(max(0, n - W), min(n, len(toks_all))):
                     ring[i, p % W] = toks_all[p]
+        # mirostat's mu evolves on the device between uploads: pull it back
+        # for running slots (freshly admitted slots keep their 2 * tau)
+        if self._dstate is not None and any(
+                r is not None and r.sampling.mirostat and i not in self._mu_fresh
+                for i, r in enumerate(self.slots)):
+            dev_mu = self._dstate[7].cpu().numpy()
+            for i in range(NS):
+                if i not in self._mu_fresh:
+                    self.slot_mu[i] = dev_mu[i]
+        self._mu_fresh.clear()
         dev = self.device
-        self._dstate = tuple(
-            torch.as_tensor(a, device=dev) for a in (last, pt, sl, sids, ring))
+
+        def up(a):
+            return torch.as_tensor(a, device=dev)
+
+        d_seeds = up(self.slot_seeds.astype(np.int64))
+        d_ctr = up(self.slot_counters)
+        d_mu = up(self.slot_mu)
+        cons_rows = [i for i, r in enumerate(self.slots)
+                     if r is not None and not r.pending and r.sampling.constrained]
+        self._dstate_cand = None
+        if cons_rows:
+            pt_c, sl_c, last_c = np.zeros_like(pt), np.zeros_like(sl), np.zeros_like(last)
+            sids_c = np.full_like(sids, NS)
+            for i in cons_rows:
+                pt_c[i], sl_c[i], last_c[i], sids_c[i] = pt[i], sl[i], last[i], sids[i]
+                pt[i], sl[i], last[i], sids[i] = 0, 0, 0, NS
+            # its own ring: a burst writes the ring in place
+            self._dstate_cand = (up(last_c), up(pt_c), up(sl_c), d_seeds, d_ctr, up(sids_c),
+                                 up(ring), d_mu)
+        self._dstate = (up(last), up(pt), up(sl), d_seeds, d_ctr, up(sids), up(ring), d_mu)
         self._mp_bucket = mp
         self._dirty = False
 
@@ -693,17 +839,71 @@ class Engine:
         mp = self._pages_bucket(int(max_seq) + K)
         if self._dirty or self._dstate is None or mp != self._mp_bucket:
             self._upload_state(mp)
-        self._dispatch_burst(active)
+        cons = [i for i in active if self.slots[i].sampling.constrained]
+        if not cons:
+            self._dispatch_burst(active)
+            return True
+        # segregated constrained decoding: the other rows take their burst on
+        # the burst view, then the constrained rows one step on theirs
+        if self._dstate_cand is None:
+            self._upload_state(mp)
+        uncons = [i for i in active if not self.slots[i].sampling.constrained]
+        if uncons:
+            self._dispatch_burst(uncons)
+        self._constrained_step(cons)
+        # host-selected tokens must reach the device: re-upload before the
+        # next dispatch
+        self._dirty = True
         return True
 
+    def _constrained_step(self, cons):
+        """One step of the full-logits program on the constrained rows'
+        view; each row's token is re-selected on the host through its
+        validator from that row's post-penalty logits (only those rows are
+        fetched)."""
+        c_last, c_pt, c_sl, c_seeds, c_ctr, c_sids, c_ring, _ = self._dstate_cand
+        on = np.zeros((len(self.slots),), bool)
+        on[cons] = True
+        fn = self._decode_fn(1, return_logits=True)
+        (_, logits_d), self.pools, *_ = fn(self.pools, c_last, c_pt, c_sl, c_seeds, c_ctr,
+                                           c_sids, c_ring, self._slot_samp(on))
+        self.stats["decode_steps"] += 1
+        rows = logits_d[0, torch.as_tensor(cons, device=logits_d.device)].cpu().numpy()
+        room_cap = min(self.ecfg.max_context, self.max_pages_per_seq * self.page_size)
+        for j, i in enumerate(cons):
+            req = self.slots[i]
+            if req is None or req.finished:
+                continue
+            if req.seq_len >= room_cap:
+                self._finish(req, "length")
+                continue
+            req.seq_len += 1
+            self.seq_lens[i] = req.seq_len
+            tok, status = self._select_constrained(req, rows[j])
+            if tok is None:  # dead end: no legal continuation
+                self._finish_notify(req, "stop")
+                continue
+            self.stats["decode_tokens"] += 1
+            self.slot_counters[i] += 1
+            self._emit_token(req, tok)
+            if not req.finished and status == "complete":
+                self._finish_notify(req, "stop")
+            if not req.finished:
+                self.last_tokens[i] = tok
+
     def _dispatch_burst(self, rows):
-        """Run one decode burst for `rows` on the device state and emit the
-        sampled tokens. The burst shortens (K/2, K/4, ... >= 8) when every
-        row finishes within a shorter one."""
-        d_last, d_pt, d_sl, d_sids, d_ring = self._dstate
+        """Run one decode burst for ``rows`` on the burst view and emit the
+        sampled tokens. A burst with a logprobs row runs the logprobs
+        variant, one with a mirostat row the mirostat variant (carrying mu;
+        with logprobs too if a logprobs row shares it); otherwise the burst
+        shortens (K/2, K/4, ... >= 8) when every row
+        finishes within a shorter one."""
+        d_last, d_pt, d_sl, d_seeds, d_ctr, d_sids, d_ring, d_mu = self._dstate
         K = self.ecfg.decode_burst
         room_cap = min(self.ecfg.max_context, self.max_pages_per_seq * self.page_size)
-        if K > 8:
+        want_lp = any(self.slots[i].sampling.logprobs_k > 0 for i in rows)
+        want_miro = any(self.slots[i].sampling.mirostat for i in rows)
+        if not want_lp and not want_miro and K > 8:
             rem = 1
             for i in rows:
                 r = self.slots[i]
@@ -711,22 +911,21 @@ class Engine:
                                    room_cap - r.seq_len))
             while K // 2 >= max(8, rem):
                 K //= 2
-        fn = self._decode_fn(K)
-        # only decoding rows sample (a masked mid-prefill row must not draw
-        # from its request's generator)
+        # only decoding rows sample (the masked rows' tokens are dropped)
         on = np.zeros((len(self.slots),), bool)
         on[rows] = True
-        samp = {
-            "temps": np.where(on, self.slot_temps, 0.0).astype(np.float32),
-            "tps": self.slot_tps, "topks": self.slot_topks, "minps": self.slot_minps,
-            "typps": self.slot_typps, "tfs": self.slot_tfs, "reps": self.slot_reps,
-            "pres": self.slot_pres, "freqs": self.slot_freqs, "lastn": self.slot_lastn,
-            "bias_ids": self.slot_bias_ids, "bias_vals": self.slot_bias_vals,
-        }
-        gens = [self.slots[i].generator if on[i] else None for i in range(len(self.slots))]
-        toks, self.pools, d_last, d_sl, d_ring = fn(
-            self.pools, d_last, d_pt, d_sl, d_sids, d_ring, samp, gens)
-        self._dstate = (d_last, d_pt, d_sl, d_sids, d_ring)
+        args = (self.pools, d_last, d_pt, d_sl, d_seeds, d_ctr, d_sids, d_ring,
+                self._slot_samp(on))
+        if want_miro:
+            # a logprobs row beside a mirostat row gets its logprobs from the
+            # same burst (the reference's engine fails on that mix)
+            outs, self.pools, d_last, d_sl, d_ctr, d_ring, d_mu = self._decode_fn(
+                K, with_logprobs=want_lp, with_mirostat=True)(*args, d_mu)
+        else:
+            outs, self.pools, d_last, d_sl, d_ctr, d_ring = self._decode_fn(
+                K, with_logprobs=want_lp)(*args)
+        self._dstate = (d_last, d_pt, d_sl, d_seeds, d_ctr, d_sids, d_ring, d_mu)
+        toks, lp_data = (outs[0], outs[1:]) if want_lp else (outs, None)
         self.stats["decode_steps"] += toks.shape[0]
         for i in rows:
             req = self.slots[i]
@@ -740,7 +939,11 @@ class Engine:
                 self.seq_lens[i] = req.seq_len
                 tok = int(toks[k, i])
                 self.stats["decode_tokens"] += 1
-                self._emit_token(req, tok)
+                self.slot_counters[i] += 1
+                lp = None
+                if lp_data is not None and req.sampling.logprobs_k > 0:
+                    lp = (lp_data[0][k, i], lp_data[1][k, i], lp_data[2][k, i])
+                self._emit_token(req, tok, lp)
                 if not req.finished:
                     self.last_tokens[i] = tok
 
@@ -748,10 +951,15 @@ class Engine:
     # finishing
     # ------------------------------------------------------------------
 
-    def _emit_token(self, req: Request, tok: int):
+    def _emit_token(self, req: Request, tok: int, lp=None):
         if req.first_token_t is None:
             req.first_token_t = time.monotonic()
         req.output_ids.append(tok)
+        if lp is not None:
+            chosen, tids, tlps = lp
+            k = min(req.sampling.logprobs_k, len(tids))
+            req.logprobs_seq.append(
+                (float(chosen), [(int(tids[j]), float(tlps[j])) for j in range(k)]))
         s = req.sampling
         finished, reason = False, ""
         if not s.ignore_eos and self.eos_token_id is not None and tok == self.eos_token_id:
@@ -770,6 +978,25 @@ class Engine:
             req.on_token(tok, finished)
         if finished:
             self._finish(req, reason)
+
+    def _finish_notify(self, req: Request, reason: str):
+        """Finish without emitting a token (a grammar's dead end or its
+        completion): stream consumers still get a final (fin=True) event."""
+        req.finish_reason = reason
+        req.finished = True
+        if req.on_token is not None:
+            req.on_token(-1, True)
+        self._finish(req, reason)
+
+    def _make_validator(self, s: SamplingParams):
+        from .constrained import make_validator
+
+        return make_validator(self, s)
+
+    def _select_constrained(self, req: Request, logits_row: np.ndarray):
+        from .constrained import select_constrained
+
+        return select_constrained(self, req, logits_row)
 
     def _pick_victim(self, prefer_not: Optional[Request] = None) -> Optional[Request]:
         """Retraction victim under page pressure: the occupied slot with the
@@ -802,8 +1029,8 @@ class Engine:
         full pages feed the radix tree: they are valid KV for the stream so
         far) and requeue it at the front. Re-admission re-prefills prompt +
         generated tokens (``_start_request`` folds ``output_ids`` in), and
-        the request keeps its generator, so a seeded stream resumes where it
-        stopped; emitted tokens are never emitted again."""
+        its sampling counter is counter_base + #sampled, so a seeded stream
+        resumes where it stopped; emitted tokens are never emitted again."""
         self._dirty = True
         slot = req.slot
         if slot >= 0 and self.slots[slot] is req:

@@ -14,40 +14,76 @@ import numpy as np
 import torch
 
 from ..kv.paged import paged_forward
-from ..ops.sampling import apply_logit_bias, apply_penalties, sample_token
+from ..ops.sampling import (
+    NUCLEUS_CANDIDATES,
+    apply_logit_bias,
+    apply_penalties,
+    gumbel,
+    per_request_keys,
+    sample_token,
+    sample_token_mirostat,
+    token_logprobs,
+)
 
 
-def _sample(logits, ring, n_tokens, samp, gens):
-    pen = apply_logit_bias(
+def _penalised(logits, ring, n_tokens, samp):
+    return apply_logit_bias(
         apply_penalties(logits, ring, n_tokens, samp["lastn"], samp["reps"],
                         samp["pres"], samp["freqs"]),
         samp["bias_ids"], samp["bias_vals"],
     )
-    return sample_token(
-        pen, gens, temperature=samp["temps"], top_p=samp["tps"], top_k=samp["topks"],
-        min_p=samp["minps"], typical_p=samp["typps"], tfs_z=samp["tfs"],
-    )
 
 
-def build_decode(eng, burst_steps: int | None = None):
+def _sampler_kw(samp):
+    return dict(temperature=samp["temps"], top_p=samp["tps"], top_k=samp["topks"],
+                min_p=samp["minps"], typical_p=samp["typps"], tfs_z=samp["tfs"])
+
+
+def _host(*tensors):
+    """The tensors as numpy arrays: the program's one host read."""
+    return tuple(t.cpu().numpy() for t in tensors)
+
+
+def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = False,
+                 return_logits: bool = False, with_mirostat: bool = False):
     """K-step decode burst: K tokens per slot per call, one host read.
 
-    ``burst(pools, last_tokens, page_table, seq_lens, slot_ids, ring, samp,
-    gens)`` takes device tensors for the per-slot state, host arrays in
-    ``samp`` and one generator (or None) per slot; returns
-    ``(tokens [K, S] numpy, pools, last, seq_lens, ring)`` with the state
-    tensors advanced on the device."""
-    cfg = eng.cfg
-    K = burst_steps or eng.ecfg.decode_burst
-    fd = eng.ecfg.flash_decode
+    ``burst(pools, last_tokens, page_table, seq_lens, seeds, counters,
+    slot_ids, ring, samp[, mu])`` takes device tensors for the per-slot state
+    and host arrays in ``samp``; returns ``(outs, pools, last, seq_lens,
+    counters, ring[, mu])`` with the state tensors advanced on the device
+    (``counters`` by one per step, as the reference's ``ctr + 1``). Step k
+    of a sampling row draws the Gumbel noise of ``fold_in(PRNGKey(seed),
+    counter + k)``; the burst draws all K steps' noise in one call before
+    its first step.
 
-    def burst(pools, last_tokens, page_table, seq_lens, slot_ids, ring, samp, gens):
+    ``outs`` is the tokens [K, S] (numpy); with ``with_logprobs`` also the
+    chosen tokens' logprobs [K, S] and the top-``logprobs_top`` ids and
+    logprobs [K, S, N] of the penalised, pre-temperature distribution. With
+    ``return_logits`` the burst is one step that also returns the
+    post-penalty logits [1, S, V], left on the device (the host re-selects a
+    constrained row's token from its row). ``with_mirostat`` carries the
+    mirostat state ``mu`` [S] through the steps (``sample_token_mirostat``)."""
+    cfg = eng.cfg
+    K = 1 if return_logits else (burst_steps or eng.ecfg.decode_burst)
+    fd = eng.ecfg.flash_decode
+    lp_n = eng.ecfg.logprobs_top if with_logprobs else 0
+
+    def burst(pools, last_tokens, page_table, seq_lens, seeds, counters, slot_ids, ring, samp,
+              mu=None):
         W = ring.shape[1]
-        rows = torch.arange(last_tokens.shape[0], device=last_tokens.device)
-        tok, sl = last_tokens, seq_lens
+        dev = last_tokens.device
+        rows = torch.arange(last_tokens.shape[0], device=dev)
+        tok, sl, ctr = last_tokens, seq_lens, counters
         ones = torch.ones_like(sl)
-        outs = []
-        for _ in range(K):
+        noise = None
+        if np.any(np.asarray(samp["temps"]) > 0):
+            steps = torch.arange(K, device=dev)[:, None]
+            noise = gumbel(per_request_keys(seeds[None, :], ctr[None, :] + steps),
+                           min(NUCLEUS_CANDIDATES, cfg.vocab_size))  # [K, S, c]
+        kw = _sampler_kw(samp)
+        outs, lps = [], []
+        for k in range(K):
             # the token being fed sits at position sl: it is part of the
             # penalty window for the token sampled this step
             ring[rows, (sl % W).long()] = tok
@@ -56,31 +92,65 @@ def build_decode(eng, burst_steps: int | None = None):
                 linear_fn=eng._linear_fn, attention_fn=eng._attention_fn,
                 slot_ids=slot_ids, flash_decode=fd,
             )
-            tok = _sample(logits, ring, sl + 1, samp, gens)
+            pen = _penalised(logits, ring, sl + 1, samp)
+            nz = None if noise is None else noise[k]
+            if with_mirostat:
+                tok, mu = sample_token_mirostat(pen, nz, mu, miro=samp["miro"],
+                                                tau=samp["mtau"], eta=samp["meta"], **kw)
+            else:
+                tok = sample_token(pen, nz, **kw)
             outs.append(tok)
+            if lp_n:
+                lps.append(token_logprobs(pen, tok, lp_n))
             sl = sl + 1
-        toks = torch.stack(outs).cpu().numpy()  # the burst's one host read
-        return toks, pools, tok, sl, ring
+            ctr = ctr + 1
+        toks = torch.stack(outs)
+        if lp_n:
+            out = _host(toks, *(torch.stack(x) for x in zip(*lps)))
+        elif return_logits:
+            out = (toks.cpu().numpy(), pen[None])
+        else:
+            out = toks.cpu().numpy()  # the burst's one host read
+        if with_mirostat:
+            return out, pools, tok, sl, ctr, ring, mu
+        return out, pools, tok, sl, ctr, ring
 
     return burst
 
 
-def prefill_for_bucket(eng, bucket: int):
+def prefill_for_bucket(eng, bucket: int, with_logprobs: bool = False,
+                       return_logits: bool = False):
     """Prefill of one ``bucket``-token chunk per row; samples the next token
-    of every row (used for rows whose prompt this chunk completes).
-    ``prefill(pools, tokens, page_table, seq_len, new_len, slot_ids, ring,
-    samp, gens)`` -> ``(next tokens [B] numpy, pools)``."""
+    of every row (used for rows whose prompt this chunk completes) from the
+    keys ``fold_in(PRNGKey(seed), counter)``. ``prefill(pools, tokens,
+    page_table, seq_len, new_len, seeds, counters, slot_ids, ring, samp)`` ->
+    ``(out, pools)``: ``out`` is the next tokens [B] (numpy); with
+    ``with_logprobs`` also their logprobs [B] and the top-N ids and logprobs
+    [B, N]; with ``return_logits`` the tokens and the post-penalty logits
+    [B, V] on the device (a constrained row's first token is re-selected on
+    the host)."""
     cfg = eng.cfg
+    lp_n = eng.ecfg.logprobs_top if with_logprobs else 0
 
-    def prefill(pools, tokens, page_table, seq_len, new_len, slot_ids, ring, samp, gens):
+    def prefill(pools, tokens, page_table, seq_len, new_len, seeds, counters, slot_ids, ring,
+                samp):
         if tokens.shape[1] != bucket:
             raise ValueError(f"chunk of {tokens.shape[1]} tokens in the {bucket} bucket")
         logits, pools = paged_forward(
             eng.params, cfg, tokens, pools, page_table, seq_len, new_len,
             linear_fn=eng._linear_fn, attention_fn=eng._attention_fn, slot_ids=slot_ids,
         )
-        nxt = _sample(logits, ring, seq_len + new_len, samp, gens)
-        return nxt.cpu().numpy().astype(np.int32), pools
+        pen = _penalised(logits, ring, seq_len + new_len, samp)
+        noise = None
+        if np.any(np.asarray(samp["temps"]) > 0):
+            noise = gumbel(per_request_keys(seeds, counters),
+                           min(NUCLEUS_CANDIDATES, cfg.vocab_size))
+        nxt = sample_token(pen, noise, **_sampler_kw(samp))
+        if lp_n:
+            return _host(nxt, *token_logprobs(pen, nxt, lp_n)), pools
+        if return_logits:
+            return (nxt.cpu().numpy(), pen), pools
+        return nxt.cpu().numpy(), pools
 
     return prefill
 
@@ -105,23 +175,12 @@ def warmup(eng):
         cuda_lib.library()
     S = len(eng.slots)
     W = eng.ecfg.penalty_window
-    Kb = eng.ecfg.logit_bias_slots
     K = eng.ecfg.decode_burst
+    samp = eng._samp_arrays
     buckets = eng.ecfg.prefill_buckets
     widths = {8} | {eng._pages_bucket(b + 1) for b in buckets}
     scratch = PagedKV.zeros_dual(eng.cfg, max(widths) + 1, eng.page_size, S,
                                  eng.ecfg.kv_dtype, device=dev)
-
-    def samp(B):
-        return {
-            "temps": np.zeros((B,), np.float32), "tps": np.ones((B,), np.float32),
-            "topks": np.zeros((B,), np.int32), "minps": np.zeros((B,), np.float32),
-            "typps": np.ones((B,), np.float32), "tfs": np.ones((B,), np.float32),
-            "reps": np.ones((B,), np.float32), "pres": np.zeros((B,), np.float32),
-            "freqs": np.zeros((B,), np.float32), "lastn": np.zeros((B,), np.int32),
-            "bias_ids": np.full((B, Kb), -1, np.int32),
-            "bias_vals": np.zeros((B, Kb), np.float32),
-        }
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=dev)
@@ -131,14 +190,15 @@ def warmup(eng):
 
     timings = {}
     t0 = time.perf_counter()
-    eng._decode_fn(K)(scratch, t(np.zeros(S)), table(S, 8), t(np.zeros(S)), t(np.arange(S)),
-                      t(np.full((S, W), -1)), samp(S), [None] * S)
+    z = t(np.zeros(S))
+    eng._decode_fn(K)(scratch, z, table(S, 8), z, z.long(), z.long(), t(np.arange(S)),
+                      t(np.full((S, W), -1)), samp(S))
     timings[f"decode_burst[K={K}]"] = time.perf_counter() - t0
     for bucket in buckets:
         t0 = time.perf_counter()
         eng._prefill_fn(bucket)(
             scratch, t(np.zeros((1, bucket))), table(1, eng._pages_bucket(bucket + 1)),
-            t(np.zeros(1)), t(np.full(1, bucket)), t(np.zeros(1)), t(np.full((1, W), -1)),
-            samp(1), [None])
+            t(np.zeros(1)), t(np.full(1, bucket)), t(np.zeros(1)).long(), t(np.zeros(1)).long(),
+            t(np.zeros(1)), t(np.full((1, W), -1)), samp(1))
         timings[f"prefill[{bucket}]"] = time.perf_counter() - t0
     return timings

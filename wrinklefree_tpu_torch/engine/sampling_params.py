@@ -1,7 +1,5 @@
 """Request sampling parameters (OpenAI/llama.cpp-compatible subset). A copy
-of ``wrinklefree_tpu/engine/sampling_params.py``; the engine raises
-NotImplementedError at submit for the fields whose feature the port does
-not run yet (mirostat, logprobs, json_mode/grammar)."""
+of ``wrinklefree_tpu/engine/sampling_params.py``."""
 
 from __future__ import annotations
 
@@ -42,7 +40,7 @@ class SamplingParams:
     mirostat_eta: float = 0.1
     # Logprobs (OpenAI logprobs/top_logprobs, llama.cpp n_probs): 0 = off;
     # k >= 1 returns the chosen token's logprob + the top-k alternatives
-    # per step (the port raises NotImplementedError for logprobs_k > 0).
+    # per step (clamped to EngineConfig.logprobs_top).
     logprobs_k: int = 0
     # Additive logit bias (OpenAI `logit_bias` {token_id: -100..100},
     # llama.cpp `logit_bias` [[id, bias|false]]): list of (token_id,

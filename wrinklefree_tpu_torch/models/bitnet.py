@@ -537,11 +537,11 @@ def generate(
     device=None,
 ):
     """Greedy/sampled batch-1 generation with a contiguous KV cache and the
-    default (plain) linear, as the reference's. Sampling draws from a
-    ``torch.Generator`` seeded with ``seed``; its numbers differ from the
-    reference's ``jax.random`` stream, so only greedy output is comparable
-    across the two packages. ``device`` defaults to CUDA."""
-    from ..ops.sampling import sample_token
+    default (plain) linear, as the reference's. Sampling draws the
+    reference's stream: the key starts as ``PRNGKey(seed)`` and each token
+    splits it (``ops.sampling.split_key``) and samples with the second half.
+    ``device`` defaults to CUDA."""
+    from ..ops.sampling import NUCLEUS_CANDIDATES, gumbel, sample_token, split_key
 
     dev = resolve_device(device)
     prompt = torch.as_tensor(np.asarray(prompt_ids, np.int64), device=dev)[None, :]
@@ -550,14 +550,20 @@ def generate(
     # aligned 8-row groups)
     T = min(-(-T // 8) * 8, cfg.max_position)
     cache = KVCache.zeros(cfg, 1, T, cfg.dtype, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    rng = torch.tensor([0, seed & 0xFFFFFFFF], dtype=torch.int64, device=dev)
 
     logits, cache = forward(params, cfg, prompt, cache,
                             torch.zeros(1, dtype=torch.int32, device=dev), logits_all=False)
     out = [int(t) for t in prompt_ids]
     pos = prompt.shape[1]
-    tok = sample_token(logits, [gen], temperature=temperature, top_p=top_p)
+    c = min(NUCLEUS_CANDIDATES, cfg.vocab_size)
+
+    def sample(logits, rng):
+        rng, sub = split_key(rng)
+        noise = gumbel(sub[None], c) if temperature > 0 else None
+        return sample_token(logits, noise, temperature=temperature, top_p=top_p), rng
+
+    tok, rng = sample(logits, rng)
     for _ in range(max_new_tokens):
         out.append(int(tok[0]))
         if pos + 1 >= T:
@@ -565,7 +571,7 @@ def generate(
         logits, cache = forward(params, cfg, tok[:, None], cache,
                                 torch.full((1,), pos, dtype=torch.int32, device=dev),
                                 logits_all=False)
-        tok = sample_token(logits, [gen], temperature=temperature, top_p=top_p)
+        tok, rng = sample(logits, rng)
         pos += 1
     return out
 

@@ -3,17 +3,19 @@
 per engine replica runs the step loop; asyncio consumers stream tokens via
 thread-safe queues. Threads and asyncio only.
 
-Beyond the reference: ``cancel`` hands the cancellation to the serving
-replica's scheduler thread, which applies it before its next step (the
-event loop never waits on the engine's lock, which a busy scheduler
-thread would hold nearly all the time), and a stream whose consumer goes
-away (a client that disconnects) cancels its request.
+Beyond the reference: ``cancel`` and ``between_steps`` (the server's
+snapshot and restore) hand their work to the replica's scheduler thread,
+which runs it before its next step, under the engine's lock as the
+reference's calls do (the event loop never waits on that lock, which a busy
+scheduler thread would hold nearly all the time), and a stream whose
+consumer goes away (a client that disconnects) cancels its request.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import concurrent.futures
 import logging
 import threading
 from typing import AsyncIterator, List, Tuple
@@ -40,7 +42,7 @@ class AsyncEngine:
         self._pick_lock = threading.Lock()
         self._stop = threading.Event()
         self._owners = {}  # id(request) -> index of the replica serving it
-        self._cancels = [collections.deque() for _ in engines]  # (request, reason)
+        self._calls = [collections.deque() for _ in engines]  # (fn, future or None)
         # per-replica wake events: an idle scheduler thread parks on its
         # event (50 ms cap) and a submit wakes it at once
         self._wakes = [threading.Event() for _ in engines]
@@ -52,11 +54,21 @@ class AsyncEngine:
             t.start()
 
     def _loop(self, i: int):
-        engine, wake, cancels = self.engines[i], self._wakes[i], self._cancels[i]
+        engine, wake, calls = self.engines[i], self._wakes[i], self._calls[i]
         while not self._stop.is_set():
+            while calls:
+                fn, fut = calls.popleft()
+                try:
+                    out = fn()
+                except Exception as e:
+                    if fut is None:
+                        logger.exception("scheduler call failed")
+                    else:
+                        fut.set_exception(e)
+                else:
+                    if fut is not None:
+                        fut.set_result(out)
             try:
-                while cancels:
-                    engine.cancel(*cancels.popleft())
                 did = engine.step()
             except Exception:
                 logger.exception("engine step failed")
@@ -84,12 +96,22 @@ class AsyncEngine:
             self._rr += 1
             return self.engines[choice]
 
+    def _call(self, i: int, fn, fut=None):
+        self._calls[i].append((fn, fut))
+        self._wakes[i].set()
+
+    def between_steps(self, engine: Engine, fn) -> "asyncio.Future":
+        """Run ``fn()`` on ``engine``'s scheduler thread before its next step;
+        an awaitable of its result (or its exception)."""
+        fut = concurrent.futures.Future()
+        self._call(self.engines.index(engine), fn, fut)
+        return asyncio.wrap_future(fut)
+
     def cancel(self, req: Request, reason: str = "abort") -> None:
         """Cancel a request: its replica's scheduler thread applies it
         before its next step (a no-op if the request finished by then)."""
         i = self._owners.get(id(req), 0)
-        self._cancels[i].append((req, reason))
-        self._wakes[i].set()
+        self._call(i, lambda: self.engines[i].cancel(req, reason))
 
     def shutdown(self):
         self._stop.set()

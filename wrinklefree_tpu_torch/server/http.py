@@ -7,10 +7,11 @@ handlers are the reference's, over the small asyncio HTTP layer of
 `/completion`, `/embedding`, `/tokenize`, `/detokenize`, `/props`,
 `/slots`, Prometheus `/metrics`; `/stats` and `/admin/*`.
 
-A request for a feature the port's engine does not run yet (logprobs,
-json_mode / grammar / json_schema, mirostat, snapshot/restore) gets the
-reference's error body, ``{"error": {"message": ...}}``, with status 501.
-A streaming client that disconnects cancels its request.
+Logprobs (OpenAI chat and legacy, streamed or not, and llama.cpp's
+``completion_probabilities``), constrained decoding (``response_format``
+json_object / json_schema, llama.cpp ``json_schema`` and GBNF ``grammar``),
+mirostat and ``/admin/snapshot|restore`` are served as by the reference. A
+streaming client that disconnects cancels its request.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import math
 import time
 from typing import List, Optional
 
@@ -29,8 +31,10 @@ import torch
 
 from ..config import BitNetConfig, EngineConfig
 from ..convert.gguf import load_params_gguf
-from ..engine.engine import Engine, check_sampling_supported
+from ..engine.engine import Engine
+from ..engine.gbnf import GbnfValidator
 from ..engine.sampling_params import SamplingParams
+from ..engine.schema_to_gbnf import schema_to_gbnf
 from ..models.bitnet import KVCache, forward, fuse_projections, init_params, resolve_device
 from ..models.loader import load_params, load_tokenizer
 from . import _web as web
@@ -152,9 +156,7 @@ class InferenceServer:
 
     def _sampling_from(self, body: dict, is_llamacpp=False) -> SamplingParams:
         """The reference's request fields -> SamplingParams. Raises
-        ValueError for a malformed request (400) and NotImplementedError
-        for a feature the port's engine lacks (501), both before any
-        stream starts."""
+        ValueError for a malformed request (400) before any stream starts."""
         if is_llamacpp:
             max_new = int(body.get("n_predict", 128))
             if max_new < 0:
@@ -187,8 +189,9 @@ class InferenceServer:
                     continue
                 tid, v = pair
                 bias.append((int(tid), -1e9 if v is False else float(v)))
-        # constrained decoding: OpenAI `response_format` json_object /
-        # json_schema, llama.cpp `json_schema` and GBNF `grammar`
+        # OpenAI `response_format`: json_object forces any valid JSON
+        # object; json_schema (and llama.cpp `json_schema`) compiles the
+        # schema to GBNF (engine/schema_to_gbnf.py) and enforces it
         rf = body.get("response_format")
         json_mode = isinstance(rf, dict) and rf.get("type") == "json_object"
         schema = None
@@ -199,23 +202,29 @@ class InferenceServer:
                 schema = {}
         if body.get("json_schema") is not None:
             schema = body.get("json_schema")
-        if schema is not None and not isinstance(schema, dict):
-            raise ValueError("json_schema must be an object")
-        grammar = body.get("grammar") or None
-        if grammar is not None and not isinstance(grammar, str):
-            raise ValueError("'grammar' must be a GBNF string")
+        schema_grammar = None
+        if schema is not None:
+            if not isinstance(schema, dict):
+                raise ValueError("json_schema must be an object")
+            if schema:
+                schema_grammar = schema_to_gbnf(schema)
+            else:
+                json_mode = True  # empty schema: any JSON object
+        # llama.cpp GBNF `grammar` (engine/gbnf.py); parse errors 400 here
+        grammar = body.get("grammar") or schema_grammar or None
+        if grammar is not None:
+            if not isinstance(grammar, str):
+                raise ValueError("'grammar' must be a GBNF string")
+            GbnfValidator(grammar)  # raises GbnfError (a ValueError)
+        # the engine's own checks, made here so a stream can answer 400
+        # before its headers go out (submit checks again)
         ecfg = self.async_engine.engine.ecfg
         if len(bias) > ecfg.logit_bias_slots:
             raise ValueError(
                 f"logit_bias has {len(bias)} entries; max {ecfg.logit_bias_slots}")
-        constrained = json_mode or grammar is not None or schema is not None
-        if constrained and lp_k > 0:
+        if (json_mode or grammar) and lp_k > 0:
             raise ValueError("constrained decoding (json/grammar) with logprobs not supported")
-        if constrained:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: json_mode/grammar/json_schema "
-                "(constrained decoding, ROADMAP queue 1 item 8)")
-        sampling = SamplingParams(
+        return SamplingParams(
             temperature=float(body.get("temperature", 0.7)),
             top_p=float(body.get("top_p", 0.9)),
             top_k=int(body.get("top_k", 0)),
@@ -239,9 +248,83 @@ class InferenceServer:
             penalty_last_n=last_n,
             logprobs_k=max(0, lp_k),
             logit_bias=bias or None,
+            json_mode=json_mode,
+            grammar=grammar,
         )
-        check_sampling_supported(sampling)  # logprobs, mirostat: 501
-        return sampling
+
+    def _ensure_token_pieces(self):
+        """Set Engine.token_pieces (id -> decoded text) once, shared by every
+        replica: the constrained-decoding validators check candidate pieces
+        against it. Special tokens decode to "" (never legal text). Heavy for
+        a 128K vocabulary, so handlers run it in an executor."""
+        eng = self.async_engine.engine
+        if eng.token_pieces is None:
+            eng.token_pieces = [self.tokenizer.decode([i], skip_special_tokens=True)
+                                for i in range(eng.cfg.vocab_size)]
+        for e in self.async_engine.engines[1:]:
+            if e.token_pieces is None:
+                e.token_pieces = eng.token_pieces
+
+    async def _prepare_sampling(self, sampling):
+        if sampling.constrained:
+            await asyncio.get_running_loop().run_in_executor(None, self._ensure_token_pieces)
+
+    # -- logprobs rendering ----------------------------------------------------
+    # Per-token data comes from Request.logprobs_seq: one (chosen_logprob,
+    # [(token_id, logprob), ...]) tuple per emitted token.
+
+    def _tok_str(self, tok: int) -> str:
+        return self.tokenizer.decode([tok], skip_special_tokens=False)
+
+    def _chat_lp_entry(self, tok: int, entry, top_n: int) -> dict:
+        chosen, tops = entry
+        s = self._tok_str(tok)
+        return {
+            "token": s,
+            "logprob": chosen,
+            "bytes": list(s.encode("utf-8")),
+            "top_logprobs": [
+                {"token": self._tok_str(t), "logprob": lp,
+                 "bytes": list(self._tok_str(t).encode("utf-8"))}
+                for t, lp in tops[:top_n]
+            ],
+        }
+
+    def _chat_logprobs(self, req, top_n: int) -> dict:
+        """OpenAI chat ``choices[].logprobs`` object."""
+        return {"content": [self._chat_lp_entry(tok, e, top_n)
+                            for tok, e in zip(req.output_ids, req.logprobs_seq)]}
+
+    def _completion_logprobs(self, req, top_n: int) -> dict:
+        """Legacy OpenAI completions ``logprobs`` object."""
+        tokens, token_logprobs, top_logprobs, offsets = [], [], [], []
+        off = 0
+        for tok, (chosen, tops) in zip(req.output_ids, req.logprobs_seq):
+            s = self._tok_str(tok)
+            tokens.append(s)
+            token_logprobs.append(chosen)
+            top_logprobs.append({self._tok_str(t): lp for t, lp in tops[:top_n]})
+            offsets.append(off)
+            off += len(s)
+        return {"tokens": tokens, "token_logprobs": token_logprobs,
+                "top_logprobs": top_logprobs, "text_offset": offsets}
+
+    def _lp_chunk_openai(self, tok: int, entry, top_n: int) -> dict:
+        """Single-token legacy logprobs object for streamed completions."""
+        chosen, tops = entry
+        return {"tokens": [self._tok_str(tok)], "token_logprobs": [chosen],
+                "top_logprobs": [{self._tok_str(t): lp for t, lp in tops[:top_n]}],
+                "text_offset": [0]}
+
+    def _llamacpp_prob_entry(self, tok: int, tops, top_n: int) -> dict:
+        return {"content": self._tok_str(tok),
+                "probs": [{"tok_str": self._tok_str(t), "prob": math.exp(lp)}
+                          for t, lp in tops[:top_n]]}
+
+    def _llamacpp_probs(self, req, top_n: int) -> list:
+        """llama.cpp ``completion_probabilities`` (n_probs)."""
+        return [self._llamacpp_prob_entry(tok, tops, top_n)
+                for tok, (_, tops) in zip(req.output_ids, req.logprobs_seq)]
 
     def _encode(self, prompt) -> List[int]:
         if isinstance(prompt, list):  # already token ids
@@ -467,13 +550,38 @@ class InferenceServer:
         return web.json_response({"dropped_pages": dropped})
 
     async def admin_snapshot(self, request):
-        """Request-level preemption snapshot (Engine.snapshot): not ported
-        yet, so the engine raises and the request gets 501."""
-        return web.json_response(self.async_engine.engine.snapshot())
+        """Request-level preemption snapshot (Engine.snapshot): token ids and
+        sampling state, no tensors; POST it to /admin/restore of this or
+        another server to resume. Replicas' requests are merged. Each
+        replica's scheduler thread takes its snapshot between two steps."""
+        ae = self.async_engine
+        snaps = [await ae.between_steps(e, e.snapshot) for e in ae.engines]
+        for extra in snaps[1:]:
+            snaps[0]["requests"].extend(extra["requests"])
+        return web.json_response(snaps[0])
 
     async def admin_restore(self, request):
-        """Resubmit a snapshot's requests (Engine.restore): not ported yet (501)."""
-        reqs = self.async_engine.engine.restore(await request.json())
+        """Resubmit a snapshot's requests (Engine.restore, on the replica's
+        scheduler thread), round-robin over the replicas; a bad snapshot
+        restores nothing and answers 400."""
+        body = await request.json()
+        if any(d.get("json_mode") or d.get("grammar") for d in body.get("requests", [])):
+            await asyncio.get_running_loop().run_in_executor(None, self._ensure_token_pieces)
+        ae = self.async_engine
+        try:
+            if len(ae.engines) == 1:
+                reqs = await ae.between_steps(ae.engine, lambda: ae.engine.restore(body))
+            else:
+                entries = body.get("requests", [])
+                reqs = []
+                for rep, e in enumerate(ae.engines):
+                    part = {"version": body.get("version"),
+                            "requests": entries[rep::len(ae.engines)]}
+                    if part["requests"]:
+                        reqs.extend(await ae.between_steps(e, lambda e=e, part=part:
+                                                           e.restore(part)))
+        except (ValueError, KeyError) as e:
+            return _error(str(e), 400)
         return web.json_response({"restored": len(reqs)})
 
     async def tokenize(self, request):
@@ -501,23 +609,28 @@ class InferenceServer:
             n = self._parse_n(body)
         except ValueError as e:
             return _error(str(e), 400)
+        await self._prepare_sampling(sampling)
         stops = _parse_stops(body)
         cid = chat_completion_id()
+        lp_top = int(body.get("top_logprobs", 0) or 0) if body.get("logprobs") is True else None
         try:
             if body.get("stream"):
                 if n > 1:
                     return _error("stream with n > 1 not supported", 400)
                 return await self._stream_chat(request, cid, ids, sampling, stops,
-                                               usage=self._want_usage(body))
+                                               lp_top=lp_top, usage=self._want_usage(body))
             runs = await self._run_n(ids, sampling, stops, n)
             choices, completion_toks = [], 0
             for i, (req, text, hit) in enumerate(runs):
                 reason = "stop" if hit is not None else (req.finish_reason or "stop")
-                choices.append({
+                choice = {
                     "index": i,
                     "message": {"role": "assistant", "content": text},
                     "finish_reason": reason,
-                })
+                }
+                if lp_top is not None:
+                    choice["logprobs"] = self._chat_logprobs(req, lp_top)
+                choices.append(choice)
                 completion_toks += len(req.output_ids)
             payload = chat_response(cid, self.model_name, "", "stop", len(ids), completion_toks)
             payload["choices"] = choices
@@ -534,8 +647,10 @@ class InferenceServer:
             n = self._parse_n(body)
         except ValueError as e:
             return _error(str(e), 400)
+        await self._prepare_sampling(sampling)
         stops = _parse_stops(body)
         cid = completion_id()
+        lp_top = int(body.get("logprobs") or 0) or None
         echo = bool(body.get("echo", False))
         prompt_text = prompt if isinstance(prompt, str) else (
             self.tokenizer.decode(ids, skip_special_tokens=True))
@@ -544,7 +659,7 @@ class InferenceServer:
                 if n > 1:
                     return _error("stream with n > 1 not supported", 400)
                 return await self._stream_completion(
-                    request, cid, ids, sampling, openai=True, stops=stops,
+                    request, cid, ids, sampling, openai=True, stops=stops, lp_top=lp_top,
                     echo_text=prompt_text if echo else None, usage=self._want_usage(body))
             runs = await self._run_n(ids, sampling, stops, n)
             choices, completion_toks = [], 0
@@ -554,7 +669,7 @@ class InferenceServer:
                     "index": i,
                     "text": (prompt_text + text) if echo else text,
                     "finish_reason": reason,
-                    "logprobs": None,
+                    "logprobs": self._completion_logprobs(req, lp_top) if lp_top else None,
                 })
                 completion_toks += len(req.output_ids)
             payload = completion_response(cid, self.model_name, "", "stop", len(ids),
@@ -572,13 +687,19 @@ class InferenceServer:
             sampling = self._sampling_from(body, is_llamacpp=True)
         except ValueError as e:
             return _error(str(e), 400)
+        await self._prepare_sampling(sampling)
         stops = _parse_stops(body)
+        n_probs = int(body.get("n_probs", 0) or 0)
         try:
             if body.get("stream"):
                 return await self._stream_completion(
-                    request, completion_id(), ids, sampling, openai=False, stops=stops)
+                    request, completion_id(), ids, sampling, openai=False, stops=stops,
+                    lp_top=n_probs or None)
             req, text, hit = await self._run(ids, sampling, stops)
+            extra = ({"completion_probabilities": self._llamacpp_probs(req, n_probs)}
+                     if n_probs else {})
             return web.json_response({
+                **extra,
                 "content": text,
                 "stop": True,
                 "stopped_eos": req.finish_reason == "stop" and hit is None,
@@ -678,7 +799,8 @@ class InferenceServer:
             parts.append(scan.flush())
         return req, "".join(parts), scan.hit
 
-    async def _stream_chat(self, request, cid, ids, sampling, stops=None, usage=False):
+    async def _stream_chat(self, request, cid, ids, sampling, stops=None, lp_top=None,
+                           usage=False):
         resp = web.StreamResponse(headers={
             "Content-Type": "text/event-stream",
             "Cache-Control": "no-cache",
@@ -696,10 +818,14 @@ class InferenceServer:
                     continue  # stopped: wait for the cancel's final event
                 if tok >= 0:
                     delta, stopped = scan.push(detok.push(tok))
+                    lp = None
+                    if lp_top is not None and n < len(req.logprobs_seq):
+                        lp = {"content": [
+                            self._chat_lp_entry(tok, req.logprobs_seq[n], lp_top)]}
                     n += 1
-                    if delta:
-                        await resp.write(
-                            chat_chunk(cid, self.model_name, {"content": delta}).encode())
+                    if delta or lp is not None:
+                        await resp.write(chat_chunk(cid, self.model_name, {"content": delta},
+                                                    logprobs=lp).encode())
                     if stopped:
                         self.async_engine.cancel(req, "stop")
                         finish = "stop"
@@ -725,7 +851,7 @@ class InferenceServer:
         return resp
 
     async def _stream_completion(self, request, cid, ids, sampling, openai: bool,
-                                 stops=None, echo_text=None, usage=False):
+                                 stops=None, lp_top=None, echo_text=None, usage=False):
         resp = web.StreamResponse(
             headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache"})
         await resp.prepare(request)
@@ -739,15 +865,22 @@ class InferenceServer:
         detok = _Detokenizer(self.tokenizer)
         scan = _StopScan(stops)
         n = 0
+        cur_lp = (None, None)  # (token, logprobs_seq entry) of this chunk
 
         def payload_for(text, fin, reason):
+            tok, entry = cur_lp
             if openai:
+                lp = (self._lp_chunk_openai(tok, entry, lp_top)
+                      if lp_top and entry is not None else None)
                 return {
                     "id": cid, "object": "text_completion", "model": self.model_name,
-                    "choices": [{"index": 0, "text": text, "logprobs": None,
+                    "choices": [{"index": 0, "text": text, "logprobs": lp,
                                  "finish_reason": reason if fin else None}],
                 }
             p = {"content": text, "stop": bool(fin), "tokens_predicted": n}
+            if lp_top and entry is not None:
+                p["completion_probabilities"] = [
+                    self._llamacpp_prob_entry(tok, entry[1], lp_top)]
             if fin and scan.hit is not None:
                 p["stopped_word"] = True
                 p["stopping_word"] = scan.hit
@@ -758,6 +891,8 @@ class InferenceServer:
                 if scan.hit is not None:
                     continue  # stopped: wait for the cancel's final event
                 if tok >= 0:
+                    cur_lp = ((tok, req.logprobs_seq[n])
+                              if lp_top and n < len(req.logprobs_seq) else (None, None))
                     delta, stopped = scan.push(detok.push(tok))
                     n += 1
                     if stopped:
@@ -768,6 +903,7 @@ class InferenceServer:
                         delta += scan.flush()
                     await resp.write(_event(payload_for(delta, fin, req.finish_reason)))
                 elif fin:
+                    cur_lp = (None, None)
                     await resp.write(_event(payload_for(scan.flush(), True,
                                                        req.finish_reason or "stop")))
         if openai:
@@ -783,19 +919,6 @@ class InferenceServer:
             await resp.write(b"data: [DONE]\n\n")
         await resp.write_eof()
         return resp
-
-
-def _not_implemented_as_501(handler):
-    """A feature the port's engine lacks answers 501 with the reference's
-    error body (raised before any stream starts)."""
-
-    async def run(request):
-        try:
-            return await handler(request)
-        except NotImplementedError as e:
-            return _error(str(e), 501)
-
-    return run
 
 
 def build_app(server: InferenceServer) -> web.Application:
@@ -818,7 +941,7 @@ def build_app(server: InferenceServer) -> web.Application:
         web.post("/tokenize", server.tokenize),
         web.post("/detokenize", server.detokenize),
     ]
-    app.add_routes([(m, p, _not_implemented_as_501(h)) for m, p, h in routes])
+    app.add_routes(routes)
     return app
 
 
