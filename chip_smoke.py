@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs twelve phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs thirteen phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -67,7 +67,21 @@ vocab 128256) with random weights drawn on the card from seed 0:
                bursts of six requests restored on a fresh engine to the
                uninterrupted run's tokens; the serving kernels launched in
                every variant;
-8. load      — seed-made 2B params written as an HF directory, its packed
+8. heads_kv  — the engine phase's configuration and prompts under the exact
+               head (streams = the bf16 head's or a near-tie of it; sampled and
+               penalised rows = the default engine's; device ms and
+               certificate failures per decode step beside the plain burst),
+               ``int8_logits`` (tokens = the int8 head's argmax), the native
+               host runtime (= the Python classes: tokens, radix hits,
+               retractions), int8/fp8 pools on both layouts (stored bytes =
+               ``quantize_kv`` of the bf16 rows; decode logits cosine >= 0.998
+               for int8 and fp8_e4m3; K3, K4 and K6 never launched), the
+               token-major layout (K3's writes bit-equal, K4's contiguous form
+               30 times a 512-token chunk and within its bar; streams = the
+               layer layout's or a near-tie) and the window (>= max_context:
+               the full attention's tokens or a near-tie; 256 tokens on
+               700-token prompts, pages gathered per step);
+9. load      — seed-made 2B params written as an HF directory, its packed
                cache (``convert_and_save``) and its i2_s GGUF
                (``convert_hf_to_gguf``), each loaded onto the card bit-equal
                to the in-memory params (the GGUF against their f16 round
@@ -75,7 +89,7 @@ vocab 128256) with random weights drawn on the card from seed 0:
                each giving the in-memory params' greedy tokens for prompts of
                17 and 512 tokens with K1, K2, K3 and K4 launched; each
                format's bytes, write and load seconds;
-9. server    — the port's HTTP server (``create_server("synth:bitnet_2b")``
+10. server   — the port's HTTP server (``create_server("synth:bitnet_2b")``
                with the engine phase's configuration) on a free 127.0.0.1
                port, driven by the port's client: health, models, the
                tokenizer round trip, a greedy completion whose token ids equal
@@ -84,14 +98,14 @@ vocab 128256) with random weights drawn on the card from seed 0:
                norm, /metrics, a logprobs chat request answered 200 and
                ``run_server_benchmark`` (16 requests at concurrency 8), every
                serving kernel launched;
-10. serving  — ``bench.serving`` (the port of scripts/serving_bench.py) at
+11. serving  — ``bench.serving`` (the port of scripts/serving_bench.py) at
                16 streams x 128 + 32 tokens on 8 slots: its JSON line, no
                build or new program inside its measured window;
-11. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+12. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-12. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+13. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -184,6 +198,19 @@ KERNELS = {
         "replaces": "wrinklefree_tpu/ops/ternary_pallas.py:228",
         "also_replaces": "wrinklefree_tpu/ops/ternary_pallas.py:132",
     },
+    # K3 and K4 on the token-major layout (the heads_kv phase): K3 writes one
+    # [2L, KV*D] row per token into the pool, as the reference's token-major
+    # pool does (kv/paged.py :1090); K4's contiguous form attends over the
+    # gathered history ++ chunk (its _paged_attention_flash, :482)
+    "kv_write/token": {
+        "source": "wrinklefree_tpu_torch/csrc/kv_write.cu",
+        "replaces": "wrinklefree_tpu/ops/kv_update_pallas.py:57",
+        "also_replaces": "wrinklefree_tpu/ops/kv_update_pallas.py:96",
+    },
+    "flash_paged_prefill/contiguous": {
+        "source": "wrinklefree_tpu_torch/csrc/flash_paged_prefill.cu",
+        "replaces": "wrinklefree_tpu/ops/flash_attention.py:219",
+    },
 }
 
 
@@ -248,6 +275,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3):
     else:
         fail("torch.profiler recorded no device time")
     return dev_us / 1e3 / iters, call_ms
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms per call of fn: ``iters`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two CUDA events (no host launch
+    overhead and no profiler; the graph's gaps between kernels count)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # outside the capture: first-use allocations
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def start_profiler(dev) -> int:
@@ -2309,6 +2362,575 @@ def phase_features(params, cfg, dev, counters, smi):
     return total
 
 
+def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
+    """The engine's heads, the native host runtime, quantized KV pools, the
+    token-major layout and the sliding window at 2B width and depth (the
+    engine phase's EngineConfig and six greedy prompts of 17..700 tokens, 32
+    new tokens each, random weights from seed 0). Every check is required:
+
+    - the default engine's run, its logits recorded (``LogitsRecorder``),
+      gives the engine phase's tokens;
+    - exact head (``exact_head_k=64``): greedy streams equal the default
+      run's, or part where the default run's bf16 logits hold both tokens
+      within 1e-2 (the rescore's f32 einsum and cuBLAS sum in other orders);
+      a sampled and a penalised request sharing bursts give the default
+      engine's tokens; an 8-slot greedy decode window beside the plain one:
+      device ms per step, certificate failures per step;
+    - ``int8_logits``: every program's params hold the int8 head and
+      ``paged_forward``'s own head runs on them; every token is the argmax
+      of the int8 head's logits that this check computes from the hidden
+      rows that head was given and the engine's params; the agreement of
+      that argmax with the bf16 head's on the same rows is printed;
+    - native runtime: the engines run it; eight 110-token prompts sharing 48
+      tokens, 48 tokens each, on a 60-page pool with bursts of 20 (radix hits
+      and retractions): tokens, radix hits and retractions equal a
+      ``use_native_runtime=False`` engine's;
+    - quantized pools (int8, fp8_e4m3, fp8_e5m2; token and layer layouts):
+      after a first 64-token chunk the pool's rows and scales equal
+      ``quantize_kv`` of the bf16 pool's, bit for bit; logits of 24 decode
+      steps after a 200-token prompt, teacher-forced on the bf16 run's
+      tokens, against a bf16 run of the same layout on the same (plain)
+      attention: the prompt's logits bit-equal, the minimum cosine at
+      least 0.985 (bf16 kernels), 0.98 (int8), 0.97 (fp8_e4m3), 0.95
+      (fp8_e5m2) (on random 30-layer weights the bf16 kernel path's own
+      rounding reads 0.9925, so the reference's 0.998 is held one level
+      down): each layer's decode attention over the quantized history
+      against the bf16 history's, cosine >= 0.998 for int8 and fp8_e4m3,
+      fp8_e5m2's printed; each quantized run's written history after the
+      24 steps is ``quantize_kv`` of the K/V rows that run wrote, bytes
+      and scales, each value within half a quantization step; each
+      dtype's pool bytes; engines on int8 (token) and fp8_e5m2 (layer) pools
+      with ``flash_decode`` launch K1 and K2 and never K3, K4 or K6;
+    - token layout, bf16: K3's token-major writes (8 decode rows, a
+      512-token chunk) bit-equal to its plain version, timed; a 512-token
+      chunk over a 1024-token table launches K4's contiguous form once per
+      layer, its output within 3e-2 of the plain version at layers 0 and 29,
+      timed; the engine's streams equal the default run's or part at a
+      near-tie (``near_tie``; the two runs' logits within 1.0 there);
+    - window: ``attn_window=2048`` (>= max_context) gives the tokens of the
+      same engine with ``attention_fn=_paged_attention_dual`` or parts at a
+      near-tie; a 256-token window on four 700-token prompts runs, its
+      gathered pages per row, layer and decode step printed beside the
+      table's width.
+    Returns the token layout engine's K3 and K4 launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wrinklefree_tpu_torch.bench import flash_prefill as fp_bench
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams, programs
+    from wrinklefree_tpu_torch.kv import paged
+    from wrinklefree_tpu_torch.kv.paged import PagedKV
+    from wrinklefree_tpu_torch.kv.quantized import quantize_kv
+    from wrinklefree_tpu_torch.models.bitnet import compute_logits
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+    from wrinklefree_tpu_torch.ops import kv_update_cuda as kvu
+    from wrinklefree_tpu_torch.ops import sampling
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
+                        prefill_buckets=(32, 128, 512))
+    L, V = cfg.num_layers, cfg.vocab_size
+    lens = (17, 64, 200, 333, 512, 700)
+    rng = np.random.default_rng(0)  # the engine phase's prompts
+    prompts = [rng.integers(1, V, n).tolist() for n in lens]
+    rng = np.random.default_rng(19)
+    greedy = SamplingParams(max_new_tokens=32, temperature=0.0)
+    attn_kernels = [kvu.kv_write, fa.flash_paged_prefill, fa.flash_paged_decode]
+    everything = {c.__name__: c for c in (*counters, fa.flash_paged_decode)}
+    out = {}
+
+    def engine(**over):
+        af = over.pop("attention_fn", None)
+        eng = Engine(params, cfg, dataclasses.replace(ecfg, **over), device=dev,
+                     attention_fn=af)
+        if not eng.native_runtime:
+            fail("heads_kv: the engine runs the Python allocator and radix cache, not the "
+                 "native runtime")
+        return eng
+
+    def run(eng, jobs):
+        reqs = [eng.submit(p, sp) for p, sp in jobs]
+        while any(not r.finished for r in reqs):
+            eng.step()
+        sync()
+        for r in reqs:
+            if r.finish_reason != "length" or len(r.output_ids) != r.sampling.max_new_tokens:
+                fail(f"heads_kv: a request finished {r.finish_reason!r} with "
+                     f"{len(r.output_ids)} tokens")
+        return reqs
+
+    def zero():
+        for c in everything.values():
+            c.launches = 0
+
+    def launches():
+        return {n: c.launches for n, c in everything.items()}
+
+    def first_part(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+    def parted_at_near_tie(what, prompt, got, want, run_got, run_want):
+        """Where ``got`` parts from ``want`` (greedy), both runs' recorded
+        logits there lie within 1.0 and the two tokens are a near-tie."""
+        j = first_part(got.output_ids, want.output_ids)
+        if j is None:
+            return 32
+        key = (want.seed, len(prompt) + j)
+        l_w, l_g = run_want[key], run_got[(got.seed, len(prompt) + j)]
+        dist = float((l_g - l_w).abs().max())
+        why = near_tie(sampling, l_w, l_g, want.sampling, j, want.output_ids[j],
+                       got.output_ids[j], dist)
+        if dist > 1.0 or why:
+            fail(f"heads_kv ({what}): a request of {len(prompt)} tokens parts at token {j}: "
+                 f"logits {dist} apart; {why}")
+        return j
+
+    # the default engine, recorded: the reference run of every comparison
+    rec = LogitsRecorder()
+    with rec.on(engine()) as eng:
+        base = run(eng, [(p, greedy) for p in prompts])
+    if [r.output_ids for r in base] != default_toks:
+        fail("heads_kv: the recorded default run's tokens differ from the engine phase's")
+    base_logits = rec.runs[0]
+    del eng
+
+    # ---- the exact head
+    zero()
+    ex = engine(exact_head_k=64)
+    exact = run(ex, [(p, greedy) for p in prompts])
+    ex_launch = launches()
+    exact_parts = []
+    for p, r, b in zip(prompts, exact, base):
+        j = first_part(r.output_ids, b.output_ids)
+        if j is None:
+            exact_parts.append(32)
+            continue
+        lg = base_logits[(b.seed, len(p) + j)]
+        gap = float(lg[b.output_ids[j]] - lg[r.output_ids[j]])
+        if int(lg.argmax()) != b.output_ids[j] or gap > 1e-2:
+            fail(f"heads_kv: the exact head parts from the bf16 head at token {j} of a "
+                 f"{len(p)}-token prompt, the bf16 logits {gap} apart")
+        exact_parts.append((j, gap))
+    mix = [(rng.integers(1, V, 200).tolist(),
+            SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.95, seed=5)),
+           (rng.integers(1, V, 200).tolist(),
+            SamplingParams(max_new_tokens=32, repetition_penalty=1.3, presence_penalty=0.2))]
+    ex_mix = [r.output_ids for r in run(engine(exact_head_k=64), mix)]
+    if ex_mix != [r.output_ids for r in run(engine(), mix)]:
+        fail("heads_kv: a sampled and a penalised request under the exact head differ from "
+             "the default engine's")
+    window_prompts = [rng.integers(1, V, 17).tolist() for _ in range(8)]
+
+    def window(eng):
+        """Device ms, wall ms and certificate failures per decode step of 8
+        greedy slots (48 steps after the first), profiled."""
+        batch = [eng.submit(p, SamplingParams(max_new_tokens=49)) for p in window_prompts]
+        eng.step()
+        sync()
+        steps0, fb0, t0 = eng.stats["decode_steps"], int(eng.exact_fallbacks), time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            while any(not r.finished for r in batch):
+                eng.step()
+            sync()
+        steps = eng.stats["decode_steps"] - steps0
+        return dict(device_ms=busy_us(device_events(prof)) / 1e3 / steps,
+                    profiled_wall_ms=(time.perf_counter() - t0) / steps * 1e3,
+                    cert_failures_per_step=(int(eng.exact_fallbacks) - fb0) / steps,
+                    tokens=[r.output_ids for r in batch])
+    win = {"plain": window(engine()), "exact": window(ex)}
+    del ex
+    out["exact"] = dict(parts=exact_parts, windows={k: {x: v[x] for x in v if x != "tokens"}
+                                                    for k, v in win.items()})
+
+    # ---- int8_logits: each token the argmax of the int8 head's logits,
+    # computed here from the hidden rows paged_forward's own head was given
+    # and the engine's params, and its agreement with the bf16 head
+    forward, head = programs.paged_forward, paged.compute_logits
+    e8 = engine(int8_logits=True)
+    calls, heads_seen = [], []
+
+    def recording_head(hidden, p_, cfg_):
+        heads_seen.append(hidden.detach().clone())
+        return head(hidden, p_, cfg_)
+
+    def probed(p_, cfg_, tokens, pools, pt, sl, nl, **kw):
+        heads_seen.clear()
+        res = forward(p_, cfg_, tokens, pools, pt, sl, nl, **kw)
+        ns = len(e8.slots)
+        keys = [(e8.slots[slot].seed, n) if slot < ns and e8.slots[slot] is not None else None
+                for slot, n in zip(kw["slot_ids"].tolist(), (sl + nl).tolist())]
+        calls.append(("lm_head_q" in p_, list(heads_seen), keys))
+        return res
+
+    programs.paged_forward, paged.compute_logits = probed, recording_head
+    try:
+        i8 = run(e8, [(p, greedy) for p in prompts])
+    finally:
+        programs.paged_forward, paged.compute_logits = forward, head
+    if not calls or not all(has_q and len(h) == 1 for has_q, h, _ in calls):
+        fail("heads_kv: an int8_logits program ran without the int8 head in its params or "
+             "without paged_forward's own head")
+    probe = {}
+    clean_params = programs._clean_head(e8.params)
+    for _, (hidden,), keys in calls:
+        int8_top = compute_logits(hidden, e8.params, cfg).argmax(-1).tolist()
+        bf16_top = compute_logits(hidden, clean_params, cfg).argmax(-1).tolist()
+        for key, a, b in zip(keys, int8_top, bf16_top):
+            if key is not None:
+                probe[key] = (a, b)
+    del calls
+    for p, r in zip(prompts, i8):
+        want = [probe[(r.seed, len(p) + k)][0] for k in range(len(r.output_ids))]
+        if r.output_ids != want:
+            fail(f"heads_kv: int8_logits tokens {r.output_ids} are not the int8 head's argmax "
+                 f"{want}")
+    agree = float(np.mean([a == b for a, b in probe.values()]))
+    out["int8_logits"] = dict(
+        argmax_agrees_with_bf16=agree, steps=len(probe),
+        leading_tokens_equal_to_bf16=[
+            32 if (j := first_part(r.output_ids, b.output_ids)) is None else j
+            for r, b in zip(i8, base)])
+    del e8
+
+    # ---- the native runtime against the Python classes
+    shared = rng.integers(1, V, 48).tolist()
+    jobs = [(shared + rng.integers(1, V, 62).tolist(), SamplingParams(max_new_tokens=48))
+            for _ in range(8)]
+    native = []
+    for use in (True, False):
+        eng = Engine(params, cfg, dataclasses.replace(ecfg, num_pages=60, decode_burst=20,
+                                                      use_native_runtime=use), device=dev)
+        if eng.native_runtime is not use:
+            fail(f"heads_kv: use_native_runtime={use} ran native_runtime={eng.native_runtime}")
+        reqs = run(eng, jobs)
+        native.append(([r.output_ids for r in reqs], eng.stats["radix_hit_tokens"],
+                       eng.stats.get("preemptions", 0)))
+        del eng
+    if native[0] != native[1] or not native[0][1] or not native[0][2]:
+        fail(f"heads_kv: native runtime (radix hits {native[0][1]}, retractions "
+             f"{native[0][2]}) against the Python classes (radix hits {native[1][1]}, "
+             f"retractions {native[1][2]}): tokens equal {native[0][0] == native[1][0]}")
+    out["native"] = dict(radix_hit_tokens=native[0][1], retractions=native[0][2])
+
+    # ---- quantized pools: stored bytes after a first chunk, decode logits
+    def pools_for(layout, dt, pages):
+        if layout == "layer":
+            return PagedKV.zeros_dual(cfg, pages, 16, 1, dt, device=dev)
+        return PagedKV.zeros(cfg, pages, 16, dt, device=dev)
+
+    def rows(pools, layout, n):
+        def flat(t):
+            t = t[1:1 + n // 16]
+            if layout == "layer":
+                t = t.transpose(1, 2)
+            return t.reshape(n, *t.shape[2:])
+        return flat(pools.kv), None if pools.scale is None else flat(pools.scale)
+
+    i32 = dict(device=dev, dtype=torch.int32)
+    one = torch.ones(1, **i32)
+    slot0 = torch.zeros(1, **i32)
+    chunk = torch.as_tensor(rng.integers(1, V, (1, 64)), device=dev)
+    quant = {}
+    for layout in ("token", "layer"):
+        stored = {}
+        for dt in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2"):
+            pools = pools_for(layout, dt, 16)
+            _, pools = paged.paged_forward(params, cfg, chunk, pools,
+                                           torch.arange(1, 9, **i32)[None], 0 * one, 64 * one,
+                                           slot_ids=slot0)
+            stored[dt] = rows(pools, layout, 64)
+        kvh, hd = cfg.num_kv_heads, cfg.head_dim
+        for dt in ("int8", "fp8_e4m3", "fp8_e5m2"):
+            q, s = quantize_kv(stored["bf16"][0].reshape(64, 2 * L, kvh, hd), dt)
+            if not (torch.equal(stored[dt][0].view(torch.uint8),
+                                q.reshape(stored[dt][0].shape).view(torch.uint8))
+                    and torch.equal(stored[dt][1], s.reshape(stored[dt][1].shape))):
+                fail(f"heads_kv: the {layout} {dt} pool's rows or scales after a first chunk "
+                     f"are not quantize_kv of the bf16 pool's")
+    # decode logits teacher-forced on the bf16 kernel path's tokens; the
+    # quantized pools take the plain attention, so they are held against bf16
+    # pools on that attention ("bf16"). Their first logits (the prompt's
+    # chunk, which reads no history) must be the bf16 run's bit for bit. On
+    # random 30-layer weights any rounding grows through the layers (the
+    # bf16 kernel path against "bf16" reads 0.9925), so the cosines are held
+    # to floors below the card's readings, and the reference's 0.998 bar is
+    # held where the quantization acts: each layer's
+    # decode attention over the quantized history (quantize_kv of the bf16
+    # pool's rows) against the same attention over the bf16 history, on the
+    # bf16 run's own queries (``attn_cos``).
+    prompt = torch.zeros((1, 256), dtype=torch.long, device=dev)
+    prompt[0, :200] = torch.as_tensor(rng.integers(1, V, 200), device=dev)
+    table = torch.arange(1, 33, **i32)[None]  # 512 tokens: (512 + 256) % 128 == 0
+    plain_attn = {"token": paged._paged_attention_token, "layer": paged._paged_attention_dual}
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def quantized_copy(t, dt):
+        """A pool tensor [..., KV*D] as quantize_kv stores it: (values, [..., KV])."""
+        q, s = quantize_kv(t.reshape(*t.shape[:-1], kvh, hd), dt)
+        return q.reshape(t.shape), s[..., 0]
+
+    def half_steps(x, stored, scale, dt):
+        """The largest |dequantized - x| of the stored rows, in half
+        quantization steps of each value (int8: the scale; fp8: the
+        format's spacing at x / scale, subnormals included)."""
+        y = x.float() / scale
+        if dt == "int8":
+            step = torch.ones_like(y)
+        else:
+            mbits, emin = {"fp8_e4m3": (3, -6), "fp8_e5m2": (2, -14)}[dt]
+            step = torch.exp2(torch.floor(torch.log2(y.abs().clamp_min(2.0 ** emin))) - mbits)
+        err = (stored.float() * scale - x.float()).abs()
+        return float((err / (scale * step / 2 * (1 + 1e-5) + x.float().abs() * 1e-6)).max())
+
+    attn_cos, written = {}, {}
+    quantize_fn = paged.quantize_kv
+    for layout in ("token", "layer"):
+        runs, forced = {}, None
+        for name, dt, af in (("bf16 kernels", "bf16", None), ("bf16", "bf16", plain_attn[layout]),
+                             ("int8", "int8", None), ("fp8_e4m3", "fp8_e4m3", None),
+                             ("fp8_e5m2", "fp8_e5m2", None)):
+            pools = pools_for(layout, dt, 40)
+            fed = []  # the K/V rows this run's paged_forward quantizes, per call
+            paged.quantize_kv = lambda x, d: fed.append(x.detach().clone()) or quantize_fn(x, d)
+            logits, pools = paged.paged_forward(params, cfg, prompt, pools, table, 0 * one,
+                                                200 * one, slot_ids=slot0, attention_fn=af)
+            steps, toks = [logits[0]], []
+            for k in range(24):
+                toks.append(forced[k] if forced else int(steps[-1].argmax()))
+                step_af = af
+                if name == "bf16" and k < 8:
+                    # the quantized histories of this bf16 pool, and each
+                    # layer's attention over them beside the bf16 one
+                    qpools = {d: [quantized_copy(t, d) for t in pools if t is not None]
+                              for d in ("int8", "fp8_e4m3", "fp8_e5m2")}
+
+                    def step_af(q, kc, vc, hist, sc, layer, *rest, qpools=qpools):
+                        want = af(q, kc, vc, hist, sc, layer, *rest)
+                        for d, parts in qpools.items():
+                            if layout == "layer":
+                                (main, ms), (stg, ss) = parts
+                                got = af(q, kc, vc, main, stg[slot0.long()], layer, *rest,
+                                         main_scale=ms, staging_scale_b=ss[slot0.long()])
+                            else:
+                                ((rows_q, rows_s),) = parts
+                                got = af(q, kc, vc, rows_q.view(-1, *rows_q.shape[2:]),
+                                         rows_s.view(-1, *rows_s.shape[2:]), layer, *rest)
+                            a, b = got.double().flatten(), want.double().flatten()
+                            c = float(a @ b / (a.norm() * b.norm()))
+                            key = f"{layout} {d}"
+                            attn_cos[key] = min(attn_cos.get(key, 1.0), c)
+                        return want
+                logits, pools = paged.paged_forward(
+                    params, cfg, torch.tensor([[toks[-1]]], device=dev), pools, table,
+                    (200 + k) * one, one, slot_ids=slot0, attention_fn=step_af)
+                steps.append(logits[0])
+            sync()
+            paged.quantize_kv = quantize_fn
+            forced = forced or toks
+            runs[name] = torch.stack(steps).double()
+            if dt != "bf16":
+                # the whole history this run wrote (the prompt's first chunk,
+                # then 24 decode rows through staging and two page flushes on
+                # the layer layout) against its own rows: quantize_kv's bytes
+                # and scales, and each value within half a quantization step
+                own = torch.cat([fed[0][0, :200]] + [f[0] for f in fed[1:]])  # [224, 2L, KV, D]
+                vals, scales = rows(pools, layout, 224)
+                q, sc = quantize_fn(own, dt)
+                exact = (torch.equal(vals.view(torch.uint8),
+                                     q.reshape(vals.shape).view(torch.uint8))
+                         and torch.equal(scales, sc.reshape(scales.shape)))
+                worst = half_steps(own, vals.reshape(own.shape), scales[..., None], dt)
+                written[f"{layout} {name}"] = dict(bytes_equal=exact, half_steps=worst)
+                if not exact or worst > 1.0:
+                    fail(f"heads_kv: the {layout} {name} pool after 24 decode steps does not "
+                         f"hold its own K/V rows: bytes equal {exact}, {worst} half steps")
+        del pools
+        ref = runs["bf16"]
+        for name in ("bf16 kernels", "int8", "fp8_e4m3", "fp8_e5m2"):
+            got = runs[name]
+            if name != "bf16 kernels" and not torch.equal(got[0], ref[0]):
+                fail(f"heads_kv: the {layout} {name} pool's prompt logits differ from the bf16 "
+                     "pool's (the chunk reads no history)")
+            cos = (got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))
+            quant[f"{layout} {name}"] = dict(
+                min_cos=float(cos.min()), max_abs=float((got - ref).abs().max()),
+                top1_agree=float((got.argmax(-1) == ref.argmax(-1)).double().mean()))
+    pool_bytes = {}
+    for dt in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2"):
+        for layout in ("layer", "token"):
+            p = (PagedKV.zeros_dual(cfg, 1024, 16, 8, dt, device=dev) if layout == "layer"
+                 else PagedKV.zeros(cfg, 1024, 16, dt, device=dev))
+            pool_bytes[f"{layout} {dt}"] = p.nbytes
+            del p
+    no_attn = {}
+    for dt, layout in (("int8", "auto"), ("fp8_e5m2", "layer")):
+        zero()
+        eng = engine(kv_dtype=dt, kv_layout=layout, flash_decode=True)
+        run(eng, [(rng.integers(1, V, 512).tolist(), SamplingParams(max_new_tokens=24)),
+                  (rng.integers(1, V, 300).tolist(), SamplingParams(max_new_tokens=24))])
+        got = launches()
+        no_attn[f"{eng.kv_layout} {dt}"] = got
+        if any(got[c.__name__] for c in attn_kernels):
+            fail(f"heads_kv: K3, K4 or K6 launched on a {dt} pool: {json.dumps(got)}")
+        if not all(got[c.__name__] for c in counters if c not in attn_kernels):
+            fail(f"heads_kv: K1's GEMV and GEMM and K2 did not all launch on a {dt} pool: "
+                 f"{json.dumps(got)}")
+        del eng
+    out["quantized"] = dict(attention_cosine=attn_cos, logits_cosine=quant,
+                            pool_bytes=pool_bytes, launches=no_attn, written=written)
+    low = {k: v for k, v in attn_cos.items() if v < 0.998 and "e5m2" not in k}
+    if low or len(attn_cos) != 6:
+        fail(f"heads_kv: decode attention over quantized KV against bf16 below the "
+             f"reference's cosine 0.998: {attn_cos}")
+    # the teacher-forced logits end to end: floors below this card's readings
+    # (bf16 kernels 0.9925, int8 0.9880, fp8_e4m3 0.9816, fp8_e5m2 0.9657 on
+    # random 30-layer weights); a fault in a quantized write or its scales
+    # takes the cosine far lower
+    floors = {"bf16 kernels": 0.985, "int8": 0.98, "fp8_e4m3": 0.97, "fp8_e5m2": 0.95}
+    low = {k: v["min_cos"] for k, v in quant.items() if v["min_cos"] < floors[k.split(" ", 1)[1]]}
+    if low or len(quant) != 8 or len(written) != 6:
+        fail(f"heads_kv: teacher-forced decode logits against bf16 below their cosine floors "
+             f"{floors}: {low}")
+
+    # ---- the token-major layout, bf16: K3 and K4's contiguous form
+    tpool = PagedKV.zeros(cfg, 1024, 16, "bf16", device=dev).kv
+    two_l, kvd = 2 * L, cfg.num_kv_heads * cfg.head_dim
+    k3 = []
+    for n in (8, 512):
+        sets = []
+        for _ in range(8):
+            pos = torch.randperm(1023 * 16, device=dev)[:n] + 16
+            sets.append((torch.randn(n, two_l, kvd, device=dev).to(torch.bfloat16),
+                         (pos // 16).to(torch.int32), (pos % 16).to(torch.int32)))
+        vals, ids, offs = sets[0]
+        a = kvu.kv_write(tpool.clone(), vals, ids, offs)
+        if not torch.equal(a, kvu.kv_write_plain(tpool.clone(), vals, ids, offs)):
+            fail(f"heads_kv: K3's token-major write of {n} rows differs from its plain version")
+        del a
+        cyc = Cycle(8)
+        flat = tpool.view(1024 * 16, -1)
+
+        def arg():
+            return sets[cyc()]
+
+        def lib():
+            v, i, o = arg()
+            return flat.index_copy_(0, i.long() * 16 + o.long(), v.view(v.shape[0], -1))
+
+        ms = graph_ms(lambda: kvu.kv_write(tpool, *arg()))
+        plain_ms, _ = cuda_ms(lambda: kvu.kv_write_plain(tpool, *arg()))
+        lib_ms, _ = cuda_ms(lib)
+        b_ms, b_by = bound(2 * vals.numel() * 2 + 8 * n, 0, "bf16")
+        k3.append(dict(shape=f"token-major pool [1024, 16, {two_l}, {kvd}], {n} rows",
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library="index_copy_", bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))
+        del sets
+    del tpool
+    # a 512-token chunk after 512 tokens over a 1024-token table (64 pages)
+    tpools = PagedKV.zeros(cfg, 80, 16, "bf16", device=dev)
+    table = torch.arange(1, 65, **i32)[None]
+    seen = []
+    k4_fn = paged.flash_paged_prefill
+    paged.flash_paged_prefill = lambda *a, **k: seen.append((a, k)) or k4_fn(*a, **k)
+    try:
+        per_chunk = []
+        for c in range(2):
+            toks = torch.as_tensor(rng.integers(1, V, (1, 512)), device=dev)
+            n0 = fa.flash_paged_prefill.launches
+            paged.paged_forward(params, cfg, toks, tpools, table, 512 * c * one, 512 * one,
+                                slot_ids=slot0)
+            sync()
+            per_chunk.append(fa.flash_paged_prefill.launches - n0)
+    finally:
+        paged.flash_paged_prefill = k4_fn
+    if per_chunk != [L, L] or len(seen) != 2 * L:
+        fail(f"heads_kv: K4's contiguous form launched {per_chunk} times per 512-token chunk "
+             f"on the token layout, expected {L}")
+    k4_err = 0.0
+    for layer in (0, L - 1):
+        (q, kf, vf, kvv, nl), kw = seen[L + layer]
+        a, b = fa.flash_paged_prefill(q, kf, vf, kvv, nl, **kw), fa.flash_paged_prefill_plain(
+            q, kf, vf, kvv, nl, **kw)
+        k4_err = max(k4_err, float((a.float() - b.float()).abs().max()))
+    if k4_err > 3e-2:
+        fail(f"heads_kv: K4's contiguous form on the token layout is {k4_err} from its plain "
+             "version (bar 3e-2)")
+    (q, kf, vf, kvv, nl), kw = seen[L]
+    T = kw["hist_len"]
+    ms = graph_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, **kw))
+    plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, **kw),
+                          iters=5, warmup=1)
+    col = torch.arange(T + 512, device=dev)
+    rowi = torch.arange(512, device=dev)[:, None]
+    mask = torch.where(col[None] < T, col[None] < 512, (col - T)[None] <= rowi)[None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = q.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
+    lib_ms, _ = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True))
+    b_ms, b_by = fp_bench.bound(512, [512], [512])
+    k4 = dict(shape=f"contiguous form on the token layout: S=512 after 512, table {T} tokens",
+              ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library="SDPA",
+              bound_ms=b_ms, bound_by=b_by, max_abs_err=k4_err)
+    del seen, tpools, q, kf, vf, qs, ks, vs
+    # the engine on the token layout against the default run
+    zero()
+    trec = LogitsRecorder()
+    with trec.on(engine(kv_layout="token")) as eng:
+        if eng.kv_layout != "token":
+            fail("heads_kv: kv_layout='token' resolved to " + eng.kv_layout)
+        tok_run = run(eng, [(p, greedy) for p in prompts])
+    tok_launch = launches()
+    del eng
+    if not (tok_launch["kv_write"] and tok_launch["flash_paged_prefill"]):
+        fail(f"heads_kv: the token layout's engine did not launch K3 and K4: {tok_launch}")
+    token_parts = [parted_at_near_tie("token layout", p, r, b, trec.runs[0], base_logits)
+                   for p, r, b in zip(prompts, tok_run, base)]
+    results["kv_write/token"] = dict(k3[1], launches=tok_launch["kv_write"])
+    results["flash_paged_prefill/contiguous"] = dict(k4, launches=tok_launch["flash_paged_prefill"])
+
+    # ---- the window
+    wrec = LogitsRecorder()
+    with wrec.on(engine(attention_fn=paged._paged_attention_dual)) as eng:
+        full = run(eng, [(p, greedy) for p in prompts])
+    with wrec.on(engine(attn_window=2048)) as eng:
+        if getattr(eng._attention_fn, "window", None) != 2048:
+            fail("heads_kv: attn_window=2048 did not install the window attention")
+        wide = run(eng, [(p, greedy) for p in prompts])
+    del eng
+    window_parts = [parted_at_near_tie("window >= max_context", p, r, b, wrec.runs[1],
+                                       wrec.runs[0])
+                    for p, r, b in zip(prompts, wide, full)]
+    weng = engine(attn_window=256)
+    batch = [weng.submit(rng.integers(1, V, 700).tolist(), SamplingParams(max_new_tokens=24))
+             for _ in range(4)]
+    while not all(r.output_ids for r in batch):
+        weng.step()
+    g0, s0 = weng._attention_fn.gathered_pages, weng.stats["decode_steps"]
+    while not all(r.finished for r in batch):
+        weng.step()
+    sync()
+    pages_per = ((weng._attention_fn.gathered_pages - g0)
+                 / (L * (weng.stats["decode_steps"] - s0) * len(weng.slots)))
+    table_width = weng._mp_bucket
+    if not all(len(r.output_ids) == 24 for r in batch) or not pages_per < table_width:
+        fail(f"heads_kv: the 256-token window gathered {pages_per} pages per row, layer and "
+             f"step of a {table_width}-page table")
+    del weng
+    print(f"heads_kv: 2B, {L} layers ({smi}): exact head (k 64): {json.dumps(out['exact'])}; "
+          f"sampled + penalised under the exact head = default; int8_logits "
+          f"{json.dumps(out['int8_logits'])}; native runtime = Python classes "
+          f"{json.dumps(out['native'])}; quantized pools {json.dumps(out['quantized'])}; "
+          f"token layout: K3 {json.dumps(k3)}, K4 contiguous {json.dumps(k4)}, streams agree "
+          f"with the layer layout's for {token_parts} of 32 tokens, launches "
+          f"{json.dumps(tok_launch)}; window 2048 agrees with the full dual attention for "
+          f"{window_parts} of 32 tokens; window 256 on 700-token prompts: {pages_per} pages "
+          f"gathered per row, layer and decode step of a {table_width}-page table; "
+          f"{time.perf_counter() - t_phase} s")
+    return tok_launch
+
+
 class LogitsRecorder:
     """Records, while ``on(eng)``, the logits the serving programs compute
     for ``eng``'s requests: ``runs[-1][(seed, n)]`` is the f32 row [V] after
@@ -2977,6 +3599,9 @@ def main() -> int:
     launches["flash_prefill"] = flash_prefill_launches
     phase_preempt(params, cfg, dev, serving)
     phase_features(params, cfg, dev, serving, smi.splitlines()[0])
+    token = phase_heads_kv(params, cfg, dev, serving, toks, results, smi.splitlines()[0])
+    launches["kv_write/token"] = token["kv_write"]
+    launches["flash_paged_prefill/contiguous"] = token["flash_paged_prefill"]
     del params
     torch.cuda.empty_cache()
     phase_load(cfg, dev, serving, smi.splitlines()[0])

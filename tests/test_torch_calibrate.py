@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.bench import calibrate as ref_cal
 from wrinklefree_tpu_torch.bench import calibrate
 

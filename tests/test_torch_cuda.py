@@ -1108,3 +1108,76 @@ def test_request_features_on_card():
         outs.append([r.output_ids for r in restored])
     assert outs[0] == outs[1]
     assert [len(o) for o in outs[0]] == [20 - len(d["output_ids"]) for d in snap["requests"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 40])
+def test_k3_token_major_pool_on_card(rows):
+    """K3 on the token-major pool [P, ps, 2L, KV*D]: one row per token at
+    (page_ids, offsets), bit-equal to its plain version; padding rows on the
+    trash page; ``paged_kv_update``'s per-layer writes too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    pool = torch.randn(24, 16, 60, 640, generator=g, device=dev).to(torch.bfloat16)
+    vals = torch.randn(rows, 60, 640, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.randperm(23 * 16, generator=g, device=dev)[:rows] + 16
+    ids, offs = (pos // 16).to(torch.int32), (pos % 16).to(torch.int32)
+    ids[rows // 2:][: rows // 4] = 0  # padding: the trash page
+    plain = kv_update_cuda.kv_write_plain(pool.clone(), vals, ids, offs)
+    n = kv_update_cuda.kv_write.launches
+    got = kv_update_cuda.kv_write(pool, vals, ids, offs)
+    assert kv_update_cuda.kv_write.launches == n + 1
+    assert torch.equal(got[1:], plain[1:])
+    layered = torch.randn(3, 6, 8, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+    lv = torch.randn(3, 2, 5, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+    pid = torch.tensor([[1, 1, 2, 3, 5], [4, 4, 4, 2, 0]], device=dev)
+    off = torch.tensor([[0, 7, 3, 1, 2], [5, 6, 7, 0, 0]], device=dev)
+    want = layered.clone()
+    for l in range(3):
+        want[l, pid, off] = lv[l]
+    kv_update_cuda.paged_kv_update(layered, lv, pid, off, layer_stride=6)
+    assert torch.equal(layered, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_kv_quantize_on_card_equals_cpu(kv_dtype):
+    """``quantize_kv`` on the card stores the CPU's bytes and scales (the
+    f32 -> fp8 casts included, every vector's absmax on the format's
+    maximum) and ``dequantize_kv`` gives the CPU's bf16 values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wrinklefree_tpu_torch.kv import quantized
+
+    g = torch.Generator().manual_seed(19)
+    x = (torch.randn(256, 5, 128, generator=g)
+         * torch.exp(torch.rand(256, 5, 1, generator=g) * 14 - 7)).to(torch.bfloat16)
+    x[0, 0] = 0
+    q, s = quantized.quantize_kv(x, kv_dtype)
+    qd, sd = quantized.quantize_kv(x.cuda(), kv_dtype)
+    assert torch.equal(qd.cpu().view(torch.uint8), q.view(torch.uint8))
+    assert torch.equal(sd.cpu(), s)
+    assert torch.equal(quantized.dequantize_kv(qd, sd).cpu(), quantized.dequantize_kv(q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp16", "f32"])
+def test_engine_refuses_fp16_f32_pools_on_card(kv_dtype):
+    """K4 and K6 take bf16 pools: on the card the engine refuses fp16 and
+    f32 pools before it builds anything, and K4's wrapper raises for them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine
+    from wrinklefree_tpu_torch.kv.quantized import kv_torch_dtype
+
+    cfg = BitNetConfig.tiny()
+    with pytest.raises(NotImplementedError, match=f"kv_dtype '{kv_dtype}' on the card"):
+        Engine({"layers": {}}, cfg, EngineConfig(kv_dtype=kv_dtype), device="cuda")
+    dt = kv_torch_dtype(kv_dtype)
+    q = torch.zeros(1, 128, 4, 128, dtype=dt, device="cuda")
+    kv = torch.zeros(1, 256, 2, 128, dtype=dt, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention.flash_paged_prefill(q, kv, kv, 128, 128, hist_len=128)

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.models import bitnet as rb
 from wrinklefree_tpu.ops import ternary_pallas as ref_tp

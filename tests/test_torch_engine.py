@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.config import EngineConfig as RefEngineConfig
 from wrinklefree_tpu.engine import Engine as RefEngine
@@ -294,14 +295,20 @@ def _ref_forward():
                                      linear_fn=make_pallas_linear_fused(interpret=True)))
 
 
-def _forced_logits(weights, prompt, tokens):
+def _forced_logits(weights, prompt, tokens, int8_head=False):
     """Both packages' logits [V] for the token after prompt + tokens,
     teacher-forced through their paged forwards (one slot): the prompt in
-    one prefill chunk of 48, then one decode step per token. Returns
-    (reference, port)."""
+    one prefill chunk of 48, then one decode step per token; through each
+    package's int8 head with ``int8_head``. Returns (reference, port)."""
+    from wrinklefree_tpu.models.bitnet import quantize_lm_head as ref_quantize_head
+    from wrinklefree_tpu_torch.models.bitnet import quantize_lm_head
+
     rcfg, cfg = RefConfig.tiny(), BitNetConfig.tiny()
-    r_params = ref_fuse(jax.tree.map(jnp.asarray, weights), rcfg)
+    r_params = jax.tree.map(jnp.asarray, weights)
     p_params = params_from_numpy(weights, cfg, device="cpu")
+    if int8_head:
+        r_params, p_params = ref_quantize_head(r_params, rcfg), quantize_lm_head(p_params, cfg)
+    r_params = ref_fuse(r_params, rcfg)
     r_pools = ref_paged.PagedKV.zeros_dual(rcfg, 16, 8, num_slots=1)
     p_pools = paged.PagedKV.zeros_dual(cfg, 16, 8, 1, device="cpu")
     pt = np.arange(1, 9, dtype=np.int32)[None]
@@ -340,7 +347,8 @@ def _penalised(eng, logits, sp, hist):
                                samp), samp
 
 
-def _assert_divergence_is_a_near_tie(weights, eng, prompt, sp, seed, want, got):
+def _assert_divergence_is_a_near_tie(weights, eng, prompt, sp, seed, want, got,
+                                     int8_head=False):
     """The port's stream ``got`` against the reference's ``want`` for one
     request on the full model. Where they part (at step j), both packages'
     logits for prompt + want[:j], teacher-forced, must agree within the
@@ -353,12 +361,13 @@ def _assert_divergence_is_a_near_tie(weights, eng, prompt, sp, seed, want, got):
     their noise) or the reference's perturbed scores (masked logits / T +
     noise) lie within 2 eps / T at the top; for a constrained row, whose
     noise goes by token id, the two tokens' scores (logits / T + noise;
-    logits when greedy) lie within 2 eps (/ T)."""
+    logits when greedy) lie within 2 eps (/ T). ``int8_head``: both
+    packages' logits through their int8 heads."""
     j = next((k for k, (a, b) in enumerate(zip(want, got)) if a != b), None)
     if j is None:
         assert len(want) == len(got)
         return
-    lr, lp = _forced_logits(weights, prompt, want[:j])
+    lr, lp = _forced_logits(weights, prompt, want[:j], int8_head)
     eps = float(np.abs(lp - lr).max())
     assert eps <= NEAR_TIE, f"step {j}: logits {eps} apart"
     hist = prompt + want[:j]
@@ -461,15 +470,104 @@ def _run_jobs(eng, sp_cls, jobs):
     return [(r.output_ids, r.finish_reason) for r in reqs]
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_forward_for(window: int = 0, global_tokens: int = 0):
+    """The reference's paged forward, jitted (interpret-mode kernels), with
+    its sliding-window attention when ``window`` > 0."""
+    af = ref_paged.make_dual_window_attention(window, global_tokens) if window else None
+    return jax.jit(functools.partial(ref_paged.paged_forward, cfg=RefConfig.tiny(),
+                                     linear_fn=make_pallas_linear_fused(interpret=True),
+                                     attention_fn=af))
+
+
+def ref_config_logits(weights, prompt, tokens, kv_layout="layer", kv_dtype="bf16",
+                      int8_head=False, window=0, global_tokens=0):
+    """The reference's logits [V] for the token after prompt + tokens on
+    pools of ``kv_layout``/``kv_dtype`` (its int8 head with ``int8_head``,
+    its window attention with ``window`` and ``global_tokens``), teacher-forced through its paged
+    forward: the prompt in one 48-token chunk, then one decode step per
+    token (one slot)."""
+    from wrinklefree_tpu.models.bitnet import quantize_lm_head as ref_quantize_head
+
+    rcfg = RefConfig.tiny()
+    params = jax.tree.map(jnp.asarray, weights)
+    if int8_head:
+        params = ref_quantize_head(params, rcfg)
+    params = ref_fuse(params, rcfg)
+    pools = (ref_paged.PagedKV.zeros_dual(rcfg, 16, 8, num_slots=1, kv_dtype=kv_dtype)
+             if kv_layout == "layer" else ref_paged.PagedKV.zeros(rcfg, 16, 8, kv_dtype))
+    pt = jnp.arange(1, 9, dtype=jnp.int32)[None]
+    chunk = np.zeros((1, 48), np.int32)
+    chunk[0, :len(prompt)] = prompt
+    feed = [(chunk, 0, len(prompt))] + [
+        (np.asarray([[t]], np.int32), len(prompt) + i, 1) for i, t in enumerate(tokens)]
+    for toks, sl, n in feed:
+        logits, pools = _ref_forward_for(window, global_tokens)(
+            params, tokens=jnp.asarray(toks), pools=pools, page_table=pt,
+            seq_lens=jnp.asarray([sl]), new_lens=jnp.asarray([n]), slot_ids=jnp.asarray([0]))
+    return np.asarray(logits)[0]
+
+
+def assert_greedy_near_ties(weights, prompts, got, want, **ref_kw):
+    """Greedy streams ``got`` (the port's) against ``want`` (the reference
+    Engine's), as (output_ids, finish_reason) per prompt: equal reasons and
+    lengths, and where a stream parts (step j) the reference's own logits
+    there (``ref_config_logits`` under ``ref_kw``, one slot, teacher-forced)
+    put both tokens within NEAR_TIE of their maximum."""
+    for prompt, (g, g_why), (w, w_why) in zip(prompts, got, want):
+        assert g_why == w_why and len(g) == len(w), (prompt, g, w)
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        lg = ref_config_logits(weights, prompt, w[:j], **ref_kw)
+        gaps = [float(lg.max() - lg[t]) for t in (w[j], g[j])]
+        assert max(gaps) < NEAR_TIE, f"prompt {prompt}: parted at token {j}, gaps {gaps}"
+
+
+def greedy_scenario(eng, sp_cls, n=10):
+    """Three greedy requests at once (a mid-page prompt end, a page crossed
+    in prefill, a two-chunk prefill), then the radix pair one after the
+    other: their (output_ids, finish_reason) in that order."""
+    prompts = [PROMPTS[0], PROMPTS[1], PROMPTS[4]]
+    out = _run_jobs(eng, sp_cls, [(p, dict(max_new_tokens=n, temperature=0.0))
+                                  for p in prompts])
+    for p in RADIX:
+        out += _run_jobs(eng, sp_cls, [(p, dict(max_new_tokens=6, temperature=0.0))])
+    return prompts + RADIX, out
+
+
 @pytest.mark.parametrize("kw", [
     dict(kv_dtype="int8"), dict(speculative_k=2), dict(attn_window=16),
     dict(exact_head_k=64), dict(int8_logits=True), dict(use_native_runtime=True),
 ])
 def test_out_of_slice_config_raises(weights, kw):
+    """Of these engine configurations, all once refused by the port, only
+    speculative decoding still raises. The others run on the full tiny model
+    beside the reference Engine under the same configuration (int8 KV on its
+    auto layout, token-major; the rest on the dual layout): greedy streams
+    over concurrent prompts and a radix pair, equal or parted only at a
+    near-tie of the reference's own logits, with the same radix hits."""
     cfg = BitNetConfig.tiny()
     params = params_from_numpy(weights, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(params, cfg, EngineConfig(**ECFG, **kw), device="cpu")
+    if "speculative_k" in kw:
+        with pytest.raises(NotImplementedError):
+            Engine(params, cfg, EngineConfig(**ECFG, **kw), device="cpu")
+        return
+    layout = "token" if "kv_dtype" in kw else "layer"
+    port = Engine(params, cfg, EngineConfig(**ECFG, **kw), device="cpu")
+    rcfg = RefConfig.tiny()
+    ref = RefEngine(ref_fuse(jax.tree.map(jnp.asarray, weights), rcfg), rcfg,
+                    RefEngineConfig(**ECFG, kv_layout=layout, **kw),
+                    linear_fn=make_pallas_linear_fused(interpret=True))
+    assert port.kv_layout == ref.kv_layout == layout
+    assert port.native_runtime and ref.native_runtime
+    prompts, got = greedy_scenario(port, SamplingParams)
+    _, want = greedy_scenario(ref, RefSampling)
+    assert port.stats["radix_hit_tokens"] == ref.stats["radix_hit_tokens"] > 0
+    assert_greedy_near_ties(weights, prompts, got, want, kv_layout=layout,
+                            kv_dtype=kw.get("kv_dtype", "bf16"),
+                            int8_head=bool(kw.get("int8_logits")),
+                            window=kw.get("attn_window", 0))
 
 
 def _layer_free(weights):

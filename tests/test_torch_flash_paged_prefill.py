@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.ops import flash_attention as ref_flash
 from wrinklefree_tpu_torch.ops import flash_attention

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.ops.flash_attention import flash_prefill as ref_flash_prefill
 from wrinklefree_tpu_torch.ops import flash_attention
 

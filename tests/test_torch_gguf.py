@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from tests.test_torch_loader import assert_params_equal, write_model
 from wrinklefree_tpu.convert import gguf as ref_gguf
 from wrinklefree_tpu.ops import ternary as ref_ternary

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.kv import paged as ref_paged
 from wrinklefree_tpu.ops import flash_attention as ref_flash

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.ops import sampling as ref_sampling
 from wrinklefree_tpu_torch.ops import sampling
 

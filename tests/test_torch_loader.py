@@ -28,6 +28,7 @@ from safetensors.numpy import load_file as st_load_file
 from safetensors.numpy import save as st_save
 from safetensors.numpy import save_file as st_save_file
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.convert import cache_key as ref_cache_key
 from wrinklefree_tpu.convert import convert as ref_convert

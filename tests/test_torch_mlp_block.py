@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu_torch.ops import ternary_cuda
 from wrinklefree_tpu_torch.ops.ternary import pack_ternary_np
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 import wrinklefree_tpu.models.moe as rmoe
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.config import EngineConfig as RefEngineConfig

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.models import bitnet as ref_bitnet
 from wrinklefree_tpu.ops import norms as ref_norms
 from wrinklefree_tpu.ops import rope as ref_rope

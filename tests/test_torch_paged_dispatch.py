@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 import wrinklefree_tpu.ops.flash_attention as ref_flash
 import wrinklefree_tpu.ops.kv_update_pallas as ref_kv_update
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
@@ -111,3 +112,42 @@ def test_prefill_dispatch_matches_reference(weights, monkeypatch, ps, mp, s):
     assert ref_log and set(ref_log) == {want}
     assert port_log == [want] * cfg.num_layers
     assert np.isfinite(np.asarray(lo_r)).all() and torch.isfinite(lo_p).all()
+
+
+PORT_PATHS = ("_paged_attention_dual_flash", "_paged_attention_dual_flash_decode",
+              "_paged_attention_dual", "_paged_attention_token_flash", "_paged_attention_token")
+
+
+@pytest.mark.parametrize("layout", ["layer", "token"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp16", "f32", "int8", "fp8_e4m3", "fp8_e5m2"])
+def test_kernel_dispatch_by_kv_dtype(weights, monkeypatch, layout, kv_dtype):
+    """As the reference's kernel path (its ``kv_write="pallas"`` proxy for
+    unquantized pools): every unquantized pool, whatever its dtype, takes
+    K4 for a 128-token chunk over a 128-token table and, on the dual
+    layout with ``flash_decode``, K6 for a decode step; quantized pools
+    take the plain gather attention for both."""
+    cfg = BitNetConfig.tiny()
+    log = []
+    for name in PORT_PATHS:
+        orig = getattr(paged, name)
+        monkeypatch.setattr(paged, name, lambda *a, _o=orig, _n=name, **k: log.append(_n)
+                            or _o(*a, **k))
+    params = params_from_numpy(weights, cfg, device="cpu")
+    pools = (paged.PagedKV.zeros_dual(cfg, 18, 8, 1, kv_dtype, device="cpu")
+             if layout == "layer" else paged.PagedKV.zeros(cfg, 18, 8, kv_dtype, device="cpu"))
+    pt = torch.arange(1, 17, dtype=torch.int32)[None]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(1, cfg.vocab_size, (1, 128)))
+    kw = dict(slot_ids=torch.tensor([0]), flash_decode=True)
+    lo, pools = paged.paged_forward(params, cfg, toks, pools, pt, torch.tensor([0]),
+                                    torch.tensor([100]), **kw)
+    lo2, _ = paged.paged_forward(params, cfg, toks[:, :1], pools, pt, torch.tensor([100]),
+                                 torch.tensor([1]), **kw)
+    unq = kv_dtype in ("bf16", "fp16", "f32")
+    prefill, decode = {
+        ("layer", True): ("_paged_attention_dual_flash", "_paged_attention_dual_flash_decode"),
+        ("layer", False): ("_paged_attention_dual", "_paged_attention_dual"),
+        ("token", True): ("_paged_attention_token_flash", "_paged_attention_token"),
+        ("token", False): ("_paged_attention_token", "_paged_attention_token"),
+    }[layout, unq]
+    assert log == [prefill] * cfg.num_layers + [decode] * cfg.num_layers
+    assert torch.isfinite(lo).all() and torch.isfinite(lo2).all()

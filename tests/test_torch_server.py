@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import requests
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.models.bitnet import KVCache as RefKVCache
 from wrinklefree_tpu.models.bitnet import forward as ref_forward
@@ -1223,3 +1224,49 @@ def test_cli_tools_not_ported(argv, model_dir, tmp_path, monkeypatch, capsys):
         listed = capsys.readouterr().out
         ref_cli.main(argv)
         assert listed == capsys.readouterr().out and listed.count("\n") == 1
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kv-dtype", "int8"], ["--kv-dtype", "fp8_e4m3"], ["--kv-dtype", "fp8_e5m2"],
+    ["--kv-dtype", "fp16"], ["--kv-layout", "token"], ["--window", "32", "--global-tokens", "8"],
+    ["--kv-dtype", "int8", "--window", "32"], ["--exact-head", "16"],
+])
+def test_serve_heads_and_kv_flags(flags, monkeypatch):
+    """The CLI's ``serve`` passes the KV, window and head flags through the
+    server's ``main`` to ``create_server``, and a tiny server on the CPU so
+    configured answers a completion: quantized pools (token-major on the
+    auto layout, dual under a window), the token layout, a window with a
+    global prefix, the exact head."""
+    from wrinklefree_tpu_torch import cli
+    from wrinklefree_tpu_torch.server import http
+
+    made = []
+    real = http.create_server
+
+    def create(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(http, "create_server", create)
+    monkeypatch.setattr(http.web, "run_app", lambda app, **kw: None)
+    cli.main(["serve", "--tiny", "--device", "cpu", *flags])
+    (server,) = made
+    eng = server.async_engine.engine
+    opts = dict(zip(flags[::2], flags[1::2]))
+    ecfg = eng.ecfg
+    assert ecfg.kv_dtype == opts.get("--kv-dtype", "bf16")
+    assert ecfg.attn_window == int(opts.get("--window", 0))
+    assert ecfg.attn_global_tokens == int(opts.get("--global-tokens", 0))
+    assert ecfg.exact_head_k == int(opts.get("--exact-head", 0))
+    quantized = opts.get("--kv-dtype") in ("int8", "fp8_e4m3", "fp8_e5m2")
+    layout = opts.get("--kv-layout") or ("token" if quantized and "--window" not in opts
+                                         else "layer")
+    assert eng.kv_layout == layout
+    st = ServerThread(build_app(server))
+    try:
+        r = requests.post(f"{st.url}/v1/completions", timeout=120,
+                          json={"prompt": "hello world", "max_tokens": 6, "temperature": 0})
+    finally:
+        st.stop()
+        server.async_engine.shutdown()
+    assert r.status_code == 200 and r.json()["usage"]["completion_tokens"] >= 1

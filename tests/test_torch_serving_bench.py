@@ -27,6 +27,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.bench import cost as ref_cost
 from wrinklefree_tpu.bench import metrics as ref_metrics
 from wrinklefree_tpu.bench import report as ref_report
@@ -198,7 +199,12 @@ def test_serving_bench_reports_the_reference_keys(ref_report_line):
             "radix_hit_tokens", "kv_dtype", "spec_k", "spec_accept_rate", "decode_steps",
             "in_window_compiles", "in_window_compile_s")
     assert {k: got[k] for k in same} == {k: ref_report_line[k] for k in same}
-    assert got["native_runtime"] is False and got["kv_layout"] == "layer"
+    # the native host runtime runs where it builds; the port's auto layout is
+    # the dual one for bf16 KV on every device
+    from wrinklefree_tpu_torch.native import native_available
+
+    assert got["native_runtime"] is native_available()
+    assert got["kv_layout"] == "layer"
     assert got["decode_tok_s"] > 0 and got["total_tok_s"] > got["decode_tok_s"]
 
 
@@ -229,8 +235,19 @@ def test_serving_bench_counts_new_programs_in_the_window(monkeypatch):
     ["--exact-head", "64"], ["--use-pallas", "0"], ["--prefill-linear", "xla"],
 ])
 def test_serving_bench_flags_not_ported_raise(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serving.main([*SMALL, "--device", "cpu", *flags])
+    """Of these flags, once all refused, speculative decoding and the
+    kernels' plain twins as a serving path still raise; quantized KV, the
+    token layout, the window and the exact head serve, and the report names
+    the layout the engine resolved (int8 on the auto layout: token-major; the
+    window: the dual layout)."""
+    if flags[0] in ("--spec", "--use-pallas", "--prefill-linear"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            serving.main([*SMALL, "--device", "cpu", *flags])
+        return
+    got = serving.main([*SMALL, "--device", "cpu", *flags])
+    want_layout = "token" if flags[0] in ("--kv-dtype", "--kv-layout") else "layer"
+    assert got["kv_layout"] == want_layout and got["decode_tok_s"] > 0
+    assert got["kv_dtype"] == (flags[1] if flags[0] == "--kv-dtype" else "bf16")
 
 
 def test_serving_bench_runs_on_cuda_by_default():

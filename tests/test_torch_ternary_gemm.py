@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
 from wrinklefree_tpu.ops import ternary_pallas as ref_tp
 from wrinklefree_tpu_torch.ops import ternary_cuda
 from wrinklefree_tpu_torch.ops.ternary import ternary_matmul_reference, unpack_ternary

@@ -52,7 +52,7 @@ def parse_args(argv=None):
                     help="moe = 2B geometry with 8 ternary experts/top-2, 8 layers")
     ap.add_argument("--kv-layout", default="auto", choices=["auto", "token", "layer"])
     ap.add_argument("--kv-dtype", default="bf16",
-                    choices=["bf16", "int8", "fp8_e4m3", "fp8_e5m2"])
+                    choices=["bf16", "fp16", "f32", "int8", "fp8_e4m3", "fp8_e5m2"])
     ap.add_argument("--burst", type=int, default=None)
     ap.add_argument("--use-pallas", default=None, choices=[None, "0", "1"],
                     help="1 (or unset): the hand-written kernels; 0 raises")
@@ -74,16 +74,8 @@ def parse_args(argv=None):
 def check_supported(args) -> None:
     """Raise for the flags whose feature the port does not run yet."""
     missing = []
-    if args.kv_dtype != "bf16":
-        missing.append(f"--kv-dtype {args.kv_dtype} (quantized KV: ROADMAP queue 1 item 6)")
-    if args.kv_layout == "token":
-        missing.append("--kv-layout token (the token-major layout: ROADMAP queue 1 item 6)")
     if args.spec:
         missing.append("--spec (speculative decoding: ROADMAP queue 1 item 9)")
-    if args.window:
-        missing.append("--window (sliding-window attention: ROADMAP queue 1 item 6)")
-    if args.exact_head:
-        missing.append("--exact-head (the engine's exact head: ROADMAP queue 1 item 5a)")
     if args.use_pallas == "0" or args.prefill_linear == "xla":
         missing.append("--use-pallas 0 / --prefill-linear xla (the kernels' plain twins "
                        "are their CPU path and oracle, not a serving path on the card)")
@@ -129,16 +121,22 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     cfg = model_config(args)
     max_ctx = min(cfg.max_position, args.prompt_len + args.new_tokens + 64)
+    if args.window and args.kv_layout == "auto":
+        args.kv_layout = "layer"  # the page-skipping gather needs the dual layout
     ecfg = EngineConfig(
         max_batch_slots=args.slots,
         page_size=args.page_size,
         num_pages=args.num_pages,
         max_context=max_ctx,
         prefill_buckets=tuple(b for b in (128, 512, 1024, 2048, 4096) if b <= max_ctx) or (128,),
+        kv_layout=args.kv_layout,
+        kv_dtype=args.kv_dtype,
         **({"decode_burst": args.burst} if args.burst else {}),
         **({"flash_decode": args.flash_decode == "1"} if args.flash_decode is not None else {}),
+        exact_head_k=args.exact_head,
         prefill_round_mode=args.prefill_mode,
         max_prefill_slots=args.max_prefill_slots,
+        attn_window=args.window,
         attn_global_tokens=args.global_tokens,
     )
     print(f"init {('tiny' if args.tiny else args.model)} model + engine "
@@ -233,12 +231,12 @@ def main(argv=None) -> dict:
         "latency_p95_s": round(m.latency_p95_s, 3),
         "wall_s": round(wall, 2),
         "radix_hit_tokens": eng.stats["radix_hit_tokens"] - pre["radix_hit_tokens"],
-        "kv_layout": "layer",  # the port serves the dual layer-major layout only
+        "kv_layout": eng.kv_layout,
         "kv_dtype": args.kv_dtype,
         "spec_k": args.spec,
         "spec_accept_rate": 0.0,
         "decode_steps": eng.stats["decode_steps"] - pre["decode_steps"],
-        "native_runtime": False,
+        "native_runtime": eng.native_runtime,
         "in_window_compiles": compiles1 - compiles0,
         "in_window_compile_s": round(compile_s1 - compile_s0, 3),
         "device": device_label(dev),

@@ -27,6 +27,9 @@ def cmd_serve(args):
     argv += ["--host", args.host, "--port", str(args.port)]
     if args.kv_dtype:
         argv += ["--kv-dtype", args.kv_dtype]
+    for flag in ("kv_layout", "exact_head", "window", "global_tokens"):
+        if getattr(args, flag):
+            argv += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
     if args.tokenizer:
         argv += ["--tokenizer", args.tokenizer]
     if args.device:
@@ -141,6 +144,11 @@ def main(argv=None):
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=30000)
     s.add_argument("--kv-dtype", default=None)
+    s.add_argument("--kv-layout", default=None, choices=["auto", "layer", "token"])
+    s.add_argument("--exact-head", type=int, default=0, metavar="K",
+                   help="exact greedy head with a top-K shortlist (0: the bf16 head)")
+    s.add_argument("--window", type=int, default=0, help="sliding-window attention width")
+    s.add_argument("--global-tokens", type=int, default=0)
     s.add_argument("--tokenizer", default=None,
                    help="tokenizer.json dir (default: the model dir)")
     s.add_argument("--device", default=None, help="torch device (default: cuda)")

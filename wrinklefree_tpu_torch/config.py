@@ -111,11 +111,18 @@ class EngineConfig:
     """Continuous-batching engine configuration.
 
     The reference's fields and defaults, less the TPU-only path selectors
-    (``use_pallas``, ``prefill_linear``, ``kv_layout``: the port always runs
-    its fused kernels over the dual KV layout) and the tuning knobs of
-    features not ported yet. Fields whose feature the port does not run yet
-    make ``Engine`` raise ``NotImplementedError`` when set away from their
-    default (see ``engine/engine.py``).
+    (``use_pallas``, ``prefill_linear``: the port always runs its fused
+    kernels) and the tuning knobs of features not ported yet. Fields whose
+    feature the port does not run yet make ``Engine`` raise
+    ``NotImplementedError`` when set away from their default (see
+    ``engine/engine.py``).
+
+    ``kv_layout``: "layer" is the dual layout (a layer-major main pool and a
+    token-major staging page per slot), "token" the token-major pool, and
+    "auto" resolves to "layer" for unquantized ``kv_dtype`` and "token" for
+    int8/fp8, as the reference resolves it on a TPU (where its kernel path
+    runs for unquantized pools only). The port keys on the dtype alone,
+    whatever the device, so the CPU runs the layout the card runs.
     """
 
     max_batch_slots: int = 8
@@ -123,7 +130,7 @@ class EngineConfig:
     num_pages: int = 2048
     max_context: int = 4096
     prefill_buckets: tuple = (32, 128, 512, 2048, 4096)
-    kv_dtype: str = "bf16"  # bf16 | f32 (int8/fp8 not yet ported)
+    kv_dtype: str = "bf16"  # bf16 | fp16 | f32 | int8 | fp8_e4m3 | fp8_e5m2
     enable_radix_cache: bool = True
     exact_head_k: int = 0
     # Ring-buffer width for repetition/presence/frequency penalties.
@@ -139,8 +146,9 @@ class EngineConfig:
     # token-identical; see the reference's EngineConfig for the policies).
     prefill_round_mode: str = "stagger"
     max_queue: int = 256
-    # The native C++ host runtime is not bound by the port yet: True raises.
-    use_native_runtime: bool = False
+    # The native C++ page allocator and radix cache (native/), built with g++
+    # at first use; the Python classes when it does not build.
+    use_native_runtime: bool = True
     # Decode steps per burst: one host read of the sampled tokens per burst.
     decode_burst: int = 16
     speculative_k: int = 0
@@ -150,9 +158,15 @@ class EngineConfig:
     max_prefill_tokens_per_round: int = 8192
     # Interleave chunked prefill with decode at chunk granularity.
     interleave_prefill: bool = True
+    # the int8 output head for every logit (approximate); exclusive with
+    # exact_head_k (the int8 scan, certified top-k rescore and bf16 fallback)
     int8_logits: bool = False
+    # sliding-window attention over the dual layout (kv/paged.py
+    # make_dual_window_attention): keys within attn_window positions, plus
+    # the first attn_global_tokens
     attn_window: int = 0
     attn_global_tokens: int = 0
+    kv_layout: str = "auto"  # auto | layer | token
     # Decode attention with the page-table gather inside the kernel
     # (ops.flash_attention.flash_paged_decode); off runs the plain gather
     # attention. The reference's None means its env default, which is off.

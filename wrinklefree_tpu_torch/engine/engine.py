@@ -16,11 +16,16 @@ GBNF grammars; ``engine/constrained.py``) on single-step dispatches segregated
 from the other rows' bursts, and request-level snapshot/restore
 (``engine/snapshot.py``).
 
-The device half is ``paged_forward`` over the dual KV layout with the fused
-kernels (``ops/ternary_cuda.py``, ``ops/kv_update_cuda.py``,
-``ops/flash_attention.py``); on the CPU the same calls run their plain
-versions. Engine configurations outside the port raise
-``NotImplementedError`` at construction.
+The device half is ``paged_forward`` with the fused kernels
+(``ops/ternary_cuda.py``, ``ops/kv_update_cuda.py``,
+``ops/flash_attention.py``) over the dual or token-major KV layout, bf16,
+fp16, f32, int8 or fp8 pools, optionally a sliding attention window; the
+output head is the bf16 one, the int8 one (``int8_logits``) or the exact
+greedy head (``exact_head_k``). On the CPU the same calls run their plain
+versions. The host's page allocator and radix cache are the native C++
+classes (``native/``) when they build, else the Python ones. Engine
+configurations outside the port raise ``NotImplementedError`` at
+construction.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ import numpy as np
 import torch
 
 from ..config import BitNetConfig, EngineConfig
-from ..kv.paged import PagedKV
-from ..models.bitnet import fuse_projections, resolve_device
+from ..kv.paged import PagedKV, make_dual_window_attention
+from ..kv.quantized import needs_scale
+from ..models.bitnet import fuse_projections, quantize_lm_head, resolve_device
 from ..ops.ternary_cuda import make_linear_fused, make_linear_stacked
 from .page_allocator import PageAllocator
 from .programs import build_decode, prefill_for_bucket
@@ -81,21 +87,22 @@ class Request:
     grammar: object = None
 
 
-def _unsupported_config(cfg: BitNetConfig, e: EngineConfig) -> List[str]:
-    out = []
-    if e.kv_dtype not in ("bf16", "f32"):
-        out.append(f"kv_dtype {e.kv_dtype!r} (quantized KV)")
-    if e.attn_window > 0:
-        out.append("attn_window > 0 (sliding-window attention)")
-    if e.exact_head_k > 0:
-        out.append("exact_head_k > 0 (exact int8-scan head)")
-    if e.int8_logits:
-        out.append("int8_logits")
-    if e.speculative_k > 0:
-        out.append("speculative_k > 0 (speculative decoding)")
+def _host_runtime(e: EngineConfig):
+    """(allocator, radix cache or None, native?): the native C++ classes when
+    ``use_native_runtime`` and they build, else the Python ones (a warning
+    says why), as the reference falls back."""
     if e.use_native_runtime:
-        out.append("use_native_runtime (the C++ host runtime is not bound yet)")
-    return out
+        try:
+            from ..native import NativePageAllocator, NativeRadixCache
+
+            alloc = NativePageAllocator(e.num_pages)
+            radix = NativeRadixCache(alloc, e.page_size) if e.enable_radix_cache else None
+            return alloc, radix, True
+        except Exception as err:
+            logger.warning("native host runtime unavailable (%s); using the Python "
+                           "allocator and radix cache", err)
+    alloc = PageAllocator(e.num_pages)
+    return alloc, RadixCache(alloc, e.page_size) if e.enable_radix_cache else None, False
 
 
 class Engine:
@@ -119,22 +126,37 @@ class Engine:
         MoE model (``cfg.num_experts > 0``) keeps them unfused and runs the
         stacked K7 linear (``make_linear_stacked``), its experts through K7
         too. ``linear_fn``/``attention_fn`` override the kernels as in
-        ``paged_forward``."""
+        ``paged_forward`` (an ``attention_fn`` takes the place of the window
+        attention too; each KV layout calls it with its own arguments, as
+        ``paged_forward`` documents). ``kv_layout`` is the resolved layout and
+        ``native_runtime`` says whether the native host runtime runs. On the
+        card the KV dtype is bf16, int8 or fp8: K4 and K6 take bf16 pools, so
+        fp16 and f32 pools raise there and run on the CPU."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
-        missing = _unsupported_config(cfg, e)
+        missing = ["speculative_k > 0 (speculative decoding)"] if e.speculative_k > 0 else []
         if mesh is not None:
             missing.append("mesh (tensor parallelism)")
         if long_context_mesh is not None:
             missing.append("long_context_mesh (ring-attention long context)")
+        if self.device.type == "cuda" and e.kv_dtype in ("fp16", "f32"):
+            missing.append(f"kv_dtype {e.kv_dtype!r} on the card (K4 and K6 take bf16 pools)")
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: " + ", ".join(missing))
+        if e.exact_head_k and e.int8_logits:
+            raise ValueError("int8_logits (approximate) and exact_head_k (exact) are "
+                             "mutually exclusive")
+        if e.int8_logits or e.exact_head_k:
+            # adds lm_head_q/lm_head_s, which compute_logits then prefers
+            params = quantize_lm_head(params, cfg)
         moe = cfg.num_experts > 0
         if not moe and "qkv_qw" not in params["layers"]:
             params = fuse_projections(params, cfg)
         self.params = params
+        # decode steps whose exact-head certificate failed (device counter)
+        self.exact_fallbacks = torch.zeros((), dtype=torch.int64, device=self.device)
         self.eos_token_id = eos_token_id
         self._linear_fn = linear_fn or (make_linear_stacked() if moe else make_linear_fused())
         self._attention_fn = attention_fn
@@ -146,14 +168,27 @@ class Engine:
         self.max_pages_per_seq = 8
         while self.max_pages_per_seq < need:
             self.max_pages_per_seq *= 2
-        # dual layout: prefill chunks start page-aligned, so buckets are
-        # multiples of page_size
-        self.ecfg = e = dataclasses.replace(
-            e, prefill_buckets=tuple(sorted({-(-b // ps) * ps for b in e.prefill_buckets})))
-        self.pools = PagedKV.zeros_dual(
-            cfg, e.num_pages, ps, e.max_batch_slots, e.kv_dtype, device=self.device)
-        self.allocator = PageAllocator(e.num_pages)
-        self.radix = RadixCache(self.allocator, ps) if e.enable_radix_cache else None
+        layout = e.kv_layout
+        if layout == "auto":
+            layout = "token" if needs_scale(e.kv_dtype) else "layer"
+        if layout not in ("layer", "token"):
+            raise ValueError(f"kv_layout {e.kv_layout!r}: auto, layer or token")
+        self.kv_layout = layout
+        if layout == "layer":
+            # dual layout: prefill chunks start page-aligned, so buckets are
+            # multiples of page_size
+            self.ecfg = e = dataclasses.replace(
+                e, prefill_buckets=tuple(sorted({-(-b // ps) * ps for b in e.prefill_buckets})))
+        self.pools = self._zero_pools(e.num_pages)
+        if self._attention_fn is None and e.attn_window > 0:
+            # sliding-window attention: the page-skipping gather of the dual
+            # layout, whose reads scale with the window, not the context
+            if not self.pools.dual:
+                raise ValueError("attn_window requires the dual KV layout (kv_layout "
+                                 "'layer', or 'auto' with unquantized KV)")
+            self._attention_fn = make_dual_window_attention(e.attn_window,
+                                                            e.attn_global_tokens)
+        self.allocator, self.radix, self.native_runtime = _host_runtime(e)
 
         S = e.max_batch_slots
         self.page_table = np.zeros((S, self.max_pages_per_seq), np.int32)
@@ -207,6 +242,16 @@ class Engine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    def _zero_pools(self, num_pages: int) -> PagedKV:
+        """Zeroed pools of this engine's layout and dtype with ``num_pages``
+        pages (the dual layout's staging for every slot)."""
+        e = self.ecfg
+        if self.kv_layout == "layer":
+            return PagedKV.zeros_dual(self.cfg, num_pages, self.page_size, e.max_batch_slots,
+                                      e.kv_dtype, device=self.device)
+        return PagedKV.zeros(self.cfg, num_pages, self.page_size, e.kv_dtype,
+                             device=self.device)
 
     def _validate_submit(self, prompt_ids, sampling: SamplingParams):
         limit = self.ecfg.max_context

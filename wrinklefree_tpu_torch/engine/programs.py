@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..kv.paged import paged_forward
+from ..models.bitnet import compute_logits, exact_topk_shortlist, full_head_argmax
 from ..ops.sampling import (
     NUCLEUS_CANDIDATES,
     apply_logit_bias,
@@ -44,6 +45,22 @@ def _host(*tensors):
     return tuple(t.cpu().numpy() for t in tensors)
 
 
+def _clean_head(params):
+    """params without the int8 head: ``compute_logits`` takes the bf16 one."""
+    return {k: v for k, v in params.items() if not k.startswith("lm_head_")}
+
+
+def _needs_distribution(samp) -> bool:
+    """Whether some row of a burst samples, penalises or biases: decided on
+    the host from the burst's fixed sampler arrays (the reference's
+    ``lax.cond`` predicate in its exact-head burst)."""
+    return bool(np.any(np.asarray(samp["temps"]) > 0)
+                or np.any(np.asarray(samp["reps"]) != 1.0)
+                or np.any(np.asarray(samp["pres"]) != 0.0)
+                or np.any(np.asarray(samp["freqs"]) != 0.0)
+                or np.any(np.asarray(samp["bias_ids"]) >= 0))
+
+
 def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = False,
                  return_logits: bool = False, with_mirostat: bool = False):
     """K-step decode burst: K tokens per slot per call, one host read.
@@ -63,11 +80,29 @@ def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = Fals
     ``return_logits`` the burst is one step that also returns the
     post-penalty logits [1, S, V], left on the device (the host re-selects a
     constrained row's token from its row). ``with_mirostat`` carries the
-    mirostat state ``mu`` [S] through the steps (``sample_token_mirostat``)."""
+    mirostat state ``mu`` [S] through the steps (``sample_token_mirostat``).
+
+    Heads, as the reference's: under ``int8_logits`` every variant samples
+    from the int8 head. Under ``exact_head_k`` the logprobs and full-logits
+    variants take the clean bf16 head; the mirostat-only variant keeps the
+    int8 one (the reference strips it only for ``lp_n or return_logits``);
+    and the plain burst takes the final hidden state from ``paged_forward``
+    and picks the head per burst: where some row samples, penalises or
+    biases (a host decision on the burst's fixed ``samp`` arrays), the clean
+    bf16 head with penalties and bias; otherwise the exact greedy head, the
+    shortlist and the full head's argmax both computed every step and the
+    certified rows' shortlist winner taken (``torch.where``), so the burst
+    keeps its one host read. ``eng.exact_fallbacks`` (a device tensor)
+    counts the steps whose certificate failed."""
     cfg = eng.cfg
     K = 1 if return_logits else (burst_steps or eng.ecfg.decode_burst)
     fd = eng.ecfg.flash_decode
     lp_n = eng.ecfg.logprobs_top if with_logprobs else 0
+    ek = 0 if (with_logprobs or return_logits or with_mirostat) else eng.ecfg.exact_head_k
+    params = eng.params
+    if (lp_n or return_logits) and eng.ecfg.exact_head_k:
+        params = _clean_head(params)  # a distribution needs the bf16 head
+    clean = _clean_head(params)
 
     def burst(pools, last_tokens, page_table, seq_lens, seeds, counters, slot_ids, ring, samp,
               mu=None):
@@ -82,23 +117,32 @@ def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = Fals
             noise = gumbel(per_request_keys(seeds[None, :], ctr[None, :] + steps),
                            min(NUCLEUS_CANDIDATES, cfg.vocab_size))  # [K, S, c]
         kw = _sampler_kw(samp)
+        exact = ek and not _needs_distribution(samp)
         outs, lps = [], []
         for k in range(K):
             # the token being fed sits at position sl: it is part of the
             # penalty window for the token sampled this step
             ring[rows, (sl % W).long()] = tok
-            logits, pools = paged_forward(
-                eng.params, cfg, tok[:, None], pools, page_table, sl, ones,
+            out, pools = paged_forward(
+                params, cfg, tok[:, None], pools, page_table, sl, ones,
                 linear_fn=eng._linear_fn, attention_fn=eng._attention_fn,
                 slot_ids=slot_ids, flash_decode=fd,
+                head_fn=(lambda h, p: h) if ek else None,
             )
-            pen = _penalised(logits, ring, sl + 1, samp)
             nz = None if noise is None else noise[k]
-            if with_mirostat:
-                tok, mu = sample_token_mirostat(pen, nz, mu, miro=samp["miro"],
-                                                tau=samp["mtau"], eta=samp["meta"], **kw)
+            if exact:
+                minid, certified = exact_topk_shortlist(out, params, cfg, k=ek)
+                tok = torch.where(certified, minid, full_head_argmax(out, params, cfg))
+                eng.exact_fallbacks += ~certified
             else:
-                tok = sample_token(pen, nz, **kw)
+                if ek:  # the hidden state through the clean bf16 head
+                    out = compute_logits(out, clean, cfg)
+                pen = _penalised(out, ring, sl + 1, samp)
+                if with_mirostat:
+                    tok, mu = sample_token_mirostat(pen, nz, mu, miro=samp["miro"],
+                                                    tau=samp["mtau"], eta=samp["meta"], **kw)
+                else:
+                    tok = sample_token(pen, nz, **kw)
             outs.append(tok)
             if lp_n:
                 lps.append(token_logprobs(pen, tok, lp_n))
@@ -128,16 +172,19 @@ def prefill_for_bucket(eng, bucket: int, with_logprobs: bool = False,
     ``with_logprobs`` also their logprobs [B] and the top-N ids and logprobs
     [B, N]; with ``return_logits`` the tokens and the post-penalty logits
     [B, V] on the device (a constrained row's first token is re-selected on
-    the host)."""
+    the host). Under ``exact_head_k`` every prefill takes the clean bf16
+    head (the reference's choice: its cost is small beside the chunk's);
+    under ``int8_logits`` the int8 one."""
     cfg = eng.cfg
     lp_n = eng.ecfg.logprobs_top if with_logprobs else 0
+    params = _clean_head(eng.params) if eng.ecfg.exact_head_k else eng.params
 
     def prefill(pools, tokens, page_table, seq_len, new_len, seeds, counters, slot_ids, ring,
                 samp):
         if tokens.shape[1] != bucket:
             raise ValueError(f"chunk of {tokens.shape[1]} tokens in the {bucket} bucket")
         logits, pools = paged_forward(
-            eng.params, cfg, tokens, pools, page_table, seq_len, new_len,
+            params, cfg, tokens, pools, page_table, seq_len, new_len,
             linear_fn=eng._linear_fn, attention_fn=eng._attention_fn, slot_ids=slot_ids,
         )
         pen = _penalised(logits, ring, seq_len + new_len, samp)
@@ -166,8 +213,6 @@ def warmup(eng):
     stats are left as they were. Returns {program: seconds}."""
     import time
 
-    from ..kv.paged import PagedKV
-
     dev = eng.device
     if dev.type == "cuda":
         from ..ops import cuda_lib
@@ -179,8 +224,7 @@ def warmup(eng):
     samp = eng._samp_arrays
     buckets = eng.ecfg.prefill_buckets
     widths = {8} | {eng._pages_bucket(b + 1) for b in buckets}
-    scratch = PagedKV.zeros_dual(eng.cfg, max(widths) + 1, eng.page_size, S,
-                                 eng.ecfg.kv_dtype, device=dev)
+    scratch = eng._zero_pools(max(widths) + 1)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=dev)

@@ -9,7 +9,8 @@ need only a byte size that is a multiple of 16.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 launches the kernel (``csrc/kv_write.cu``) or raises. ``kv_write.launches``
-counts launches.
+counts launches. ``paged_kv_update`` (the reference's per-layer pool writer)
+is a thin wrapper on the same kernel.
 """
 
 from __future__ import annotations
@@ -63,3 +64,20 @@ def kv_write(
 
 
 kv_write.launches = 0
+
+
+def paged_kv_update(pool, vals, page_ids, offsets, layer_stride: int):
+    """Write [L, B, S, *row] ``vals`` into an [L, P, ps, *row] pool in place
+    through K3 (the reference's ``paged_kv_update``, which no path of either
+    package calls): layer l's row (b, s) goes to page ``page_ids[b, s] + l *
+    layer_stride`` of the layer-flattened pool at ``offsets[b, s]``."""
+    L = vals.shape[0]
+    B, S = page_ids.shape
+    row = tuple(vals.shape[3:])
+    flat_pool = pool.view(L * layer_stride, pool.shape[2], *row)
+    layer_base = torch.arange(L, device=page_ids.device) * layer_stride
+    flat_ids = (page_ids[None] + layer_base[:, None, None]).reshape(-1)
+    flat_offs = offsets[None].expand(L, B, S).reshape(-1)
+    kv_write(flat_pool, vals.reshape(L * B * S, *row), flat_ids.to(torch.int32),
+             flat_offs.to(torch.int32))
+    return pool

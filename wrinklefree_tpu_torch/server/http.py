@@ -945,6 +945,11 @@ def build_app(server: InferenceServer) -> web.Application:
     return app
 
 
+# the tiny model's engine configuration (the reference's create_server(tiny=True))
+TINY_ENGINE = dict(max_batch_slots=4, page_size=8, num_pages=256, max_context=256,
+                   prefill_buckets=(16, 64, 128))
+
+
 def create_server(
     model_path: Optional[str] = None,
     *,
@@ -969,15 +974,16 @@ def create_server(
     file (``convert.gguf``, which carries no tokenizer: pass
     ``tokenizer_path``); loading a tokenizer needs ``transformers``.
     ``dp > 1`` serves that many replicas on the one device, sharing the
-    weights, each with its own KV pool. Tensor parallelism, long context
-    and sliding-window attention raise ``NotImplementedError``."""
+    weights, each with its own KV pool. ``attn_window > 0`` serves
+    sliding-window attention (``attn_global_tokens`` global prefix) on the
+    dual layout: an ``auto`` layout becomes ``layer``, as the reference
+    sets it. Tensor parallelism and long context raise
+    ``NotImplementedError``."""
     missing = []
     if tp > 1:
         missing.append("tp > 1 (tensor parallelism: ROADMAP queue 1 item 12)")
     if long_context:
         missing.append("long_context (ring-attention long context: ROADMAP queue 1 item 10)")
-    if attn_window > 0:
-        missing.append("attn_window (sliding-window attention: ROADMAP queue 1 item 6)")
     if use_pallas is False:
         missing.append("use_pallas=False (the kernels' plain twins are their CPU path and "
                        "oracle, not a serving path on the card)")
@@ -1008,13 +1014,16 @@ def create_server(
     else:
         params, cfg = load_params(model_path, device=dev)
     if tiny:
-        ecfg = engine_config or EngineConfig(
-            max_batch_slots=4, page_size=8, num_pages=256, max_context=256,
-            prefill_buckets=(16, 64, 128))
+        ecfg = engine_config or EngineConfig(**TINY_ENGINE)
         name = "wrinklefree-tiny-test"
     else:
         ecfg = engine_config or EngineConfig()
         name = str(model_path)
+    if attn_window > 0:
+        # the page-skipping window gather needs the dual layout
+        ecfg = dataclasses.replace(
+            ecfg, attn_window=attn_window, attn_global_tokens=attn_global_tokens,
+            kv_layout="layer" if ecfg.kv_layout == "auto" else ecfg.kv_layout)
     if cfg.num_experts == 0:
         params = fuse_projections(params, cfg)  # once, shared by every replica
     eos = getattr(tokenizer, "eos_token_id", None)
@@ -1041,30 +1050,38 @@ def main(argv=None):
     p.add_argument("--max-context", type=int, default=4096)
     p.add_argument("--kv-dtype", default="bf16",
                    choices=["bf16", "fp16", "f32", "int8", "fp8_e4m3", "fp8_e5m2"])
+    p.add_argument("--kv-layout", default="auto", choices=["auto", "layer", "token"],
+                   help="auto: layer (dual) for unquantized KV, token for int8/fp8")
+    p.add_argument("--exact-head", type=int, default=0, metavar="K",
+                   help="exact greedy head: int8 scan, bf16 top-K rescore, certificate")
     p.add_argument("--no-radix", action="store_true")
     p.add_argument("--no-pallas", action="store_true", help="not a serving path: raises")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dp", type=int, default=1,
                    help="engine replicas on the device behind a least-loaded router")
     p.add_argument("--long-context", action="store_true", help="not ported: raises")
-    p.add_argument("--window", type=int, default=0, help="not ported: raises")
-    p.add_argument("--global-tokens", type=int, default=0)
+    p.add_argument("--window", type=int, default=0,
+                   help="sliding-window attention width (0: full attention)")
+    p.add_argument("--global-tokens", type=int, default=0,
+                   help="with --window: the first N tokens stay visible")
     p.add_argument("--warmup", action="store_true",
                    help="build the kernels and run every serving program once at boot")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    ecfg = None
+    heads_kv = dict(kv_dtype=args.kv_dtype, kv_layout=args.kv_layout,
+                    exact_head_k=args.exact_head, enable_radix_cache=not args.no_radix)
     if args.model:
         ecfg = EngineConfig(
             max_batch_slots=args.max_batch,
             page_size=args.page_size,
             num_pages=args.num_pages,
             max_context=args.max_context,
-            kv_dtype=args.kv_dtype,
-            enable_radix_cache=not args.no_radix,
+            **heads_kv,
         )
+    else:
+        ecfg = EngineConfig(**TINY_ENGINE, **heads_kv) if args.tiny else None
     server = create_server(
         args.model, tiny=args.tiny, engine_config=ecfg,
         use_pallas=False if args.no_pallas else None, tp=args.tp, dp=args.dp,
