@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs thirteen phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs fifteen phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -81,7 +81,18 @@ vocab 128256) with random weights drawn on the card from seed 0:
                layer layout's or a near-tie) and the window (>= max_context:
                the full attention's tokens or a near-tie; 256 tokens on
                700-token prompts, pages gathered per step);
-9. load      — seed-made 2B params written as an HF directory, its packed
+9. spec      — speculative decoding (k 4, bursts of 16) beside plain bursts
+               on eight greedy requests: on the o/down-zeroed weights the
+               spec streams equal the plain ones and drafts are accepted,
+               the tokens match the spec counters, the verify launches K1's
+               GEMM and K3; on the full weights every parting is a near-tie
+               within the decode-against-verify bound; a batch-1
+               ``spec_decode_window`` launches K1 at 5 rows and K2; device
+               ms and wall per burst step of both;
+10. sparsity — a 512-token prefill ``forward`` under activation sparsity
+               with each attention mode: K7's logits bit-equal to the plain
+               linear's, K7 launched;
+11. load     — seed-made 2B params written as an HF directory, its packed
                cache (``convert_and_save``) and its i2_s GGUF
                (``convert_hf_to_gguf``), each loaded onto the card bit-equal
                to the in-memory params (the GGUF against their f16 round
@@ -89,7 +100,7 @@ vocab 128256) with random weights drawn on the card from seed 0:
                each giving the in-memory params' greedy tokens for prompts of
                17 and 512 tokens with K1, K2, K3 and K4 launched; each
                format's bytes, write and load seconds;
-10. server   — the port's HTTP server (``create_server("synth:bitnet_2b")``
+12. server   — the port's HTTP server (``create_server("synth:bitnet_2b")``
                with the engine phase's configuration) on a free 127.0.0.1
                port, driven by the port's client: health, models, the
                tokenizer round trip, a greedy completion whose token ids equal
@@ -98,14 +109,14 @@ vocab 128256) with random weights drawn on the card from seed 0:
                norm, /metrics, a logprobs chat request answered 200 and
                ``run_server_benchmark`` (16 requests at concurrency 8), every
                serving kernel launched;
-11. serving  — ``bench.serving`` (the port of scripts/serving_bench.py) at
+13. serving  — ``bench.serving`` (the port of scripts/serving_bench.py) at
                16 streams x 128 + 32 tokens on 8 slots: its JSON line, no
                build or new program inside its measured window;
-12. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
+14. moe      — the repo's MoE configuration (8 layers, 8 experts, top-2) on
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-13. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+15. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -2931,12 +2942,282 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
     return tok_launch
 
 
+def phase_spec(params, cfg, dev, counters, smi):
+    """Speculative decoding at 2B width and depth: the engine phase's
+    EngineConfig with ``speculative_k=4``, ``decode_burst=16`` and the
+    adaptive cutoff off (``spec_min_accept=0``, so every burst speculates),
+    beside the same engine without speculation, on eight greedy requests of
+    48 tokens (five prompts looping a 16-token pattern, of which two end
+    where a 5-token window would cross a page and is clamped; three random).
+    Every check is required:
+
+    - exact: on the weights with the o and down projections set to ternary
+      zeros (the logits depend on the current token alone, so the verify's
+      rounding against the decode step's cannot part them) the spec streams
+      equal the plain streams token for token; drafts are accepted; the
+      emitted tokens match the spec counters (each drafted step emits its
+      accepted drafts + 1, a finishing request drops at most k of them);
+      from the first step after every prompt is prefilled to the last, the
+      plain burst launches no K1 GEMM and the spec burst launches K1's GEMM
+      (8 slots x 5 rows) and K3; device ms (profiled) and wall per burst step
+      of both, and tokens per step;
+    - full weights: where a spec stream parts from the plain stream, each
+      token is its own run's pick and the two runs' logits there lie within
+      twice the decode-against-verify bound (the largest distance between
+      the two runs' logits at the positions before any parting, where both
+      ran on the same tokens), at a near-tie (``near_tie``); the first
+      parting per request is printed;
+    - batch 1: ``spec_decode_window`` (k 4, 16 steps) on the fused kernels
+      (``make_linear_fused()``, as ``bench/decode.py --spec``) after a
+      64-token prompt: each step's 5-row verify launches K1 at 5 rows (the
+      GEMV) twice and K2 once per layer, and no K1 GEMM.
+    Returns the spec run's launches per serving kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, forward
+    from wrinklefree_tpu_torch.models.spec_decode import spec_decode_window
+    from wrinklefree_tpu_torch.ops import sampling
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    K, k, n_new = 16, 4, 48
+    ecfg = EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
+                        prefill_buckets=(32, 128, 512), decode_burst=K, spec_min_accept=0.0)
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(20)
+    pat = rng.integers(1, V, 16).tolist()
+    # first decode positions 128, 71, 30 (a 2-token window), 45 (3), 60
+    prompts = [pat * 8, pat * 4 + pat[:7], (pat * 2)[:30], (pat * 3)[:45], pat[:12] * 5,
+               rng.integers(1, V, 17).tolist(), rng.integers(1, V, 200).tolist(),
+               rng.integers(1, V, 94).tolist()]
+    greedy = SamplingParams(max_new_tokens=n_new)
+    everything = {c.__name__: c for c in counters}
+    k1_tiled = "ternary_matmul_stacked_fused/tiled"
+
+    def zero():
+        for c in everything.values():
+            c.launches = 0
+
+    def launches():
+        return {n: c.launches for n, c in everything.items()}
+
+    def run(p, spec_k, rec=None, timed=False):
+        """The eight requests on a fresh engine; with ``timed``, the decode
+        steps after every prompt is prefilled profiled and counted."""
+        eng = Engine(p, cfg, dataclasses.replace(ecfg, speculative_k=spec_k), device=dev)
+        with rec.on(eng) if rec is not None else contextlib.nullcontext():
+            reqs = [eng.submit(pr, greedy) for pr in prompts]
+            while any(r.slot < 0 or r.pending for r in reqs):
+                eng.step()
+            sync()
+            steps0, toks0, t0 = (eng.stats["decode_steps"], eng.stats["decode_tokens"],
+                                 time.perf_counter())
+            zero()
+            with profile(activities=[ProfilerActivity.CUDA]) if timed else \
+                    contextlib.nullcontext() as prof:
+                while any(not r.finished for r in reqs):
+                    eng.step()
+                sync()
+        wall = time.perf_counter() - t0
+        for r in reqs:
+            if r.finish_reason != "length" or len(r.output_ids) != n_new:
+                fail(f"spec: a request finished {r.finish_reason!r} with {len(r.output_ids)} "
+                     "tokens")
+        steps = eng.stats["decode_steps"] - steps0
+        out = dict(tokens=[r.output_ids for r in reqs], seeds=[r.seed for r in reqs],
+                   stats=dict(eng.stats), steps=steps,
+                   launches=launches(), wall_ms=wall / steps * 1e3,
+                   tokens_per_step=(eng.stats["decode_tokens"] - toks0) / steps)
+        if timed:
+            out["device_ms"] = busy_us(device_events(prof)) / 1e3 / steps
+        return out
+
+    # ---- exact: the o and down projections zeroed
+    layers = dict(params["layers"])
+    for name in ("o_qw", "down_qw"):
+        layers[name] = torch.full_like(layers[name], 0x55)
+    zeroed = {**params, "layers": layers}
+    plain = run(zeroed, 0, timed=True)
+    spec = run(zeroed, k, timed=True)
+    del zeroed, layers
+    if spec["tokens"] != plain["tokens"]:
+        j = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(spec["tokens"], plain["tokens"])]
+        fail(f"spec: on the zeroed o/down weights the spec streams part from the plain ones at "
+             f"{j}")
+    st = spec["stats"]
+    drafted, accepted, emitted = st["spec_drafted"], st["spec_accepted"], st["decode_tokens"]
+    if accepted <= 0:
+        fail("spec: no draft was accepted on the looping streams")
+    if emitted != sum(len(t) for t in spec["tokens"]) - len(prompts) or not (
+            emitted <= drafted + accepted <= emitted + len(prompts) * k):
+        fail(f"spec: {emitted} tokens emitted by the bursts against {drafted} drafted steps and "
+             f"{accepted} accepted drafts")
+    if plain["launches"][k1_tiled] != 0 or spec["launches"][k1_tiled] <= 0 or \
+            spec["launches"]["kv_write"] <= 0:
+        fail(f"spec: decode launches plain {plain['launches']}, spec {spec['launches']}: the "
+             "verify must run K1's GEMM and K3, the plain burst no GEMM")
+
+    # ---- full weights: partings at near-ties only
+    rec = LogitsRecorder()
+    full_p = run(params, 0, rec)
+    full_s = run(params, k, rec)
+    l_plain, l_spec = rec.runs
+    parts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(full_s["tokens"], full_p["tokens"])]
+    if full_s["seeds"] != full_p["seeds"]:
+        fail("spec: the two runs' requests have different seeds")
+    seeds = full_p["seeds"]
+    # the decode-against-verify bound: both runs' logits on the same tokens
+    shared = [float((l_spec[(sd, len(pr) + i)] - l_plain[(sd, len(pr) + i)]).abs().max())
+              for pr, sd, j in zip(prompts, seeds, parts)
+              for i in range(1, n_new if j is None else j)]
+    if not shared:
+        fail("spec: no decode position before the partings to measure the bound on")
+    bound_fv = max(shared)
+    apart = []
+    for pr, sd, j, got, want in zip(prompts, seeds, parts, full_s["tokens"], full_p["tokens"]):
+        if j is None:
+            continue
+        lp, ls = l_plain[(sd, len(pr) + j)], l_spec[(sd, len(pr) + j)]
+        dist = float((ls - lp).abs().max())
+        why = near_tie(sampling, lp, ls, greedy, j, want[j], got[j], dist)
+        apart.append(dist)
+        if dist > 2 * bound_fv or why:
+            fail(f"spec: on the full weights a {len(pr)}-token prompt's spec stream parts at token "
+                 f"{j}: logits {dist} apart (bound {bound_fv}); {why}")
+    del rec, l_plain, l_spec
+
+    # ---- batch 1: the 5-row verify on the fused kernels
+    lf = tc.make_linear_fused()
+    T = 64 + 16 * (k + 1) + 8
+    cache = KVCache.zeros(cfg, 1, T, device=dev)
+    prompt = torch.ones((1, 64), dtype=torch.long, device=dev)
+    logits, cache = forward(params, cfg, prompt, cache, torch.zeros(1, dtype=torch.int32,
+                                                                    device=dev),
+                            linear_fn=lf, logits_all=False)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    hist = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    hist[:, :64] = 1
+    hist[0, 64] = tok[0]
+    b1 = [tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel]
+    for c in b1:
+        c.launches = 0
+    tc.ternary_matmul_stacked_fused.tiled_launches = 0
+    sync()
+    t0 = time.perf_counter()
+    _, counts, *_ = spec_decode_window(params, cfg, tok, cache, torch.full(
+        (1,), 64, dtype=torch.int32, device=dev), hist, steps=16, k=k, linear_fn=lf)
+    b1_tokens = int(counts.sum())  # the window's one host read
+    b1_ms = (time.perf_counter() - t0) * 1e3
+    b1_launch = {c.__name__: c.launches for c in b1}
+    if (b1_launch["ternary_matmul_stacked_fused"] != 2 * L * 16
+            or b1_launch["mlp_block_megakernel"] != L * 16
+            or tc.ternary_matmul_stacked_fused.tiled_launches != 0):
+        fail(f"spec: the batch-1 window launched {b1_launch} (K1 GEMM "
+             f"{tc.ternary_matmul_stacked_fused.tiled_launches}); 16 steps of 5 rows want K1 "
+             f"{2 * L * 16} times at 5 rows, K2 {L * 16}")
+    del cache, hist
+    print(f"spec: 2B, {L} layers ({smi}), 8 greedy requests x {n_new} tokens, k {k}, bursts of "
+          f"{K}: zeroed o/down: spec streams = plain streams; {drafted} drafted steps, {accepted} "
+          f"accepted drafts ({accepted / (drafted * k)} per drafted token), {emitted} tokens "
+          f"emitted; after the last prefill, per burst step: plain {plain['device_ms']} device "
+          f"ms, {plain['wall_ms']} ms wall (profiled), {plain['tokens_per_step']} tokens over "
+          f"all slots; spec {spec['device_ms']} device ms, {spec['wall_ms']} ms wall, "
+          f"{spec['tokens_per_step']} tokens; decode launches "
+          f"plain {json.dumps(plain['launches'])}, spec {json.dumps(spec['launches'])}; full "
+          f"weights: first parting per request {parts} of {n_new}, the parted logits {apart} "
+          f"apart (decode-against-verify bound {bound_fv}, doubled), each a near-tie; spec "
+          f"accepted {full_s['stats']['spec_accepted']} of {full_s['stats']['spec_drafted']} "
+          f"drafted steps; batch 1: 16 steps of 5 rows on the fused kernels emitted {b1_tokens} "
+          f"tokens in {b1_ms} ms wall, launches {json.dumps(b1_launch)}; "
+          f"{time.perf_counter() - t_phase} s")
+    return spec["launches"]
+
+
+def phase_sparsity(cfg, dev, smi):
+    """Activation and attention sparsity at 2B width and depth: a 512-token
+    prefill ``forward`` on unfused random weights (seed 0) under
+    ``inference_safe`` activation sparsity (top-k, 30% zeroed) with each
+    attention mode (none; top_k 64; threshold 1e-3; window 256 with 1 global
+    token and stride 64, ``configs/attention/window.yaml``; dynamic 0.1-0.5,
+    ``configs/attention/dynamic.yaml``), through ``make_linear()``'s K7 (the
+    GEMM at 512 rows) and through the plain linear
+    (``make_linear(ternary_matmul_plain)``) on the card. K7 equals its plain
+    version bit for bit and the rest of the forward is the same code, so the
+    bar is equality: the two runs' logits must be bit-equal. K7 must launch
+    (7 linears x 30 layers per mode). Each mode's cosine to the dense forward
+    is printed only: on random weights it says nothing of quality."""
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, forward, init_params
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.activation_sparsity import ActivationSparsityConfig
+    from wrinklefree_tpu_torch.ops.sparse_attention import (AttentionSparsityConfig,
+                                                            AttentionSparsityMode)
+
+    t_phase = time.perf_counter()
+    S = 512
+    params = init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    toks = torch.randint(1, cfg.vocab_size, (1, S), generator=g, device=dev)
+    act = ActivationSparsityConfig.inference_safe()
+    M = AttentionSparsityMode
+    modes = {"none": None,
+             "top_k": AttentionSparsityConfig(mode=M.TOP_K),
+             "threshold": AttentionSparsityConfig(mode=M.THRESHOLD),
+             "window": AttentionSparsityConfig(mode=M.WINDOW, window_size=256, global_tokens=1,
+                                               stride=64),
+             "dynamic": AttentionSparsityConfig(mode=M.DYNAMIC, min_keep_frac=0.1,
+                                                max_keep_frac=0.5)}
+    kernel, plain = tc.make_linear(), tc.make_linear(tc.ternary_matmul_plain)
+
+    def run(lf, act_cfg, attn_cfg):
+        cache = KVCache.zeros(cfg, 1, S, device=dev)
+        out, _ = forward(params, cfg, toks, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+                         linear_fn=lf, act_sparsity=act_cfg, attn_sparsity=attn_cfg)
+        return out[0]
+
+    def cosine(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    dense = run(kernel, None, None)
+    cos, k7 = {}, {}
+    for name, attn in modes.items():
+        tc.ternary_matmul_stacked.launches = tc.ternary_matmul_stacked.tiled_launches = 0
+        ker = run(kernel, act, attn)
+        k7[name] = (tc.ternary_matmul_stacked.launches, tc.ternary_matmul_stacked.tiled_launches)
+        pla = run(plain, act, attn)
+        if k7[name] != (7 * cfg.num_layers,) * 2:
+            fail(f"sparsity ({name}): K7 launched {k7[name]} times (GEMM), want "
+                 f"{7 * cfg.num_layers} at {S} rows")
+        if not torch.isfinite(ker).all() or not torch.equal(ker, pla):
+            fail(f"sparsity ({name}): the K7 logits differ from the plain linear's by "
+                 f"{float((ker - pla).abs().max())} (bar: bit-equal)")
+        cos[name] = cosine(ker, dense)
+        del ker, pla
+    torch.cuda.synchronize()
+    print(f"sparsity: 2B, {cfg.num_layers} layers ({smi}), a {S}-token prefill under "
+          f"inference_safe activation sparsity: K7 logits bit-equal to the plain linear's in "
+          f"every attention mode, K7 launches (all, GEMM) {json.dumps(k7)}; cosine to the dense "
+          f"forward (printed only) {json.dumps(cos)}; {time.perf_counter() - t_phase} s")
+    return sum(n for n, _ in k7.values())
+
+
 class LogitsRecorder:
     """Records, while ``on(eng)``, the logits the serving programs compute
     for ``eng``'s requests: ``runs[-1][(seed, n)]`` is the f32 row [V] after
     n tokens of the request with that seed (the logits its token n is drawn
     from). It wraps ``programs.paged_forward`` and reads each call's slots and
-    lengths on the host; ``on(None)`` records nothing."""
+    lengths on the host; ``on(None)`` records nothing. A speculative verify
+    ([B, S, V] logits) records each of a row's ``new_len`` positions; a later
+    window overwrites the rows that followed a rejected draft, so the last
+    row kept for n is the one computed on the emitted tokens."""
 
     def __init__(self):
         self.runs = []
@@ -2952,11 +3233,16 @@ class LogitsRecorder:
             logits, pools = forward(params, cfg, tokens, pools, page_table, seq_len, new_len,
                                     **kw)
             ns = len(eng.slots)
-            for b, (slot, n) in enumerate(zip(kw["slot_ids"].tolist(),
-                                              (seq_len + new_len).tolist())):
+            for b, (slot, sl, nl) in enumerate(zip(kw["slot_ids"].tolist(), seq_len.tolist(),
+                                                   new_len.tolist())):
                 req = eng.slots[slot] if slot < ns else None
-                if req is not None:
-                    run[(req.seed, n)] = logits[b].float().clone()
+                if req is None:
+                    continue
+                if logits.dim() == 2:
+                    run[(req.seed, sl + nl)] = logits[b].float().clone()
+                else:
+                    for j in range(nl):
+                        run[(req.seed, sl + j + 1)] = logits[b, j].float().clone()
             return logits, pools
 
         if eng is not None:
@@ -3602,7 +3888,11 @@ def main() -> int:
     token = phase_heads_kv(params, cfg, dev, serving, toks, results, smi.splitlines()[0])
     launches["kv_write/token"] = token["kv_write"]
     launches["flash_paged_prefill/contiguous"] = token["flash_paged_prefill"]
+    torch.cuda.empty_cache()
+    phase_spec(params, cfg, dev, serving, smi.splitlines()[0])
     del params
+    torch.cuda.empty_cache()
+    phase_sparsity(cfg, dev, smi.splitlines()[0])
     torch.cuda.empty_cache()
     phase_load(cfg, dev, serving, smi.splitlines()[0])
     torch.cuda.empty_cache()

@@ -1181,3 +1181,51 @@ def test_engine_refuses_fp16_f32_pools_on_card(kv_dtype):
     kv = torch.zeros(1, 256, 2, 128, dtype=dt, device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention.flash_paged_prefill(q, kv, kv, 128, 128, hist_len=128)
+
+
+@pytest.mark.cuda
+def test_spec_engine_equals_plain_on_card():
+    """The speculative engine (k 4, bursts of 8) at 2 layers of 2B width on
+    the card, with the o and down projections set to ternary zeros (the
+    logits then depend on the current token alone, so no rounding of the
+    k+1-row verify against the one-row step can part the streams): its
+    greedy streams equal the plain engine's token for token, it accepts
+    drafts, and its verify runs K1's GEMM (8 slots x 5 rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=2)
+    params = init_params(cfg, seed=0, device="cuda")
+    layers = dict(params["layers"])
+    for name in ("o_qw", "down_qw"):
+        layers[name] = torch.full_like(layers[name], 0x55)
+    params = {**params, "layers": layers}
+    g = torch.Generator().manual_seed(0)
+    pattern = torch.randint(1, cfg.vocab_size, (16,), generator=g).tolist()
+    prompts = [pattern * 4, (pattern * 3)[:45], torch.randint(1, cfg.vocab_size, (30,),
+                                                               generator=g).tolist(),
+               [5, 6, 7], pattern[:14] * 2, list(range(100, 161)), pattern * 2 + [9], [42] * 20]
+    outs, stats = [], []
+    for k in (0, 4):
+        eng = Engine(params, cfg, EngineConfig(max_batch_slots=8, page_size=16, num_pages=256,
+                                               max_context=512, prefill_buckets=(32, 128),
+                                               decode_burst=8, speculative_k=k,
+                                               spec_min_accept=0.0), device="cuda")
+        tiled = ternary_cuda.ternary_matmul_stacked_fused.tiled_launches
+        reqs = [eng.submit(p, SamplingParams(max_new_tokens=40)) for p in prompts]
+        prefilled = False
+        while not all(r.finished for r in reqs):
+            eng.step()
+            if not prefilled and all(r.slot >= 0 and not r.pending for r in reqs):
+                prefilled, tiled = True, ternary_cuda.ternary_matmul_stacked_fused.tiled_launches
+        outs.append([r.output_ids for r in reqs])
+        stats.append((eng.stats, ternary_cuda.ternary_matmul_stacked_fused.tiled_launches - tiled))
+    assert outs[0] == outs[1]
+    (_, plain_tiled), (spec_stats, spec_tiled) = stats
+    assert spec_stats["spec_accepted"] > 0 and spec_stats["spec_drafted"] > 0
+    assert plain_tiled == 0 < spec_tiled  # decode at 8 rows: the GEMV; the verify: the GEMM

@@ -234,17 +234,34 @@ def test_serving_bench_counts_new_programs_in_the_window(monkeypatch):
     ["--kv-dtype", "int8"], ["--kv-layout", "token"], ["--spec", "2"], ["--window", "64"],
     ["--exact-head", "64"], ["--use-pallas", "0"], ["--prefill-linear", "xla"],
 ])
-def test_serving_bench_flags_not_ported_raise(flags):
-    """Of these flags, once all refused, speculative decoding and the
-    kernels' plain twins as a serving path still raise; quantized KV, the
-    token layout, the window and the exact head serve, and the report names
-    the layout the engine resolved (int8 on the auto layout: token-major; the
-    window: the dual layout)."""
-    if flags[0] in ("--spec", "--use-pallas", "--prefill-linear"):
+def test_serving_bench_flags_not_ported_raise(flags, monkeypatch):
+    """Of these flags, once all refused, the kernels' plain twins as a
+    serving path still raise; quantized KV, the token layout, the window, the
+    exact head and speculative decoding serve, and the report names the
+    layout the engine resolved (int8 on the auto layout: token-major; the
+    window: the dual layout). ``--spec 2`` reports ``spec_k`` 2 and the
+    engine's own acceptance, accepted over drafted (on looping prompts,
+    above 0)."""
+    if flags[0] in ("--use-pallas", "--prefill-linear"):
         with pytest.raises(NotImplementedError, match="not ported"):
             serving.main([*SMALL, "--device", "cpu", *flags])
         return
+    engines = []
+    state = serving.compile_state
+
+    def spy(eng):
+        engines.append(eng)
+        return state(eng)
+
+    monkeypatch.setattr(serving, "compile_state", spy)
+    if flags[0] == "--spec":
+        flags = [*flags, "--repetitive", "4"]
     got = serving.main([*SMALL, "--device", "cpu", *flags])
+    if flags[0] == "--spec":
+        st_ = engines[-1].stats
+        assert got["spec_k"] == 2 and st_["spec_drafted"] > 0
+        assert got["spec_accept_rate"] == round(st_["spec_accepted"] / st_["spec_drafted"], 3)
+        assert got["spec_accept_rate"] > 0
     want_layout = "token" if flags[0] in ("--kv-dtype", "--kv-layout") else "layer"
     assert got["kv_layout"] == want_layout and got["decode_tok_s"] > 0
     assert got["kv_dtype"] == (flags[1] if flags[0] == "--kv-dtype" else "bf16")

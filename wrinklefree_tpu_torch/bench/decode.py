@@ -29,6 +29,7 @@ the card's name and its power limit:
 
     python -m wrinklefree_tpu_torch.bench.decode [--model bitnet2b|tiny]
         [--prompt 64] [--steps 64] [--device cuda] [--split] [--layer-mega]
+        [--spec K]
 
 ``--split`` runs the unrolled decode over ``split_layers_for_decode``'s
 per-layer views (``bench.py``'s ``WF_BENCH_SPLIT=1`` at batch 1);
@@ -37,6 +38,16 @@ per-layer views (``bench.py``'s ``WF_BENCH_SPLIT=1`` at batch 1);
 ``WF_LAYER_MEGA=1``). Both are off by default, as in the reference.
 ``decode_window`` is the eager window (one ``forward`` per step, the exact
 head reading its certificate on the host every step); the repair runs it.
+
+``--spec K`` adds ``bench.py``'s ``WF_BENCH_SPEC`` metric: after the timed
+windows, a 16-step ``models.spec_decode.spec_decode_window`` (n-gram drafts
+of K tokens, each step verified in one K+1-row ``forward`` on the fused
+kernels: the GEMV and K2 at K+1 <= 8 rows), one warm call and the best of
+three timed calls, each ended by the host read of its counts; it reports
+``spec_tok_s``, ``spec_accept_per_step`` (tokens per step) and ``spec_k``.
+The cache then holds 4 * 16 * (K+1) more positions, as ``bench.py``'s.
+Acceptance depends on how repetitive the output is, so the metric is a
+workload-dependent multiplier on the plain one.
 
 Throughput does not depend on the weights' values. ``--device cpu`` runs
 the plain versions of the kernels and the window's device steps uncaptured
@@ -65,6 +76,7 @@ from ..models.bitnet import (
     resolve_device,
     split_layers_for_decode,
 )
+from ..models.spec_decode import spec_decode_window
 from ..ops.ternary_cuda import make_linear_fused
 
 MODELS = {"bitnet2b": BitNetConfig.bitnet_2b, "tiny": BitNetConfig.tiny}
@@ -239,6 +251,38 @@ class DecodeGraph:
         return toks, last, self.cache, pos + self.steps, self.steps - i
 
 
+SPEC_WINDOW = 16  # bench.py's spec window (steps)
+
+
+def spec_bench(params, cfg, lf, tok, cache, pos, prompt_len, k, sync=lambda: None) -> dict:
+    """``bench.py``'s speculative metric from the bench's state after its
+    timed windows: the history holds the prompt (token 1, as the bench's
+    prompt) and the current token at ``pos``; one warm ``spec_decode_window``
+    of ``SPEC_WINDOW`` steps, then the best of three, each ended by the host
+    read of its counts."""
+    dev = tok.device
+    hist = torch.zeros((1, cache.k.shape[2]), dtype=torch.int32, device=dev)  # [1, T]
+    hist[:, :prompt_len] = 1
+    hist[0, int(pos[0])] = tok[0, 0]
+    last, start = tok[:, 0].to(torch.int32), pos.to(torch.int32)
+    kw = dict(steps=SPEC_WINDOW, k=k, linear_fn=lf)
+    _, counts, last, cache, start, hist = spec_decode_window(params, cfg, last, cache, start,
+                                                             hist, **kw)
+    counts.cpu()  # warm
+    best, tokens = float("inf"), 0
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        _, counts, last, cache, start, hist = spec_decode_window(params, cfg, last, cache, start,
+                                                                 hist, **kw)
+        c = counts.cpu()
+        dt = time.perf_counter() - t0
+        if dt < best:
+            best, tokens = dt, int(c.sum())
+    return {"spec_tok_s": tokens / best, "spec_accept_per_step": tokens / SPEC_WINDOW,
+            "spec_k": k}
+
+
 def card_info(dev: torch.device) -> dict:
     """The card's name and power limit as nvidia-smi reports them."""
     smi = subprocess.run(
@@ -249,7 +293,7 @@ def card_info(dev: torch.device) -> dict:
 
 
 def run(model: str = "bitnet2b", prompt_len: int = 64, steps: int = 64, device=None,
-        split: bool = False, layer_mega: bool = False) -> dict:
+        split: bool = False, layer_mega: bool = False, spec: int = 0) -> dict:
     """The benchmark; returns the result line as a dict."""
     dev = resolve_device(device)
     cfg = MODELS[model]()
@@ -261,6 +305,8 @@ def run(model: str = "bitnet2b", prompt_len: int = 64, steps: int = 64, device=N
     lf = make_linear_fused(layer_mega=layer_mega)
     head_fn = exact_head(cfg)
     max_len = prompt_len + 4 * steps + 8
+    if spec:
+        max_len += 4 * SPEC_WINDOW * (spec + 1)  # spec windows write k+1 rows a step
     prompt = torch.ones((1, prompt_len), dtype=torch.long, device=dev)
 
     t0 = time.perf_counter()
@@ -299,6 +345,8 @@ def run(model: str = "bitnet2b", prompt_len: int = 64, steps: int = 64, device=N
         "repaired_steps": repaired,
         "replay_device_ms_per_token": None if replay_ms is None else replay_ms / steps,
     }
+    if spec:
+        result.update(spec_bench(params, cfg, lf, tok, cache, pos, prompt_len, spec, sync))
     if dev.type == "cuda":
         result.update(card_info(dev))
     return result
@@ -314,8 +362,10 @@ def main(argv=None) -> int:
                     help="unrolled decode over split_layers_for_decode's per-layer views")
     ap.add_argument("--layer-mega", action="store_true",
                     help="one whole-layer kernel per layer at decode")
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="add the speculative window's metric with K-token drafts")
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.model, a.prompt, a.steps, a.device, a.split, a.layer_mega)))
+    print(json.dumps(run(a.model, a.prompt, a.steps, a.device, a.split, a.layer_mega, a.spec)))
     return 0
 
 

@@ -12,10 +12,13 @@ and prefill buckets); ``in_window_compile_s`` is the builds' seconds.
 Usage:
   python -m wrinklefree_tpu_torch.bench.serving --streams 64 --prompt-len 128 --new-tokens 64
   python -m wrinklefree_tpu_torch.bench.serving --streams 8 --prompt-len 3968 --new-tokens 16
+  python -m wrinklefree_tpu_torch.bench.serving --spec 4 --repetitive 16
   python -m wrinklefree_tpu_torch.bench.serving --tiny --device cpu --streams 8 --slots 4
 
-Flags whose feature the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP item.
+``--spec K`` serves with n-gram speculative decoding (``speculative_k``);
+``--repetitive P`` loops a P-token pattern in every prompt, the traffic the
+drafts predict. ``--use-pallas 0`` and ``--prefill-linear xla`` raise
+``NotImplementedError``: the kernels' plain versions are not a serving path.
 """
 
 from __future__ import annotations
@@ -72,10 +75,8 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for the flags whose feature the port does not run yet."""
+    """Raise for the flags the port does not serve."""
     missing = []
-    if args.spec:
-        missing.append("--spec (speculative decoding: ROADMAP queue 1 item 9)")
     if args.use_pallas == "0" or args.prefill_linear == "xla":
         missing.append("--use-pallas 0 / --prefill-linear xla (the kernels' plain twins "
                        "are their CPU path and oracle, not a serving path on the card)")
@@ -133,6 +134,7 @@ def main(argv=None) -> dict:
         kv_dtype=args.kv_dtype,
         **({"decode_burst": args.burst} if args.burst else {}),
         **({"flash_decode": args.flash_decode == "1"} if args.flash_decode is not None else {}),
+        speculative_k=args.spec,
         exact_head_k=args.exact_head,
         prefill_round_mode=args.prefill_mode,
         max_prefill_slots=args.max_prefill_slots,
@@ -234,7 +236,10 @@ def main(argv=None) -> dict:
         "kv_layout": eng.kv_layout,
         "kv_dtype": args.kv_dtype,
         "spec_k": args.spec,
-        "spec_accept_rate": 0.0,
+        # accepted drafts per drafted step over the engine's life, warmup
+        # included, as the reference's report
+        "spec_accept_rate": round(eng.stats.get("spec_accepted", 0)
+                                  / max(eng.stats.get("spec_drafted", 1), 1), 3),
         "decode_steps": eng.stats["decode_steps"] - pre["decode_steps"],
         "native_runtime": eng.native_runtime,
         "in_window_compiles": compiles1 - compiles0,

@@ -2,7 +2,9 @@
 
 Canonical 2B config: hidden 2560, inter 6912, 30 layers, 20 Q / 5 KV heads,
 head_dim 128, vocab 128256, rope theta 5e5, tied embeddings. Counterpart
-of ``wrinklefree_tpu/config.py`` with torch dtypes.
+of ``wrinklefree_tpu/config.py`` with torch dtypes, and its YAML tier: the
+readers of the repository's ``configs/`` files (PyYAML, imported only when a
+file is read).
 """
 
 from __future__ import annotations
@@ -112,10 +114,8 @@ class EngineConfig:
 
     The reference's fields and defaults, less the TPU-only path selectors
     (``use_pallas``, ``prefill_linear``: the port always runs its fused
-    kernels) and the tuning knobs of features not ported yet. Fields whose
-    feature the port does not run yet make ``Engine`` raise
-    ``NotImplementedError`` when set away from their default (see
-    ``engine/engine.py``).
+    kernels). ``kv_dtype`` fp16 and f32 make ``Engine`` raise
+    ``NotImplementedError`` on the card (K4 and K6 take bf16 pools).
 
     ``kv_layout``: "layer" is the dual layout (a layer-major main pool and a
     token-major staging page per slot), "token" the token-major pool, and
@@ -151,7 +151,17 @@ class EngineConfig:
     use_native_runtime: bool = True
     # Decode steps per burst: one host read of the sampled tokens per burst.
     decode_burst: int = 16
+    # Speculative decoding in the decode burst: n-gram (prompt-lookup) drafts
+    # of up to k tokens verified in one k+1-token forward, greedy requests
+    # only (a burst with a sampling, penalised, biased, constrained or
+    # logprobs row runs the plain burst). Windows are clamped to the current
+    # KV page. 0 disables.
     speculative_k: int = 0
+    # Adaptive cutoff: once spec_min_accept_window drafts have run, drafting
+    # turns itself off (sticky, per engine) when the accepted tokens per
+    # drafted token fall below spec_min_accept. 0 = never.
+    spec_min_accept: float = 0.1
+    spec_min_accept_window: int = 256
     admission_policy: str = "fifo"  # fifo | sjf
     admission_aging_s: float = 10.0
     # Cap on rows x chunk tokens per batched prefill round.
@@ -171,3 +181,80 @@ class EngineConfig:
     # (ops.flash_attention.flash_paged_decode); off runs the plain gather
     # attention. The reference's None means its env default, which is off.
     flash_decode: bool = False
+
+
+# ---------------------------------------------------------------------------
+# YAML config tier: configs/{models,serving,sparsity,attention}/*.yaml into
+# the dataclasses above and the sparsity policies
+# ---------------------------------------------------------------------------
+
+CONFIGS_DIR = Path(__file__).resolve().parent.parent / "configs"
+
+
+def load_yaml(path: Path | str) -> dict:
+    """Load one YAML config file (absolute path or relative to configs/).
+    Needs PyYAML, imported here only."""
+    import yaml
+
+    p = Path(path)
+    if not p.exists():
+        p = CONFIGS_DIR / path
+    with open(p) as f:
+        return yaml.safe_load(f) or {}
+
+
+def model_config_from_yaml(path: Path | str) -> BitNetConfig:
+    """A BitNetConfig from a configs/models/*.yaml model card."""
+    arch = load_yaml(path).get("architecture", {})
+    fields = {f.name for f in dataclasses.fields(BitNetConfig)}
+    return BitNetConfig(**{k: v for k, v in arch.items() if k in fields})
+
+
+def engine_config_from_yaml(path: Path | str = "serving/default.yaml") -> EngineConfig:
+    """An EngineConfig from a configs/serving/*.yaml file's ``engine`` section.
+    ``use_pallas``: ``auto`` and true mean the port's kernels; false raises
+    ``NotImplementedError`` (the kernels' plain versions are their CPU path,
+    not a serving path on the card)."""
+    doc = load_yaml(path).get("engine", {})
+    kw = {}
+    for key in ("max_batch_slots", "page_size", "num_pages", "max_context", "decode_burst"):
+        if key in doc:
+            kw[key] = int(doc[key])
+    if "prefill_buckets" in doc:
+        kw["prefill_buckets"] = tuple(doc["prefill_buckets"])
+    if "kv_cache_dtype" in doc:
+        kw["kv_dtype"] = {"bfloat16": "bf16"}.get(doc["kv_cache_dtype"], doc["kv_cache_dtype"])
+    if "radix_cache" in doc:
+        kw["enable_radix_cache"] = bool(doc["radix_cache"])
+    if "use_pallas" in doc and doc["use_pallas"] != "auto" and not bool(doc["use_pallas"]):
+        raise NotImplementedError(
+            "use_pallas: false (the plain kernels as a serving path) is not ported")
+    if "int8_logits" in doc:
+        kw["int8_logits"] = bool(doc["int8_logits"])
+    return EngineConfig(**kw)
+
+
+def activation_sparsity_from_yaml(path: Path | str):
+    """configs/sparsity/*.yaml -> ActivationSparsityConfig (None if off)."""
+    from .ops.activation_sparsity import ActivationSparsityConfig, SparsityMode
+
+    doc = load_yaml(path).get("activation_sparsity", {})
+    mode = SparsityMode(doc.get("mode", "none"))
+    if mode == SparsityMode.NONE:
+        return None
+    fields = {f.name for f in dataclasses.fields(ActivationSparsityConfig)}
+    return ActivationSparsityConfig(
+        **{k: v for k, v in doc.items() if k in fields and k != "mode"}, mode=mode)
+
+
+def attention_sparsity_from_yaml(path: Path | str):
+    """configs/attention/*.yaml -> AttentionSparsityConfig (None if off)."""
+    from .ops.sparse_attention import AttentionSparsityConfig, AttentionSparsityMode
+
+    doc = load_yaml(path).get("attention_sparsity", {})
+    mode = AttentionSparsityMode(doc.get("mode", "none"))
+    if mode == AttentionSparsityMode.NONE:
+        return None
+    fields = {f.name for f in dataclasses.fields(AttentionSparsityConfig)}
+    return AttentionSparsityConfig(
+        **{k: v for k, v in doc.items() if k in fields and k != "mode"}, mode=mode)

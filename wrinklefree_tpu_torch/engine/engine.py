@@ -14,7 +14,11 @@ so a seeded stream does not depend on the batch, and a retracted or restored
 request resumes it), logprobs, mirostat v2, constrained decoding (json_mode,
 GBNF grammars; ``engine/constrained.py``) on single-step dispatches segregated
 from the other rows' bursts, and request-level snapshot/restore
-(``engine/snapshot.py``).
+(``engine/snapshot.py``). With ``speculative_k`` > 0 a burst whose rows are
+all greedy (no logprobs, penalties, bias or constraint) is speculative
+(``programs.build_decode_spec``): n-gram drafts from a device history of
+every slot's tokens, verified k+1 rows at a time, with a sticky adaptive
+cutoff (``spec_min_accept`` over ``spec_min_accept_window`` drafts).
 
 The device half is ``paged_forward`` with the fused kernels
 (``ops/ternary_cuda.py``, ``ops/kv_update_cuda.py``,
@@ -48,7 +52,7 @@ from ..kv.quantized import needs_scale
 from ..models.bitnet import fuse_projections, quantize_lm_head, resolve_device
 from ..ops.ternary_cuda import make_linear_fused, make_linear_stacked
 from .page_allocator import PageAllocator
-from .programs import build_decode, prefill_for_bucket
+from .programs import build_decode, build_decode_spec, prefill_for_bucket
 from .radix_cache import RadixCache
 from .sampling_params import SamplingParams
 
@@ -135,7 +139,7 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
-        missing = ["speculative_k > 0 (speculative decoding)"] if e.speculative_k > 0 else []
+        missing = []
         if mesh is not None:
             missing.append("mesh (tensor parallelism)")
         if long_context_mesh is not None:
@@ -222,6 +226,10 @@ class Engine:
         self._dstate_cand = None  # the constrained rows' view (segregated decode)
         self._mp_bucket = 0
         self._dirty = True
+        # speculative decoding: the device token history [S, max_context]
+        # (uploaded with the decode state) and the sticky adaptive cutoff
+        self._dhist = None
+        self._spec_off = False
 
         self.waiting: "queue.Queue[Request]" = queue.Queue(maxsize=e.max_queue)
         self._backlog: List[Request] = []  # drained from `waiting`, policy-ordered
@@ -851,6 +859,14 @@ class Engine:
             self._dstate_cand = (up(last_c), up(pt_c), up(sl_c), d_seeds, d_ctr, up(sids_c),
                                  up(ring), d_mu)
         self._dstate = (up(last), up(pt), up(sl), d_seeds, d_ctr, up(sids), up(ring), d_mu)
+        if self.ecfg.speculative_k > 0 and not self._spec_off:
+            # n-gram drafting's history: hist[b, pos] = the token at position pos
+            hist = np.zeros((NS, self.ecfg.max_context), np.int32)
+            for i, r in enumerate(self.slots):
+                if r is not None and not r.pending:
+                    toks_all = (r.prompt_ids + r.output_ids)[: self.ecfg.max_context]
+                    hist[i, : len(toks_all)] = toks_all
+            self._dhist = up(hist)
         self._mp_bucket = mp
         self._dirty = False
 
@@ -861,6 +877,8 @@ class Engine:
             return False
         K = self.ecfg.decode_burst
         ps = self.page_size
+        spec = self._spec_burst_applies(active)
+        adv = K * (self.ecfg.speculative_k + 1) if spec else K  # max positions per burst
         # pages must cover the burst's maximum advance per slot; a dry pool
         # retracts a victim instead of failing anything
         for i in active:
@@ -868,7 +886,7 @@ class Engine:
             if req is None:  # retracted as a victim earlier in this loop
                 continue
             lp_lo = req.seq_len // ps
-            lp_hi = min((req.seq_len + K - 1) // ps, self.max_pages_per_seq - 1)
+            lp_hi = min((req.seq_len + adv - 1) // ps, self.max_pages_per_seq - 1)
             for lp in range(lp_lo, lp_hi + 1):
                 if self.page_table[i, lp] == 0:
                     pg = self._alloc_or_preempt(req)
@@ -881,9 +899,12 @@ class Engine:
         if not active:
             return True
         max_seq = max(self.seq_lens[i] for i in active)
-        mp = self._pages_bucket(int(max_seq) + K)
+        mp = self._pages_bucket(int(max_seq) + adv)
         if self._dirty or self._dstate is None or mp != self._mp_bucket:
             self._upload_state(mp)
+        if spec:
+            self._dispatch_spec_burst(active)
+            return True
         cons = [i for i in active if self.slots[i].sampling.constrained]
         if not cons:
             self._dispatch_burst(active)
@@ -900,6 +921,64 @@ class Engine:
         # next dispatch
         self._dirty = True
         return True
+
+    def _spec_burst_applies(self, active) -> bool:
+        """Whether this decode step takes the speculative burst: speculation
+        on and not cut off, and every active row greedy with no logprobs,
+        penalties, bias or constraint. First the sticky adaptive cutoff: once
+        ``spec_min_accept_window`` drafts have run, drafting turns off for
+        good when the accepted tokens per drafted token fall below
+        ``spec_min_accept``."""
+        e = self.ecfg
+        k = e.speculative_k
+        drafted = self.stats.get("spec_drafted", 0)
+        if (k > 0 and e.spec_min_accept > 0.0 and not self._spec_off
+                and drafted >= e.spec_min_accept_window):
+            rate = self.stats.get("spec_accepted", 0) / (drafted * k)
+            if rate < e.spec_min_accept:
+                self._spec_off = True
+                logger.info("speculative decoding auto-disabled: accept rate %.3f < "
+                            "spec_min_accept %.3f over %d drafts", rate, e.spec_min_accept,
+                            drafted)
+        return k > 0 and not self._spec_off and all(
+            s.temperature == 0.0 and s.logprobs_k == 0 and not s.has_penalties
+            and not s.has_logit_bias and not s.constrained
+            for s in (self.slots[i].sampling for i in active))
+
+    def _dispatch_spec_burst(self, rows):
+        """Run one speculative burst on the burst view (always the full K
+        steps) and emit each step's accepted tokens + 1; ``spec_drafted``
+        counts a row's steps, ``spec_accepted`` its accepted drafts."""
+        d_last, d_pt, d_sl, d_seeds, d_ctr, d_sids, d_ring, d_mu = self._dstate
+        K = self.ecfg.decode_burst
+        room_cap = min(self.ecfg.max_context, self.max_pages_per_seq * self.page_size)
+        fn = self._program("decode_spec", K, lambda eng, _K: build_decode_spec(eng))
+        (toks, counts), self.pools, d_last, d_sl, self._dhist = fn(
+            self.pools, d_last, d_pt, d_sl, d_sids, self._dhist)
+        self._dstate = (d_last, d_pt, d_sl, d_seeds, d_ctr, d_sids, d_ring, d_mu)
+        self.stats["decode_steps"] += K
+        for i in rows:
+            req = self.slots[i]
+            for step in range(K):
+                if req.finished:
+                    break
+                n = int(counts[step, i])
+                self.stats["spec_drafted"] = self.stats.get("spec_drafted", 0) + 1
+                self.stats["spec_accepted"] = self.stats.get("spec_accepted", 0) + n - 1
+                for j in range(n):
+                    if req.finished:
+                        break
+                    if req.seq_len >= room_cap:
+                        self._finish(req, "length")
+                        break
+                    req.seq_len += 1
+                    self.seq_lens[i] = req.seq_len
+                    tok = int(toks[step, i, j])
+                    self.stats["decode_tokens"] += 1
+                    self.slot_counters[i] += 1
+                    self._emit_token(req, tok)
+                    if not req.finished:
+                        self.last_tokens[i] = tok
 
     def _constrained_step(self, cons):
         """One step of the full-logits program on the constrained rows'

@@ -15,6 +15,7 @@ import torch
 
 from ..kv.paged import paged_forward
 from ..models.bitnet import compute_logits, exact_topk_shortlist, full_head_argmax
+from ..models.spec_decode import _accepted, _draft_ngram, _record
 from ..ops.sampling import (
     NUCLEUS_CANDIDATES,
     apply_logit_bias,
@@ -158,6 +159,57 @@ def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = Fals
         if with_mirostat:
             return out, pools, tok, sl, ctr, ring, mu
         return out, pools, tok, sl, ctr, ring
+
+    return burst
+
+
+def build_decode_spec(eng):
+    """Speculative decode burst (greedy rows only): K = ``decode_burst``
+    steps, each drafting up to k = ``speculative_k`` tokens per slot by
+    n-gram lookup in the device history ``hist`` [S, H], verifying them in
+    one k+1-token ``paged_forward(..., logits_all=True)`` and advancing by
+    the accepted count + 1. A step's window is clamped to the slot's current
+    page (win = min(k+1, ps - sl % ps)), so a rejected draft's KV row lands
+    in that page past the sequence (overwritten before it is visible) or in
+    the trash; a page flushed with such rows is flushed again when the
+    sequence completes it.
+
+    ``burst(pools, last_tokens, page_table, seq_lens, slot_ids, hist)`` ->
+    ``((tokens [K, S, k+1], counts [K, S]), pools, last, seq_lens, hist)``:
+    tokens and counts on the host (the burst's one read), the rest advanced
+    on the device (``hist`` in place). Step s emits tokens[s, b, :counts[s,
+    b]]. Heads, as the reference's: under ``exact_head_k`` the verify takes
+    the clean bf16 head (its greedy tokens are the exact head's); under
+    ``int8_logits`` the int8 head."""
+    cfg = eng.cfg
+    K = eng.ecfg.decode_burst
+    k = eng.ecfg.speculative_k
+    ps = eng.page_size
+    params = _clean_head(eng.params) if eng.ecfg.exact_head_k else eng.params
+
+    def burst(pools, last_tokens, page_table, seq_lens, slot_ids, hist):
+        tok, sl = last_tokens, seq_lens
+        outs, counts = [], []
+        for _ in range(K):
+            win = torch.clamp(ps - sl % ps, max=k + 1).to(torch.int32)
+            draft = _draft_ngram(hist, sl, k, 2)
+            logits, pools = paged_forward(
+                params, cfg, torch.cat([tok[:, None], draft], dim=1), pools, page_table, sl,
+                win, linear_fn=eng._linear_fn, attention_fn=eng._attention_fn,
+                slot_ids=slot_ids, logits_all=True,
+            )
+            g = torch.argmax(logits, dim=-1).to(torch.int32)  # [S, k+1]
+            n_new = torch.minimum(_accepted(draft, g, win - 1) + 1, win)
+            _record(hist, sl, g)
+            tok = g.gather(1, (n_new - 1).long()[:, None])[:, 0]
+            sl = sl + n_new
+            outs.append(g)
+            counts.append(n_new)
+        # the burst's one host read
+        flat = torch.cat([torch.stack(outs).flatten(), torch.stack(counts).flatten()]).cpu()
+        n = K * tok.shape[0] * (k + 1)
+        toks = flat[:n].numpy().reshape(K, -1, k + 1)
+        return (toks, flat[n:].numpy().reshape(K, -1)), pools, tok, sl, hist
 
     return burst
 

@@ -512,14 +512,18 @@ def paged_forward(
     slot_ids: Optional[torch.Tensor] = None,  # [B] staging slots (dual layout)
     flash_decode: bool = False,
     head_fn=None,  # (hidden [B, H], params) -> anything; replaces compute_logits
+    logits_all: bool = False,  # True: [B, S, V] logits (speculative verify)
 ):
     """Run S new tokens per slot against the paged cache.
 
     Returns (last-real-token logits [B, V] float32, or ``head_fn``'s result
     on the final-normed hidden rows [B, H]; updated pools); the pools are
-    written in place. Covers batched decode (S=1, new_lens=1) and chunked
-    prefill (S=bucket, new_lens=true chunk length), on dual or token-major
-    pools, unquantized or quantized.
+    written in place. With ``logits_all`` every position's logits [B, S, V]
+    (``head_fn`` then sees [B, S, H]). Covers batched decode (S=1,
+    new_lens=1), chunked prefill (S=bucket, new_lens=true chunk length) and
+    the speculative verify window (S = k+1, new_lens = the window clamped
+    to the current page), on dual or token-major pools, unquantized or
+    quantized.
 
     ``linear_fn`` defaults to the fused kernels (``make_linear_fused()``)
     for fused dense params and to the stacked K7 linear
@@ -709,8 +713,9 @@ def paged_forward(
         new_pools = _token_write(pools, vals, svals, page_ids, offsets, write)
 
     hidden = rms_norm(hidden, params["final_norm"], eps)
-    last_idx = torch.clamp(new_lens - 1, 0, S - 1).long()
-    hidden = hidden.gather(1, last_idx[:, None, None].expand(B, 1, hidden.shape[-1]))[:, 0]
+    if not logits_all:  # the last real token per slot
+        last_idx = torch.clamp(new_lens - 1, 0, S - 1).long()
+        hidden = hidden.gather(1, last_idx[:, None, None].expand(B, 1, hidden.shape[-1]))[:, 0]
     if head_fn is not None:
         return head_fn(hidden, params), new_pools
     return compute_logits(hidden, params, cfg), new_pools

@@ -12,8 +12,10 @@ with the layer megakernel, or two on each layer's views after
 in ``kv/paged.py``.
 
 MoE layers (``cfg.num_experts > 0``) run the plain layer step with the
-expert MLP of ``models/moe.py``. Not ported: tensor parallelism, expert
-parallelism and activation/attention sparsity.
+expert MLP of ``models/moe.py``. ``forward`` takes the reference's
+activation and attention sparsity policies (``ops/activation_sparsity.py``,
+``ops/sparse_attention.py``). Not ported: tensor parallelism and expert
+parallelism.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ import numpy as np
 import torch
 
 from ..config import BitNetConfig
+from ..ops.activation_sparsity import make_sparse_linear_fn
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.sparse_attention import apply_attention_sparsity, create_window_mask
 from ..ops.ternary import ternary_linear
 
 
@@ -295,19 +299,30 @@ def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
 def _attention(q, k_cache, v_cache, q_pos, cfg: BitNetConfig, attn_sparsity=None):
     """GQA attention of q [B,S,NH,D] over cache [B,T,KV,D] (full history):
     key t is visible iff t <= q_pos. Scores and softmax in f32 (inputs are
-    exact in f32), probabilities rounded to the cache dtype before PV."""
-    if attn_sparsity is not None:
-        raise NotImplementedError("attention sparsity is not ported yet")
+    exact in f32), probabilities rounded to the cache dtype before PV.
+
+    ``attn_sparsity`` (an ``AttentionSparsityConfig``), in the reference's
+    order: the WINDOW mode's mask replaces the causal one before the softmax,
+    the other modes sparsify the f32 probabilities after it, before their
+    rounding to the cache dtype."""
     B, S, NH, D = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = NH // KV
     qg = q.reshape(B, S, KV, G, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float())
     scores = scores * (1.0 / math.sqrt(D))
-    key_idx = torch.arange(T, device=q.device)
-    mask = key_idx[None, None, None, None, :] <= q_pos[:, None, None, :, None]
+    if attn_sparsity is not None and attn_sparsity.mode == "window":
+        mask = create_window_mask(q_pos, T, attn_sparsity.window_size,
+                                  attn_sparsity.global_tokens,
+                                  attn_sparsity.stride)[:, None, None]
+    else:
+        key_idx = torch.arange(T, device=q.device)
+        mask = key_idx[None, None, None, None, :] <= q_pos[:, None, None, :, None]
     scores = torch.where(mask, scores, torch.tensor(float("-inf"), device=q.device))
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if attn_sparsity is not None:
+        probs = apply_attention_sparsity(probs, attn_sparsity)
+    probs = probs.to(v_cache.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v_cache.float()).to(v_cache.dtype)
     return out.reshape(B, S, NH, D)
 
@@ -356,16 +371,22 @@ def forward(
     kernel per branch. That changes the choice of kernel, not the function
     computed. MoE params take the plain layer
     step, their MLP being ``models.moe.moe_ffn`` (the megakernel branch is
-    dense-only, as in the reference). Tensor parallelism and activation or
-    attention sparsity raise ``NotImplementedError``.
+    dense-only, as in the reference).
+
+    ``act_sparsity`` (an ``ActivationSparsityConfig``) wraps the linear with
+    ``make_sparse_linear_fn``: a plain function, so the layers take the plain
+    step, and fused params raise ``ValueError`` there, as in the reference;
+    run it on unfused params with an unstacked linear (``default_linear``, or
+    ``ops.ternary_cuda.make_linear()``, K7). ``attn_sparsity`` reaches the
+    attention of the prologue and plain steps; the megakernel branch (B = S =
+    1 with a fused-prologue linear) does not take it, as the reference's does
+    not. Tensor parallelism raises ``NotImplementedError``.
     """
     if tp_axis is not None or tp_kv_replicated:
         raise NotImplementedError("tensor parallelism is not ported yet")
-    if act_sparsity is not None:
-        raise NotImplementedError("activation sparsity is not ported yet")
-    if attn_sparsity is not None:
-        raise NotImplementedError("attention sparsity is not ported yet")
     lf = linear_fn or default_linear
+    if act_sparsity is not None:
+        lf = make_sparse_linear_fn(lf, act_sparsity)
     B, S = tokens.shape
     dtype = cfg.dtype
     dev = tokens.device
@@ -423,7 +444,7 @@ def forward(
             q, k, v = split_qkv(plf(h, "qkv", l, "input_ln"))
             q, k = apply_rope(q, k, cos, sin)
             write_cache(l, k, v)
-            attn = _attention(q, ck5[l], cv5[l], positions, cfg).reshape(B, S, -1)
+            attn = _attention(q, ck5[l], cv5[l], positions, cfg, attn_sparsity).reshape(B, S, -1)
             h = h + plf(attn, "o", l, "attn_sub" if cfg.sub_norms else None)
             if mlp_mega is not None and B * S <= 8:
                 return mlp_mega(
@@ -443,7 +464,7 @@ def forward(
             v = wlin(normed, l, "v").reshape(B, S, -1, D)
         q, k = apply_rope(q, k, cos, sin)
         write_cache(l, k, v)
-        attn = _attention(q, ck5[l], cv5[l], positions, cfg).reshape(B, S, -1)
+        attn = _attention(q, ck5[l], cv5[l], positions, cfg, attn_sparsity).reshape(B, S, -1)
         if cfg.sub_norms:
             attn = rms_norm(attn, stack["attn_sub"][l], eps)
         h = h + wlin(attn, l, "o", out_dtype=dtype).to(dtype)
