@@ -22,7 +22,8 @@ vocab 128256) with random weights drawn on the card from seed 0:
                bitwise against K1 over its 8-row slices (the GEMV), K6 at
                three history shapes (with its split, and checked for
                determinism and for NaN rows past the valid tokens), K4 over
-               contiguous keys and over the pool (checked likewise), and
+               contiguous keys and over the pool (checked likewise), K4 and
+               K6 again on fp16 and f32 pools (their FMA instantiations), and
                the causal flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
@@ -78,7 +79,10 @@ vocab 128256) with random weights drawn on the card from seed 0:
                for int8 and fp8_e4m3; K3, K4 and K6 never launched), the
                token-major layout (K3's writes bit-equal, K4's contiguous form
                30 times a 512-token chunk and within its bar; streams = the
-               layer layout's or a near-tie) and the window (>= max_context:
+               layer layout's or a near-tie), fp16 and f32 pools (the layer
+               layout with ``flash_decode``: K3, K4 and K6 launched; the token
+               layout: K3 and K4's contiguous form; streams = the bf16 runs'
+               or a near-tie) and the window (>= max_context:
                the full attention's tokens or a near-tie; 256 tokens on
                700-token prompts, pages gathered per step);
 9. spec      — speculative decoding (k 4, bursts of 16) beside plain bursts
@@ -139,8 +143,9 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-# published dense peaks: tensor cores for int8 and bf16, CUDA cores for f32
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# published dense peaks: tensor cores for int8, bf16, fp16 and TF32, CUDA
+# cores for f32
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 KERNELS = {
     # K1 and K7 at <= 8 rows: the GEMV (K1 after its prologue in ternary.cu)
@@ -222,7 +227,20 @@ KERNELS = {
         "source": "wrinklefree_tpu_torch/csrc/flash_paged_prefill.cu",
         "replaces": "wrinklefree_tpu/ops/flash_attention.py:219",
     },
+    # K4 and K6 on fp16 and f32 pools (the heads_kv phase's engines): their
+    # FMA instantiations (k4_wide, k6_wide); K4's pool form on the layer
+    # layout, its contiguous form on the token layout
+    **{f"{name}/{dt}": {"source": f"wrinklefree_tpu_torch/csrc/{src}",
+                        "replaces": f"wrinklefree_tpu/ops/flash_attention.py:{line}"}
+       for dt in ("fp16", "f32")
+       for name, src, line in (("flash_paged_prefill", "flash_paged_prefill.cu", 219),
+                               ("flash_paged_prefill/contiguous", "flash_paged_prefill.cu", 219),
+                               ("flash_paged_decode", "flash_decode.cu", 382))},
 }
+
+
+# the unquantized pool types K4 and K6 take (their bars: flash_attention.POOL_BARS)
+POOL_TYPES = ("bf16", "fp16", "f32")
 
 
 def fail(msg: str) -> None:
@@ -332,9 +350,13 @@ def start_profiler(dev) -> int:
     fail("torch.profiler recorded no device activity in 5 sessions")
 
 
-def bound(nbytes: float, ops: float, kind: str):
+def bound(nbytes: float, ops, kind: str = ""):
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the memory
+    rate and ``ops`` over the ``kind`` peak; ``ops`` may instead map kinds to
+    their operations, which then add up in time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3 if ops else 0.0
+    ops = ops if isinstance(ops, dict) else {kind: ops}
+    t_ops = sum(n / PEAK_OPS[k] * 1e3 for k, n in ops.items() if n)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -582,31 +604,36 @@ def phase_kernels(params, cfg, dev, results):
     results["kv_write"] = dict(k3_rows[1])
     del pools
 
-    kernels_k4(cfg, dev, results)
+    for pool in POOL_TYPES:
+        kernels_k4(cfg, dev, results, pool)
     kernels_k5(params, cfg, dev, rnd, results)
-    kernels_k6(cfg, dev, results)
+    for pool in POOL_TYPES:
+        kernels_k6(cfg, dev, results, pool)
     kernels_k7(params, cfg, dev, g, results)
     kernels_k8_static(params, cfg, dev, rnd, results)
     kernels_k9(cfg, dev, g, results)
     kernels_k10(dev, results)
 
 
-def kernels_k4(cfg, dev, results):
+def kernels_k4(cfg, dev, results, pool="bf16"):
     """K4, the paged flash prefill, against its plain versions at the shapes
-    of ``wrinklefree_tpu_torch/bench/flash_prefill.py`` (2B attention): over
-    contiguous keys (a 512-token chunk over a 512-slot history, kv_valid 400,
-    new_len 500: the kernels phase's first K4 shape) and over the pool at
-    the engine's widest table (page size 16, 128 pages per row): one row of a
-    512-token chunk after 1024 tokens, and four rows of 128-token chunks
-    after 0/320/1024/1904 tokens; pool shapes at layers 0 and 29. Bar: 3e-2
-    absolute on the real query rows (the kernel rounds probabilities to bf16
-    against its running max, the plain softmax after normalization). At each
-    shape two calls must give the same bits, and with NaN in every row the
-    kernel may not read (history from kv_valid or seq_lens on, chunk keys
-    from new_len on) the real rows must be finite and bitwise equal to the
-    run with zeros there. Each shape prints its time, SDPA's over contiguous
-    copies, the plain version's, the bound, the query tokens per block and
-    the error."""
+    of ``wrinklefree_tpu_torch/bench/flash_prefill.py`` (2B attention) on a
+    pool of type ``pool`` (bf16 on the tensor cores; fp16 and f32 on FMAs, q,
+    the chunk and the output of the pool's type too): over contiguous keys
+    (a 512-token chunk over a 512-slot history, kv_valid 400, new_len 500:
+    the kernels phase's first K4 shape) and over the pool at the engine's
+    widest table (page size 16, 128 pages per row): one row of a 512-token
+    chunk after 1024 tokens, and four rows of 128-token chunks after
+    0/320/1024/1904 tokens; pool shapes at layers 0 and 29. Bar
+    (``POOL_BARS``) on the real query rows: 3e-2 absolute in bf16 and fp16
+    (the kernel rounds probabilities to the pool's type against its running
+    max, the plain softmax after normalization), 2e-5 in f32 (nothing
+    rounds; the f32 sums' order differs). At each shape two calls must give
+    the same bits, and with NaN in every row the kernel may not read
+    (history from kv_valid or seq_lens on, chunk keys from new_len on) the
+    real rows must be finite and bitwise equal to the run with zeros there.
+    Each shape prints its time, SDPA's over contiguous copies, the plain
+    version's, the bound, the query tokens per block and the error."""
     import torch
 
     from wrinklefree_tpu_torch.bench import flash_prefill as bench
@@ -615,19 +642,24 @@ def kernels_k4(cfg, dev, results):
     L, NH, KV, D, ps = bench.L, bench.NH, bench.KV, bench.D, bench.PS
     if (L, NH, KV, D) != (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim):
         fail("K4: the bench's shapes are not the model's")
-    inp = bench.make_inputs(dev, seed=1)
+    inp = bench.make_inputs(dev, seed=1, pool=pool)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    bar = fa.POOL_BARS[pool]["k4"]
+    bq = (fa.flash_prefill_bq if pool == "bf16" else fa.flash_prefill_wide_bq)(NH // KV)
+    tag = "" if pool == "bf16" else f" {pool}"
 
     def checked(name, run, plain, poisoned, new_lens):
         """Max abs error of run() against plain() on the real rows, after
         the determinism and poison checks."""
+        name += tag
         a, again, b = run(), run(), plain()
         torch.cuda.synchronize()
-        err = max((a[i, :n].float() - b[i, :n].float()).abs().max().item()
-                  for i, n in enumerate(new_lens))
+        oks, errs, _ = zip(*(fa.meets_pool_bar(a[i, :n], b[i, :n], "k4", pool)
+                             for i, n in enumerate(new_lens)))
+        err = max(errs)
         if not (all(torch.isfinite(a[i, :n]).all() for i, n in enumerate(new_lens))
-                and err <= 3e-2):
-            fail(f"K4 {name}: max abs error {err}")
+                and all(oks)):
+            fail(f"K4 {name}: max abs error {err} (bar {bar})")
         if not torch.equal(a, again):
             fail(f"K4 {name}: two calls differ")
         z, nan = (r() for r in poisoned)
@@ -671,13 +703,12 @@ def kernels_k4(cfg, dev, results):
     mask = torch.where(col[None] < T, col[None] < c["kv_valid"],
                        ((col - T)[None] <= row) & ((col - T)[None] < c["new_len"]))
     lib_ms = library_ms(q, kf.transpose(1, 2)[None], vf.transpose(1, 2)[None], mask[None, None])
-    b_ms, b_by = bench.bound(S, [c["kv_valid"]], [c["new_len"]])
+    b_ms, b_by = bench.bound(S, [c["kv_valid"]], [c["new_len"]], pool)
     rows.append(dict(shape=f"contiguous S={S} T={T} kv_valid={c['kv_valid']} "
-                           f"new_len={c['new_len']} NH={NH} KV={KV}",
+                           f"new_len={c['new_len']} NH={NH} KV={KV} pool={pool}",
                      ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                      library="SDPA", bound_ms=b_ms, bound_by=b_by,
-                     bq=fa.flash_prefill_bq(NH // KV), max_abs_err=err,
-                     deterministic=True, nan_rows_unread=True))
+                     bq=bq, max_abs_err=err, deterministic=True, nan_rows_unread=True))
     # the pool
     for name, (S, sl, nls) in bench.POOL.items():
         (q, kc, vc, main), (pt, slt, nlt) = bench.pool_case(inp, name)
@@ -713,7 +744,7 @@ def kernels_k4(cfg, dev, results):
         # chunk (made untimed; four layers' copies, so repeats miss the L2)
         Tm = max(sl) + S
         n_l = min(4, L)
-        ks = torch.zeros((n_l, B, KV, Tm, D), dtype=torch.bfloat16, device=dev)
+        ks = torch.zeros((n_l, B, KV, Tm, D), dtype=main.dtype, device=dev)
         vs = torch.zeros_like(ks)
         mask = torch.zeros((B, 1, S, Tm), dtype=torch.bool, device=dev)
         r = torch.arange(S, device=dev)[:, None]
@@ -728,16 +759,21 @@ def kernels_k4(cfg, dev, results):
             mask[i, 0] = (rel < 0) | ((rel <= r) & (rel < m))
         lib_ms = library_ms(q, ks, vs, mask)
         del ks, vs
-        b_ms, b_by = bench.bound(S, sl, nls)
+        b_ms, b_by = bench.bound(S, sl, nls, pool)
         rows.append(dict(shape=f"pool {name} B={B} S={S} ps={ps} MP={bench.MP} seq_lens={sl} "
-                               f"new_lens={nls}",
+                               f"new_lens={nls} pool={pool}",
                          ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library="SDPA over contiguous copies", bound_ms=b_ms, bound_by=b_by,
-                         bq=fa.flash_prefill_bq(NH // KV), max_abs_err=err,
-                         deterministic=True, nan_rows_unread=True))
+                         bq=bq, max_abs_err=err, deterministic=True, nan_rows_unread=True))
     for r in rows:
         print("kernels: K4 " + json.dumps(r))
-    results["flash_paged_prefill"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    if pool == "bf16":
+        results["flash_paged_prefill"] = dict(rows[0],
+                                              max_abs_err=max(r["max_abs_err"] for r in rows))
+    else:  # the pool form at the engine's mixed rows, and the contiguous form
+        results[f"flash_paged_prefill/{pool}"] = dict(
+            rows[2], max_abs_err=max(r["max_abs_err"] for r in rows[1:]))
+        results[f"flash_paged_prefill/contiguous/{pool}"] = rows[0]
 
 
 def kernels_k5(params, cfg, dev, rnd, results):
@@ -852,18 +888,25 @@ def kernels_k5(params, cfg, dev, rnd, results):
     results["attn_block_megakernel"] = dict(pick, max_abs_err=worst)
 
 
-def kernels_k6(cfg, dev, results):
+def kernels_k6(cfg, dev, results, pool="bf16"):
     """K6, the paged flash decode, against its plain version at the shapes of
     ``wrinklefree_tpu_torch/bench/flash_decode.py`` (2B attention, page size
-    16, 128 pages per slot): 8 slots of 17..2000 tokens, 8 slots of 2000 and
-    1 slot of 2000; layers 0 and 29. Bar: 2e-2 absolute (probabilities round
-    to bf16 against each warp's running max over its rows of a rank's tiles
-    in the kernel, against one max over all committed pages in the plain
-    version). At each shape two calls must give the same bits, and with the
-    pool pages past each slot's committed span and the staging rows from its
-    offset on set to NaN the output must be finite and bitwise equal to the
-    run with those rows zero. Each shape prints its time, SDPA's, the bound,
-    the split the wrapper picked and the error."""
+    16, 128 pages per slot) on a pool of type ``pool`` (the query and current
+    token bf16): 8 slots of 17..2000 tokens, 8 slots of 2000 and 1 slot of
+    2000; layers 0 and 29. Bar (``POOL_BARS``, ``meets_pool_bar``): 2e-2
+    absolute in bf16, 3e-2 in fp16 (probabilities round to the pool's type
+    against each warp's running max over its rows of a rank's tiles in the
+    kernel, against one max over all committed pages in the plain version);
+    2e-5 in f32, plus one bf16 step of the value (at most 2^-7 of it: both
+    round an f32 result to the bf16 output), with ``K6_F32_EQUAL_SHARE`` of
+    the output bitwise equal and the rest one step apart or within 2e-5; on
+    f32 the kernel over the pool rounded to bf16 (what a bf16 read of it
+    would give) must fail that bar. At each shape two calls must give the
+    same bits, and with the pool pages past each slot's committed span and
+    the staging rows from its offset on set to NaN the output must be finite
+    and bitwise equal to the run with those rows zero. Each shape prints its
+    time, SDPA's, the bound, the split the wrapper picked, the error and the
+    bitwise equal share."""
     import torch
 
     from wrinklefree_tpu_torch.bench import flash_decode as bench
@@ -873,24 +916,36 @@ def kernels_k6(cfg, dev, results):
     L, NH, KV, D, ps, MP = bench.L, bench.NH, bench.KV, bench.D, bench.PS, bench.MP
     if (L, NH, KV, D) != (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim):
         fail("K6: the bench's shapes are not the model's")
-    inp = bench.make_inputs(dev, seed=1)
+    inp = bench.make_inputs(dev, seed=1, pool=pool)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    bar = fa.POOL_BARS[pool]["k6"]
+    tag = "" if pool == "bf16" else f" {pool}"
     rows, worst = [], 0.0
     for name, lens in bench.SHAPES.items():
         (q, kc, vc, main, stage), (pt, sl) = bench.case(inp, lens)
         B = len(lens)
-        err = 0.0
+        err, equal_share, bf16_read = 0.0, 1.0, 0.0
+        rounded = [t.bfloat16().float() for t in (main, stage)] if pool == "f32" else None
         for layer in (0, L - 1):
             a = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
             again = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
             b = fa.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
             torch.cuda.synchronize()
-            d = (a.float() - b.float()).abs().max().item()
-            if not (torch.isfinite(a).all() and d <= 2e-2):
-                fail(f"K6 {name} layer={layer}: max abs error {d}")
+            ok, d, share = fa.meets_pool_bar(a, b, "k6", pool)
+            if not (torch.isfinite(a).all() and ok):
+                fail(f"K6{tag} {name} layer={layer}: max abs error {d}, {share} bitwise "
+                     f"equal (bar {bar})")
             if not torch.equal(a, again):
-                fail(f"K6 {name} layer={layer}: two calls differ")
-            err = max(err, d)
+                fail(f"K6{tag} {name} layer={layer}: two calls differ")
+            err, equal_share = max(err, d), min(equal_share, share)
+            if pool == "f32":
+                r16 = fa.flash_paged_decode(q, kc, vc, *rounded, layer, pt, sl)
+                ok16, d16, share16 = fa.meets_pool_bar(r16, b, "k6", pool)
+                if ok16:
+                    fail(f"K6{tag} {name} layer={layer}: the bar passes the kernel over a "
+                         "bf16-rounded pool")
+                bf16_read = max(bf16_read, share16)
+        del rounded
         # the rows no slot may read: zero, then NaN (on a copy of the pool)
         pm, psg = main.clone(), stage.clone()
         past = [pt[i, n // ps:].long() for i, n in enumerate(lens)]
@@ -904,8 +959,8 @@ def kernels_k6(cfg, dev, results):
                 if fill == 0.0:
                     outs[layer] = o
                 elif not (torch.isfinite(o).all() and torch.equal(o, outs[layer])):
-                    fail(f"K6 {name} layer={layer}: the NaN rows past the valid tokens changed "
-                         "the output")
+                    fail(f"K6{tag} {name} layer={layer}: the NaN rows past the valid tokens "
+                         "changed the output")
         del pm, psg
         lay = Cycle(L)
         ms, call_ms = cuda_ms(
@@ -917,7 +972,7 @@ def kernels_k6(cfg, dev, results):
         # (made untimed; four layers' copies, so repeats miss the 50 MB L2)
         Tm = max(lens) + 1
         n_l = min(4, L)
-        ks = torch.zeros((n_l, B, KV, Tm, D), dtype=torch.bfloat16, device=dev)
+        ks = torch.zeros((n_l, B, KV, Tm, D), dtype=main.dtype, device=dev)
         vs = torch.zeros_like(ks)
         for li in range(n_l):
             for bi, n in enumerate(lens):
@@ -925,30 +980,44 @@ def kernels_k6(cfg, dev, results):
                 pages = pt[bi, :full // ps].long()
                 kk = main[pages, li].reshape(full, KV, D)
                 vv = main[pages, L + li].reshape(full, KV, D)
-                ks_ = torch.cat([kk, stage[bi, :off, li].reshape(off, KV, D), kc[bi][None]])
-                vs_ = torch.cat([vv, stage[bi, :off, L + li].reshape(off, KV, D), vc[bi][None]])
+                ks_ = torch.cat([kk, stage[bi, :off, li].reshape(off, KV, D),
+                                 kc[bi][None].to(main.dtype)])
+                vs_ = torch.cat([vv, stage[bi, :off, L + li].reshape(off, KV, D),
+                                 vc[bi][None].to(main.dtype)])
                 ks[li, bi, :, :n + 1] = ks_.permute(1, 0, 2)
                 vs[li, bi, :, :n + 1] = vs_.permute(1, 0, 2)
         mask = (torch.arange(Tm, device=dev)[None, :] <= sl[:, None])[:, None, None, :]
         cyc = Cycle(n_l)
 
+        qd = q[:, :, None].to(main.dtype)
+
         def lib():
             i = cyc()
-            return sdpa(q[:, :, None], ks[i], vs[i], attn_mask=mask, enable_gqa=True)
+            return sdpa(qd, ks[i], vs[i], attn_mask=mask, enable_gqa=True)
 
         lib_ms, _ = cuda_ms(lib)
         del ks, vs
         tokens = sum(n + 1 for n in lens)
-        b_ms, b_by = bound(bench.nbytes(lens), 4 * NH * D * tokens, "bf16")
+        # QK and PV, 2 * NH * D operations a token each, at the card's peak
+        # for their operands: a bf16 query and fp16 keys meet exactly only in
+        # TF32; f32 (not TF32, which truncates) on the CUDA cores
+        dots = 2 * NH * D * tokens
+        ops = {"bf16": {"bf16": 2 * dots}, "fp16": {"tf32": dots, "fp16": dots},
+               "f32": {"f32": 2 * dots}}[pool]
+        b_ms, b_by = bound(bench.nbytes(lens, pool), ops)
         split = fa.flash_decode_split(B, KV, MP * ps, cuda_lib.sm_count(dev))
-        rows.append(dict(shape=f"decode {name} B={B} ps={ps} MP={MP} seq_lens={lens}", ms=ms,
+        rows.append(dict(shape=f"decode {name} B={B} ps={ps} MP={MP} seq_lens={lens} "
+                               f"pool={pool}", ms=ms,
                          call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library="SDPA over contiguous histories", bound_ms=b_ms, bound_by=b_by,
-                         split=split, max_abs_err=err, deterministic=True, nan_rows_unread=True))
+                         split=split, max_abs_err=err, bitwise_equal_share=equal_share,
+                         deterministic=True, nan_rows_unread=True,
+                         **({"bf16_read_equal_share": bf16_read} if pool == "f32" else {})))
         worst = max(worst, err)
     for r in rows:
         print("kernels: K6 " + json.dumps(r))
-    results["flash_paged_decode"] = dict(rows[0], max_abs_err=worst)
+    results["flash_paged_decode" + ("" if pool == "bf16" else f"/{pool}")] = dict(
+        rows[0], max_abs_err=worst)
 
 
 def kernels_k7(params, cfg, dev, g, results):
@@ -2423,7 +2492,13 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
       near-tie; a 256-token window on four 700-token prompts runs, its
       gathered pages per row, layer and decode step printed beside the
       table's width.
-    Returns the token layout engine's K3 and K4 launches."""
+    - fp16 and f32 pools: the engine on each, on the layer layout with
+      ``flash_decode`` (K3, K4 over the pool and K6, each launched) and on
+      the token layout (K3 and K4's contiguous form launched); streams equal
+      the bf16 default run's (layer) and the bf16 token layout's, or part
+      at a near-tie (``near_tie``; the two runs' logits within 1.0 there).
+    Returns each engine's launches: the bf16 token layout's (``"token"``)
+    and those of the fp16 and f32 pools (``"layer fp16"``, ...)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2901,6 +2976,34 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
     results["kv_write/token"] = dict(k3[1], launches=tok_launch["kv_write"])
     results["flash_paged_prefill/contiguous"] = dict(k4, launches=tok_launch["flash_paged_prefill"])
 
+    # ---- fp16 and f32 pools: the layer layout with flash_decode (K3, K4
+    # over the pool, K6) against the default run, the token layout (K3, K4's
+    # contiguous form) against the bf16 token layout's
+    wide, wide_launch = {}, {}
+    for dt in ("fp16", "f32"):
+        for layout, over, want, want_logits in (
+                ("layer", dict(flash_decode=True), base, base_logits),
+                ("token", {}, tok_run, trec.runs[0])):
+            zero()
+            wrec = LogitsRecorder()
+            with wrec.on(engine(kv_dtype=dt, kv_layout=layout, **over)) as eng:
+                if eng.kv_layout != layout or eng.pools.kv_dtype_name != dt:
+                    fail(f"heads_kv: kv_dtype={dt} kv_layout={layout} built "
+                         f"{eng.pools.kv_dtype_name} on {eng.kv_layout}")
+                got = run(eng, [(p, greedy) for p in prompts])
+            del eng
+            got_launch = launches()
+            need = attn_kernels if layout == "layer" else attn_kernels[:2]
+            if not all(got_launch[c.__name__] for c in need):
+                fail(f"heads_kv: the {layout} layout's engine on a {dt} pool did not launch "
+                     f"{[c.__name__ for c in need]}: {json.dumps(got_launch)}")
+            wide[f"{layout} {dt}"] = [
+                parted_at_near_tie(f"{layout} {dt} pool", p, r, b, wrec.runs[0], want_logits)
+                for p, r, b in zip(prompts, got, want)]
+            wide_launch[f"{layout} {dt}"] = got_launch
+            del wrec
+    out["wide"] = dict(leading_tokens_equal=wide, launches=wide_launch)
+
     # ---- the window
     wrec = LogitsRecorder()
     with wrec.on(engine(attention_fn=paged._paged_attention_dual)) as eng:
@@ -2935,11 +3038,13 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
           f"{json.dumps(out['native'])}; quantized pools {json.dumps(out['quantized'])}; "
           f"token layout: K3 {json.dumps(k3)}, K4 contiguous {json.dumps(k4)}, streams agree "
           f"with the layer layout's for {token_parts} of 32 tokens, launches "
-          f"{json.dumps(tok_launch)}; window 2048 agrees with the full dual attention for "
+          f"{json.dumps(tok_launch)}; fp16 and f32 pools (layer layout with flash_decode "
+          f"against the default run, token layout against the bf16 token layout's): "
+          f"{json.dumps(out['wide'])}; window 2048 agrees with the full dual attention for "
           f"{window_parts} of 32 tokens; window 256 on 700-token prompts: {pages_per} pages "
           f"gathered per row, layer and decode step of a {table_width}-page table; "
           f"{time.perf_counter() - t_phase} s")
-    return tok_launch
+    return {"token": tok_launch, **wide_launch}
 
 
 def phase_spec(params, cfg, dev, counters, smi):
@@ -3885,9 +3990,14 @@ def main() -> int:
     launches["flash_prefill"] = flash_prefill_launches
     phase_preempt(params, cfg, dev, serving)
     phase_features(params, cfg, dev, serving, smi.splitlines()[0])
-    token = phase_heads_kv(params, cfg, dev, serving, toks, results, smi.splitlines()[0])
-    launches["kv_write/token"] = token["kv_write"]
-    launches["flash_paged_prefill/contiguous"] = token["flash_paged_prefill"]
+    engines = phase_heads_kv(params, cfg, dev, serving, toks, results, smi.splitlines()[0])
+    launches["kv_write/token"] = engines["token"]["kv_write"]
+    launches["flash_paged_prefill/contiguous"] = engines["token"]["flash_paged_prefill"]
+    for dt in ("fp16", "f32"):
+        launches[f"flash_paged_prefill/{dt}"] = engines[f"layer {dt}"]["flash_paged_prefill"]
+        launches[f"flash_paged_decode/{dt}"] = engines[f"layer {dt}"]["flash_paged_decode"]
+        launches[f"flash_paged_prefill/contiguous/{dt}"] = (
+            engines[f"token {dt}"]["flash_paged_prefill"])
     torch.cuda.empty_cache()
     phase_spec(params, cfg, dev, serving, smi.splitlines()[0])
     del params

@@ -520,20 +520,32 @@ def _k6_mp_for_split(b, kv, ps, split, sms):
     return max(mps) if mps else None
 
 
+# the pool types K4 and K6 take (their bars: flash_attention.POOL_BARS)
+POOL_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}
+
+
+def _assert_pool_bar(a, ref, kernel, pool):
+    ok, err, share = flash_attention.meets_pool_bar(a, ref, kernel, pool)
+    assert ok, (f"{kernel} on {pool}: max abs error {err}, {share} bitwise equal "
+                f"(bar {flash_attention.POOL_BARS[pool][kernel]})")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [1, 2, 4, 8])
 @pytest.mark.parametrize("b", [1, 8, 16])
 @pytest.mark.parametrize("g", [1, 4, 8])
-def test_k6_split_matches_plain_on_card(g, b, split):
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+def test_k6_split_matches_plain_on_card(pool, g, b, split):
     """K6 split over 1, 2, 4 and 8 blocks per slot (the page-table width
-    picks the split, as in the engine) against its plain version within 2e-2
-    (probabilities round to bf16 against each warp's running max, and the
-    states combine in warp and rank order), at seq_lens 0, 1, ps-1, ps,
-    ps+1, 63, 64, 65 and MP*ps-1, G query heads per KV head, B slots, the
-    first and the last layer. Two calls give the same bits. With the pool
-    pages past each slot's committed span and the staging rows from its
-    offset on set to NaN, the output is finite and bitwise equal to the run
-    with those rows zero (the kernel never reads them)."""
+    picks the split, as in the engine) against its plain version within
+    ``POOL_BARS`` (probabilities round to the pool's type against each warp's
+    running max, and the states combine in warp and rank order), on bf16,
+    fp16 and f32 pools (the query and current token bf16), at seq_lens 0, 1,
+    ps-1, ps, ps+1, 63, 64, 65 and MP*ps-1, G query heads per KV head, B
+    slots, the first and the last layer. Two calls give the same bits. With
+    the pool pages past each slot's committed span and the staging rows from
+    its offset on set to NaN, the output is finite and bitwise equal to the
+    run with those rows zero (the kernel never reads them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -546,13 +558,13 @@ def test_k6_split_matches_plain_on_card(g, b, split):
     lens = [n for n in (0, 1, ps - 1, ps, ps + 1, 63, 64, 65, mp * ps - 1) if n < mp * ps]
     rows = [lens[i % len(lens)] for i in range(max(b, len(lens)))]
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     for c in range(0, len(rows), b):
         sl = torch.tensor((rows[c:] + rows)[:b], dtype=torch.int32, device=dev)
-        main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
-        stage = rnd(b, ps, 2 * n_l, kv * 128)
+        main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128, dtype=POOL_DTYPES[pool])
+        stage = rnd(b, ps, 2 * n_l, kv * 128, dtype=POOL_DTYPES[pool])
         q, kc, vc = rnd(b, kv * g, 128), rnd(b, kv, 128), rnd(b, kv, 128)
         pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).to(torch.int32)
         zero_m, nan_m, zero_s, nan_s = main.clone(), main.clone(), stage.clone(), stage.clone()
@@ -568,7 +580,8 @@ def test_k6_split_matches_plain_on_card(g, b, split):
             z = flash_attention.flash_paged_decode(q, kc, vc, zero_m, zero_s, layer, pt, sl)
             p = flash_attention.flash_paged_decode(q, kc, vc, nan_m, nan_s, layer, pt, sl)
             assert flash_attention.flash_paged_decode.launches - n0 == 4
-            torch.testing.assert_close(a.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            assert a.dtype == torch.bfloat16
+            _assert_pool_bar(a, ref, "k6", pool)
             assert torch.equal(a, again)
             assert torch.isfinite(p).all() and torch.equal(p, z)
             assert torch.equal(a, z)
@@ -577,12 +590,14 @@ def test_k6_split_matches_plain_on_card(g, b, split):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ps", [8, 12, 32, 64])
-def test_k6_page_sizes_on_card(ps):
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+def test_k6_page_sizes_on_card(pool, ps):
     """K6 at page sizes other than the engine's 16: committed rows row by row
     where a page does not hold whole 16-row boxes (8, 12), by box at an
-    offset inside the page (32, 64); against its plain version within 2e-2,
-    at seq_lens around the page and the 64-token tile, both layers, a split
-    above 1."""
+    offset inside the page (32, 64; bf16); against its plain version within
+    ``POOL_BARS``, at seq_lens around the page and the 64-token tile, both
+    layers, a split above 1, on each pool type; on f32 the kernel over the
+    pool rounded to bf16 (what a bf16 read of it gives) fails that bar."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -591,11 +606,11 @@ def test_k6_page_sizes_on_card(ps):
     mp = -(-512 // ps)
     lens = [0, ps - 1, ps + 1, 63, 65, mp * ps - 1]
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
-    stage = rnd(b, ps, 2 * n_l, kv * 128)
+    main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128, dtype=POOL_DTYPES[pool])
+    stage = rnd(b, ps, 2 * n_l, kv * 128, dtype=POOL_DTYPES[pool])
     q, kc, vc = rnd(b, kv * g, 128), rnd(b, kv, 128), rnd(b, kv, 128)
     pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).to(torch.int32)
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -604,19 +619,23 @@ def test_k6_page_sizes_on_card(ps):
     for layer in (0, n_l - 1):
         a = flash_attention.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
         ref = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
-        torch.testing.assert_close(a.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        _assert_pool_bar(a, ref, "k6", pool)
+        if pool == "f32":  # the bar tells a bf16 read of the pool from an f32 one
+            r16 = flash_attention.flash_paged_decode(q, kc, vc, main.bfloat16().float(),
+                                                     stage.bfloat16().float(), layer, pt, sl)
+            assert not flash_attention.meets_pool_bar(r16, ref, "k6", pool)[0]
     torch.cuda.synchronize()
 
 
-def _k4_check(run, plain, real_rows, poison_runs):
-    """K4 against its plain version within 3e-2 on the real query rows; two
-    calls bitwise equal; with NaN in every row the kernel may not read, the
-    real rows finite and bitwise equal to the run with zeros there."""
+def _k4_check(run, plain, real_rows, poison_runs, pool):
+    """K4 against its plain version within ``POOL_BARS`` on the real query
+    rows; two calls bitwise equal; with NaN in every row the kernel may not
+    read, the real rows finite and bitwise equal to the run with zeros
+    there."""
     a, again, ref = run(), run(), plain()
+    assert a.dtype == ref.dtype
     for b, n in enumerate(real_rows):
-        # probabilities round to bf16 against the running max in the kernel,
-        # after normalization in the plain softmax
-        torch.testing.assert_close(a[b, :n].float(), ref[b, :n].float(), rtol=3e-2, atol=3e-2)
+        _assert_pool_bar(a[b, :n], ref[b, :n], "k4", pool)
     assert torch.equal(a, again)
     z, p = (r() for r in poison_runs)
     for b, n in enumerate(real_rows):
@@ -632,12 +651,14 @@ K4_POOL_CASES = [(1, 16, 512, 1), (4, 16, 512, 1), (8, 16, 512, 1), (4, 16, 128,
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,ps,s,b", K4_POOL_CASES,
                          ids=[f"G{g}-ps{ps}-S{s}-B{b}" for g, ps, s, b in K4_POOL_CASES])
-def test_k4_pool_matches_plain_on_card(g, ps, s, b):
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+def test_k4_pool_matches_plain_on_card(pool, g, ps, s, b):
     """K4 reading its history from the pool (``flash_paged_prefill_pool``)
     against its plain version (the gathered history, as the paged forward
-    had it) at seq_lens 0, ps, 5 ps and the full table (256 tokens), new_lens
-    1, 63, 64, 65 and S, different per row, the first and the last layer;
-    boxes of 16 rows (ps 16, 64) and rows one by one (ps 8). Deterministic,
+    had it) within ``POOL_BARS``, on bf16, fp16 and f32 pools, at seq_lens 0,
+    ps, 5 ps and the full table (256 tokens), new_lens 1, 63, 64, 65 and S,
+    different per row, the first and the last layer; boxes of 16 rows (bf16,
+    ps 16, 64) and rows one by one (ps 8; fp16 and f32 always). Deterministic,
     and blind to NaN in the pool pages from each row's seq_lens on and in
     the chunk's rows from its new_lens on."""
     if not torch.cuda.is_available():
@@ -648,7 +669,7 @@ def test_k4_pool_matches_plain_on_card(g, ps, s, b):
     sls, nls = [0, ps, 5 * ps, mp * ps], [1, 63, 64, 65, s]
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(POOL_DTYPES[pool])
 
     main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
     pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).to(torch.int32)
@@ -673,7 +694,7 @@ def test_k4_pool_matches_plain_on_card(g, ps, s, b):
                 lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, layer, pt, slt, nlt),
                 nl,
                 [lambda m=m, kv_=kv_: fa.flash_paged_prefill_pool(q, *kv_, m, layer, pt, slt, nlt)
-                 for m, kv_ in zip(pools, curs)])
+                 for m, kv_ in zip(pools, curs)], pool)
             assert fa.flash_paged_prefill.launches - n0 == 4
     torch.cuda.synchronize()
 
@@ -681,12 +702,14 @@ def test_k4_pool_matches_plain_on_card(g, ps, s, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("s,b", [(128, 4), (512, 1)])
-def test_k4_contiguous_matches_plain_on_card(g, s, b):
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+def test_k4_contiguous_matches_plain_on_card(pool, g, s, b):
     """K4 over contiguous keys (``flash_paged_prefill``, the reference's
-    signature) against its plain version at kv_valid 0, 16, 80 and the whole
-    history (hist_len 256), new_len 1, 63, 64, 65 and S; deterministic, and
-    blind to NaN in the history columns from kv_valid on and in the chunk's
-    columns from new_len on."""
+    signature) against its plain version within ``POOL_BARS``, in bf16, fp16
+    and f32, at kv_valid 0, 16, 80 and the whole history (hist_len 256),
+    new_len 1, 63, 64, 65 and S; deterministic, and blind to NaN in the
+    history columns from kv_valid on and in the chunk's columns from new_len
+    on."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -695,7 +718,7 @@ def test_k4_contiguous_matches_plain_on_card(g, s, b):
     kvs, nls = [0, 16, 80, T], [1, 63, 64, 65, s]
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(POOL_DTYPES[pool])
 
     fa = flash_attention
     for c in range(5):
@@ -714,7 +737,7 @@ def test_k4_contiguous_matches_plain_on_card(g, s, b):
                   lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvt, nlt, hist_len=T),
                   nl,
                   [lambda f=f: fa.flash_paged_prefill(q, *f, kvt, nlt, hist_len=T)
-                   for f in fills])
+                   for f in fills], pool)
     torch.cuda.synchronize()
 
 
@@ -1164,23 +1187,56 @@ def test_kv_quantize_on_card_equals_cpu(kv_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["fp16", "f32"])
-def test_engine_refuses_fp16_f32_pools_on_card(kv_dtype):
-    """K4 and K6 take bf16 pools: on the card the engine refuses fp16 and
-    f32 pools before it builds anything, and K4's wrapper raises for them."""
+def test_engine_serves_fp16_f32_pools_on_card(kv_dtype):
+    """The engine on fp16 and f32 pools at 2 layers of 2B width with
+    ``flash_decode``: two greedy requests (a 200-token prompt prefills through
+    K4 over the pool) finish by length, launching K3, K4 and K6 (chip_smoke's
+    heads_kv phase holds the streams at 30 layers against the bf16 runs'
+    under the near-tie rule: K6 returns the bf16 query's type, and a one-step
+    bf16 rounding of its output can move the next layer's int8 codes, so
+    not even the f32 pool's tokens need equal another attention's). The
+    wrappers raise for a type outside bf16, fp16 and f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
-    from wrinklefree_tpu_torch.engine import Engine
-    from wrinklefree_tpu_torch.kv.quantized import kv_torch_dtype
+    import dataclasses
 
-    cfg = BitNetConfig.tiny()
-    with pytest.raises(NotImplementedError, match=f"kv_dtype '{kv_dtype}' on the card"):
-        Engine({"layers": {}}, cfg, EngineConfig(kv_dtype=kv_dtype), device="cuda")
-    dt = kv_torch_dtype(kv_dtype)
-    q = torch.zeros(1, 128, 4, 128, dtype=dt, device="cuda")
-    kv = torch.zeros(1, 256, 2, 128, dtype=dt, device="cuda")
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash_attention.flash_paged_prefill(q, kv, kv, 128, 128, hist_len=128)
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=2)
+    params = init_params(cfg, seed=0, device=dev)
+    ecfg = EngineConfig(max_batch_slots=4, page_size=16, num_pages=128, max_context=512,
+                        prefill_buckets=(32, 128, 256), kv_dtype=kv_dtype, flash_decode=True)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist() for n in (200, 40)]
+    counters = (kv_update_cuda.kv_write, flash_attention.flash_paged_prefill,
+                flash_attention.flash_paged_decode)
+    for c in counters:
+        c.launches = 0
+    eng = Engine(params, cfg, ecfg, device=dev)
+    assert eng.pools.kv_dtype_name == kv_dtype and eng.kv_layout == "layer"
+    reqs = [eng.submit(p, SamplingParams(max_new_tokens=12, temperature=0.0)) for p in prompts]
+    while not all(r.finished for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    assert all(r.finish_reason == "length" and len(r.output_ids) == 12 for r in reqs)
+    assert all(c.launches for c in counters), [c.launches for c in counters]
+    for dt in (torch.float64, torch.int8):
+        q = torch.zeros(1, 128, 4, 128, dtype=dt, device=dev)
+        kv = torch.zeros(1, 256, 2, 128, dtype=dt, device=dev)
+        with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+            flash_attention.flash_paged_prefill(q, kv, kv, 128, 128, hist_len=128)
+        pool = torch.zeros(3, 4, 16, 256, dtype=dt, device=dev)
+        with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+            flash_attention.flash_paged_decode(
+                torch.zeros(1, 8, 128, dtype=torch.bfloat16, device=dev),
+                torch.zeros(1, 2, 128, dtype=torch.bfloat16, device=dev),
+                torch.zeros(1, 2, 128, dtype=torch.bfloat16, device=dev), pool,
+                torch.zeros(1, 16, 4, 256, dtype=dt, device=dev), 0,
+                torch.ones(1, 2, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.cuda

@@ -13,6 +13,9 @@ within the reference's bf16 bar (5e-2, tests/test_torch_kernels.py) of
 ``flash_paged_decode(..., interpret=True)`` and within the card's bar (2e-2,
 chip_smoke.py) of the plain version. The kernel itself is held against the
 plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+On fp16 and f32 pools (the kernel's FMA instantiation, the query still
+bf16) the plain version is held against the reference in interpret mode
+(``test_wide_pools_plain_vs_reference``).
 """
 
 import math
@@ -175,3 +178,64 @@ def test_split_combine_vs_reference_and_plain(decode_case, split, layer):
     np.testing.assert_allclose(got, refs[layer], rtol=5e-2, atol=5e-2)
     np.testing.assert_allclose(got, plain, rtol=2e-2, atol=2e-2)
 
+
+
+@pytest.fixture(scope="module", params=["fp16", "f32"])
+def wide_case(request):
+    """The decode case's shapes and seed with the pool and staging pages in
+    fp16 or f32 and the query and current token in bf16 (the model's type),
+    as the engine hands them to K6; the reference's output for each layer
+    (its tail promotes the bf16 current token beside the pool's rows, as the
+    plain version's cast to the pool's type keeps its value: bf16 is exact in
+    fp16 and f32 at these magnitudes)."""
+    rng = np.random.default_rng(8)
+    B, KV, G, D, ps, MP, n_l = len(SEQ_LENS), 2, 4, 128, 16, 40, 2
+    arrs = dict(
+        main=rng.standard_normal((B * MP + 1, 2 * n_l, ps, KV * D)),
+        staging=rng.standard_normal((B, ps, 2 * n_l, KV * D)),
+        q=rng.standard_normal((B, KV * G, D)),
+        k_cur=rng.standard_normal((B, KV, D)),
+        v_cur=rng.standard_normal((B, KV, D)),
+    )
+    jdt, tdt = {"fp16": (jnp.float16, torch.float16), "f32": (jnp.float32, torch.float32)}[
+        request.param]
+    pool = ("main", "staging")
+    ref_in = {k: jnp.asarray(v, jnp.float32).astype(jdt if k in pool else jnp.bfloat16)
+              for k, v in arrs.items()}
+    got = {k: torch.from_numpy(v.astype(np.float32)).to(tdt if k in pool else torch.bfloat16)
+           for k, v in arrs.items()}
+    pt = (rng.permutation(B * MP) + 1).astype(np.int32).reshape(B, MP)
+    sl = np.asarray(SEQ_LENS, np.int32)
+    refs = [np.asarray(ref_flash.flash_paged_decode(
+        ref_in["q"], ref_in["k_cur"], ref_in["v_cur"], ref_in["main"], ref_in["staging"],
+        jnp.int32(layer), jnp.asarray(pt), jnp.asarray(sl), interpret=True).astype(jnp.float32))
+        for layer in range(n_l)]
+    return request.param, got, torch.from_numpy(pt), torch.from_numpy(sl), refs
+
+
+# (atol, rtol) of the plain version against the reference on fp16 and f32
+# pools; both return the bf16 query's type. fp16: probabilities round to
+# fp16 (2^-11 relative) against another running max, and the output to bf16
+# (2^-8 relative, of values up to a few units). f32: nothing rounds before
+# the output; the f32 sums' order differs (2e-5), and the output's rounding
+# to bf16 may land one step (at most 2^-7 of the value) apart, on few enough
+# elements to tell an f32 read of the pool from a bf16 one (K6's
+# ``meets_pool_bar``).
+WIDE_BAR = {"fp16": (1e-2, 1e-2), "f32": (2e-5, 2.0 ** -7)}
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_wide_pools_plain_vs_reference(wide_case, layer):
+    """The wrapper on CPU tensors (K6's plain version) over fp16 and f32
+    pools with a bf16 query, against the reference in interpret mode on the
+    same arrays, within ``WIDE_BAR``; a bf16 output."""
+    dt, x, pt, sl, refs = wide_case
+    got = flash_attention.flash_paged_decode(x["q"], x["k_cur"], x["v_cur"], x["main"],
+                                             x["staging"], layer, pt, sl)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    atol, rtol = WIDE_BAR[dt]
+    np.testing.assert_allclose(got.float().numpy(), refs[layer], rtol=rtol, atol=atol)
+    if dt == "f32":
+        ref = torch.from_numpy(refs[layer]).bfloat16()
+        ok, err, share = flash_attention.meets_pool_bar(got, ref, "k6", "f32")
+        assert ok, (err, share)

@@ -313,6 +313,23 @@ class TestGGUFLoad:
         np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=2e-2)
         np.testing.assert_array_equal(outs[0].argmax(-1), outs[1].argmax(-1))
 
+    @pytest.mark.parametrize("qt", ["i2_s", "tl2"])
+    def test_packed_cache_gguf_loads_as_its_hf_directory_s(self, src, tmp_path, qt):
+        """The GGUF of a packed cache (``convert_and_save``'s output, whose
+        projections are ``.qweight``) holds every projection and loads equal
+        to the GGUF of the HF directory it came from."""
+        from wrinklefree_tpu_torch.convert.convert import convert_and_save
+
+        cache = convert_and_save(str(src), tmp_path / "cache")
+        assert any(k.endswith(".qweight") for k in loader._load_safetensors_dir(cache))
+        out_c = convert_hf_to_gguf(cache, tmp_path / "c.gguf", quant_type=qt)
+        out_h = convert_hf_to_gguf(src, tmp_path / "h.gguf", quant_type=qt)
+        assert validate_gguf(out_c)["n_tensors"] == validate_gguf(out_h)["n_tensors"]
+        pc, cc = load_params_gguf(out_c, device="cpu")
+        ph, ch = load_params_gguf(out_h, device="cpu")
+        assert cc == ch
+        assert_params_equal(pc, ph)
+
     def test_f16_gguf_rejected(self, src, tmp_path):
         out = convert_hf_to_gguf(src, tmp_path / "m16.gguf", quant_type="f16")
         with pytest.raises(ValueError, match="i2_s"):

@@ -242,6 +242,48 @@ def test_engine_streams_match_reference(weights, layout, dt):
                             kv_dtype=dt)
 
 
+@pytest.mark.parametrize("dt", ["fp16", "f32"])
+def test_flash_engine_on_wide_pools_matches_reference(weights, dt, monkeypatch):
+    """``Engine(kv_dtype="fp16"|"f32", flash_decode=True)`` on the dual
+    layout, as the card serves it: prompts of 40 and 100 tokens prefill in
+    the 128-token bucket through K4's pool wrapper, every decode step's
+    attention goes through K6's (their plain versions here; the card's
+    kernels compute the same functions, ``tests/test_torch_cuda.py``), both
+    given the pool's type; greedy streams (with shorter prompts beside them)
+    equal the reference Engine's on the same pool type or part only at a
+    near-tie of the reference's own logits (``NEAR_TIE``, 6e-2)."""
+    seen = {"k4": set(), "k6": set()}
+    k4, k6 = paged.flash_paged_prefill_pool, paged.flash_paged_decode
+
+    def spy_k4(q, k_cur, v_cur, main, *rest):
+        seen["k4"].add((q.dtype, main.dtype))
+        return k4(q, k_cur, v_cur, main, *rest)
+
+    def spy_k6(q, k_cur, v_cur, main, staging_b, *rest):
+        seen["k6"].add((q.dtype, main.dtype, staging_b.dtype))
+        return k6(q, k_cur, v_cur, main, staging_b, *rest)
+
+    monkeypatch.setattr(paged, "flash_paged_prefill_pool", spy_k4)
+    monkeypatch.setattr(paged, "flash_paged_decode", spy_k6)
+    e = dict(max_batch_slots=4, page_size=8, num_pages=140, max_context=256,
+             prefill_buckets=(32, 128), kv_layout="layer", kv_dtype=dt)
+    cfg, rcfg = BitNetConfig.tiny(), RefConfig.tiny()
+    port = Engine(params_from_numpy(weights, cfg, device="cpu"), cfg,
+                  EngineConfig(**e, flash_decode=True), device="cpu")
+    ref = RefEngine(ref_fuse(jax.tree.map(jnp.asarray, weights), rcfg), rcfg,
+                    RefEngineConfig(**e), linear_fn=make_pallas_linear_fused(interpret=True))
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (40, 100)]
+    prompts += [PROMPTS[0], PROMPTS[3]]
+    jobs = [(p, dict(max_new_tokens=12, temperature=0.0)) for p in prompts]
+    got = _run_jobs(port, SamplingParams, jobs)
+    want = _run_jobs(ref, RefSampling, jobs)
+    pool_t = quantized.kv_torch_dtype(dt)
+    assert seen["k4"] == {(pool_t, pool_t)}
+    assert seen["k6"] == {(torch.bfloat16, pool_t, pool_t)}
+    assert_greedy_near_ties(weights, prompts, got, want, kv_layout="layer", kv_dtype=dt)
+
+
 def test_engine_token_layout_buckets_and_int8_quality(weights):
     """The token layout keeps the configured prefill buckets (only the dual
     layout rounds them to whole pages), and int8 KV stays close to bf16 on

@@ -1,7 +1,9 @@
 """The paged flash decode (K6) timed alone on one GPU, at the shapes of
 ``chip_smoke.py``'s K6 phase: BitNet-2B's attention (30 layers, 20 query / 5
 KV heads of 128), page size 16, page tables of 128 pages (the engine's
-widest at ``max_context=2048``), random bf16 pools from a seed; histories of
+widest at ``max_context=2048``), random bf16 pools from a seed
+(``make_inputs`` and ``bound`` also take fp16 and f32 pools, K6's FMA
+instantiations, as ``chip_smoke.py`` times them); histories of
 17..2000 tokens over 8 slots (``mixed``), 2000 tokens in each of 8 slots
 (``8x2000``) and in 1 slot (``1x2000``). Each call reads another layer, so
 repeats do not find the history in the 50 MB L2.
@@ -31,26 +33,29 @@ SHAPES = {
     "1x2000": [2000],
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+POOL_BYTES = {"bf16": 2, "fp16": 2, "f32": 4}  # bytes of a pool element
 
 
-def make_inputs(dev, seed: int = 0) -> dict:
+def make_inputs(dev, seed: int = 0, pool: str = "bf16") -> dict:
     """The pool [SLOTS * MP + 1, 2L, PS, KV*D] (filled in slabs: one randn of
-    1.2 GB would double it), staging pages, q, k_cur, v_cur and a page table
-    of distinct pages for SLOTS slots."""
+    1.2 GB would double it) and staging pages in the pool's type, bf16 q,
+    k_cur, v_cur, and a page table of distinct pages for SLOTS slots."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    dt = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[pool]
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     pages = SLOTS * MP + 1
-    main = torch.empty((pages, 2 * L, PS, KV * D), dtype=torch.bfloat16, device=dev)
+    main = torch.empty((pages, 2 * L, PS, KV * D), dtype=dt, device=dev)
     for i in range(0, pages, 128):
-        main[i:i + 128] = rnd(min(128, pages - i), 2 * L, PS, KV * D)
+        main[i:i + 128] = rnd(min(128, pages - i), 2 * L, PS, KV * D, dtype=dt)
     pt = (torch.randperm(SLOTS * MP, generator=g, device=dev) + 1).reshape(SLOTS, MP)
     return dict(q=rnd(SLOTS, NH, D), k_cur=rnd(SLOTS, KV, D), v_cur=rnd(SLOTS, KV, D),
-                main=main, staging=rnd(SLOTS, PS, 2 * L, KV * D), page_table=pt.to(torch.int32))
+                main=main, staging=rnd(SLOTS, PS, 2 * L, KV * D, dtype=dt),
+                page_table=pt.to(torch.int32))
 
 
 def case(inp: dict, lens) -> tuple:
@@ -65,19 +70,20 @@ def case(inp: dict, lens) -> tuple:
             (inp["page_table"][:b], sl))
 
 
-def nbytes(lens) -> int:
+def nbytes(lens, pool: str = "bf16") -> int:
     """The bytes a call must move: the k and v rows of every slot's history
-    and current token, q, the output, the page table and seq_lens, each
-    once."""
+    (in the pool's type) and current token, q, the output, the page table
+    and seq_lens, each once."""
     tokens = sum(n + 1 for n in lens)
-    return 2 * tokens * KV * D * 2 + 2 * len(lens) * NH * D * 2 + len(lens) * (MP + 1) * 4
+    return (2 * tokens * KV * D * POOL_BYTES[pool] + 2 * len(lens) * NH * D * 2
+            + len(lens) * (MP + 1) * 4)
 
 
-def bound(lens) -> float:
+def bound(lens, pool: str = "bf16") -> float:
     """The least ms the card could take: ``nbytes`` over the memory rate
     (the 4 * NH * D operations per token are far under the bf16
-    tensor-core rate)."""
-    return nbytes(lens) / HBM_BYTES_PER_S * 1e3
+    tensor-core rate and, on fp16 and f32 pools, the TF32 and f32 rates)."""
+    return nbytes(lens, pool) / HBM_BYTES_PER_S * 1e3
 
 
 def device_ms(fn, iters: int) -> float:

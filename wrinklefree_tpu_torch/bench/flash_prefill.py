@@ -1,6 +1,8 @@
 """The paged flash prefill (K4) timed alone on one GPU, at the shapes of
 ``chip_smoke.py``'s K4 rows: BitNet-2B's attention (30 layers, 20 query / 5
-KV heads of 128), random bf16 inputs from a seed.
+KV heads of 128), random bf16 inputs from a seed (``make_inputs`` and
+``bound`` also take fp16 and f32 pools, K4's FMA instantiations, as
+``chip_smoke.py`` times them).
 
 - ``contiguous``: ``flash_paged_prefill`` over gathered keys, a 512-token
   chunk over a 512-slot history with kv_valid 400 and new_len 500 (the
@@ -32,7 +34,13 @@ from pathlib import Path
 
 L, NH, KV, D, PS, MP = 30, 20, 5, 128, 16, 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-BF16_OPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
+F16_OPS_PER_S = 989e12  # H100 SXM published dense bf16 and fp16 tensor-core rate
+F32_OPS_PER_S = 67e12  # H100 SXM published dense f32 rate outside the tensor cores
+# pool type: (torch dtype name, bytes an element, the card's peak for products
+# of that type exact in f32: bf16 and fp16 on the tensor cores, f32 on the
+# CUDA cores, since TF32 truncates it)
+POOLS = {"bf16": ("bfloat16", 2, F16_OPS_PER_S), "fp16": ("float16", 2, F16_OPS_PER_S),
+         "f32": ("float32", 4, F32_OPS_PER_S)}
 CONTIGUOUS = dict(S=512, T=512, kv_valid=400, new_len=500)
 POOL = {  # name: (chunk tokens, seq_lens, new_lens)
     "pool-1x1024": (512, [1024], [512]),
@@ -46,31 +54,34 @@ def pairs(seq_lens, new_lens) -> int:
     return sum(n_h + min(r + 1, n) for n_h, n in zip(seq_lens, new_lens) for r in range(n))
 
 
-def bound(s: int, seq_lens, new_lens) -> tuple:
+def bound(s: int, seq_lens, new_lens, pool: str = "bf16") -> tuple:
     """(ms, "bytes" or "operations"): the larger of the bytes a call must
     move (q and the output, the valid history and chunk k and v rows, each
-    once) over the memory rate and its 4 * D operations per visible pair
-    and query head over the bf16 tensor-core rate."""
+    once, in the pool's type) over the memory rate and its 4 * D operations
+    per visible pair and query head over the card's peak for the pool's
+    type (``POOLS``)."""
+    _, eb, peak = POOLS[pool]
     b = len(seq_lens)
-    nbytes = 2 * b * s * NH * D * 2 + 2 * (sum(seq_lens) + sum(new_lens)) * KV * D * 2
+    nbytes = 2 * b * s * NH * D * eb + 2 * (sum(seq_lens) + sum(new_lens)) * KV * D * eb
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * D * NH * pairs(seq_lens, new_lens) / BF16_OPS_PER_S * 1e3
+    t_ops = 4 * D * NH * pairs(seq_lens, new_lens) / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def make_inputs(dev, seed: int = 0) -> dict:
+def make_inputs(dev, seed: int = 0, pool: str = "bf16") -> dict:
     """The pool [4 * MP + 1, 2L, PS, KV*D] (filled in slabs), a page table
     of distinct pages for 4 rows, the widest chunk's q, k and v, and the
-    contiguous shape's q, k_full, v_full."""
+    contiguous shape's q, k_full, v_full, all in the pool's type."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, POOLS[pool][0])
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device=dev).to(dt)
 
     pages = 4 * MP + 1
-    main = torch.empty((pages, 2 * L, PS, KV * D), dtype=torch.bfloat16, device=dev)
+    main = torch.empty((pages, 2 * L, PS, KV * D), dtype=dt, device=dev)
     for i in range(0, pages, 128):
         main[i:i + 128] = rnd(min(128, pages - i), 2 * L, PS, KV * D)
     pt = (torch.randperm(4 * MP, generator=g, device=dev) + 1).reshape(4, MP)

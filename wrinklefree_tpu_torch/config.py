@@ -114,8 +114,8 @@ class EngineConfig:
 
     The reference's fields and defaults, less the TPU-only path selectors
     (``use_pallas``, ``prefill_linear``: the port always runs its fused
-    kernels). ``kv_dtype`` fp16 and f32 make ``Engine`` raise
-    ``NotImplementedError`` on the card (K4 and K6 take bf16 pools).
+    kernels). Every ``kv_dtype`` serves on the card: K4 and K6 take bf16,
+    fp16 and f32 pools.
 
     ``kv_layout``: "layer" is the dual layout (a layer-major main pool and a
     token-major staging page per slot), "token" the token-major pool, and

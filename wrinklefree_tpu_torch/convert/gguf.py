@@ -289,8 +289,12 @@ def convert_hf_to_gguf(
 
     out: Dict[str, Tuple[np.ndarray, int]] = {}
     for name in sorted(raw):
-        if name.endswith(".weight_scale") or name.endswith(".qweight"):
-            continue  # handled with their projection below
+        if name.endswith(".weight_scale"):
+            continue  # handled with its projection below
+        # a packed cache (convert_and_save) keeps a projection as .qweight;
+        # it stands for the HF directory's .weight of the same projection
+        if name.endswith(".qweight"):
+            name = name[: -len(".qweight")] + ".weight"
         gname = hf_name_to_gguf(name)
         if gname is None:
             continue

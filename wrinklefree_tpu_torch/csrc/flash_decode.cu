@@ -55,6 +55,21 @@
 //   exp(m_r - m), and stores the output. 99 KB of shared memory: two blocks
 //   per SM.
 //
+// fp16 and f32 pools (k6_wide<T>): the same function, split, warp ownership
+// and combine, with the pool's rows (and the current token's, rounded from
+// bf16 to T as the plain version's cast does) in the pool's type T and the
+// probabilities rounded to T before PV. A bf16 query and an fp16 or f32 key
+// share no tensor-core operand type, so both products run on f32 FMAs: every
+// bf16 x T product is exact in f32, and only the order of the f32 sums
+// differs from the plain version. A warp's 16 rows of a tile come by 16-byte
+// cp.async into its own two-stage ring (K rows padded by 16 bytes, so that
+// the lanes' reads of 8 rows miss each other) with zeros past the valid
+// rows; lane (j, hf) = (lane % 16, lane / 16) scores row j against every
+// query head over dims 64hf..64hf+63, one shuffle joins the halves, and for
+// PV lane x accumulates dims 4x..4x+3 of every head, reading the warp's
+// probabilities from shared memory. f32: 172 KB of shared memory, one block
+// per SM; fp16: 106 KB, two.
+//
 // Launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() or the launch's error.
 
@@ -89,8 +104,8 @@ struct Args {
   const __nv_bfloat16* q;      // [B, NH, D]
   const __nv_bfloat16* k_cur;  // [B, KV, D]
   const __nv_bfloat16* v_cur;
-  const __nv_bfloat16* main;   // [P, 2L, ps, KV*D]
-  const __nv_bfloat16* stage;  // [B, ps, 2L, KV*D]
+  const void* main;            // [P, 2L, ps, KV*D] in the pool's type
+  const void* stage;           // [B, ps, 2L, KV*D]
   const int* page_table;       // [B, MP]
   const int* seq_lens;         // [B]
   __nv_bfloat16* out;          // [B, NH, D]
@@ -134,9 +149,11 @@ __device__ __forceinline__ void load_rows(const Args& a, const CUtensorMap* map,
       if (i < ntm) {
         const int t = i * TK + row;
         const size_t pt = (size_t)__ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
-        src = a.main + ((pt * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd;
+        src = static_cast<const __nv_bfloat16*>(a.main) +
+              ((pt * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd;
       } else if (row < off) {
-        src = a.stage + (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd;
+        src = static_cast<const __nv_bfloat16*>(a.stage) +
+              (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd;
       } else {  // row == off: the current token
         src = (v ? a.v_cur : a.k_cur) + (size_t)b * kvd;
       }
@@ -183,6 +200,44 @@ __device__ __forceinline__ void combine(const float* base, int stride, int count
       }
     }
   }
+}
+
+// The end of both kernels, after the warps' states (m[8], l[8], acc[8][ACC_LD]
+// each, PART floats apart) are in `states`: the block's state, thread d
+// holding dim d of every head, is the warps' states summed in warp order; then
+// rank 0 sums the ranks' states in rank order in the same way (the other
+// ranks write theirs into its `ranks` through distributed shared memory) and
+// stores the output.
+__device__ __forceinline__ void finish(const Args& a, const float* states, float* ranks, int rank,
+                                       int kvh, int b, int G) {
+  const int d = threadIdx.x;
+  float M[MAX_G], Ls[MAX_G], A[MAX_G];
+  combine(states, PART, WARPS, d, G, M, Ls, A);
+
+  if (a.split > 1) {
+    // every block of the cluster has started: write this rank's state into
+    // rank 0's slot for it
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    float* dst = rank == 0 ? ranks : cg::this_cluster().map_shared_rank(ranks, 0) + rank * PART;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g < G) dst[2 * MAX_G + g * ACC_LD + d] = A[g];
+      if (g < G && d == g) {  // (static indices keep M and Ls in registers)
+        dst[g] = M[g];
+        dst[MAX_G + g] = Ls[g];
+      }
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    if (rank != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    combine(ranks, PART, a.split, d, G, M, Ls, A);
+  }
+
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g)
+    if (g < G)
+      a.out[((size_t)b * a.NH + kvh * G + g) * HD + d] =
+          __float2bfloat16_rn(A[g] / fmaxf(Ls[g], 1e-30f));
 }
 
 // Grid (split, KV, B); cluster (split, 1, 1) when split > 1. map: the main
@@ -355,37 +410,199 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
 
-  // The block's state, thread d holding dim d of every head: the warps'
-  // states summed in warp order. Then rank 0 sums the ranks' states in rank
-  // order in the same way.
-  const int d = threadIdx.x;
-  float M[MAX_G], Ls[MAX_G], A[MAX_G];
-  combine(states, PART, WARPS, d, G, M, Ls, A);
+  finish(a, states, ranks, rank, kvh, b, G);
+}
 
-  if (a.split > 1) {
-    // every block of the cluster has started: write this rank's state into
-    // rank 0's slot for it
-    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-    float* dst = rank == 0 ? ranks : cg::this_cluster().map_shared_rank(ranks, 0) + rank * PART;
+// ---------------------------------------------------- fp16 and f32 ----
+
+template <typename T>
+struct Wide {
+  static constexpr int LDK = HD + 16 / sizeof(T);            // elements a staged K row
+  static constexpr int WSTAGE = WROWS * (LDK + HD);          // a warp's K then V rows of a tile
+  static constexpr int RING = WARPS * STAGES * WSTAGE * (int)sizeof(T);  // bytes
+  // the rings (then the warps' states), rank 0's slots for the ranks' states,
+  // the scaled queries [8][128] and the warps' probabilities [4][16][8] (f32)
+  static constexpr int SMEM = RING + RANKS + (MAX_G * HD + WARPS * WROWS * MAX_G) * 4;
+};
+static_assert(WARPS * PART * 4 <= Wide<__half>::RING, "the warps' states fit in the rings");
+
+// Grid (split, KV, B); cluster (split, 1, 1) when split > 1.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) k6_wide(Args a) {
+  using W = Wide<T>;
+  constexpr int PER = 16 / sizeof(T);  // elements a 16-byte copy
+  constexpr int PIECES = HD / PER;     // copies a row
+  extern __shared__ float4 wide_raw[];
+  char* raw = reinterpret_cast<char*>(wide_raw);
+  float* states = reinterpret_cast<float*>(raw);  // over the rings, after the loop
+  float* ranks = reinterpret_cast<float*>(raw + W::RING);
+  float* qs = ranks + MAX_SPLIT * PART;
+  float* pw = qs + MAX_G * HD;
+  const int rank = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.NH / a.KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, j = lane & 15, hf = lane >> 4;
+  T* wring = reinterpret_cast<T*>(raw) + warp * STAGES * W::WSTAGE;
+  float* wp = pw + warp * WROWS * MAX_G;  // this warp's probabilities [16 rows][8 heads]
+  const size_t kvd = (size_t)a.KV * HD;
+  const int n_hist = max(a.seq_lens[b], 0);
+  const int full = min((n_hist / a.ps) * a.ps, a.MP * a.ps);  // committed tokens
+  const int off = n_hist % a.ps;                              // staging tokens
+  const int ntm = (full + TK - 1) / TK;
+  const int nt = ntm + 1;  // the committed tiles, then the tail
+  const int i0 = rank * nt / a.split, i1 = (rank + 1) * nt / a.split;  // this rank's share
+  const int r0 = warp * WROWS;  // this warp's rows of every tile
+  auto valid = [&](int i) { return i < ntm ? min(TK, full - i * TK) : off + 1; };
+  auto rows_of = [&](int i) { return min(WROWS, valid(i) - r0); };
+
+  if (a.split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  // copy the warp's rows of tile i into stage st (zeros from its valid rows
+  // on), one group of copies per call
+  auto fetch = [&](int i, int st) {
+    const int nv = i < i1 ? rows_of(i) : 0;
+    T* kd = wring + st * W::WSTAGE;
+    T* vd = kd + WROWS * W::LDK;
+    for (int idx = lane; nv > 0 && idx < 2 * WROWS * PIECES; idx += 32) {
+      const int v = idx / (WROWS * PIECES), r = idx / PIECES % WROWS, p = idx % PIECES;
+      T* dst = (v ? vd + r * HD : kd + r * W::LDK) + p * PER;
+      const int row = r0 + r;
+      if (r >= nv) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      } else if (i < ntm) {
+        const int t = i * TK + row;
+        const size_t pg = (size_t)__ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
+        cp_async16(dst, static_cast<const T*>(a.main) +
+                            ((pg * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd +
+                            kvh * HD + p * PER);
+      } else if (row < off) {
+        cp_async16(dst, static_cast<const T*>(a.stage) +
+                            (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd +
+                            kvh * HD + p * PER);
+      } else {  // row == off: the current token, bf16 rounded to T
+        const __nv_bfloat16* src = (v ? a.v_cur : a.k_cur) + b * kvd + kvh * HD + p * PER;
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G) dst[2 * MAX_G + g * ACC_LD + d] = A[g];
-      if (g < G && d == g) {  // (static indices keep M and Ls in registers)
-        dst[g] = M[g];
-        dst[MAX_G + g] = Ls[g];
+        for (int e = 0; e < PER; ++e) dst[e] = from_f<T>(__bfloat162float(src[e]));
       }
     }
-    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-    if (rank != 0) return;
-    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-    combine(ranks, PART, a.split, d, G, M, Ls, A);
+    cp_async_commit();
+  };
+  fetch(i0, 0);
+  fetch(i0 + 1, 1);
+  {
+    const __nv_bfloat16 sc = __float2bfloat16_rn(a.scale);
+    for (int idx = threadIdx.x; idx < MAX_G * HD; idx += THREADS) {
+      const int g = idx / HD;
+      qs[idx] = g < G ? __bfloat162float(__hmul(a.q[((size_t)b * a.NH + kvh * G) * HD + idx], sc))
+                      : 0.f;
+    }
   }
+  __syncthreads();  // the queries
 
+  // per head: the running max, this lane's share of the sum (its row), and
+  // dims 4 lane..+3 of the output
+  float m[MAX_G], l[MAX_G], acc[MAX_G][4];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    m[g] = NEG;
+    l[g] = 0.f;
+    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+  }
+  for (int i = i0; i < i1; ++i) {
+    const int st = (i - i0) & 1;
+    cp_async_wait<1>();  // tile i's group is in
+    __syncwarp();
+    const int nv = rows_of(i);
+    if (nv > 0) {
+      const T* kt = wring + st * W::WSTAGE;
+      const T* vt = kt + WROWS * W::LDK;
+      float s[MAX_G];
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) s[g] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < 64; c += 8) {
+        float kk[8];
+        ld8(kt + j * W::LDK + 64 * hf + c, kk);
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g) {
+          if (g < G) {
+            float qv[8];
+            ld8(qs + g * HD + 64 * hf + c, qv);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) s[g] = fmaf(qv[e], kk[e], s[g]);
+          }
+        }
+      }
+      const bool ok = j < nv;
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        if (g < G) {
+          float x = s[g] + __shfl_xor_sync(0xffffffffu, s[g], 16);
+          x = ok ? x : NEG;
+          float mx = x;
+#pragma unroll
+          for (int sh = 1; sh < 16; sh <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+          const float m_new = fmaxf(m[g], mx);
+          const float p = ok ? expf(x - m_new) : 0.f;
+          const float alpha = expf(m[g] - m_new);
+          m[g] = m_new;
+          l[g] = l[g] * alpha + p;  // this lane's row; summed over the rows at the end
+          if (hf == 0) wp[j * MAX_G + g] = to_f(from_f<T>(p));  // rounded to T for PV
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][e] *= alpha;
+        }
+      }
+      __syncwarp();
+      for (int t = 0; t < nv; ++t) {
+        float w[4];
+        ld4(vt + t * HD + 4 * lane, w);
+        float pr[8];
+        ld8(wp + t * MAX_G, pr);
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g) {
+          if (g < G) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pr[g], w[e], acc[g][e]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the lanes are done with stage st and the probabilities
+    fetch(i + 2, st);
+  }
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g)
-    if (g < G)
-      a.out[((size_t)b * a.NH + kvh * G + g) * HD + d] =
-          __float2bfloat16_rn(A[g] / fmaxf(Ls[g], 1e-30f));
+#pragma unroll
+    for (int sh = 1; sh < 16; sh <<= 1) l[g] += __shfl_xor_sync(0xffffffffu, l[g], sh);
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: the states go over them
+
+  {
+    float* w = states + warp * PART;
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        w[g] = m[g];
+        w[MAX_G + g] = l[g];
+      }
+    }
+    float* wa = w + 2 * MAX_G;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G)
+        *reinterpret_cast<float4*>(wa + g * ACC_LD + 4 * lane) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
+  __syncthreads();
+  finish(a, states, ranks, rank, kvh, b, G);
+}
+
+// a kernel's shared-memory limit, raised once per process
+template <typename Kernel>
+cudaError_t smem_once(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = e == cudaSuccess;
+  return e;
 }
 
 }  // namespace
@@ -393,40 +610,39 @@ __global__ void __launch_bounds__(THREADS, 2)
 extern "C" {
 
 // out [B,NH,128] = paged decode attention of layer `layer`; q [B,NH,128],
-// k_cur/v_cur [B,KV,128], main [P,2L,ps,KV*128], staging_b [B,ps,2L,KV*128]
-// bf16; page_table [B,MP], seq_lens [B] int32 on the device. split: the
+// k_cur/v_cur [B,KV,128] bf16; main [P,2L,ps,KV*128], staging_b
+// [B,ps,2L,KV*128] of the pool's type `elem` (ELEM_BF16, ELEM_F16 or
+// ELEM_F32); page_table [B,MP], seq_lens [B] int32 on the device. split: the
 // blocks (1-8) that share each slot's history, as one cluster.
 int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, const void* main,
                           const void* staging_b, const void* page_table, const void* seq_lens,
                           void* out, int B, int NH, int KV, int L, int layer, int ps, int MP,
-                          int D, int P, float scale, int split, void* stream) {
+                          int D, int P, float scale, int split, int elem, void* stream) {
   if (B <= 0) return 0;
   if (D != HD || KV <= 0 || NH % KV || NH / KV > MAX_G || ps <= 0 || ps > TK || MP <= 0 ||
-      P <= 0 || layer < 0 || layer >= L || split < 1 || split > MAX_SPLIT || (split & (split - 1)))
+      P <= 0 || layer < 0 || layer >= L || split < 1 || split > MAX_SPLIT ||
+      (split & (split - 1)) || elem < ELEM_BF16 || elem > ELEM_F32)
     return cudaErrorInvalidValue;
-  static bool smem_set = false;  // raised once per process
-  cudaError_t e;
-  if (!smem_set) {
-    if ((e = cudaFuncSetAttribute(k6_decode, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  SMEM)) != cudaSuccess)
-      return e;
-    smem_set = true;
-  }
+  static bool smem_set[3] = {false, false, false};
+  const int smem = elem == ELEM_F16 ? Wide<__half>::SMEM : elem == ELEM_F32 ? Wide<float>::SMEM
+                                                                            : SMEM;
+  cudaError_t e = elem == ELEM_F16   ? smem_once(k6_wide<__half>, smem, smem_set[elem])
+                  : elem == ELEM_F32 ? smem_once(k6_wide<float>, smem, smem_set[elem])
+                                     : smem_once(k6_decode, smem, smem_set[elem]);
+  if (e != cudaSuccess) return e;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
-  const int boxes = ps % WROWS == 0;  // a box of a warp's 16 rows lies in one page
+  const int boxes = elem == ELEM_BF16 && ps % WROWS == 0;  // a warp's 16 rows lie in one page
   // the main pool as [P * 2L * ps rows, KV*D]
   if (boxes && (e = rows_map(&map, main, (long long)P * 2 * L * ps, KV * HD)) != cudaSuccess)
     return e;
-  Args a{(const __nv_bfloat16*)q,          (const __nv_bfloat16*)k_cur,
-         (const __nv_bfloat16*)v_cur,      (const __nv_bfloat16*)main,
-         (const __nv_bfloat16*)staging_b,  (const int*)page_table,
-         (const int*)seq_lens,             (__nv_bfloat16*)out,
+  Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
+         main, staging_b, (const int*)page_table, (const int*)seq_lens, (__nv_bfloat16*)out,
          NH, KV, L, layer, ps, MP, split, boxes, scale};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, KV, B);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
@@ -435,7 +651,13 @@ int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, c
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  if ((e = cudaLaunchKernelEx(&cfg, k6_decode, map, a)) != cudaSuccess) return e;
+  if (elem == ELEM_F16)
+    e = cudaLaunchKernelEx(&cfg, k6_wide<__half>, a);
+  else if (elem == ELEM_F32)
+    e = cudaLaunchKernelEx(&cfg, k6_wide<float>, a);
+  else
+    e = cudaLaunchKernelEx(&cfg, k6_decode, map, a);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

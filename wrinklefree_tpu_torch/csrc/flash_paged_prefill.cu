@@ -51,6 +51,24 @@
 // not the copies (hidden behind the compute) and not the tensor cores'
 // rate: twice the warps per SM run in the same time.
 //
+// fp16 and f32 pools (k4_wide<T>, the reference's kernel on an fp16 pool and
+// at HIGHEST precision on an f32 one): the same function, masks and rounding
+// points in the pool's type T (q, the chunk's keys and the output are T too:
+// q scaled by 1/sqrt(D) in T, probabilities rounded to T before PV), on
+// register-blocked f32 FMAs. The product of two fp16 or two f32 values is
+// exact in f32 (the tensor cores take f32 only as TF32, which would truncate
+// it), so again only the order of the f32 sums differs from the plain
+// version. Warp w owns 8 tokens of one query head (G * BQ / 8 warps, BQ from
+// flash_attention.py::flash_prefill_wide_bq, at most 64 rows a block); lane
+// (rg, kg) = (lane / 16, lane % 16) holds the scores of rows 4rg..4rg+3 of
+// the warp against keys kg + 16j (j < 4) and their output at dims 4kg + 64u
+// (u < 2), +3. Q, scaled, stays in shared memory as f32; a two-slot ring
+// streams K of tile i, then V of tile i (64 rows a slot, padded by 16 bytes
+// so that the lanes' 16-byte reads of 8 rows miss each other), by 16-byte
+// cp.async, filled while the other slot is computed, with zeros for the rows
+// past the valid keys (never read from memory); the probabilities go through
+// shared memory transposed (P^T) to the PV product.
+//
 // Launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() or the launch's error.
 
@@ -73,13 +91,13 @@ constexpr int RING = STAGES * STAGE;  // 64 KB
 constexpr int SMEM = RING + MAX_WARPS * GROUP + 1024;  // and each warp's Q; 1 KB alignment
 constexpr float NEG = -1e30f;
 
-struct Args {
-  const __nv_bfloat16* q;  // [B, S, NH, D]
-  __nv_bfloat16* out;      // [B, S, NH, D]
-  const __nv_bfloat16* hk;  // history rows [*, KV*D]: k, v (the pool: both)
-  const __nv_bfloat16* hv;
-  const __nv_bfloat16* ck;  // chunk rows [*, KV*D]
-  const __nv_bfloat16* cv;
+struct Args {  // the arrays hold the pool's type: bf16, fp16 or f32
+  const void* q;           // [B, S, NH, D]
+  void* out;               // [B, S, NH, D]
+  const void* hk;          // history rows [*, KV*D]: k, v (the pool: both)
+  const void* hv;
+  const void* ck;          // chunk rows [*, KV*D]
+  const void* cv;
   const int* hist_valid;   // [B] kv_valid or seq_lens
   const int* new_len;      // [B]
   const int* page_table;   // [B, MP] (pool only)
@@ -144,7 +162,8 @@ __device__ __forceinline__ void issue(const Args& a, const Maps& maps, char* sta
   const int j = lane & 15, v = lane >> 4;
   char* dst = v ? vd : kd;
   if (j < nv) {
-    const __nv_bfloat16* base = hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck);
+    const __nv_bfloat16* base =
+        static_cast<const __nv_bfloat16*>(hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck));
     const __nv_bfloat16* src =
         base + row_of(a, hist, v, b, t0 + j, -1) * ((long long)a.KV * HD) + kvh * HD;
 #pragma unroll
@@ -210,7 +229,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       const int r = idx / (HD / 8), c = idx % (HD / 8), s = sw + r;
       uint4 x = make_uint4(0, 0, 0, 0);
       if (s < a.S) {
-        x = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + s) * a.NH + h) * HD + 8 * c);
+        x = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.q) +
+                                            (((size_t)b * a.S + s) * a.NH + h) * HD + 8 * c);
         __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
 #pragma unroll
         for (int u = 0; u < 4; ++u) e[u] = __hmul2(e[u], sc);
@@ -337,7 +357,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     const int s = sw + gid + 8 * r;
     if (s >= a.S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* dst = a.out + (((size_t)b * a.S + s) * a.NH + h) * HD + 2 * t4;
+    __nv_bfloat16* dst =
+        static_cast<__nv_bfloat16*>(a.out) + (((size_t)b * a.S + s) * a.NH + h) * HD + 2 * t4;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
@@ -360,10 +381,217 @@ cudaError_t launch(const Maps& maps, const Args& a, int B, void* stream) {
   return cudaGetLastError();
 }
 
-// The shapes the kernel takes: D 128, G = NH / KV <= 8, BQ a multiple of 16
-// with 4-8 warps.
-bool shapes_ok(int NH, int KV, int D, int bq) {
-  if (D != HD || KV <= 0 || NH % KV || NH / KV > 8 || bq <= 0 || bq % 16) return false;
+// ---------------------------------------------------- fp16 and f32 ----
+
+template <typename T>
+struct Wide {
+  static constexpr int LDK = HD + 16 / sizeof(T);  // elements a staged row: 16 bytes of padding
+  static constexpr int SLOT = TK * LDK;            // 64 rows of K or V
+  static constexpr int LDQ = HD + 4;               // floats a Q row
+  static constexpr int MAX_ROWS = 64;
+  // the ring, Q and P^T ([64 keys][rows + 4]) for `rows` query rows
+  static constexpr int smem(int rows) {
+    return 2 * SLOT * (int)sizeof(T) + (rows * LDQ + TK * (rows + 4)) * 4;
+  }
+};
+
+// Grid (KV, q tiles, B), G*BQ/8 warps, one per 8 tokens of one query head.
+template <typename T>
+__global__ void __launch_bounds__(MAX_WARPS * 32) k4_wide(Args a) {
+  using W = Wide<T>;
+  constexpr int PER = 16 / sizeof(T);   // elements a 16-byte copy
+  constexpr int PIECES = HD / PER;      // copies a row
+  extern __shared__ float4 wide_raw[];
+  T* ring = reinterpret_cast<T*>(wide_raw);  // [2][64][LDK]: chunk c in slot c % 2
+  const int nrows = a.G * a.BQ, LDP = nrows + 4;
+  float* qs = reinterpret_cast<float*>(ring + 2 * W::SLOT);  // [nrows][LDQ], scaled
+  float* pt = qs + nrows * W::LDQ;                           // P^T [64][LDP]
+  const int kvh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, rg = lane >> 4, kg = lane & 15;
+  const int h = kvh * a.G + warp * 8 / a.BQ;  // this warp's query head
+  const int s0 = qt * a.BQ;
+  const int sw = s0 + warp * 8 % a.BQ;        // and its first query row
+  const int r0 = warp * 8 + rg * 4;           // this lane's first row of the block
+  const bool rows = sw < a.S;
+  const int n_h = min(max(a.hist_valid[b], 0), a.hist_cap);
+  const int nl = min(max(a.new_len[b], 0), a.S);
+  const int n_c = min(nl, s0 + a.BQ);  // chunk keys the q tile sees
+  const int nth = (n_h + TK - 1) / TK;
+  const int nt = nth + (n_c + TK - 1) / TK;
+
+  // chunk c: K (c even) or V of tile c / 2 (history tiles, then chunk tiles)
+  auto fetch = [&](int c) {
+    const int i = c >> 1, v = c & 1;
+    const bool hist = i < nth;
+    const int t0 = hist ? i * TK : (i - nth) * TK;
+    const int nv = min(TK, (hist ? n_h : n_c) - t0);
+    const T* base = static_cast<const T*>(hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck));
+    T* dst = ring + (c & 1) * W::SLOT;
+    for (int idx = threadIdx.x; idx < TK * PIECES; idx += blockDim.x) {
+      const int r = idx / PIECES, p = idx % PIECES;
+      T* d = dst + r * W::LDK + p * PER;
+      if (r < nv)
+        cp_async16(d, base + row_of(a, hist, v, b, t0 + r, -1) * ((long long)a.KV * HD) +
+                          kvh * HD + p * PER);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
+  };
+  if (nt > 0) fetch(0);
+  {
+    const float sc = to_f(from_f<T>(a.scale));
+    const T* q = static_cast<const T*>(a.q);
+    for (int idx = threadIdx.x; idx < nrows * HD; idx += blockDim.x) {
+      const int r = idx / HD, d = idx % HD, s = s0 + r % a.BQ;
+      float x = 0.f;
+      if (s < a.S)
+        x = to_f(from_f<T>(
+            to_f(q[(((size_t)b * a.S + s) * a.NH + kvh * a.G + r / a.BQ) * HD + d]) * sc));
+      qs[r * W::LDQ + d] = x;
+    }
+  }
+
+  // rows r0 + i (i < 4); o[i][4u + e] at dim 4kg + 64u + e
+  float o[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
+  float m[4] = {NEG, NEG, NEG, NEG}, l[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int c = 0; c < 2 * nt; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c (and Q) is in; every warp is done with chunk c - 1
+    if (c + 1 < 2 * nt) fetch(c + 1);
+    const int i = c >> 1;
+    const bool hist = i < nth;
+    const int c0 = hist ? i * TK : (i - nth) * TK;
+    if (!rows || (!hist && c0 > sw + 7)) continue;  // no row of the warp sees a key of the tile
+    const T* kv = ring + (c & 1) * W::SLOT;
+    if ((c & 1) == 0) {
+      // scores of rows r0.. against keys c0 + kg + 16j
+      float s[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += 8) {
+        float kk[4][8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ld8(kv + (kg + 16 * j) * W::LDK + d, kk[j]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float qv[8];
+          ld8(qs + (r0 + r) * W::LDQ + d, qv);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) s[r][j] = fmaf(qv[e], kk[j][e], s[r][j]);
+        }
+      }
+      const int lim = (hist ? n_h : nl) - c0;  // the tile's keys from lim on are not valid
+      if (lim < TK || (!hist && c0 + TK - 1 > sw)) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = kg + 16 * j;
+            if (!(col < lim && (hist || c0 + col <= sw + rg * 4 + r))) s[r][j] = NEG;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+#pragma unroll
+        for (int x = 1; x < 16; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = expf(m[r] - m_new);
+        m[r] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(s[r][j] - m_new);
+          rs += p;
+          s[r][j] = to_f(from_f<T>(p));  // rounded to T for PV; l sums the f32 values
+        }
+        l[r] = l[r] * alpha + rs;
+        if (alpha != 1.f) {  // the row's max moved
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[r][e] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(pt + (kg + 16 * j) * LDP + r0) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      __syncwarp();
+    } else {
+      // o += P V over the tile's 64 keys
+#pragma unroll 4
+      for (int t = 0; t < TK; ++t) {
+        const float4 p = *reinterpret_cast<const float4*>(pt + t * LDP + r0);
+        const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float w[4];
+          ld4(kv + t * W::LDK + 4 * kg + 64 * u, w);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[r][4 * u + e] = fmaf(pr[r], w[e], o[r][4 * u + e]);
+        }
+      }
+      __syncwarp();  // before the next tile's probabilities overwrite P^T
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int x = 1; x < 16; x <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], x);
+  if (!rows) return;
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int s = sw + rg * 4 + r;
+    if (s >= a.S) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    T* dst = out + (((size_t)b * a.S + s) * a.NH + h) * HD + 4 * kg;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[64 * u + e] = from_f<T>(o[r][4 * u + e] / den);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Args& a, int B, void* stream) {
+  static bool smem_set = false;  // raised once per process and type
+  cudaError_t e;
+  if (!smem_set) {
+    if ((e = cudaFuncSetAttribute(k4_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  Wide<T>::smem(Wide<T>::MAX_ROWS))) != cudaSuccess)
+      return e;
+    smem_set = true;
+  }
+  const int rows = a.G * a.BQ;
+  const dim3 grid(a.KV, (a.S + a.BQ - 1) / a.BQ, B);
+  k4_wide<T><<<grid, rows / 8 * 32, Wide<T>::smem(rows), (cudaStream_t)stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Launch for the pool's type: bf16 through the tensor maps, fp16 and f32 on FMAs.
+cudaError_t launch_elem(const Maps& maps, const Args& a, int B, int elem, void* stream) {
+  if (elem == ELEM_F16) return launch_wide<__half>(a, B, stream);
+  if (elem == ELEM_F32) return launch_wide<float>(a, B, stream);
+  return launch(maps, a, B, stream);
+}
+
+// The shapes the kernel takes: D 128, G = NH / KV <= 8; bf16: BQ a multiple
+// of 16 with 4-8 warps; fp16 and f32: BQ a multiple of 8, at most 64 rows.
+bool shapes_ok(int NH, int KV, int D, int bq, int elem) {
+  if (D != HD || KV <= 0 || NH % KV || NH / KV > 8 || bq <= 0) return false;
+  if (elem == ELEM_F16 || elem == ELEM_F32) return bq % 8 == 0 && NH / KV * bq <= 64;
+  if (elem != ELEM_BF16 || bq % 16) return false;
   const int warps = NH / KV * bq / 16;
   return warps >= LOADERS && warps <= MAX_WARPS;
 }
@@ -372,58 +600,59 @@ bool shapes_ok(int NH, int KV, int D, int bq) {
 
 extern "C" {
 
-// Contiguous keys. q, out: [B,S,NH,128] bf16; k, v: [B,Tt,KV,128] bf16 with
-// history columns 0..hist_len-1 and the chunk at hist_len..hist_len+S-1;
-// kv_valid, new_len: [B] int32 on the device. bq: query tokens per block.
+// Contiguous keys. q, out: [B,S,NH,128]; k, v: [B,Tt,KV,128] with history
+// columns 0..hist_len-1 and the chunk at hist_len..hist_len+S-1, all of the
+// type `elem` (ELEM_BF16, ELEM_F16 or ELEM_F32); kv_valid, new_len: [B]
+// int32 on the device. bq: query tokens per block.
 int wf_flash_paged_prefill(const void* q, const void* k, const void* v, const void* kv_valid,
                            const void* new_len, void* out, int B, int S, int NH, int KV, int D,
-                           int Tt, int hist_len, float scale, int bq, void* stream) {
+                           int Tt, int hist_len, float scale, int bq, int elem, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (!shapes_ok(NH, KV, D, bq) || hist_len < 0 || hist_len + S > Tt)
+  if (!shapes_ok(NH, KV, D, bq, elem) || hist_len < 0 || hist_len + S > Tt)
     return cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   cudaError_t e;
   const long long rows = (long long)B * Tt;
-  if ((e = rows_map(&maps.hk, k, rows, KV * HD)) != cudaSuccess ||
-      (e = rows_map(&maps.hv, v, rows, KV * HD)) != cudaSuccess)
+  if (elem == ELEM_BF16 && ((e = rows_map(&maps.hk, k, rows, KV * HD)) != cudaSuccess ||
+                            (e = rows_map(&maps.hv, v, rows, KV * HD)) != cudaSuccess))
     return e;
   maps.ck = maps.hk;
   maps.cv = maps.hv;
-  Args a{(const __nv_bfloat16*)q, (__nv_bfloat16*)out, (const __nv_bfloat16*)k,
-         (const __nv_bfloat16*)v, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-         (const int*)kv_valid, (const int*)new_len, nullptr, S, NH, KV, NH / KV, bq, hist_len,
-         Tt, Tt, hist_len, 0, 0, 0, 1, 1, 1, scale};
-  return launch(maps, a, B, stream);
+  Args a{q, out, k, v, k, v, (const int*)kv_valid, (const int*)new_len, nullptr, S, NH, KV,
+         NH / KV, bq, hist_len, Tt, Tt, hist_len, 0, 0, 0, 1, 1, 1, scale};
+  return launch_elem(maps, a, B, elem, stream);
 }
 
 // Keys from the pool. q, out: [B,S,NH,128]; k_cur, v_cur: [B,S,KV,128];
-// main: [P,2L,ps,KV*128], all bf16; page_table [B,MP], seq_lens, new_len [B]
-// int32 on the device.
+// main: [P,2L,ps,KV*128], all of the type `elem`; page_table [B,MP],
+// seq_lens, new_len [B] int32 on the device.
 int wf_flash_paged_prefill_pool(const void* q, const void* k_cur, const void* v_cur,
                                 const void* main, const void* page_table, const void* seq_lens,
                                 const void* new_len, void* out, int B, int S, int NH, int KV,
                                 int D, int L, int layer, int ps, int MP, int P, float scale,
-                                int bq, void* stream) {
+                                int bq, int elem, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (!shapes_ok(NH, KV, D, bq) || ps <= 0 || ps > TK || MP <= 0 || P <= 0 || layer < 0 ||
-      layer >= L)
+  if (!shapes_ok(NH, KV, D, bq, elem) || ps <= 0 || ps > TK || MP <= 0 || P <= 0 ||
+      layer < 0 || layer >= L)
     return cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   cudaError_t e;
   const int boxes = ps % 16 == 0;  // a group of 16 history rows lies in one page
-  if (boxes && (e = rows_map(&maps.hk, main, (long long)P * 2 * L * ps, KV * HD)) != cudaSuccess)
-    return e;
-  maps.hv = maps.hk;
-  if ((e = rows_map(&maps.ck, k_cur, (long long)B * S, KV * HD)) != cudaSuccess ||
-      (e = rows_map(&maps.cv, v_cur, (long long)B * S, KV * HD)) != cudaSuccess)
-    return e;
-  Args a{(const __nv_bfloat16*)q, (__nv_bfloat16*)out, (const __nv_bfloat16*)main,
-         (const __nv_bfloat16*)main, (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
-         (const int*)seq_lens, (const int*)new_len, (const int*)page_table, S, NH, KV, NH / KV,
-         bq, MP * ps, 0, S, 0, 1, L, layer, ps, MP, boxes, scale};
-  return launch(maps, a, B, stream);
+  if (elem == ELEM_BF16) {
+    if (boxes &&
+        (e = rows_map(&maps.hk, main, (long long)P * 2 * L * ps, KV * HD)) != cudaSuccess)
+      return e;
+    maps.hv = maps.hk;
+    if ((e = rows_map(&maps.ck, k_cur, (long long)B * S, KV * HD)) != cudaSuccess ||
+        (e = rows_map(&maps.cv, v_cur, (long long)B * S, KV * HD)) != cudaSuccess)
+      return e;
+  }
+  Args a{q, out, main, main, k_cur, v_cur, (const int*)seq_lens, (const int*)new_len,
+         (const int*)page_table, S, NH, KV, NH / KV, bq, MP * ps, 0, S, 0, 1, L, layer, ps, MP,
+         boxes, scale};
+  return launch_elem(maps, a, B, elem, stream);
 }
 
 }  // extern "C"

@@ -4,12 +4,14 @@
 // (TMA) and cp.async loads, ldmatrix, mma.sync m16n8k16 bf16 -> f32, and the
 // tensor maps, all in the 128-byte swizzle, of [rows, KV*128] bf16 arrays in
 // boxes of 16 rows x 64 dims and of [batch, rows, KV*D] bf16 or f32 arrays
-// in boxes of n rows x 128 bytes.
+// in boxes of n rows x 128 bytes; and the element loads of the fp16 and f32
+// pools' kernels (K4 and K6 on FMAs).
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,6 +100,17 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
                : "memory");
+}
+
+// close this thread's group of the cp.async copies it started so far
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most n of this thread's closed groups of copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // order this thread's shared-memory writes before later copy-engine writes
@@ -201,6 +214,55 @@ cudaError_t batched_rows_map(CUtensorMap* map, const void* base, int batch, long
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ------------------------------------------ fp16 and f32 elements ----
+// Pool codes of the paged flash kernels' entry points: the type of the pool
+// (and, in K4, of q, the chunk's keys and the output).
+constexpr int ELEM_BF16 = 0, ELEM_F16 = 1, ELEM_F32 = 2;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+// x rounded to T (to nearest even)
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// 8 consecutive elements from 16-byte aligned shared or global memory, as f32
+__device__ __forceinline__ void ld8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const __half* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// 4 consecutive elements (16-byte aligned f32, 8-byte aligned fp16), as f32
+__device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+}
+__device__ __forceinline__ void ld4(const __half* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
 }
 
 }  // namespace

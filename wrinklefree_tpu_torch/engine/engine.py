@@ -133,9 +133,10 @@ class Engine:
         ``paged_forward`` (an ``attention_fn`` takes the place of the window
         attention too; each KV layout calls it with its own arguments, as
         ``paged_forward`` documents). ``kv_layout`` is the resolved layout and
-        ``native_runtime`` says whether the native host runtime runs. On the
-        card the KV dtype is bf16, int8 or fp8: K4 and K6 take bf16 pools, so
-        fp16 and f32 pools raise there and run on the CPU."""
+        ``native_runtime`` says whether the native host runtime runs. Every
+        KV dtype serves on the card and on the CPU: K3, K4 and K6 take the
+        unquantized pools (bf16, fp16, f32), the quantized ones (int8, fp8)
+        take the plain attention, as in the reference."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
@@ -144,8 +145,6 @@ class Engine:
             missing.append("mesh (tensor parallelism)")
         if long_context_mesh is not None:
             missing.append("long_context_mesh (ring-attention long context)")
-        if self.device.type == "cuda" and e.kv_dtype in ("fp16", "f32"):
-            missing.append(f"kv_dtype {e.kv_dtype!r} on the card (K4 and K6 take bf16 pools)")
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: " + ", ".join(missing))

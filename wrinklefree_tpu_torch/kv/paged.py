@@ -540,8 +540,8 @@ def paged_forward(
     form over the gathered history on the token-major one), to the flash
     decode kernel at S == 1 on the dual layout when ``flash_decode`` is set,
     and to the plain gather attention otherwise; ``kv_write`` defaults to
-    the in-place writer kernel (K3). K4 and K6 take bf16 pools on the card and
-    raise for fp16 and f32 ones. Quantized pools take the plain attention,
+    the in-place writer kernel (K3). K4 and K6 take bf16, fp16 and f32 pools
+    on the card. Quantized pools take the plain attention,
     which dequantizes the gathered history, and the plain write (indexed
     assignment), whatever ``flash_decode`` says. Each wrapper runs its plain
     version on CPU tensors, and the plain functions can be passed explicitly

@@ -318,7 +318,7 @@ def _attention(q, k_cache, v_cache, q_pos, cfg: BitNetConfig, attn_sparsity=None
     else:
         key_idx = torch.arange(T, device=q.device)
         mask = key_idx[None, None, None, None, :] <= q_pos[:, None, None, :, None]
-    scores = torch.where(mask, scores, torch.tensor(float("-inf"), device=q.device))
+    scores = torch.where(mask, scores, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     if attn_sparsity is not None:
         probs = apply_attention_sparsity(probs, attn_sparsity)

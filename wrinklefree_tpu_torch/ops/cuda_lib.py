@@ -43,13 +43,14 @@ SIGNATURES = {
     "wf_mlp_mega": [_P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _I, _P, _P, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_kv_write": [_P, _P, _P, _P, _I, _I, _LL, _LL, _P],
-    "wf_flash_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "wf_flash_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                               _P],
     "wf_flash_paged_prefill_pool": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _F, _I, _P],
+                                    _I, _I, _I, _F, _I, _I, _P],
     "wf_attn_mega": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I,
                      _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _I, _P],
+                              _I, _F, _I, _I, _P],
     "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "wf_flash_prefill": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                          _P],

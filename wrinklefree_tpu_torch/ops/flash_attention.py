@@ -16,8 +16,15 @@ it launches the kernel (``csrc/flash_prefill.cu``,
 ``csrc/flash_paged_prefill.cu``, ``csrc/flash_decode.cu``) or raises.
 ``<wrapper>.launches`` counts launches (both K4 wrappers count in
 ``flash_paged_prefill.launches``). K9's block shape is
-``causal_prefill_block``, K4's ``flash_prefill_bq``, K6's split
+``causal_prefill_block``, K4's ``flash_prefill_bq`` (bf16) and
+``flash_prefill_wide_bq`` (fp16 and f32 pools), K6's split
 ``flash_decode_split``: static shapes, so the CPU tests reach them.
+
+K4 and K6 take every unquantized pool, as the reference's kernels do: bf16
+on the tensor cores, fp16 and f32 on f32 FMAs (``POOL_ELEM`` names the
+kernel's instantiation). K4's inputs are all of the pool's type (the paged
+forward casts the chunk to it, as the reference does); K6's query and
+current-token rows stay bf16, the model's type.
 """
 
 from __future__ import annotations
@@ -213,12 +220,78 @@ def flash_prefill_bq(g: int) -> int:
     return min(fits)
 
 
+# the pool types K4 and K6 take, as their entry points' codes (csrc/sm90.cuh)
+POOL_ELEM = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+# K4's and K6's bars (atol, rtol) against their plain versions on each pool
+# type, as ``meets_pool_bar`` applies them. bf16 and fp16 round their
+# probabilities to the pool's type against each block's running max in the
+# kernel and after normalization in the plain softmax (3e-2; K6 bf16 2e-2);
+# in f32 nothing rounds before the output and only the f32 sums' order
+# differs (2e-5, K9's f32 bar). K6 returns the bf16 query's type, so on an
+# f32 pool both round an f32 result to bf16, and a difference of 1e-7 can
+# land one bf16 step apart: the bar adds that step (at most 2^-7 of the
+# value), and ``K6_F32_EQUAL_SHARE`` of the output must then be bitwise equal,
+# the rest one step apart or within 2e-5 (near zero bf16's steps are finer
+# than the sums' differences). A read of the pool at bf16 precision (each
+# value moved by up to 2^-9 of it) leaves about half the output equal.
+POOL_BARS = {"bf16": {"k4": (3e-2, 0.0), "k6": (2e-2, 0.0)},
+             "fp16": {"k4": (3e-2, 0.0), "k6": (3e-2, 0.0)},
+             "f32": {"k4": (2e-5, 0.0), "k6": (2e-5, 2.0 ** -7)}}
+K6_F32_EQUAL_SHARE = 0.99
+
+
+def meets_pool_bar(a: torch.Tensor, b: torch.Tensor, kernel: str, pool: str) -> tuple:
+    """(whether kernel output ``a`` meets ``POOL_BARS[pool][kernel]`` against
+    its plain version's ``b``, max |a - b| in f32, share of bitwise equal
+    elements). NaN fails."""
+    atol, rtol = POOL_BARS[pool][kernel]
+    d = (a.float() - b.float()).abs()
+    ok = bool((d <= atol + rtol * b.float().abs()).all())
+    same = a == b
+    share = float(same.float().mean()) if a.numel() else 1.0
+    if kernel == "k6" and pool == "f32":
+        steps = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+        ok = (ok and share >= K6_F32_EQUAL_SHARE
+              and bool((same | (steps == 1) | (d <= atol)).all()))
+    return ok, float(d.max()) if a.numel() else 0.0, share
+
+
+def flash_prefill_wide_bq(g: int) -> int:
+    """Query tokens per block of the paged flash prefill on fp16 and f32
+    pools for ``g`` query heads per KV head (1-8), a static shape: one warp
+    per 8 tokens of one query head, and the most of 8, 16 and 32 tokens that
+    keep a block within 32 query rows (K9's f32 rule,
+    ``causal_prefill_block``), so each staged K/V tile serves every query
+    head of its KV head; 8 tokens (up to 64 rows) from G 5."""
+    if not 1 <= g <= 8:
+        raise ValueError(f"the paged flash prefill takes 1-8 query heads per KV head, got {g}")
+    bq = 8
+    while g * bq * 2 <= 32:
+        bq *= 2
+    return bq
+
+
+def _pool_elem(what, tensors):
+    """The entry point's code of the one unquantized type of ``tensors``."""
+    dt = tensors[0].dtype
+    if dt not in POOL_ELEM or any(t.dtype != dt for t in tensors):
+        raise ValueError(f"{what}: the CUDA kernel takes bfloat16, float16 or float32, all "
+                         f"of one type; got {sorted({str(t.dtype) for t in tensors})}")
+    return POOL_ELEM[dt]
+
+
 def _prefill_checks(what, q, tensors):
+    """The entry point's pool code of K4's inputs."""
     cuda_lib.require_cuda(q, what)
-    if any(t.dtype != torch.bfloat16 for t in (q, *tensors)):
-        raise ValueError("the CUDA kernel takes bfloat16")
+    elem = _pool_elem(what, (q, *tensors))
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{what}: every input must be on q's device")
+    return elem
+
+
+def _prefill_bq(elem: int, g: int) -> int:
+    return flash_prefill_bq(g) if elem == 0 else flash_prefill_wide_bq(g)
 
 
 def flash_paged_prefill(
@@ -232,12 +305,13 @@ def flash_paged_prefill(
 ) -> torch.Tensor:
     """Online-softmax attention for chunked-prefill rows over a gathered
     paged history, without materializing the [B, S, T] scores. One block per
-    ``flash_prefill_bq`` query tokens, KV head and batch row serves all of
-    the KV head's query heads."""
+    ``flash_prefill_bq`` (bf16; ``flash_prefill_wide_bq`` for fp16 and f32)
+    query tokens, KV head and batch row serves all of the KV head's query
+    heads. q, k_full and v_full share one type: bf16, fp16 or f32."""
     if q.device.type == "cpu":
         return flash_paged_prefill_plain(q, k_full, v_full, kv_valid, new_len,
                                          hist_len=hist_len)
-    _prefill_checks("flash_paged_prefill", q, (k_full, v_full))
+    elem = _prefill_checks("flash_paged_prefill", q, (k_full, v_full))
     B, S, NH, D = q.shape
     Tt, KV = k_full.shape[1], k_full.shape[2]
     if (D != 128 or NH % KV or NH // KV > 8 or k_full.shape != v_full.shape
@@ -251,11 +325,11 @@ def flash_paged_prefill(
     kvv = _lengths(kv_valid, B, q.device).contiguous()
     nl = _lengths(new_len, B, q.device).contiguous()
     out = torch.empty_like(qc)
-    bq = flash_prefill_bq(NH // KV)
+    bq = _prefill_bq(elem, NH // KV)
     cuda_lib.call(
         "wf_flash_paged_prefill", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         kvv.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S, NH, KV, D, Tt, hist_len,
-        1.0 / math.sqrt(D), bq, cuda_lib.stream(q),
+        1.0 / math.sqrt(D), bq, elem, cuda_lib.stream(q),
     )
     flash_paged_prefill.launches += 1
     return out
@@ -293,12 +367,13 @@ def flash_paged_prefill_pool(
     """``flash_paged_prefill`` over [history ++ chunk] with the history read
     from the pool inside the kernel: history token t of row b is layer
     ``layer``'s row of page ``page_table[b, t // ps]``, valid for t <
-    ``seq_lens[b]``; no gathered copy of the history is made. Counts in
+    ``seq_lens[b]``; no gathered copy of the history is made. q, k_cur,
+    v_cur and the pool share one type: bf16, fp16 or f32. Counts in
     ``flash_paged_prefill.launches``. Returns [B, S, NH, D]."""
     if q.device.type == "cpu":
         return flash_paged_prefill_pool_plain(q, k_cur, v_cur, main, layer, page_table,
                                               seq_lens, new_lens)
-    _prefill_checks("flash_paged_prefill_pool", q, (k_cur, v_cur, main))
+    elem = _prefill_checks("flash_paged_prefill_pool", q, (k_cur, v_cur, main))
     B, S, NH, D = q.shape
     KV = k_cur.shape[2]
     P, two_l, ps, kvd = main.shape
@@ -322,11 +397,11 @@ def flash_paged_prefill_pool(
     sl = seq_lens.to(torch.int32).contiguous()
     nl = new_lens.to(torch.int32).contiguous()
     out = torch.empty_like(qc)
-    bq = flash_prefill_bq(NH // KV)
+    bq = _prefill_bq(elem, NH // KV)
     cuda_lib.call(
         "wf_flash_paged_prefill_pool", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         main.data_ptr(), pt.data_ptr(), sl.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S,
-        NH, KV, D, n_l, layer, ps, MP, P, 1.0 / math.sqrt(D), bq, cuda_lib.stream(q),
+        NH, KV, D, n_l, layer, ps, MP, P, 1.0 / math.sqrt(D), bq, elem, cuda_lib.stream(q),
     )
     flash_paged_prefill.launches += 1
     return out
@@ -413,7 +488,9 @@ def flash_paged_decode(
     """Decode-step paged GQA attention with the page-table gather inside the
     kernel: each history row moves from the pool once, with no gathered copy
     of the history; each slot's history is split over
-    ``flash_decode_split(B, KV, MP * ps, SMs)`` blocks. Returns [B, NH, D]."""
+    ``flash_decode_split(B, KV, MP * ps, SMs)`` blocks. q, k_cur and v_cur
+    are bf16 (the model's type); the pool and staging pages bf16, fp16 or f32.
+    Returns [B, NH, D] bf16."""
     if q.device.type == "cpu":
         return flash_paged_decode_plain(q, k_cur, v_cur, main, staging_b, layer, page_table,
                                         seq_lens)
@@ -423,8 +500,10 @@ def flash_paged_decode(
     P, two_l, ps, kvd = main.shape
     n_l = two_l // 2
     MP = page_table.shape[1]
-    if any(t.dtype != torch.bfloat16 for t in (q, k_cur, v_cur, main, staging_b)):
-        raise ValueError("the CUDA kernel takes bfloat16")
+    if any(t.dtype != torch.bfloat16 for t in (q, k_cur, v_cur)):
+        raise ValueError("flash_paged_decode: the CUDA kernel takes a bfloat16 query and "
+                         "current token")
+    elem = _pool_elem("flash_paged_decode", (main, staging_b))
     if (D != 128 or NH % KV or NH // KV > 8 or kvd != KV * D or ps > 64
             or tuple(k_cur.shape) != (B, KV, D) or k_cur.shape != v_cur.shape
             or tuple(staging_b.shape) != (B, ps, two_l, kvd) or page_table.shape[0] != B):
@@ -446,7 +525,7 @@ def flash_paged_decode(
     cuda_lib.call(
         "wf_flash_paged_decode", qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), main.data_ptr(),
         sc.data_ptr(), pt.data_ptr(), sl.data_ptr(), out.data_ptr(), B, NH, KV, n_l, layer,
-        ps, MP, D, P, 1.0 / math.sqrt(D), split, cuda_lib.stream(q),
+        ps, MP, D, P, 1.0 / math.sqrt(D), split, elem, cuda_lib.stream(q),
     )
     flash_paged_decode.launches += 1
     return out

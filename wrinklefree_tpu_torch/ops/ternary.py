@@ -161,7 +161,9 @@ def quantize_activations(
     dt = x.dtype if hf_exact else torch.float32
     xf = x.to(dt)
     absmax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-5)
-    scale = (torch.tensor(127.0, dtype=dt, device=x.device) / absmax).to(dt)
+    # a tensor divided by a tensor (``127.0 / absmax`` would multiply by the
+    # reciprocal); full_like fills on the device, so a CUDA graph can record it
+    scale = (torch.full_like(absmax, 127.0) / absmax).to(dt)
     q = torch.round(xf * scale).clamp(-128, 127).to(torch.int8)
     return q, scale.float()
 
