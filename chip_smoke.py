@@ -23,7 +23,9 @@ vocab 128256) with random weights drawn on the card from seed 0:
                three history shapes (with its split, and checked for
                determinism and for NaN rows past the valid tokens), K4 over
                contiguous keys and over the pool (checked likewise), K4 and
-               K6 again on fp16 and f32 pools (their FMA instantiations), and
+               K6 again on fp16 pools (on the tensor cores: K4 on f16 mma,
+               K6's scores on TF32 mma) and f32 pools (their FMA kernels),
+               and
                the causal flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
@@ -227,9 +229,12 @@ KERNELS = {
         "source": "wrinklefree_tpu_torch/csrc/flash_paged_prefill.cu",
         "replaces": "wrinklefree_tpu/ops/flash_attention.py:219",
     },
-    # K4 and K6 on fp16 and f32 pools (the heads_kv phase's engines): their
-    # FMA instantiations (k4_wide, k6_wide); K4's pool form on the layer
-    # layout, its contiguous form on the token layout
+    # K4 and K6 on fp16 and f32 pools (the heads_kv phase's engines): fp16
+    # on the tensor cores (k4_prefill<__half> on f16 mma; k6_decode<__half>,
+    # its bf16 x fp16 scores on TF32 mma, which holds both exactly, PV on
+    # f16 mma), f32 on FMAs (k4_wide<float>, k6_wide<float>);
+    # K4's pool form on the layer layout, its contiguous form on the token
+    # layout
     **{f"{name}/{dt}": {"source": f"wrinklefree_tpu_torch/csrc/{src}",
                         "replaces": f"wrinklefree_tpu/ops/flash_attention.py:{line}"}
        for dt in ("fp16", "f32")
@@ -618,17 +623,20 @@ def phase_kernels(params, cfg, dev, results):
 def kernels_k4(cfg, dev, results, pool="bf16"):
     """K4, the paged flash prefill, against its plain versions at the shapes
     of ``wrinklefree_tpu_torch/bench/flash_prefill.py`` (2B attention) on a
-    pool of type ``pool`` (bf16 on the tensor cores; fp16 and f32 on FMAs, q,
+    pool of type ``pool`` (bf16 and fp16 on the tensor cores, f32 on FMAs; q,
     the chunk and the output of the pool's type too): over contiguous keys
     (a 512-token chunk over a 512-slot history, kv_valid 400, new_len 500:
     the kernels phase's first K4 shape) and over the pool at the engine's
     widest table (page size 16, 128 pages per row): one row of a 512-token
     chunk after 1024 tokens, and four rows of 128-token chunks after
     0/320/1024/1904 tokens; pool shapes at layers 0 and 29. Bar
-    (``POOL_BARS``) on the real query rows: 3e-2 absolute in bf16 and fp16
-    (the kernel rounds probabilities to the pool's type against its running
-    max, the plain softmax after normalization), 2e-5 in f32 (nothing
-    rounds; the f32 sums' order differs). At each shape two calls must give
+    (``POOL_BARS``, ``meets_pool_bar``) on each real query row: 3e-2
+    absolute in bf16 and fp16 (the kernel rounds probabilities to the pool's
+    type against its running max, the plain softmax after normalization),
+    on fp16 with ``FP16_EQUAL_SHARE`` of the row bitwise equal, and the
+    kernel over the keys rounded to bf16 (an inexact read of them) must fail
+    that bar on some row; 2e-5 in f32 (nothing rounds; the f32 sums' order
+    differs). At each shape two calls must give
     the same bits, and with NaN in every row the kernel may not read
     (history from kv_valid or seq_lens on, chunk keys from new_len on) the
     real rows must be finite and bitwise equal to the run with zeros there.
@@ -645,29 +653,39 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
     inp = bench.make_inputs(dev, seed=1, pool=pool)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bar = fa.POOL_BARS[pool]["k4"]
-    bq = (fa.flash_prefill_bq if pool == "bf16" else fa.flash_prefill_wide_bq)(NH // KV)
+    bq = bench.block_q(fa, pool)
     tag = "" if pool == "bf16" else f" {pool}"
 
-    def checked(name, run, plain, poisoned, new_lens):
-        """Max abs error of run() against plain() on the real rows, after
-        the determinism and poison checks."""
+    def checked(name, run, plain, poisoned, new_lens, keys_bf16):
+        """(max abs error, least bitwise equal share) of run() against
+        plain() on the real rows, and the most equal share of keys_bf16()
+        (fp16: the kernel over the keys rounded to bf16, which must fail the
+        bar), after the determinism and poison checks."""
         name += tag
         a, again, b = run(), run(), plain()
         torch.cuda.synchronize()
-        oks, errs, _ = zip(*(fa.meets_pool_bar(a[i, :n], b[i, :n], "k4", pool)
-                             for i, n in enumerate(new_lens)))
+        oks, errs, shares = zip(*(fa.meets_pool_bar(a[i, :n], b[i, :n], "k4", pool)
+                                  for i, n in enumerate(new_lens)))
         err = max(errs)
         if not (all(torch.isfinite(a[i, :n]).all() for i, n in enumerate(new_lens))
                 and all(oks)):
-            fail(f"K4 {name}: max abs error {err} (bar {bar})")
+            fail(f"K4 {name}: max abs error {err}, {min(shares)} bitwise equal (bar {bar})")
         if not torch.equal(a, again):
             fail(f"K4 {name}: two calls differ")
+        control = None
+        if pool == "fp16":
+            r16 = keys_bf16()
+            oks16, _, shares16 = zip(*(fa.meets_pool_bar(r16[i, :n], b[i, :n], "k4", pool)
+                                       for i, n in enumerate(new_lens)))
+            if all(oks16):
+                fail(f"K4 {name}: the bar passes the kernel over keys rounded to bf16")
+            control = max(shares16)
         z, nan = (r() for r in poisoned)
         for i, n in enumerate(new_lens):
             if not (torch.isfinite(nan[i, :n]).all() and torch.equal(nan[i, :n], z[i, :n])
                     and torch.equal(a[i, :n], z[i, :n])):
                 fail(f"K4 {name}: the NaN rows past the valid keys changed the output")
-        return err
+        return err, min(shares), control
 
     def library_ms(q, ks, vs, mask):
         """SDPA over contiguous per-layer copies [n_l, B, KV, T, D], cycled."""
@@ -691,10 +709,12 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
         k2[:, c["kv_valid"]:T], v2[:, c["kv_valid"]:T] = fill, fill
         k2[:, T + c["new_len"]:], v2[:, T + c["new_len"]:] = fill, fill
         fills.append((k2, v2))
-    err = checked("contiguous", lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T),
-                  lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T),
-                  [lambda f=f: fa.flash_paged_prefill(q, *f, kvv, nl, hist_len=T)
-                   for f in fills], [c["new_len"]])
+    err, share, keys_bf16 = checked(
+        "contiguous", lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T),
+        lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T),
+        [lambda f=f: fa.flash_paged_prefill(q, *f, kvv, nl, hist_len=T) for f in fills],
+        [c["new_len"]],
+        lambda: fa.flash_paged_prefill(q, kf.bfloat16().to(kf.dtype), vf, kvv, nl, hist_len=T))
     del fills
     ms, call_ms = cuda_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T))
     plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T))
@@ -708,7 +728,9 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
                            f"new_len={c['new_len']} NH={NH} KV={KV} pool={pool}",
                      ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                      library="SDPA", bound_ms=b_ms, bound_by=b_by,
-                     bq=bq, max_abs_err=err, deterministic=True, nan_rows_unread=True))
+                     bq=bq, max_abs_err=err, bitwise_equal_share=share,
+                     deterministic=True, nan_rows_unread=True,
+                     **({"keys_bf16_equal_share": keys_bf16} if pool == "fp16" else {})))
     # the pool
     for name, (S, sl, nls) in bench.POOL.items():
         (q, kc, vc, main), (pt, slt, nlt) = bench.pool_case(inp, name)
@@ -720,19 +742,27 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
             for i in range(B):
                 k2[i, nls[i]:], v2[i, nls[i]:] = fill, fill
             curs.append((k2, v2))
-        err = 0.0
+        err, share, keys_bf16 = 0.0, 1.0, 0.0
         for layer in (0, L - 1):
             def poisoned(fill, layer=layer, kv_=None):
                 for i, n in enumerate(sl):
                     pm[pt[i, n // ps:].long()] = fill
                 return fa.flash_paged_prefill_pool(q, *kv_, pm, layer, pt, slt, nlt)
 
-            err = max(err, checked(
+            def rounded(layer=layer):  # the layer's key rows and the chunk's keys at bf16
+                pm[:, layer] = main[:, layer].bfloat16().to(main.dtype)
+                out = fa.flash_paged_prefill_pool(q, kc.bfloat16().to(kc.dtype), vc, pm,
+                                                  layer, pt, slt, nlt)
+                pm[:, layer] = main[:, layer]
+                return out
+
+            e, sh, c16 = checked(
                 f"{name} layer={layer}",
                 lambda: fa.flash_paged_prefill_pool(q, kc, vc, main, layer, pt, slt, nlt),
                 lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, layer, pt, slt, nlt),
                 [lambda f=f, k=k: poisoned(f, kv_=k)
-                 for f, k in zip((0.0, float("nan")), curs)], nls))
+                 for f, k in zip((0.0, float("nan")), curs)], nls, rounded)
+            err, share, keys_bf16 = max(err, e), min(share, sh), max(keys_bf16, c16 or 0.0)
         del pm, curs
         lay = Cycle(L)
         ms, call_ms = cuda_ms(
@@ -764,7 +794,9 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
                                f"new_lens={nls} pool={pool}",
                          ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library="SDPA over contiguous copies", bound_ms=b_ms, bound_by=b_by,
-                         bq=bq, max_abs_err=err, deterministic=True, nan_rows_unread=True))
+                         bq=bq, max_abs_err=err, bitwise_equal_share=share,
+                         deterministic=True, nan_rows_unread=True,
+                         **({"keys_bf16_equal_share": keys_bf16} if pool == "fp16" else {})))
     for r in rows:
         print("kernels: K4 " + json.dumps(r))
     if pool == "bf16":
@@ -896,12 +928,14 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
     2000; layers 0 and 29. Bar (``POOL_BARS``, ``meets_pool_bar``): 2e-2
     absolute in bf16, 3e-2 in fp16 (probabilities round to the pool's type
     against each warp's running max over its rows of a rank's tiles in the
-    kernel, against one max over all committed pages in the plain version);
-    2e-5 in f32, plus one bf16 step of the value (at most 2^-7 of it: both
-    round an f32 result to the bf16 output), with ``K6_F32_EQUAL_SHARE`` of
-    the output bitwise equal and the rest one step apart or within 2e-5; on
-    f32 the kernel over the pool rounded to bf16 (what a bf16 read of it
-    would give) must fail that bar. At each shape two calls must give the
+    kernel, against one max over all committed pages in the plain version)
+    with ``FP16_EQUAL_SHARE`` of the output bitwise equal; 2e-5 in f32, plus
+    one bf16 step of the value (at most 2^-7 of it: both round an f32
+    result to the bf16 output), with ``K6_F32_EQUAL_SHARE`` of the output
+    bitwise equal and the rest one step apart or within 2e-5. The kernel
+    over the pool rounded to bf16 (f32: what a bf16 read of it would give;
+    fp16: the keys only, what a bf16 product with the query would take)
+    must fail that bar. At each shape two calls must give the
     same bits, and with the pool pages past each slot's committed span and
     the staging rows from its offset on set to NaN the output must be finite
     and bitwise equal to the run with those rows zero. Each shape prints its
@@ -925,7 +959,13 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
         (q, kc, vc, main, stage), (pt, sl) = bench.case(inp, lens)
         B = len(lens)
         err, equal_share, bf16_read = 0.0, 1.0, 0.0
-        rounded = [t.bfloat16().float() for t in (main, stage)] if pool == "f32" else None
+        rounded = None
+        if pool == "f32":
+            rounded = [t.bfloat16().float() for t in (main, stage)]
+        elif pool == "fp16":  # the key rows (layers 0..L-1) at bf16
+            rounded = [main.clone(), stage.clone()]
+            rounded[0][:, :L] = main[:, :L].bfloat16().half()
+            rounded[1][:, :, :L] = stage[:, :, :L].bfloat16().half()
         for layer in (0, L - 1):
             a = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
             again = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
@@ -938,12 +978,12 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
             if not torch.equal(a, again):
                 fail(f"K6{tag} {name} layer={layer}: two calls differ")
             err, equal_share = max(err, d), min(equal_share, share)
-            if pool == "f32":
+            if rounded is not None:
                 r16 = fa.flash_paged_decode(q, kc, vc, *rounded, layer, pt, sl)
                 ok16, d16, share16 = fa.meets_pool_bar(r16, b, "k6", pool)
                 if ok16:
                     fail(f"K6{tag} {name} layer={layer}: the bar passes the kernel over a "
-                         "bf16-rounded pool")
+                         f"bf16-rounded {'pool' if pool == 'f32' else 'key set'}")
                 bf16_read = max(bf16_read, share16)
         del rounded
         # the rows no slot may read: zero, then NaN (on a copy of the pool)
@@ -999,8 +1039,9 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
         del ks, vs
         tokens = sum(n + 1 for n in lens)
         # QK and PV, 2 * NH * D operations a token each, at the card's peak
-        # for their operands: a bf16 query and fp16 keys meet exactly only in
-        # TF32; f32 (not TF32, which truncates) on the CUDA cores
+        # for their operands: a bf16 query and fp16 keys meet exactly in TF32
+        # (where the kernel takes them); f32 (not TF32, which truncates) on
+        # the CUDA cores
         dots = 2 * NH * D * tokens
         ops = {"bf16": {"bf16": 2 * dots}, "fp16": {"tf32": dots, "fp16": dots},
                "f32": {"f32": 2 * dots}}[pool]
@@ -1012,7 +1053,8 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
                          library="SDPA over contiguous histories", bound_ms=b_ms, bound_by=b_by,
                          split=split, max_abs_err=err, bitwise_equal_share=equal_share,
                          deterministic=True, nan_rows_unread=True,
-                         **({"bf16_read_equal_share": bf16_read} if pool == "f32" else {})))
+                         **({"bf16_read_equal_share": bf16_read} if pool == "f32" else {}),
+                         **({"keys_bf16_equal_share": bf16_read} if pool == "fp16" else {})))
         worst = max(worst, err)
     for r in rows:
         print("kernels: K6 " + json.dumps(r))

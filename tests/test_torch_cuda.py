@@ -13,6 +13,9 @@ shapes.
 import pytest
 import torch
 
+# by its own name: pytest puts this directory on the path, while ``tests.``
+# would find any other installed package of that name first
+import _subnormal_cases as sub
 from wrinklefree_tpu_torch.ops import flash_attention, kv_update_cuda, ternary_cuda
 
 L, LAYER = 3, 1
@@ -594,10 +597,12 @@ def test_k6_split_matches_plain_on_card(pool, g, b, split):
 def test_k6_page_sizes_on_card(pool, ps):
     """K6 at page sizes other than the engine's 16: committed rows row by row
     where a page does not hold whole 16-row boxes (8, 12), by box at an
-    offset inside the page (32, 64; bf16); against its plain version within
+    offset inside the page (32, 64; bf16 and fp16); against its plain version within
     ``POOL_BARS``, at seq_lens around the page and the 64-token tile, both
     layers, a split above 1, on each pool type; on f32 the kernel over the
-    pool rounded to bf16 (what a bf16 read of it gives) fails that bar."""
+    pool rounded to bf16 (what a bf16 read of it gives), and on fp16 over
+    its keys rounded to bf16 (what a bf16 product with the query would
+    take), fails that bar."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -624,23 +629,43 @@ def test_k6_page_sizes_on_card(pool, ps):
             r16 = flash_attention.flash_paged_decode(q, kc, vc, main.bfloat16().float(),
                                                      stage.bfloat16().float(), layer, pt, sl)
             assert not flash_attention.meets_pool_bar(r16, ref, "k6", pool)[0]
+        if pool == "fp16":  # and a bf16 read of the keys from an fp16 one
+            r16 = flash_attention.flash_paged_decode(
+                q, kc, vc, sub.keys_at_bf16(main, n_l), sub.keys_at_bf16(stage, n_l, dim=2),
+                layer, pt, sl)
+            assert not flash_attention.meets_pool_bar(r16, ref, "k6", pool)[0]
     torch.cuda.synchronize()
 
 
-def _k4_check(run, plain, real_rows, poison_runs, pool):
+def _k4_fails_bar(a, ref, real_rows, pool):
+    """Whether K4's output ``a`` fails the bar on some real row."""
+    return not all(flash_attention.meets_pool_bar(a[b, :n], ref[b, :n], "k4", pool)[0]
+                   for b, n in enumerate(real_rows))
+
+
+def _k4_check(run, plain, real_rows, poison_runs, pool, keys_bf16=None):
     """K4 against its plain version within ``POOL_BARS`` on the real query
     rows; two calls bitwise equal; with NaN in every row the kernel may not
     read, the real rows finite and bitwise equal to the run with zeros
-    there."""
+    there. On fp16, returns whether the run ``keys_bf16`` (over the keys
+    rounded to bf16) fails the bar on some row."""
     a, again, ref = run(), run(), plain()
     assert a.dtype == ref.dtype
     for b, n in enumerate(real_rows):
         _assert_pool_bar(a[b, :n], ref[b, :n], "k4", pool)
+    refused = _k4_fails_bar(keys_bf16(), ref, real_rows, pool) if pool == "fp16" else None
     assert torch.equal(a, again)
     z, p = (r() for r in poison_runs)
     for b, n in enumerate(real_rows):
         assert torch.isfinite(p[b, :n]).all() and torch.equal(p[b, :n], z[b, :n])
         assert torch.equal(a[b, :n], z[b, :n])
+    return refused
+
+
+def _one_key_each(history, new_lens):
+    """Whether every row's real queries see one key only (no history, one
+    new token), where any read of the keys gives the same output."""
+    return all(h == 0 and n == 1 for h, n in zip(history, new_lens))
 
 
 # (query heads per KV head, page size, chunk, batch)
@@ -657,10 +682,11 @@ def test_k4_pool_matches_plain_on_card(pool, g, ps, s, b):
     against its plain version (the gathered history, as the paged forward
     had it) within ``POOL_BARS``, on bf16, fp16 and f32 pools, at seq_lens 0,
     ps, 5 ps and the full table (256 tokens), new_lens 1, 63, 64, 65 and S,
-    different per row, the first and the last layer; boxes of 16 rows (bf16,
-    ps 16, 64) and rows one by one (ps 8; fp16 and f32 always). Deterministic,
+    different per row, the first and the last layer; boxes of 16 rows (bf16
+    and fp16, ps 16, 64) and rows one by one (ps 8; f32 always). Deterministic,
     and blind to NaN in the pool pages from each row's seq_lens on and in
-    the chunk's rows from its new_lens on."""
+    the chunk's rows from its new_lens on. On fp16 the kernel over the keys
+    rounded to bf16 fails the bar, but where each row sees one key only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -689,13 +715,17 @@ def test_k4_pool_matches_plain_on_card(pool, g, ps, s, b):
             curs.append((k2, v2))
         for layer in (0, n_l - 1):
             n0 = fa.flash_paged_prefill.launches
-            _k4_check(
+            refused = _k4_check(
                 lambda: fa.flash_paged_prefill_pool(q, kc, vc, main, layer, pt, slt, nlt),
                 lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, layer, pt, slt, nlt),
                 nl,
                 [lambda m=m, kv_=kv_: fa.flash_paged_prefill_pool(q, *kv_, m, layer, pt, slt, nlt)
-                 for m, kv_ in zip(pools, curs)], pool)
-            assert fa.flash_paged_prefill.launches - n0 == 4
+                 for m, kv_ in zip(pools, curs)], pool,
+                lambda: fa.flash_paged_prefill_pool(q, kc.bfloat16().to(kc.dtype), vc,
+                                                    sub.keys_at_bf16(main, n_l), layer, pt,
+                                                    slt, nlt))
+            assert fa.flash_paged_prefill.launches - n0 == (5 if pool == "fp16" else 4)
+            assert pool != "fp16" or refused or _one_key_each(sl, nl)
     torch.cuda.synchronize()
 
 
@@ -709,7 +739,8 @@ def test_k4_contiguous_matches_plain_on_card(pool, g, s, b):
     and f32, at kv_valid 0, 16, 80 and the whole history (hist_len 256),
     new_len 1, 63, 64, 65 and S; deterministic, and blind to NaN in the
     history columns from kv_valid on and in the chunk's columns from new_len
-    on."""
+    on. On fp16 the kernel over the keys rounded to bf16 fails the bar, but
+    where each row sees one key only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -733,12 +764,143 @@ def test_k4_contiguous_matches_plain_on_card(pool, g, s, b):
                 k2[i, kvv[i]:T], v2[i, kvv[i]:T] = fill, fill
                 k2[i, T + nl[i]:], v2[i, T + nl[i]:] = fill, fill
             fills.append((k2, v2))
-        _k4_check(lambda: fa.flash_paged_prefill(q, kf, vf, kvt, nlt, hist_len=T),
-                  lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvt, nlt, hist_len=T),
-                  nl,
-                  [lambda f=f: fa.flash_paged_prefill(q, *f, kvt, nlt, hist_len=T)
-                   for f in fills], pool)
+        refused = _k4_check(
+            lambda: fa.flash_paged_prefill(q, kf, vf, kvt, nlt, hist_len=T),
+            lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvt, nlt, hist_len=T),
+            nl,
+            [lambda f=f: fa.flash_paged_prefill(q, *f, kvt, nlt, hist_len=T) for f in fills],
+            pool,
+            lambda: fa.flash_paged_prefill(q, kf.bfloat16().to(kf.dtype), vf, kvt, nlt,
+                                           hist_len=T))
+        assert pool != "fp16" or refused or _one_key_each(kvv, nl)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["random", "planted"])
+@pytest.mark.parametrize("form", ["pool", "contiguous"])
+def test_k4_fp16_subnormal_probabilities_on_card(form, inputs):
+    """K4 on fp16 with scores that spread over a row's history by well over
+    12 units, so that a large share of its probabilities fall below 2^-14,
+    where fp16 holds them only as subnormals, which the tensor cores must
+    take as they are: random queries of 6 units a dim, and planted inputs
+    (``tests/_subnormal_cases.py``) whose output those probabilities alone
+    carry, so that a kernel that flushed them would return zeros. Both
+    forms against the plain version within the unchanged ``POOL_BARS`` (fp16
+    3e-2) and ``FP16_EQUAL_SHARE`` on the real rows at G 4, the first and
+    the last layer; the kernel over the keys rounded to bf16 fails that bar.
+    The shares of outputs bitwise equal to the plain twin are printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    kv, g, ps, n_l, b, s = 2, 4, 16, 3, 2, 128
+    mp, T = 16, 256
+    sl, nl = [T, 80], [s, 65]
+    if inputs == "planted":
+        q, kc, vc, main, pt = sub.k4_case(dev, 95, b=b, s=s, kv=kv, g=g, ps=ps, mp=mp, n_l=n_l)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(95)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).half()
+
+        q, kc, vc = rnd(b, s, kv * g, 128, scale=6.0), rnd(b, s, kv, 128), rnd(b, s, kv, 128)
+        main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
+        pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp)
+        pt = pt.to(torch.int32)
+    slt, nlt = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (sl, nl))
+    fa = flash_attention
+    k0 = main[pt[0].long(), 0].reshape(T, kv, 128)[:, 0]
+    if form == "pool":
+        r_main, r_kc = sub.keys_at_bf16(main, n_l), kc.bfloat16().half()
+        runs = [(lambda layer=layer: fa.flash_paged_prefill_pool(
+                     q, kc, vc, main, layer, pt, slt, nlt),
+                 lambda layer=layer: fa.flash_paged_prefill_pool(
+                     q, r_kc, vc, r_main, layer, pt, slt, nlt),
+                 lambda layer=layer: fa.flash_paged_prefill_pool_plain(
+                     q, kc, vc, main, layer, pt, slt, nlt)) for layer in (0, n_l - 1)]
+    else:  # each row's history of layer 0 in page-table order, then its chunk
+        kf = torch.cat([main[pt.long(), 0].reshape(b, T, kv, 128), kc], dim=1)
+        vf = torch.cat([main[pt.long(), n_l].reshape(b, T, kv, 128), vc], dim=1)
+        runs = [(lambda: fa.flash_paged_prefill(q, kf, vf, slt, nlt, hist_len=T),
+                 lambda: fa.flash_paged_prefill(q, kf.bfloat16().half(), vf, slt, nlt,
+                                                hist_len=T),
+                 lambda: fa.flash_paged_prefill_plain(q, kf, vf, slt, nlt, hist_len=T))]
+    qs = q[0, :, :g].reshape(-1, 128) * torch.tensor(128 ** -0.5, dtype=torch.float16,
+                                                         device=dev)
+    share_sub, spread = sub.subnormal_share(qs, k0, T)
+    assert share_sub > 0.2 and spread > 12, (share_sub, spread)
+    shares, controls = [], []
+    for run, keys_bf16, plain in runs:
+        a, ref = run(), plain()
+        for i, n in enumerate(nl):
+            _assert_pool_bar(a[i, :n], ref[i, :n], "k4", "fp16")
+            shares.append(float((a[i, :n] == ref[i, :n]).float().mean()))
+        r16 = keys_bf16()
+        assert _k4_fails_bar(r16, ref, nl, "fp16")
+        controls.append(max(float((r16[i, :n] == ref[i, :n]).float().mean())
+                            for i, n in enumerate(nl)))
+    torch.cuda.synchronize()
+    print(f"k4 fp16 {form} {inputs}: {share_sub:.3f} of the probabilities subnormal in fp16; "
+          f"bitwise equal share {min(shares):.4f}-{max(shares):.4f}, "
+          f"keys at bf16 {max(controls):.4f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["random", "planted"])
+def test_k6_fp16_subnormal_probabilities_on_card(inputs):
+    """K6 on an fp16 pool with scores that spread over a slot's history by
+    well over 12 units, so that a large share of its probabilities fall
+    below 2^-14 (fp16 subnormals) before PV: bf16 queries of 4 units a dim,
+    and planted inputs (``tests/_subnormal_cases.py``) whose output those
+    probabilities alone carry. Against the plain version within the
+    unchanged ``POOL_BARS`` (fp16 3e-2) and ``FP16_EQUAL_SHARE`` at
+    histories of 17-1000 tokens, split above 1, the first and the last
+    layer; the kernel over the keys rounded to bf16 fails that bar. The
+    shares of outputs bitwise equal to the plain twin are printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    b, kv, g, ps, n_l, mp = 4, 2, 4, 16, 3, 64
+    lens = [17, 300, 640, 1000]
+    if inputs == "planted":
+        q, kc, vc, main, stage, pt = sub.k6_case(dev, 96, b=b, kv=kv, g=g, ps=ps, mp=mp,
+                                                 n_l=n_l)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(96)
+
+        def rnd(*shape, dtype=torch.float16, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+        main = rnd(b * mp + 1, 2 * n_l, ps, kv * 128)
+        stage = rnd(b, ps, 2 * n_l, kv * 128)
+        q = rnd(b, kv * g, 128, dtype=torch.bfloat16, scale=4.0)
+        kc, vc = rnd(b, kv, 128, dtype=torch.bfloat16), rnd(b, kv, 128, dtype=torch.bfloat16)
+        pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp)
+        pt = pt.to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert flash_attention.flash_decode_split(b, kv, mp * ps, sms) > 1
+    full = lens[-1] // ps * ps
+    k0 = main[pt[-1, :full // ps].long(), 0].reshape(full, kv, 128)[:, 0]
+    qs = q[-1, :g] * torch.tensor(128 ** -0.5, dtype=torch.bfloat16, device=dev)
+    share_sub, spread = sub.subnormal_share(qs, k0, full)
+    assert share_sub > 0.2 and spread > 12, (share_sub, spread)
+    rounded = sub.keys_at_bf16(main, n_l), sub.keys_at_bf16(stage, n_l, dim=2)
+    shares, controls = [], []
+    for layer in (0, n_l - 1):
+        a = flash_attention.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+        ref = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+        _assert_pool_bar(a, ref, "k6", "fp16")
+        shares.append(float((a == ref).float().mean()))
+        r16 = flash_attention.flash_paged_decode(q, kc, vc, *rounded, layer, pt, sl)
+        ok16, _, share16 = flash_attention.meets_pool_bar(r16, ref, "k6", "fp16")
+        assert not ok16
+        controls.append(share16)
+    torch.cuda.synchronize()
+    print(f"k6 fp16 {inputs}: {share_sub:.3f} of the probabilities subnormal in fp16; "
+          f"bitwise equal share {min(shares):.4f}-{max(shares):.4f}, "
+          f"keys at bf16 {max(controls):.4f}")
 
 
 # (query heads per KV head, batch, query tokens, keys, q_offset, offset on the device)

@@ -6,16 +6,19 @@ The kernel deals each slot's 64-token tiles (its committed tiles, then the
 tail: the staging prefix and the current token) out in equal contiguous
 shares over ``flash_decode_split`` blocks of one cluster. Each of a block's
 four warps owns 16 rows of every tile and keeps its own online softmax,
-rounding its probabilities to bf16 against its own running max; the block
-sums its warps' states in warp order, and rank 0 sums the ranks' states in
-rank order. ``k6_model`` repeats that arithmetic; at every split it must stay
-within the reference's bf16 bar (5e-2, tests/test_torch_kernels.py) of
-``flash_paged_decode(..., interpret=True)`` and within the card's bar (2e-2,
-chip_smoke.py) of the plain version. The kernel itself is held against the
-plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
-On fp16 and f32 pools (the kernel's FMA instantiation, the query still
-bf16) the plain version is held against the reference in interpret mode
-(``test_wide_pools_plain_vs_reference``).
+rounding its probabilities to the pool's type against its own running max;
+the block sums its warps' states in warp order, and rank 0 sums the ranks'
+states in rank order. ``k6_model`` repeats that arithmetic; at every split
+it must stay within the reference's bf16 bar (5e-2,
+tests/test_torch_kernels.py) of ``flash_paged_decode(..., interpret=True)``
+and within the card's bar (2e-2, chip_smoke.py) of the plain version. On
+fp16 and f32 pools (the query still bf16) the plain version and
+``k6_model`` are held against the reference in interpret mode
+(``WIDE_BAR``) and ``k6_model`` against the plain version (the card's
+``POOL_BARS``); on fp16 the kernel's scores are TF32 products, exact in
+f32 as the model's are because TF32 holds every finite bf16 and fp16 value
+(``exact_in_tf32``, checked over all of them). The kernel itself is held against the plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import math
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
+from tests import _subnormal_cases as sub
 from wrinklefree_tpu.ops import flash_attention as ref_flash
 from wrinklefree_tpu_torch.ops import flash_attention
 
@@ -83,11 +87,16 @@ def _combine(states):
     return m, l, acc
 
 
-def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, split):
+def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, split,
+             flush=False):
     """The kernel's arithmetic: per slot, rank and warp an online softmax over
     the warp's 16 rows of each tile of the rank's share (f32 scores and
-    state, probabilities rounded to bf16 before PV), warps then ranks
-    combined in order, ``acc / max(l, 1e-30)``."""
+    state, probabilities rounded to the pool's type before PV), warps then
+    ranks combined in order, ``acc / max(l, 1e-30)``. The current token is
+    rounded to the pool's type. Scores are exact f32 products: the kernel's
+    bf16 and TF32 (fp16 pools) products are exact too. With ``flush`` the
+    fp16 probabilities below 2^-14 become zero: the arithmetic of a kernel
+    that loses fp16's subnormals, for the bar's controls."""
     B, NH, D = q.shape
     KV = k_cur.shape[1]
     G = NH // KV
@@ -100,10 +109,11 @@ def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, spli
         full, off = min(n // ps * ps, MP * ps), n % ps
         pages = page_table[b, :full // ps].long()
         k_rows = [main[pages, layer].reshape(full, KV, D),
-                  torch.cat([staging_b[b, :off, layer].reshape(off, KV, D), k_cur[b][None]])]
+                  torch.cat([staging_b[b, :off, layer].reshape(off, KV, D),
+                             k_cur[b][None].to(main.dtype)])]
         v_rows = [main[pages, n_l + layer].reshape(full, KV, D),
                   torch.cat([staging_b[b, :off, n_l + layer].reshape(off, KV, D),
-                             v_cur[b][None]])]
+                             v_cur[b][None].to(main.dtype)])]
         ntm = -(-full // TILE)
         tiles = [(k_rows[0][i * TILE:(i + 1) * TILE], v_rows[0][i * TILE:(i + 1) * TILE])
                  for i in range(ntm)] + [(k_rows[1], v_rows[1])]
@@ -124,7 +134,10 @@ def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, spli
                     p = torch.exp(s - m_new[..., None])
                     alpha = torch.exp(m - m_new)
                     l = l * alpha + p.sum(dim=-1)
-                    pv = torch.einsum("kgt,tkd->kgd", p.to(torch.bfloat16).float(), vw.float())
+                    pr = p.to(vw.dtype)
+                    if flush:
+                        pr = torch.where(pr < 2.0 ** -14, 0.0, pr)
+                    pv = torch.einsum("kgt,tkd->kgd", pr.float(), vw.float())
                     acc = acc * alpha[..., None] + pv
                     m = m_new
                 warps.append((m, l, acc))
@@ -239,3 +252,80 @@ def test_wide_pools_plain_vs_reference(wide_case, layer):
         ref = torch.from_numpy(refs[layer]).bfloat16()
         ok, err, share = flash_attention.meets_pool_bar(got, ref, "k6", "f32")
         assert ok, (err, share)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_split_combine_wide_vs_reference_and_plain(wide_case, split, layer):
+    """The kernel's split and combine on fp16 and f32 pools with a bf16
+    query (on fp16 the probabilities rounded to fp16 before PV), at every
+    split, against the
+    reference in interpret mode within ``WIDE_BAR`` and against the plain
+    version within the card's bar (``meets_pool_bar``)."""
+    dt, x, pt, sl, refs = wide_case
+    args = (x["q"], x["k_cur"], x["v_cur"], x["main"], x["staging"], layer, pt, sl)
+    got = k6_model(*args, split)
+    plain = flash_attention.flash_paged_decode_plain(*args)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    atol, rtol = WIDE_BAR[dt]
+    np.testing.assert_allclose(got.float().numpy(), refs[layer], rtol=rtol, atol=atol)
+    ok, err, share = flash_attention.meets_pool_bar(got, plain, "k6", dt)
+    assert ok, (err, share)
+
+
+@pytest.mark.parametrize("dtype,finite", [(torch.float16, 63488), (torch.bfloat16, 65280)],
+                         ids=["fp16", "bf16"])
+def test_tf32_holds_every_fp16_and_bf16(dtype, finite):
+    """What K6's fp16 scores rest on, over every finite bit pattern of the
+    key's type (fp16: all 63,488, subnormals and both zeros included) and of
+    the query's (bf16): each value's f32 form has its low 13 mantissa bits
+    zero, so TF32 holds it exactly; and an f32 value that uses those bits is
+    refused."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(dtype)
+    x = x[torch.isfinite(x)]
+    assert x.numel() == finite
+    assert bool(flash_attention.exact_in_tf32(x).all())
+    assert (x.float().view(torch.int32) & 0x1FFF).eq(0).all()
+    f = torch.tensor([1.0 + 2.0 ** -23, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10, 2.0 ** -24])
+    assert flash_attention.exact_in_tf32(f).tolist() == [False, False, True, True]
+
+
+# (inputs, the model's variant, whether it meets the fp16 bar)
+FP16_CONTROLS = [("random", "kernel", True), ("random", "keys-bf16", False),
+                 ("planted", "kernel", True), ("planted", "keys-bf16", False),
+                 ("planted", "flush", False)]
+
+
+@pytest.mark.parametrize("inputs,variant,meets", FP16_CONTROLS,
+                         ids=[f"{i}-{v}" for i, v, _ in FP16_CONTROLS])
+def test_fp16_bar_refuses_inexact_orders(inputs, variant, meets):
+    """What the fp16 bar (``meets_pool_bar``: 3e-2 and ``FP16_EQUAL_SHARE``
+    of the output bitwise equal) tells apart, at G 4, four slots of 17-1000
+    tokens, split 4: the kernel's arithmetic (``k6_model``) meets it on
+    random inputs and on inputs whose output the subnormal probabilities
+    carry (``tests/_subnormal_cases.py``); the same arithmetic over keys
+    rounded to bf16 fails it on both, and the one that flushes the subnormal
+    probabilities fails it on the second."""
+    b, kv, g, ps, mp, n_l = 4, 2, 4, 16, 64, 1
+    sl = torch.tensor([17, 300, 640, 1000], dtype=torch.int32)
+    if inputs == "planted":
+        q, kc, vc, main, stage, pt = sub.k6_case("cpu", 96, b=b, kv=kv, g=g, ps=ps, mp=mp,
+                                                 n_l=n_l)
+        qs = q[-1, :g] * torch.tensor(sub.D ** -0.5, dtype=q.dtype)
+        k0 = main[pt[-1, :62].long(), 0].reshape(62 * ps, kv, sub.D)[:, 0]
+        share_sub, spread = sub.subnormal_share(qs, k0, 62 * ps)
+        assert share_sub > 0.9 and spread > 12, (share_sub, spread)
+    else:
+        gen = torch.Generator().manual_seed(97)
+        main = torch.randn((b * mp + 1, 2 * n_l, ps, kv * 128), generator=gen).half()
+        stage = torch.randn((b, ps, 2 * n_l, kv * 128), generator=gen).half()
+        q, kc, vc = (torch.randn(shape, generator=gen).bfloat16()
+                     for shape in ((b, kv * g, 128), (b, kv, 128), (b, kv, 128)))
+        pt = (torch.randperm(b * mp, generator=gen) + 1).reshape(b, mp).to(torch.int32)
+    plain = flash_attention.flash_paged_decode_plain(q, kc, vc, main, stage, 0, pt, sl)
+    if variant == "keys-bf16":
+        main, stage = sub.keys_at_bf16(main, n_l), sub.keys_at_bf16(stage, n_l, dim=2)
+    got = k6_model(q, kc, vc, main, stage, 0, pt, sl, 4, flush=variant == "flush")
+    ok, err, share = flash_attention.meets_pool_bar(got, plain, "k6", "fp16")
+    assert ok == meets, (err, share)

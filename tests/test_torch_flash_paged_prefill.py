@@ -7,11 +7,15 @@ batch row; each warp owns 16 tokens of one query head and walks 64-key
 tiles: the row's valid history (from the pool), then the chunk's keys up to
 the block's last token, skipping the chunk tiles above its rows' diagonal,
 with its own online softmax (f32 scores and state, probabilities rounded to
-bf16 against the running max before PV). ``k4_model`` repeats that order; it
-must stay within the reference's bf16 bar (3e-2, tests/test_torch_kernels.py)
-of ``flash_paged_prefill(..., interpret=True)`` and within the card's bar
-(3e-2, chip_smoke.py) of the plain version. The kernel itself is held
-against the plain versions on the card by tests/test_torch_cuda.py and
+the pool's type against the running max before PV). bf16 and fp16 pools
+run that one kernel on the tensor cores; f32 pools the FMA kernel of
+``flash_prefill_wide_bq``'s blocks. ``k4_model`` repeats the tensor-core
+kernel's order; in bf16 it must stay within the reference's bf16 bar (3e-2,
+tests/test_torch_kernels.py) of ``flash_paged_prefill(..., interpret=True)``,
+in fp16 within the fp16 plain version's bar against it (3e-3,
+``test_pool_plain_vs_reference``), and within the card's bar (3e-2,
+``flash_attention.POOL_BARS``) of the plain version. The kernel itself is
+held against the plain versions on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 import tests._torch_cpu  # noqa: F401  (one torch thread per worker)
+from tests import _subnormal_cases as sub
 from wrinklefree_tpu.config import BitNetConfig as RefConfig
 from wrinklefree_tpu.ops import flash_attention as ref_flash
 from wrinklefree_tpu_torch.ops import flash_attention
@@ -60,13 +65,27 @@ def test_bq_refuses_wide_groups(g):
         flash_attention.flash_prefill_bq(g)
 
 
-def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq):
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("dtype", ["bf16", "fp16", "f32"])
+def test_bq_by_pool_type(dtype, g):
+    """The wrapper's block for each pool type: bf16 and fp16 share the
+    tensor-core kernel and its ``flash_prefill_bq``; f32 takes the FMA
+    kernel's ``flash_prefill_wide_bq``."""
+    tdt = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[dtype]
+    want = (flash_attention.flash_prefill_wide_bq if dtype == "f32"
+            else flash_attention.flash_prefill_bq)(g)
+    assert flash_attention._prefill_bq(flash_attention.POOL_ELEM[tdt], g) == want
+
+
+def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq, flush=False):
     """The kernel's order: per batch row, KV head, block of ``bq`` tokens and
     warp (16 tokens of one query head), an online softmax over the 64-key
     tiles of the row's valid history, then of the chunk up to the block's
     last token (tiles above the warp's diagonal skipped), f32 scores and
-    state, probabilities rounded to bf16 against the running max before PV;
-    ``acc / max(l, 1e-30)``."""
+    state, probabilities rounded to q's type (bf16 or fp16, the pool's)
+    against the running max before PV; ``acc / max(l, 1e-30)``. With
+    ``flush`` the fp16 probabilities below 2^-14 become zero: the order of
+    a kernel that loses fp16's subnormals, for the bar's controls."""
     B, S, NH, D = q.shape
     KV = k_cur.shape[2]
     G = NH // KV
@@ -105,7 +124,10 @@ def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq):
                             p = torch.exp(sc - m_new[:, None])
                             alpha = torch.exp(m - m_new)
                             l = l * alpha + p.sum(dim=1)
-                            acc = acc * alpha[:, None] + p.to(torch.bfloat16).float() @ vt
+                            pr = p.to(q.dtype)
+                            if flush:
+                                pr = torch.where(pr < 2.0 ** -14, 0.0, pr)
+                            acc = acc * alpha[:, None] + pr.float() @ vt
                             m = m_new
                         out[b, rows, h] = acc / torch.clamp_min(l, 1e-30)[:, None]
     return out.to(q.dtype)
@@ -184,3 +206,68 @@ def test_kernel_order_vs_reference_and_plain(bq, layer):
     plain = flash_attention.flash_paged_prefill_pool_plain(*args).float().numpy()
     _assert_real_rows(got, reference(layer), nl.tolist(), 3e-2)
     _assert_real_rows(got, plain, nl.tolist(), 3e-2)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("bq", [32, 64])
+def test_kernel_order_fp16_vs_reference_and_plain(bq, layer):
+    """The kernel's order on an fp16 pool (q, the chunk, the pool and the
+    output fp16; probabilities rounded to fp16, subnormals kept, against the
+    running max; 16-token warps at ``flash_prefill_bq``'s blocks, as in bf16)
+    against the reference in interpret mode within 3e-3 (the fp16 plain
+    version's bar against it: probabilities round to fp16 against another
+    running max, 2^-11 relative) and against the plain version within the
+    card's bar (``POOL_BARS``, 3e-2), on the real rows."""
+    x, pt, sl, nl, reference = _pool_case("fp16", seed=1)
+    NH, KV = x["q"].shape[2], x["k_cur"].shape[2]
+    assert flash_attention._prefill_bq(flash_attention.POOL_ELEM[torch.float16], NH // KV) == 32
+    args = (x["q"], x["k_cur"], x["v_cur"], x["main"], layer, pt, sl, nl)
+    got = k4_model(*args, bq)
+    assert got.dtype == torch.float16
+    plain = flash_attention.flash_paged_prefill_pool_plain(*args)
+    _assert_real_rows(got.float().numpy(), reference(layer), nl.tolist(), 3e-3)
+    for b, n in enumerate(nl.tolist()):
+        ok, err, _ = flash_attention.meets_pool_bar(got[b, :n], plain[b, :n], "k4", "fp16")
+        assert ok, err
+
+
+# (inputs, the model's variant, whether it meets the fp16 bar)
+FP16_CONTROLS = [("random", "kernel", True), ("random", "keys-bf16", False),
+                 ("planted", "kernel", True), ("planted", "keys-bf16", False),
+                 ("planted", "flush", False)]
+
+
+@pytest.mark.parametrize("inputs,variant,meets", FP16_CONTROLS,
+                         ids=[f"{i}-{v}" for i, v, _ in FP16_CONTROLS])
+def test_fp16_bar_refuses_inexact_orders(inputs, variant, meets):
+    """What the fp16 bar (``meets_pool_bar``: 3e-2 and ``FP16_EQUAL_SHARE``
+    of each real row bitwise equal) tells apart, at G 4, two rows of 64 and
+    40 chunk tokens after 256 and 80: the kernel's order (``k4_model``)
+    meets it on random inputs and on inputs whose output the subnormal
+    probabilities carry (``tests/_subnormal_cases.py``); the same order over
+    keys rounded to bf16 fails it on both, and the order that flushes the
+    subnormal probabilities fails it on the second."""
+    b, s, kv, g, ps, mp, n_l = 2, 64, 2, 4, 16, 16, 1
+    sl, nl = torch.tensor([256, 80], dtype=torch.int32), torch.tensor([64, 40],
+                                                                     dtype=torch.int32)
+    if inputs == "planted":
+        q, kc, vc, main, pt = sub.k4_case("cpu", 95, b=b, s=s, kv=kv, g=g, ps=ps, mp=mp,
+                                          n_l=n_l)
+        qs = q[0, :, :g].reshape(-1, sub.D) * torch.tensor(sub.D ** -0.5, dtype=q.dtype)
+        k0 = main[pt[0].long(), 0].reshape(mp * ps, kv, sub.D)[:, 0]
+        share_sub, spread = sub.subnormal_share(qs, k0, 256)
+        assert share_sub > 0.9 and spread > 12, (share_sub, spread)
+    else:
+        gen = torch.Generator().manual_seed(94)
+        q, kc, vc = (torch.randn(shape, generator=gen).half()
+                     for shape in ((b, s, kv * g, 128), (b, s, kv, 128), (b, s, kv, 128)))
+        main = torch.randn((b * mp + 1, 2 * n_l, ps, kv * 128), generator=gen).half()
+        pt = (torch.randperm(b * mp, generator=gen) + 1).reshape(b, mp).to(torch.int32)
+    plain = flash_attention.flash_paged_prefill_pool_plain(q, kc, vc, main, 0, pt, sl, nl)
+    if variant == "keys-bf16":
+        kc, main = kc.bfloat16().half(), sub.keys_at_bf16(main, n_l)
+    got = k4_model(q, kc, vc, main, 0, pt, sl, nl, flash_attention.flash_prefill_bq(g),
+                   flush=variant == "flush")
+    oks = [flash_attention.meets_pool_bar(got[i, :n], plain[i, :n], "k4", "fp16")
+           for i, n in enumerate(nl.tolist())]
+    assert all(ok for ok, _, _ in oks) == meets, oks

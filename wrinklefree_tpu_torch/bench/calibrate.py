@@ -38,6 +38,7 @@ import torch
 from ..config import BitNetConfig
 from ..models.bitnet import resolve_device
 from ..ops import cuda_lib
+from .flash_decode import busy_us
 
 # measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py calibrate phase)
 REF_STREAM_US = 7.2  # us per layer: the 64 -> 512 window slope (1.84 TB/s)
@@ -196,15 +197,12 @@ def stream_busy_share(steps: int = 512, device=None, replays: int = 5):
     for _ in range(replays):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _replay_s(graph)
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
         if not spans:
             raise RuntimeError("torch.profiler recorded no kernel of the window")
-        busy, end = 0.0, spans[0][0]
-        for a, b in spans:
-            busy += max(0.0, b - max(a, end))
-            end = max(end, b)
-        window = spans[-1][1] - spans[0][0]
+        busy = busy_us(spans)
+        window = max(b for _, b in spans) - min(a for a, _ in spans)
         readings.append((busy / window, busy / 1e6, window / 1e6))
     del io  # the graph's tensors outlive every replay
     return sorted(readings)[len(readings) // 2]

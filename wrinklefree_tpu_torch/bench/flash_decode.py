@@ -1,21 +1,23 @@
 """The paged flash decode (K6) timed alone on one GPU, at the shapes of
 ``chip_smoke.py``'s K6 phase: BitNet-2B's attention (30 layers, 20 query / 5
 KV heads of 128), page size 16, page tables of 128 pages (the engine's
-widest at ``max_context=2048``), random bf16 pools from a seed
-(``make_inputs`` and ``bound`` also take fp16 and f32 pools, K6's FMA
-instantiations, as ``chip_smoke.py`` times them); histories of
-17..2000 tokens over 8 slots (``mixed``), 2000 tokens in each of 8 slots
-(``8x2000``) and in 1 slot (``1x2000``). Each call reads another layer, so
-repeats do not find the history in the 50 MB L2.
+widest at ``max_context=2048``), random pools from a seed in the type
+``--pool`` names (bf16 by default; fp16 and f32 as the engine's
+``kv_dtype`` stores them, the query and current token bf16), as
+``chip_smoke.py`` times them; histories of 17..2000 tokens over 8 slots
+(``mixed``), 2000 tokens in each of 8 slots (``8x2000``) and in 1 slot
+(``1x2000``). Each call reads another layer, so repeats do not find the
+history in the 50 MB L2.
 
     python wrinklefree_tpu_torch/bench/flash_decode.py [--root DIR] [--iters 50]
+        [--pool {bf16,fp16,f32}]
 
 ``--root`` names the checkout whose ``wrinklefree_tpu_torch`` is built and
 timed (default: the one this file is in), so that two trees can be timed in
 turns on one card: run as a file, not with ``-m``. Prints one JSON line per
 shape (device ms per call from ``torch.profiler``, the bytes bound, the
-split the wrapper picks where it has ``flash_decode_split``) with the card's
-name and power limit. It needs a GPU.
+split the wrapper picks where it has ``flash_decode_split``, the pool type)
+with the card's name and power limit. It needs a GPU.
 """
 
 from __future__ import annotations
@@ -86,9 +88,21 @@ def bound(lens, pool: str = "bf16") -> float:
     return nbytes(lens, pool) / HBM_BYTES_PER_S * 1e3
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device ms per call: the union of the device intervals that
-    torch.profiler records over `iters` calls (after a warm-up)."""
+def busy_us(spans) -> float:
+    """The length of the union of the (start, end) intervals ``spans``."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
+def device_times(fn, iters: int, names=()) -> tuple:
+    """(device ms, ms of the kernels whose names hold one of ``names``) per
+    call: the union of the device intervals that torch.profiler records over
+    `iters` calls (after a warm-up), and the sum of the named kernels'."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -101,25 +115,32 @@ def device_ms(fn, iters: int) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        total, end = 0.0, None
-        for a, b in spans:
-            if end is None or a > end:
-                total, end = total + b - a, b
-            elif b > end:
-                total, end = total + b - end, b
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        total = busy_us((e.time_range.start, e.time_range.end) for e in evs)
+        named = sum(e.time_range.end - e.time_range.start for e in evs
+                    if any(n in e.name for n in names))
         if total > 0:
-            return total / 1e3 / iters
+            return total / 1e3 / iters, named / 1e3 / iters
     raise RuntimeError("torch.profiler recorded no device time")
 
 
-def main(argv=None) -> int:
+def device_ms(fn, iters: int) -> float:
+    """Device ms per call (``device_times``)."""
+    return device_times(fn, iters)[0]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose wrinklefree_tpu_torch is timed")
     ap.add_argument("--iters", type=int, default=50)
-    args = ap.parse_args(argv)
+    ap.add_argument("--pool", choices=list(POOL_BYTES), default="bf16",
+                    help="the pool's (and staging pages') type")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -133,7 +154,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     dev = torch.device("cuda")
-    inp = make_inputs(dev)
+    inp = make_inputs(dev, pool=args.pool)
     split_of = getattr(fa, "flash_decode_split", None)
     for name, lens in SHAPES.items():
         xs, (pt, sl) = case(inp, lens)
@@ -141,8 +162,8 @@ def main(argv=None) -> int:
         ms = device_ms(lambda: fa.flash_paged_decode(*xs, next(layer) % L, pt, sl), args.iters)
         split = (split_of(len(lens), KV, MP * PS, cuda_lib.sm_count(dev))
                  if split_of is not None else None)
-        print(json.dumps(dict(root=args.root, shape=name, seq_lens=lens, ms=ms,
-                              bound_ms=bound(lens), split=split, card=card)))
+        print(json.dumps(dict(root=args.root, shape=name, pool=args.pool, seq_lens=lens, ms=ms,
+                              bound_ms=bound(lens, args.pool), split=split, card=card)))
     return 0
 
 

@@ -1,8 +1,9 @@
 """The paged flash prefill (K4) timed alone on one GPU, at the shapes of
 ``chip_smoke.py``'s K4 rows: BitNet-2B's attention (30 layers, 20 query / 5
-KV heads of 128), random bf16 inputs from a seed (``make_inputs`` and
-``bound`` also take fp16 and f32 pools, K4's FMA instantiations, as
-``chip_smoke.py`` times them).
+KV heads of 128), random inputs from a seed in the type ``--pool`` names
+(bf16 by default; fp16 and f32 as the engine's ``kv_dtype`` stores them:
+q, the chunk and the pool all of that type), as ``chip_smoke.py`` times
+them.
 
 - ``contiguous``: ``flash_paged_prefill`` over gathered keys, a 512-token
   chunk over a 512-slot history with kv_valid 400 and new_len 500 (the
@@ -15,13 +16,14 @@ KV heads of 128), random bf16 inputs from a seed (``make_inputs`` and
   reads another layer, so repeats do not find the history in the 50 MB L2.
 
     python wrinklefree_tpu_torch/bench/flash_prefill.py [--root DIR] [--iters 50]
+        [--pool {bf16,fp16,f32}]
 
 ``--root`` names the checkout whose ``wrinklefree_tpu_torch`` is built and
 timed (default: the one this file is in), so that two trees can be timed in
 turns on one card: run as a file, not with ``-m``. Prints one JSON line per
 shape (device ms per call from ``torch.profiler``, the bound, the query
-tokens per block where the tree has ``flash_prefill_bq``) with the card's
-name and power limit. It needs a GPU.
+tokens per block the tree's wrapper picks for the pool type, the pool type)
+with the card's name and power limit. It needs a GPU.
 """
 
 from __future__ import annotations
@@ -116,12 +118,26 @@ def contiguous_case(inp: dict) -> tuple:
             torch.tensor([c["new_len"]], dtype=torch.int32, device=dev))
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose wrinklefree_tpu_torch is timed")
     ap.add_argument("--iters", type=int, default=50)
-    args = ap.parse_args(argv)
+    ap.add_argument("--pool", choices=list(POOLS), default="bf16",
+                    help="the type of q, the chunk and the pool")
+    return ap.parse_args(argv)
+
+
+def block_q(fa, pool: str) -> int:
+    """The query tokens per block that the tree's wrapper ``fa`` picks for
+    the 2B heads on a pool of type ``pool``."""
+    import torch
+
+    return fa._prefill_bq(fa.POOL_ELEM[getattr(torch, POOLS[pool][0])], NH // KV)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -137,26 +153,24 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     dev = torch.device("cuda")
-    bq_of = getattr(fa, "flash_prefill_bq", None)
-    inp = make_inputs(dev)
+    bq = block_q(fa, args.pool)
+    inp = make_inputs(dev, pool=args.pool)
     c = CONTIGUOUS
     q, kf, vf, kvv, nl = contiguous_case(inp)
     ms = device_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=c["T"]),
                    args.iters)
-    b_ms, b_by = bound(c["S"], [c["kv_valid"]], [c["new_len"]])
-    print(json.dumps(dict(root=args.root, shape="contiguous", **c, ms=ms, bound_ms=b_ms,
-                          bound_by=b_by, bq=bq_of(NH // KV) if bq_of else None,
-                          card=card)))
+    b_ms, b_by = bound(c["S"], [c["kv_valid"]], [c["new_len"]], args.pool)
+    print(json.dumps(dict(root=args.root, shape="contiguous", pool=args.pool, **c, ms=ms,
+                          bound_ms=b_ms, bound_by=b_by, bq=bq, card=card)))
     for name, (s, sl, nls) in POOL.items():
         (q, kc, vc, main), (pt, slt, nlt) = pool_case(inp, name)
         layer = iter(range(10**9))
-        staging = torch.zeros((len(sl), PS, 2 * L, KV * D), dtype=torch.bfloat16, device=dev)
+        staging = torch.zeros((len(sl), PS, 2 * L, KV * D), dtype=main.dtype, device=dev)
         ms = device_ms(lambda: paged._paged_attention_dual_flash(
             q, kc, vc, main, staging, next(layer) % L, pt, slt, nlt, None), args.iters)
-        b_ms, b_by = bound(s, sl, nls)
-        print(json.dumps(dict(root=args.root, shape=name, S=s, seq_lens=sl, new_lens=nls, ms=ms,
-                              bound_ms=b_ms, bound_by=b_by,
-                              bq=bq_of(NH // KV) if bq_of else None,
+        b_ms, b_by = bound(s, sl, nls, args.pool)
+        print(json.dumps(dict(root=args.root, shape=name, pool=args.pool, S=s, seq_lens=sl,
+                              new_lens=nls, ms=ms, bound_ms=b_ms, bound_by=b_by, bq=bq,
                               card=card)))
     return 0
 

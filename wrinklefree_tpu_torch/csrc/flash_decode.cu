@@ -10,9 +10,12 @@
 // k_cur/v_cur. q is scaled by 1/sqrt(D) in bf16 before the dot; scores, the
 // running max and sum are f32; masked scores are -1e30 and masked
 // probabilities are forced to 0 (so a fully masked update leaves the state
-// unchanged); probabilities are rounded to bf16 before the PV product; the
-// output is acc / max(l, 1e-30). As in the TPU kernel, the staging prefix
-// and the current token form the last online-softmax update.
+// unchanged); probabilities are rounded to the pool's type before the PV
+// product; the output is acc / max(l, 1e-30) in bf16 (q's type). As in the
+// TPU kernel, the staging prefix and the current token form the last
+// online-softmax update. The pool is bf16 or fp16 (k6_decode<T>, on the
+// tensor cores) or f32 (k6_wide<float>, on FMAs; below); q, k_cur and v_cur
+// are bf16, and the current token's row is rounded to the pool's type.
 //
 // Bound: bytes, 2 * n * D * 2 per slot and KV head (the history's k and v
 // rows, each read once); 4 * G * D operations per token are far below the
@@ -39,14 +42,14 @@
 //   every tile: it issues their copies into its own two-stage ring, waits
 //   for them on the stage's mbarrier and keeps its own online-softmax state,
 //   so no tile needs a block-wide max.
-// - Tensor cores for both products (mma.sync m16n8k16 bf16 x bf16 -> f32).
-//   Scores: the K rows (ldmatrix) are A (M = 16 tokens), the G <= 8 scaled
-//   query heads are B (N = 8, zero past G), D = 128 is K in 8 steps. PV: V^T
-//   (ldmatrix.trans) is A (M = 16 dims, 8 of them), the bf16-rounded
-//   probabilities are B: the scores' accumulator rows are tokens, and
-//   movmatrix.trans turns them into B fragments in registers. The products
-//   are exact in f32; only the order of the f32 sums differs from the plain
-//   version.
+// - Tensor cores for both products (mma.sync m16n8k16 -> f32). Scores: the
+//   K rows (ldmatrix) are A (M = 16 tokens), the G <= 8 scaled query heads
+//   are B (N = 8, zero past G), D = 128 is K in 8 steps, bf16 x bf16. PV:
+//   V^T (ldmatrix.trans) is A (M = 16 dims, 8 of them), the probabilities
+//   rounded to the pool's type are B (bf16 x bf16 or fp16 x fp16): the
+//   scores' accumulator rows are tokens, and movmatrix.trans turns them into
+//   B fragments in registers. The products are exact in f32; only the order
+//   of the f32 sums differs from the plain version.
 // - The combine, deterministic and without global scratch. Each block sums
 //   its warps' states in warp order in shared memory; the other ranks write
 //   their (m, l, acc[G][128]) into rank 0's shared memory (distributed shared
@@ -55,26 +58,46 @@
 //   exp(m_r - m), and stores the output. 99 KB of shared memory: two blocks
 //   per SM.
 //
-// fp16 and f32 pools (k6_wide<T>): the same function, split, warp ownership
-// and combine, with the pool's rows (and the current token's, rounded from
-// bf16 to T as the plain version's cast does) in the pool's type T and the
-// probabilities rounded to T before PV. A bf16 query and an fp16 or f32 key
-// share no tensor-core operand type, so both products run on f32 FMAs: every
-// bf16 x T product is exact in f32, and only the order of the f32 sums
-// differs from the plain version. A warp's 16 rows of a tile come by 16-byte
-// cp.async into its own two-stage ring (K rows padded by 16 bytes, so that
-// the lanes' reads of 8 rows miss each other) with zeros past the valid
-// rows; lane (j, hf) = (lane % 16, lane / 16) scores row j against every
-// query head over dims 64hf..64hf+63, one shuffle joins the halves, and for
-// PV lane x accumulates dims 4x..4x+3 of every head, reading the warp's
-// probabilities from shared memory. f32: 172 KB of shared memory, one block
-// per SM; fp16: 106 KB, two.
+// fp16 pools (k6_decode<__half>): the bf16 kernel's split, copy-engine
+// boxes (fp16 tensor map), per-warp ring, combine and shared memory, with
+// two changes. The score product is bf16 (q) x fp16 (K), and no 16-bit mma
+// type takes both: rounding either side to the other's type would change
+// the scores. It runs on TF32 mma.sync m16n8k8, which holds every bf16 and
+// every fp16 value (subnormals included) exactly, so each product is exact
+// in f32 and only the order of the f32 sums differs. Each K register from
+// the bf16 kernel's ldmatrix (two fp16 dims of a row) widens to two f32
+// A elements in place, q's fragments widen once to f32 B fragments, and a
+// 16-dim k-step becomes two TF32 products of 8 dims (the dims' order inside
+// a k-step is the same permutation for A and B). Of the two exact forms
+// this one measured faster than splitting each fp16 key into bf16 hi + lo
+// for two bf16 mma (the same mma count, but 6-8 conversions a K register
+// against one widening; PERF.md section 6). The PV product is fp16 x fp16,
+// on f16 mma with the probabilities packed to fp16 (below 2^-14 as
+// subnormals, as the plain version's cast keeps them). The current token's
+// bf16 row is rounded to fp16 by a converting store into the ring instead
+// of its cp.async.
+//
+// f32 pools (k6_wide<float>): the same function, split, warp ownership and
+// combine, with the pool's rows (and the current token's, bf16 widened) in
+// f32 and the probabilities kept in f32 for PV. A bf16 query and an f32 key
+// share no tensor-core operand type (TF32 truncates f32), so both products
+// run on f32 FMAs: every bf16 x f32 product is exact in f32, and only the
+// order of the f32 sums differs from the plain version. A warp's 16 rows of
+// a tile come by 16-byte cp.async into its own two-stage ring (K rows
+// padded by 16 bytes, so that the lanes' reads of 8 rows miss each other)
+// with zeros past the valid rows; lane (j, hf) = (lane % 16, lane / 16)
+// scores row j against every query head over dims 64hf..64hf+63, one
+// shuffle joins the halves, and for PV lane x accumulates dims 4x..4x+3 of
+// every head, reading the warp's probabilities from shared memory. 172 KB
+// of shared memory, one block per SM.
 //
 // Launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() or the launch's error.
 
 #include <cooperative_groups.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -128,7 +151,10 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
 // completing on bar. Committed rows come by copy-engine box (16 rows x 64
 // dims, from `page`, when a page holds whole boxes), the others row by row
 // with cp.async (16 bytes a copy; lane j < 16 copies K row j, lane 16 + j V
-// row j). Rows from nv on are zero and are not read from memory.
+// row j). Rows from nv on are zero and are not read from memory. T: the
+// pool's 16-bit type; on an fp16 pool the current token's bf16 row is
+// rounded to fp16 (as the plain version's cast does) by a converting store.
+template <typename T>
 __device__ __forceinline__ void load_rows(const Args& a, const CUtensorMap* map, char* kd,
                                           char* vd, uint64_t* bar, int i, int r0, int nv, int ntm,
                                           int off, int b, int kvh, int lane, int page) {
@@ -145,22 +171,37 @@ __device__ __forceinline__ void load_rows(const Args& a, const CUtensorMap* map,
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     } else if (!boxed) {
       const int row = r0 + j;
-      const __nv_bfloat16* src;
+      const uint16_t* src;  // 2-byte elements, copied as bytes
       if (i < ntm) {
         const int t = i * TK + row;
         const size_t pt = (size_t)__ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
-        src = static_cast<const __nv_bfloat16*>(a.main) +
+        src = static_cast<const uint16_t*>(a.main) +
               ((pt * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd;
       } else if (row < off) {
-        src = static_cast<const __nv_bfloat16*>(a.stage) +
+        src = static_cast<const uint16_t*>(a.stage) +
               (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd;
-      } else {  // row == off: the current token
-        src = (v ? a.v_cur : a.k_cur) + (size_t)b * kvd;
+      } else {  // row == off: the current token, bf16
+        src = reinterpret_cast<const uint16_t*>(v ? a.v_cur : a.k_cur) + (size_t)b * kvd;
       }
       src += kvh * HD;
+      if (std::is_same<T, __half>::value && i >= ntm && row >= off) {
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) cp_async16(dst + swz(j, c), src + 8 * c);
-      cp_async_arrive(bar);
+        for (int c = 0; c < HD / 8; ++c) {
+          uint4 x = *reinterpret_cast<const uint4*>(src + 8 * c);
+          uint32_t* e = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(e + u));
+            e[u] = pack_f16(f.x, f.y);
+          }
+          *reinterpret_cast<uint4*>(dst + swz(j, c)) = x;
+        }
+        fence_proxy_async();  // as for the zeros above
+      } else {
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) cp_async16(dst + swz(j, c), src + 8 * c);
+        cp_async_arrive(bar);
+      }
     }
   }
   __syncwarp();  // the row copies have joined bar before its arrival below
@@ -240,10 +281,13 @@ __device__ __forceinline__ void finish(const Args& a, const float* states, float
           __float2bfloat16_rn(A[g] / fmaxf(Ls[g], 1e-30f));
 }
 
-// Grid (split, KV, B); cluster (split, 1, 1) when split > 1. map: the main
-// pool as rows of KV*D bf16 in boxes of 16 rows x 64 dims, 128-byte swizzle.
+// Grid (split, KV, B); cluster (split, 1, 1) when split > 1. T: the pool's
+// 16-bit type, bf16 or fp16. map: the main pool as rows of KV*D T in boxes of
+// 16 rows x 64 dims, 128-byte swizzle.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
     k6_decode(const __grid_constant__ CUtensorMap map, Args a) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
   extern __shared__ unsigned char raw[];
   // the warps' rings [WARPS][STAGES] of K then V rows (WSTAGE bytes each),
   // 1024-byte aligned for the swizzle, and after the loop the warps' states;
@@ -289,7 +333,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     int page = __shfl_sync(0xffffffffu, pg, (i - i0) & 31);
     if (i - i0 >= 32 && i < ntm && a.boxes)  // past the held pages
       page = __ldg(a.page_table + (size_t)b * a.MP + (i * TK + r0) / a.ps);
-    load_rows(a, &map, wring + st * WSTAGE, wring + st * WSTAGE + 2 * HALF, &bars[warp][st], i,
+    load_rows<T>(a, &map, wring + st * WSTAGE, wring + st * WSTAGE + 2 * HALF, &bars[warp][st], i,
               r0, nv, ntm, off, b, kvh, lane, page);
   };
   for (int s = 0; s < STAGES && i0 + s < i1; ++s) issue(i0 + s, s);
@@ -312,6 +356,15 @@ __global__ void __launch_bounds__(THREADS, 2)
         qf[k][0] = qf[k][1] = 0u;
       }
     }
+  }
+  // the same values widened to f32, the TF32 B fragments of fp16 pools:
+  // dims 16k + 2t4, +1, 16k + 8 + 2t4, +1 (unused, and dropped, on bf16)
+  float qt[HD / 16][4];
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qf[k][0]));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qf[k][1]));
+    qt[k][0] = lo.x, qt[k][1] = lo.y, qt[k][2] = hi.x, qt[k][3] = hi.y;
   }
 
   // this warp's state for heads 2t4 and 2t4 + 1 (l: over this lane's tokens
@@ -347,8 +400,26 @@ __global__ void __launch_bounds__(THREADS, 2)
       uint32_t ka[4], kb[4];
       ldmatrix_x4(ka, kt + swz(lane & 15, 2 * k + (lane >> 4)));
       ldmatrix_x4(kb, kt + swz(lane & 15, 2 * k + 2 + (lane >> 4)));
-      mma_bf16(s, ka, qf[k][0], qf[k][1]);
-      mma_bf16(s2, kb, qf[k + 1][0], qf[k + 1][1]);
+      if (F16) {
+        // each k-step as two TF32 products of 8 dims: register e of the K
+        // fragment holds row gid (+8 for odd e), dims 2t4, 2t4 + 1 (+8 for
+        // e >= 2), widened to f32; k-index t4 takes the first dim, t4 + 4
+        // the second, as q's B fragments do
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t* kk = h ? kb : ka;
+          float(&acc)[4] = h ? s2 : s;
+          float2 f[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            f[e] = __half22float2(*reinterpret_cast<const __half2*>(kk + e));
+          mma_tf32(acc, f[0].x, f[1].x, f[0].y, f[1].y, qt[k + h][0], qt[k + h][1]);
+          mma_tf32(acc, f[2].x, f[3].x, f[2].y, f[3].y, qt[k + h][2], qt[k + h][3]);
+        }
+      } else {
+        mma_bf16(s, ka, qf[k][0], qf[k][1]);
+        mma_bf16(s2, kb, qf[k + 1][0], qf[k + 1][1]);
+      }
     }
     const bool ok0 = gid < nv, ok1 = 8 + gid < nv;
     float p[4], alpha[2];
@@ -367,10 +438,11 @@ __global__ void __launch_bounds__(THREADS, 2)
       l[e] = l[e] * alpha[e] + (p[e] + p[2 + e]);  // this lane's tokens; summed at the end
       m[e] = m_new;
     }
-    // the bf16 probabilities as the PV mma's B fragments (tokens x heads):
-    // the transposes of the (token, head) fragments of rows gid and 8 + gid
-    const uint32_t b0 = movmatrix_trans(pack_bf16(p[0], p[1]));
-    const uint32_t b1 = movmatrix_trans(pack_bf16(p[2], p[3]));
+    // the probabilities rounded to T as the PV mma's B fragments (tokens x
+    // heads): the transposes of the (token, head) fragments of rows gid and
+    // 8 + gid
+    const uint32_t b0 = movmatrix_trans(F16Ops<T>::pack(p[0], p[1]));
+    const uint32_t b1 = movmatrix_trans(F16Ops<T>::pack(p[2], p[3]));
 #pragma unroll
     for (int j = 0; j < HD / 16; ++j) {
       acc[j][0] *= alpha[0];
@@ -379,7 +451,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       acc[j][3] *= alpha[1];
       uint32_t va[4];
       ldmatrix_x4_trans(va, vt + swz((lane & 7) + ((lane >> 4) << 3), 2 * j + ((lane >> 3) & 1)));
-      mma_bf16(acc[j], va, b0, b1);
+      F16Ops<T>::mma(acc[j], va, b0, b1);
     }
   }
 #pragma unroll
@@ -413,7 +485,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   finish(a, states, ranks, rank, kvh, b, G);
 }
 
-// ---------------------------------------------------- fp16 and f32 ----
+// ------------------------------------------------------------- f32 ----
 
 template <typename T>
 struct Wide {
@@ -424,7 +496,7 @@ struct Wide {
   // the scaled queries [8][128] and the warps' probabilities [4][16][8] (f32)
   static constexpr int SMEM = RING + RANKS + (MAX_G * HD + WARPS * WROWS * MAX_G) * 4;
 };
-static_assert(WARPS * PART * 4 <= Wide<__half>::RING, "the warps' states fit in the rings");
+static_assert(WARPS * PART * 4 <= Wide<float>::RING, "the warps' states fit in the rings");
 
 // Grid (split, KV, B); cluster (split, 1, 1) when split > 1.
 template <typename T>
@@ -623,18 +695,19 @@ int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, c
       P <= 0 || layer < 0 || layer >= L || split < 1 || split > MAX_SPLIT ||
       (split & (split - 1)) || elem < ELEM_BF16 || elem > ELEM_F32)
     return cudaErrorInvalidValue;
-  static bool smem_set[3] = {false, false, false};
-  const int smem = elem == ELEM_F16 ? Wide<__half>::SMEM : elem == ELEM_F32 ? Wide<float>::SMEM
-                                                                            : SMEM;
-  cudaError_t e = elem == ELEM_F16   ? smem_once(k6_wide<__half>, smem, smem_set[elem])
+  static bool smem_set[3] = {false, false, false};  // per type
+  const int smem = elem == ELEM_F32 ? Wide<float>::SMEM : SMEM;
+  cudaError_t e = elem == ELEM_F16   ? smem_once(k6_decode<__half>, smem, smem_set[elem])
                   : elem == ELEM_F32 ? smem_once(k6_wide<float>, smem, smem_set[elem])
-                                     : smem_once(k6_decode, smem, smem_set[elem]);
+                                     : smem_once(k6_decode<__nv_bfloat16>, smem, smem_set[elem]);
   if (e != cudaSuccess) return e;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
-  const int boxes = elem == ELEM_BF16 && ps % WROWS == 0;  // a warp's 16 rows lie in one page
+  // bf16 and fp16: a warp's 16 rows lie in one page
+  const int boxes = elem != ELEM_F32 && ps % WROWS == 0;
   // the main pool as [P * 2L * ps rows, KV*D]
-  if (boxes && (e = rows_map(&map, main, (long long)P * 2 * L * ps, KV * HD)) != cudaSuccess)
+  if (boxes &&
+      (e = rows_map(&map, main, (long long)P * 2 * L * ps, KV * HD, elem)) != cudaSuccess)
     return e;
   Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
          main, staging_b, (const int*)page_table, (const int*)seq_lens, (__nv_bfloat16*)out,
@@ -652,11 +725,11 @@ int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, c
   cfg.attrs = at;
   cfg.numAttrs = split > 1 ? 1 : 0;
   if (elem == ELEM_F16)
-    e = cudaLaunchKernelEx(&cfg, k6_wide<__half>, a);
+    e = cudaLaunchKernelEx(&cfg, k6_decode<__half>, map, a);
   else if (elem == ELEM_F32)
     e = cudaLaunchKernelEx(&cfg, k6_wide<float>, a);
   else
-    e = cudaLaunchKernelEx(&cfg, k6_decode, map, a);
+    e = cudaLaunchKernelEx(&cfg, k6_decode<__nv_bfloat16>, map, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -13,24 +13,30 @@
 //   row b is main[page_table[b, t / ps], layer (k) or L + layer (v), t % ps]
 //   with n_h = seq_lens[b], read in the kernel without a gathered copy; the
 //   chunk's keys are k_cur, v_cur [B,S,KV,D].
-// The TPU kernel's rounding points are kept: q is scaled by 1/sqrt(D) in
-// bf16; scores, the running max and sum are f32; masked scores are -1e30;
-// probabilities are rounded to bf16 against the running max before PV; the
-// output is acc / max(l, 1e-30) in bf16, so a fully masked row stays finite.
+// q, the keys, the values and the output share the pool's type: bf16 or
+// fp16 (k4_prefill<T>, on the tensor cores), or f32 (k4_wide<float>, on
+// FMAs; below). The TPU kernel's rounding points are kept: q is scaled by
+// 1/sqrt(D) in T; scores, the running max and sum are f32; masked scores are
+// -1e30; probabilities are rounded to T against the running max before PV
+// (in fp16 those below 2^-14 as subnormals, as the plain version's cast
+// keeps them); the output is acc / max(l, 1e-30) in T, so a fully masked row
+// stays finite.
 //
 // Bound: operations (4*D flops per visible query-key pair per head: 3.3
 // GFLOP at a 512-token chunk over 400 history keys for 2B's 20 heads, about
-// 3.4 us at the bf16 tensor-core peak, against 11 MB of q, k, v and output).
+// 3.4 us at the bf16 and fp16 tensor-core peak, against 11 MB of q, k, v and
+// output).
 // What the design does about it:
 // - One block per (q tile of BQ tokens, KV head, batch row) feeds all G
 //   query heads of the KV head: each K/V tile lands in shared memory once
 //   for G*BQ query rows. Warp w owns 16 consecutive tokens of one query head
 //   (G*BQ/16 warps, 4-8; BQ from G alone, flash_attention.py::
 //   flash_prefill_bq). Blocks are ordered longest q tile first.
-// - Everything in registers, on mma.sync m16n8k16 bf16 -> f32: a warp's
+// - Everything in registers, on mma.sync m16n8k16 bf16 or fp16 -> f32 (the
+//   product of two values of either type is exact in f32): a warp's
 //   scaled Q fragments are read once by ldmatrix and kept; scores are Q (A)
 //   times K rows (B, ldmatrix); the row max and sum are quad shuffles over
-//   the score accumulators; the bf16 probabilities are the PV product's A
+//   the score accumulators; the rounded probabilities are the PV product's A
 //   fragments straight from the score accumulators' layout; V comes by
 //   ldmatrix.trans as B; the 16 x 128 f32 output accumulator stays in
 //   registers and is rescaled there (skipped when no row's max moved).
@@ -51,14 +57,17 @@
 // not the copies (hidden behind the compute) and not the tensor cores'
 // rate: twice the warps per SM run in the same time.
 //
-// fp16 and f32 pools (k4_wide<T>, the reference's kernel on an fp16 pool and
-// at HIGHEST precision on an f32 one): the same function, masks and rounding
-// points in the pool's type T (q, the chunk's keys and the output are T too:
-// q scaled by 1/sqrt(D) in T, probabilities rounded to T before PV), on
-// register-blocked f32 FMAs. The product of two fp16 or two f32 values is
-// exact in f32 (the tensor cores take f32 only as TF32, which would truncate
-// it), so again only the order of the f32 sums differs from the plain
-// version. Warp w owns 8 tokens of one query head (G * BQ / 8 warps, BQ from
+// fp16 pools take this kernel as it stands, instantiated on __half: the same
+// ring, warps, ldmatrix layout and shared memory, f16 mma for both products,
+// the probabilities packed to fp16, the tensor maps of fp16 rows (the copy
+// engine moves the same bytes as for bf16).
+//
+// f32 pools (k4_wide<float>, the reference's kernel at HIGHEST precision):
+// the same function, masks and rounding points in f32, on register-blocked
+// f32 FMAs. The product of two f32 values is exact in f32 (the tensor cores
+// take f32 only as TF32, which would truncate it), so again only the order
+// of the f32 sums differs from the plain version. Warp w owns 8 tokens of
+// one query head (G * BQ / 8 warps, BQ from
 // flash_attention.py::flash_prefill_wide_bq, at most 64 rows a block); lane
 // (rg, kg) = (lane / 16, lane % 16) holds the scores of rows 4rg..4rg+3 of
 // the warp against keys kg + 16j (j < 4) and their output at dims 4kg + 64u
@@ -162,9 +171,9 @@ __device__ __forceinline__ void issue(const Args& a, const Maps& maps, char* sta
   const int j = lane & 15, v = lane >> 4;
   char* dst = v ? vd : kd;
   if (j < nv) {
-    const __nv_bfloat16* base =
-        static_cast<const __nv_bfloat16*>(hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck));
-    const __nv_bfloat16* src =
+    const uint16_t* base =  // bf16 or fp16: 2-byte elements, copied as bytes
+        static_cast<const uint16_t*>(hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck));
+    const uint16_t* src =
         base + row_of(a, hist, v, b, t0 + j, -1) * ((long long)a.KV * HD) + kvh * HD;
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) cp_async16(dst + swz(j, c), src + 8 * c);
@@ -179,10 +188,13 @@ __device__ __forceinline__ void issue(const Args& a, const Maps& maps, char* sta
 }
 
 // Grid (KV, q tiles, B), G*BQ/16 warps, one per 16 tokens of one query head.
-// maps: the history and chunk arrays as rows of KV*D bf16 in boxes of 16
+// T: the 16-bit type of q, the keys, the values and the output (bf16 or
+// fp16). maps: the history and chunk arrays as rows of KV*D T in boxes of 16
 // rows x 64 dims, 128-byte swizzle.
+template <typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     k4_prefill(const __grid_constant__ Maps maps, Args a) {
+  using Ops = F16Ops<T>;
   extern __shared__ unsigned char raw[];
   // the ring [STAGES][k, v][4 groups][GROUP], then each warp's Q rows, all
   // 1024-byte aligned for the swizzle
@@ -220,20 +232,20 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       issue(a, maps, ring + s * STAGE, &full[s], s, nth, n_h, n_c, b, kvh, warp, lane, pg);
   }
 
-  // this warp's 16 query rows, scaled in bf16 (zero past S), as the A
+  // this warp's 16 query rows, scaled in T (zero past S), as the A
   // fragments of the score product's 8 k-steps
   char* qw = ring + RING + warp * GROUP;
   {
-    const __nv_bfloat162 sc = __bfloat162bfloat162(__float2bfloat16_rn(a.scale));
     for (int idx = lane; idx < 16 * (HD / 8); idx += 32) {
       const int r = idx / (HD / 8), c = idx % (HD / 8), s = sw + r;
       uint4 x = make_uint4(0, 0, 0, 0);
       if (s < a.S) {
-        x = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.q) +
+        x = *reinterpret_cast<const uint4*>(static_cast<const T*>(a.q) +
                                             (((size_t)b * a.S + s) * a.NH + h) * HD + 8 * c);
-        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) e[u] = __hmul2(e[u], sc);
+        x.x = Ops::scale(x.x, a.scale);
+        x.y = Ops::scale(x.y, a.scale);
+        x.z = Ops::scale(x.z, a.scale);
+        x.w = Ops::scale(x.w, a.scale);
       }
       *reinterpret_cast<uint4*>(qw + swz(r, c)) = x;
     }
@@ -278,8 +290,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
         for (int j = 0; j < TK / 16; ++j) {
           uint32_t kb[4];
           ldmatrix_x4(kb, kt + j * GROUP + (k >> 2) * BOX + koff[k & 3]);
-          mma_bf16(s[2 * j], qf[k], kb[0], kb[1]);
-          mma_bf16(s[2 * j + 1], qf[k], kb[2], kb[3]);
+          Ops::mma(s[2 * j], qf[k], kb[0], kb[1]);
+          Ops::mma(s[2 * j + 1], qf[k], kb[2], kb[3]);
         }
       }
       // masks: the history's last tile, chunk tiles at the diagonal or new_len
@@ -305,7 +317,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
         alpha[r] = expf(m[r] - m_new);
         m[r] = m_new;
       }
-      // the probabilities, rounded to bf16, as the PV product's A fragments:
+      // the probabilities, rounded to T, as the PV product's A fragments:
       // k-step kk covers keys 16kk.. (score tiles 2kk and 2kk + 1)
       uint32_t pa[TK / 16][4];
       float rs[2] = {0.f, 0.f};
@@ -315,8 +327,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
         const float p2 = expf(s[n][2] - m[1]), p3 = expf(s[n][3] - m[1]);
         rs[0] += p0 + p1;
         rs[1] += p2 + p3;
-        pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-        pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pa[n >> 1][(n & 1) * 2] = Ops::pack(p0, p1);
+        pa[n >> 1][(n & 1) * 2 + 1] = Ops::pack(p2, p3);
       }
       l[0] = l[0] * alpha[0] + rs[0];
       l[1] = l[1] * alpha[1] + rs[1];
@@ -335,8 +347,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
         for (int jj = 0; jj < HD / 16; ++jj) {
           uint32_t vb[4];
           ldmatrix_x4_trans(vb, vt + kk * GROUP + (jj >> 2) * BOX + voff[jj & 3]);
-          mma_bf16(o[2 * jj], pa[kk], vb[0], vb[1]);
-          mma_bf16(o[2 * jj + 1], pa[kk], vb[2], vb[3]);
+          Ops::mma(o[2 * jj], pa[kk], vb[0], vb[1]);
+          Ops::mma(o[2 * jj + 1], pa[kk], vb[2], vb[3]);
         }
       }
     }
@@ -357,31 +369,31 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     const int s = sw + gid + 8 * r;
     if (s >= a.S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* dst =
-        static_cast<__nv_bfloat16*>(a.out) + (((size_t)b * a.S + s) * a.NH + h) * HD + 2 * t4;
+    T* dst = static_cast<T*>(a.out) + (((size_t)b * a.S + s) * a.NH + h) * HD + 2 * t4;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-          __floats2bfloat162_rn(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          Ops::pack(o[n][2 * r] / den, o[n][2 * r + 1] / den);
   }
 }
 
+template <typename T>
 cudaError_t launch(const Maps& maps, const Args& a, int B, void* stream) {
-  static bool smem_set = false;  // raised once per process
+  static bool smem_set = false;  // raised once per process and type
   cudaError_t e;
   if (!smem_set) {
-    if ((e = cudaFuncSetAttribute(k4_prefill, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if ((e = cudaFuncSetAttribute(k4_prefill<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   SMEM)) != cudaSuccess)
       return e;
     smem_set = true;
   }
   const int warps = a.G * a.BQ / 16;
   const dim3 grid(a.KV, (a.S + a.BQ - 1) / a.BQ, B);
-  k4_prefill<<<grid, warps * 32, RING + warps * GROUP + 1024, (cudaStream_t)stream>>>(maps, a);
+  k4_prefill<T><<<grid, warps * 32, RING + warps * GROUP + 1024, (cudaStream_t)stream>>>(maps, a);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------- fp16 and f32 ----
+// ------------------------------------------------------------- f32 ----
 
 template <typename T>
 struct Wide {
@@ -579,19 +591,20 @@ cudaError_t launch_wide(const Args& a, int B, void* stream) {
   return cudaGetLastError();
 }
 
-// Launch for the pool's type: bf16 through the tensor maps, fp16 and f32 on FMAs.
+// Launch for the pool's type: bf16 and fp16 on the tensor cores through the
+// tensor maps, f32 on FMAs.
 cudaError_t launch_elem(const Maps& maps, const Args& a, int B, int elem, void* stream) {
-  if (elem == ELEM_F16) return launch_wide<__half>(a, B, stream);
+  if (elem == ELEM_F16) return launch<__half>(maps, a, B, stream);
   if (elem == ELEM_F32) return launch_wide<float>(a, B, stream);
-  return launch(maps, a, B, stream);
+  return launch<__nv_bfloat16>(maps, a, B, stream);
 }
 
-// The shapes the kernel takes: D 128, G = NH / KV <= 8; bf16: BQ a multiple
-// of 16 with 4-8 warps; fp16 and f32: BQ a multiple of 8, at most 64 rows.
+// The shapes the kernel takes: D 128, G = NH / KV <= 8; bf16 and fp16: BQ a
+// multiple of 16 with 4-8 warps; f32: BQ a multiple of 8, at most 64 rows.
 bool shapes_ok(int NH, int KV, int D, int bq, int elem) {
   if (D != HD || KV <= 0 || NH % KV || NH / KV > 8 || bq <= 0) return false;
-  if (elem == ELEM_F16 || elem == ELEM_F32) return bq % 8 == 0 && NH / KV * bq <= 64;
-  if (elem != ELEM_BF16 || bq % 16) return false;
+  if (elem == ELEM_F32) return bq % 8 == 0 && NH / KV * bq <= 64;
+  if ((elem != ELEM_BF16 && elem != ELEM_F16) || bq % 16) return false;
   const int warps = NH / KV * bq / 16;
   return warps >= LOADERS && warps <= MAX_WARPS;
 }
@@ -614,8 +627,8 @@ int wf_flash_paged_prefill(const void* q, const void* k, const void* v, const vo
   memset(&maps, 0, sizeof(maps));
   cudaError_t e;
   const long long rows = (long long)B * Tt;
-  if (elem == ELEM_BF16 && ((e = rows_map(&maps.hk, k, rows, KV * HD)) != cudaSuccess ||
-                            (e = rows_map(&maps.hv, v, rows, KV * HD)) != cudaSuccess))
+  if (elem != ELEM_F32 && ((e = rows_map(&maps.hk, k, rows, KV * HD, elem)) != cudaSuccess ||
+                           (e = rows_map(&maps.hv, v, rows, KV * HD, elem)) != cudaSuccess))
     return e;
   maps.ck = maps.hk;
   maps.cv = maps.hv;
@@ -640,13 +653,13 @@ int wf_flash_paged_prefill_pool(const void* q, const void* k_cur, const void* v_
   memset(&maps, 0, sizeof(maps));
   cudaError_t e;
   const int boxes = ps % 16 == 0;  // a group of 16 history rows lies in one page
-  if (elem == ELEM_BF16) {
+  if (elem != ELEM_F32) {
     if (boxes &&
-        (e = rows_map(&maps.hk, main, (long long)P * 2 * L * ps, KV * HD)) != cudaSuccess)
+        (e = rows_map(&maps.hk, main, (long long)P * 2 * L * ps, KV * HD, elem)) != cudaSuccess)
       return e;
     maps.hv = maps.hk;
-    if ((e = rows_map(&maps.ck, k_cur, (long long)B * S, KV * HD)) != cudaSuccess ||
-        (e = rows_map(&maps.cv, v_cur, (long long)B * S, KV * HD)) != cudaSuccess)
+    if ((e = rows_map(&maps.ck, k_cur, (long long)B * S, KV * HD, elem)) != cudaSuccess ||
+        (e = rows_map(&maps.cv, v_cur, (long long)B * S, KV * HD, elem)) != cudaSuccess)
       return e;
   }
   Args a{q, out, main, main, k_cur, v_cur, (const int*)seq_lens, (const int*)new_len,

@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the paged flash decode (K6,
 // flash_decode.cu), the paged flash prefill (K4, flash_paged_prefill.cu) and
 // the causal flash prefill (K9, flash_prefill.cu): mbarriers, copy-engine
-// (TMA) and cp.async loads, ldmatrix, mma.sync m16n8k16 bf16 -> f32, and the
-// tensor maps, all in the 128-byte swizzle, of [rows, KV*128] bf16 arrays in
-// boxes of 16 rows x 64 dims and of [batch, rows, KV*D] bf16 or f32 arrays
-// in boxes of n rows x 128 bytes; and the element loads of the fp16 and f32
+// (TMA) and cp.async loads, ldmatrix, mma.sync m16n8k16 bf16 or fp16 and
+// m16n8k8 TF32 -> f32, the 16-bit types' pairs (packing, scaling), and the
+// tensor maps, all in the 128-byte swizzle, of [rows, KV*128] 16-bit arrays
+// in boxes of 16 rows x 64 dims and of [batch, rows, KV*D] bf16 or f32
+// arrays in boxes of n rows x 128 bytes; and the element loads of the f32
 // pools' kernels (K4 and K6 on FMAs).
 
 #pragma once
@@ -16,6 +17,10 @@
 #include <stdint.h>
 
 namespace {
+
+// Pool codes of the paged flash kernels' entry points: the type of the pool
+// (and, in K4, of q, the chunk's keys and the output).
+constexpr int ELEM_BF16 = 0, ELEM_F16 = 1, ELEM_F32 = 2;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -138,10 +143,75 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the same with fp16 inputs (the product of two fp16 values, subnormals
+// included, is exact in f32)
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 inputs (f32 registers whose low
+// 13 mantissa bits the tensor cores ignore), f32 accumulators. Every bf16
+// and every fp16 value, subnormals included, is exact in TF32, and the
+// product of a bf16 and an fp16 value is exact in f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], float a0, float a1, float a2, float a3,
+                                         float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
+        "r"(__float_as_uint(a3)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// (lo, hi) rounded to fp16 to nearest even, subnormals kept
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The tensor-core kernels' 16-bit element T (__nv_bfloat16 or __half): its
+// mma, its pair packed from two floats, and a pair scaled in T.
+template <typename T>
+struct F16Ops;
+template <>
+struct F16Ops<__nv_bfloat16> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_bf16(d, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  // the pair x times the scalar s rounded to T, correctly rounded
+  static __device__ __forceinline__ uint32_t scale(uint32_t x, float s) {
+    const __nv_bfloat162 y = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&x),
+                                     __bfloat162bfloat162(__float2bfloat16_rn(s)));
+    return *reinterpret_cast<const uint32_t*>(&y);
+  }
+};
+template <>
+struct F16Ops<__half> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_f16(d, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ uint32_t scale(uint32_t x, float s) {
+    const __half2 y = __hmul2(*reinterpret_cast<const __half2*>(&x),
+                              __half2half2(__float2half_rn(s)));
+    return *reinterpret_cast<const uint32_t*>(&y);
+  }
+};
 
 // Byte offset of the 16-byte chunk c (dims 8c..8c+7) of row r (0-15) of a
 // 16-row group: [64-dim half][16 rows][128 bytes] in the copy engine's
@@ -178,18 +248,23 @@ cudaError_t encode_tiled(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// A bf16 array [rows, cols] (rows of cols elements, contiguous) as boxes of
-// 16 rows x 64 elements in the 128-byte swizzle.
-cudaError_t rows_map(CUtensorMap* map, const void* base, long long rows, int cols) {
+// A bf16 or fp16 array [rows, cols] (rows of cols elements, contiguous;
+// elem ELEM_BF16 or ELEM_F16) as boxes of 16 rows x 64 elements in the
+// 128-byte swizzle. The map names the element type, though a copy without
+// conversion or fill moves the same bytes for either.
+cudaError_t rows_map(CUtensorMap* map, const void* base, long long rows, int cols, int elem) {
   EncodeTiled enc;
   const cudaError_t e = encode_tiled(&enc);
   if (e != cudaSuccess) return e;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, 16};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint32_t one[2] = {1, 1};
+  CUresult r = enc(map,
+                   elem == ELEM_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   2, const_cast<void*>(base), dims, strides, box, one,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -216,13 +291,9 @@ cudaError_t batched_rows_map(CUtensorMap* map, const void* base, int batch, long
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// ------------------------------------------ fp16 and f32 elements ----
-// Pool codes of the paged flash kernels' entry points: the type of the pool
-// (and, in K4, of q, the chunk's keys and the output).
-constexpr int ELEM_BF16 = 0, ELEM_F16 = 1, ELEM_F32 = 2;
+// ------------------------------------------------- f32 elements ----
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 // x rounded to T (to nearest even)
 template <typename T>
@@ -231,38 +302,18 @@ template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
 
-// 8 consecutive elements from 16-byte aligned shared or global memory, as f32
+// 8 consecutive f32 elements from 16-byte aligned shared or global memory
 __device__ __forceinline__ void ld8(const float* p, float (&x)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
-__device__ __forceinline__ void ld8(const __half* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
 
-// 4 consecutive elements (16-byte aligned f32, 8-byte aligned fp16), as f32
+// 4 consecutive f32 elements from 16-byte aligned memory
 __device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-}
-__device__ __forceinline__ void ld4(const __half* p, float (&x)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
 }
 
 }  // namespace

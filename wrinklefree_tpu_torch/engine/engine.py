@@ -1094,22 +1094,19 @@ class Engine:
         elif req.seq_len + 1 >= self.ecfg.max_context:
             finished, reason = True, "length"
         if finished:
-            # set the reason before notifying: stream consumers read it as
-            # soon as they see fin=True
-            req.finish_reason = reason
+            # finish (the reason set, the slot and pages freed) before
+            # notifying: stream consumers read the request, and a server its
+            # slots, as soon as they see fin=True
+            self._finish(req, reason)
         if req.on_token is not None:
             req.on_token(tok, finished)
-        if finished:
-            self._finish(req, reason)
 
     def _finish_notify(self, req: Request, reason: str):
         """Finish without emitting a token (a grammar's dead end or its
         completion): stream consumers still get a final (fin=True) event."""
-        req.finish_reason = reason
-        req.finished = True
+        self._finish(req, reason)
         if req.on_token is not None:
             req.on_token(-1, True)
-        self._finish(req, reason)
 
     def _make_validator(self, s: SamplingParams):
         from .constrained import make_validator
@@ -1194,11 +1191,9 @@ class Engine:
                     break
             if req in self._backlog:
                 self._backlog.remove(req)
-            req.finish_reason = reason
-            req.finished = True
+            self._finish(req, reason)
             if req.on_token is not None:
                 req.on_token(-1, True)
-            self._finish(req, reason)
             return True
 
     def latency_summary(self) -> dict:
