@@ -24,8 +24,8 @@ vocab 128256) with random weights drawn on the card from seed 0:
                determinism and for NaN rows past the valid tokens), K4 over
                contiguous keys and over the pool (checked likewise), K4 and
                K6 again on fp16 pools (on the tensor cores: K4 on f16 mma,
-               K6's scores on TF32 mma) and f32 pools (their FMA kernels),
-               and
+               K6's scores on TF32 mma) and f32 pools (TF32 mma on split
+               operands: 3xTF32 products, K6's keys in three pieces), and
                the causal flash prefill, which no path runs, only here;
 3. forward   — ``paged_forward``: a 128-token prefill chunk and 4 decode
                steps, once through the kernels and once through the plain
@@ -232,7 +232,9 @@ KERNELS = {
     # K4 and K6 on fp16 and f32 pools (the heads_kv phase's engines): fp16
     # on the tensor cores (k4_prefill<__half> on f16 mma; k6_decode<__half>,
     # its bf16 x fp16 scores on TF32 mma, which holds both exactly, PV on
-    # f16 mma), f32 on FMAs (k4_wide<float>, k6_wide<float>);
+    # f16 mma), f32 on TF32 mma with each f32 operand split into TF32 pieces
+    # (k4_prefill_f32: 3xTF32 products; k6_decode_f32: the bf16 query times
+    # each key's three pieces, exact, PV in 3xTF32);
     # K4's pool form on the layer layout, its contiguous form on the token
     # layout
     **{f"{name}/{dt}": {"source": f"wrinklefree_tpu_torch/csrc/{src}",
@@ -623,8 +625,8 @@ def phase_kernels(params, cfg, dev, results):
 def kernels_k4(cfg, dev, results, pool="bf16"):
     """K4, the paged flash prefill, against its plain versions at the shapes
     of ``wrinklefree_tpu_torch/bench/flash_prefill.py`` (2B attention) on a
-    pool of type ``pool`` (bf16 and fp16 on the tensor cores, f32 on FMAs; q,
-    the chunk and the output of the pool's type too): over contiguous keys
+    pool of type ``pool`` (all on the tensor cores, f32 in 3xTF32 products;
+    q, the chunk and the output of the pool's type too): over contiguous keys
     (a 512-token chunk over a 512-slot history, kv_valid 400, new_len 500:
     the kernels phase's first K4 shape) and over the pool at the engine's
     widest table (page size 16, 128 pages per row): one row of a 512-token
@@ -636,12 +638,15 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
     on fp16 with ``FP16_EQUAL_SHARE`` of the row bitwise equal, and the
     kernel over the keys rounded to bf16 (an inexact read of them) must fail
     that bar on some row; 2e-5 in f32 (nothing rounds; the f32 sums' order
-    differs). At each shape two calls must give
+    differs, and the products are 3xTF32), and the kernel over the keys and
+    values rounded to TF32 (one pass, no lo pieces) must fail it on some row.
+    At each shape two calls must give
     the same bits, and with NaN in every row the kernel may not read
     (history from kv_valid or seq_lens on, chunk keys from new_len on) the
     real rows must be finite and bitwise equal to the run with zeros there.
     Each shape prints its time, SDPA's over contiguous copies, the plain
-    version's, the bound, the query tokens per block and the error."""
+    version's, the bound (on f32 the 3xTF32 one and, beside it, the bound on
+    f32 FMAs), the query tokens per block and the error."""
     import torch
 
     from wrinklefree_tpu_torch.bench import flash_prefill as bench
@@ -655,12 +660,19 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
     bar = fa.POOL_BARS[pool]["k4"]
     bq = bench.block_q(fa, pool)
     tag = "" if pool == "bf16" else f" {pool}"
+    # the control's read of a key (or, on f32, value) array: fp16 keys at
+    # bf16, f32 keys and values rounded to TF32 once
+    ctl = ((lambda t: t.bfloat16().to(t.dtype)) if pool == "fp16"
+           else fa.tf32_round if pool == "f32" else (lambda t: t))
+    ctl_v = ctl if pool == "f32" else (lambda t: t)
+    control_key = {"fp16": "keys_bf16_equal_share", "f32": "tf32_read_equal_share"}
 
     def checked(name, run, plain, poisoned, new_lens, keys_bf16):
         """(max abs error, least bitwise equal share) of run() against
         plain() on the real rows, and the most equal share of keys_bf16()
-        (fp16: the kernel over the keys rounded to bf16, which must fail the
-        bar), after the determinism and poison checks."""
+        (fp16: the kernel over the keys rounded to bf16; f32: over the keys
+        and values rounded to TF32; each must fail the bar), after the
+        determinism and poison checks."""
         name += tag
         a, again, b = run(), run(), plain()
         torch.cuda.synchronize()
@@ -673,12 +685,13 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
         if not torch.equal(a, again):
             fail(f"K4 {name}: two calls differ")
         control = None
-        if pool == "fp16":
+        if pool != "bf16":
             r16 = keys_bf16()
             oks16, _, shares16 = zip(*(fa.meets_pool_bar(r16[i, :n], b[i, :n], "k4", pool)
                                        for i, n in enumerate(new_lens)))
             if all(oks16):
-                fail(f"K4 {name}: the bar passes the kernel over keys rounded to bf16")
+                fail(f"K4 {name}: the bar passes the kernel over "
+                     f"{'keys rounded to bf16' if pool == 'fp16' else 'a TF32-rounded read'}")
             control = max(shares16)
         z, nan = (r() for r in poisoned)
         for i, n in enumerate(new_lens):
@@ -714,7 +727,7 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
         lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T),
         [lambda f=f: fa.flash_paged_prefill(q, *f, kvv, nl, hist_len=T) for f in fills],
         [c["new_len"]],
-        lambda: fa.flash_paged_prefill(q, kf.bfloat16().to(kf.dtype), vf, kvv, nl, hist_len=T))
+        lambda: fa.flash_paged_prefill(q, ctl(kf), ctl_v(vf), kvv, nl, hist_len=T))
     del fills
     ms, call_ms = cuda_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T))
     plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T))
@@ -728,9 +741,10 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
                            f"new_len={c['new_len']} NH={NH} KV={KV} pool={pool}",
                      ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                      library="SDPA", bound_ms=b_ms, bound_by=b_by,
+                     **bench.fma_bound(S, [c["kv_valid"]], [c["new_len"]], pool),
                      bq=bq, max_abs_err=err, bitwise_equal_share=share,
                      deterministic=True, nan_rows_unread=True,
-                     **({"keys_bf16_equal_share": keys_bf16} if pool == "fp16" else {})))
+                     **({control_key[pool]: keys_bf16} if pool != "bf16" else {})))
     # the pool
     for name, (S, sl, nls) in bench.POOL.items():
         (q, kc, vc, main), (pt, slt, nlt) = bench.pool_case(inp, name)
@@ -749,11 +763,11 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
                     pm[pt[i, n // ps:].long()] = fill
                 return fa.flash_paged_prefill_pool(q, *kv_, pm, layer, pt, slt, nlt)
 
-            def rounded(layer=layer):  # the layer's key rows and the chunk's keys at bf16
-                pm[:, layer] = main[:, layer].bfloat16().to(main.dtype)
-                out = fa.flash_paged_prefill_pool(q, kc.bfloat16().to(kc.dtype), vc, pm,
-                                                  layer, pt, slt, nlt)
-                pm[:, layer] = main[:, layer]
+            def rounded(layer=layer):  # the layer's rows and the chunk's, read as ctl does
+                pm[:, layer] = ctl(main[:, layer])
+                pm[:, L + layer] = ctl_v(main[:, L + layer])
+                out = fa.flash_paged_prefill_pool(q, ctl(kc), ctl_v(vc), pm, layer, pt, slt, nlt)
+                pm[:, layer], pm[:, L + layer] = main[:, layer], main[:, L + layer]
                 return out
 
             e, sh, c16 = checked(
@@ -794,9 +808,10 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
                                f"new_lens={nls} pool={pool}",
                          ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library="SDPA over contiguous copies", bound_ms=b_ms, bound_by=b_by,
+                         **bench.fma_bound(S, sl, nls, pool),
                          bq=bq, max_abs_err=err, bitwise_equal_share=share,
                          deterministic=True, nan_rows_unread=True,
-                         **({"keys_bf16_equal_share": keys_bf16} if pool == "fp16" else {})))
+                         **({control_key[pool]: keys_bf16} if pool != "bf16" else {})))
     for r in rows:
         print("kernels: K4 " + json.dumps(r))
     if pool == "bf16":
@@ -938,9 +953,11 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
     must fail that bar. At each shape two calls must give the
     same bits, and with the pool pages past each slot's committed span and
     the staging rows from its offset on set to NaN the output must be finite
-    and bitwise equal to the run with those rows zero. Each shape prints its
-    time, SDPA's, the bound, the split the wrapper picked, the error and the
-    bitwise equal share."""
+    and bitwise equal to the run with those rows zero. The CUDA runtime's
+    occupancy count must be ``DECODE_BLOCKS_PER_SM`` blocks of the type's kernel an SM, the split
+    rule's assumption. Each shape prints its time, SDPA's, the bound (on f32
+    also the bound on f32 FMAs), the split the wrapper picked, the error and
+    the bitwise equal share."""
     import torch
 
     from wrinklefree_tpu_torch.bench import flash_decode as bench
@@ -954,6 +971,12 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bar = fa.POOL_BARS[pool]["k6"]
     tag = "" if pool == "bf16" else f" {pool}"
+    # the split rule's assumption, from the CUDA runtime: this type's kernel at its
+    # shared memory fits DECODE_BLOCKS_PER_SM blocks on an SM
+    occupancy = fa.decode_occupancy(inp["main"].dtype, dev)
+    if occupancy != (fa.DECODE_SMEM_BYTES[pool], fa.DECODE_BLOCKS_PER_SM):
+        fail(f"K6{tag}: (shared memory, blocks per SM) {occupancy}, the split rule assumes "
+             f"{(fa.DECODE_SMEM_BYTES[pool], fa.DECODE_BLOCKS_PER_SM)}")
     rows, worst = [], 0.0
     for name, lens in bench.SHAPES.items():
         (q, kc, vc, main, stage), (pt, sl) = bench.case(inp, lens)
@@ -1039,19 +1062,21 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
         del ks, vs
         tokens = sum(n + 1 for n in lens)
         # QK and PV, 2 * NH * D operations a token each, at the card's peak
-        # for their operands: a bf16 query and fp16 keys meet exactly in TF32
-        # (where the kernel takes them); f32 (not TF32, which truncates) on
-        # the CUDA cores
+        # for the products the kernel runs: a bf16 query and fp16 keys meet
+        # exactly in TF32; on f32 three TF32 products each (the key's three
+        # pieces; 3xTF32 for PV); beside it the f32 pool's bound on f32 FMAs
         dots = 2 * NH * D * tokens
         ops = {"bf16": {"bf16": 2 * dots}, "fp16": {"tf32": dots, "fp16": dots},
-               "f32": {"f32": 2 * dots}}[pool]
+               "f32": {"tf32": 6 * dots}}[pool]
         b_ms, b_by = bound(bench.nbytes(lens, pool), ops)
+        fma = ({"bound_f32_fma_ms": bound(bench.nbytes(lens, pool), 2 * dots, "f32")[0]}
+               if pool == "f32" else {})
         split = fa.flash_decode_split(B, KV, MP * ps, cuda_lib.sm_count(dev))
         rows.append(dict(shape=f"decode {name} B={B} ps={ps} MP={MP} seq_lens={lens} "
                                f"pool={pool}", ms=ms,
                          call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library="SDPA over contiguous histories", bound_ms=b_ms, bound_by=b_by,
-                         split=split, max_abs_err=err, bitwise_equal_share=equal_share,
+                         **fma, split=split, blocks_per_sm=occupancy[1], max_abs_err=err, bitwise_equal_share=equal_share,
                          deterministic=True, nan_rows_unread=True,
                          **({"bf16_read_equal_share": bf16_read} if pool == "f32" else {}),
                          **({"keys_bf16_equal_share": bf16_read} if pool == "fp16" else {})))

@@ -637,29 +637,56 @@ def test_k6_page_sizes_on_card(pool, ps):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(POOL_DTYPES))
+def test_k6_blocks_per_sm_on_card(pool):
+    """The CUDA runtime's count of K6 blocks an SM holds, for the kernel of each
+    pool type at its shared memory: ``flash_decode_split``'s
+    ``DECODE_BLOCKS_PER_SM`` (2), with the ``DECODE_SMEM_BYTES`` that the
+    CPU tests check it against."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    smem, blocks = flash_attention.decode_occupancy(POOL_DTYPES[pool], torch.device("cuda"))
+    assert smem == flash_attention.DECODE_SMEM_BYTES[pool]
+    assert blocks == flash_attention.DECODE_BLOCKS_PER_SM
+
+
 def _k4_fails_bar(a, ref, real_rows, pool):
     """Whether K4's output ``a`` fails the bar on some real row."""
     return not all(flash_attention.meets_pool_bar(a[b, :n], ref[b, :n], "k4", pool)[0]
                    for b, n in enumerate(real_rows))
 
 
-def _k4_check(run, plain, real_rows, poison_runs, pool, keys_bf16=None):
+def _k4_check(run, plain, real_rows, poison_runs, pool, control=None):
     """K4 against its plain version within ``POOL_BARS`` on the real query
     rows; two calls bitwise equal; with NaN in every row the kernel may not
     read, the real rows finite and bitwise equal to the run with zeros
-    there. On fp16, returns whether the run ``keys_bf16`` (over the keys
-    rounded to bf16) fails the bar on some row."""
+    there. On fp16 and f32, returns whether the run ``control`` (fp16: over
+    the keys rounded to bf16; f32: over the keys and values rounded to TF32)
+    fails the bar on some row."""
     a, again, ref = run(), run(), plain()
     assert a.dtype == ref.dtype
     for b, n in enumerate(real_rows):
         _assert_pool_bar(a[b, :n], ref[b, :n], "k4", pool)
-    refused = _k4_fails_bar(keys_bf16(), ref, real_rows, pool) if pool == "fp16" else None
+    refused = _k4_fails_bar(control(), ref, real_rows, pool) if pool != "bf16" else None
     assert torch.equal(a, again)
     z, p = (r() for r in poison_runs)
     for b, n in enumerate(real_rows):
         assert torch.isfinite(p[b, :n]).all() and torch.equal(p[b, :n], z[b, :n])
         assert torch.equal(a[b, :n], z[b, :n])
     return refused
+
+
+def _k4_control(pool, t):
+    """What K4's control reads instead of ``t`` (a key or value array): on
+    fp16 the keys at bf16 (``t`` unchanged for values, whose caller passes
+    them as they are), on f32 each value rounded to TF32 (one pass of the
+    tensor cores, without the lo pieces), on bf16 ``t``."""
+    if pool == "fp16":
+        return t.bfloat16().to(t.dtype)
+    if pool == "f32":
+        return flash_attention.tf32_round(t)
+    return t
 
 
 def _one_key_each(history, new_lens):
@@ -682,11 +709,12 @@ def test_k4_pool_matches_plain_on_card(pool, g, ps, s, b):
     against its plain version (the gathered history, as the paged forward
     had it) within ``POOL_BARS``, on bf16, fp16 and f32 pools, at seq_lens 0,
     ps, 5 ps and the full table (256 tokens), new_lens 1, 63, 64, 65 and S,
-    different per row, the first and the last layer; boxes of 16 rows (bf16
-    and fp16, ps 16, 64) and rows one by one (ps 8; f32 always). Deterministic,
-    and blind to NaN in the pool pages from each row's seq_lens on and in
-    the chunk's rows from its new_lens on. On fp16 the kernel over the keys
-    rounded to bf16 fails the bar, but where each row sees one key only."""
+    different per row, the first and the last layer; boxes of 16 rows (ps
+    16, 64) and rows one by one (ps 8). Deterministic, and blind to NaN in
+    the pool pages from each row's seq_lens on and in the chunk's rows from
+    its new_lens on. On fp16 the kernel over the keys rounded to bf16 fails
+    the bar, but where each row sees one key only; on f32 the kernel over
+    the keys and values rounded to TF32 (no lo pieces) fails it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -721,11 +749,13 @@ def test_k4_pool_matches_plain_on_card(pool, g, ps, s, b):
                 nl,
                 [lambda m=m, kv_=kv_: fa.flash_paged_prefill_pool(q, *kv_, m, layer, pt, slt, nlt)
                  for m, kv_ in zip(pools, curs)], pool,
-                lambda: fa.flash_paged_prefill_pool(q, kc.bfloat16().to(kc.dtype), vc,
-                                                    sub.keys_at_bf16(main, n_l), layer, pt,
-                                                    slt, nlt))
-            assert fa.flash_paged_prefill.launches - n0 == (5 if pool == "fp16" else 4)
-            assert pool != "fp16" or refused or _one_key_each(sl, nl)
+                lambda: fa.flash_paged_prefill_pool(
+                    q, _k4_control(pool, kc),
+                    _k4_control(pool, vc) if pool == "f32" else vc,
+                    sub.keys_at_bf16(main, n_l) if pool == "fp16" else _k4_control(pool, main),
+                    layer, pt, slt, nlt))
+            assert fa.flash_paged_prefill.launches - n0 == (4 if pool == "bf16" else 5)
+            assert pool == "bf16" or refused or (pool == "fp16" and _one_key_each(sl, nl))
     torch.cuda.synchronize()
 
 
@@ -740,7 +770,8 @@ def test_k4_contiguous_matches_plain_on_card(pool, g, s, b):
     new_len 1, 63, 64, 65 and S; deterministic, and blind to NaN in the
     history columns from kv_valid on and in the chunk's columns from new_len
     on. On fp16 the kernel over the keys rounded to bf16 fails the bar, but
-    where each row sees one key only."""
+    where each row sees one key only; on f32 the kernel over the keys and
+    values rounded to TF32 fails it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -770,9 +801,10 @@ def test_k4_contiguous_matches_plain_on_card(pool, g, s, b):
             nl,
             [lambda f=f: fa.flash_paged_prefill(q, *f, kvt, nlt, hist_len=T) for f in fills],
             pool,
-            lambda: fa.flash_paged_prefill(q, kf.bfloat16().to(kf.dtype), vf, kvt, nlt,
-                                           hist_len=T))
-        assert pool != "fp16" or refused or _one_key_each(kvv, nl)
+            lambda: fa.flash_paged_prefill(q, _k4_control(pool, kf),
+                                           _k4_control(pool, vf) if pool == "f32" else vf,
+                                           kvt, nlt, hist_len=T))
+        assert pool == "bf16" or refused or (pool == "fp16" and _one_key_each(kvv, nl))
     torch.cuda.synchronize()
 
 
@@ -907,6 +939,100 @@ def test_k6_fp16_subnormal_probabilities_on_card(inputs):
 K9_CASES = [(1, 1, 128, 128, 0, False), (4, 2, 128, 256, 128, False),
             (8, 1, 64, 192, 100, False), (4, 2, 40, 40, 0, False), (2, 2, 24, 64, 40, True),
             (3, 1, 96, 128, 32, False), (16, 1, 64, 128, 64, True), (4, 1, 128, 128, 100, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_k4_f32_long_history_on_card(scale):
+    """K4 on an f32 pool over one row's 8192-token history and a 64-token
+    chunk, 2B's heads (20 query / 5 KV), q and keys of ``scale`` units a
+    dim: within ``POOL_BARS["f32"]`` (2e-5) of the plain version. The
+    output's tensor-core sums must not run over the whole history: one that
+    did drifted to 9.4e-5 here at 2 units."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(41 * scale))
+    kv, g, ps, n_l, hist, s = 5, 4, 16, 1, 8192, 64
+    mp = hist // ps + 1
+    q = torch.randn((1, s, kv * g, 128), generator=gen, device=dev) * scale
+    kc = torch.randn((1, s, kv, 128), generator=gen, device=dev) * scale
+    vc = torch.randn((1, s, kv, 128), generator=gen, device=dev)
+    main = torch.randn((mp + 1, 2 * n_l, ps, kv * 128), generator=gen, device=dev)
+    main[:, :n_l] *= scale
+    pt = (torch.randperm(mp, generator=gen, device=dev) + 1).reshape(1, mp).int()
+    sl, nl = (torch.tensor([x], dtype=torch.int32, device=dev) for x in (hist, s))
+    a = flash_attention.flash_paged_prefill_pool(q, kc, vc, main, 0, pt, sl, nl)
+    ref = flash_attention.flash_paged_prefill_pool_plain(q, kc, vc, main, 0, pt, sl, nl)
+    torch.cuda.synchronize()
+    _assert_pool_bar(a[0], ref[0], "k4", "f32")
+
+
+TINY = 2.0 ** -120  # keys and values of this size: their TF32 lo pieces are subnormal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["k4-pool", "k4-contiguous", "k6"])
+def test_f32_tiny_values_on_card(form):
+    """K4 (both forms) and K6 on f32 pools whose keys and values lie below
+    2^-115 (random values times 2^-120), so that the lo pieces of their TF32
+    splits fall below 2^-126, TF32's least normal: against the plain version
+    within the unchanged ``POOL_BARS`` (K6 with ``K6_F32_EQUAL_SHARE`` of the
+    output bitwise equal) at G 4, the first and the last layer. K4's output
+    scaled back by 2^120 is held to the same bar against the plain version's,
+    so that the subnormal pieces count; both errors are printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(97)
+    kv, g, ps, n_l = 2, 4, 16, 3
+    fa = flash_attention
+
+    def rnd(*shape, scale=TINY, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    errs = []
+    if form == "k6":
+        b, mp = 4, 64
+        sl = torch.tensor([17, 300, 640, 1000], dtype=torch.int32, device=dev)
+        main, stage = rnd(b * mp + 1, 2 * n_l, ps, kv * 128), rnd(b, ps, 2 * n_l, kv * 128)
+        q = rnd(b, kv * g, 128, scale=1.0, dtype=torch.bfloat16)
+        kc, vc = (rnd(b, kv, 128, dtype=torch.bfloat16) for _ in range(2))
+        pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).int()
+        for layer in (0, n_l - 1):
+            a = fa.flash_paged_decode(q, kc, vc, main, stage, layer, pt, sl)
+            ref = fa.flash_paged_decode_plain(q, kc, vc, main, stage, layer, pt, sl)
+            assert a.abs().max() > 0
+            _assert_pool_bar(a, ref, "k6", "f32")
+            errs.append(fa.meets_pool_bar(a, ref, "k6", "f32")[2])
+    else:
+        b, s, mp = 2, 128, 16
+        sl, nl = [256, 80], [128, 65]
+        slt, nlt = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (sl, nl))
+        q = rnd(b, s, kv * g, 128, scale=1.0)
+        kc, vc, main = rnd(b, s, kv, 128), rnd(b, s, kv, 128), rnd(b * mp + 1, 2 * n_l, ps,
+                                                                    kv * 128)
+        pt = (torch.randperm(b * mp, generator=gen, device=dev) + 1).reshape(b, mp).int()
+        if form == "k4-pool":
+            runs = [(lambda layer=layer: fa.flash_paged_prefill_pool(
+                         q, kc, vc, main, layer, pt, slt, nlt),
+                     lambda layer=layer: fa.flash_paged_prefill_pool_plain(
+                         q, kc, vc, main, layer, pt, slt, nlt)) for layer in (0, n_l - 1)]
+        else:
+            kf = torch.cat([main[pt.long(), 0].reshape(b, 256, kv, 128), kc], dim=1)
+            vf = torch.cat([main[pt.long(), n_l].reshape(b, 256, kv, 128), vc], dim=1)
+            runs = [(lambda: fa.flash_paged_prefill(q, kf, vf, slt, nlt, hist_len=256),
+                     lambda: fa.flash_paged_prefill_plain(q, kf, vf, slt, nlt, hist_len=256))]
+        for run, plain in runs:
+            a, ref = run(), plain()
+            for i, n in enumerate(nl):
+                assert a[i, :n].abs().max() > 0
+                _assert_pool_bar(a[i, :n], ref[i, :n], "k4", "f32")
+                _assert_pool_bar(a[i, :n] / TINY, ref[i, :n] / TINY, "k4", "f32")
+                errs.append(float((a[i, :n] / TINY - ref[i, :n] / TINY).abs().max()))
+    torch.cuda.synchronize()
+    print(f"f32 {form} at 2^-120: " + (f"bitwise equal share {min(errs):.4f}" if form == "k6"
+                                       else f"max error scaled back {max(errs):.3g}"))
 
 
 @pytest.mark.cuda

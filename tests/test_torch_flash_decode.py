@@ -17,8 +17,12 @@ fp16 and f32 pools (the query still bf16) the plain version and
 (``WIDE_BAR``) and ``k6_model`` against the plain version (the card's
 ``POOL_BARS``); on fp16 the kernel's scores are TF32 products, exact in
 f32 as the model's are because TF32 holds every finite bf16 and fp16 value
-(``exact_in_tf32``, checked over all of them). The kernel itself is held against the plain version on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+(``exact_in_tf32``, checked over all of them). On f32 the kernel's scores
+take each key in three TF32 pieces (``tf32_split``), exact against the bf16
+query as well, and its PV product the probabilities and values in two
+pieces each (3xTF32), which ``k6_model`` repeats; the same order in one
+TF32 pass must fail the f32 bar. The kernel itself is held against the
+plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import math
@@ -88,15 +92,21 @@ def _combine(states):
 
 
 def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, split,
-             flush=False):
+             flush=False, tf32=False):
     """The kernel's arithmetic: per slot, rank and warp an online softmax over
     the warp's 16 rows of each tile of the rank's share (f32 scores and
     state, probabilities rounded to the pool's type before PV), warps then
     ranks combined in order, ``acc / max(l, 1e-30)``. The current token is
     rounded to the pool's type. Scores are exact f32 products: the kernel's
-    bf16 and TF32 (fp16 pools) products are exact too. With ``flush`` the
-    fp16 probabilities below 2^-14 become zero: the arithmetic of a kernel
-    that loses fp16's subnormals, for the bar's controls."""
+    bf16, TF32 (fp16 pools) and three-piece TF32 (f32 pools) products are
+    exact too. PV on f32 pools is 3xTF32 (hi*hi + hi*lo + lo*hi of
+    ``tf32_split``'s two pieces), as the kernel's. With ``flush`` the fp16
+    probabilities below 2^-14 become zero, and with ``tf32`` the keys,
+    probabilities and values of an f32 pool go through one TF32 pass
+    (``tf32_round``): the arithmetic of kernels that lose fp16's subnormals
+    or f32's low bits, for the bars' controls."""
+    fa = flash_attention
+    f32 = main.dtype == torch.float32
     B, NH, D = q.shape
     KV = k_cur.shape[1]
     G = NH // KV
@@ -129,7 +139,8 @@ def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, spli
                     kw, vw = kt[w * WROWS:(w + 1) * WROWS], vt[w * WROWS:(w + 1) * WROWS]
                     if kw.shape[0] == 0:
                         continue
-                    s = torch.einsum("kgd,tkd->kgt", qs[b], kw.float())
+                    kf = fa.tf32_round(kw) if tf32 else kw.float()
+                    s = torch.einsum("kgd,tkd->kgt", qs[b], kf)
                     m_new = torch.maximum(m, s.amax(dim=-1))
                     p = torch.exp(s - m_new[..., None])
                     alpha = torch.exp(m - m_new)
@@ -137,7 +148,15 @@ def k6_model(q, k_cur, v_cur, main, staging_b, layer, page_table, seq_lens, spli
                     pr = p.to(vw.dtype)
                     if flush:
                         pr = torch.where(pr < 2.0 ** -14, 0.0, pr)
-                    pv = torch.einsum("kgt,tkd->kgd", pr.float(), vw.float())
+                    if f32 and tf32:
+                        pv = torch.einsum("kgt,tkd->kgd", fa.tf32_round(pr), fa.tf32_round(vw))
+                    elif f32:  # 3xTF32
+                        (ph, pl), (vh, vl) = fa.tf32_split(pr, 2), fa.tf32_split(vw, 2)
+                        pv = (torch.einsum("kgt,tkd->kgd", ph, vh)
+                              + (torch.einsum("kgt,tkd->kgd", pl, vh)
+                                 + torch.einsum("kgt,tkd->kgd", ph, vl)))
+                    else:
+                        pv = torch.einsum("kgt,tkd->kgd", pr.float(), vw.float())
                     acc = acc * alpha[..., None] + pv
                     m = m_new
                 warps.append((m, l, acc))
@@ -329,3 +348,97 @@ def test_fp16_bar_refuses_inexact_orders(inputs, variant, meets):
     got = k6_model(q, kc, vc, main, stage, 0, pt, sl, 4, flush=variant == "flush")
     ok, err, share = flash_attention.meets_pool_bar(got, plain, "k6", "fp16")
     assert ok == meets, (err, share)
+
+
+@pytest.mark.parametrize("tf32,meets", [(False, True), (True, False)],
+                         ids=["three-pieces", "one-tf32-pass"])
+def test_f32_bar_refuses_one_tf32_pass(wide_case, tf32, meets):
+    """What K6's f32 bar (``meets_pool_bar``: 2e-5 plus one bf16 step, and
+    ``K6_F32_EQUAL_SHARE`` of the output bitwise the plain version's) tells
+    apart on the wide case's f32 pool, split 4, both layers: the kernel's
+    arithmetic (keys in three TF32 pieces, PV in 3xTF32) meets it; the same
+    order with the keys, probabilities and values rounded once to TF32
+    fails it. (The fp16 case of the fixture checks the model's fp16 order,
+    which takes no TF32 pieces, against the same rule.)"""
+    dt, x, pt, sl, _ = wide_case
+    fp16 = dt == "fp16"
+    for layer in (0, 1):
+        args = (x["q"], x["k_cur"], x["v_cur"], x["main"], x["staging"], layer, pt, sl)
+        got = k6_model(*args, 4, tf32=tf32 and not fp16)
+        plain = flash_attention.flash_paged_decode_plain(*args)
+        ok, err, share = flash_attention.meets_pool_bar(got, plain, "k6", dt)
+        assert ok == (meets or fp16), (err, share)
+        if dt == "f32" and meets:
+            assert share >= flash_attention.K6_F32_EQUAL_SHARE
+
+
+def _tf32_values(kind):
+    """f32 test values: normals of every magnitude, values near 2^-126
+    (normal and subnormal, of any low bits), and the largest finite ones."""
+    gen = torch.Generator().manual_seed(99)
+    if kind == "random":
+        mant = 1 + torch.rand(20000, generator=gen)
+        exps = torch.randint(-100, 100, (20000,), generator=gen).float()
+        x = mant * torch.exp2(exps)
+    elif kind == "near-2^-126":
+        bits = torch.randint(0, 2 ** 24, (20000,), generator=gen, dtype=torch.int32)
+        x = bits.view(torch.float32)  # 0 .. 2^-125: subnormals and the first binade
+        x = torch.cat([x, torch.tensor([2.0 ** -126, 2.0 ** -126 * (1 + 2.0 ** -23),
+                                        2.0 ** -113 * (1 + 2.0 ** -23)])])
+    else:
+        bits = 0x7F7FFFFF - torch.randint(0, 2 ** 20, (20000,), generator=gen, dtype=torch.int32)
+        x = torch.cat([bits.view(torch.float32), torch.tensor([torch.finfo(torch.float32).max])])
+    sign = torch.where(torch.rand(x.shape, generator=gen) < 0.5, -1.0, 1.0)
+    return (x * sign).float()
+
+
+@pytest.mark.parametrize("kind", ["random", "near-2^-126", "largest"])
+@pytest.mark.parametrize("pieces", [2, 3])
+def test_tf32_split_gives_back_each_value(pieces, kind):
+    """The TF32 pieces of the f32 kernels (``tf32_split``, bit for bit
+    ``csrc/sm90.cuh::split2``/``split3``), summed in f64: three pieces give
+    back every f32 value that is a multiple of TF32's least subnormal
+    2^-136 exactly (every |x| >= 2^-113, and the largest finite values: hi
+    does not round up), and any other within 2^-136 (the tensor core's
+    truncation of the last piece drops its bits below 2^-136); two pieces
+    within 2^-22 of |x| (the lo
+    piece rounded to nearest) and, near 2^-126, within 2^-137. Every piece
+    is a TF32 value (low 13 mantissa bits zero), but the three-piece lo of
+    a value below 2^-113 (at most two significant bits, possibly below
+    2^-136), which the tensor core takes as its TF32 truncation."""
+    x = _tf32_values(kind)
+    ps = flash_attention.tf32_split(x, pieces)
+    assert all(torch.isfinite(p).all() for p in ps)
+    exact = x.abs() >= 2.0 ** -113
+    if pieces == 3:
+        got = sum(flash_attention.tf32_trunc(p).double() for p in ps)
+        err = (got - x.double()).abs()
+        assert bool((err[exact] == 0).all())
+        assert bool((err < 2.0 ** -136).all())
+        assert all(bool(flash_attention.exact_in_tf32(p).all()) for p in ps[:2])
+        assert bool(flash_attention.exact_in_tf32(ps[2][exact]).all())
+    else:
+        assert all(bool(flash_attention.exact_in_tf32(p).all()) for p in ps)
+        err = (ps[0].double() + ps[1].double() - x.double()).abs()
+        assert bool((err <= 2.0 ** -22 * x.double().abs() + 2.0 ** -137).all())
+        assert bool((err[exact] <= 2.0 ** -22 * x[exact].double().abs()).all())
+    if kind == "random":  # the bound is met, not exceeded by far: 2^-23 or more is hit
+        assert pieces == 3 or float((err / x.double().abs()).max()) > 2.0 ** -23
+
+
+@pytest.mark.parametrize("pool", ["bf16", "fp16", "f32"])
+def test_split_rule_holds_two_blocks_per_sm(pool):
+    """``flash_decode_split`` sizes the grid for ``DECODE_BLOCKS_PER_SM``
+    blocks an SM; on every pool type the kernel's shared memory
+    (``DECODE_SMEM_BYTES``, ``csrc/flash_decode.cu::SMEM``: the f32 kernel
+    keeps one K and one V stage of rows twice as wide, the 16-bit kernels'
+    ring in bytes) fits that many times in an H100 SM, each block reserving
+    1 KB, and not once more; so every split the rule picks at 2B's decode
+    shapes keeps the whole grid resident. The card reads the CUDA runtime's count
+    back (tests/test_torch_cuda.py, chip_smoke.py)."""
+    smem = flash_attention.DECODE_SMEM_BYTES[pool] + 1024
+    blocks = flash_attention.DECODE_BLOCKS_PER_SM
+    assert blocks * smem <= flash_attention.SM_SMEM_BYTES < (blocks + 1) * smem
+    for b, mp, _ in SPLITS_2B:
+        split = flash_attention.flash_decode_split(b, 5, mp * 16, H100_SMS)
+        assert b * 5 * split <= blocks * H100_SMS or split == 1

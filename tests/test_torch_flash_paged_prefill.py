@@ -8,15 +8,18 @@ tiles: the row's valid history (from the pool), then the chunk's keys up to
 the block's last token, skipping the chunk tiles above its rows' diagonal,
 with its own online softmax (f32 scores and state, probabilities rounded to
 the pool's type against the running max before PV). bf16 and fp16 pools
-run that one kernel on the tensor cores; f32 pools the FMA kernel of
-``flash_prefill_wide_bq``'s blocks. ``k4_model`` repeats the tensor-core
-kernel's order; in bf16 it must stay within the reference's bf16 bar (3e-2,
+run it on 64-key tiles and 16-bit ``mma``; f32 pools on 32-key tiles and
+TF32 ``mma`` in three products of TF32 pieces (3xTF32: hi*hi + hi*lo +
+lo*hi, ``flash_attention.tf32_split``) for the scores and for PV, the
+probabilities kept in f32. ``k4_model`` repeats each kernel's order; in
+bf16 it must stay within the reference's bf16 bar (3e-2,
 tests/test_torch_kernels.py) of ``flash_paged_prefill(..., interpret=True)``,
 in fp16 within the fp16 plain version's bar against it (3e-3,
-``test_pool_plain_vs_reference``), and within the card's bar (3e-2,
-``flash_attention.POOL_BARS``) of the plain version. The kernel itself is
-held against the plain versions on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+``test_pool_plain_vs_reference``), in f32 within the reference's f32 bar
+(2e-5), and within the card's bar (``flash_attention.POOL_BARS``) of the
+plain version; on f32 the same order in one TF32 pass must fail that bar.
+The kernel itself is held against the plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import math
@@ -33,7 +36,7 @@ from wrinklefree_tpu.ops import flash_attention as ref_flash
 from wrinklefree_tpu_torch.ops import flash_attention
 
 NEG = -1e30
-TILE, WROWS = 64, 16
+TILE, TILE_F32, WROWS = 64, 32, 16
 
 # BitNet-2B's prefill attention in the engine (G 4, KV 5): batch and chunk
 # buckets
@@ -68,24 +71,43 @@ def test_bq_refuses_wide_groups(g):
 @pytest.mark.parametrize("g", range(1, 9))
 @pytest.mark.parametrize("dtype", ["bf16", "fp16", "f32"])
 def test_bq_by_pool_type(dtype, g):
-    """The wrapper's block for each pool type: bf16 and fp16 share the
-    tensor-core kernel and its ``flash_prefill_bq``; f32 takes the FMA
-    kernel's ``flash_prefill_wide_bq``."""
+    """The wrapper's block for each pool type: every type's kernel keeps
+    ``flash_prefill_bq``'s blocks of 16-token warps (4-8 warps a block), f32
+    on its 32-key tiles as bf16 and fp16 on their 64-key ones."""
     tdt = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}[dtype]
-    want = (flash_attention.flash_prefill_wide_bq if dtype == "f32"
-            else flash_attention.flash_prefill_bq)(g)
-    assert flash_attention._prefill_bq(flash_attention.POOL_ELEM[tdt], g) == want
+    got = flash_attention._prefill_bq(flash_attention.POOL_ELEM[tdt], g)
+    assert got == flash_attention.flash_prefill_bq(g) and 4 <= g * got // 16 <= 8
 
 
-def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq, flush=False):
+def _dot(a, b, products):
+    """a @ b in f32 as a kernel's products take them: "exact" (bf16 and fp16
+    operands, exact products), "3xtf32" (each f32 operand split into TF32
+    hi + lo, hi*hi + hi*lo + lo*hi) or "tf32" (one pass of operands rounded
+    to TF32, for the controls)."""
+    if products == "exact":
+        return a @ b
+    if products == "tf32":
+        return flash_attention.tf32_round(a) @ flash_attention.tf32_round(b)
+    ah, al = flash_attention.tf32_split(a, 2)
+    bh, bl = flash_attention.tf32_split(b, 2)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq, flush=False,
+             products=None):
     """The kernel's order: per batch row, KV head, block of ``bq`` tokens and
-    warp (16 tokens of one query head), an online softmax over the 64-key
-    tiles of the row's valid history, then of the chunk up to the block's
-    last token (tiles above the warp's diagonal skipped), f32 scores and
-    state, probabilities rounded to q's type (bf16 or fp16, the pool's)
-    against the running max before PV; ``acc / max(l, 1e-30)``. With
-    ``flush`` the fp16 probabilities below 2^-14 become zero: the order of
-    a kernel that loses fp16's subnormals, for the bar's controls."""
+    warp (16 tokens of one query head), an online softmax over the key tiles
+    (64 keys; 32 on f32) of the row's valid history, then of the chunk up to
+    the block's last token (tiles above the warp's diagonal skipped), f32
+    scores and state, probabilities rounded to q's type (bf16 or fp16, the
+    pool's; f32 as they are) against the running max before PV; ``acc /
+    max(l, 1e-30)``. Products (``_dot``): exact on 16-bit pools, 3xTF32 on
+    f32 unless ``products`` names another. With ``flush`` the fp16
+    probabilities below 2^-14 become zero: the order of a kernel that loses
+    fp16's subnormals, for the bar's controls."""
+    f32 = q.dtype == torch.float32
+    products = products or ("3xtf32" if f32 else "exact")
+    tile = TILE_F32 if f32 else TILE
     B, S, NH, D = q.shape
     KV = k_cur.shape[2]
     G = NH // KV
@@ -102,11 +124,11 @@ def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq, f
         for kvh in range(KV):
             for s0 in range(0, S, bq):
                 n_c = min(nl, s0 + bq)
-                tiles = [(True, c0, hk[c0:c0 + TILE, kvh], hv[c0:c0 + TILE, kvh], n_h)
-                         for c0 in range(0, n_h, TILE)]
-                tiles += [(False, c0, k_cur[b, c0:min(c0 + TILE, n_c), kvh].float(),
-                           v_cur[b, c0:min(c0 + TILE, n_c), kvh].float(), nl)
-                          for c0 in range(0, n_c, TILE)]
+                tiles = [(True, c0, hk[c0:c0 + tile, kvh], hv[c0:c0 + tile, kvh], n_h)
+                         for c0 in range(0, n_h, tile)]
+                tiles += [(False, c0, k_cur[b, c0:min(c0 + tile, n_c), kvh].float(),
+                           v_cur[b, c0:min(c0 + tile, n_c), kvh].float(), nl)
+                          for c0 in range(0, n_c, tile)]
                 for h in range(kvh * G, (kvh + 1) * G):
                     for sw in range(s0, min(s0 + bq, S), WROWS):
                         rows = torch.arange(sw, min(sw + WROWS, S))
@@ -116,7 +138,7 @@ def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq, f
                         for hist, c0, kt, vt, lim in tiles:
                             if not hist and c0 > sw + WROWS - 1:
                                 continue  # above every row's diagonal
-                            sc = qs[b, rows, h] @ kt.T
+                            sc = _dot(qs[b, rows, h], kt.T, products)
                             col = c0 + torch.arange(kt.shape[0])
                             ok = (col[None, :] < lim) & (hist | (col[None, :] <= rows[:, None]))
                             sc = torch.where(ok, sc, torch.tensor(NEG))
@@ -127,7 +149,7 @@ def k4_model(q, k_cur, v_cur, main, layer, page_table, seq_lens, new_lens, bq, f
                             pr = p.to(q.dtype)
                             if flush:
                                 pr = torch.where(pr < 2.0 ** -14, 0.0, pr)
-                            acc = acc * alpha[:, None] + pr.float() @ vt
+                            acc = acc * alpha[:, None] + _dot(pr.float(), vt, products)
                             m = m_new
                         out[b, rows, h] = acc / torch.clamp_min(l, 1e-30)[:, None]
     return out.to(q.dtype)
@@ -269,5 +291,61 @@ def test_fp16_bar_refuses_inexact_orders(inputs, variant, meets):
     got = k4_model(q, kc, vc, main, 0, pt, sl, nl, flash_attention.flash_prefill_bq(g),
                    flush=variant == "flush")
     oks = [flash_attention.meets_pool_bar(got[i, :n], plain[i, :n], "k4", "fp16")
+           for i, n in enumerate(nl.tolist())]
+    assert all(ok for ok, _, _ in oks) == meets, oks
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("bq", [32, 64])
+def test_kernel_order_f32_vs_reference_and_plain(bq, layer):
+    """The f32 kernel's order (q, the chunk, the pool and the output f32;
+    32-key tiles, scores and PV in 3xTF32, the probabilities f32; 16-token
+    warps at ``flash_prefill_bq``'s blocks) against the reference in
+    interpret mode (HIGHEST precision) within its f32 bar, 2e-5, and against
+    the plain version within the card's (``POOL_BARS``, 2e-5), on the real
+    rows."""
+    x, pt, sl, nl, reference = _pool_case("f32", seed=1)
+    NH, KV = x["q"].shape[2], x["k_cur"].shape[2]
+    assert flash_attention._prefill_bq(flash_attention.POOL_ELEM[torch.float32], NH // KV) == 32
+    args = (x["q"], x["k_cur"], x["v_cur"], x["main"], layer, pt, sl, nl)
+    got = k4_model(*args, bq)
+    assert got.dtype == torch.float32
+    plain = flash_attention.flash_paged_prefill_pool_plain(*args)
+    _assert_real_rows(got.numpy(), reference(layer), nl.tolist(), 2e-5)
+    for b, n in enumerate(nl.tolist()):
+        ok, err, _ = flash_attention.meets_pool_bar(got[b, :n], plain[b, :n], "k4", "f32")
+        assert ok, err
+
+
+# (the scale of q and k, the products, whether the order meets the f32 bar)
+F32_CONTROLS = [(1.0, "3xtf32", True), (1.0, "tf32", False), (2.0, "3xtf32", True),
+                (2.0, "tf32", False)]
+
+
+@pytest.mark.parametrize("scale,products,meets", F32_CONTROLS,
+                         ids=[f"x{s:g}-{p}" for s, p, _ in F32_CONTROLS])
+def test_f32_bar_refuses_one_tf32_pass(scale, products, meets):
+    """What K4's f32 bar (2e-5 on each real row) tells apart, at G 4, D 128,
+    two rows of 64 and 40 chunk tokens after 256 and 80, q and keys of
+    ``scale`` units a dim: the kernel's order in 3xTF32 meets it, the same
+    order with each operand rounded once to TF32 (10 mantissa bits) fails
+    it (max errors about 1e-6 and 5e-4 at 1 unit, 1.6e-5 and 4e-3 at 2).
+    At 3 units the bar no longer holds even exact f32 products in the
+    kernel's order (2.0e-5: q scaled before the product, the plain version
+    scales the scores), so the scales stop at 2."""
+    b, s, kv, g, ps, mp, n_l = 2, 64, 2, 4, 16, 16, 1
+    sl, nl = torch.tensor([256, 80], dtype=torch.int32), torch.tensor([64, 40],
+                                                                     dtype=torch.int32)
+    gen = torch.Generator().manual_seed(98)
+    q = torch.randn((b, s, kv * g, 128), generator=gen) * scale
+    kc = torch.randn((b, s, kv, 128), generator=gen) * scale
+    vc = torch.randn((b, s, kv, 128), generator=gen)
+    main = torch.randn((b * mp + 1, 2 * n_l, ps, kv * 128), generator=gen)
+    main[:, :n_l] *= scale  # the key rows
+    pt = (torch.randperm(b * mp, generator=gen) + 1).reshape(b, mp).to(torch.int32)
+    plain = flash_attention.flash_paged_prefill_pool_plain(q, kc, vc, main, 0, pt, sl, nl)
+    got = k4_model(q, kc, vc, main, 0, pt, sl, nl, flash_attention.flash_prefill_bq(g),
+                   products=products)
+    oks = [flash_attention.meets_pool_bar(got[i, :n], plain[i, :n], "k4", "f32")
            for i, n in enumerate(nl.tolist())]
     assert all(ok for ok, _, _ in oks) == meets, oks

@@ -58,18 +58,21 @@ def test_decode_bound_by_pool():
 
 def test_prefill_bound_and_block_by_pool():
     """K4's bound on fp16 is bf16's (the same bytes, the same tensor-core
-    rate); on f32 the f32 rate outside the tensor cores. The block is the
-    tensor-core kernel's for bf16 and fp16, the FMA kernel's for f32."""
+    rate); on f32 the 3xTF32 rate, a third of TF32's 495 T/s (six times
+    bf16's time), and beside it the bound on f32 FMAs (67 T/s, 495 / 3 / 67
+    = 2.46 times the 3xTF32 one). Every pool type takes the tensor-core
+    kernels' block."""
     c = flash_prefill.CONTIGUOUS
     args = (c["S"], [c["kv_valid"]], [c["new_len"]])
     b16, f16, f32 = (flash_prefill.bound(*args, p) for p in ("bf16", "fp16", "f32"))
     assert b16 == f16 and b16[1] == "operations"
-    assert f32[0] > b16[0] and f32[1] == "operations"
+    assert f32[1] == "operations" and f32[0] == pytest.approx(b16[0] * 989 / 165)
+    fma = flash_prefill.fma_bound(*args, "f32")["bound_f32_fma_ms"]
+    assert fma == pytest.approx(f32[0] * 165 / 67)
+    assert flash_prefill.fma_bound(*args, "bf16") == {}
     g = flash_prefill.NH // flash_prefill.KV
-    assert flash_prefill.block_q(flash_attention, "bf16") == flash_attention.flash_prefill_bq(g)
-    assert flash_prefill.block_q(flash_attention, "fp16") == flash_attention.flash_prefill_bq(g)
-    assert (flash_prefill.block_q(flash_attention, "f32")
-            == flash_attention.flash_prefill_wide_bq(g))
+    for pool in ("bf16", "fp16", "f32"):
+        assert flash_prefill.block_q(flash_attention, pool) == flash_attention.flash_prefill_bq(g)
 
 
 # (intervals, the length of their union)

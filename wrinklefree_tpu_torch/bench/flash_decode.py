@@ -84,7 +84,8 @@ def nbytes(lens, pool: str = "bf16") -> int:
 def bound(lens, pool: str = "bf16") -> float:
     """The least ms the card could take: ``nbytes`` over the memory rate
     (the 4 * NH * D operations per token are far under the bf16
-    tensor-core rate and, on fp16 and f32 pools, the TF32 and f32 rates)."""
+    tensor-core rate and, on fp16 and f32 pools, the TF32 rate, three TF32
+    products each on f32)."""
     return nbytes(lens, pool) / HBM_BYTES_PER_S * 1e3
 
 

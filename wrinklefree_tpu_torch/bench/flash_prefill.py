@@ -21,9 +21,9 @@ them.
 ``--root`` names the checkout whose ``wrinklefree_tpu_torch`` is built and
 timed (default: the one this file is in), so that two trees can be timed in
 turns on one card: run as a file, not with ``-m``. Prints one JSON line per
-shape (device ms per call from ``torch.profiler``, the bound, the query
-tokens per block the tree's wrapper picks for the pool type, the pool type)
-with the card's name and power limit. It needs a GPU.
+shape (device ms per call from ``torch.profiler``, the bound, on f32 also
+the bound on f32 FMAs, the query tokens per block the tree's wrapper picks
+for the pool type, the pool type) with the card's name and power limit. It needs a GPU.
 """
 
 from __future__ import annotations
@@ -37,12 +37,13 @@ from pathlib import Path
 L, NH, KV, D, PS, MP = 30, 20, 5, 128, 16, 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 F16_OPS_PER_S = 989e12  # H100 SXM published dense bf16 and fp16 tensor-core rate
+TF32_OPS_PER_S = 495e12  # H100 SXM published dense TF32 tensor-core rate
 F32_OPS_PER_S = 67e12  # H100 SXM published dense f32 rate outside the tensor cores
-# pool type: (torch dtype name, bytes an element, the card's peak for products
-# of that type exact in f32: bf16 and fp16 on the tensor cores, f32 on the
-# CUDA cores, since TF32 truncates it)
+# pool type: (torch dtype name, bytes an element, the card's peak for the
+# products the kernel runs: bf16 and fp16 on the tensor cores, exact in f32;
+# f32 as three TF32 products each, 3xTF32, at a third of the TF32 rate)
 POOLS = {"bf16": ("bfloat16", 2, F16_OPS_PER_S), "fp16": ("float16", 2, F16_OPS_PER_S),
-         "f32": ("float32", 4, F32_OPS_PER_S)}
+         "f32": ("float32", 4, TF32_OPS_PER_S / 3)}
 CONTIGUOUS = dict(S=512, T=512, kv_valid=400, new_len=500)
 POOL = {  # name: (chunk tokens, seq_lens, new_lens)
     "pool-1x1024": (512, [1024], [512]),
@@ -56,18 +57,28 @@ def pairs(seq_lens, new_lens) -> int:
     return sum(n_h + min(r + 1, n) for n_h, n in zip(seq_lens, new_lens) for r in range(n))
 
 
-def bound(s: int, seq_lens, new_lens, pool: str = "bf16") -> tuple:
+def bound(s: int, seq_lens, new_lens, pool: str = "bf16", peak: float = None) -> tuple:
     """(ms, "bytes" or "operations"): the larger of the bytes a call must
     move (q and the output, the valid history and chunk k and v rows, each
     once, in the pool's type) over the memory rate and its 4 * D operations
-    per visible pair and query head over the card's peak for the pool's
-    type (``POOLS``)."""
-    _, eb, peak = POOLS[pool]
+    per visible pair and query head over the card's peak for the products
+    the pool's kernel runs (``POOLS``), or over ``peak`` (on f32:
+    ``F32_OPS_PER_S``, the bound of products on f32 FMAs)."""
+    _, eb, pool_peak = POOLS[pool]
+    peak = peak or pool_peak
     b = len(seq_lens)
     nbytes = 2 * b * s * NH * D * eb + 2 * (sum(seq_lens) + sum(new_lens)) * KV * D * eb
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * D * NH * pairs(seq_lens, new_lens) / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fma_bound(s: int, seq_lens, new_lens, pool: str) -> dict:
+    """On f32, the bound of the same work on f32 FMAs beside the 3xTF32 one
+    (``{"bound_f32_fma_ms": ms}``); on the 16-bit pools nothing."""
+    if pool != "f32":
+        return {}
+    return {"bound_f32_fma_ms": bound(s, seq_lens, new_lens, pool, F32_OPS_PER_S)[0]}
 
 
 def make_inputs(dev, seed: int = 0, pool: str = "bf16") -> dict:
@@ -161,7 +172,8 @@ def main(argv=None) -> int:
                    args.iters)
     b_ms, b_by = bound(c["S"], [c["kv_valid"]], [c["new_len"]], args.pool)
     print(json.dumps(dict(root=args.root, shape="contiguous", pool=args.pool, **c, ms=ms,
-                          bound_ms=b_ms, bound_by=b_by, bq=bq, card=card)))
+                          bound_ms=b_ms, bound_by=b_by, bq=bq, card=card,
+                          **fma_bound(c["S"], [c["kv_valid"]], [c["new_len"]], args.pool))))
     for name, (s, sl, nls) in POOL.items():
         (q, kc, vc, main), (pt, slt, nlt) = pool_case(inp, name)
         layer = iter(range(10**9))
@@ -171,7 +183,7 @@ def main(argv=None) -> int:
         b_ms, b_by = bound(s, sl, nls, args.pool)
         print(json.dumps(dict(root=args.root, shape=name, pool=args.pool, S=s, seq_lens=sl,
                               new_lens=nls, ms=ms, bound_ms=b_ms, bound_by=b_by, bq=bq,
-                              card=card)))
+                              card=card, **fma_bound(s, sl, nls, args.pool))))
     return 0
 
 

@@ -13,9 +13,9 @@
 // unchanged); probabilities are rounded to the pool's type before the PV
 // product; the output is acc / max(l, 1e-30) in bf16 (q's type). As in the
 // TPU kernel, the staging prefix and the current token form the last
-// online-softmax update. The pool is bf16 or fp16 (k6_decode<T>, on the
-// tensor cores) or f32 (k6_wide<float>, on FMAs; below); q, k_cur and v_cur
-// are bf16, and the current token's row is rounded to the pool's type.
+// online-softmax update. The pool is bf16 or fp16 (k6_decode<T>) or f32
+// (k6_decode_f32, below), all on the tensor cores; q, k_cur and v_cur are
+// bf16, and the current token's row is rounded to the pool's type.
 //
 // Bound: bytes, 2 * n * D * 2 per slot and KV head (the history's k and v
 // rows, each read once); 4 * G * D operations per token are far below the
@@ -77,19 +77,31 @@
 // bf16 row is rounded to fp16 by a converting store into the ring instead
 // of its cp.async.
 //
-// f32 pools (k6_wide<float>): the same function, split, warp ownership and
-// combine, with the pool's rows (and the current token's, bf16 widened) in
-// f32 and the probabilities kept in f32 for PV. A bf16 query and an f32 key
-// share no tensor-core operand type (TF32 truncates f32), so both products
-// run on f32 FMAs: every bf16 x f32 product is exact in f32, and only the
-// order of the f32 sums differs from the plain version. A warp's 16 rows of
-// a tile come by 16-byte cp.async into its own two-stage ring (K rows
-// padded by 16 bytes, so that the lanes' reads of 8 rows miss each other)
-// with zeros past the valid rows; lane (j, hf) = (lane % 16, lane / 16)
-// scores row j against every query head over dims 64hf..64hf+63, one
-// shuffle joins the halves, and for PV lane x accumulates dims 4x..4x+3 of
-// every head, reading the warp's probabilities from shared memory. 172 KB
-// of shared memory, one block per SM.
+// f32 pools (k6_decode_f32): the bf16 kernel's split, tiles, warp
+// ownership, online softmax, copy-engine boxes (an f32 tensor map, boxes of
+// 16 rows x 32 dims) and combine, with the products on TF32 mma.sync
+// m16n8k8, which takes f32 only in 10 mantissa bits:
+// - Scores: each f32 key (A, from ldmatrix: an 8 x 16-byte matrix of f32
+//   rows is a TF32 fragment) in three TF32 pieces, hi + mid + lo = k
+//   exactly (sm90.cuh::split3), times the bf16 query (B, exact in TF32):
+//   every product is exact in f32, so only the order of the f32 sums
+//   differs from the plain version, as in bf16.
+// - PV: V^T (A: tokens 8kk + 2t4 and + 1 of dims 16j + gid, four 4-byte
+//   loads, free of bank conflicts in the swizzle) times the f32
+//   probabilities (B), both in two TF32 pieces, as hi*hi + hi*lo + lo*hi
+//   (3xTF32), each k-step's three products in a fresh accumulator added
+//   to the state in f32 (no tensor-core sum runs over a rank's share); the
+//   probabilities reach the lanes of their B fragments by eight shuffles a
+//   tile.
+// - Copies: f32 rows are twice as wide, so a warp keeps one stage of its
+//   16 K rows and one of its 16 V rows (16 KB; 64 KB for the block, the
+//   16-bit kernels' ring in bytes), each on its own mbarrier: the next
+//   tile's K rows are copied while this tile's V rows are read, its V rows
+//   while the next scores are computed. 99 KB of shared memory: two blocks
+//   per SM, as flash_decode_split assumes for every pool type.
+// The products, 4 * G * D operations a token in three TF32 passes each,
+// take under a tenth of the copy time at the TF32 rate: the kernel stays
+// bound by its bytes, twice bf16's.
 //
 // Launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() or the launch's error.
@@ -243,7 +255,7 @@ __device__ __forceinline__ void combine(const float* base, int stride, int count
   }
 }
 
-// The end of both kernels, after the warps' states (m[8], l[8], acc[8][ACC_LD]
+// The end of every kernel, after the warps' states (m[8], l[8], acc[8][ACC_LD]
 // each, PART floats apart) are in `states`: the block's state, thread d
 // holding dim d of every head, is the warps' states summed in warp order; then
 // rank 0 sums the ranks' states in rank order in the same way (the other
@@ -279,6 +291,44 @@ __device__ __forceinline__ void finish(const Args& a, const float* states, float
     if (g < G)
       a.out[((size_t)b * a.NH + kvh * G + g) * HD + d] =
           __float2bfloat16_rn(A[g] / fmaxf(Ls[g], 1e-30f));
+}
+
+// The end of every kernel, after a warp's loop: its state for heads 2t4 and
+// 2t4 + 1 (m, l over this lane's tokens, acc[j] with dims 16j + gid and
+// 16j + 8 + gid) is summed over its lanes and stored over the rings (once
+// every warp is done with its own), and `finish` combines the warps and the
+// ranks.
+__device__ __forceinline__ void end_block(const Args& a, float* states, float* ranks, int rank,
+                                          int kvh, int b, int G, const float (&m)[2], float (&l)[2],
+                                          const float (&acc)[HD / 16][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 4);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 8);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 16);
+  }
+  __syncthreads();  // every warp is done with its ring: the states go over them
+  {
+    float* w = states + warp * PART;
+    if (gid == 0) {
+      w[2 * t4] = m[0];
+      w[2 * t4 + 1] = m[1];
+      w[MAX_G + 2 * t4] = l[0];
+      w[MAX_G + 2 * t4 + 1] = l[1];
+    }
+    float* wa = w + 2 * MAX_G;
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      const int d = 16 * j + gid;
+      wa[(2 * t4) * ACC_LD + d] = acc[j][0];
+      wa[(2 * t4 + 1) * ACC_LD + d] = acc[j][1];
+      wa[(2 * t4) * ACC_LD + d + 8] = acc[j][2];
+      wa[(2 * t4 + 1) * ACC_LD + d + 8] = acc[j][3];
+    }
+  }
+  __syncthreads();
+  finish(a, states, ranks, rank, kvh, b, G);
 }
 
 // Grid (split, KV, B); cluster (split, 1, 1) when split > 1. T: the pool's
@@ -454,68 +504,94 @@ __global__ void __launch_bounds__(THREADS, 2)
       F16Ops<T>::mma(acc[j], va, b0, b1);
     }
   }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 4);
-    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 8);
-    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 16);
-  }
-  __syncthreads();  // every warp is done with its ring: the states go over them
-
-  {
-    float* w = states + warp * PART;
-    if (gid == 0) {
-      w[2 * t4] = m[0];
-      w[2 * t4 + 1] = m[1];
-      w[MAX_G + 2 * t4] = l[0];
-      w[MAX_G + 2 * t4 + 1] = l[1];
-    }
-    float* wa = w + 2 * MAX_G;
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      const int d = 16 * j + gid;
-      wa[(2 * t4) * ACC_LD + d] = acc[j][0];
-      wa[(2 * t4 + 1) * ACC_LD + d] = acc[j][1];
-      wa[(2 * t4) * ACC_LD + d + 8] = acc[j][2];
-      wa[(2 * t4 + 1) * ACC_LD + d + 8] = acc[j][3];
-    }
-  }
-  __syncthreads();
-
-  finish(a, states, ranks, rank, kvh, b, G);
+  end_block(a, states, ranks, rank, kvh, b, G, m, l, acc);
 }
 
 // ------------------------------------------------------------- f32 ----
 
-template <typename T>
-struct Wide {
-  static constexpr int LDK = HD + 16 / sizeof(T);            // elements a staged K row
-  static constexpr int WSTAGE = WROWS * (LDK + HD);          // a warp's K then V rows of a tile
-  static constexpr int RING = WARPS * STAGES * WSTAGE * (int)sizeof(T);  // bytes
-  // the rings (then the warps' states), rank 0's slots for the ranks' states,
-  // the scaled queries [8][128] and the warps' probabilities [4][16][8] (f32)
-  static constexpr int SMEM = RING + RANKS + (MAX_G * HD + WARPS * WROWS * MAX_G) * 4;
-};
-static_assert(WARPS * PART * 4 <= Wide<float>::RING, "the warps' states fit in the rings");
+constexpr int QUARTER = WROWS * 128;  // bytes of 32 f32 dims of a warp's 16 rows: one box
+constexpr int FROWS = 4 * QUARTER;    // a warp's 16 f32 rows of K (or V): 8 KB
+static_assert(WARPS * 2 * FROWS == RING, "f32 keeps the 16-bit kernels' ring and blocks per SM");
 
-// Grid (split, KV, B); cluster (split, 1, 1) when split > 1.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) k6_wide(Args a) {
-  using W = Wide<T>;
-  constexpr int PER = 16 / sizeof(T);  // elements a 16-byte copy
-  constexpr int PIECES = HD / PER;     // copies a row
-  extern __shared__ float4 wide_raw[];
-  char* raw = reinterpret_cast<char*>(wide_raw);
-  float* states = reinterpret_cast<float*>(raw);  // over the rings, after the loop
-  float* ranks = reinterpret_cast<float*>(raw + W::RING);
-  float* qs = ranks + MAX_SPLIT * PART;
-  float* pw = qs + MAX_G * HD;
+// Issue the copies of a warp's f32 K (v = 0) or V rows r0.. of tile i, of
+// which the first nv > 0 are valid, into dst (8 KB), completing on bar, as
+// load_rows does for 16-bit pools: committed rows by copy-engine box (four
+// of 16 rows x 32 dims, from `page`) when a page holds whole boxes, the
+// others row by row with cp.async (lane j < 16 copies dims 0..63 of row j,
+// lane 16 + j dims 64..127); the current token's bf16 row widened to f32 by
+// a converting store. Rows from nv on are zero and are not read from memory.
+__device__ __forceinline__ void load_rows_f32(const Args& a, const CUtensorMap* map, char* dst,
+                                              uint64_t* bar, int v, int i, int r0, int nv,
+                                              int ntm, int off, int b, int kvh, int lane,
+                                              int page) {
+  const size_t kvd = (size_t)a.KV * HD;
+  const bool boxed = i < ntm && a.boxes;
+  {
+    const int j = lane & 15, h = lane >> 4;
+    if (j >= nv) {
+#pragma unroll
+      for (int c = 16 * h; c < 16 * h + 16; ++c)
+        *reinterpret_cast<uint4*>(dst + swz(j, c)) = make_uint4(0, 0, 0, 0);
+      fence_proxy_async();  // before the copy engine's later writes to the row
+    } else if (!boxed) {
+      const int row = r0 + j;
+      if (i >= ntm && row >= off) {  // the current token, bf16
+        const __nv_bfloat16* src = (v ? a.v_cur : a.k_cur) + b * kvd + kvh * HD;
+#pragma unroll
+        for (int c = 16 * h; c < 16 * h + 16; ++c) {
+          const uint2 x = *reinterpret_cast<const uint2*>(src + 4 * c);
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+          *reinterpret_cast<float4*>(dst + swz(j, c)) = make_float4(lo.x, lo.y, hi.x, hi.y);
+        }
+        fence_proxy_async();  // as for the zeros above
+      } else {
+        const float* src;
+        if (i < ntm) {
+          const int t = i * TK + row;
+          const size_t pt = (size_t)__ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
+          src = static_cast<const float*>(a.main) +
+                ((pt * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd;
+        } else {
+          src = static_cast<const float*>(a.stage) +
+                (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd;
+        }
+        src += kvh * HD;
+#pragma unroll
+        for (int c = 16 * h; c < 16 * h + 16; ++c) cp_async16(dst + swz(j, c), src + 4 * c);
+        cp_async_arrive(bar);
+      }
+    }
+  }
+  __syncwarp();  // the row copies have joined bar before its arrival below
+  if (lane == 0) mbar_expect_tx(bar, boxed ? 4 * QUARTER : 0);
+  __syncwarp();
+  if (boxed && lane < 4)
+    tma_load(dst + lane * QUARTER, map, kvh * HD + 32 * lane,
+             (page * 2 * a.L + v * a.L + a.layer) * a.ps + (i * TK + r0) % a.ps, bar);
+}
+
+// Grid (split, KV, B); cluster (split, 1, 1) when split > 1; the split,
+// tiles, warp ownership, online softmax and combine of k6_decode. map: the
+// main pool as rows of KV*D f32 in boxes of 16 rows x 32 dims, 128-byte
+// swizzle. Each warp keeps one K stage and one V stage with a barrier each:
+// the next tile's K rows are copied while this tile's V rows are read, and
+// its V rows while the next tile's scores are computed.
+__global__ void __launch_bounds__(THREADS, 2)
+    k6_decode_f32(const __grid_constant__ CUtensorMap map, Args a) {
+  extern __shared__ unsigned char raw[];
+  // each warp's K rows then V rows (FROWS bytes each), 1024-byte aligned for
+  // the swizzle, and after the loop the warps' states; then rank 0's slots
+  // for the ranks' states
+  char* ring = reinterpret_cast<char*>(raw) + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[WARPS][2];  // a warp's K and V rows are in
+  float* states = reinterpret_cast<float*>(ring);
+  float* ranks = reinterpret_cast<float*>(ring + RING);
   const int rank = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.NH / a.KV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, j = lane & 15, hf = lane >> 4;
-  T* wring = reinterpret_cast<T*>(raw) + warp * STAGES * W::WSTAGE;
-  float* wp = pw + warp * WROWS * MAX_G;  // this warp's probabilities [16 rows][8 heads]
-  const size_t kvd = (size_t)a.KV * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, t4 = lane & 3;
+  char* kd = ring + warp * 2 * FROWS;
+  char* vd = kd + FROWS;
   const int n_hist = max(a.seq_lens[b], 0);
   const int full = min((n_hist / a.ps) * a.ps, a.MP * a.ps);  // committed tokens
   const int off = n_hist % a.ps;                              // staging tokens
@@ -524,147 +600,159 @@ __global__ void __launch_bounds__(THREADS) k6_wide(Args a) {
   const int i0 = rank * nt / a.split, i1 = (rank + 1) * nt / a.split;  // this rank's share
   const int r0 = warp * WROWS;  // this warp's rows of every tile
   auto valid = [&](int i) { return i < ntm ? min(TK, full - i * TK) : off + 1; };
+  // this warp's rows of tile i that are valid (<= 0: none)
   auto rows_of = [&](int i) { return min(WROWS, valid(i) - r0); };
+  // the warp's next tile from i on with rows in it, or i1
+  auto next = [&](int i) {
+    while (i < i1 && rows_of(i) <= 0) ++i;
+    return i;
+  };
 
   if (a.split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-  // copy the warp's rows of tile i into stage st (zeros from its valid rows
-  // on), one group of copies per call
-  auto fetch = [&](int i, int st) {
-    const int nv = i < i1 ? rows_of(i) : 0;
-    T* kd = wring + st * W::WSTAGE;
-    T* vd = kd + WROWS * W::LDK;
-    for (int idx = lane; nv > 0 && idx < 2 * WROWS * PIECES; idx += 32) {
-      const int v = idx / (WROWS * PIECES), r = idx / PIECES % WROWS, p = idx % PIECES;
-      T* dst = (v ? vd + r * HD : kd + r * W::LDK) + p * PER;
-      const int row = r0 + r;
-      if (r >= nv) {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      } else if (i < ntm) {
-        const int t = i * TK + row;
-        const size_t pg = (size_t)__ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
-        cp_async16(dst, static_cast<const T*>(a.main) +
-                            ((pg * 2 * a.L + v * a.L + a.layer) * a.ps + t % a.ps) * kvd +
-                            kvh * HD + p * PER);
-      } else if (row < off) {
-        cp_async16(dst, static_cast<const T*>(a.stage) +
-                            (((size_t)b * a.ps + row) * 2 * a.L + v * a.L + a.layer) * kvd +
-                            kvh * HD + p * PER);
-      } else {  // row == off: the current token, bf16 rounded to T
-        const __nv_bfloat16* src = (v ? a.v_cur : a.k_cur) + b * kvd + kvh * HD + p * PER;
-#pragma unroll
-        for (int e = 0; e < PER; ++e) dst[e] = from_f<T>(__bfloat162float(src[e]));
-      }
-    }
-    cp_async_commit();
+  if (lane == 0) {
+    mbar_init(&bars[warp][0], 1);
+    mbar_init(&bars[warp][1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // lane k holds the page of this warp's rows of tile i0 + k (committed tiles)
+  int pg = 0;
+  if (a.boxes && i0 + lane < min(i1, ntm)) {
+    prefetch_map(&map);
+    const int t = (i0 + lane) * TK + r0;
+    if (t < full) pg = __ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
+  }
+  __syncwarp();
+  auto issue = [&](int v, int i) {
+    int page = __shfl_sync(0xffffffffu, pg, (i - i0) & 31);
+    if (i - i0 >= 32 && i < ntm && a.boxes)  // past the held pages
+      page = __ldg(a.page_table + (size_t)b * a.MP + (i * TK + r0) / a.ps);
+    load_rows_f32(a, &map, v ? vd : kd, &bars[warp][v], v, i, r0, rows_of(i), ntm, off, b, kvh,
+                  lane, page);
   };
-  fetch(i0, 0);
-  fetch(i0 + 1, 1);
+  int i = next(i0);
+  if (i < i1) {
+    issue(0, i);
+    issue(1, i);
+  }
+
+  // q of head gid (zero past G), scaled in bf16 and widened to f32 (exact
+  // in TF32), as the B fragments of the score mma's 16 k-steps: dims
+  // 8k + t4 and 8k + t4 + 4
+  float qb[HD / 8][2];
   {
     const __nv_bfloat16 sc = __float2bfloat16_rn(a.scale);
-    for (int idx = threadIdx.x; idx < MAX_G * HD; idx += THREADS) {
-      const int g = idx / HD;
-      qs[idx] = g < G ? __bfloat162float(__hmul(a.q[((size_t)b * a.NH + kvh * G) * HD + idx], sc))
-                      : 0.f;
+    const __nv_bfloat16* qr = a.q + ((size_t)b * a.NH + kvh * G + gid) * HD + t4;
+#pragma unroll
+    for (int k = 0; k < HD / 8; ++k) {
+      qb[k][0] = gid < G ? __bfloat162float(__hmul(qr[8 * k], sc)) : 0.f;
+      qb[k][1] = gid < G ? __bfloat162float(__hmul(qr[8 * k + 4], sc)) : 0.f;
     }
   }
-  __syncthreads();  // the queries
 
-  // per head: the running max, this lane's share of the sum (its row), and
-  // dims 4 lane..+3 of the output
-  float m[MAX_G], l[MAX_G], acc[MAX_G][4];
+  // this warp's state for heads 2t4 and 2t4 + 1, as k6_decode's
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[HD / 16][4];
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  }
-  for (int i = i0; i < i1; ++i) {
-    const int st = (i - i0) & 1;
-    cp_async_wait<1>();  // tile i's group is in
-    __syncwarp();
+  for (int j = 0; j < HD / 16; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  uint32_t phase = 0;  // bit v: the parity of the K (0) or V (1) stage's next phase
+  while (i < i1) {
+    const int nx = next(i + 1);
     const int nv = rows_of(i);
-    if (nv > 0) {
-      const T* kt = wring + st * W::WSTAGE;
-      const T* vt = kt + WROWS * W::LDK;
-      float s[MAX_G];
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) s[g] = 0.f;
-#pragma unroll 2
-      for (int c = 0; c < 64; c += 8) {
-        float kk[8];
-        ld8(kt + j * W::LDK + 64 * hf + c, kk);
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-          if (g < G) {
-            float qv[8];
-            ld8(qs + g * HD + 64 * hf + c, qv);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) s[g] = fmaf(qv[e], kk[e], s[g]);
-          }
-        }
-      }
-      const bool ok = j < nv;
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
-          float x = s[g] + __shfl_xor_sync(0xffffffffu, s[g], 16);
-          x = ok ? x : NEG;
-          float mx = x;
-#pragma unroll
-          for (int sh = 1; sh < 16; sh <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
-          const float m_new = fmaxf(m[g], mx);
-          const float p = ok ? expf(x - m_new) : 0.f;
-          const float alpha = expf(m[g] - m_new);
-          m[g] = m_new;
-          l[g] = l[g] * alpha + p;  // this lane's row; summed over the rows at the end
-          if (hf == 0) wp[j * MAX_G + g] = to_f(from_f<T>(p));  // rounded to T for PV
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[g][e] *= alpha;
-        }
-      }
-      __syncwarp();
-      for (int t = 0; t < nv; ++t) {
-        float w[4];
-        ld4(vt + t * HD + 4 * lane, w);
-        float pr[8];
-        ld8(wp + t * MAX_G, pr);
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-          if (g < G) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pr[g], w[e], acc[g][e]);
-          }
-        }
-      }
-    }
-    __syncwarp();  // the lanes are done with stage st and the probabilities
-    fetch(i + 2, st);
-  }
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
-#pragma unroll
-    for (int sh = 1; sh < 16; sh <<= 1) l[g] += __shfl_xor_sync(0xffffffffu, l[g], sh);
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with its ring: the states go over them
+    mbar_wait(&bars[warp][0], phase & 1);
+    phase ^= 1u;
 
-  {
-    float* w = states + warp * PART;
-    if (lane == 0) {
+    // scores of tokens r0 + gid ([0], [1]) and r0 + 8 + gid ([2], [3]) for
+    // heads 2t4 and 2t4 + 1: each f32 key in three TF32 pieces (ldmatrix's
+    // registers: row gid (+8 for odd e), dim 8k + t4 (+4 for e >= 2)) times
+    // the bf16 query, every product exact; one chain per piece and k parity
+    float sp[3][2][4] = {};
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        w[g] = m[g];
-        w[MAX_G + g] = l[g];
+    for (int k = 0; k < HD / 8; ++k) {
+      uint32_t ka[4];
+      ldmatrix_x4(ka, kd + swz(lane & 15, 2 * k + (lane >> 4)));
+      float pc[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split3(__uint_as_float(ka[e]), pc[0][e], pc[1][e], pc[2][e]);
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+        mma_tf32(sp[u][k & 1], pc[u][0], pc[u][1], pc[u][2], pc[u][3], qb[k][0], qb[k][1]);
+    }
+    __syncwarp();  // the lanes are done with the K stage
+    if (nx < i1) issue(0, nx);
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[e] = (sp[0][0][e] + sp[0][1][e]) + ((sp[1][0][e] + sp[1][1][e]) + (sp[2][0][e] + sp[2][1][e]));
+    const bool ok0 = gid < nv, ok1 = 8 + gid < nv;
+    float p[4], alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float sa = ok0 ? s[e] : NEG;
+      const float sb = ok1 ? s[2 + e] : NEG;
+      float mx = fmaxf(sa, sb);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[e], mx);
+      p[e] = ok0 ? expf(sa - m_new) : 0.f;
+      p[2 + e] = ok1 ? expf(sb - m_new) : 0.f;
+      alpha[e] = expf(m[e] - m_new);
+      l[e] = l[e] * alpha[e] + (p[e] + p[2 + e]);  // this lane's tokens; summed at the end
+      m[e] = m_new;
+    }
+    // the f32 probabilities as the PV mma's B fragments (tokens x heads), in
+    // two TF32 pieces: k-step kk takes token 8kk + 2t4 as k-index t4 and
+    // 8kk + 2t4 + 1 as t4 + 4, for head gid, from the lanes that scored them
+    float bh[2][2], bl[2][2];
+    {
+      const int src = 8 * t4 + (gid >> 1);  // the lane of token 2t4, heads 2 (gid >> 1), +1
+      float x[4], y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = __shfl_sync(0xffffffffu, p[e], src);
+        y[e] = __shfl_sync(0xffffffffu, p[e], src + 4);
+      }
+      const int odd = gid & 1;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        split2(odd ? x[2 * kk + 1] : x[2 * kk], bh[kk][0], bl[kk][0]);
+        split2(odd ? y[2 * kk + 1] : y[2 * kk], bh[kk][1], bl[kk][1]);
       }
     }
-    float* wa = w + 2 * MAX_G;
+    mbar_wait(&bars[warp][1], (phase >> 1) & 1);
+    phase ^= 2u;
+    // acc += V^T P (3xTF32): V^T's A fragments are tokens 8kk + 2t4 and
+    // 8kk + 2t4 + 1 of dims 16j + gid and 16j + 8 + gid
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G)
-        *reinterpret_cast<float4*>(wa + g * ACC_LD + 4 * lane) =
-            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    for (int j = 0; j < HD / 16; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[1];
+      acc[j][2] *= alpha[0];
+      acc[j][3] *= alpha[1];
+      const int c = 4 * j + (gid >> 2), o4 = 4 * (gid & 3);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int r = 8 * kk + 2 * t4;
+        float vh[4], vl[4];
+        split2(*reinterpret_cast<const float*>(vd + swz(r, c) + o4), vh[0], vl[0]);
+        split2(*reinterpret_cast<const float*>(vd + swz(r, c + 2) + o4), vh[1], vl[1]);
+        split2(*reinterpret_cast<const float*>(vd + swz(r + 1, c) + o4), vh[2], vl[2]);
+        split2(*reinterpret_cast<const float*>(vd + swz(r + 1, c + 2) + o4), vh[3], vl[3]);
+        // small products first, in a fresh accumulator added to acc in f32
+        float d[4];
+        mma_tf32_first(d, vl[0], vl[1], vl[2], vl[3], bh[kk][0], bh[kk][1]);
+        mma_tf32(d, vh[0], vh[1], vh[2], vh[3], bl[kk][0], bl[kk][1]);
+        mma_tf32(d, vh[0], vh[1], vh[2], vh[3], bh[kk][0], bh[kk][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
+      }
+    }
+    __syncwarp();  // the lanes are done with the V stage
+    if (nx < i1) issue(1, nx);
+    i = nx;
   }
-  __syncthreads();
-  finish(a, states, ranks, rank, kvh, b, G);
+  end_block(a, states, ranks, rank, kvh, b, G, m, l, acc);
 }
 
 // a kernel's shared-memory limit, raised once per process
@@ -677,9 +765,39 @@ cudaError_t smem_once(Kernel kernel, int bytes, bool& done) {
   return e;
 }
 
+// the shared-memory limit of the kernel for pool type elem, raised once per
+// process and type
+cudaError_t smem_for(int elem) {
+  static bool smem_set[3] = {false, false, false};
+  if (elem == ELEM_F16) return smem_once(k6_decode<__half>, SMEM, smem_set[elem]);
+  if (elem == ELEM_F32) return smem_once(k6_decode_f32, SMEM, smem_set[elem]);
+  return smem_once(k6_decode<__nv_bfloat16>, SMEM, smem_set[elem]);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The dynamic shared memory of one block of the kernel for pool type elem
+// (ELEM_BF16, ELEM_F16 or ELEM_F32) and the blocks of it that one SM of the
+// current device holds at once, into out[0] and out[1] (host ints): what
+// flash_attention.py::flash_decode_split assumes (DECODE_BLOCKS_PER_SM).
+int wf_flash_paged_decode_occupancy(int elem, void* out) {
+  if (elem < ELEM_BF16 || elem > ELEM_F32) return cudaErrorInvalidValue;
+  cudaError_t e = smem_for(elem);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = elem == ELEM_F16   ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                               &blocks, k6_decode<__half>, THREADS, SMEM)
+      : elem == ELEM_F32 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                               &blocks, k6_decode_f32, THREADS, SMEM)
+                         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                               &blocks, k6_decode<__nv_bfloat16>, THREADS, SMEM);
+  if (e != cudaSuccess) return e;
+  static_cast<int*>(out)[0] = SMEM;
+  static_cast<int*>(out)[1] = blocks;
+  return 0;
+}
 
 // out [B,NH,128] = paged decode attention of layer `layer`; q [B,NH,128],
 // k_cur/v_cur [B,KV,128] bf16; main [P,2L,ps,KV*128], staging_b
@@ -695,16 +813,11 @@ int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, c
       P <= 0 || layer < 0 || layer >= L || split < 1 || split > MAX_SPLIT ||
       (split & (split - 1)) || elem < ELEM_BF16 || elem > ELEM_F32)
     return cudaErrorInvalidValue;
-  static bool smem_set[3] = {false, false, false};  // per type
-  const int smem = elem == ELEM_F32 ? Wide<float>::SMEM : SMEM;
-  cudaError_t e = elem == ELEM_F16   ? smem_once(k6_decode<__half>, smem, smem_set[elem])
-                  : elem == ELEM_F32 ? smem_once(k6_wide<float>, smem, smem_set[elem])
-                                     : smem_once(k6_decode<__nv_bfloat16>, smem, smem_set[elem]);
+  cudaError_t e = smem_for(elem);
   if (e != cudaSuccess) return e;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
-  // bf16 and fp16: a warp's 16 rows lie in one page
-  const int boxes = elem != ELEM_F32 && ps % WROWS == 0;
+  const int boxes = ps % WROWS == 0;  // a warp's 16 rows lie in one page
   // the main pool as [P * 2L * ps rows, KV*D]
   if (boxes &&
       (e = rows_map(&map, main, (long long)P * 2 * L * ps, KV * HD, elem)) != cudaSuccess)
@@ -715,7 +828,7 @@ int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, c
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, KV, B);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = SMEM;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
@@ -727,7 +840,7 @@ int wf_flash_paged_decode(const void* q, const void* k_cur, const void* v_cur, c
   if (elem == ELEM_F16)
     e = cudaLaunchKernelEx(&cfg, k6_decode<__half>, map, a);
   else if (elem == ELEM_F32)
-    e = cudaLaunchKernelEx(&cfg, k6_wide<float>, a);
+    e = cudaLaunchKernelEx(&cfg, k6_decode_f32, map, a);
   else
     e = cudaLaunchKernelEx(&cfg, k6_decode<__nv_bfloat16>, map, a);
   if (e != cudaSuccess) return e;

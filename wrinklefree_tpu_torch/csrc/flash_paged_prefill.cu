@@ -14,8 +14,8 @@
 //   with n_h = seq_lens[b], read in the kernel without a gathered copy; the
 //   chunk's keys are k_cur, v_cur [B,S,KV,D].
 // q, the keys, the values and the output share the pool's type: bf16 or
-// fp16 (k4_prefill<T>, on the tensor cores), or f32 (k4_wide<float>, on
-// FMAs; below). The TPU kernel's rounding points are kept: q is scaled by
+// fp16 (k4_prefill<T>), or f32 (k4_prefill_f32, below), all on the tensor
+// cores. The TPU kernel's rounding points are kept: q is scaled by
 // 1/sqrt(D) in T; scores, the running max and sum are f32; masked scores are
 // -1e30; probabilities are rounded to T against the running max before PV
 // (in fp16 those below 2^-14 as subnormals, as the plain version's cast
@@ -62,21 +62,46 @@
 // the probabilities packed to fp16, the tensor maps of fp16 rows (the copy
 // engine moves the same bytes as for bf16).
 //
-// f32 pools (k4_wide<float>, the reference's kernel at HIGHEST precision):
-// the same function, masks and rounding points in f32, on register-blocked
-// f32 FMAs. The product of two f32 values is exact in f32 (the tensor cores
-// take f32 only as TF32, which would truncate it), so again only the order
-// of the f32 sums differs from the plain version. Warp w owns 8 tokens of
-// one query head (G * BQ / 8 warps, BQ from
-// flash_attention.py::flash_prefill_wide_bq, at most 64 rows a block); lane
-// (rg, kg) = (lane / 16, lane % 16) holds the scores of rows 4rg..4rg+3 of
-// the warp against keys kg + 16j (j < 4) and their output at dims 4kg + 64u
-// (u < 2), +3. Q, scaled, stays in shared memory as f32; a two-slot ring
-// streams K of tile i, then V of tile i (64 rows a slot, padded by 16 bytes
-// so that the lanes' 16-byte reads of 8 rows miss each other), by 16-byte
-// cp.async, filled while the other slot is computed, with zeros for the rows
-// past the valid keys (never read from memory); the probabilities go through
-// shared memory transposed (P^T) to the PV product.
+// f32 pools (k4_prefill_f32; the reference's kernel at HIGHEST precision):
+// the same function, masks, blocks (flash_prefill_bq), warps and rounding
+// points, the probabilities kept in f32. The tensor cores take f32 only as
+// TF32 (10 mantissa bits), one pass of which moves the output by about
+// 5e-4, 25 times the f32 bar (2e-5). So each f32 operand goes in as two
+// TF32 pieces, hi + lo (sm90.cuh::split2), and each product as hi*hi +
+// hi*lo + lo*hi on mma.sync m16n8k8 TF32 -> f32 (3xTF32; the dropped lo*lo
+// is below 2^-20 of it): 6x bf16's mma per key, at half their rate per
+// operation. Bound: those operations at a third of the TF32 rate; what
+// holds it at several times that bound is each warp's chain per tile (its
+// 384 mma and the splits of every K and V element it reads, which every
+// warp of the block repeats; PERF.md section 6). The layout:
+// - Scores: Q (A, 16 rows x 8 dims a k-step) times K^T (B). A warp's
+//   scaled Q rows are split once: the hi pieces stay in 64 registers as A
+//   fragments, the lo pieces go to the warp's 8 KB of shared memory (the
+//   swizzled layout of a K group) and come back by ldmatrix each tile; K
+//   rows come by ldmatrix (an 8 x 16-byte matrix of f32 rows is a B
+//   fragment) and are split in registers. q hi x k hi accumulates in one
+//   chain, the two cross products in another (48 products a score).
+// - PV: the score accumulators' layout (a lane holds keys 2t4, 2t4 + 1)
+//   is the A fragment of the k-step that takes key 8j + 2t4 as column t4
+//   and 8j + 2t4 + 1 as column t4 + 4; V's B fragments are then those two
+//   rows at dims 16p + 2gid and + 1 (one 8-byte load each), for the two
+//   n-tiles of the even and odd dims of 16p..16p+15. P and V are split in
+//   registers.
+// - The output: each tile's 12 PV products of a 16-dim slice go into a
+//   fresh accumulator, added to the running output in f32. The tensor
+//   cores' f32 sums drift: one sum over the whole history moved the output
+//   by 8.3e-6 at 8192 keys, and by 9.4e-5 (past the 2e-5 bar) at 8192 keys
+//   with q and k of 2 units (PERF.md section 6).
+// - A two-stage ring of 32-key tiles (32 KB a stage, K then V) on one
+//   mbarrier per stage and one block barrier per tile: warps 0-3 load a
+//   quarter each (the K or V rows of one 16-key group), by four copy-engine
+//   boxes of 16 rows x 32 dims (128-byte swizzle, so ldmatrix and the V
+//   loads are free of bank conflicts) where all 16 rows are valid and lie
+//   in one page, else row by row with cp.async, zeros past the valid keys.
+//   64 KB of ring and 8 KB a warp: two blocks of 4 warps an SM, at 255
+//   registers (8 bytes spilled; ptxas, PERF.md section 6).
+// The tiles are 32 keys, not 64, so that the ring and the Q lo pieces fit
+// twice in an SM; the masks and the block order are k4_prefill's.
 //
 // Launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() or the launch's error.
@@ -395,216 +420,325 @@ cudaError_t launch(const Maps& maps, const Args& a, int B, void* stream) {
 
 // ------------------------------------------------------------- f32 ----
 
-template <typename T>
-struct Wide {
-  static constexpr int LDK = HD + 16 / sizeof(T);  // elements a staged row: 16 bytes of padding
-  static constexpr int SLOT = TK * LDK;            // 64 rows of K or V
-  static constexpr int LDQ = HD + 4;               // floats a Q row
-  static constexpr int MAX_ROWS = 64;
-  // the ring, Q and P^T ([64 keys][rows + 4]) for `rows` query rows
-  static constexpr int smem(int rows) {
-    return 2 * SLOT * (int)sizeof(T) + (rows * LDQ + TK * (rows + 4)) * 4;
-  }
-};
+constexpr int TKF = 32;              // keys per f32 tile
+constexpr int BOXF = 16 * 128;       // a copy-engine box: 16 rows x 32 f32 dims
+constexpr int GROUPF = 4 * BOXF;     // 16 rows x 128 dims: 8 KB
+constexpr int TILEF = 2 * GROUPF;    // 32 rows: 16 KB
+constexpr int STAGEF = 2 * TILEF;    // K then V
+constexpr int RINGF = STAGES * STAGEF;  // 64 KB
+constexpr int SMEMF = RINGF + MAX_WARPS * GROUPF + 1024;  // and each warp's Q lo pieces
 
-// Grid (KV, q tiles, B), G*BQ/8 warps, one per 8 tokens of one query head.
-template <typename T>
-__global__ void __launch_bounds__(MAX_WARPS * 32) k4_wide(Args a) {
-  using W = Wide<T>;
-  constexpr int PER = 16 / sizeof(T);   // elements a 16-byte copy
-  constexpr int PIECES = HD / PER;      // copies a row
-  extern __shared__ float4 wide_raw[];
-  T* ring = reinterpret_cast<T*>(wide_raw);  // [2][64][LDK]: chunk c in slot c % 2
-  const int nrows = a.G * a.BQ, LDP = nrows + 4;
-  float* qs = reinterpret_cast<float*>(ring + 2 * W::SLOT);  // [nrows][LDQ], scaled
-  float* pt = qs + nrows * W::LDQ;                           // P^T [64][LDP]
-  const int kvh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, rg = lane >> 4, kg = lane & 15;
-  const int h = kvh * a.G + warp * 8 / a.BQ;  // this warp's query head
-  const int s0 = qt * a.BQ;
-  const int sw = s0 + warp * 8 % a.BQ;        // and its first query row
-  const int r0 = warp * 8 + rg * 4;           // this lane's first row of the block
-  const bool rows = sw < a.S;
-  const int n_h = min(max(a.hist_valid[b], 0), a.hist_cap);
-  const int nl = min(max(a.new_len[b], 0), a.S);
-  const int n_c = min(nl, s0 + a.BQ);  // chunk keys the q tile sees
-  const int nth = (n_h + TK - 1) / TK;
-  const int nt = nth + (n_c + TK - 1) / TK;
-
-  // chunk c: K (c even) or V of tile c / 2 (history tiles, then chunk tiles)
-  auto fetch = [&](int c) {
-    const int i = c >> 1, v = c & 1;
-    const bool hist = i < nth;
-    const int t0 = hist ? i * TK : (i - nth) * TK;
-    const int nv = min(TK, (hist ? n_h : n_c) - t0);
-    const T* base = static_cast<const T*>(hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck));
-    T* dst = ring + (c & 1) * W::SLOT;
-    for (int idx = threadIdx.x; idx < TK * PIECES; idx += blockDim.x) {
-      const int r = idx / PIECES, p = idx % PIECES;
-      T* d = dst + r * W::LDK + p * PER;
-      if (r < nv)
-        cp_async16(d, base + row_of(a, hist, v, b, t0 + r, -1) * ((long long)a.KV * HD) +
-                          kvh * HD + p * PER);
-      else
-        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+// Issue the copies of a quarter of f32 tile i (history tiles, then chunk
+// tiles) into `stage`: loading warp w < 4 takes the K (w < 2) or V rows
+// 16 * (w & 1)..+15, completing on bar, which expects one arrival from each
+// lane of the 4 loaders. A quarter whose 16 rows are valid and lie in one
+// page comes by four copy-engine boxes of 32 dims; otherwise lane j < 16
+// copies dims 0..63 and lane 16 + j dims 64..127 of row j with cp.async, and
+// rows past the n valid keys are zero. `pg`: lane k holds the page of this
+// quarter's rows in history tile k (paged, k < 32).
+__device__ __forceinline__ void issue_f32(const Args& a, const Maps& maps, char* stage,
+                                          uint64_t* bar, int i, int nth, int n_h, int n_c, int b,
+                                          int kvh, int warp, int lane, int pg) {
+  const bool hist = i < nth;
+  const int v = warp >> 1, grp = warp & 1;
+  const int t0 = (hist ? i * TKF : (i - nth) * TKF) + 16 * grp;  // the quarter's first key
+  const int nv = min(16, (hist ? n_h : n_c) - t0);
+  char* dst = stage + v * TILEF + grp * GROUPF;
+  if (nv == 16 && (!hist || a.hist_boxes)) {
+    int page = -1;
+    if (hist && a.paged) {
+      page = __shfl_sync(0xffffffffu, pg, i & 31);
+      if (i >= 32) page = __ldg(a.page_table + (size_t)b * a.MP + t0 / a.ps);
     }
-    cp_async_commit();
-  };
-  if (nt > 0) fetch(0);
-  {
-    const float sc = to_f(from_f<T>(a.scale));
-    const T* q = static_cast<const T*>(a.q);
-    for (int idx = threadIdx.x; idx < nrows * HD; idx += blockDim.x) {
-      const int r = idx / HD, d = idx % HD, s = s0 + r % a.BQ;
-      float x = 0.f;
-      if (s < a.S)
-        x = to_f(from_f<T>(
-            to_f(q[(((size_t)b * a.S + s) * a.NH + kvh * a.G + r / a.BQ) * HD + d]) * sc));
-      qs[r * W::LDQ + d] = x;
+    if (lane == 0)
+      mbar_expect_tx(bar, 4 * BOXF);
+    else
+      mbar_arrive(bar);
+    __syncwarp();
+    if (lane < 4) {
+      const CUtensorMap* map = hist ? (v ? &maps.hv : &maps.hk) : (v ? &maps.cv : &maps.ck);
+      tma_load(dst + lane * BOXF, map, kvh * HD + 32 * lane, (int)row_of(a, hist, v, b, t0, page),
+               bar);
     }
+    return;
   }
-
-  // rows r0 + i (i < 4); o[i][4u + e] at dim 4kg + 64u + e
-  float o[4][8];
+  const int j = lane & 15, h = lane >> 4;
+  if (j < nv) {
+    const float* src = static_cast<const float*>(hist ? (v ? a.hv : a.hk) : (v ? a.cv : a.ck)) +
+                       row_of(a, hist, v, b, t0 + j, -1) * ((long long)a.KV * HD) + kvh * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int c = 16 * h; c < 16 * h + 16; ++c) cp_async16(dst + swz(j, c), src + 4 * c);
+    cp_async_arrive_noinc(bar);
+  } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
-  float m[4] = {NEG, NEG, NEG, NEG}, l[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int c = 0; c < 2 * nt; ++c) {
-    cp_async_wait<0>();
-    __syncthreads();  // chunk c (and Q) is in; every warp is done with chunk c - 1
-    if (c + 1 < 2 * nt) fetch(c + 1);
-    const int i = c >> 1;
-    const bool hist = i < nth;
-    const int c0 = hist ? i * TK : (i - nth) * TK;
-    if (!rows || (!hist && c0 > sw + 7)) continue;  // no row of the warp sees a key of the tile
-    const T* kv = ring + (c & 1) * W::SLOT;
-    if ((c & 1) == 0) {
-      // scores of rows r0.. against keys c0 + kg + 16j
-      float s[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
-#pragma unroll 2
-      for (int d = 0; d < HD; d += 8) {
-        float kk[4][8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ld8(kv + (kg + 16 * j) * W::LDK + d, kk[j]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float qv[8];
-          ld8(qs + (r0 + r) * W::LDQ + d, qv);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 8; ++e) s[r][j] = fmaf(qv[e], kk[j][e], s[r][j]);
-        }
-      }
-      const int lim = (hist ? n_h : nl) - c0;  // the tile's keys from lim on are not valid
-      if (lim < TK || (!hist && c0 + TK - 1 > sw)) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = kg + 16 * j;
-            if (!(col < lim && (hist || c0 + col <= sw + rg * 4 + r))) s[r][j] = NEG;
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
-#pragma unroll
-        for (int x = 1; x < 16; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
-        const float m_new = fmaxf(m[r], mx);
-        const float alpha = expf(m[r] - m_new);
-        m[r] = m_new;
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = expf(s[r][j] - m_new);
-          rs += p;
-          s[r][j] = to_f(from_f<T>(p));  // rounded to T for PV; l sums the f32 values
-        }
-        l[r] = l[r] * alpha + rs;
-        if (alpha != 1.f) {  // the row's max moved
-#pragma unroll
-          for (int e = 0; e < 8; ++e) o[r][e] *= alpha;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(pt + (kg + 16 * j) * LDP + r0) =
-            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      __syncwarp();
-    } else {
-      // o += P V over the tile's 64 keys
-#pragma unroll 4
-      for (int t = 0; t < TK; ++t) {
-        const float4 p = *reinterpret_cast<const float4*>(pt + t * LDP + r0);
-        const float pr[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          float w[4];
-          ld4(kv + t * W::LDK + 4 * kg + 64 * u, w);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[r][4 * u + e] = fmaf(pr[r], w[e], o[r][4 * u + e]);
-        }
-      }
-      __syncwarp();  // before the next tile's probabilities overwrite P^T
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int x = 1; x < 16; x <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], x);
-  if (!rows) return;
-  T* out = static_cast<T*>(a.out);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int s = sw + rg * 4 + r;
-    if (s >= a.S) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    T* dst = out + (((size_t)b * a.S + s) * a.NH + h) * HD + 4 * kg;
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[64 * u + e] = from_f<T>(o[r][4 * u + e] / den);
+    for (int c = 16 * h; c < 16 * h + 16; ++c)
+      *reinterpret_cast<uint4*>(dst + swz(j, c)) = make_uint4(0, 0, 0, 0);
+    fence_proxy_async();  // before the copy engine's later writes to the row
+    mbar_arrive(bar);
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(const Args& a, int B, void* stream) {
-  static bool smem_set = false;  // raised once per process and type
+// Grid (KV, q tiles, B), G*BQ/16 warps, one per 16 tokens of one query head,
+// as k4_prefill, over 32-key tiles of f32 rows. maps: the history and chunk
+// arrays as rows of KV*D f32 in boxes of 16 rows x 32 dims, 128-byte swizzle.
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    k4_prefill_f32(const __grid_constant__ Maps maps, Args a) {
+  extern __shared__ unsigned char raw[];
+  // the ring [STAGES][k, v][2 groups][GROUPF], then each warp's Q lo pieces,
+  // all 1024-byte aligned for the swizzle
+  char* ring = reinterpret_cast<char*>(raw) + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  __shared__ uint64_t full[STAGES];  // a stage's copies are in
+  const int kvh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, t4 = lane & 3;
+  const int nsub = a.BQ / 16;
+  const int h = kvh * a.G + warp / nsub;            // this warp's query head
+  const int s0 = qt * a.BQ;
+  const int sw = s0 + (warp % nsub) * 16;           // and its first query row
+  const int n_h = min(max(a.hist_valid[b], 0), a.hist_cap);
+  const int nl = min(max(a.new_len[b], 0), a.S);
+  const int n_c = min(nl, s0 + a.BQ);               // chunk keys the q tile sees
+  const int nth = (n_h + TKF - 1) / TKF;
+  const int nt = nth + (n_c + TKF - 1) / TKF;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], LOADERS * 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int pg = -1;
+  if (warp < LOADERS) {
+    if (lane == 0) {
+      if (a.hist_boxes) prefetch_map(warp >> 1 ? &maps.hv : &maps.hk);
+      prefetch_map(warp >> 1 ? &maps.cv : &maps.ck);
+    }
+    const int t = lane * TKF + 16 * (warp & 1);
+    if (a.paged && a.hist_boxes && lane < nth && t < n_h)
+      pg = __ldg(a.page_table + (size_t)b * a.MP + t / a.ps);
+    for (int s = 0; s < STAGES && s < nt; ++s)
+      issue_f32(a, maps, ring + s * STAGEF, &full[s], s, nth, n_h, n_c, b, kvh, warp, lane, pg);
+  }
+
+  // this warp's 16 query rows scaled in f32 (zero past S) as the A
+  // fragments of the score product's 16 k-steps of 8 dims: register e holds
+  // row gid + 8 (e & 1), dim 8k + t4 + 4 (e >> 1). The hi pieces stay in
+  // registers, the lo pieces go to shared memory (the layout of a K group),
+  // read back by ldmatrix each tile.
+  char* ql = ring + RINGF + warp * GROUPF;
+  float qh[HD / 8][4];
+  {
+    const float* qb = static_cast<const float*>(a.q) + (size_t)b * a.S * a.NH * HD + h * HD;
+#pragma unroll
+    for (int k = 0; k < HD / 8; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = gid + 8 * (e & 1), d = 8 * k + t4 + 4 * (e >> 1), s = sw + r;
+        const float x = s < a.S ? qb[(size_t)s * a.NH * HD + d] * a.scale : 0.f;
+        float lo;
+        split2(x, qh[k][e], lo);
+        *reinterpret_cast<float*>(ql + swz(r, d >> 2) + 4 * (d & 3)) = lo;
+      }
+  }
+  __syncwarp();
+
+  // rows sw + gid ([0], [1] of each accumulator) and sw + 8 + gid ([2],
+  // [3]); o[2p] holds dims 16p + 4t4 and + 2, o[2p + 1] dims 16p + 4t4 + 1
+  // and + 3 (the PV product's n-tiles take the even and odd dims of 16p..)
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  const bool rows = sw < a.S;  // the warp has query rows
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const bool hist = i < nth;
+    const int c0 = hist ? i * TKF : (i - nth) * TKF;
+    const int lim = (hist ? n_h : nl) - c0;  // the tile's keys from lim on are not valid
+    if (rows && (hist || c0 <= sw + 15)) {  // some row of the warp sees a key of the tile
+      const char* kt = ring + st * STAGEF;
+      const char* vt = kt + TILEF;
+      // scores against keys 8n + 2t4, +1 (3xTF32): q hi x k hi in s, the
+      // cross products in sx; 48 products a key, whatever the history
+      float s[TKF / 8][4], sx[TKF / 8][4];
+#pragma unroll
+      for (int n = 0; n < TKF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = sx[n][e] = 0.f;
+#pragma unroll
+      for (int p = 0; p < HD / 16; ++p) {  // k-steps 2p and 2p + 1: dims 16p..16p+15
+        uint32_t q0[4], q1[4];
+        ldmatrix_x4(q0, ql + swz((lane & 7) + 8 * ((lane >> 3) & 1), 4 * p + (lane >> 4)));
+        ldmatrix_x4(q1, ql + swz((lane & 7) + 8 * ((lane >> 3) & 1), 4 * p + 2 + (lane >> 4)));
+#pragma unroll
+        for (int n = 0; n < TKF / 8; ++n) {
+          // keys 8n + gid: dims 16p + t4 (+ 4, + 8, + 12) as the B fragments
+          // of the two k-steps
+          uint32_t kb[4];
+          const int kr = 8 * n + (lane & 7);
+          ldmatrix_x4(kb, kt + (kr >> 4) * GROUPF + swz(kr & 15, 4 * p + (lane >> 3)));
+          float kh[4], kl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split2(__uint_as_float(kb[e]), kh[e], kl[e]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float(&qa)[4] = qh[2 * p + u];
+            const uint32_t* qo = u ? q1 : q0;
+            mma_tf32(s[n], qa[0], qa[1], qa[2], qa[3], kh[2 * u], kh[2 * u + 1]);
+            mma_tf32(sx[n], qa[0], qa[1], qa[2], qa[3], kl[2 * u], kl[2 * u + 1]);
+            mma_tf32(sx[n], __uint_as_float(qo[0]), __uint_as_float(qo[1]),
+                     __uint_as_float(qo[2]), __uint_as_float(qo[3]), kh[2 * u], kh[2 * u + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < TKF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += sx[n][e];
+      // masks: the history's last tile, chunk tiles at the diagonal or new_len
+      if (lim < TKF || (!hist && c0 + TKF - 1 > sw)) {
+#pragma unroll
+        for (int n = 0; n < TKF / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * t4 + (e & 1);
+            const int row = sw + gid + 8 * (e >> 1);
+            if (!(col < lim && (hist || c0 + col <= row))) s[n][e] = NEG;
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG;
+#pragma unroll
+        for (int n = 0; n < TKF / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < TKF / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]);
+        rs[0] += s[n][0] + s[n][1];
+        rs[1] += s[n][2] + s[n][3];
+      }
+      l[0] = l[0] * alpha[0] + rs[0];
+      l[1] = l[1] * alpha[1] + rs[1];
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row's max moved
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
+        }
+      }
+      // o += P V (3xTF32), k-step j over keys 8j..8j+7 in the order of the
+      // score accumulators: column t4 is key 8j + 2t4, column t4 + 4 key
+      // 8j + 2t4 + 1, so the f32 probabilities are the A fragments where
+      // they lie, and V's B fragments are those two rows of the tile
+      float ph[TKF / 8][4], pl[TKF / 8][4];
+#pragma unroll
+      for (int j = 0; j < TKF / 8; ++j) {
+        split2(s[j][0], ph[j][0], pl[j][0]);
+        split2(s[j][2], ph[j][1], pl[j][1]);
+        split2(s[j][1], ph[j][2], pl[j][2]);
+        split2(s[j][3], ph[j][3], pl[j][3]);
+      }
+#pragma unroll
+      for (int p = 0; p < HD / 16; ++p) {
+        // the tile's products for dims 16p + 2gid (n-tile 2p) and + 1 (2p +
+        // 1), small ones first, in fresh accumulators added to o in f32: no
+        // tensor-core sum runs over more than one tile
+        float t[2][4];
+        const int c = 4 * p + (gid >> 1), off = 8 * (gid & 1);
+#pragma unroll
+        for (int j = 0; j < TKF / 8; ++j) {
+          const int r = 8 * j + 2 * t4;  // keys r and r + 1: one 16-row group
+          const char* vg = vt + (r >> 4) * GROUPF;
+          const float2 v0 = *reinterpret_cast<const float2*>(vg + swz(r & 15, c) + off);
+          const float2 v1 = *reinterpret_cast<const float2*>(vg + swz((r & 15) + 1, c) + off);
+          float vh[4], vl[4];
+          split2(v0.x, vh[0], vl[0]);
+          split2(v1.x, vh[1], vl[1]);
+          split2(v0.y, vh[2], vl[2]);
+          split2(v1.y, vh[3], vl[3]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (j == 0)
+              mma_tf32_first(t[u], pl[j][0], pl[j][1], pl[j][2], pl[j][3], vh[2 * u],
+                             vh[2 * u + 1]);
+            else
+              mma_tf32(t[u], pl[j][0], pl[j][1], pl[j][2], pl[j][3], vh[2 * u], vh[2 * u + 1]);
+            mma_tf32(t[u], ph[j][0], ph[j][1], ph[j][2], ph[j][3], vl[2 * u], vl[2 * u + 1]);
+            mma_tf32(t[u], ph[j][0], ph[j][1], ph[j][2], ph[j][3], vh[2 * u], vh[2 * u + 1]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[2 * p + u][e] += t[u][e];
+      }
+    }
+    __syncthreads();  // every warp is done with stage st
+    if (warp < LOADERS && i + STAGES < nt)
+      issue_f32(a, maps, ring + st * STAGEF, &full[st], i + STAGES, nth, n_h, n_c, b, kvh, warp,
+                lane, pg);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  if (!rows) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = sw + gid + 8 * r;
+    if (s >= a.S) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    float* dst = static_cast<float*>(a.out) + (((size_t)b * a.S + s) * a.NH + h) * HD + 4 * t4;
+#pragma unroll
+    for (int p = 0; p < HD / 16; ++p)
+      *reinterpret_cast<float4*>(dst + 16 * p) =
+          make_float4(o[2 * p][2 * r] / den, o[2 * p + 1][2 * r] / den,
+                      o[2 * p][2 * r + 1] / den, o[2 * p + 1][2 * r + 1] / den);
+  }
+}
+
+cudaError_t launch_f32(const Maps& maps, const Args& a, int B, void* stream) {
+  static bool smem_set = false;  // raised once per process
   cudaError_t e;
   if (!smem_set) {
-    if ((e = cudaFuncSetAttribute(k4_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  Wide<T>::smem(Wide<T>::MAX_ROWS))) != cudaSuccess)
+    if ((e = cudaFuncSetAttribute(k4_prefill_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SMEMF)) != cudaSuccess)
       return e;
     smem_set = true;
   }
-  const int rows = a.G * a.BQ;
+  const int warps = a.G * a.BQ / 16;
   const dim3 grid(a.KV, (a.S + a.BQ - 1) / a.BQ, B);
-  k4_wide<T><<<grid, rows / 8 * 32, Wide<T>::smem(rows), (cudaStream_t)stream>>>(a);
+  k4_prefill_f32<<<grid, warps * 32, RINGF + warps * GROUPF + 1024, (cudaStream_t)stream>>>(maps,
+                                                                                          a);
   return cudaGetLastError();
 }
 
-// Launch for the pool's type: bf16 and fp16 on the tensor cores through the
-// tensor maps, f32 on FMAs.
+// Launch for the pool's type, every one on the tensor cores through the
+// tensor maps.
 cudaError_t launch_elem(const Maps& maps, const Args& a, int B, int elem, void* stream) {
   if (elem == ELEM_F16) return launch<__half>(maps, a, B, stream);
-  if (elem == ELEM_F32) return launch_wide<float>(a, B, stream);
+  if (elem == ELEM_F32) return launch_f32(maps, a, B, stream);
   return launch<__nv_bfloat16>(maps, a, B, stream);
 }
 
-// The shapes the kernel takes: D 128, G = NH / KV <= 8; bf16 and fp16: BQ a
-// multiple of 16 with 4-8 warps; f32: BQ a multiple of 8, at most 64 rows.
+// The shapes the kernel takes: D 128, G = NH / KV <= 8, BQ a multiple of 16
+// with 4-8 warps, on a bf16, fp16 or f32 pool.
 bool shapes_ok(int NH, int KV, int D, int bq, int elem) {
-  if (D != HD || KV <= 0 || NH % KV || NH / KV > 8 || bq <= 0) return false;
-  if (elem == ELEM_F32) return bq % 8 == 0 && NH / KV * bq <= 64;
-  if ((elem != ELEM_BF16 && elem != ELEM_F16) || bq % 16) return false;
+  if (D != HD || KV <= 0 || NH % KV || NH / KV > 8 || bq <= 0 || bq % 16) return false;
+  if (elem != ELEM_BF16 && elem != ELEM_F16 && elem != ELEM_F32) return false;
   const int warps = NH / KV * bq / 16;
   return warps >= LOADERS && warps <= MAX_WARPS;
 }
@@ -627,8 +761,8 @@ int wf_flash_paged_prefill(const void* q, const void* k, const void* v, const vo
   memset(&maps, 0, sizeof(maps));
   cudaError_t e;
   const long long rows = (long long)B * Tt;
-  if (elem != ELEM_F32 && ((e = rows_map(&maps.hk, k, rows, KV * HD, elem)) != cudaSuccess ||
-                           (e = rows_map(&maps.hv, v, rows, KV * HD, elem)) != cudaSuccess))
+  if ((e = rows_map(&maps.hk, k, rows, KV * HD, elem)) != cudaSuccess ||
+      (e = rows_map(&maps.hv, v, rows, KV * HD, elem)) != cudaSuccess)
     return e;
   maps.ck = maps.hk;
   maps.cv = maps.hv;
@@ -653,15 +787,13 @@ int wf_flash_paged_prefill_pool(const void* q, const void* k_cur, const void* v_
   memset(&maps, 0, sizeof(maps));
   cudaError_t e;
   const int boxes = ps % 16 == 0;  // a group of 16 history rows lies in one page
-  if (elem != ELEM_F32) {
-    if (boxes &&
-        (e = rows_map(&maps.hk, main, (long long)P * 2 * L * ps, KV * HD, elem)) != cudaSuccess)
-      return e;
-    maps.hv = maps.hk;
-    if ((e = rows_map(&maps.ck, k_cur, (long long)B * S, KV * HD, elem)) != cudaSuccess ||
-        (e = rows_map(&maps.cv, v_cur, (long long)B * S, KV * HD, elem)) != cudaSuccess)
-      return e;
-  }
+  if (boxes &&
+      (e = rows_map(&maps.hk, main, (long long)P * 2 * L * ps, KV * HD, elem)) != cudaSuccess)
+    return e;
+  maps.hv = maps.hk;
+  if ((e = rows_map(&maps.ck, k_cur, (long long)B * S, KV * HD, elem)) != cudaSuccess ||
+      (e = rows_map(&maps.cv, v_cur, (long long)B * S, KV * HD, elem)) != cudaSuccess)
+    return e;
   Args a{q, out, main, main, k_cur, v_cur, (const int*)seq_lens, (const int*)new_len,
          (const int*)page_table, S, NH, KV, NH / KV, bq, MP * ps, 0, S, 0, 1, L, layer, ps, MP,
          boxes, scale};

@@ -2,11 +2,11 @@
 // flash_decode.cu), the paged flash prefill (K4, flash_paged_prefill.cu) and
 // the causal flash prefill (K9, flash_prefill.cu): mbarriers, copy-engine
 // (TMA) and cp.async loads, ldmatrix, mma.sync m16n8k16 bf16 or fp16 and
-// m16n8k8 TF32 -> f32, the 16-bit types' pairs (packing, scaling), and the
-// tensor maps, all in the 128-byte swizzle, of [rows, KV*128] 16-bit arrays
-// in boxes of 16 rows x 64 dims and of [batch, rows, KV*D] bf16 or f32
-// arrays in boxes of n rows x 128 bytes; and the element loads of the f32
-// pools' kernels (K4 and K6 on FMAs).
+// m16n8k8 TF32 -> f32, the TF32 pieces of f32 values (the f32 pools'
+// 3xTF32 products), the 16-bit types' pairs (packing, scaling), and the
+// tensor maps, all in the 128-byte swizzle, of [rows, KV*128] bf16, fp16 or
+// f32 arrays in boxes of 16 rows x 128 bytes and of [batch, rows, KV*D]
+// bf16 or f32 arrays in boxes of n rows x 128 bytes.
 
 #pragma once
 
@@ -107,17 +107,6 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
                : "memory");
 }
 
-// close this thread's group of the cp.async copies it started so far
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most n of this thread's closed groups of copies are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // order this thread's shared-memory writes before later copy-engine writes
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -164,6 +153,48 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], float a0, float a1, floa
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
         "r"(__float_as_uint(a3)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// d = a * b with the accumulators' input zero: the first product of a
+// fresh accumulator
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], float a0, float a1, float a2,
+                                               float a3, float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
+        "r"(__float_as_uint(a3)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)),
+        "f"(0.f));
+}
+
+// The TF32 pieces of an f32 value x, as the f32 pools' kernels hand them to
+// mma_tf32 (ops/flash_attention.py::tf32_split models them bit for bit):
+// hi keeps x's sign, exponent and top 10 mantissa bits (truncation, so the
+// largest finite values cannot round up to infinity); the rest r = x - hi is
+// exact in f32 and below 2^-10 of |x|.
+// - split2: hi and lo = r rounded to the nearest TF32 value (ties away from
+//   zero, subnormals kept): |x - hi - lo| <= 2^-22 |x| where lo is normal.
+//   A product of two such values as hi*hi + hi*lo + lo*hi (3xTF32) leaves
+//   out lo*lo, below 2^-20 of it.
+// - split3: hi, mid = r truncated to TF32, and lo = r - mid, which has at
+//   most two significant bits: hi + mid + lo = x exactly, where x is a
+//   multiple of TF32's least subnormal 2^-136 (every |x| >= 2^-113).
+//   Each piece times a bf16 value is exact in f32.
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+__device__ __forceinline__ void split2(float x, float& hi, float& lo) {
+  hi = tf32_trunc(x);
+  lo = tf32_round(x - hi);
+}
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  hi = tf32_trunc(x);
+  const float r = x - hi;
+  mid = tf32_trunc(r);
+  lo = r - mid;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -213,8 +244,9 @@ struct F16Ops<__half> {
   }
 };
 
-// Byte offset of the 16-byte chunk c (dims 8c..8c+7) of row r (0-15) of a
-// 16-row group: [64-dim half][16 rows][128 bytes] in the copy engine's
+// Byte offset of the 16-byte chunk c (dims 8c..8c+7 of 16-bit rows, 4c..4c+3
+// of f32 rows) of row r (0-15) of a 16-row group: [128-byte column of
+// boxes][16 rows][128 bytes] in the copy engine's
 // 128-byte swizzle (chunk c & 7 of a row stored at (c & 7) ^ (r & 7) within
 // each 1 KB), so that ldmatrix's eight 16-byte rows hit distinct banks. The
 // group must start on 1024 bytes.
@@ -248,21 +280,24 @@ cudaError_t encode_tiled(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// A bf16 or fp16 array [rows, cols] (rows of cols elements, contiguous;
-// elem ELEM_BF16 or ELEM_F16) as boxes of 16 rows x 64 elements in the
-// 128-byte swizzle. The map names the element type, though a copy without
-// conversion or fill moves the same bytes for either.
+// A bf16, fp16 or f32 array [rows, cols] (rows of cols elements,
+// contiguous; elem ELEM_BF16, ELEM_F16 or ELEM_F32) as boxes of 16 rows x
+// 128 bytes (64 elements, or 32 in f32) in the 128-byte swizzle. The map
+// names the element type, though a copy without conversion or fill moves
+// the same bytes for either 16-bit type.
 cudaError_t rows_map(CUtensorMap* map, const void* base, long long rows, int cols, int elem) {
   EncodeTiled enc;
   const cudaError_t e = encode_tiled(&enc);
   if (e != cudaSuccess) return e;
+  const cuuint64_t eb = elem == ELEM_F32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, 16};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * eb};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / eb), 16};
   const cuuint32_t one[2] = {1, 1};
   CUresult r = enc(map,
-                   elem == ELEM_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   elem == ELEM_F32   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : elem == ELEM_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                    2, const_cast<void*>(base), dims, strides, box, one,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -289,31 +324,6 @@ cudaError_t batched_rows_map(CUtensorMap* map, const void* base, int batch, long
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------- f32 elements ----
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-// x rounded to T (to nearest even)
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
-// 8 consecutive f32 elements from 16-byte aligned shared or global memory
-__device__ __forceinline__ void ld8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
-}
-
-// 4 consecutive f32 elements from 16-byte aligned memory
-__device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
 }
 
 }  // namespace

@@ -51,6 +51,7 @@ SIGNATURES = {
                      _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wf_flash_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _I, _I, _P],
+    "wf_flash_paged_decode_occupancy": [_I, _P],
     "wf_ternary_matmul": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "wf_flash_prefill": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                          _P],

@@ -16,17 +16,19 @@ it launches the kernel (``csrc/flash_prefill.cu``,
 ``csrc/flash_paged_prefill.cu``, ``csrc/flash_decode.cu``) or raises.
 ``<wrapper>.launches`` counts launches (both K4 wrappers count in
 ``flash_paged_prefill.launches``). K9's block shape is
-``causal_prefill_block``, K4's ``flash_prefill_bq`` (bf16 and fp16 pools)
-and ``flash_prefill_wide_bq`` (f32 pools), K6's split
-``flash_decode_split``: static shapes, so the CPU tests reach them.
+``causal_prefill_block``, K4's ``flash_prefill_bq`` (every pool type), K6's
+split ``flash_decode_split``: static shapes, so the CPU tests reach them.
 
-K4 and K6 take every unquantized pool, as the reference's kernels do: bf16
-and fp16 on the tensor cores, f32 on f32 FMAs (``POOL_ELEM`` names the
-kernel's instantiation). K4's inputs are all of the pool's type (the paged
-forward casts the chunk to it, as the reference does); K6's query and
-current-token rows stay bf16, the model's type, and on an fp16 pool its
-bf16 x fp16 scores go through the tensor cores in TF32, which holds both
-types exactly (``exact_in_tf32``).
+K4 and K6 take every unquantized pool, as the reference's kernels do, all
+on the tensor cores (``POOL_ELEM`` names the kernel's instantiation). K4's
+inputs are all of the pool's type (the paged forward casts the chunk to
+it, as the reference does); K6's query and current-token rows stay bf16,
+the model's type, and on an fp16 pool its bf16 x fp16 scores go through
+the tensor cores in TF32, which holds both types exactly
+(``exact_in_tf32``). On f32 pools both kernels split each f32 operand into
+TF32 pieces (``tf32_split``): K4's products and K6's probabilities times
+values as 3xTF32 (hi*hi + hi*lo + lo*hi), K6's bf16 query times the three
+pieces of each key, every product exact.
 """
 
 from __future__ import annotations
@@ -269,21 +271,6 @@ def meets_pool_bar(a: torch.Tensor, b: torch.Tensor, kernel: str, pool: str) -> 
     return ok, float(d.max()) if a.numel() else 0.0, share
 
 
-def flash_prefill_wide_bq(g: int) -> int:
-    """Query tokens per block of the paged flash prefill on f32 pools for
-    ``g`` query heads per KV head (1-8), a static shape: one warp per 8
-    tokens of one query head, and the most of 8, 16 and 32 tokens that keep
-    a block within 32 query rows (K9's f32 rule, ``causal_prefill_block``),
-    so each staged K/V tile serves every query head of its KV head; 8 tokens
-    (up to 64 rows) from G 5."""
-    if not 1 <= g <= 8:
-        raise ValueError(f"the paged flash prefill takes 1-8 query heads per KV head, got {g}")
-    bq = 8
-    while g * bq * 2 <= 32:
-        bq *= 2
-    return bq
-
-
 def _pool_elem(what, tensors):
     """The entry point's code of the one unquantized type of ``tensors``."""
     dt = tensors[0].dtype
@@ -303,9 +290,10 @@ def _prefill_checks(what, q, tensors):
 
 
 def _prefill_bq(elem: int, g: int) -> int:
-    """K4's query tokens per block for the pool code ``elem``: the tensor-core
-    kernel's (bf16 and fp16) or the f32 kernel's."""
-    return flash_prefill_wide_bq(g) if elem == POOL_ELEM[torch.float32] else flash_prefill_bq(g)
+    """K4's query tokens per block for the pool code ``elem``: every pool
+    type's kernel takes ``flash_prefill_bq``'s blocks of 16-token warps (f32
+    on 32-key tiles, bf16 and fp16 on 64-key ones)."""
+    return flash_prefill_bq(g)
 
 
 def exact_in_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -319,6 +307,41 @@ def exact_in_tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.float().view(torch.int32) & 0x1FFF) == 0
 
 
+TF32_MASK = -0x2000  # int32 0xFFFFE000: sign, exponent and TF32's 10 mantissa bits
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` with its low 13 mantissa bits cleared: the TF32 value a
+    tensor core takes from it (``csrc/sm90.cuh::tf32_trunc``)."""
+    return (x.float().view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to the nearest TF32 value, ties away from zero,
+    subnormals kept (``csrc/sm90.cuh::tf32_round``)."""
+    return ((x.float().view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor, pieces: int) -> tuple:
+    """The TF32 pieces the f32 pools' kernels hand the tensor cores for each
+    element of f32 ``x``, bit for bit as ``csrc/sm90.cuh::split2`` and
+    ``split3`` make them. hi = ``tf32_trunc(x)`` (no rounding up, so the
+    largest finite values stay finite); two pieces: lo = ``tf32_round(x -
+    hi)``, within 2^-22 of |x| of x where lo is normal; three pieces: mid =
+    ``tf32_trunc(x - hi)``, lo = x - hi - mid (at most two significant
+    bits), summing to x exactly wherever x is a multiple of 2^-136, TF32's
+    least subnormal (every |x| >= 2^-113)."""
+    x = x.float()
+    hi = tf32_trunc(x)
+    r = x - hi
+    if pieces == 2:
+        return hi, tf32_round(r)
+    if pieces == 3:
+        mid = tf32_trunc(r)
+        return hi, mid, r - mid
+    raise ValueError(f"tf32_split makes 2 or 3 pieces, not {pieces}")
+
+
 def flash_paged_prefill(
     q: torch.Tensor,  # [B, S, NH, D] current chunk queries
     k_full: torch.Tensor,  # [B, Tt, KV, D] history(hist_len) ++ current(S)
@@ -330,9 +353,9 @@ def flash_paged_prefill(
 ) -> torch.Tensor:
     """Online-softmax attention for chunked-prefill rows over a gathered
     paged history, without materializing the [B, S, T] scores. One block per
-    ``flash_prefill_bq`` (bf16 and fp16; ``flash_prefill_wide_bq`` for f32)
-    query tokens, KV head and batch row serves all of the KV head's query
-    heads. q, k_full and v_full share one type: bf16, fp16 or f32."""
+    ``flash_prefill_bq`` query tokens, KV head and batch row serves all of
+    the KV head's query heads. q, k_full and v_full share one type: bf16,
+    fp16 or f32."""
     if q.device.type == "cpu":
         return flash_paged_prefill_plain(q, k_full, v_full, kv_valid, new_len,
                                          hist_len=hist_len)
@@ -479,7 +502,19 @@ def flash_paged_decode_plain(q, k_cur, v_cur, main, staging_b, layer, page_table
 
 DECODE_TILE = 64  # tokens per tile of csrc/flash_decode.cu
 DECODE_MAX_SPLIT = 8  # blocks per cluster (the portable limit)
-DECODE_BLOCKS_PER_SM = 2  # the kernel's 99 KB of shared memory fits twice on an SM
+# One K6 block's dynamic shared memory on each pool type
+# (csrc/flash_decode.cu::SMEM): the warps' rings (two stages of a warp's 16
+# rows of K and V on bf16 and fp16; one stage of K and one of V on f32,
+# rows twice as wide: 64 KB either way), rank 0's slots for the ranks'
+# states (8 x (16 + 8 x 132) floats) and the swizzle's 1 KB alignment.
+DECODE_SMEM_BYTES = {pool: 65536 + 8 * (16 + 8 * 132) * 4 + 1024
+                     for pool in ("bf16", "fp16", "f32")}
+SM_SMEM_BYTES = 233472  # an H100 SM's shared memory, of which each block reserves 1 KB
+# Blocks of K6 an SM holds at once: two on every pool type (each kernel's 99
+# KB fits twice, the f32 kernel's too since it keeps one stage of K and V);
+# flash_decode_split sizes the grid by it, and the card tests read it back
+# from the CUDA runtime (``decode_occupancy``).
+DECODE_BLOCKS_PER_SM = 2
 
 
 def flash_decode_split(b: int, kv: int, hist_tokens: int, sms: int) -> int:
@@ -487,7 +522,8 @@ def flash_decode_split(b: int, kv: int, hist_tokens: int, sms: int) -> int:
     static shapes only (the batch ``b``, the KV heads ``kv``, the page
     table's ``MP * ps`` tokens and the card's ``sms``; never the lengths,
     which stay on the device): the largest power of two whose grid of
-    ``b * kv * split`` blocks the card holds at once (two per SM), at most 8
+    ``b * kv * split`` blocks the card holds at once (``DECODE_BLOCKS_PER_SM``
+    per SM, on every pool type), at most 8
     (the cluster's portable size), and that leaves every block at least two
     of the 64-token tiles of the longest history the page table can hold (a
     cluster's barriers and combine cost more than a block's second tile); at
@@ -557,3 +593,17 @@ def flash_paged_decode(
 
 
 flash_paged_decode.launches = 0
+
+
+def decode_occupancy(dtype: torch.dtype, device: torch.device) -> tuple:
+    """(dynamic shared memory bytes of one K6 block, blocks of it an SM of
+    ``device`` holds at once) for a pool of ``dtype``, from the CUDA
+    runtime's occupancy query: what ``DECODE_SMEM_BYTES`` and
+    ``DECODE_BLOCKS_PER_SM`` state."""
+    import ctypes
+
+    cuda_lib.require_cuda(torch.empty(0, device=device), "decode_occupancy")
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        cuda_lib.call("wf_flash_paged_decode_occupancy", POOL_ELEM[dtype], ctypes.addressof(out))
+    return out[0], out[1]
