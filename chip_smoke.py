@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs fifteen phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs sixteen phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -122,7 +122,19 @@ vocab 128256) with random weights drawn on the card from seed 0:
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-15. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+15. longctx  — long context (``engine/long_context.py``: ring prefill and
+               context-parallel decode) on an NCCL group of one, every
+               projection through K7's exact int32 mode: K7 at 16384 rows
+               bitwise against its plain version and beside torch._int_mm;
+               an ``Engine`` (max_context 2048) serving a 16384-token bf16
+               prompt and 16 greedy tokens through the ring path, 210 K7
+               launches per forward pass; the f32 model's 4096-token prompt
+               against the dense ``forward`` through ``longctx_f32_gate``:
+               every layer's attention, the logits against the dense forward
+               run with the ring's attention, an exact-attention witness of
+               how far rounding moves the logits, and two controls that
+               must fail;
+16. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -144,10 +156,11 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-# published dense peaks: tensor cores for int8, bf16, fp16 and TF32, CUDA
-# cores for f32
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp16": 989e12, "tf32": 495e12, "f32": 67e12}
+# the H100's published memory rate and dense peaks (tensor cores for int8,
+# bf16, fp16 and TF32, CUDA cores for f32), which main() reads from the port's
+# one table, wrinklefree_tpu_torch/bench/roofline.py::GPU_SPECS["h100"]
+HBM_BYTES_PER_S = None
+PEAK_OPS = {}
 
 KERNELS = {
     # K1 and K7 at <= 8 rows: the GEMV (K1 after its prologue in ternary.cu)
@@ -3989,6 +4002,365 @@ def phase_moe(dev):
     return launches
 
 
+# The f32 gate of the long-context path against the dense forward
+# (phase_longctx (b), tests/test_torch_cuda.py). The ring path computes the
+# dense model's function with its attention in another f32 order, and its
+# projections' int8 activation codes follow from the attention's output: a
+# rounding-sized change of that output flips the codes that sit at a
+# rounding point, each flip moves its projection by a step of the code, and
+# the later layers carry that on, far past rounding in the logits. So the
+# gate holds the ring path to the dense forward where rounding stays
+# rounding, and measures what it does past that:
+# - every layer's attention, prefill and decode, within LONGCTX_ATTN_TOL of
+#   the dense _attention on the same q, k and v (the dense forward run with
+#   the ring's attention in its place: the hybrid);
+# - the ring engine's logits, teacher-forced on the dense tokens, bitwise
+#   the hybrid's at every step (LONGCTX_HYBRID_TOL): the same operations on
+#   the same values;
+# - the witness: the dense forward with its attention exact (f64, rounded
+#   to f32) moves the logits too; the ring's distance to the dense logits
+#   may be LONGCTX_WITNESS_MARGIN times the witness's, scaled by the ratio
+#   of the two attentions' errors (more codes flip with a larger error);
+#   the int8 codes that differ at layer 0's projections are counted;
+# - greedy tokens equal the dense forward's or part where the teacher-forced
+#   logits already do: each greedy token is the argmax of the teacher-forced
+#   ring logits of its step, up to the first parting;
+# - two controls must fail the gate: a decode that drops the prefix key its
+#   query weights most (the attention check), and a decode whose prefix V
+#   is one position out of step with its K (the hybrid check).
+LONGCTX_ATTN_TOL = 1e-5
+LONGCTX_HYBRID_TOL = 0.0
+LONGCTX_WITNESS_MARGIN = 2.0
+
+
+def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
+    """The f32 gate above for ``LongContextEngine`` ``lce`` (on a group of
+    one) against ``models.bitnet.forward`` on the same unfused ``params``
+    and ``linear`` (K7 on the card): ``prompt`` [t0] ids, ``steps`` tokens.
+    ``generate``: the call that gives the engine's greedy tokens
+    (``lce.generate`` by default). Returns (report dict, failures: a list of
+    what failed, empty if none). Runs on any device (the plain versions on
+    the CPU)."""
+    import copy
+
+    import torch
+
+    from wrinklefree_tpu_torch.engine.long_context import _NEVER, LongContextEngine
+    from wrinklefree_tpu_torch.models import bitnet
+    from wrinklefree_tpu_torch.ops.ternary import quantize_activations
+
+    dev, t0, NB = prompt.device, prompt.numel(), lce.decode_buf
+    dense_attention = bitnet._attention
+
+    def exact_attention(errs):
+        def attention(q, kc, vc, q_pos, cfg_, attn_sparsity=None):
+            B, S, NH, D = q.shape
+            T, KV = kc.shape[1], kc.shape[2]
+            sc = torch.einsum("bskgd,btkd->bkgst", q.double().reshape(B, S, KV, NH // KV, D),
+                              kc.double()) / math.sqrt(D)
+            key = torch.arange(T, device=q.device)
+            hidden = ~(key[None, None, None, None, :] <= q_pos[:, None, None, :, None])
+            pr = torch.softmax(sc.masked_fill_(hidden, float("-inf")), dim=-1)
+            got = torch.einsum("bkgst,btkd->bskgd", pr, vc.double()).reshape(B, S, NH, D)
+            got = got.to(q.dtype)
+            errs.append(float((got - dense_attention(q, kc, vc, q_pos, cfg_)).abs().max()))
+            return got
+        return attention
+
+    def ring_order(eng, errs):
+        """The ring's attention on the dense forward's q and cache: the
+        prefill's q-chunked ring attention, the decode's prefix + buffer."""
+        def attention(q, kc, vc, q_pos, cfg_, attn_sparsity=None):
+            S = q.shape[1]
+            if S > 1:
+                got = eng._prefill_attention(q, kc[:, :S], vc[:, :S])
+            else:
+                t = int(q_pos[0, 0]) - t0  # the decode step: its buffer row
+                kb = torch.zeros((1, NB) + tuple(kc.shape[2:]), dtype=kc.dtype, device=dev)
+                vb = torch.zeros_like(kb)
+                kb[:, :t + 1] = kc[:, t0:t0 + t + 1]
+                vb[:, :t + 1] = vc[:, t0:t0 + t + 1]
+                b = torch.arange(NB, device=dev)
+                b_pos = torch.where(b <= t, t0 + b, torch.full_like(b, _NEVER))
+                got = eng._attend(q, kc[:, :t0], vc[:, :t0], kb, vb,
+                                  torch.arange(t0, device=dev), b_pos)
+            errs.append(float((got - dense_attention(q, kc, vc, q_pos, cfg_)).abs().max()))
+            return got
+        return attention
+
+    def dense_run(attention, feed=None, codes=None):
+        """forward with ``attention`` as its _attention: greedy, or fed
+        ``feed``; (tokens, each step's logits [V]); ``codes`` receives the
+        int8 activation codes of layer 0's seven projections at the
+        prefill."""
+        def lin(x, qw, scale, out_dtype=torch.bfloat16):
+            if codes is not None and len(codes) < 7:
+                codes.append(quantize_activations(x)[0])
+            return linear(x, qw, scale, out_dtype=out_dtype)
+
+        cache = bitnet.KVCache.zeros(cfg, 1, t0 + steps, device=dev)
+        tok, start = prompt[None], torch.zeros((1,), dtype=torch.int32, device=dev)
+        toks, logits = [], []
+        bitnet._attention = attention
+        try:
+            for i in range(steps):
+                lg, cache = bitnet.forward(params, cfg, tok, cache, start, linear_fn=lin,
+                                           logits_all=False)
+                logits.append(lg[0])
+                toks.append(int(lg[0].argmax()) if feed is None else feed[i])
+                start = start + tok.shape[1]
+                tok = torch.tensor([[toks[-1]]], device=dev)
+        finally:
+            bitnet._attention = dense_attention
+        return toks, logits
+
+    def ring_run(eng, feed, shift=False):
+        """The ring engine's prefill and decode, teacher-forced on ``feed``
+        (``shift``: the decode reads each prefix V one position late, out of
+        step with its K)."""
+        logits0, pk, pv = eng._prefill(prompt[None], t0)
+        if shift:
+            pv = pv.roll(1, dims=2)
+        rest = []
+        eng._decode(pk, pv, torch.tensor(feed[0], device=dev), t0, steps - 1,
+                    feed=feed[1:], logits_out=rest)
+        return [logits0[0]] + [lg[0] for lg in rest]
+
+    def dist(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+    want, dense = dense_run(dense_attention)
+    gaps = [float(v[0] - v[1]) for v in (torch.topk(lg, 2).values for lg in dense)]
+    codes_dense, codes_hyb, codes_wit = [], [], []
+    dense_run(dense_attention, feed=want, codes=codes_dense)
+    wit_errs, errs = [], []
+    _, wit = dense_run(exact_attention(wit_errs), feed=want, codes=codes_wit)
+    _, hyb = dense_run(ring_order(lce, errs), feed=want, codes=codes_hyb)
+    ring = ring_run(lce, want)
+    got = generate() if generate is not None else lce.generate(prompt.tolist(), steps)
+    ring_dist, wit_dist = dist(ring, dense), dist(wit, dense)
+    attn_err, wit_attn_err = max(errs), max(wit_errs)
+    cap = (LONGCTX_WITNESS_MARGIN * max(wit_dist)
+           * max(1.0, attn_err / max(wit_attn_err, 1e-30)))
+    part = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    names = ("q", "k", "v", "o", "gate", "up", "down")
+    report = dict(
+        tokens=got, dense_tokens=want, part=part, dense_top2_gaps=gaps,
+        attn_err=attn_err, hybrid_err=max(dist(ring, hyb)), ring_logit_dist=ring_dist,
+        witness_logit_dist=wit_dist, witness_attn_err=wit_attn_err, cap=cap,
+        layer0_code_flips={n: int((a != b).sum()) for n, a, b in
+                           zip(names, codes_dense, codes_hyb)},
+        layer0_code_flips_witness={n: int((a != b).sum()) for n, a, b in
+                                   zip(names, codes_dense, codes_wit)},
+        layer0_codes={n: c.numel() for n, c in zip(names, codes_dense)})
+
+    def checks(attn_err, hybrid_err, ring_dist, tokens, ring_logits):
+        out = []
+        if not attn_err <= LONGCTX_ATTN_TOL:
+            out.append(f"a layer's ring attention differs from the dense one by {attn_err}")
+        if not hybrid_err <= LONGCTX_HYBRID_TOL:
+            out.append(f"the ring engine's logits differ from the hybrid's by {hybrid_err}")
+        if not max(ring_dist) <= cap:
+            out.append(f"the ring logits are {max(ring_dist)} from the dense ones (cap {cap})")
+        first = next((i for i, (a, b) in enumerate(zip(tokens, want)) if a != b), steps - 1)
+        if tokens[:first + 1] != [int(lg.argmax()) for lg in ring_logits[:first + 1]]:
+            out.append(f"greedy tokens {tokens} are not the teacher-forced logits' argmax")
+        return out
+
+    failures = checks(attn_err, report["hybrid_err"], ring_dist, got, ring)
+    # the controls, each of which must fail the gate
+    drop = copy.copy(lce)
+
+    def drop_top_key(q, k_loc, v_loc, kb, vb, k_pos_m, b_pos_m):
+        G = q.shape[2] // k_loc.shape[2]
+        sc = torch.einsum("hd,thd->ht", q[0, 0].float(),
+                          k_loc[0].float().repeat_interleave(G, dim=1))
+        j = sc.masked_fill(k_pos_m[None] == _NEVER, float("-inf")).amax(dim=0).argmax()
+        k_pos_m = k_pos_m.clone()
+        k_pos_m[j] = _NEVER
+        return LongContextEngine._attend(drop, q, k_loc, v_loc, kb, vb, k_pos_m, b_pos_m)
+
+    drop._attend = drop_top_key
+    errs_d = []
+    _, hyb_d = dense_run(ring_order(drop, errs_d), feed=want)
+    ring_d = ring_run(drop, want)
+    ring_s = ring_run(lce, want, shift=True)
+    report["controls"] = {
+        "drop_top_key": checks(max(errs_d), max(dist(ring_d, hyb_d)), dist(ring_d, dense),
+                               drop.generate(prompt.tolist(), steps), ring_d),
+        "shifted_prefix": checks(attn_err, max(dist(ring_s, hyb)), dist(ring_s, dense),
+                                 [int(lg.argmax()) for lg in ring_s], ring_s)}
+    report["control_attn_err"] = {"drop_top_key": max(errs_d)}
+    report["control_logit_dist"] = {"drop_top_key": max(dist(ring_d, dense)),
+                                    "shifted_prefix": max(dist(ring_s, dense))}
+    failures += [f"the control {name} passes the gate"
+                 for name, caught in report["controls"].items() if not caught]
+    return report, failures
+
+
+def phase_longctx(dev, smi):
+    """15. longctx — the long-context path (``engine/long_context.py``: ring
+    prefill and context-parallel decode) at BitNet b1.58-2B's full width and
+    depth, random ternary weights drawn on the card from seed 0, on an NCCL
+    group of one (``group_of_one``), every projection through K7's exact
+    int32 mode:
+
+    (c) K7 at 16384 rows, the 2B gate/up (2560->6912) and down
+        (6912->2560) shapes: bitwise equal to its plain version over every
+        row (compared in 4096-row chunks), timed beside ``torch._int_mm`` on
+        the same codes (checked equal) and its bound;
+    (a) an ``Engine`` (the engine phase's configuration, max_context 2048)
+        given the group serves a 16384-token bf16 prompt and 16 greedy
+        tokens through the ring path (s_loc 16384, 16 q-chunks): exactly 210
+        K7 launches (7 projections x 30 layers) per forward pass, 16 passes,
+        the prefill's 210 through the GEMM; no other kernel; prefill
+        seconds, decode ms a token, peak device memory;
+    (b) the f32 model and a 4096-token prompt (4 q-chunks), TF32 off:
+        ``longctx_f32_gate`` (its comment above says what it holds) on 8
+        greedy tokens, the dense ``forward`` on the same K7 projections.
+
+    Returns K7's launches and its GEMM's in (a) and (b)."""
+    import dataclasses
+
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.engine.long_context import LongContextEngine, group_of_one
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.ternary import ternary_linear, unpack_ternary
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("longctx: TF32 is on; the f32 einsums must run in f32")
+    group = group_of_one(dev)
+    print(f"longctx: torch.distributed group of {torch.distributed.get_world_size(group)} "
+          f"({torch.distributed.get_backend(group)}); {smi}")
+    cfg = BitNetConfig.bitnet_2b()
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    # (c) K7's exact mode at 16384 rows
+    rows = 16384
+    for name, (k, n) in (("gate/up", (H, I)), ("down", (I, H))):
+        xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+        qw = torch.randint(0, 256, (k // 4, n), generator=g, device=dev, dtype=torch.uint8)
+        got = tc.ternary_matmul(xq, qw)
+        for r0 in range(0, rows, 4096):
+            want = tc.ternary_matmul_plain(xq[r0:r0 + 4096], qw)
+            if not torch.equal(got[r0:r0 + 4096], want):
+                fail(f"longctx: K7 int32 {name} rows {r0}..{r0 + 4095} differs from its plain "
+                     f"version by {(got[r0:r0 + 4096] - want).abs().max().item()}")
+        w_nk = unpack_ternary(qw).to(torch.int8).t().contiguous()
+        if not torch.equal(torch._int_mm(xq, w_nk.t()), got):
+            fail(f"longctx: torch._int_mm is not K7's int32 {name} function")
+        del got, want
+        ms, call_ms = cuda_ms(lambda: tc.ternary_matmul(xq, qw), iters=10, warmup=2)
+        plain_ms, _ = cuda_ms(lambda: tc.ternary_matmul_plain(xq, qw), iters=2, warmup=1)
+        lib_ms, _ = cuda_ms(lambda: torch._int_mm(xq, w_nk.t()), iters=10, warmup=2)
+        b_ms, b_by = bound(rows * k + k // 4 * n + rows * n * 4, 2 * rows * k * n, "int8")
+        print("longctx: K7 " + json.dumps(dict(
+            shape=f"{name} {k}->{n} (int32) rows={rows}", ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=INT_MM,
+            tc_share=tc_share(2 * rows * k * n, ms), max_abs_err=0.0)))
+        del xq, qw, w_nk
+    print(f"longctx: K7 int32 at {rows} rows bitwise equal to its plain version over every row "
+          "(gate/up and down)")
+    torch.cuda.empty_cache()
+
+    launches = {"ternary_matmul_stacked": 0, "ternary_matmul_stacked/tiled": 0}
+    others = [tc.ternary_matmul_stacked_fused, tc.mlp_block_megakernel,
+              tc.attn_block_megakernel, tc.layer_block_megakernel]
+
+    def counted(fn):
+        """Run fn with K7's counters from 0; add its launches to the phase's."""
+        tc.ternary_matmul_stacked.launches = tc.ternary_matmul_stacked.tiled_launches = 0
+        before = [k.launches for k in others]
+        out = fn()
+        torch.cuda.synchronize()
+        if [k.launches for k in others] != before:
+            fail("longctx: a kernel other than K7 launched on the long-context path")
+        n, tiled = tc.ternary_matmul_stacked.launches, tc.ternary_matmul_stacked.tiled_launches
+        launches["ternary_matmul_stacked"] += n
+        launches["ternary_matmul_stacked/tiled"] += tiled
+        return out, n, tiled
+
+    # (a) serving a 16384-token prompt through the Engine's ring route
+    params = init_params(cfg, seed=0, device=dev)
+    eng = Engine(params, cfg, EngineConfig(max_batch_slots=8, page_size=16, num_pages=1024,
+                                           max_context=2048, prefill_buckets=(32, 128, 512)),
+                 long_context_mesh=group, device=dev)
+    del params
+    prompt = torch.randint(1, cfg.vocab_size, (16384,), generator=g, device=dev).tolist()
+    eng.generate(prompt[:2048], SamplingParams(max_new_tokens=2))  # warm-up: the ring route's
+    torch.cuda.synchronize()                                       # first prefill and collective
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    req, n, tiled = counted(lambda: eng.generate(prompt, SamplingParams(max_new_tokens=16,
+                                                                        temperature=0.0)))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    lt = eng._long_ctx.last_timings
+    per_pass = 7 * L
+    if not (req.finished and len(req.output_ids) == 16 and req.finish_reason == "length"
+            and all(0 <= t < cfg.vocab_size for t in req.output_ids)):
+        fail(f"longctx: the 16K request ended {req.finish_reason} with {req.output_ids}")
+    if (n, tiled) != (per_pass * 16, per_pass):
+        fail(f"longctx: K7 launched {n} times ({tiled} through the GEMM) for 16 forward passes; "
+             f"expected {per_pass * 16} ({per_pass})")
+    print(f"longctx: Engine(max_context=2048) served a 16384-token bf16 prompt + 16 greedy "
+          f"tokens through the ring path: prefill {lt['prefill_s']} s, decode "
+          f"{lt['decode_s'] / lt['decode_tokens'] * 1e3} ms a token, wall {wall} s, peak "
+          f"{peak / 1e9} GB allocated; K7 {n} launches = {n // 16} per forward pass x 16 "
+          f"(the prefill's {tiled} through the GEMM at 16384 rows); tokens {req.output_ids}; "
+          f"{smi}")
+    del eng, req
+    torch.cuda.empty_cache()
+
+    # (b) exactness in f32 against the dense forward
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = init_params(cfg32, seed=0, device=dev)
+    lce = LongContextEngine(p32, cfg32, group, device=dev)
+    prompt = torch.randint(1, cfg.vocab_size, (4096,), generator=g, device=dev)
+    k7 = {}
+
+    def k7_linear(x, qw, scale, out_dtype=torch.bfloat16):
+        return ternary_linear(x, qw, scale, out_dtype=out_dtype, kernel=tc.ternary_matmul)
+
+    def generate():
+        got, k7["n"], k7["tiled"] = counted(lambda: lce.generate(prompt.tolist(), 8))
+        return got
+
+    rep, failures = longctx_f32_gate(lce, p32, cfg32, prompt, 8, k7_linear, generate)
+    print("longctx: f32 gate " + json.dumps(rep))
+    if failures:
+        fail("longctx: the f32 ring path fails its gate against the dense forward: "
+             + "; ".join(failures))
+    if (k7["n"], k7["tiled"]) != (per_pass * 8, per_pass):
+        fail(f"longctx: the f32 ring path launched K7 {k7['n']} times ({k7['tiled']} through "
+             "the GEMM)")
+    part = rep["part"]
+    outcome = ("equal" if part is None else
+               f"part at step {part} (dense top-2 gap {rep['dense_top2_gaps'][part]}, "
+               f"teacher-forced logit distance {rep['ring_logit_dist'][part]})")
+    print(f"longctx: f32, 4096-token prompt (4 q-chunks), TF32 off: every layer's ring "
+          f"attention within {rep['attn_err']} of the dense one (tolerance {LONGCTX_ATTN_TOL}); "
+          f"ring logits within {rep['hybrid_err']} of the hybrid's (tolerance "
+          f"{LONGCTX_HYBRID_TOL}); ring vs dense logits up to {max(rep['ring_logit_dist'])} "
+          f"(cap {rep['cap']}), the exact-attention witness up to "
+          f"{max(rep['witness_logit_dist'])}; layer 0's int8 codes that differ "
+          f"{rep['layer0_code_flips']} (witness {rep['layer0_code_flips_witness']}); "
+          f"first token's max logit difference {rep['ring_logit_dist'][0]}; ring tokens "
+          f"{rep['tokens']}, dense forward {rep['dense_tokens']}: {outcome}; controls caught: "
+          f"{rep['controls']}; {smi}")
+    del lce, p32
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    print(f"longctx: phase wall {time.perf_counter() - t_phase} s")
+    return launches
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -3998,6 +4370,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
+        from wrinklefree_tpu_torch.bench.roofline import GPU_SPECS, peak_ops
         from wrinklefree_tpu_torch.config import BitNetConfig
         from wrinklefree_tpu_torch.models.bitnet import (
             fuse_projections, init_params, quantize_lm_head)
@@ -4008,6 +4381,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {here}: {e}", file=sys.stderr)
         return 2
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]
+    PEAK_OPS.update(peak_ops("h100"))
 
     secs = cuda_lib.timed_build()
     report = cuda_lib.BUILD_DIR / "ptxas.txt"
@@ -4078,8 +4454,10 @@ def main() -> int:
     phase_serving_bench(dev, serving)
     torch.cuda.empty_cache()
     moe = phase_moe(dev)
-    launches["ternary_matmul_stacked"] = moe["ternary_matmul_stacked"]
-    launches["ternary_matmul_stacked/tiled"] = moe["ternary_matmul_stacked/tiled"]
+    torch.cuda.empty_cache()
+    longctx = phase_longctx(dev, smi.splitlines()[0])
+    for name in ("ternary_matmul_stacked", "ternary_matmul_stacked/tiled"):
+        launches[name] = moe[name] + longctx[name]
     launches["measure_stream_us_per_layer"] = phase_calibrate(dev)
 
     line = []

@@ -1573,3 +1573,133 @@ def test_spec_engine_equals_plain_on_card():
     (_, plain_tiled), (spec_stats, spec_tiled) = stats
     assert spec_stats["spec_accepted"] > 0 and spec_stats["spec_drafted"] > 0
     assert plain_tiled == 0 < spec_tiled  # decode at 8 rows: the GEMV; the verify: the GEMM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2560, 6912), (6912, 2560)], ids=["gate_up", "down"])
+def test_k7_int32_at_16384_rows_on_card(shape):
+    """K7's exact int32 mode at the 16384 rows of a 16K prompt on one card
+    (the long-context prefill's projections), 2B gate/up and down: bitwise
+    equal to its plain version over every row, through the GEMM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    k, n = shape
+    g = torch.Generator(device=dev).manual_seed(16)
+    xq = torch.randint(-128, 128, (16384, k), generator=g, device=dev, dtype=torch.int8)
+    qw = torch.randint(0, 256, (k // 4, n), generator=g, device=dev, dtype=torch.uint8)
+    tiled = ternary_cuda.ternary_matmul_stacked.tiled_launches
+    got = ternary_cuda.ternary_matmul(xq, qw)
+    assert got.dtype == torch.int32 and got.shape == (16384, n)
+    assert ternary_cuda.ternary_matmul_stacked.tiled_launches == tiled + 1
+    for r0 in range(0, 16384, 4096):
+        assert torch.equal(got[r0:r0 + 4096],
+                           ternary_cuda.ternary_matmul_plain(xq[r0:r0 + 4096], qw)), r0
+
+
+@pytest.mark.cuda
+def test_long_context_engine_on_card():
+    """LongContextEngine on an NCCL group of one against the dense forward
+    in f32 at 2B width (2 layers; TF32 off), a 1500-token prompt in q-chunks
+    of 512 (the last one shorter), 8 greedy tokens: ``chip_smoke.py``'s
+    ``longctx_f32_gate`` (every layer's attention within
+    ``LONGCTX_ATTN_TOL`` of the dense one, the logits within
+    ``LONGCTX_HYBRID_TOL`` (bitwise) of the dense forward run with the ring's
+    attention, the distance to the dense logits under the exact-attention
+    witness's cap, and its two controls caught); every projection through
+    K7 (7 per layer and forward pass)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    import dataclasses
+
+    from chip_smoke import longctx_f32_gate
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.engine.long_context import LongContextEngine, group_of_one
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.ops.ternary import ternary_linear
+
+    dev = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        group = group_of_one(dev)
+        assert torch.distributed.get_backend(group) == "nccl"
+        cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=2, dtype=torch.float32)
+        params = init_params(cfg, seed=0, device=dev)
+        lce = LongContextEngine(params, cfg, group, device=dev)
+        lce.PREFILL_Q_CHUNK = 512
+        g = torch.Generator(device=dev).manual_seed(4)
+        prompt = torch.randint(1, cfg.vocab_size, (1500,), generator=g, device=dev)
+
+        def k7_linear(x, qw, scale, out_dtype=torch.bfloat16):
+            return ternary_linear(x, qw, scale, out_dtype=out_dtype,
+                                  kernel=ternary_cuda.ternary_matmul)
+
+        launches = {}
+
+        def generate():
+            n = ternary_cuda.ternary_matmul_stacked.launches
+            got = lce.generate(prompt.tolist(), 8)
+            launches["n"] = ternary_cuda.ternary_matmul_stacked.launches - n
+            return got
+
+        rep, failures = longctx_f32_gate(lce, params, cfg, prompt, 8, k7_linear, generate)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert failures == [], rep
+        assert launches["n"] == 7 * 2 * 8
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_long_route_beside_the_scheduler_on_card():
+    """The async route on the card: a greedy prompt beyond max_context runs
+    the ring path on its executor thread while a short stream runs on the
+    replica's scheduler thread (2B width, 2 layers, bf16, a group of one),
+    for each of two short prompts, three times: each request gets the
+    tokens it gets served alone through the same route (the radix cache
+    emptied before each run, so that every run starts from one state)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    import asyncio
+    import dataclasses
+
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.engine.long_context import group_of_one
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.server.http import ByteTokenizer, InferenceServer
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=2)
+    params = init_params(cfg, seed=0, device=dev)
+    group = group_of_one(dev)
+    try:
+        eng = Engine(params, cfg, EngineConfig(max_batch_slots=8, page_size=16, num_pages=256,
+                                               max_context=512, prefill_buckets=(32, 128)),
+                     long_context_mesh=group, device=dev)
+        g = torch.Generator(device=dev).manual_seed(5)
+        prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g, device=dev).tolist()
+                   for n in (3000, 40, 200)]
+        greedy = SamplingParams(max_new_tokens=16, temperature=0.0)
+        server = InferenceServer(eng, ByteTokenizer(), "synth:2-layer-2b")
+        try:
+            def serve(*ps):
+                async def run():
+                    return await asyncio.gather(*(server.async_engine.generate(p, greedy)
+                                                  for p in ps))
+
+                eng.reset_prefix_cache()
+                return [r.output_ids for r in asyncio.run(run())]
+
+            alone = [serve(p)[0] for p in prompts]
+            assert alone[0] == eng.generate(prompts[0], greedy).output_ids
+            for _ in range(3):
+                for i in (1, 2):
+                    assert serve(prompts[0], prompts[i]) == [alone[0], alone[i]], i
+        finally:
+            server.async_engine.shutdown()
+    finally:
+        torch.distributed.destroy_process_group()

@@ -93,3 +93,51 @@ def test_pool_steps_times_with_flash_decode():
     ``flash_decode.py`` (``--root`` may name an older tree): the same code."""
     got = pool_steps.device_times()
     assert got.__code__.co_code == flash_decode.device_times.__code__.co_code
+
+
+# each kernel bench's H100 figures (from bench/roofline.py::GPU_SPECS["h100"])
+# and the literals they were before that table: the same numbers
+BENCH_PEAKS = {
+    "flash_decode": {"HBM_BYTES_PER_S": 3.35e12},
+    "causal_prefill": {"HBM_BYTES_PER_S": 3.35e12},
+    "flash_prefill": {"HBM_BYTES_PER_S": 3.35e12, "F16_OPS_PER_S": 989e12,
+                      "TF32_OPS_PER_S": 495e12, "F32_OPS_PER_S": 67e12},
+    "mlp_block": {"HBM_BYTES_PER_S": 3.35e12, "INT8_OPS_PER_S": 1979e12,
+                  "BF16_OPS_PER_S": 989e12},
+    "attn_block": {"HBM_BYTES_PER_S": 3.35e12, "INT8_OPS_PER_S": 1979e12,
+                   "BF16_OPS_PER_S": 989e12},
+}
+
+
+@pytest.mark.parametrize("name", list(BENCH_PEAKS))
+def test_bench_peaks_come_from_the_roofline_table(name):
+    import importlib
+
+    from wrinklefree_tpu_torch.bench.roofline import GPU_SPECS
+
+    mod = importlib.import_module(f"wrinklefree_tpu_torch.bench.{name}")
+    assert mod.GPU_SPECS is GPU_SPECS
+    for const, value in BENCH_PEAKS[name].items():
+        assert getattr(mod, const) == value, const
+
+
+def test_bench_bounds_unchanged():
+    """The bounds each bench prints at its shapes, as PERF.md's kernel table
+    gives them (ms, rounded to 1e-5), read from the one peaks table."""
+    from wrinklefree_tpu_torch.bench import attn_block, causal_prefill, mlp_block
+
+    def r(b):
+        return round(b[0] if isinstance(b, tuple) else b, 5)
+
+    assert [r(flash_decode.bound(lens)) for lens in flash_decode.SHAPES.values()] == [
+        0.00476, 0.01226, 0.00153]
+    c = flash_prefill.CONTIGUOUS
+    assert r(flash_prefill.bound(c["S"], [c["kv_valid"]], [c["new_len"]])) == 0.00337
+    assert [r(flash_prefill.bound(*v)) for v in flash_prefill.POOL.values()] == [0.00679,
+                                                                                 0.00435]
+    assert [r(causal_prefill.bound(*s)) for s in causal_prefill.SHAPES] == [
+        0.00196, 0.00205, 0.02007, 0.03009]
+    assert (r(mlp_block.bound(8)), r(mlp_block.bound(1))) == (0.00401, 0.00399)
+    assert [r(attn_block.bound(p)) for _, p in attn_block.SHAPES] == [0.00149, 0.00127, 0.0028]
+    assert [r(attn_block.bound(p, mlp=True)) for _, p in attn_block.SHAPES] == [
+        0.00547, 0.00526, 0.00679]

@@ -1183,19 +1183,36 @@ def test_create_server_serves_a_loaded_model(model_dir, tmp_path, kind):
 
 @pytest.mark.parametrize("argv", [["convert", "{m}", "{o}"], ["convert-gguf", "{m}", "{o}.gguf"],
                                   ["validate-model", "{m}"], ["validate"], ["list-models"]])
-def test_cli_tools_not_ported(argv, model_dir, tmp_path, monkeypatch, capsys):
-    """Of the CLI's tools only ``validate`` (the KV-cache validator) is still
-    not ported and raises; ``convert``, ``convert-gguf``, ``validate-model``
-    and ``list-models`` run on a model directory and give the reference CLI's
-    files, report and listing."""
+def test_cli_tools_not_ported(argv, model_dir, tmp_path, monkeypatch, capsys, request):
+    """Every tool of the CLI is ported. ``convert``, ``convert-gguf``,
+    ``validate-model`` and ``list-models`` run on a model directory and give
+    the reference CLI's files, report and listing; ``validate`` (the KV-cache
+    validator) runs against the port's server on the tiny weights, with room
+    for its 512-byte prefix probe, and prints the reference's report line
+    (PASS or FAIL: the prefix speedup is a timing)."""
     from wrinklefree_tpu import cli as ref_cli
     from wrinklefree_tpu.convert import loader as ref_cloader
     from wrinklefree_tpu_torch import cli
     from wrinklefree_tpu_torch.convert import loader as cloader
 
     if argv == ["validate"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-            cli.main(argv)
+        from wrinklefree_tpu_torch.weights import params_from_numpy
+
+        cfg = BitNetConfig.tiny()
+        eng = Engine(params_from_numpy(request.getfixturevalue("weights"), cfg, device="cpu"),
+                     cfg, EngineConfig(**{**TINY_ECFG, "num_pages": 512, "max_context": 1024}),
+                     eos_token_id=0, device="cpu")
+        server = InferenceServer(eng, ByteTokenizer(), NAME)
+        st = ServerThread(build_app(server))
+        try:
+            with pytest.raises(SystemExit) as done:
+                cli.main([*argv, "--url", st.url])
+        finally:
+            st.stop()
+            server.async_engine.shutdown()
+        out = capsys.readouterr().out
+        assert "context-limit graceful: True" in out and "concurrent success: 100%" in out
+        assert out.strip().endswith("PASS" if done.value.code == 0 else "FAIL")
         return
     cache = tmp_path / "cache"
     for mod in (cloader, ref_cloader):

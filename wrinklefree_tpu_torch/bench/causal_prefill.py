@@ -31,8 +31,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+if __package__:
+    from .roofline import GPU_SPECS
+else:  # run or loaded as a file: the table in the file beside this one
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from roofline import GPU_SPECS
+
 NH, KV, D = 20, 5, 128
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]  # H100 SXM published memory rate
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense: bf16 tensor cores, f32 CUDA cores
 SHAPES = [(kind, s, t, off) for kind in ("bf16", "f32") for s, t, off in ((512, 512, 0),
                                                                           (512, 1024, 128))]

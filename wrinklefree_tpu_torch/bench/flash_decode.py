@@ -28,13 +28,19 @@ import subprocess
 import sys
 from pathlib import Path
 
+if __package__:
+    from .roofline import GPU_SPECS
+else:  # run or loaded as a file: the table in the file beside this one
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from roofline import GPU_SPECS
+
 L, NH, KV, D, PS, MP, SLOTS = 30, 20, 5, 128, 16, 128, 8
 SHAPES = {
     "mixed": [17, 100, 255, 512, 777, 1024, 1500, 2000],
     "8x2000": [2000] * 8,
     "1x2000": [2000],
 }
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]  # H100 SXM published memory rate
 POOL_BYTES = {"bf16": 2, "fp16": 2, "f32": 4}  # bytes of a pool element
 
 

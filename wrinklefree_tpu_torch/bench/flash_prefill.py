@@ -34,11 +34,17 @@ import subprocess
 import sys
 from pathlib import Path
 
+if __package__:
+    from .roofline import GPU_SPECS
+else:  # run or loaded as a file: the table in the file beside this one
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from roofline import GPU_SPECS
+
 L, NH, KV, D, PS, MP = 30, 20, 5, 128, 16, 128
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-F16_OPS_PER_S = 989e12  # H100 SXM published dense bf16 and fp16 tensor-core rate
-TF32_OPS_PER_S = 495e12  # H100 SXM published dense TF32 tensor-core rate
-F32_OPS_PER_S = 67e12  # H100 SXM published dense f32 rate outside the tensor cores
+HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]  # H100 SXM published memory rate
+F16_OPS_PER_S = GPU_SPECS["h100"]["bf16_flops"]  # dense bf16 and fp16 tensor-core rate
+TF32_OPS_PER_S = GPU_SPECS["h100"]["tf32_flops"]  # dense TF32 tensor-core rate
+F32_OPS_PER_S = GPU_SPECS["h100"]["f32_flops"]  # dense f32 rate outside the tensor cores
 # pool type: (torch dtype name, bytes an element, the card's peak for the
 # products the kernel runs: bf16 and fp16 on the tensor cores, exact in f32;
 # f32 as three TF32 products each, 3xTF32, at a third of the TF32 rate)

@@ -31,12 +31,18 @@ import subprocess
 import sys
 from pathlib import Path
 
+if __package__:
+    from .roofline import GPU_SPECS
+else:  # run or loaded as a file: the table in the file beside this one
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from roofline import GPU_SPECS
+
 L, H, I, NH, KV, D, T, POS = 30, 2560, 6912, 20, 5, 128, 328, 327
 Q = NH * D
 ROPE_THETA = 500_000.0  # BitNet-2B's
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-INT8_OPS_PER_S = 1979e12  # H100 SXM published dense int8 tensor-core rate
-BF16_OPS_PER_S = 989e12
+HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]  # H100 SXM published memory rate
+INT8_OPS_PER_S = GPU_SPECS["h100"]["int8_ops"]  # dense int8 tensor-core rate
+BF16_OPS_PER_S = GPU_SPECS["h100"]["bf16_flops"]
 
 
 def bound(rows: int, attn: bool = False) -> tuple:

@@ -6,8 +6,10 @@ on the port's ``Engine`` (random ternary weights drawn from seed 0). Adds
 ``--device`` (CUDA unless the caller asks for the CPU) and a ``device``
 field with the card's name and power limit. ``in_window_compiles`` counts
 what the port builds inside the measured window: kernel builds
-(``ops/cuda_lib.py``) and new program variants (the engine's decode bursts
-and prefill buckets); ``in_window_compile_s`` is the builds' seconds.
+(``ops/cuda_lib.py``) and CUDA-graph captures, as
+``utils/torchcache.py``'s ``CompileWatcher`` counts them, and new program
+variants (the engine's decode bursts and prefill buckets);
+``in_window_compile_s`` is the builds' and captures' seconds.
 
 Usage:
   python -m wrinklefree_tpu_torch.bench.serving --streams 64 --prompt-len 128 --new-tokens 64
@@ -36,7 +38,7 @@ import torch
 from ..config import BitNetConfig, EngineConfig
 from ..engine import Engine, SamplingParams
 from ..models.bitnet import init_params, resolve_device
-from ..ops import cuda_lib
+from ..utils.torchcache import CompileWatcher
 from .metrics import BenchmarkMetrics
 
 
@@ -99,8 +101,10 @@ def device_label(dev: torch.device) -> str:
 
 
 def compile_state(eng: Engine):
-    """(kernel builds + program variants, build seconds) so far."""
-    return cuda_lib.BUILDS["count"] + len(eng._programs), cuda_lib.BUILDS["seconds"]
+    """(kernel builds + CUDA-graph captures + program variants, the builds'
+    and captures' seconds) so far."""
+    builds, build_s, _hits, captures, capture_s = CompileWatcher().snapshot()
+    return builds + captures + len(eng._programs), build_s + capture_s
 
 
 def model_config(args) -> BitNetConfig:

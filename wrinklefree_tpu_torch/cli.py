@@ -1,11 +1,10 @@
 """Command-line interface (PyTorch port of ``wrinklefree_tpu/cli.py``).
 
 ``serve``, ``generate``, ``chat``, ``convert``, ``convert-gguf``,
-``validate-model``, ``list-models``, ``benchmark`` and ``benchmark-cost`` as
-the reference's; ``serve`` starts the port's server (``--tiny --device cpu``
-off the card; on it ``--model synth:bitnet_2b``, a model directory or a
-``.gguf``). ``validate`` (the KV-cache validator) exists and raises
-``NotImplementedError``: it is not ported yet (ROADMAP queue 1 item 13).
+``validate-model``, ``validate`` (the KV-cache validator, ``kv/validator.py``),
+``list-models``, ``benchmark`` and ``benchmark-cost`` as the reference's;
+``serve`` starts the port's server (``--tiny --device cpu`` off the card; on
+it ``--model synth:bitnet_2b``, a model directory or a ``.gguf``).
 """
 
 from __future__ import annotations
@@ -112,10 +111,11 @@ def cmd_list_models(args):
         print(m)
 
 
-def cmd_not_ported(args):
-    raise NotImplementedError(
-        f"`{args.cmd}` is not ported to the PyTorch package yet (ROADMAP queue 1 "
-        f"item {args.item}); the JAX package's CLI has it")
+def cmd_validate(args):
+    from .kv.validator import run_kv_cache_validation
+
+    ok = run_kv_cache_validation(args.url)
+    sys.exit(0 if ok else 1)
 
 
 def cmd_benchmark(args):
@@ -186,9 +186,9 @@ def main(argv=None):
     s.add_argument("model")
     s.set_defaults(fn=cmd_validate_model)
 
-    s = sub.add_parser("validate", help="not ported (ROADMAP queue 1 item 13)")
-    s.add_argument("rest", nargs="*")
-    s.set_defaults(fn=cmd_not_ported, item=13)
+    s = sub.add_parser("validate", help="black-box KV-cache validation of a server")
+    s.add_argument("--url", default="http://127.0.0.1:30000")
+    s.set_defaults(fn=cmd_validate)
 
     s = sub.add_parser("list-models", help="list locally cached converted models")
     s.set_defaults(fn=cmd_list_models)

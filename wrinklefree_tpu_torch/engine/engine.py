@@ -27,8 +27,11 @@ fp16, f32, int8 or fp8 pools, optionally a sliding attention window; the
 output head is the bf16 one, the int8 one (``int8_logits``) or the exact
 greedy head (``exact_head_k``). On the CPU the same calls run their plain
 versions. The host's page allocator and radix cache are the native C++
-classes (``native/``) when they build, else the Python ones. Engine
-configurations outside the port raise ``NotImplementedError`` at
+classes (``native/``) when they build, else the Python ones. With a
+``long_context_mesh`` (a ``torch.distributed`` process group), ``generate``
+serves greedy prompts of ``max_context`` tokens or more through the
+ring-attention path (``engine/long_context.py``). Engine configurations
+outside the port (tensor parallelism) raise ``NotImplementedError`` at
 construction.
 """
 
@@ -136,18 +139,28 @@ class Engine:
         ``native_runtime`` says whether the native host runtime runs. Every
         KV dtype serves on the card and on the CPU: K3, K4 and K6 take the
         unquantized pools (bf16, fp16, f32), the quantized ones (int8, fp8)
-        take the plain attention, as in the reference."""
+        take the plain attention, as in the reference.
+
+        With ``long_context_mesh`` (a ``torch.distributed`` process group,
+        e.g. ``engine.long_context.group_of_one(device)``; the reference's
+        1-axis ``seq`` mesh), ``generate`` serves greedy prompts of
+        ``max_context`` tokens or more through the ring-attention path
+        (``engine/long_context.py``) on an unfused snapshot of ``params``
+        kept before they are fused; ``params`` must then be unfused."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
-        missing = []
         if mesh is not None:
-            missing.append("mesh (tensor parallelism)")
-        if long_context_mesh is not None:
-            missing.append("long_context_mesh (ring-attention long context)")
-        if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch engine yet: " + ", ".join(missing))
+                "not ported to the PyTorch engine yet: mesh (tensor parallelism)")
+        if long_context_mesh is not None and "qkv_qw" in params["layers"]:
+            raise ValueError("long_context_mesh needs unfused params (the ring path's "
+                             "snapshot is taken before fuse_projections)")
+        self._long_ctx_group = long_context_mesh
+        # the ring path's unfused snapshot (kept only with a group: it holds
+        # the unfused weights alive beside the fused copy)
+        self._long_ctx_params = params if long_context_mesh is not None else None
+        self._long_ctx = None
         if e.exact_head_k and e.int8_logits:
             raise ValueError("int8_logits (approximate) and exact_head_k (exact) are "
                              "mutually exclusive")
@@ -306,12 +319,48 @@ class Engine:
         self.stats["requests"] += 1
         return req
 
+    def has_long_context(self) -> bool:
+        """Whether this engine was given a long-context group."""
+        return self._long_ctx_group is not None
+
+    def long_context_route(self, prompt_ids) -> bool:
+        """Whether ``generate`` serves this prompt through the ring path: a
+        process group was given and the prompt has ``max_context`` tokens or
+        more."""
+        return self._long_ctx_group is not None and len(prompt_ids) >= self.ecfg.max_context
+
     def generate(self, prompt_ids: List[int], sampling: SamplingParams | None = None) -> Request:
-        """Synchronous convenience: run the loop until this request finishes."""
+        """Synchronous convenience: run the loop until this request finishes.
+
+        Prompts of ``max_context`` tokens or more are served through the
+        sequence-parallel ring-attention path when ``long_context_mesh`` was
+        given (greedy only: ``temperature > 0`` raises ``ValueError``)."""
+        sampling = sampling or SamplingParams()
+        if self.long_context_route(prompt_ids):
+            if sampling.temperature > 0:
+                raise ValueError("long-context ring path is greedy-only")
+            return self._generate_long(prompt_ids, sampling)
         req = self.submit(prompt_ids, sampling)
         while not req.finished:
             if not self.step():
                 time.sleep(0.001)
+        return req
+
+    def _generate_long(self, prompt_ids, sampling: SamplingParams) -> Request:
+        if self._long_ctx is None:
+            from .long_context import LongContextEngine
+
+            self._long_ctx = LongContextEngine(self._long_ctx_params, self.cfg,
+                                               self._long_ctx_group, device=self.device)
+        req = self._new_request(prompt_ids, sampling)
+        out = self._long_ctx.generate(list(prompt_ids), sampling.max_new_tokens,
+                                      eos_token_id=self.eos_token_id)
+        req.first_token_t = req.arrival_t + self._long_ctx.last_timings["prefill_s"]
+        req.output_ids = out
+        req.finished = True
+        req.finish_t = time.monotonic()
+        req.finish_reason = "stop" if out and out[-1] == self.eos_token_id else "length"
+        self.stats["requests"] += 1
         return req
 
     def has_work(self) -> bool:

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -80,18 +81,29 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libwf_torch_kernels-{h.hexdigest()[:12]}.so"
 
 
-# builds this process ran (a library already on disk is no build), and their
-# seconds: the serving bench counts those inside its measured window
-BUILDS = {"count": 0, "seconds": 0.0}
+# builds this process ran (a library already on disk is no build: a cache
+# hit), and their seconds: the serving bench counts those inside its measured
+# window (utils/torchcache.py's CompileWatcher)
+BUILDS = {"count": 0, "seconds": 0.0, "cache_hits": 0}
+
+
+_BUILD_LOCK = threading.Lock()  # one build at a time (the server's threads)
 
 
 def build() -> Path:
     """Compile every source in parallel and link the shared library (skipped
     when the library for these sources already exists). The compiler's
     register and shared-memory report, with each source's compile seconds,
-    goes to ``ptxas.txt`` beside it."""
+    goes to ``ptxas.txt`` beside it. Threads that ask at once wait for one
+    build."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Path:
     so = _library_path()
     if so.exists():
+        BUILDS["cache_hits"] += 1
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()

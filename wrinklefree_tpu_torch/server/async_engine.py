@@ -9,6 +9,14 @@ which runs it before its next step, under the engine's lock as the
 reference's calls do (the event loop never waits on that lock, which a busy
 scheduler thread would hold nearly all the time), and a stream whose
 consumer goes away (a client that disconnects) cancels its request.
+
+A greedy prompt of ``max_context`` tokens or more runs the ring path
+(``Engine.generate``) of the replica that holds the long-context group, on
+an executor thread beside the scheduler threads, as the reference runs it.
+Beyond the reference: such a prompt goes straight to that replica (the
+reference routes it least-loaded first, and a replica without the group
+refuses it as too long), and its executor has one thread, so long requests
+run one after another (the group's collectives run in one order).
 """
 
 from __future__ import annotations
@@ -46,6 +54,11 @@ class AsyncEngine:
         # per-replica wake events: an idle scheduler thread parks on its
         # event (50 ms cap) and a submit wakes it at once
         self._wakes = [threading.Event() for _ in engines]
+        # the replica that serves the ring path, and its one-thread executor
+        self._long = next((e for e in engines if e.has_long_context()), None)
+        self._long_pool = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="wf-long-context")
+            if self._long is not None else None)
         self._threads = [
             threading.Thread(target=self._loop, args=(i,), daemon=True, name=f"wf-engine-{i}")
             for i in range(len(engines))
@@ -117,6 +130,8 @@ class AsyncEngine:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=5)
+        if self._long_pool is not None:
+            self._long_pool.shutdown(wait=False, cancel_futures=True)
 
     async def generate_stream(
         self, prompt_ids: List[int], sampling: SamplingParams
@@ -125,6 +140,15 @@ class AsyncEngine:
         If the consumer stops before the request finished (a disconnect),
         the request is cancelled."""
         loop = asyncio.get_running_loop()
+        lc = self._long
+        if lc is not None and sampling.temperature == 0 and lc.long_context_route(prompt_ids):
+            # a prompt beyond max_context: the sequence-parallel ring path on
+            # the executor thread (its tokens arrive together at the end)
+            req = await loop.run_in_executor(self._long_pool,
+                                             lambda: lc.generate(prompt_ids, sampling))
+            for i, tok in enumerate(req.output_ids):
+                yield tok, i == len(req.output_ids) - 1, req
+            return
         eng = self.pick()
         q: asyncio.Queue = asyncio.Queue()
 

@@ -977,13 +977,16 @@ def create_server(
     weights, each with its own KV pool. ``attn_window > 0`` serves
     sliding-window attention (``attn_global_tokens`` global prefix) on the
     dual layout: an ``auto`` layout becomes ``layer``, as the reference
-    sets it. Tensor parallelism and long context raise
-    ``NotImplementedError``."""
+    sets it. ``long_context``: replica 0 serves greedy prompts of
+    ``max_context`` tokens or more through the ring-attention path
+    (``engine/long_context.py``) on a group of one (formed if
+    ``torch.distributed`` is not initialized; a default group of more ranks
+    raises ``NotImplementedError``: the ring path is collective, and no
+    caller brings the other ranks to each request). Tensor parallelism
+    raises ``NotImplementedError``."""
     missing = []
     if tp > 1:
         missing.append("tp > 1 (tensor parallelism: ROADMAP queue 1 item 12)")
-    if long_context:
-        missing.append("long_context (ring-attention long context: ROADMAP queue 1 item 10)")
     if use_pallas is False:
         missing.append("use_pallas=False (the kernels' plain twins are their CPU path and "
                        "oracle, not a serving path on the card)")
@@ -1024,11 +1027,21 @@ def create_server(
         ecfg = dataclasses.replace(
             ecfg, attn_window=attn_window, attn_global_tokens=attn_global_tokens,
             kv_layout="layer" if ecfg.kv_layout == "auto" else ecfg.kv_layout)
-    if cfg.num_experts == 0:
-        params = fuse_projections(params, cfg)  # once, shared by every replica
+    lc_group = None
+    if long_context:
+        # the ring path for beyond-max_context requests, on a group of one
+        from ..engine.long_context import group_of_one
+
+        lc_group = group_of_one(dev)
+    shared = params
+    if cfg.num_experts == 0 and (lc_group is None or dp > 1):
+        shared = fuse_projections(params, cfg)  # once, shared by the replicas
     eos = getattr(tokenizer, "eos_token_id", None)
-    engines = [Engine(params, cfg, ecfg, eos_token_id=eos, device=dev)
-               for _ in range(dp)]
+    # replica 0 takes the group and the unfused params (it fuses its own copy)
+    engines = [Engine(params, cfg, ecfg, eos_token_id=eos, device=dev,
+                      long_context_mesh=lc_group) if r == 0 and lc_group is not None
+               else Engine(shared, cfg, ecfg, eos_token_id=eos, device=dev)
+               for r in range(dp)]
     return InferenceServer(engines[0] if dp == 1 else engines, tokenizer, name)
 
 
@@ -1059,7 +1072,9 @@ def main(argv=None):
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dp", type=int, default=1,
                    help="engine replicas on the device behind a least-loaded router")
-    p.add_argument("--long-context", action="store_true", help="not ported: raises")
+    p.add_argument("--long-context", action="store_true",
+                   help="serve greedy prompts beyond --max-context through ring attention "
+                        "on a group of one")
     p.add_argument("--window", type=int, default=0,
                    help="sliding-window attention width (0: full attention)")
     p.add_argument("--global-tokens", type=int, default=0,
