@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs sixteen phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs seventeen phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -122,7 +122,9 @@ vocab 128256) with random weights drawn on the card from seed 0:
                the unfused stacked linear and K7 experts: kernels vs plain,
                the fake-MoE oracle bit for bit against the dense model, and
                the engine phase with K7's launches per decode step counted;
-15. longctx  — long context (``engine/long_context.py``: ring prefill and
+15. longctx  — (in a spawned process of its own: torch.profiler sessions
+               late in this long process have come back empty) long
+               context (``engine/long_context.py``: ring prefill and
                context-parallel decode) on an NCCL group of one, every
                projection through K7's exact int32 mode: K7 at 16384 rows
                bitwise against its plain version and beside torch._int_mm;
@@ -134,7 +136,18 @@ vocab 128256) with random weights drawn on the card from seed 0:
                run with the ring's attention, an exact-attention witness of
                how far rounding moves the logits, and two controls that
                must fail;
-16. calibrate — ``bench.calibrate.calibrate()`` (the stream-touch kernel
+16. tp       — tensor parallelism (``phase_tp``): K7 at one rank's shapes;
+               2B at tp 2 and 4 with every rank on this card over gloo
+               (integer gates and two controls that fail them, greedy
+               requests through ``Engine(mesh=...)`` held to the token gate
+               against the single device, near-ties only and a
+               teacher-forced logit distance under ``TP_DIST_CAP``, with a
+               planted control at tp 2 that must fail it; K3, K4, K6 and K7
+               launched on every rank, a profiled 8-slot burst, four HTTP
+               completions at tp 2), Llama-3-8B ternary at 4 layers on
+               head-sharded pools, a mesh of one on NCCL;
+17. calibrate — (run right after the kernels phase)
+               ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
@@ -2718,9 +2731,9 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
     e8 = engine(int8_logits=True)
     calls, heads_seen = [], []
 
-    def recording_head(hidden, p_, cfg_):
+    def recording_head(hidden, p_, cfg_, tp_axis=None):
         heads_seen.append(hidden.detach().clone())
-        return head(hidden, p_, cfg_)
+        return head(hidden, p_, cfg_, tp_axis=tp_axis)
 
     def probed(p_, cfg_, tokens, pools, pt, sl, nl, **kw):
         heads_seen.clear()
@@ -4361,6 +4374,714 @@ def phase_longctx(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17. tp — tensor parallelism on torch.distributed (parallel/sharding.py,
+# engine/lockstep.py): ranks spawned on this one card, on gloo groups that
+# carry CUDA tensors (gloo copies them through the host; NCCL refuses two
+# ranks on one GPU)
+# ---------------------------------------------------------------------------
+
+# the engine phase's configuration, with flash_decode (K6 under TP)
+TP_ECFG = dict(max_batch_slots=8, page_size=16, num_pages=1024, max_context=2048,
+               prefill_buckets=(32, 128, 512), flash_decode=True)
+# the 700-token prompt, queued first, sets the first round's bucket: 512-token
+# chunks (K4); eight new tokens make each burst eight steps (gloo carries each
+# of a step's 182 collectives through the host: 0.8 s a step at tp 2, 2 s at 4)
+TP_LENS = (700, 17, 200)
+TP_NEW = 8
+TP_NOISE = 0.665  # the 30-layer rounding noise of the 2B logits (ROADMAP.md section 3)
+# the largest teacher-forced logit distance a TP run may have from the single
+# device's (``tp_token_gate``): above the sound runs' largest reading (0.460,
+# 2B at tp 4), below the planted control's (1.23); PERF.md section 6
+TP_DIST_CAP = 0.5
+TP_TEXTS = ["The capital of France is", "def fibonacci(n):", "Tensor parallel serving on",
+            "1, 2, 3, 4,"]
+
+
+def _tp_counting_linear(shapes):
+    """The stacked K7 linear whose matmul counts its launches by shape
+    (rows, K, N) in ``shapes`` (the kernel's own counter counts too)."""
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+
+    def matmul(x_q, qw, layer, *a, **kw):
+        key = f"{x_q.numel() // x_q.shape[-1]}x{qw.shape[1] * 4}->{qw.shape[2]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return tc.ternary_matmul_stacked(x_q, qw, layer, *a, **kw)
+
+    return tc.make_linear_stacked(matmul=matmul)
+
+
+def _tp_layer0_inputs(params, cfg, dev, axis):
+    """The inputs of layer 0's q, o, gate and down linears on a 64-token
+    prompt (the single-device forward on the whole params, K7 linears),
+    recorded on every rank and held equal across the ranks (pmax == pmin)."""
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, forward
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+
+    st = params["layers"]
+    names = {id(st[f"{n}_qw"]): n for n in ("q", "o", "gate", "down")}
+    seen = {}
+    inner = tc.make_linear_stacked()
+
+    def rec(x, qw, scale, layer, **kw):
+        if layer == 0 and id(qw) in names:
+            seen[names[id(qw)]] = x.detach().clone()
+        return inner(x, qw, scale, layer, **kw)
+
+    rec.stacked = True
+    toks = torch.from_numpy(np.random.default_rng(7).integers(1, cfg.vocab_size, (1, 64))).to(dev)
+    forward(params, cfg, toks, KVCache.zeros(cfg, 1, 64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev), linear_fn=rec, logits_all=False)
+    for n, x in seen.items():
+        f = x.float()
+        if not torch.equal(axis.pmax(f.clone()), axis.pmin(f.clone())):
+            fail(f"tp: layer 0's {n} input differs across the ranks")
+    return seen
+
+
+def _tp_int_gates(params, sp, cfg, mesh, acts):
+    """Integer gates on layer 0's real activations (the single-device K7
+    int32 dot as the reference), with two controls that must fail them:
+    each rank's K7 int32 output of q, gate and up equals its columns of the
+    single-device output; the ranks' MAX-reduced act scales of the o and
+    down inputs equal the single-device scales, and the SUM all-reduce of
+    their int32 partials over the repacked shards equals the full int32 dot;
+    a shard of the un-repacked o/down weights and the o input quantized
+    without the MAX all-reduce fail them."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.ternary import quantize_activations
+
+    ax, r, P = mesh.model, mesh.model.index, mesh.model.size
+    out = {}
+    for name, src in (("q", "q"), ("gate", "gate"), ("up", "gate")):
+        codes, _ = quantize_activations(acts[src])
+        full = tc.ternary_matmul(codes, params["layers"][f"{name}_qw"][0])
+        local = tc.ternary_matmul(codes, sp["layers"][f"{name}_qw"][0])
+        n = local.shape[-1]
+        out[name] = bool(torch.equal(local, full[..., r * n:(r + 1) * n]))
+    for name in ("o", "down"):
+        x = acts[name]
+        k = x.shape[-1] // P
+        xs = x[..., r * k:(r + 1) * k]
+        codes1, scale1 = quantize_activations(x)
+        codes, scale = quantize_activations(xs, quant_axis=ax)
+        full = tc.ternary_matmul(codes1, params["layers"][f"{name}_qw"][0])
+        summed = ax.psum(tc.ternary_matmul(codes, sp["layers"][f"{name}_qw"][0]))
+        out[f"{name} scales"] = bool(torch.equal(scale, scale1))
+        out[f"{name} codes"] = bool(torch.equal(codes, codes1[..., r * k:(r + 1) * k]))
+        out[f"{name} sum"] = bool(torch.equal(summed, full))
+        # control 1: a contiguous K/4 slice of the matrix as packed for one device
+        k4 = params["layers"][f"{name}_qw"].shape[1] // P
+        bad = params["layers"][f"{name}_qw"][0][r * k4:(r + 1) * k4]
+        out[f"{name} control: un-repacked shard sum"] = bool(torch.equal(
+            ax.psum(tc.ternary_matmul(codes, bad)), full))
+        # control 2: the rank's own absmax (no MAX all-reduce)
+        _, local_scale = quantize_activations(xs)
+        out[f"{name} control: local scales"] = bool(torch.equal(local_scale, scale1))
+    # a gate holds when it holds on every rank: the ranks' flags, reduced with MIN
+    flags = torch.tensor([int(v) for v in out.values()], dtype=torch.int32, device=mesh.device)
+    return dict(zip(out, ax.pmin(flags).tolist()))
+
+
+class _TPWindow:
+    """Profiles, on every rank, the first decode burst that runs once
+    ``requests`` requests were queued with every slot decoding (the stats
+    and slots are the same on every rank, so every rank profiles the same
+    burst): device busy ms, K7 launches by shape, collectives, decode steps
+    and wall."""
+
+    def __init__(self, eng, mesh, shapes, requests):
+        self.eng, self.mesh, self.shapes = eng, mesh, shapes
+        self.prof = self.report = None
+        inner = eng._decode
+
+        def decode():
+            if (self.report is None and eng.stats["requests"] >= requests
+                    and all(r is not None and not r.pending for r in eng.slots)):
+                self._start()
+                out = inner()
+                self._stop()
+                return out
+            return inner()
+
+        eng._decode = decode
+
+    def _start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.s0 = (self.eng.stats["decode_steps"], dict(self.shapes),
+                   dict(self.mesh.model.calls), time.perf_counter())
+        self.prof = profile(activities=[ProfilerActivity.CUDA]
+                            if torch.cuda.is_available() else [ProfilerActivity.CPU])
+        self.prof.__enter__()
+
+    def _stop(self):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - self.s0[3]
+        self.prof.__exit__(None, None, None)
+        steps = self.eng.stats["decode_steps"] - self.s0[0]
+        busy = busy_us(device_events(self.prof)) / 1e3
+        self.prof = None
+        self.report = dict(
+            decode_steps=steps, device_ms_per_step=busy / steps, wall_ms_per_step=wall * 1e3 / steps,
+            k7_per_step={k: (v - self.s0[1].get(k, 0)) / steps for k, v in self.shapes.items()
+                         if v != self.s0[1].get(k, 0)},
+            collectives_per_step={k: (v - self.s0[2].get(k, 0)) / steps
+                                  for k, v in self.mesh.model.calls.items()})
+
+
+def _tp_model(job, dev):
+    import dataclasses
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+
+    cfg = getattr(BitNetConfig, job["model"])()
+    if job.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=job["layers"])
+    return cfg, init_params(cfg, seed=0, device=dev)
+
+
+def _tp_engine_run(eng, cfg, prompts, rec=None):
+    """Submit the greedy prompts together and step until they finish;
+    returns the requests."""
+    from wrinklefree_tpu_torch.engine import SamplingParams
+
+    sp = SamplingParams(max_new_tokens=TP_NEW, temperature=0.0)
+    with (rec.on(eng) if rec is not None else contextlib.nullcontext()):
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while not all(r.finished for r in reqs):
+            eng.step()
+    return reqs
+
+
+def tp_job(job):
+    """One rank's part of a tp world (every rank of the world runs it; the
+    world's default group is gloo over this card). ``job``: model, layers
+    (None: all), gates, window, http. Returns the rank's report; rank 0's
+    also holds the comparison with the single-device engine."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+    from wrinklefree_tpu_torch.ops import kv_update_cuda as kvu
+    from wrinklefree_tpu_torch.ops import sampling
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.parallel.sharding import make_mesh, tp_kv_replicated
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job.get("device", "cuda:0"))  # the CPU rehearses the job
+    cuda = dev.type == "cuda"
+    P, rank = dist.get_world_size(), dist.get_rank()
+    t0 = time.perf_counter()
+    report = {}
+    if cuda:
+        torch.cuda.set_device(dev)  # initializes CUDA in this fresh process
+        if job.get("k7_shapes") and rank == 0:  # the other ranks wait at make_mesh
+            from wrinklefree_tpu_torch.bench.roofline import GPU_SPECS, peak_ops
+
+            global HBM_BYTES_PER_S
+            HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]
+            PEAK_OPS.update(peak_ops("h100"))
+            start_profiler(dev)
+            g = torch.Generator(device=dev)
+            g.manual_seed(25)
+            report["k7_shapes"] = tp_k7_shapes(dev, g)
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params = _tp_model(job, dev)
+    mesh = make_mesh(1, P, device=dev, backend="gloo")
+    rep = tp_kv_replicated(cfg, P)
+    report.update(rank=rank, tp=P, model=job["model"], layers=cfg.num_layers,
+                  backend=mesh.backend, kv_replicated=rep)
+    shapes = {}
+    eng = Engine(params, cfg, EngineConfig(**TP_ECFG), mesh=mesh,
+                 linear_fn=_tp_counting_linear(shapes))
+    if job.get("gates"):  # on the engine's shards (repacked, sliced)
+        report["gates"] = _tp_int_gates(params, eng.params, cfg, mesh,
+                                        _tp_layer0_inputs(params, cfg, dev, mesh.model))
+    kernels = (tc.ternary_matmul_stacked, kvu.kv_write, fa.flash_paged_prefill,
+               fa.flash_paged_decode)
+    for c in kernels:
+        c.launches = 0
+    report["pool_kv_heads"] = eng.pools.kv.shape[-1] // cfg.head_dim
+    report["pool_gb"] = eng.pools.nbytes / 1e9
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in TP_LENS]
+    window = (_TPWindow(eng, mesh, shapes, len(TP_LENS) + 8) if job.get("window")
+              else None)
+    rec = LogitsRecorder() if rank == 0 else None
+    if rank == 0:
+        try:
+            t1 = time.perf_counter()
+            reqs = _tp_engine_run(eng, cfg, prompts, rec)
+            report["requests_s"] = time.perf_counter() - t1
+            if window is not None:  # eight 17-token prompts decoding together
+                from wrinklefree_tpu_torch.engine import SamplingParams
+
+                # 9 tokens: the prefill's, then one burst of 8 steps
+                wr = [eng.submit(rng.integers(1, cfg.vocab_size, 17).tolist(),
+                                 SamplingParams(max_new_tokens=9, temperature=0.0))
+                      for _ in range(8)]
+                while not all(r.finished for r in wr):
+                    eng.step()
+        finally:
+            eng.stop_followers()
+        report["tp_tokens"] = [r.output_ids for r in reqs]
+    else:
+        eng.follow()
+    report["launches"] = {c.__name__: c.launches for c in kernels}
+    report["window"] = window.report if window is not None else None
+    report["lockstep_messages"] = eng._lockstep.messages
+    report["stats"] = {k: eng.stats[k] for k in ("decode_steps", "prefill_tokens",
+                                                   "decode_tokens", "requests")}
+    report["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    del eng, window
+    if cuda:
+        torch.cuda.empty_cache()
+    creqs = (_tp_control_run(params, cfg, mesh, prompts, rec) if job.get("control")
+             else None)
+    if rank == 0:
+        # the single-device engine on the same params through the same K7
+        # linear (it fuses q/k/v and gate/up: K7 computes the same integers)
+        single = Engine(params, cfg, EngineConfig(**TP_ECFG), device=dev,
+                        linear_fn=tc.make_linear_stacked())
+        sreqs = _tp_engine_run(single, cfg, prompts, rec)
+        report["single_tokens"] = [r.output_ids for r in sreqs]
+        report["parts"], report["max_teacher_forced_dist"] = tp_compare(
+            sampling, prompts, sreqs, reqs, rec.runs[-1], rec.runs[0])
+        if creqs is not None:
+            parts, d = tp_compare(sampling, prompts, sreqs, creqs, rec.runs[-1], rec.runs[1])
+            report["control"] = dict(parts=parts, max_teacher_forced_dist=d,
+                                     tokens=[r.output_ids for r in creqs])
+        del single, rec
+    if job.get("http"):
+        if cuda:
+            torch.cuda.empty_cache()
+        report["http"] = _tp_http(job, dev)
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def _tp_control_run(params, cfg, mesh, prompts, rec):
+    """The planted control of the token gate: the TP engine with every
+    sub-norm's mean square taken over the rank's own slice (its SUM over the
+    ranks dropped) on every rank. Returns the leader's requests (None on the
+    other ranks)."""
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine
+    from wrinklefree_tpu_torch.kv import paged
+
+    sound = paged.tp_sub_norm
+    paged.tp_sub_norm = lambda x, weight, eps, full_dim, tp_axis=None: sound(x, weight, eps,
+                                                                            full_dim)
+    try:
+        eng = Engine(params, cfg, EngineConfig(**TP_ECFG), mesh=mesh)
+        if mesh.model.index:
+            eng.follow()
+            return None
+        try:
+            return _tp_engine_run(eng, cfg, prompts, rec)
+        finally:
+            eng.stop_followers()
+    finally:
+        paged.tp_sub_norm = sound
+
+
+def tp_compare(sampling, prompts, single, tp, run_single, run_tp):
+    """A TP run's greedy requests against the single device's: per request
+    the largest logit distance over the rows both computed on the same
+    prefix (up to and with the first token where they part), and at that
+    token ``near_tie``'s verdict. Returns (parts, the largest distance)."""
+    parts, dists = [], []
+    for p, a, b in zip(prompts, single, tp):
+        j = next((i for i, (x, y) in enumerate(zip(a.output_ids, b.output_ids)) if x != y),
+                 None)
+        upto = TP_NEW if j is None else j + 1  # rows on the same prefix
+        d = max(float((run_tp[(b.seed, len(p) + i)] - run_single[(a.seed, len(p) + i)])
+                      .abs().max()) for i in range(upto))
+        dists.append(d)
+        if j is not None:
+            why = near_tie(sampling, run_single[(a.seed, len(p) + j)],
+                           run_tp[(b.seed, len(p) + j)], a.sampling, j,
+                           a.output_ids[j], b.output_ids[j], d)
+            parts.append(dict(prompt=len(p), token=j, dist=d, why=why))
+    return parts, max(dists)
+
+
+def tp_token_gate(parts, dist) -> str:
+    """Why a TP run's tokens fail against the single device's, or "": a part
+    that is no near-tie, or a teacher-forced logit distance over
+    ``TP_DIST_CAP``."""
+    bad = [p for p in parts if p["why"]]
+    if bad:
+        return f"tokens part beyond a near-tie: {bad}"
+    if dist > TP_DIST_CAP:
+        return f"teacher-forced logit distance {dist} over the cap {TP_DIST_CAP}"
+    return ""
+
+
+def _tp_http(job, dev):
+    """``create_server("synth:<model>", tp=P)`` on every rank: rank 0 serves
+    four greedy completions over HTTP through the port's client, held to
+    its engine's ``generate`` text, then shuts down (its followers' serve()
+    returns)."""
+    from wrinklefree_tpu_torch.client.client import InferenceClient
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import SamplingParams
+    from wrinklefree_tpu_torch.server._web import ServerThread
+    from wrinklefree_tpu_torch.server.http import FollowerServer, build_app, create_server
+
+    import torch.distributed as dist
+
+    server = create_server(f"synth:{job['model']}", engine_config=EngineConfig(**TP_ECFG),
+                           tp=dist.get_world_size(), device=dev, tp_backend="gloo")
+    if isinstance(server, FollowerServer):
+        server.serve()
+        return dict(follower_steps=server.engine.stats["decode_steps"])
+    import concurrent.futures
+
+    st = ServerThread(build_app(server))
+    eng = server.async_engine.engine
+    greedy = SamplingParams(max_new_tokens=TP_NEW, temperature=0.0)
+    try:
+        client = InferenceClient(st.url)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(TP_TEXTS)) as pool:
+            texts = list(pool.map(
+                lambda t: client.generate(t, max_tokens=TP_NEW, temperature=0.0), TP_TEXTS))
+        wall = time.perf_counter() - t0
+        # the same prompts submitted to the engine together (the scheduler
+        # thread steps them)
+        reqs = [eng.submit(server.tokenizer.encode(t), greedy) for t in TP_TEXTS]
+        server.async_engine._wakes[0].set()
+        while not all(r.finished for r in reqs):
+            time.sleep(0.05)
+        direct = [server.tokenizer.decode(r.output_ids) for r in reqs]
+    finally:
+        st.stop()
+        server.async_engine.shutdown()
+    return dict(completions=len(texts), equal_to_generate=texts == direct, wall_s=wall,
+                decode_steps=eng.stats["decode_steps"])
+
+
+def _tp_rank_main(rank, world, store, out_dir, job):
+    import os
+    import pickle
+    import traceback
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    result = None
+    try:
+        import torch
+        import torch.distributed as dist
+
+        # the ranks share the host's cores with gloo's copies: one intra-op
+        # thread each
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        result = ("ok", tp_job(job))
+        dist.destroy_process_group()
+    except BaseException:  # fail() raises SystemExit: reported to the parent
+        result = ("error", traceback.format_exc())
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def tp_world(world, job, timeout=600.0):
+    """Run ``tp_job(job)`` on ``world`` spawned ranks (the ``spawn`` method:
+    CUDA cannot fork), rendezvous in a FileStore under build/; returns the
+    ranks' reports. Fails if a rank failed, hung or died; kills none it
+    leaves running."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="tp_world_", dir=root) as tmp:
+        procs = [ctx.Process(target=_tp_rank_main, args=(r, world, str(Path(tmp) / "store"),
+                                                         tmp, job)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        out = []
+        for r, p in enumerate(procs):
+            f = Path(tmp) / f"rank{r}.pkl"
+            if not f.exists():
+                fail(f"tp: world of {world}, rank {r} left no report (exit {p.exitcode})")
+            status, value = pickle.loads(f.read_bytes())
+            if status != "ok":
+                fail(f"tp: world of {world}, rank {r}:\n{value}")
+            out.append(value)
+    return out
+
+
+def _fresh_main(out, name, args):
+    import pickle
+    import traceback
+
+    try:
+        import torch
+
+        from wrinklefree_tpu_torch.bench.roofline import GPU_SPECS, peak_ops
+
+        global HBM_BYTES_PER_S
+        HBM_BYTES_PER_S = GPU_SPECS["h100"]["hbm_bw"]
+        PEAK_OPS.update(peak_ops("h100"))
+        dev = torch.device("cuda")
+        torch.cuda.set_device(0)
+        start_profiler(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        result = ("ok", globals()[name](dev, *args))
+    except BaseException:  # fail() raises SystemExit: reported to the parent
+        result = ("error", traceback.format_exc())
+    sys.stdout.flush()
+    Path(out).write_bytes(pickle.dumps(result))
+
+
+def in_fresh_process(name, *args, timeout=900.0):
+    """``name(dev, *args)``, a phase of this script, in a spawned process on
+    this card (set up as ``main`` sets up this one; the kernels load from
+    the cache this process built); returns its result. Fails if it failed,
+    hung or died."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    sys.stdout.flush()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase_", dir=root) as tmp:
+        out = Path(tmp) / "result.pkl"
+        p = multiprocessing.get_context("spawn").Process(target=_fresh_main,
+                                                         args=(str(out), name, args))
+        p.start()
+        p.join(timeout)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+        if not out.exists():
+            fail(f"{name}: its process left no result (exit {p.exitcode})")
+        status, value = pickle.loads(out.read_bytes())
+    if status != "ok":
+        fail(f"{name} in its own process:\n{value}")
+    return value
+
+
+def tp_k7_shapes(dev, g):
+    """K7 at one rank's shapes of the 2B model at tp 2 and 4 (q, k/v,
+    gate/up column-parallel with bf16 output; o, down row-parallel with the
+    f32 partials) at 1, 8 and 512 rows: bitwise against its plain version,
+    timed beside the bf16 ``torch.matmul`` on unpacked weights and
+    ``torch._int_mm`` on the same codes (at 1 and 8 rows on the codes padded
+    to 32 rows: it refuses 16 rows or fewer), each weight set cycled past the
+    L2, and its bound."""
+    import torch
+
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.ternary import unpack_ternary
+
+    shapes = [("q tp2", 2560, 1280, "bf16"), ("k/v tp2 and tp4, q tp4", 2560, 640, "bf16"),
+              ("o tp2", 1280, 2560, "f32"), ("o tp4", 640, 2560, "f32"),
+              ("gate/up tp2", 2560, 3456, "bf16"), ("gate/up tp4", 2560, 1728, "bf16"),
+              ("down tp2", 3456, 2560, "f32"), ("down tp4", 1728, 2560, "f32")]
+    rows_out = []
+    for name, k, n, mode in shapes:
+        nl = max(8, math.ceil(64e6 / (k // 4 * n)))
+        qw = torch.randint(0, 256, (nl, k // 4, n), generator=g, device=dev, dtype=torch.uint8)
+        sw = torch.rand((nl,), generator=g, device=dev) * 80 + 10
+        nlib = max(2, math.ceil(64e6 / (k * n * 2)))
+        lib_w = [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(nlib)]
+        lib_i = [w.to(torch.int8).t().contiguous() for w in lib_w]
+        out_dt = torch.float32 if mode == "f32" else torch.bfloat16
+        for rows in (1, 8, 512):
+            xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
+            sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
+            lay, lib_lay = Cycle(nl), Cycle(nlib)
+            a = tc.ternary_matmul_stacked(xq, qw, 0, sx, sw, out_dtype=out_dt)
+            b = tc.ternary_matmul_stacked_plain(xq, qw, 0, sx, sw, out_dtype=out_dt)
+            if not torch.equal(a, b):
+                fail(f"tp: K7 {name} rows={rows}: kernel and plain version differ")
+            ms, call_ms = cuda_ms(lambda: tc.ternary_matmul_stacked(
+                xq, qw, lay(), sx, sw, out_dtype=out_dt))
+            plain_ms, _ = cuda_ms(lambda: tc.ternary_matmul_stacked_plain(
+                xq, qw, lay(), sx, sw, out_dtype=out_dt), iters=5, warmup=1)
+            xb = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+            bf16_ms, _ = cuda_ms(lambda: torch.matmul(xb, lib_w[lib_lay()]))
+            xi = xq if rows > 16 else torch.cat([xq, xq.new_zeros((32 - rows, k))])
+            int_ms, _ = cuda_ms(lambda: torch._int_mm(xi, lib_i[lib_lay()].t()))
+            nbytes = rows * k + rows * 4 + k // 4 * n + 4 + rows * n * out_dt.itemsize
+            b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
+            rows_out.append(dict(shape=f"{name} {k}->{n} ({mode} out) rows={rows}", ms=ms,
+                                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, bf16_matmul_ms=bf16_ms,
+                                 int_mm_ms=int_ms, int_mm_rows=xi.shape[0]))
+        del qw, lib_w, lib_i
+    return rows_out
+
+
+def phase_tp(dev, smi):
+    """17. tp — tensor parallelism (``parallel/sharding.py``, the engine's
+    lockstep) on this one card: ranks spawned with ``spawn``, all on
+    ``cuda:0``, on gloo groups carrying CUDA tensors (gloo copies them
+    through the host by itself; NCCL refuses two ranks on one GPU). The
+    kernels are built in this process first; the ranks load them.
+
+    (k) K7 at one rank's shapes at tp 2 and 4 (``tp_k7_shapes``, in the tp 2
+        world's rank 0 before its model: a fresh process's profiler);
+    (a) BitNet-2B at full width and depth (random weights from seed 0) at
+        tp 2 and at tp 4: the integer gates on layer 0's real activations
+        and their controls (``_tp_int_gates``); three greedy requests (700,
+        17 and 200 tokens, ``TP_NEW`` = 8 new) through ``Engine(mesh=...)``
+        with the engine phase's configuration and ``flash_decode``: the pools
+        replicated (5 KV heads), K7, K3, K4 and K6 launched on every rank;
+        the token gate (``tp_token_gate``) against the single-device engine
+        on the same params through K7: tokens equal or parting only at a
+        near-tie, the largest teacher-forced logit distance under
+        ``TP_DIST_CAP``; at tp 2 a planted control that must fail that gate
+        (``_tp_control_run``: sub-norms over each rank's slice); a profiled
+        window of eight decoding slots on every rank; at tp 2, four HTTP
+        completions from rank 0 of ``create_server(tp=2)``;
+    (b) Llama-3-8B ternary at full width cut to 4 layers at tp 2: each
+        rank's pools hold 4 KV heads (head-sharded), the token gate as in
+        (a);
+    (c) a mesh of one on NCCL in this process: ``Engine(mesh=make_mesh(1,
+        1))`` serves the requests of (a), held to the token gate against the
+        single-device engine run here."""
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.ops import cuda_lib
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+    from wrinklefree_tpu_torch.ops import sampling
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.parallel.sharding import make_mesh
+
+    t_phase = time.perf_counter()
+    cuda_lib.library()  # built (or loaded) here: the ranks load it from the cache
+    worlds = {}
+    for tag, world, job in (
+            ("2B tp2", 2, dict(model="bitnet_2b", gates=True, window=True, http=True,
+                               k7_shapes=True, control=True)),
+            ("2B tp4", 4, dict(model="bitnet_2b", gates=True, window=True)),
+            ("llama8b 4 layers tp2", 2, dict(model="llama3_8b_ternary", layers=4))):
+        t0 = time.perf_counter()
+        ranks = tp_world(world, job)
+        worlds[tag] = ranks
+        r0 = ranks[0]
+        for row in r0.get("k7_shapes", ()):  # timed in rank 0, a fresh process
+            print("tp: K7 " + json.dumps(row))
+        for r in ranks:
+            zero = [k for k, v in r["launches"].items() if not v]
+            if zero:
+                fail(f"tp {tag}: rank {r['rank']} never launched {zero}")
+            if r["stats"] != r0["stats"]:
+                fail(f"tp {tag}: rank {r['rank']} ran other steps than the leader")
+        want_heads = 5 if job["model"] == "bitnet_2b" else 8 // world
+        if any(r["pool_kv_heads"] != want_heads for r in ranks):
+            fail(f"tp {tag}: pools hold {[r['pool_kv_heads'] for r in ranks]} KV heads, "
+                 f"expected {want_heads}")
+        if "gates" in r0:
+            g0 = r0["gates"]
+            must = [k for k in g0 if "control" not in k]
+            controls = [k for k in g0 if "control" in k]
+            if not all(g0[k] for k in must):
+                fail(f"tp {tag}: integer gates failed: {json.dumps(g0)}")
+            if any(g0[k] for k in controls):
+                fail(f"tp {tag}: a control passed the gates: {json.dumps(g0)}")
+        why = tp_token_gate(r0["parts"], r0["max_teacher_forced_dist"])
+        if why:
+            fail(f"tp {tag}: against the single device: {why}")
+        if "control" in r0:
+            c = r0["control"]
+            c["gate"] = tp_token_gate(c["parts"], c["max_teacher_forced_dist"])
+            print(f"tp {tag}: control (sub-norms over each rank's slice): " + json.dumps(c))
+            if not c["gate"]:
+                fail(f"tp {tag}: the control passed the token gate: {json.dumps(c)}")
+        for toks in r0["tp_tokens"]:
+            if len(toks) != TP_NEW:
+                fail(f"tp {tag}: a request ended with {len(toks)} tokens")
+        if "http" in r0 and not (r0["http"]["completions"] == 4
+                                 and r0["http"]["equal_to_generate"]):
+            fail(f"tp {tag}: HTTP completions {json.dumps(r0['http'])}")
+        same = sum(a == b for a, b in zip(r0["tp_tokens"], r0["single_tokens"]))
+        print(f"tp {tag}: {world} ranks on one card over gloo (gloo copies the CUDA tensors "
+              f"through the host), KV {'replicated' if r0['kv_replicated'] else 'head-sharded'}"
+              f" ({r0['pool_kv_heads']} heads a pool); {same}/{len(TP_LENS)} requests equal to "
+              f"the single device's, parts {json.dumps(r0['parts'])}; largest teacher-forced "
+              f"logit distance {r0['max_teacher_forced_dist']} (cap {TP_DIST_CAP}; the "
+              f"30-layer rounding noise {TP_NOISE}); gates {json.dumps(r0.get('gates'))}; "
+              f"{time.perf_counter() - t0} s; {smi}")
+        for r in ranks:
+            print("tp: " + json.dumps(dict(
+                run=tag, rank=r["rank"], launches=r["launches"], window=r["window"],
+                peak_gb=r["peak_gb"], pool_gb=r["pool_gb"], seconds=r["seconds"],
+                requests_s=r.get("requests_s"), lockstep_messages=r["lockstep_messages"],
+                http=r.get("http"))))
+    # (c) a mesh of one on NCCL (make_mesh forms this process's default group)
+    cfg = BitNetConfig.bitnet_2b()
+    params = init_params(cfg, seed=0, device=dev)
+    mesh = make_mesh(1, 1, device=dev)
+    if mesh.backend != "nccl":
+        fail(f"tp: the mesh of one runs on {mesh.backend}, not NCCL")
+    eng = Engine(params, cfg, EngineConfig(**TP_ECFG), mesh=mesh)
+    fa.flash_paged_decode.launches = tc.ternary_matmul_stacked.launches = 0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in TP_LENS]
+    rec = LogitsRecorder()
+    reqs = _tp_engine_run(eng, cfg, prompts, rec)
+    if not (fa.flash_paged_decode.launches and tc.ternary_matmul_stacked.launches):
+        fail("tp: the NCCL mesh of one did not launch K6 and K7")
+    calls = dict(mesh.model.calls)
+    del eng
+    single = Engine(params, cfg, EngineConfig(**TP_ECFG), device=dev,
+                    linear_fn=tc.make_linear_stacked())
+    sreqs = _tp_engine_run(single, cfg, prompts, rec)
+    got = [r.output_ids for r in reqs]
+    if any(len(t) != TP_NEW for t in got):
+        fail("tp: the NCCL mesh of one ended a request early")
+    parts, dist = tp_compare(sampling, prompts, sreqs, reqs, rec.runs[1], rec.runs[0])
+    lead = [next((i for i, (a, b) in enumerate(zip(x.output_ids, y.output_ids)) if a != b),
+                 TP_NEW) for x, y in zip(reqs, sreqs)]
+    print(f"tp: a mesh of one on NCCL served {len(reqs)} requests x {TP_NEW} tokens; leading "
+          f"tokens equal to the single device's {lead} of {TP_NEW}, parts {json.dumps(parts)}; "
+          f"largest teacher-forced logit distance {dist} (cap {TP_DIST_CAP}); collectives "
+          f"{calls}")
+    why = tp_token_gate(parts, dist)
+    if why:
+        fail(f"tp: the NCCL mesh of one against the single device: {why}")
+    del single, params, rec
+    torch.cuda.empty_cache()
+    print(f"tp: phase wall {time.perf_counter() - t_phase} s")
+    return worlds
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -4403,6 +5124,9 @@ def main() -> int:
 
     results = {}
     phase_kernels(params, cfg, dev, results)
+    # the health stamp early: its busy share is read by the profiler, whose
+    # sessions late in a long process have come back empty
+    calibrate_launches = phase_calibrate(dev)
     floors = phase_forward(params, cfg, dev)
     phase_prefill(params, cfg, dev)
     # the batch-1 path reads the int8 head (its exact head scans it); the
@@ -4455,10 +5179,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_moe(dev)
     torch.cuda.empty_cache()
-    longctx = phase_longctx(dev, smi.splitlines()[0])
+    # in a fresh process: torch.profiler sessions late in this long process
+    # have come back empty
+    longctx = in_fresh_process("phase_longctx", smi.splitlines()[0])
     for name in ("ternary_matmul_stacked", "ternary_matmul_stacked/tiled"):
         launches[name] = moe[name] + longctx[name]
-    launches["measure_stream_us_per_layer"] = phase_calibrate(dev)
+    torch.cuda.empty_cache()
+    phase_tp(dev, smi.splitlines()[0])
+    launches["measure_stream_us_per_layer"] = calibrate_launches
 
     line = []
     for name, meta in KERNELS.items():

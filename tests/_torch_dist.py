@@ -320,3 +320,288 @@ def server_cases(payload):
     finally:
         server.async_engine.shutdown()
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (tests/test_torch_sharding.py, test_torch_tp_engine.py,
+# test_torch_router.py, test_torch_multihost.py, test_torch_server.py)
+# ---------------------------------------------------------------------------
+
+
+def _model(models, name, device="cpu"):
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.weights import params_from_numpy
+
+    np_params, cfg_kw = models[name]
+    cfg = BitNetConfig(**cfg_kw, dtype=torch.float32)
+    return params_from_numpy(np_params, cfg, device=device), cfg
+
+
+def _tensor_tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree_np(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
+def sharding_cases(payload):
+    """``payload``: dict(models {name: (numpy params, cfg kwargs)}, forward
+    {name: (model, n_data, n_model, tokens [B, S], decode token [B, 1])}).
+    On a world of P ranks: this rank's ``shard_params`` of every model
+    (repacked for tp = P, KV replicated where the decider says so), and the
+    logits of ``make_tp_forward`` (a prefill with logits_all, then one decode
+    step) for the cases whose mesh has P ranks, each on a fresh cache."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, tp_local_kv_heads
+    from wrinklefree_tpu_torch.parallel.sharding import (make_mesh,
+                                                          make_tp_forward,
+                                                          repack_params_for_tp, shard_params,
+                                                          tp_kv_replicated)
+
+    P = dist.get_world_size()
+    meshes = {}
+
+    def mesh(nd, nm):
+        if (nd, nm) not in meshes:
+            meshes[(nd, nm)] = make_mesh(nd, nm, device="cpu")
+        return meshes[(nd, nm)]
+
+    out = {"shards": {}, "forward": {}}
+    for name in payload["models"]:
+        params, cfg = _model(payload["models"], name)
+        if cfg.num_heads % P:
+            continue
+        rep = tp_kv_replicated(cfg, P)
+        m = mesh(1, P)
+        out["shards"][name] = (m.model.index, rep, _tensor_tree_np(
+            shard_params(repack_params_for_tp(params, P), m, kv_replicated=rep)))
+    for name, (model, nd, nm, toks, nxt) in payload["forward"].items():
+        if nd * nm != P:
+            continue
+        params, cfg = _model(payload["models"], model)
+        m = mesh(nd, nm)
+        rep = tp_kv_replicated(cfg, nm)
+        sp = shard_params(repack_params_for_tp(params, nm), m, kv_replicated=rep)
+        lcfg = dataclasses.replace(cfg, num_kv_heads=tp_local_kv_heads(cfg, m.model, rep))
+        B, S = toks.shape
+        cache = KVCache.zeros(lcfg, B // nd, 32, device="cpu")
+        tokens = torch.from_numpy(toks)
+        start = torch.zeros(B, dtype=torch.int32)
+        m.model.calls.clear()
+        a, cache = make_tp_forward(cfg, m, logits_all=True)(sp, tokens, cache, start)
+        b, _ = make_tp_forward(cfg, m)(sp, torch.from_numpy(nxt), cache,
+                                       torch.full((B,), S, dtype=torch.int32))
+        out["forward"][name] = (a.numpy(), b.numpy(), tuple(cache.k.shape),
+                                dict(m.model.calls))
+    return out
+
+
+def _run_leader(eng, fn):
+    """Run ``fn()`` on a tensor-parallel leader, stopping its followers
+    whatever happens."""
+    try:
+        return fn()
+    finally:
+        eng.stop_followers()
+
+
+def tp_engine_cases(payload):
+    """``payload``: dict(models, cases {name: dict(model, tp, ecfg kwargs,
+    runs [(prompt, sampling kwargs)], raises)}). For the cases whose tp is
+    this world's size: the port's ``Engine(mesh=make_mesh(1, tp))`` on every
+    rank, the leader generating each run in order. Returns, from every rank,
+    {case: dict(outs: the leader's output ids per run (None on followers),
+    stats, local KV heads, _tp_kv_rep, lockstep messages)}, or {case:
+    ("raises", error type, message)} where construction raised."""
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.parallel.sharding import make_mesh
+
+    P = dist.get_world_size()
+    mesh = make_mesh(1, P, device="cpu")
+    out = {}
+    for name, c in payload["cases"].items():
+        if c["tp"] != P:
+            continue
+        params, cfg = _model(payload["models"], c["model"])
+        try:
+            eng = Engine(params, cfg, EngineConfig(**c["ecfg"]), mesh=mesh)
+        except (ValueError, NotImplementedError) as e:
+            out[name] = ("raises", type(e).__name__, str(e))
+            continue
+        outs = None
+        if mesh.model.index == 0:
+            outs = _run_leader(eng, lambda: [
+                eng.generate(p, SamplingParams(**sp)).output_ids for p, sp in c["runs"]])
+        else:
+            eng.follow()
+        out[name] = dict(outs=outs, stats=dict(eng.stats), tp_kv_rep=eng._tp_kv_rep,
+                         kv_heads=eng.pools.kv.shape[-1] // cfg.head_dim,
+                         messages=eng._lockstep.messages)
+    f = payload.get("faults")
+    if f is not None and f["tp"] == P:
+        params, cfg = _model(payload["models"], f["model"])
+        out["faults"] = tp_faults(Engine(params, cfg, EngineConfig(**f["ecfg"]), mesh=mesh),
+                                  f["prompts"], f["fail_decode"])
+    return out
+
+
+def tp_faults(eng, prompts, fail_decode):
+    """A full queue and a failed step on a tensor-parallel engine. Every
+    rank's ``fail_decode``-th decode raises before it runs (the same step on
+    every rank). The leader submits one prompt per slot, steps once (every
+    slot busy), submits ``max_queue`` more of 4, then one that must be refused
+    with ``queue.Full``; then it steps until every request has finished,
+    catching the planted failure. Returns the leader's refusal, its wait,
+    the errors it caught and the output ids; every rank's stats."""
+    import queue
+    import time
+
+    from wrinklefree_tpu_torch.engine import SamplingParams
+
+    decode, calls = eng._decode, [0]
+
+    def failing_decode():
+        calls[0] += 1
+        if calls[0] == fail_decode:
+            raise RuntimeError("planted step failure")
+        return decode()
+
+    eng._decode = failing_decode
+    if eng.mesh.model.index != 0:
+        eng.follow()
+        return dict(stats=dict(eng.stats), decodes=calls[0])
+
+    def run():
+        sp, long = SamplingParams(max_new_tokens=4), SamplingParams(max_new_tokens=48)
+        slots, cap = eng.ecfg.max_batch_slots, eng.ecfg.max_queue
+        reqs = [eng.submit(prompts[i % len(prompts)], long) for i in range(slots)]
+        eng.step()
+        busy = sum(s is not None for s in eng.slots)
+        reqs += [eng.submit(prompts[i % len(prompts)], sp) for i in range(cap)]
+        t0 = time.monotonic()
+        try:
+            eng.submit(prompts[0], sp)
+            refused = None
+        except queue.Full:
+            refused = "queue.Full"
+        waited = time.monotonic() - t0
+        errors = []
+        while not all(r.finished for r in reqs):
+            try:
+                eng.step()
+            except RuntimeError as e:
+                errors.append(str(e))
+        return dict(busy=busy, refused=refused, waited=waited, errors=errors,
+                    outs=[r.output_ids for r in reqs], reasons=[r.finish_reason for r in reqs])
+
+    res = _run_leader(eng, run)
+    return dict(res, stats=dict(eng.stats), decodes=calls[0])
+
+
+def tp_server_cases(payload):
+    """``create_server(tiny=True, tp=P, device="cpu")`` on every rank of a
+    world of P (the tiny model's weights from seed 0 in f32 are not the
+    server's; it draws its own): rank 0 answers the payload's completions
+    over HTTP through the port's client (greedy, a streamed one, a sampled
+    one, an embedding refused with 501), compares them with its engine's
+    ``generate``, then shuts down, which ends the followers' ``serve()``."""
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.client.client import InferenceClient
+    from wrinklefree_tpu_torch.engine import SamplingParams
+    from wrinklefree_tpu_torch.server._web import ServerThread
+    from wrinklefree_tpu_torch.server.http import FollowerServer, build_app, create_server
+
+    P = dist.get_world_size()
+    server = create_server(tiny=True, tp=P, device="cpu")
+    if isinstance(server, FollowerServer):
+        server.serve()
+        return {"follower": True, "stats": dict(server.engine.stats)}
+    out = {"follower": False}
+    st = ServerThread(build_app(server))
+    try:
+        client = InferenceClient(st.url)
+        eng = server.async_engine.engine
+        out["texts"] = [client.generate(t, max_tokens=8, temperature=0.0)
+                        for t in payload["texts"]]
+        out["stream"] = "".join(client.generate_stream(payload["texts"][0], max_tokens=8,
+                                                       temperature=0.0))
+        out["sampled"] = client.generate(payload["texts"][1], max_tokens=8, temperature=0.9,
+                                         seed=5)
+        import json
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(f"{st.url}/v1/embeddings",
+                                     data=json.dumps({"input": "hi"}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            out["embedding_status"] = 200
+        except urllib.error.HTTPError as e:
+            out["embedding_status"] = e.code
+        ids = [server.tokenizer.encode(t) for t in payload["texts"]]
+        out["direct"] = [server.tokenizer.decode(
+            eng.generate(i, SamplingParams(max_new_tokens=8, temperature=0.0)).output_ids)
+            for i in ids]
+    finally:
+        st.stop()
+        server.async_engine.shutdown()
+    out["stats"] = dict(eng.stats)
+    return out
+
+
+def mesh_cases(payload):
+    """``global_mesh`` on this world (LOCAL_WORLD_SIZE from the payload):
+    its shape, this rank's coordinates and groups' ranks; a dp*tp that is not
+    the world size raises; ``make_mesh`` with NCCL on the CPU raises; then,
+    with a payload port, the default group destroyed, ``init_multihost`` from
+    torchrun's environment (env:// on 127.0.0.1:port) and one all-reduce."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.parallel.multihost import global_mesh, init_multihost
+    from wrinklefree_tpu_torch.parallel.sharding import make_mesh
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(payload["local_world"])
+    out = {}
+    m = global_mesh(device="cpu")
+    out["default"] = (m.shape, m.data.index, m.model.index, m.model.ranks, m.data.ranks,
+                      m.leader)
+    t = torch.tensor([float(dist.get_rank())])
+    out["model_psum"] = float(m.model.psum(t.clone())[0])
+    out["data_psum"] = float(m.data.psum(t.clone())[0])
+    out["gather"] = m.model.all_gather(t[None, :].expand(2, 1).contiguous()).tolist()
+    errors = {}
+    for key, fn in {"bad_split": lambda: global_mesh(dp=3, tp=4, device="cpu"),
+                    "nccl_on_cpu": lambda: make_mesh(1, dist.get_world_size(), device="cpu",
+                                                     backend="nccl")}.items():
+        try:
+            fn()
+            errors[key] = None
+        except ValueError as e:
+            errors[key] = str(e)
+    out["errors"] = errors
+    if payload.get("port") is None:
+        return out
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.destroy_process_group()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(payload["port"]))
+    out["init"] = init_multihost()
+    x = torch.ones(1)
+    dist.all_reduce(x)
+    out["init_sum"] = float(x[0])
+    out["again"] = init_multihost()
+    return out

@@ -324,8 +324,25 @@ def test_greedy_exact_topk_refuses(head_params):
     clean = {kk: v for kk, v in tq.items() if not kk.startswith("lm_head_")}
     with pytest.raises(ValueError):
         tb.greedy_exact_topk(h, clean, cfg, k=8)
-    with pytest.raises(NotImplementedError):
-        tb.greedy_exact_topk(h, tq, cfg, k=8, tp_axis="model")
-    with pytest.raises(NotImplementedError):
-        tb.forward(clean, cfg, torch.tensor([[1]]), tb.KVCache.zeros(cfg, 1, 8, device="cpu"),
-                   torch.zeros(1, dtype=torch.int32), tp_axis="model")
+    # tensor parallelism (once refused) over an axis of this process alone:
+    # the exact head's token and certificate, and forward's logits, equal the
+    # single device's (tolerance: none; o/down's f32 partials are cast once,
+    # as the single device's outputs are); a fused-prologue linear is refused
+    from wrinklefree_tpu_torch.parallel.sharding import Axis
+
+    rng = np.random.default_rng(0)
+    hr = torch.from_numpy(rng.normal(0, 1, (2, cfg.hidden_size)).astype(np.float32)).to(
+        torch.bfloat16)
+    want = tb.greedy_exact_topk(hr, tq, cfg, k=8)
+    got = tb.greedy_exact_topk(hr, tq, cfg, k=8, tp_axis=Axis.local())
+    assert torch.equal(got[0], want[0]) and bool(got[1]) == bool(want[1])
+    toks = torch.tensor([[1, 7, 9, 3]])
+    args = (clean, cfg, toks)
+    cache = lambda: tb.KVCache.zeros(cfg, 1, 8, device="cpu")  # noqa: E731
+    zero = torch.zeros(1, dtype=torch.int32)
+    a, _ = tb.forward(*args, cache(), zero, tp_axis=Axis.local())
+    b, _ = tb.forward(*args, cache(), zero)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="fused-prologue"):
+        tb.forward(*args, cache(), zero, tp_axis=Axis.local(),
+                   linear_fn=ternary_cuda.make_linear_fused())

@@ -623,8 +623,25 @@ def test_out_of_slice_request_raises(weights, kw):
 def test_mesh_and_exhausted_pool_raise(weights):
     cfg = BitNetConfig.tiny()
     params = params_from_numpy(weights, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(params, cfg, EngineConfig(**ECFG), mesh=object(), device="cpu")
+    # a mesh (once refused) shards the engine, with no collective at
+    # construction: rank 1 of tp 2 holds query heads 2-3, KV head 1 (tp
+    # divides the tiny model's two), its pools one KV head wide, the params
+    # unfused on the stacked linear; fused params are refused
+    mesh = types.SimpleNamespace(
+        shape={"data": 1, "model": 2}, model=types.SimpleNamespace(index=1, size=2),
+        data=types.SimpleNamespace(index=0, size=1), device=torch.device("cpu"),
+        control=None, leader=0)
+    mesh.axis = {"model": mesh.model, "data": mesh.data}
+    tp = Engine(params, cfg, EngineConfig(**ECFG), mesh=mesh, device="cpu")
+    D = cfg.head_dim
+    assert torch.equal(tp.params["layers"]["q_qw"], params["layers"]["q_qw"][..., 2 * D:])
+    assert torch.equal(tp.params["layers"]["k_qw"], params["layers"]["k_qw"][..., D:])
+    assert tp.pools.kv.shape[-1] == D and not tp._tp_kv_rep
+    assert getattr(tp._linear_fn, "stacked", False)
+    assert not getattr(tp._linear_fn, "prologue", False)
+    with pytest.raises(ValueError, match="unfused"):
+        Engine(fuse_projections(params, cfg), cfg, EngineConfig(**ECFG), mesh=mesh,
+               device="cpu")
     assert Engine(params, cfg, EngineConfig(**ECFG), device="cpu").snapshot() == {
         "version": 1, "requests": []}
     # 4 usable pages: two 9-token prompts take 2 pages each at admission; the

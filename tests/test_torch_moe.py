@@ -12,6 +12,8 @@ held against its plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,10 +224,41 @@ def test_moe_ffn_matches_reference(override):
     assert abs(float(raux) - float(taux)) <= 1e-6
 
 
+class _RecordingAxis:
+    """One simulated rank of an expert axis: ``psum`` records the rank's f32
+    partial and returns it (the other ranks' partials are added by the
+    test)."""
+
+    def __init__(self, index, size):
+        self.index, self.size, self.partials = index, size, []
+
+    def psum(self, x):
+        self.partials.append(x.clone())
+        return x
+
+
 def test_moe_ffn_ep_axis_raises():
+    """Expert parallelism (``ep_axis``, once refused): each of two ranks
+    holding two of the four experts sums its experts' outputs under its
+    columns of the combine matrix in f32; the two partials add up to the
+    single-device f32 sum within 1e-6 (the order of the f32 sum differs),
+    and the aux loss is the single device's. A local expert count that does
+    not tile the router's raises ``ValueError``."""
     _, (ex, router, tx, tsub) = moe_inputs()
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        moe.moe_ffn(tx, ex, tsub, router, ep_axis="model")
+    x32 = tx.float()
+    full, aux = moe.moe_ffn(x32, ex, tsub, router, top_k=2)
+    partials = []
+    for r in range(2):
+        axis = _RecordingAxis(r, 2)
+        _, aux_r = moe.moe_ffn(x32, {k: v[2 * r:2 * r + 2] for k, v in ex.items()}, tsub,
+                               router, top_k=2, ep_axis=axis)
+        assert torch.equal(aux_r, aux)
+        partials += axis.partials
+    np.testing.assert_allclose((partials[0] + partials[1]).numpy(), full.numpy(), rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="local experts"):
+        moe.moe_ffn(tx, {k: v[:3] for k, v in ex.items()}, tsub, router,
+                    ep_axis=_RecordingAxis(0, 2))
 
 
 def test_verify_moe_matches_dense():
@@ -454,14 +487,35 @@ def test_moe_engine_concurrent_equals_sequential(port_engine):
     assert alone == [ids for ids, _ in out["concurrent"]]
 
 
+def _fake_mesh(tp, index):
+    """A rank's mesh for construction only (sharding runs no collective)."""
+    import types
+
+    model = types.SimpleNamespace(name="model", index=index, size=tp)
+    data = types.SimpleNamespace(name="data", index=0, size=1)
+    return types.SimpleNamespace(shape={"data": 1, "model": tp}, model=model, data=data,
+                                 axis={"model": model, "data": data},
+                                 device=torch.device("cpu"), control=None, leader=0)
+
+
 def test_moe_engine_keeps_params_unfused_and_refuses_mesh(moe_weights):
+    """The MoE engine keeps its params unfused on the stacked linear; under a
+    mesh (once refused) rank 1 of tp 2 holds experts 2-3 of every layer
+    (the model axis doubles as the expert axis) and the whole router; a tp
+    that does not divide the experts is refused with ``ValueError``."""
     cfg = BitNetConfig(**MOE)
     params = params_from_numpy(moe_weights, cfg, device="cpu")
     eng = Engine(params, cfg, EngineConfig(**ECFG), device="cpu")
     assert "q_qw" in eng.params["layers"] and getattr(eng._linear_fn, "stacked", False)
     assert not getattr(eng._linear_fn, "prologue", False)
-    with pytest.raises(NotImplementedError):
-        Engine(params, cfg, EngineConfig(**ECFG), mesh=object(), device="cpu")
+    tp = Engine(params, cfg, EngineConfig(**ECFG), mesh=_fake_mesh(2, 1), device="cpu")
+    lay = tp.params["layers"]
+    assert torch.equal(lay["moe_gate_qw"], params["layers"]["moe_gate_qw"][:, 2:4])
+    assert torch.equal(lay["router"], params["layers"]["router"])
+    assert getattr(tp._linear_fn, "stacked", False) and "q_qw" in lay
+    with pytest.raises(ValueError, match="num_experts 4 not divisible by tp=3"):
+        Engine(params, dataclasses.replace(cfg, num_heads=6, num_kv_heads=3), EngineConfig(**ECFG),
+               mesh=_fake_mesh(3, 0), device="cpu")
 
 
 # ---------------------------------------------------------------------------

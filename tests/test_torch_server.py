@@ -1287,3 +1287,60 @@ def test_serve_heads_and_kv_flags(flags, monkeypatch):
         st.stop()
         server.async_engine.shutdown()
     assert r.status_code == 200 and r.json()["usage"]["completion_tokens"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: create_server(tp=2) on a spawned gloo world of 2 ranks
+# ---------------------------------------------------------------------------
+
+TP_TEXTS = ["Hello tensor parallel", "The quick brown fox", "ab", "0123456789"]
+
+
+@pytest.fixture(scope="module")
+def tp_server_out():
+    from tests._torch_dist import run_worlds
+
+    return run_worlds((2,), "tp_server_cases", dict(texts=TP_TEXTS))[2]
+
+
+def test_tp_server_answers_over_http(tp_server_out):
+    """Rank 0 of ``create_server(tiny=True, tp=2)`` answers greedy
+    completions over HTTP with its TP engine's own ``generate`` text
+    (tolerance: none), streams the same text, serves a sampled request, and
+    refuses an embedding with 501 (ROADMAP item 12d)."""
+    leader, follower = tp_server_out
+    assert not leader["follower"] and follower["follower"]
+    assert leader["texts"] == leader["direct"]
+    assert leader["stream"] == leader["texts"][0]
+    assert isinstance(leader["sampled"], str)
+    assert leader["embedding_status"] == 501
+
+
+def test_tp_server_follower_ran_every_step(tp_server_out):
+    """The follower's ``serve()`` ran the leader's steps until its shutdown:
+    the same requests, prefill and decode tokens."""
+    leader, follower = tp_server_out
+    for key in ("requests", "prefill_tokens", "decode_tokens", "decode_steps"):
+        assert follower["stats"][key] == leader["stats"][key] > 0, key
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(tp=2, dp=2), "dp > 1 with tp > 1"),
+    (dict(tp=2, long_context=True), "long_context with tp > 1"),
+])
+def test_tp_server_refusals(kw, match):
+    from wrinklefree_tpu_torch.server.http import create_server
+
+    with pytest.raises(NotImplementedError, match=match):
+        create_server(tiny=True, device="cpu", **kw)
+
+
+def test_tp_server_needs_a_world():
+    """tp 2 without torchrun's environment: no group to shard over."""
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.server.http import create_server
+
+    with pytest.raises(ValueError, match="not initialized"):
+        create_server(tiny=True, tp=2, device="cpu")
+    assert not dist.is_initialized()

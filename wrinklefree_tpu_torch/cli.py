@@ -4,7 +4,9 @@
 ``validate-model``, ``validate`` (the KV-cache validator, ``kv/validator.py``),
 ``list-models``, ``benchmark`` and ``benchmark-cost`` as the reference's;
 ``serve`` starts the port's server (``--tiny --device cpu`` off the card; on
-it ``--model synth:bitnet_2b``, a model directory or a ``.gguf``).
+it ``--model synth:bitnet_2b``, a model directory or a ``.gguf``); with
+``--tp N`` under ``torchrun --nproc-per-node N`` it serves tensor-parallel
+(rank 0 answers HTTP, the other ranks follow it).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def cmd_serve(args):
     argv += ["--host", args.host, "--port", str(args.port)]
     if args.kv_dtype:
         argv += ["--kv-dtype", args.kv_dtype]
-    for flag in ("kv_layout", "exact_head", "window", "global_tokens"):
+    for flag in ("kv_layout", "exact_head", "window", "global_tokens", "tp"):
         if getattr(args, flag):
             argv += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
     if args.tokenizer:
@@ -152,6 +154,8 @@ def main(argv=None):
     s.add_argument("--tokenizer", default=None,
                    help="tokenizer.json dir (default: the model dir)")
     s.add_argument("--device", default=None, help="torch device (default: cuda)")
+    s.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel ranks (run under torchrun --nproc-per-node N)")
     s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser("generate", help="generate from a live server")

@@ -30,9 +30,11 @@ versions. The host's page allocator and radix cache are the native C++
 classes (``native/``) when they build, else the Python ones. With a
 ``long_context_mesh`` (a ``torch.distributed`` process group), ``generate``
 serves greedy prompts of ``max_context`` tokens or more through the
-ring-attention path (``engine/long_context.py``). Engine configurations
-outside the port (tensor parallelism) raise ``NotImplementedError`` at
-construction.
+ring-attention path (``engine/long_context.py``). With a ``mesh``
+(``parallel.sharding.make_mesh``) the engine is tensor-parallel: every rank
+of the model group builds its own engine on its shard of the weights and of
+the KV pools, and the ranks run in lockstep (``engine/lockstep.py``): model
+rank 0 leads, the others ``follow()``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from ..kv.quantized import needs_scale
 from ..models.bitnet import fuse_projections, quantize_lm_head, resolve_device
 from ..ops.ternary_cuda import make_linear_fused, make_linear_stacked
 from .page_allocator import PageAllocator
-from .programs import build_decode, build_decode_spec, prefill_for_bucket
+from .programs import build_decode, build_decode_spec, pool_spec, prefill_for_bucket
 from .radix_cache import RadixCache
 from .sampling_params import SamplingParams
 
@@ -92,6 +94,28 @@ class Request:
     # constrained decoding's validator over the text emitted so far
     # (json_mode / grammar), created at admission
     grammar: object = None
+    # tokens a restored request's validator replayed before it was queued
+    # (a tensor-parallel engine's other ranks replay the same)
+    replayed: List[int] = dataclasses.field(default_factory=list)
+
+
+_STOP = object()  # a lockstep message's "stop"
+
+# the fields of a Request that the other ranks of a tensor-parallel engine
+# rebuild it from (engine/lockstep.py)
+_RECORD_FIELDS = ("rid", "prompt_ids", "sampling", "output_ids", "counter_base", "seed",
+                  "arrival_t", "replayed")
+
+
+def _request_record(req: Request) -> dict:
+    return {f: getattr(req, f) for f in _RECORD_FIELDS}
+
+
+def _request_from(record: dict) -> Request:
+    req = Request(record["rid"], list(record["prompt_ids"]), record["sampling"])
+    for f in _RECORD_FIELDS[3:]:
+        setattr(req, f, record[f])
+    return req
 
 
 def _host_runtime(e: EngineConfig):
@@ -146,13 +170,49 @@ class Engine:
         1-axis ``seq`` mesh), ``generate`` serves greedy prompts of
         ``max_context`` tokens or more through the ring-attention path
         (``engine/long_context.py``) on an unfused snapshot of ``params``
-        kept before they are fused; ``params`` must then be unfused."""
-        self.device = resolve_device(device)
+        kept before they are fused; ``params`` must then be unfused.
+
+        With ``mesh`` (``parallel.sharding.make_mesh(1, tp)``, the reference's
+        ``('data', 'model')`` mesh) the engine is this rank's part of a
+        tensor-parallel engine, as the reference's ``Engine(mesh=...)``: every
+        rank of the model group builds one with the same (unfused, whole)
+        params and configuration; they are quantized (``int8_logits`` /
+        ``exact_head_k``), repacked and sharded here (``parallel/sharding.py``),
+        stay unfused and take the stacked K7 linear; the pools hold the
+        rank's KV heads (``programs.pool_spec``); the device is the mesh's.
+        The query heads, the vocabulary and the experts must divide by tp
+        (``ValueError``); KV heads that do not are replicated
+        (``_tp_kv_rep``). Model rank 0 is the leader, whose ``submit``,
+        ``generate``, ``cancel``, ``step`` and ``warmup`` run on every rank;
+        the other ranks call ``follow()``, and the leader's
+        ``stop_followers()`` ends it."""
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
+        self.mesh = mesh
+        self._tp_kv_rep = False
+        self._lockstep = None
+        self._now = None  # the leader's clock reading during a lockstep step
         if mesh is not None:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: mesh (tensor parallelism)")
+            from ..parallel.sharding import tp_kv_replicated
+
+            if long_context_mesh is not None:
+                raise NotImplementedError("a mesh with a long_context_mesh (ring attention on "
+                                          "a tensor-parallel engine): ROADMAP item 12c")
+            if "qkv_qw" in params["layers"]:
+                raise ValueError("a mesh needs unfused params (the column groups of fused "
+                                 "projections would split across ranks)")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            tp = mesh.shape["model"]
+            if cfg.num_experts > 0 and cfg.num_experts % tp:
+                raise ValueError(f"num_experts {cfg.num_experts} not divisible by tp={tp} (the "
+                                 "model axis doubles as the expert axis for MoE)")
+            # raises when tp cannot split the query heads; True: KV replicated
+            self._tp_kv_rep = tp_kv_replicated(cfg, tp)
+            if params["embed"].shape[0] % tp:
+                raise ValueError(f"vocab {params['embed'].shape[0]} not divisible by tp={tp}")
+            device = mesh.device
+        self.device = resolve_device(device)
         if long_context_mesh is not None and "qkv_qw" in params["layers"]:
             raise ValueError("long_context_mesh needs unfused params (the ring path's "
                              "snapshot is taken before fuse_projections)")
@@ -165,16 +225,25 @@ class Engine:
             raise ValueError("int8_logits (approximate) and exact_head_k (exact) are "
                              "mutually exclusive")
         if e.int8_logits or e.exact_head_k:
-            # adds lm_head_q/lm_head_s, which compute_logits then prefers
+            # adds lm_head_q/lm_head_s, which compute_logits then prefers;
+            # before sharding: the per-row absmax commutes with a row shard
             params = quantize_lm_head(params, cfg)
         moe = cfg.num_experts > 0
-        if not moe and "qkv_qw" not in params["layers"]:
+        if mesh is not None:
+            from ..parallel.sharding import repack_params_for_tp, shard_params
+            from .lockstep import Lockstep
+
+            params = shard_params(repack_params_for_tp(params, mesh.shape["model"]), mesh,
+                                  kv_replicated=self._tp_kv_rep)
+            self._lockstep = Lockstep(mesh)
+        elif not moe and "qkv_qw" not in params["layers"]:
             params = fuse_projections(params, cfg)
         self.params = params
         # decode steps whose exact-head certificate failed (device counter)
         self.exact_fallbacks = torch.zeros((), dtype=torch.int64, device=self.device)
         self.eos_token_id = eos_token_id
-        self._linear_fn = linear_fn or (make_linear_stacked() if moe else make_linear_fused())
+        self._linear_fn = linear_fn or (make_linear_stacked() if moe or mesh is not None
+                                        else make_linear_fused())
         self._attention_fn = attention_fn
 
         self.page_size = ps = e.page_size
@@ -247,6 +316,12 @@ class Engine:
         self._backlog: List[Request] = []  # drained from `waiting`, policy-ordered
         self._rid = itertools.count()
         self._lock = threading.Lock()
+        self._requests: Dict[int, Request] = {}  # a TP rank's unfinished requests by rid
+        self._lead_lock = threading.Lock()  # a TP leader's send-and-run
+        # a TP leader's requests recorded or queued but not yet in the
+        # backlog, held to max_queue as `waiting` holds itself on one device
+        self._tp_queued = 0
+        self._tp_room = threading.Condition()
         # serving programs, built lazily: (kind, burst length or bucket,
         # *the variant's flags that are on)
         self._programs: Dict[tuple, Callable] = {}
@@ -267,11 +342,12 @@ class Engine:
         """Zeroed pools of this engine's layout and dtype with ``num_pages``
         pages (the dual layout's staging for every slot)."""
         e = self.ecfg
+        # a rank's pools hold its KV heads (all of them on one device)
+        cfg = dataclasses.replace(self.cfg, num_kv_heads=pool_spec(self))
         if self.kv_layout == "layer":
-            return PagedKV.zeros_dual(self.cfg, num_pages, self.page_size, e.max_batch_slots,
+            return PagedKV.zeros_dual(cfg, num_pages, self.page_size, e.max_batch_slots,
                                       e.kv_dtype, device=self.device)
-        return PagedKV.zeros(self.cfg, num_pages, self.page_size, e.kv_dtype,
-                             device=self.device)
+        return PagedKV.zeros(cfg, num_pages, self.page_size, e.kv_dtype, device=self.device)
 
     def _validate_submit(self, prompt_ids, sampling: SamplingParams):
         limit = self.ecfg.max_context
@@ -315,6 +391,17 @@ class Engine:
         return req
 
     def _enqueue(self, req: Request) -> Request:
+        if self._lockstep is not None:
+            # every rank queues it at the leader's next step; a full queue
+            # refuses it here, after the single device's wait
+            self._leader_only("submit")
+            cap = self.ecfg.max_queue
+            with self._tp_room:
+                if cap > 0 and not self._tp_room.wait_for(lambda: self._tp_queued < cap, 5):
+                    raise queue.Full
+                self._tp_queued += 1
+                self._lockstep.record(("enqueue", _request_record(req)), req)
+            return req
         self.waiting.put(req, timeout=5)
         self.stats["requests"] += 1
         return req
@@ -368,6 +455,7 @@ class Engine:
             not self.waiting.empty()
             or bool(self._backlog)
             or any(s is not None for s in self.slots)
+            or (self._lockstep is not None and self._lockstep.pending())
         )
 
     def prefix_match_len(self, prompt_ids) -> int:
@@ -390,15 +478,110 @@ class Engine:
             if self.radix is None:
                 return 0
             n = self.radix.num_cached_pages
+            if self._lockstep is not None:  # every rank drops them at the next step
+                self._leader_only("reset_prefix_cache")
+                self._lockstep.record(("reset_prefix_cache",))
+                return n
             self.radix.reset()
             return n
 
     def warmup(self) -> Dict[str, float]:
         """Build the kernels and run every serving program once on scratch
-        pools (``engine/programs.py::warmup``); returns {program: seconds}."""
+        pools (``engine/programs.py::warmup``); returns {program: seconds}.
+        A tensor-parallel leader runs it on every rank."""
+        if self._lockstep is not None:
+            return self._lead("warmup")
         from .programs import warmup
 
         return warmup(self)
+
+    # ------------------------------------------------------------------
+    # tensor-parallel lockstep (engine/lockstep.py)
+    # ------------------------------------------------------------------
+
+    def _leader_only(self, what: str):
+        if not self._lockstep.is_leader:
+            raise RuntimeError(f"{what} on model rank {self.mesh.model.index}: the leader "
+                               "(model rank 0) takes it; this rank runs follow()")
+
+    def follow(self) -> None:
+        """A tensor-parallel rank other than the leader: apply the leader's
+        calls and run its steps, until ``stop_followers()``."""
+        if self._lockstep is None or self._lockstep.is_leader:
+            raise RuntimeError("follow() is for the model ranks other than 0 of a mesh")
+        while True:
+            msg = self._lockstep.receive()
+            try:
+                if self._run(msg) is _STOP:
+                    return
+            except Exception:  # as the leader's scheduler loop: the next step goes on
+                logger.exception("tensor-parallel step failed on model rank %d",
+                                 self.mesh.model.index)
+
+    def stop_followers(self) -> None:
+        """The leader ends its followers' ``follow()`` (no-op on one device or
+        once stopped)."""
+        if self._lockstep is not None and not self._lockstep.stopped:
+            self._lead("stop")
+
+    def _lead(self, action: str):
+        """Leader: send ``action`` with the recorded calls, then run it here.
+        One thread at a time (a server's scheduler thread beside a caller's
+        ``generate``): the ranks must see the messages in the order the leader
+        runs them."""
+        self._leader_only(action)
+        with self._lead_lock:
+            return self._run(self._lockstep.lead(action, time.monotonic(), self.token_pieces))
+
+    def _run(self, msg):
+        """Apply one lockstep message on this rank: install the leader's token
+        pieces, apply the recorded calls in order, then run the action under
+        the leader's clock."""
+        action, now, ops, pieces = msg
+        if action == "stop":
+            return _STOP
+        with self._lock:
+            if pieces is not None and self.token_pieces is None:
+                self.token_pieces = pieces
+            for op, local in ops:
+                self._apply(op, local)
+        self._now = now
+        try:
+            if action == "warmup":
+                from .programs import warmup
+
+                return warmup(self)
+            return self._step()
+        finally:
+            self._now = None
+
+    def _apply(self, op: tuple, local):
+        kind = op[0]
+        if kind == "enqueue":
+            req = local if local is not None else _request_from(op[1])
+            if local is None and req.sampling.constrained and req.replayed:
+                from .constrained import make_validator
+
+                req.grammar = make_validator(self, req.sampling)
+                try:
+                    for t in req.replayed:
+                        req.grammar.advance(self.token_pieces[t])
+                except ValueError:
+                    pass  # the leader cancels it (a record after this one)
+            self._requests[req.rid] = req
+            self.waiting.put_nowait(req)  # the leader's submit kept room for it
+            self.stats["requests"] += 1
+        elif kind == "cancel":
+            req = local if local is not None else self._requests.get(op[1])
+            if req is not None:
+                self._cancel(req, op[2])
+        elif kind == "reset_prefix_cache":
+            if self.radix is not None:
+                self.radix.reset()
+        else:
+            raise ValueError(f"unknown lockstep record {kind!r}")
+        for rid in [r for r, q in self._requests.items() if q.finished]:
+            del self._requests[rid]
 
     def snapshot(self) -> dict:
         """Request-level state capture (``engine/snapshot.py``)."""
@@ -419,7 +602,16 @@ class Engine:
     def step(self) -> bool:
         """One engine iteration: admit new requests (host-side setup only),
         run ONE batched prefill round, then one decode burst for the fully
-        prefilled slots."""
+        prefilled slots. A tensor-parallel leader first sends its recorded
+        calls to the other ranks (when it has any, or work), and every rank
+        runs the same iteration."""
+        if self._lockstep is not None:
+            if not self.has_work():  # nothing recorded or running: no message
+                return False
+            return bool(self._lead("step"))
+        return self._step()
+
+    def _step(self) -> bool:
         with self._lock:
             did = self._admit()
             did = self._prefill_round() or did
@@ -436,19 +628,31 @@ class Engine:
             self.radix.evict(n - self.allocator.num_free)
         return self.allocator.alloc(n)
 
-    def _next_waiting(self) -> Optional[Request]:
-        """Pop the next request per the admission policy: `fifo` is arrival
-        order; `sjf` takes the shortest prompt first, except that requests
-        older than admission_aging_s go first (oldest wins)."""
+    def _drain_waiting(self) -> None:
+        """Move the queued requests to the backlog (under ``_lock``), making
+        room for a tensor-parallel leader's submits."""
+        n = 0
         while True:
             try:
                 self._backlog.append(self.waiting.get_nowait())
             except queue.Empty:
                 break
+            n += 1
+        if n and self._lockstep is not None and self._lockstep.is_leader:
+            with self._tp_room:
+                self._tp_queued -= n
+                self._tp_room.notify_all()
+
+    def _next_waiting(self) -> Optional[Request]:
+        """Pop the next request per the admission policy: `fifo` is arrival
+        order; `sjf` takes the shortest prompt first, except that requests
+        older than admission_aging_s go first (oldest wins)."""
+        self._drain_waiting()
         if not self._backlog:
             return None
         if self.ecfg.admission_policy == "sjf":
-            now = time.monotonic()
+            # the leader's clock on every rank of a tensor-parallel engine
+            now = self._now if self._now is not None else time.monotonic()
             aged = [r for r in self._backlog
                     if now - r.arrival_t > self.ecfg.admission_aging_s]
             if aged:
@@ -1229,21 +1433,27 @@ class Engine:
 
     def cancel(self, req: Request, reason: str = "abort") -> bool:
         """Terminate an in-flight or queued request. Thread-safe; no-op if
-        already finished. Returns True if the request was cancelled."""
-        with self._lock:
+        already finished. Returns True if the request was cancelled (on a
+        tensor-parallel leader: will be, on every rank, at the next step)."""
+        if self._lockstep is not None:
+            self._leader_only("cancel")
             if req.finished:
                 return False
-            while True:  # drain waiting -> backlog so queued reqs are visible
-                try:
-                    self._backlog.append(self.waiting.get_nowait())
-                except queue.Empty:
-                    break
-            if req in self._backlog:
-                self._backlog.remove(req)
-            self._finish(req, reason)
-            if req.on_token is not None:
-                req.on_token(-1, True)
+            self._lockstep.record(("cancel", req.rid, reason), req)
             return True
+        with self._lock:
+            return self._cancel(req, reason)
+
+    def _cancel(self, req: Request, reason: str) -> bool:
+        if req.finished:
+            return False
+        self._drain_waiting()  # so queued requests are visible
+        if req in self._backlog:
+            self._backlog.remove(req)
+        self._finish(req, reason)
+        if req.on_token is not None:
+            req.on_token(-1, True)
+        return True
 
     def latency_summary(self) -> dict:
         """p50/p95/p99 TTFT and end-to-end latency over the rolling window of

@@ -6,6 +6,13 @@ device tensors: every step's inputs (last token, lengths, penalty ring) stay
 on the device, the sampler settings are host arrays fixed for the burst, and
 the host reads the sampled tokens once per burst. Nothing in the loop reads
 the device (no ``.item()``), so the steps queue back to back on the stream.
+
+Under a mesh (tensor parallelism) every rank runs the same program on its
+shard: ``paged_forward`` with the engine's model axis, the logits gathered
+over the vocabulary inside it, so every rank samples the same tokens from
+the same counter-keyed draws; the exact head combines the ranks' shortlists
+(``models.bitnet.exact_topk_shortlist``). ``pool_spec`` gives a rank's pool
+width.
 """
 
 from __future__ import annotations
@@ -14,7 +21,8 @@ import numpy as np
 import torch
 
 from ..kv.paged import paged_forward
-from ..models.bitnet import compute_logits, exact_topk_shortlist, full_head_argmax
+from ..models.bitnet import (compute_logits, exact_topk_shortlist, full_head_argmax,
+                             tp_local_kv_heads)
 from ..models.spec_decode import _accepted, _draft_ngram, _record
 from ..ops.sampling import (
     NUCLEUS_CANDIDATES,
@@ -26,6 +34,21 @@ from ..ops.sampling import (
     sample_token_mirostat,
     token_logprobs,
 )
+
+
+def pool_spec(eng) -> int:
+    """KV heads in one rank's pools (the reference's ``pool_spec``: the
+    KV-head lane axis sharded over the model axis, or replicated when the
+    KV-head count does not divide tp): ``cfg.num_kv_heads`` on one device."""
+    return tp_local_kv_heads(eng.cfg, None if eng.mesh is None else eng.mesh.model,
+                             eng._tp_kv_rep)
+
+
+def _tp(eng) -> dict:
+    """``paged_forward``'s TP arguments for the engine (none on one device)."""
+    if eng.mesh is None:
+        return {}
+    return dict(tp_axis=eng.mesh.model, tp_kv_replicated=eng._tp_kv_rep)
 
 
 def _penalised(logits, ring, n_tokens, samp):
@@ -94,8 +117,13 @@ def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = Fals
     shortlist and the full head's argmax both computed every step and the
     certified rows' shortlist winner taken (``torch.where``), so the burst
     keeps its one host read. ``eng.exact_fallbacks`` (a device tensor)
-    counts the steps whose certificate failed."""
+    counts the steps whose certificate failed. Under a mesh the identity
+    head's hidden state is the same on every rank (the reference's
+    ``kv/paged.py`` relies on it too), and both exact branches and the clean
+    head combine the ranks' vocabulary shards."""
     cfg = eng.cfg
+    tp = _tp(eng)
+    tp_axis = tp.get("tp_axis")
     K = 1 if return_logits else (burst_steps or eng.ecfg.decode_burst)
     fd = eng.ecfg.flash_decode
     lp_n = eng.ecfg.logprobs_top if with_logprobs else 0
@@ -128,16 +156,17 @@ def build_decode(eng, burst_steps: int | None = None, with_logprobs: bool = Fals
                 params, cfg, tok[:, None], pools, page_table, sl, ones,
                 linear_fn=eng._linear_fn, attention_fn=eng._attention_fn,
                 slot_ids=slot_ids, flash_decode=fd,
-                head_fn=(lambda h, p: h) if ek else None,
+                head_fn=(lambda h, p: h) if ek else None, **tp,
             )
             nz = None if noise is None else noise[k]
             if exact:
-                minid, certified = exact_topk_shortlist(out, params, cfg, k=ek)
-                tok = torch.where(certified, minid, full_head_argmax(out, params, cfg))
+                minid, certified = exact_topk_shortlist(out, params, cfg, k=ek, tp_axis=tp_axis)
+                tok = torch.where(certified, minid,
+                                  full_head_argmax(out, params, cfg, tp_axis=tp_axis))
                 eng.exact_fallbacks += ~certified
             else:
                 if ek:  # the hidden state through the clean bf16 head
-                    out = compute_logits(out, clean, cfg)
+                    out = compute_logits(out, clean, cfg, tp_axis=tp_axis)
                 pen = _penalised(out, ring, sl + 1, samp)
                 if with_mirostat:
                     tok, mu = sample_token_mirostat(pen, nz, mu, miro=samp["miro"],
@@ -196,7 +225,7 @@ def build_decode_spec(eng):
             logits, pools = paged_forward(
                 params, cfg, torch.cat([tok[:, None], draft], dim=1), pools, page_table, sl,
                 win, linear_fn=eng._linear_fn, attention_fn=eng._attention_fn,
-                slot_ids=slot_ids, logits_all=True,
+                slot_ids=slot_ids, logits_all=True, **_tp(eng),
             )
             g = torch.argmax(logits, dim=-1).to(torch.int32)  # [S, k+1]
             n_new = torch.minimum(_accepted(draft, g, win - 1) + 1, win)
@@ -238,6 +267,7 @@ def prefill_for_bucket(eng, bucket: int, with_logprobs: bool = False,
         logits, pools = paged_forward(
             params, cfg, tokens, pools, page_table, seq_len, new_len,
             linear_fn=eng._linear_fn, attention_fn=eng._attention_fn, slot_ids=slot_ids,
+            **_tp(eng),
         )
         pen = _penalised(logits, ring, seq_len + new_len, samp)
         noise = None

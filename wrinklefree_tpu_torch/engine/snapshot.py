@@ -10,7 +10,6 @@ other's.
 
 from __future__ import annotations
 
-import queue
 from typing import List
 
 from .constrained import make_validator
@@ -29,11 +28,7 @@ def snapshot(eng) -> dict:
     continuations on the same stream as an uninterrupted run.
     """
     with eng._lock:
-        while True:
-            try:
-                eng._backlog.append(eng.waiting.get_nowait())
-            except queue.Empty:
-                break
+        eng._drain_waiting()
         reqs = []
         live = [s for s in eng.slots if s is not None] + eng._backlog
         for r in live:
@@ -117,6 +112,7 @@ def restore(eng, snap: dict, on_token_factory=None) -> List:
             # the generated-so-far text is part of the restored
             # prompt: replay it through a fresh validator
             r.grammar = make_validator(eng, sp)
+            r.replayed = list(d["output_ids"])
             try:
                 for t in d["output_ids"]:
                     r.grammar.advance(eng.token_pieces[t])

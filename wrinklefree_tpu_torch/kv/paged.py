@@ -1,7 +1,8 @@
 """Paged KV cache (dual and token-major layouts) and the paged model forward
 (PyTorch port).
 
-Counterpart of ``wrinklefree_tpu/kv/paged.py``, one device, two layouts:
+Counterpart of ``wrinklefree_tpu/kv/paged.py``, two layouts (under tensor
+parallelism each rank's pools hold its local KV heads, ``KV`` below):
 
     dual (layer-major + staging):
       main      : [P, 2L, ps, KV*D]     layer l's keys of a page are one
@@ -36,7 +37,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import BitNetConfig
-from ..models.bitnet import compute_logits
+from ..models.bitnet import (compute_logits, row_parallel, tp_embed, tp_local_kv_heads,
+                             tp_scatter_heads, tp_sub_norm)
 from ..models.moe import expert_linear, moe_layer
 from ..ops.flash_attention import (flash_paged_decode, flash_paged_prefill,
                                    flash_paged_prefill_pool)
@@ -513,6 +515,8 @@ def paged_forward(
     flash_decode: bool = False,
     head_fn=None,  # (hidden [B, H], params) -> anything; replaces compute_logits
     logits_all: bool = False,  # True: [B, S, V] logits (speculative verify)
+    tp_axis=None,  # parallel.sharding.Axis: one rank's program of the TP model
+    tp_kv_replicated: bool = False,  # KV heads (k/v and pools) whole on every rank
 ):
     """Run S new tokens per slot against the paged cache.
 
@@ -553,9 +557,27 @@ def paged_forward(
     ``staging_scale_b=`` on quantized pools (``_paged_attention_dual``).
     Token-major layout: ``(q, k_cur, v_cur, kv_rows, scale_rows, layer,
     token_rows, seq_lens, new_lens)`` (``_paged_attention_token``).
+
+    With ``tp_axis`` (a ``parallel.sharding.Axis``) this is one rank's
+    program of the tensor-parallel engine, as the reference's inside
+    ``shard_map`` (``parallel/sharding.py``'s layout): ``params`` are the
+    rank's shards (unfused; the stacked K7 linear by default), the pools hold
+    the rank's KV heads, or all of them with ``tp_kv_replicated``, when the
+    local query heads are scattered into the full head layout for attention
+    and sliced back out. The row-parallel o/down quantize with the ranks'
+    absmax and sum their f32 partials over the axis; the embedding and the
+    logits are vocab-sharded (summed, gathered); the sub-norms' mean squares
+    are summed in f32; MoE experts are sharded on the same axis. ``hidden``
+    is then the same on every rank, so a replicated ``head_fn`` (the
+    engine's identity for the exact head) sees one value.
     """
     stack = params["layers"]
     fused = "qkv_qw" in stack
+    if tp_axis is None and tp_kv_replicated:
+        raise ValueError("tp_kv_replicated needs a tp_axis")
+    if tp_axis is not None and (fused or getattr(linear_fn, "prologue", False)):
+        raise ValueError("tensor parallelism takes unfused params and a plain or stacked "
+                         "linear_fn (the reference turns the fused prologue off under TP)")
     if linear_fn is None:
         linear_fn = make_linear_fused() if "gateup_qw" in stack else make_linear_stacked()
     lf = linear_fn
@@ -576,7 +598,7 @@ def paged_forward(
     new_lens = new_lens.to(torch.int32)
     dual = pools.dual
 
-    hidden = params["embed"][tokens.long()].to(dtype)
+    hidden = tp_embed(params["embed"], tokens, dtype, tp_axis)
     positions = seq_lens[:, None] + torch.arange(S, device=dev)[None, :]  # [B,S]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, dtype)
 
@@ -618,7 +640,7 @@ def paged_forward(
 
     L = stack["o_qw"].shape[0]
     eps = cfg.rms_norm_eps
-    kvd = cfg.num_kv_heads * cfg.head_dim
+    kvd = tp_local_kv_heads(cfg, tp_axis, tp_kv_replicated) * cfg.head_dim
     mlp_act = "silu" if cfg.mlp_act == "silu" else "relu2"
     mega = getattr(lf, "mlp_mega", None) if prologue and B * S <= 8 else None
     expert_lf = expert_linear(lf)
@@ -628,10 +650,10 @@ def paged_forward(
         return lf(x, stack[name + "_qw"], stack[name + "_scale"], l, nw, act=act,
                   norm=norm_name is not None, eps=eps)
 
-    def wlin(x, l, name):
+    def wlin(x, l, name, **kw):
         if stacked:
-            return lf(x, stack[name + "_qw"], stack[name + "_scale"], l)
-        return lf(x, stack[name + "_qw"][l], stack[name + "_scale"][l])
+            return lf(x, stack[name + "_qw"], stack[name + "_scale"], l, **kw)
+        return lf(x, stack[name + "_qw"][l], stack[name + "_scale"][l], **kw)
 
     def split_qkv(qkv):
         qd = qkv.shape[-1] - 2 * kvd
@@ -641,10 +663,15 @@ def paged_forward(
 
     def attention(q, k, v, l):
         q, k = apply_rope(q, k, cos, sin)
+        local_heads = None
+        if tp_axis is not None and tp_kv_replicated:
+            q, local_heads = tp_scatter_heads(q, cfg.num_heads, tp_axis)
         if dual:
             attn = attn_impl(q, k, v, *hist, l, page_table, seq_lens, new_lens, cfg, **hist_kw)
         else:
             attn = attn_impl(q, k, v, *hist, l, token_rows, seq_lens, new_lens)
+        if local_heads is not None:
+            attn = local_heads(attn)
         return attn.reshape(B, S, -1), k
 
     def prologue_step(h, l):
@@ -673,11 +700,12 @@ def paged_forward(
             q, k, v = (wlin(normed, l, n).reshape(B, S, -1, cfg.head_dim) for n in "qkv")
         attn, k = attention(q, k, v, l)
         if cfg.sub_norms:
-            attn = rms_norm(attn, stack["attn_sub"][l], eps)
-        h = h + wlin(attn, l, "o")
+            attn = tp_sub_norm(attn, stack["attn_sub"][l], eps, cfg.q_dim, tp_axis)
+        h = h + row_parallel(wlin, attn, l, "o", dtype, tp_axis)
         normed = rms_norm(h, stack["post_ln"][l], eps)
         if cfg.num_experts > 0:
-            y = moe_layer(normed.reshape(B * S, -1), stack, l, cfg, expert_lf)
+            # under TP the model axis doubles as the expert axis
+            y = moe_layer(normed.reshape(B * S, -1), stack, l, cfg, expert_lf, ep_axis=tp_axis)
             return h + y.reshape(B, S, -1).to(dtype), k, v
         if "gateup_qw" in stack:
             gu = wlin(normed, l, "gateup")
@@ -690,8 +718,8 @@ def paged_forward(
         else:
             act = torch.square(torch.relu(gate)) * up
         if cfg.sub_norms:
-            act = rms_norm(act, stack["ffn_sub"][l], eps)
-        return h + wlin(act, l, "down"), k, v
+            act = tp_sub_norm(act, stack["ffn_sub"][l], eps, cfg.intermediate_size, tp_axis)
+        return h + row_parallel(wlin, act, l, "down", dtype, tp_axis), k, v
 
     step = prologue_step if prologue else plain_step
     ks, vs = [], []
@@ -718,4 +746,4 @@ def paged_forward(
         hidden = hidden.gather(1, last_idx[:, None, None].expand(B, 1, hidden.shape[-1]))[:, 0]
     if head_fn is not None:
         return head_fn(hidden, params), new_pools
-    return compute_logits(hidden, params, cfg), new_pools
+    return compute_logits(hidden, params, cfg, tp_axis=tp_axis), new_pools

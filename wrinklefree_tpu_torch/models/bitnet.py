@@ -14,8 +14,11 @@ in ``kv/paged.py``.
 MoE layers (``cfg.num_experts > 0``) run the plain layer step with the
 expert MLP of ``models/moe.py``. ``forward`` takes the reference's
 activation and attention sparsity policies (``ops/activation_sparsity.py``,
-``ops/sparse_attention.py``). Not ported: tensor parallelism and expert
-parallelism.
+``ops/sparse_attention.py``). With ``tp_axis`` (a
+``parallel.sharding.Axis``) ``forward`` is one rank's program of the
+tensor-parallel model (``parallel/sharding.py``'s layout), as the
+reference's is inside ``shard_map``; MoE experts are then sharded on the
+same axis (expert parallelism).
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def default_linear(x, qweight, scale, out_dtype=torch.bfloat16):
+def default_linear(x, qweight, scale, out_dtype=torch.bfloat16, quant_axis=None):
     """Unfused exact linear (quantize, integer dot, rescale)."""
-    return ternary_linear(x, qweight, scale, out_dtype=out_dtype)
+    return ternary_linear(x, qweight, scale, out_dtype=out_dtype, quant_axis=quant_axis)
 
 
 class KVCache(NamedTuple):
@@ -210,14 +213,18 @@ def _head_matmul(hidden: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return hidden.float() @ head.float().t()
 
 
-def compute_logits(hidden, params, cfg: BitNetConfig) -> torch.Tensor:
-    """hidden [..., H] -> logits [..., V] f32 (int8 head when present)."""
+def compute_logits(hidden, params, cfg: BitNetConfig, tp_axis=None) -> torch.Tensor:
+    """hidden [..., H] -> logits [..., V] f32 (int8 head when present). With
+    ``tp_axis`` the head is vocab-sharded: the local [..., V/tp] logits are
+    gathered along the vocabulary in rank order."""
     lead = hidden.shape[:-1]
     h2 = hidden.reshape(-1, hidden.shape[-1]).to(cfg.dtype)
     if "lm_head_q" in params:
         logits = _head_matmul(h2, params["lm_head_q"].to(cfg.dtype)) * params["lm_head_s"]
     else:
         logits = _head_matmul(h2, _bf16_head(params, cfg))
+    if tp_axis is not None:
+        logits = tp_axis.all_gather(logits)
     return logits.reshape(*lead, -1)
 
 
@@ -225,7 +232,17 @@ def _bf16_head(params, cfg: BitNetConfig) -> torch.Tensor:
     return params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
 
 
-def exact_topk_shortlist(hidden, params, cfg: BitNetConfig, k: int = 128):
+_SENT = torch.iinfo(torch.int32).max  # above every vocabulary id
+
+
+def _tp_min_id(value, ids, tp_axis):
+    """The lowest global id among the ranks whose ``value`` [B] is the
+    maximum over the axis (the reference's pmax/pmin tie-break)."""
+    g = tp_axis.pmax(value.clone())
+    return tp_axis.pmin(torch.where(value >= g, ids, torch.full_like(ids, _SENT))), g
+
+
+def exact_topk_shortlist(hidden, params, cfg: BitNetConfig, k: int = 128, tp_axis=None):
     """The exact head up to its branch: the int8 head scan, the exact bf16
     rescore of the top-k candidates and the certificate, with no host read
     (the reference's ``greedy_exact_topk`` up to its ``lax.cond``).
@@ -236,12 +253,18 @@ def exact_topk_shortlist(hidden, params, cfg: BitNetConfig, k: int = 128):
     ``approx_max_k`` becomes ``torch.topk``.
 
     hidden: [B, H] post-final-norm. Returns (tokens [B] int32, certified
-    0-d bool), both on hidden's device. Requires ``quantize_lm_head(params)``."""
+    0-d bool), both on hidden's device. Requires ``quantize_lm_head(params)``.
+
+    With ``tp_axis`` (the head vocab-sharded, ``hidden`` the same on every
+    rank) each rank scans and rescores its local rows; the winner, the bound
+    outside the shortlist and the error scale are combined with pmax/pmin, as
+    the reference's: the same token as one device (the lowest global id
+    among the exact maxima)."""
     if "lm_head_q" not in params:
         raise ValueError("the exact head requires quantize_lm_head(params)")
     head = _bf16_head(params, cfg)
     h = hidden.to(cfg.dtype)
-    approx = compute_logits(h, params, cfg)  # [B, V] int8 head
+    approx = compute_logits(h, params, cfg)  # [B, V] int8 head (local rows under TP)
     cand = torch.topk(approx, k, dim=-1).indices  # [B, k]
     rows = head[cand].to(cfg.dtype)  # [B, k, H]
     # bf16 products are exact in f32; sums in f32
@@ -250,20 +273,32 @@ def exact_topk_shortlist(hidden, params, cfg: BitNetConfig, k: int = 128):
     h1 = h.float().abs().sum(dim=-1)
     s_max = params["lm_head_s"].amax()
     exact_max = exact.amax(dim=-1)
-    sent = torch.iinfo(torch.int32).max
+    if tp_axis is not None:
+        cand = cand + tp_axis.index * head.shape[0]  # global vocabulary ids
     minid = torch.where(exact >= exact_max[:, None], cand,
-                        torch.full_like(cand, sent)).amin(dim=-1)
+                        torch.full_like(cand, _SENT)).amin(dim=-1)
+    if tp_axis is not None:
+        minid, exact_max = _tp_min_id(exact_max, minid, tp_axis)
+        m_out = tp_axis.pmax(m_out)
+        s_max = tp_axis.pmax(s_max.reshape(1))[0]
     eps = 0.5 * s_max * h1 + 1e-3 * (exact_max.abs() + 1.0)
     return minid.to(torch.int32), (exact_max > m_out + eps).all()
 
 
-def full_head_argmax(hidden, params, cfg: BitNetConfig) -> torch.Tensor:
-    """The exact head's fallback branch (the reference's ``full_head``,
-    single device): argmax of the f32 product of hidden [B, H] with the bf16
-    head; tokens [B] int32 (the lowest id among equal maxima)."""
+def full_head_argmax(hidden, params, cfg: BitNetConfig, tp_axis=None) -> torch.Tensor:
+    """The exact head's fallback branch (the reference's ``full_head``):
+    argmax of the f32 product of hidden [B, H] with the bf16 head; tokens [B]
+    int32 (the lowest id among equal maxima). With ``tp_axis`` each rank
+    takes its local rows' argmax and the ranks combine them with pmax/pmin
+    (the lowest global id among the maxima)."""
     h = hidden.to(cfg.dtype)
-    full = _head_matmul(h.reshape(-1, h.shape[-1]), _bf16_head(params, cfg))
-    return torch.argmax(full, dim=-1).to(torch.int32)
+    head = _bf16_head(params, cfg)
+    full = _head_matmul(h.reshape(-1, h.shape[-1]), head)
+    if tp_axis is None:
+        return torch.argmax(full, dim=-1).to(torch.int32)
+    lmax = full.amax(dim=-1)
+    lid = torch.argmax(full, dim=-1) + tp_axis.index * head.shape[0]
+    return _tp_min_id(lmax, lid, tp_axis)[0].to(torch.int32)
 
 
 def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
@@ -281,14 +316,14 @@ def greedy_exact_topk(hidden, params, cfg: BitNetConfig, k: int = 128,
     out of the window and repairs after it).
 
     hidden: [B, H] post-final-norm. Returns (tokens [B] int32, certified
-    0-d bool tensor). Requires ``quantize_lm_head(params)``. Single device
-    only."""
-    if tp_axis is not None:
-        raise NotImplementedError("greedy_exact_topk with tp_axis (tensor parallelism)")
-    minid, certified = exact_topk_shortlist(hidden, params, cfg, k)
+    0-d bool tensor). Requires ``quantize_lm_head(params)``. With ``tp_axis``
+    (a ``parallel.sharding.Axis``; the head vocab-sharded) both branches
+    combine the ranks' rows, as the reference's: the certificate is the same
+    on every rank, so every rank takes the same branch."""
+    minid, certified = exact_topk_shortlist(hidden, params, cfg, k, tp_axis=tp_axis)
     if bool(certified):  # the one host read
         return minid, certified
-    return full_head_argmax(hidden, params, cfg), certified
+    return full_head_argmax(hidden, params, cfg, tp_axis=tp_axis), certified
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +360,63 @@ def _attention(q, k_cache, v_cache, q_pos, cfg: BitNetConfig, attn_sparsity=None
     probs = probs.to(v_cache.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v_cache.float()).to(v_cache.dtype)
     return out.reshape(B, S, NH, D)
+
+
+def tp_embed(embed, tokens, dtype, tp_axis=None):
+    """The tokens' embedding rows in ``dtype``; with ``tp_axis`` the
+    vocab-sharded lookup: each rank gathers the rows of its shard (zeros for
+    the others' tokens) and the ranks sum them (exact: one rank holds each
+    token)."""
+    if tp_axis is None:
+        return embed[tokens.long()].to(dtype)
+    v_local = embed.shape[0]
+    local = tokens.long() - tp_axis.index * v_local
+    ok = (local >= 0) & (local < v_local)
+    rows = embed[local.clamp(0, v_local - 1)].to(dtype)
+    return tp_axis.psum(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+
+
+def tp_sub_norm(x, weight, eps: float, full_dim: int, tp_axis=None):
+    """``rms_norm`` over a feature axis of ``full_dim`` of which, with
+    ``tp_axis``, each rank holds a slice (and its slice of ``weight``): the
+    mean square is summed over the ranks in f32 before the normalization."""
+    if tp_axis is None:
+        return rms_norm(x, weight, eps)
+    xf = x.float()
+    var = tp_axis.psum((xf * xf).sum(dim=-1, keepdim=True)) / full_dim
+    return (xf * (1.0 / torch.sqrt(var + eps))).to(x.dtype) * weight.to(x.dtype)
+
+
+def row_parallel(wlin, x, l: int, name: str, dtype, tp_axis=None, **single):
+    """The o/down linear ``wlin(x, l, name, ...)``: on one device with
+    ``single``'s arguments; under TP the rank's f32 partial (its input
+    quantized with the ranks' absmax), summed over the ranks in f32, then
+    cast to ``dtype``."""
+    if tp_axis is None:
+        return wlin(x, l, name, **single)
+    return tp_axis.psum(wlin(x, l, name, out_dtype=torch.float32,
+                             quant_axis=tp_axis)).to(dtype)
+
+
+def tp_local_kv_heads(cfg: BitNetConfig, tp_axis=None, tp_kv_replicated: bool = False) -> int:
+    """KV heads of one rank's k/v and cache: all of them on one device or
+    when replicated, else KV/tp."""
+    if tp_axis is None or tp_kv_replicated:
+        return cfg.num_kv_heads
+    return cfg.num_kv_heads // tp_axis.size
+
+
+def tp_scatter_heads(q, num_heads: int, tp_axis):
+    """A rank's local query heads [B, S, NH/tp, D] placed at their offset in
+    the full [B, S, NH, D] layout, zeros elsewhere (replicated KV: the grouped
+    attention then maps each query head to its KV head as on one device);
+    returns (the full q, a function that slices the local heads back out of
+    an attention output [B, S, NH, D])."""
+    B, S, nh, D = q.shape
+    off = tp_axis.index * nh
+    full = q.new_zeros((B, S, num_heads, D))
+    full[:, :, off:off + nh] = q
+    return full, lambda a: a.reshape(B, S, num_heads, D)[:, :, off:off + nh]
 
 
 def forward(
@@ -380,10 +472,25 @@ def forward(
     ``ops.ternary_cuda.make_linear()``, K7). ``attn_sparsity`` reaches the
     attention of the prologue and plain steps; the megakernel branch (B = S =
     1 with a fused-prologue linear) does not take it, as the reference's does
-    not. Tensor parallelism raises ``NotImplementedError``.
+    not.
+
+    With ``tp_axis`` (a ``parallel.sharding.Axis``) this is one rank's
+    program of the tensor-parallel model, as the reference's inside
+    ``shard_map``: ``params`` and ``cache`` are the rank's shards
+    (``parallel.sharding.shard_params``; the cache holds the local KV heads,
+    or all of them with ``tp_kv_replicated``), q/k/v/gate/up are
+    column-parallel, o/down row-parallel (their input quantized with the
+    absmax reduced over the ranks, their f32 partials summed), the embedding
+    lookup and the logits vocab-sharded (summed, gathered), the sub-norms'
+    mean squares summed over the ranks in f32; MoE experts are sharded on
+    the same axis. It takes the plain layer step: a fused-prologue
+    ``linear_fn`` raises ``ValueError``.
     """
-    if tp_axis is not None or tp_kv_replicated:
-        raise NotImplementedError("tensor parallelism is not ported yet")
+    if tp_axis is None and tp_kv_replicated:
+        raise ValueError("tp_kv_replicated needs a tp_axis")
+    if tp_axis is not None and getattr(linear_fn, "prologue", False):
+        raise ValueError("tensor parallelism takes an unfused plain or stacked linear_fn, "
+                         "not a fused-prologue one")
     lf = linear_fn or default_linear
     if act_sparsity is not None:
         lf = make_sparse_linear_fn(lf, act_sparsity)
@@ -392,7 +499,7 @@ def forward(
     dev = tokens.device
     stack = params["layers"]
     L = stack["o_qw"].shape[0]
-    KV, D = cfg.num_kv_heads, cfg.head_dim
+    KV, D = tp_local_kv_heads(cfg, tp_axis, tp_kv_replicated), cfg.head_dim
     eps = cfg.rms_norm_eps
     mlp_act = "silu" if cfg.mlp_act == "silu" else "relu2"
 
@@ -402,7 +509,7 @@ def forward(
     cv5 = cache.v.view(L, 1, T, KV, D) if flat_cache else cache.v
 
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
-    hidden = params["embed"][tokens.long()].to(dtype)  # [B, S, H]
+    hidden = tp_embed(params["embed"], tokens, dtype, tp_axis)  # [B, S, H]
     positions = start_pos[:, None] + torch.arange(S, device=dev, dtype=torch.int32)[None, :]
     cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, dtype)
 
@@ -464,16 +571,24 @@ def forward(
             v = wlin(normed, l, "v").reshape(B, S, -1, D)
         q, k = apply_rope(q, k, cos, sin)
         write_cache(l, k, v)
-        attn = _attention(q, ck5[l], cv5[l], positions, cfg, attn_sparsity).reshape(B, S, -1)
+        local_heads = None
+        if tp_axis is not None and tp_kv_replicated:
+            q, local_heads = tp_scatter_heads(q, cfg.num_heads, tp_axis)
+        attn = _attention(q, ck5[l], cv5[l], positions, cfg, attn_sparsity)
+        if local_heads is not None:
+            attn = local_heads(attn)
+        attn = attn.reshape(B, S, -1)
         if cfg.sub_norms:
-            attn = rms_norm(attn, stack["attn_sub"][l], eps)
-        h = h + wlin(attn, l, "o", out_dtype=dtype).to(dtype)
+            attn = tp_sub_norm(attn, stack["attn_sub"][l], eps, cfg.q_dim, tp_axis)
+        h = h + row_parallel(wlin, attn, l, "o", dtype, tp_axis, out_dtype=dtype).to(dtype)
         normed = rms_norm(h, stack["post_ln"][l], eps)
         if cfg.num_experts > 0:
-            # MoE MLP: ternary experts, top-k routing (models/moe.py)
+            # MoE MLP: ternary experts, top-k routing (models/moe.py); under
+            # TP the model axis doubles as the expert axis
             from .moe import expert_linear, moe_layer
 
-            y = moe_layer(normed.reshape(B * S, -1), stack, l, cfg, expert_linear(lf))
+            y = moe_layer(normed.reshape(B * S, -1), stack, l, cfg, expert_linear(lf),
+                          ep_axis=tp_axis)
             return h + y.reshape(B, S, -1).to(dtype)
         if fused and "gateup_qw" in stack:
             gu = wlin(normed, l, "gateup")
@@ -487,8 +602,9 @@ def forward(
         else:
             act = torch.square(torch.relu(gate)) * up
         if cfg.sub_norms:
-            act = rms_norm(act, stack["ffn_sub"][l], eps)
-        return h + wlin(act, l, "down", out_dtype=dtype).to(dtype)
+            act = tp_sub_norm(act, stack["ffn_sub"][l], eps, cfg.intermediate_size, tp_axis)
+        return h + row_parallel(wlin, act, l, "down", dtype, tp_axis,
+                                out_dtype=dtype).to(dtype)
 
     if attn_mega is not None and mlp_mega is not None and B == 1 and S == 1:
         h2 = hidden.reshape(B, -1)
@@ -537,7 +653,10 @@ def forward(
     hidden = rms_norm(hidden, params["final_norm"], eps)
     if not logits_all:
         hidden = hidden[:, -1]
-    out = head_fn(hidden, params) if head_fn is not None else compute_logits(hidden, params, cfg)
+    # under TP ``hidden`` is the same on every rank (the last row-parallel sum
+    # ran inside the last layer), so a replicated head_fn sees one value
+    out = (head_fn(hidden, params) if head_fn is not None
+           else compute_logits(hidden, params, cfg, tp_axis=tp_axis))
     return out, KVCache(cache.k, cache.v)
 
 

@@ -1,6 +1,6 @@
 """BitNet MoE: ternary experts, top-k routing, identity-router oracle (PyTorch port).
 
-Counterpart of ``wrinklefree_tpu/models/moe.py``, single device:
+Counterpart of ``wrinklefree_tpu/models/moe.py``:
 
 - ``router_logits`` / ``top_k_route`` / ``identity_route`` and the
   Switch-style ``load_balancing_loss``;
@@ -12,7 +12,9 @@ Counterpart of ``wrinklefree_tpu/models/moe.py``, single device:
   fake-MoE identity oracle, and ``fake_moe_model``, the oracle at model
   level.
 
-Expert parallelism (``ep_axis``) raises ``NotImplementedError``.
+With ``ep_axis`` (a ``parallel.sharding.Axis``; under tensor parallelism the
+model axis) each rank holds its E/ep experts, combines their outputs with
+its slice of the combine matrix in f32, and the ranks sum the partials.
 """
 
 from __future__ import annotations
@@ -123,9 +125,13 @@ def moe_ffn(
     ``ops.ternary_cuda.make_linear()``, which runs each expert dot as one K7
     launch on a ``[K/4, N]`` view of the ``[E, K/4, N]`` stack (no copy)
     and computes what the default exact ``ternary_linear`` computes, bit for
-    bit. Returns (output [T, H], aux loss)."""
-    if ep_axis is not None:
-        raise NotImplementedError("moe_ffn with ep_axis (expert parallelism) is not ported yet")
+    bit. Returns (output [T, H], aux loss).
+
+    With ``ep_axis`` (expert parallelism) ``experts`` holds this rank's E/ep
+    experts (a contiguous block, the rank's index times E/ep on): the rank
+    sums their outputs weighted by its columns of the combine matrix in f32,
+    and the ranks' f32 partials are summed over the axis before the cast,
+    as the reference's psum."""
     T = x.shape[0]
     E = w_router.shape[1]
     logits = router_logits(x, w_router)
@@ -140,12 +146,19 @@ def moe_ffn(
     combine.index_put_((t_idx, top_i.long()), top_w.to(x.dtype), accumulate=True)
 
     e_local = experts["gate_qw"].shape[0]
-    if e_local != E:
-        raise ValueError(f"experts {e_local} != router {E}")
+    e0 = 0
+    if ep_axis is not None:
+        if e_local * ep_axis.size != E:
+            raise ValueError(f"{e_local} local experts x {ep_axis.size} ranks != router {E}")
+        e0 = ep_axis.index * e_local
+    elif e_local != E:
+        raise ValueError(f"experts {e_local} != router {E} (missing ep_axis?)")
     y = torch.zeros((T, x.shape[-1]), dtype=torch.float32, device=x.device)
-    for e in range(E):
+    for e in range(e_local):
         out = _expert_ffn(x, {k: v[e] for k, v in experts.items()}, ffn_sub, eps, lf)
-        y = y + combine[:, e:e + 1].float() * out.float()
+        y = y + combine[:, e0 + e:e0 + e + 1].float() * out.float()
+    if ep_axis is not None:
+        y = ep_axis.psum(y)
     return y.to(x.dtype), load_balancing_loss(probs, top_i, E)
 
 
@@ -160,12 +173,14 @@ def expert_linear(lf):
 
 
 def moe_layer(x: torch.Tensor, stack: Dict[str, torch.Tensor], layer: int,
-              cfg: BitNetConfig, lf=None) -> torch.Tensor:
+              cfg: BitNetConfig, lf=None, ep_axis=None) -> torch.Tensor:
     """The MoE MLP of layer ``layer`` of the stacked params on normed rows
-    x [T, H] (the models' layer step; the aux loss is dropped)."""
+    x [T, H] (the models' layer step; the aux loss is dropped); with
+    ``ep_axis`` the stack holds this rank's experts."""
     experts = {k: stack[f"moe_{k}"][layer] for k in EXPERT_KEYS}
     y, _ = moe_ffn(x, experts, stack["ffn_sub"][layer], stack["router"][layer],
-                   top_k=cfg.num_experts_per_tok, eps=cfg.rms_norm_eps, lf=lf)
+                   top_k=cfg.num_experts_per_tok, eps=cfg.rms_norm_eps, lf=lf,
+                   ep_axis=ep_axis)
     return y
 
 

@@ -149,7 +149,7 @@ def unpack_ternary(qweight: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_activations(
-    x: torch.Tensor, hf_exact: bool = False
+    x: torch.Tensor, hf_exact: bool = False, quant_axis=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-token int8 activation quantization.
 
@@ -157,10 +157,18 @@ def quantize_activations(
     shape ``x.shape[:-1] + (1,)``). ``hf_exact=True`` runs the scale and the
     multiply in x.dtype (bf16), as HF does; the default runs them in f32.
     Rounding is half-to-even (``torch.round``), as in the reference.
+
+    ``quant_axis`` (a ``parallel.sharding.Axis``): the per-row absmax is
+    reduced with MAX over the axis first, so a row-parallel (TP) linear,
+    whose rank sees a slice of the feature axis, quantizes with the global
+    per-row scale: the codes equal the single-device codes bit for bit.
     """
     dt = x.dtype if hf_exact else torch.float32
     xf = x.to(dt)
-    absmax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-5)
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if quant_axis is not None:
+        absmax = quant_axis.pmax(absmax)
+    absmax = absmax.clamp_min(1e-5)
     # a tensor divided by a tensor (``127.0 / absmax`` would multiply by the
     # reciprocal); full_like fills on the device, so a CUDA graph can record it
     scale = (torch.full_like(absmax, 127.0) / absmax).to(dt)
@@ -192,6 +200,7 @@ def ternary_linear(
     out_dtype: torch.dtype = torch.bfloat16,
     hf_exact: bool = False,
     kernel=None,
+    quant_axis=None,
 ) -> torch.Tensor:
     """Full BitLinear: quantize activations, integer matmul, rescale.
 
@@ -199,9 +208,9 @@ def ternary_linear(
 
     ``kernel`` optionally replaces the integer matmul: ``(x_q, qweight) ->
     int32``, for example ``ops.ternary_cuda.ternary_matmul`` (K7's exact
-    int32 mode).
+    int32 mode). ``quant_axis``: as in ``quantize_activations``.
     """
-    x_q, act_scale = quantize_activations(x, hf_exact=hf_exact)
+    x_q, act_scale = quantize_activations(x, hf_exact=hf_exact, quant_axis=quant_axis)
     acc = (kernel or ternary_matmul_reference)(x_q, qweight)
     if hf_exact:
         # HF casts the exact-integer accumulation to bf16, then divides by

@@ -869,23 +869,24 @@ def ternary_matmul(
 
 
 def ternary_linear_stacked(x, qweight, weight_scale, layer, *, out_dtype=torch.bfloat16,
-                           matmul=ternary_matmul_stacked):
+                           matmul=ternary_matmul_stacked, quant_axis=None):
     """Quantize ``x`` (torch, per row), then K7 on ``qweight[layer]``. The
-    quantization stays outside the kernel, as in the reference, where tensor
-    parallelism reduces the absmax over devices between the two."""
-    x_q, act_scale = quantize_activations(x)
+    quantization stays outside the kernel, as in the reference: with
+    ``quant_axis`` (tensor parallelism) the per-row absmax is reduced with
+    MAX over the axis's ranks between the two."""
+    x_q, act_scale = quantize_activations(x, quant_axis=quant_axis)
     return matmul(x_q, qweight, layer, act_scale, weight_scale, out_dtype=out_dtype)
 
 
 def make_linear(matmul=ternary_matmul):
     """Unstacked ``linear_fn`` ``(x, qweight [K/4, N], scale, out_dtype)``:
     quantize, then K7 on one matrix. ``matmul=ternary_matmul_plain`` gives the
-    plain path on any device."""
+    plain path on any device. ``quant_axis`` (a ``parallel.sharding.Axis``):
+    the per-row absmax all-reduced with MAX over the axis before the codes
+    are taken (a row-parallel linear under tensor parallelism)."""
 
     def linear_fn(x, qweight, scale, out_dtype=torch.bfloat16, quant_axis=None):
-        if quant_axis is not None:
-            raise NotImplementedError("quant_axis (tensor parallelism) is not ported yet")
-        x_q, act_scale = quantize_activations(x)
+        x_q, act_scale = quantize_activations(x, quant_axis=quant_axis)
         return matmul(x_q, qweight, act_scale, scale, out_dtype=out_dtype)
 
     return linear_fn
@@ -899,10 +900,8 @@ def make_linear_stacked(matmul=ternary_matmul_stacked, expert_matmul=ternary_mat
     functions give the plain path on any device."""
 
     def linear_fn(x, qw_stack, scale_stack, layer, out_dtype=torch.bfloat16, quant_axis=None):
-        if quant_axis is not None:
-            raise NotImplementedError("quant_axis (tensor parallelism) is not ported yet")
         return ternary_linear_stacked(x, qw_stack, scale_stack, layer, out_dtype=out_dtype,
-                                      matmul=matmul)
+                                      matmul=matmul, quant_axis=quant_axis)
 
     linear_fn.stacked = True
     linear_fn.expert_linear = make_linear(expert_matmul)

@@ -10,6 +10,11 @@ reference's calls do (the event loop never waits on that lock, which a busy
 scheduler thread would hold nearly all the time), and a stream whose
 consumer goes away (a client that disconnects) cancels its request.
 
+A tensor-parallel engine (``Engine(mesh=...)``) is driven here through its
+leader rank: submit, cancel and the between-step calls are recorded by the
+engine and reach the other ranks with its next step (``engine/lockstep.py``),
+and ``shutdown`` ends their ``follow()``.
+
 A greedy prompt of ``max_context`` tokens or more runs the ring path
 (``Engine.generate``) of the replica that holds the long-context group, on
 an executor thread beside the scheduler threads, as the reference runs it.
@@ -127,11 +132,21 @@ class AsyncEngine:
         self._call(i, lambda: self.engines[i].cancel(req, reason))
 
     def shutdown(self):
+        """Stop the scheduler threads; a tensor-parallel engine's leader then
+        ends its followers' ``follow()``."""
+        if self._stop.is_set():
+            return
         self._stop.set()
+        # a tensor-parallel step can outlast any fixed wait, and its followers
+        # may only be stopped once the scheduler thread has left the step
+        tp = any(e.mesh is not None for e in self.engines)
         for t in self._threads:
-            t.join(timeout=5)
+            t.join(timeout=None if tp else 5)
         if self._long_pool is not None:
             self._long_pool.shutdown(wait=False, cancel_futures=True)
+        for e in self.engines:
+            if e.mesh is not None:
+                e.stop_followers()
 
     async def generate_stream(
         self, prompt_ids: List[int], sampling: SamplingParams

@@ -476,6 +476,11 @@ class InferenceServer:
 
     def _embed_one(self, ids):
         eng = self.async_engine.engine
+        if eng.mesh is not None:
+            # the embedding program would run on the leader alone, and its
+            # collectives wait for the other ranks
+            raise NotImplementedError("embeddings on a tensor-parallel server: ROADMAP "
+                                      "item 12d")
         ids = ids[: eng.ecfg.max_context]
         bucket = 16
         while bucket < len(ids):
@@ -520,6 +525,8 @@ class InferenceServer:
                 total += len(ids)
         except ValueError as e:
             return _error(str(e), 400)
+        except NotImplementedError as e:
+            return _error(str(e), 501)
         return web.json_response({
             "object": "list",
             "model": self.model_name,
@@ -536,6 +543,8 @@ class InferenceServer:
             emb = await loop.run_in_executor(None, self._embed_one, ids)
         except ValueError as e:
             return _error(str(e), 400)
+        except NotImplementedError as e:
+            return _error(str(e), 501)
         return web.json_response({"embedding": emb})
 
     async def admin_reset_cache(self, request):
@@ -963,7 +972,8 @@ def create_server(
     attn_window: int = 0,
     attn_global_tokens: int = 0,
     device=None,
-) -> InferenceServer:
+    tp_backend: Optional[str] = None,
+):
     """The reference's ``create_server`` on the port's engine. ``tiny``: the
     tiny config; ``model_path="synth:<BitNetConfig classmethod>"`` (e.g.
     ``synth:bitnet_2b``): that configuration at full size. Both take random
@@ -982,18 +992,41 @@ def create_server(
     (``engine/long_context.py``) on a group of one (formed if
     ``torch.distributed`` is not initialized; a default group of more ranks
     raises ``NotImplementedError``: the ring path is collective, and no
-    caller brings the other ranks to each request). Tensor parallelism
-    raises ``NotImplementedError``."""
+    caller brings the other ranks to each request).
+
+    ``tp > 1`` serves tensor-parallel on the default process group's ``tp``
+    ranks (``parallel.multihost.init_multihost()`` forms it from
+    ``torchrun``'s environment if it is not initialized): every rank calls
+    ``create_server`` with the same arguments and builds its shard of one
+    ``Engine(mesh=make_mesh(1, tp))``. Model rank 0 gets the
+    ``InferenceServer`` (HTTP, its scheduler thread driving the engine); the
+    other ranks a ``FollowerServer``, whose ``serve()`` runs the engine's
+    ``follow()`` until the leader's ``AsyncEngine.shutdown()``. ``device``
+    defaults to the rank's card, ``tp_backend`` to NCCL on CUDA (gloo: several
+    ranks on one card). ``dp > 1`` with ``tp > 1``, ``long_context`` with
+    ``tp > 1`` and embeddings on a tensor-parallel server raise
+    ``NotImplementedError`` (ROADMAP items 12d and 12c)."""
     missing = []
-    if tp > 1:
-        missing.append("tp > 1 (tensor parallelism: ROADMAP queue 1 item 12)")
+    if tp > 1 and dp > 1:
+        missing.append("dp > 1 with tp > 1 (replicas of a tensor-parallel engine across "
+                       "processes: ROADMAP item 12d)")
+    if tp > 1 and long_context:
+        missing.append("long_context with tp > 1 (ROADMAP item 12c)")
     if use_pallas is False:
         missing.append("use_pallas=False (the kernels' plain twins are their CPU path and "
                        "oracle, not a serving path on the card)")
     if missing:
         raise NotImplementedError("not ported to the PyTorch server: " + "; ".join(missing))
-    if dp < 1:
-        raise ValueError(f"dp must be >= 1, got {dp}")
+    if dp < 1 or tp < 1:
+        raise ValueError(f"dp and tp must be >= 1, got dp={dp}, tp={tp}")
+    mesh = None
+    if tp > 1:
+        from ..parallel.multihost import init_multihost
+        from ..parallel.sharding import make_mesh
+
+        init_multihost(tp_backend)
+        mesh = make_mesh(1, tp, device=device, backend=tp_backend)
+        device = mesh.device
     dev = resolve_device(device)
     synthetic = tiny or str(model_path or "").startswith("synth:")
     gguf = not synthetic and str(model_path or "").endswith(".gguf")
@@ -1027,6 +1060,13 @@ def create_server(
         ecfg = dataclasses.replace(
             ecfg, attn_window=attn_window, attn_global_tokens=attn_global_tokens,
             kv_layout="layer" if ecfg.kv_layout == "auto" else ecfg.kv_layout)
+    eos = getattr(tokenizer, "eos_token_id", None)
+    if mesh is not None:
+        # every rank shards the whole params (unfused) in Engine(mesh=...)
+        engine = Engine(params, cfg, ecfg, eos_token_id=eos, mesh=mesh)
+        if mesh.model.index != 0:
+            return FollowerServer(engine)
+        return InferenceServer(engine, tokenizer, name)
     lc_group = None
     if long_context:
         # the ring path for beyond-max_context requests, on a group of one
@@ -1036,13 +1076,24 @@ def create_server(
     shared = params
     if cfg.num_experts == 0 and (lc_group is None or dp > 1):
         shared = fuse_projections(params, cfg)  # once, shared by the replicas
-    eos = getattr(tokenizer, "eos_token_id", None)
     # replica 0 takes the group and the unfused params (it fuses its own copy)
     engines = [Engine(params, cfg, ecfg, eos_token_id=eos, device=dev,
                       long_context_mesh=lc_group) if r == 0 and lc_group is not None
                else Engine(shared, cfg, ecfg, eos_token_id=eos, device=dev)
                for r in range(dp)]
     return InferenceServer(engines[0] if dp == 1 else engines, tokenizer, name)
+
+
+class FollowerServer:
+    """A tensor-parallel server's rank other than model rank 0: it serves no
+    HTTP; ``serve()`` runs its engine's ``follow()`` (the leader's calls and
+    steps) until the leader stops it."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+
+    def serve(self) -> None:
+        self.engine.follow()
 
 
 def main(argv=None):
@@ -1069,7 +1120,9 @@ def main(argv=None):
                    help="exact greedy head: int8 scan, bf16 top-K rescore, certificate")
     p.add_argument("--no-radix", action="store_true")
     p.add_argument("--no-pallas", action="store_true", help="not a serving path: raises")
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: run under torchrun --nproc-per-node N "
+                        "(rank 0 serves HTTP, the others follow it)")
     p.add_argument("--dp", type=int, default=1,
                    help="engine replicas on the device behind a least-loaded router")
     p.add_argument("--long-context", action="store_true",
@@ -1103,10 +1156,17 @@ def main(argv=None):
         tokenizer_path=args.tokenizer, long_context=args.long_context,
         attn_window=args.window, attn_global_tokens=args.global_tokens, device=args.device,
     )
+    if isinstance(server, FollowerServer):
+        server.serve()  # a warmup on the leader runs here too
+        return
     if args.warmup:
         for e in server.async_engine.engines:
             e.warmup()
-    web.run_app(build_app(server), host=args.host, port=args.port)
+    try:
+        web.run_app(build_app(server), host=args.host, port=args.port)
+    finally:
+        if server.async_engine.engine.mesh is not None:
+            server.async_engine.shutdown()  # ends the other ranks' serve()
 
 
 if __name__ == "__main__":
