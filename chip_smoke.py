@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``wrinklefree_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs seventeen phases at
+CUDA kernels from ``wrinklefree_tpu_torch/csrc`` and runs eighteen phases at
 BitNet b1.58-2B width (30 layers, H 2560, I 6912, 20 query / 5 KV heads,
 vocab 128256) with random weights drawn on the card from seed 0:
 
@@ -143,17 +143,33 @@ vocab 128256) with random weights drawn on the card from seed 0:
                against the single device, near-ties only and a
                teacher-forced logit distance under ``TP_DIST_CAP``, with a
                planted control at tp 2 that must fail it; K3, K4, K6 and K7
-               launched on every rank, a profiled 8-slot burst, four HTTP
+               launched on every rank, a profiled 8-slot burst (tp 2), four HTTP
                completions at tp 2), Llama-3-8B ternary at 4 layers on
                head-sharded pools, a mesh of one on NCCL;
-17. calibrate — (run right after the kernels phase)
+17. pp_ep    — pipeline and expert parallelism (``phase_pp_ep``), in the tp
+               phase's gloo worlds of 2 and 4 ranks after their TP job, held
+               to the same functions at one stage / one expert rank on the
+               NCCL mesh of one: ``make_pp_forward`` on 2B at 2 stages (2 and
+               4 microbatches, B 8, a 256-token prompt, 8 greedy steps) and
+               on Llama-3-8B ternary at full depth on 4 stages, every stage's
+               logits and cache shard bitwise equal to one stage's, K7
+               launched 7 x L/S x M times a stage a forward, the greedy rows
+               against ``forward`` on the microbatches' rows under
+               ``tp_token_gate``, a planted control
+               (stage 1 a tick stale) that must fail both; layer 0's experts
+               of the MoE configuration on 1024 tokens at ep 2 and 4
+               (``make_ep_moe``: y bitwise ep 1's, within ``EP_REL_BAR`` of
+               the dense ``moe_ffn``, a tight-capacity control outside it; the
+               dense ``moe_ffn(ep_axis=)`` within the bar); K7 at their shapes;
+18. calibrate — (run right after the kernels phase)
                ``bench.calibrate.calibrate()`` (the stream-touch kernel
                chained in CUDA graphs) and the device's busy share of its
                window (median of 5 traced replays, kernel time over the same
                replay's device span), at least 90%.
 
-It exits non-zero on any failure (nothing is caught, nothing falls back)
-and when CUDA or the package is missing. The line before the last is a
+Each phase prints its wall (``<phase>: phase wall <s> s``). It exits
+non-zero on any failure (nothing is caught, nothing falls back) and when
+CUDA or the package is missing. The line before the last is a
 JSON object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -274,6 +290,18 @@ KERNELS = {
 
 # the unquantized pool types K4 and K6 take (their bars: flash_attention.POOL_BARS)
 POOL_TYPES = ("bf16", "fp16", "f32")
+# the batch-1 phase's eager window under the profiler: its steps
+PROFILED_STEPS = 16
+# a plain twin's timing (a few calls: its time is no yardstick)
+PLAIN = dict(iters=3, warmup=1)
+
+
+@contextlib.contextmanager
+def phase_wall(name: str):
+    """Prints ``<name>: phase wall <s> s`` when the phase ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"{name}: phase wall {time.perf_counter() - t0} s")
 
 
 def fail(msg: str) -> None:
@@ -452,8 +480,8 @@ def phase_kernels(params, cfg, dev, results):
     # ---- K1 at the four linears of a layer, at 1-8 rows (the GEMV), 64 and
     # 512 rows; above 8 rows (the tensor-core GEMM) also bit for bit against
     # K1 over its 8-row slices (the same prologue per row, exact dot and
-    # epilogue; so the GEMM against the GEMV). At 2-7 rows only the kernel is
-    # timed (its plain and library times follow the row count as at 1 and 8).
+    # epilogue; so the GEMM against the GEMV). At 2-7 rows it is checked, not
+    # timed (its times follow the row count as at 1 and 8).
     shapes = [  # name, weights, scales, norm row, act, input width
         ("qkv", "qkv", "input_ln", "none", H),
         ("o", "o", "attn_sub", "none", Q),
@@ -493,17 +521,17 @@ def phase_kernels(params, cfg, dev, results):
             if not (torch.isfinite(a).all() and rel <= 0.03):
                 fail(f"K1 {name} rows={rows}: max row-relative error {rel}")
             k1_err = max(k1_err, d.max().item())
+            if 1 < rows < 8:
+                k1_mid.append(dict(shape=f"{name} {k}->{n} rows={rows}",
+                                   max_abs_err=d.max().item()))
+                continue
             ms, call_ms = cuda_ms(
                 lambda: tc.ternary_matmul_stacked_fused(x, qw, lay(), sw, nw, act=act))
             nbytes = rows * kin * 2 + k // 4 * n + n * 4 + k * 2 + rows * n * 2
             b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
-            if 1 < rows < 8:
-                k1_mid.append(dict(shape=f"{name} {k}->{n} rows={rows}", ms=ms, bound_ms=b_ms,
-                                   max_abs_err=d.max().item()))
-                continue
             plain_ms, _ = cuda_ms(
                 lambda: tc.ternary_matmul_stacked_fused_plain(x, qw, lay(), sw, nw, act=act),
-                iters=5, warmup=1)
+                **PLAIN)
             xl = x[:, :k].contiguous()
             lib_ms, _ = cuda_ms(lambda: torch.matmul(xl, wls[lay()]))
             lib = dict(library_ms=lib_ms)
@@ -519,7 +547,7 @@ def phase_kernels(params, cfg, dev, results):
         del wls, wis
     for r in k1_rows:
         print("kernels: K1 " + json.dumps(r))
-    for r in k1_mid:
+    for r in k1_mid:  # checked, not timed
         print("kernels: K1 " + json.dumps(r))
     print(f"kernels: K1 above 8 rows bitwise equal to K1 over its 8-row slices in "
           f"{slice_checks}/{slice_checks} checks")
@@ -569,8 +597,7 @@ def phase_kernels(params, cfg, dev, results):
         k2_err = max(k2_err, d.max().item())
         ms, call_ms = cuda_ms(lambda: tc.mlp_block_megakernel(h, gw, dw, lay(), gs, ds, pl, fs))
         plain_ms, _ = cuda_ms(
-            lambda: tc.mlp_block_megakernel_plain(h, gw, dw, lay(), gs, ds, pl, fs),
-            iters=5, warmup=1)
+            lambda: tc.mlp_block_megakernel_plain(h, gw, dw, lay(), gs, ds, pl, fs), **PLAIN)
         def lib():
             i = lay()
             gu = torch.matmul(h, wgs[i])
@@ -617,7 +644,7 @@ def phase_kernels(params, cfg, dev, results):
             return pool, vals[j], ids[j], offs[j]
 
         ms, call_ms = cuda_ms(lambda: kvu.kv_write(*set_args()))
-        plain_ms, _ = cuda_ms(lambda: kvu.kv_write_plain(*set_args()))
+        plain_ms, _ = cuda_ms(lambda: kvu.kv_write_plain(*set_args()), **PLAIN)
         flat = pool.view(pool.shape[0] * pool.shape[1], -1)
         rows_l = [(i.long() * pool.shape[1] + o.long()) for i, o in zip(ids, offs)]
         v2 = [v.reshape(v.shape[0], -1) for v in vals]
@@ -756,7 +783,8 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
         lambda: fa.flash_paged_prefill(q, ctl(kf), ctl_v(vf), kvv, nl, hist_len=T))
     del fills
     ms, call_ms = cuda_ms(lambda: fa.flash_paged_prefill(q, kf, vf, kvv, nl, hist_len=T))
-    plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T))
+    plain_ms, _ = cuda_ms(lambda: fa.flash_paged_prefill_plain(q, kf, vf, kvv, nl, hist_len=T),
+                          **PLAIN)
     col = torch.arange(T + S, device=dev)
     row = torch.arange(S, device=dev)[:, None]
     mask = torch.where(col[None] < T, col[None] < c["kv_valid"],
@@ -809,7 +837,7 @@ def kernels_k4(cfg, dev, results, pool="bf16"):
             lambda: fa.flash_paged_prefill_pool(q, kc, vc, main, lay(), pt, slt, nlt))
         plain_ms, _ = cuda_ms(
             lambda: fa.flash_paged_prefill_pool_plain(q, kc, vc, main, lay(), pt, slt, nlt),
-            iters=5, warmup=1)
+            **PLAIN)
         # the yardstick: SDPA over contiguous copies of each row's history and
         # chunk (made untimed; four layers' copies, so repeats miss the L2)
         Tm = max(sl) + S
@@ -934,7 +962,7 @@ def kernels_k5(params, cfg, dev, rnd, results):
                 lambda: call(tc.attn_block_megakernel, h, ck, cv, lay(), p, cos, sin))
             plain_ms, _ = cuda_ms(
                 lambda: call(tc.attn_block_megakernel_plain, h, ck, cv, lay(), p, cos, sin),
-                iters=5, warmup=1)
+                **PLAIN)
 
             def lib():
                 i = lay()
@@ -1055,8 +1083,7 @@ def kernels_k6(cfg, dev, results, pool="bf16"):
         ms, call_ms = cuda_ms(
             lambda: fa.flash_paged_decode(q, kc, vc, main, stage, lay(), pt, sl))
         plain_ms, _ = cuda_ms(
-            lambda: fa.flash_paged_decode_plain(q, kc, vc, main, stage, lay(), pt, sl),
-            iters=5, warmup=1)
+            lambda: fa.flash_paged_decode_plain(q, kc, vc, main, stage, lay(), pt, sl), **PLAIN)
         # the yardstick: SDPA over contiguous copies of the same histories
         # (made untimed; four layers' copies, so repeats miss the 50 MB L2)
         Tm = max(lens) + 1
@@ -1191,17 +1218,17 @@ def kernels_k7(params, cfg, dev, g, results):
                              f"differ by {(a.float() - b.float()).abs().max().item()}")
                     checks += 1
             ker, pla, args = args_of(mode)
+            shape = f"{name} {k}->{n} ({scale} scale, {mode}) rows={rows}"
+            if 1 < rows < 8:  # checked, not timed
+                mid.append(shape)
+                continue
             ms, call_ms = cuda_ms(lambda: ker(*args(lay())))
             out_bytes = 4 if mode == "int32" else 2
             sw_bytes = 0 if mode == "int32" else (n * 4 if scale == "column" else 4)
             nbytes = rows * k + (0 if mode == "int32" else rows * 4) + k4 * n + sw_bytes \
                 + rows * n * out_bytes
             b_ms, b_by = bound(nbytes, 2 * rows * k * n, "int8")
-            shape = f"{name} {k}->{n} ({scale} scale, {mode}) rows={rows}"
-            if 1 < rows < 8:
-                mid.append(dict(shape=shape, ms=ms, bound_ms=b_ms))
-                continue
-            plain_ms, _ = cuda_ms(lambda: pla(*args(lay())), iters=5, warmup=1)
+            plain_ms, _ = cuda_ms(lambda: pla(*args(lay())), **PLAIN)
             xb = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
             lib_ms, _ = cuda_ms(lambda: torch.matmul(xb, lib_w[lib_lay()]))
             lib = dict(library_ms=lib_ms)
@@ -1215,10 +1242,11 @@ def kernels_k7(params, cfg, dev, g, results):
             rows_out.append(dict(shape=shape, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, **lib))
         del qw, lib_w, lib_i
-    for r in rows_out + mid:
+    for r in rows_out:
         print("kernels: K7 " + json.dumps(r))
     print(f"kernels: K7 bitwise equal to its plain version in {checks}/{checks} checks (rows 1-8 "
-          "in bf16, f32 and int32 at every shape)")
+          f"in bf16, f32 and int32 at every shape; checked, not timed, at {len(mid)} shapes of "
+          "2-7 rows)")
     # the MoE decode step's most frequent launch: an expert dot at 8 rows
     results["ternary_matmul_stacked"] = next(
         r for r in rows_out if r["shape"].startswith("expert gate") and r["shape"].endswith("=8"))
@@ -1357,7 +1385,7 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
             ms, call_ms = cuda_ms(lambda: k8(tc.layer_block_megakernel, h, ck, cv, lay(), p, cos,
                                              sin))
             plain_ms, _ = cuda_ms(lambda: k8(tc.layer_block_megakernel_plain, h, ck, cv, lay(), p,
-                                             cos, sin), iters=5, warmup=1)
+                                             cos, sin), **PLAIN)
             lib_ms, _ = cuda_ms(lambda: _layer_library(cfg, wls, h, ck, cv, lay, pos))
             b_ms, b_by = _block_bytes_ops(st, cfg, pos)
             rows8.append(dict(shape=f"decode layer T={T} pos={pos}", ms=ms, call_ms=call_ms,
@@ -1367,8 +1395,7 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
             if T == 328 and pos == T - 1:  # the bench's shape
                 ms, call_ms = cuda_ms(lambda: k5_static(h, ck, cv, lay(), p, cos, sin))
                 plain_ms, _ = cuda_ms(lambda: k5_static(
-                    h, ck, cv, lay(), p, cos, sin, tc.attn_block_megakernel_static_plain),
-                    iters=5, warmup=1)
+                    h, ck, cv, lay(), p, cos, sin, tc.attn_block_megakernel_static_plain), **PLAIN)
                 lib_ms, _ = cuda_ms(lambda: _layer_library(cfg, wls, h, ck, cv, lay, pos,
                                                            mlp=False))
                 b_ms, b_by = _block_bytes_ops(st, cfg, pos, mlp=False)
@@ -1390,7 +1417,7 @@ def kernels_k8_static(params, cfg, dev, rnd, results):
         lay = Cycle(L)
         ms, call_ms = cuda_ms(lambda: k2_static(x, lay()))
         plain_ms, _ = cuda_ms(lambda: k2_static(x, lay(), tc.mlp_block_megakernel_static_plain),
-                              iters=5, warmup=1)
+                              **PLAIN)
         lib_ms, _ = cuda_ms(lambda: _layer_library(cfg, wls, x, None, None, lay, 0,
                                                    attn=False))
         b_ms, b_by = _block_bytes_ops(st, cfg, 0, attn=False, rows=rows)
@@ -1456,7 +1483,7 @@ def kernels_k9(cfg, dev, g, results):
                 print(f"kernels: K9 {where}: max abs error {d} (bar {tol}), deterministic")
                 continue
             ms, call_ms = cuda_ms(lambda: fa.flash_prefill(q, k, v, off))
-            plain_ms, _ = cuda_ms(lambda: fa.flash_prefill_plain(q, k, v, off), iters=5, warmup=1)
+            plain_ms, _ = cuda_ms(lambda: fa.flash_prefill_plain(q, k, v, off), **PLAIN)
             mask = (torch.arange(T, device=dev)[None, :]
                     <= off + torch.arange(S, device=dev)[:, None])
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1498,7 +1525,7 @@ def kernels_k10(dev, results):
     lay = Cycle(L)
     cs = torch.zeros(1, dtype=torch.int64, device=dev)
     ms, call_ms = cuda_ms(lambda: cal.touch(h, gw, dw, lay(), cs))
-    plain_ms, _ = cuda_ms(lambda: cal.touch_plain(h, gw, dw, lay(), cs), iters=5, warmup=1)
+    plain_ms, _ = cuda_ms(lambda: cal.touch_plain(h, gw, dw, lay(), cs), **PLAIN)
 
     def lib():
         i = lay()
@@ -1869,29 +1896,29 @@ def phase_batch1(qparams, cfg, dev, floors, counters):
             fail(f"batch1 {mode}: the bench's window was not captured")
         print("batch1: bench " + json.dumps(res))
         # the eager window as the bench ran it before its capture (a warm
-        # step, the best of 3 windows), then one more under the profiler
+        # step, then one window), then 16 steps under the profiler
         pm, klf = states[mode]
         tok, cache = bd.prefill(pm, cfg, klf, prompt, T)
         pos = torch.full((1,), prompt_len, dtype=torch.int32, device=dev)
         _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, 1, head)
-        eager_ms = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, steps, head)
-            eager_ms = min(eager_ms, (time.perf_counter() - t0) / steps * 1e3)
+        t0 = time.perf_counter()
+        _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, steps, head)
+        eager_ms = (time.perf_counter() - t0) / steps * 1e3
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, steps, head)
+            _, tok, cache, pos = bd.decode_window(pm, cfg, klf, tok, cache, pos, PROFILED_STEPS,
+                                                  head)
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_ms = sum(e.device_time_total for e in evs) / 1e3 / steps
-        print(f"batch1 {mode}: eager window {eager_ms} ms per token ({1e3 / eager_ms} tok/s, best "
-              f"of 3 windows of {steps}); {dev_ms} ms of device time per token, "
-              f"{dev_ms / eager_ms} of the eager token; device busy {dev_ms * steps / 1e3 / dt} of "
-              f"{dt} s under the profiler; device ms per token by kernel: "
-              + json.dumps(by_kernel(device_events(prof), steps)))
+        dev_ms = sum(e.device_time_total for e in evs) / 1e3 / PROFILED_STEPS
+        print(f"batch1 {mode}: eager window {eager_ms} ms per token ({1e3 / eager_ms} tok/s, "
+              f"one window of {steps}); {dev_ms} ms of device time per token "
+              f"({PROFILED_STEPS} profiled steps), {dev_ms / eager_ms} of the eager token; device "
+              f"busy {dev_ms * PROFILED_STEPS / 1e3 / dt} of {dt} s under the profiler; device ms "
+              f"per token by kernel: " + json.dumps(by_kernel(device_events(prof),
+                                                              PROFILED_STEPS)))
         print(f"batch1 {mode}: side by side, ms per token: eager {eager_ms}, captured "
               f"{res['ms_per_token']} (the bench, best of 3 windows of {steps}); device ms per "
               f"token: eager {dev_ms} (profiler, summed), captured "
@@ -2116,7 +2143,7 @@ def phase_engine(params, cfg, dev, counters, flash_decode=False, tag=None, idle=
 
     for profiled in (False, True):
         batch = [eng.submit(rng.integers(1, cfg.vocab_size, 17).tolist(),
-                            SamplingParams(max_new_tokens=49, temperature=0.0))
+                            SamplingParams(max_new_tokens=25, temperature=0.0))
                  for _ in range(8)]
         eng.step()
         torch.cuda.synchronize()
@@ -2371,17 +2398,18 @@ def phase_features(params, cfg, dev, counters, smi):
     for tok, (chosen, tops) in zip(lp.output_ids, lp.logprobs_seq):
         if tops[0][0] != tok or chosen != tops[0][1] or chosen > 0 or len(tops) != 4:
             fail(f"features: logprobs entry {(chosen, tops)} for token {tok}")
-    # decode windows of 8 slots (17-token prompts, 48 decode steps), plain
+    # decode windows of 8 slots (17-token prompts, one 16-step burst: a
+    # logprobs burst does not shorten, so the plain one keeps its length), plain
     # and with logprobs in turns: wall ms per step, then one profiled window
     # each for the device's ms per step
     from torch.profiler import ProfilerActivity, profile
 
     windows = {"plain": [], "logprobs": []}
     device_ms = {}
-    for tag in ("plain", "logprobs", "logprobs", "plain", "plain", "logprobs"):
-        profiled = len(windows[tag]) == 2
+    for tag in ("plain", "logprobs", "logprobs", "plain"):
+        profiled = len(windows[tag]) == 1
         batch = [eng.submit(rng.integers(1, cfg.vocab_size, 17).tolist(),
-                            SamplingParams(max_new_tokens=49,
+                            SamplingParams(max_new_tokens=33,
                                            logprobs_k=4 if tag == "logprobs" else 0))
                  for _ in range(8)]
         eng.step()
@@ -2705,8 +2733,8 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
 
     def window(eng):
         """Device ms, wall ms and certificate failures per decode step of 8
-        greedy slots (48 steps after the first), profiled."""
-        batch = [eng.submit(p, SamplingParams(max_new_tokens=49)) for p in window_prompts]
+        greedy slots (one 8-step burst after the first step), profiled."""
+        batch = [eng.submit(p, SamplingParams(max_new_tokens=25)) for p in window_prompts]
         eng.step()
         sync()
         steps0, fb0, t0 = eng.stats["decode_steps"], int(eng.exact_fallbacks), time.perf_counter()
@@ -3000,6 +3028,7 @@ def phase_heads_kv(params, cfg, dev, counters, default_toks, results, smi):
             return flat.index_copy_(0, i.long() * 16 + o.long(), v.view(v.shape[0], -1))
 
         ms = graph_ms(lambda: kvu.kv_write(tpool, *arg()))
+        # 20 calls: at 3, a session in this phase recorded no device time (twice)
         plain_ms, _ = cuda_ms(lambda: kvu.kv_write_plain(tpool, *arg()))
         lib_ms, _ = cuda_ms(lib)
         b_ms, b_by = bound(2 * vals.numel() * 2 + 8 * n, 0, "bf16")
@@ -4270,7 +4299,7 @@ def phase_longctx(dev, smi):
             fail(f"longctx: torch._int_mm is not K7's int32 {name} function")
         del got, want
         ms, call_ms = cuda_ms(lambda: tc.ternary_matmul(xq, qw), iters=10, warmup=2)
-        plain_ms, _ = cuda_ms(lambda: tc.ternary_matmul_plain(xq, qw), iters=2, warmup=1)
+        plain_ms, _ = cuda_ms(lambda: tc.ternary_matmul_plain(xq, qw), **PLAIN)
         lib_ms, _ = cuda_ms(lambda: torch._int_mm(xq, w_nk.t()), iters=10, warmup=2)
         b_ms, b_by = bound(rows * k + k // 4 * n + rows * n * 4, 2 * rows * k * n, "int8")
         print("longctx: K7 " + json.dumps(dict(
@@ -4591,7 +4620,8 @@ def tp_job(job):
     report = {}
     if cuda:
         torch.cuda.set_device(dev)  # initializes CUDA in this fresh process
-        if job.get("k7_shapes") and rank == 0:  # the other ranks wait at make_mesh
+        if (job.get("k7_shapes") or job.get("pp_ep_k7")) and rank == 0:
+            # the other ranks wait at make_mesh
             from wrinklefree_tpu_torch.bench.roofline import GPU_SPECS, peak_ops
 
             global HBM_BYTES_PER_S
@@ -4600,7 +4630,12 @@ def tp_job(job):
             start_profiler(dev)
             g = torch.Generator(device=dev)
             g.manual_seed(25)
-            report["k7_shapes"] = tp_k7_shapes(dev, g)
+            if job.get("k7_shapes"):
+                report["k7_shapes"] = tp_k7_shapes(dev, g, TP_K7_SHAPES)
+            if job.get("pp_ep_k7"):  # timed within the pp_ep phase's wall
+                t1 = time.perf_counter()
+                report["pp_ep_k7"] = tp_k7_shapes(dev, g, PP_EP_K7_SHAPES)
+                report["pp_ep_k7_s"] = time.perf_counter() - t1
             torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     cfg, params = _tp_model(job, dev)
@@ -4674,6 +4709,9 @@ def tp_job(job):
             torch.cuda.empty_cache()
         report["http"] = _tp_http(job, dev)
     report["seconds"] = time.perf_counter() - t0
+    if job.get("pp_ep"):  # after the TP job, its engines and params freed
+        del params
+        report["pp_ep"] = pp_ep_job(P, dev)
     return report
 
 
@@ -4795,7 +4833,7 @@ def _tp_rank_main(rank, world, store, out_dir, job):
         torch.set_num_threads(1)
         dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                                 world_size=world)
-        result = ("ok", tp_job(job))
+        result = ("ok", [tp_job(j) for j in job])  # the world's jobs, in turn
         dist.destroy_process_group()
     except BaseException:  # fail() raises SystemExit: reported to the parent
         result = ("error", traceback.format_exc())
@@ -4803,11 +4841,11 @@ def _tp_rank_main(rank, world, store, out_dir, job):
         pickle.dump(result, f)
 
 
-def tp_world(world, job, timeout=600.0):
-    """Run ``tp_job(job)`` on ``world`` spawned ranks (the ``spawn`` method:
-    CUDA cannot fork), rendezvous in a FileStore under build/; returns the
-    ranks' reports. Fails if a rank failed, hung or died; kills none it
-    leaves running."""
+def tp_world(world, jobs, timeout=600.0):
+    """Run ``tp_job`` on each of ``jobs`` in turn on ``world`` spawned ranks
+    (the ``spawn`` method: CUDA cannot fork), rendezvous in a FileStore under
+    build/; returns each rank's reports, one per job. Fails if a rank
+    failed, hung or died; kills none it leaves running."""
     import multiprocessing
     import pickle
     import tempfile
@@ -4817,7 +4855,7 @@ def tp_world(world, job, timeout=600.0):
     root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="tp_world_", dir=root) as tmp:
         procs = [ctx.Process(target=_tp_rank_main, args=(r, world, str(Path(tmp) / "store"),
-                                                         tmp, job)) for r in range(world)]
+                                                         tmp, jobs)) for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
@@ -4856,6 +4894,10 @@ def _fresh_main(out, name, args):
         start_profiler(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         result = ("ok", globals()[name](dev, *args))
+        import torch.distributed as dist
+
+        if dist.is_initialized():  # the phase's NCCL group of one, ended before exit
+            dist.destroy_process_group()
     except BaseException:  # fail() raises SystemExit: reported to the parent
         result = ("error", traceback.format_exc())
     sys.stdout.flush()
@@ -4891,25 +4933,37 @@ def in_fresh_process(name, *args, timeout=900.0):
     return value
 
 
-def tp_k7_shapes(dev, g):
-    """K7 at one rank's shapes of the 2B model at tp 2 and 4 (q, k/v,
-    gate/up column-parallel with bf16 output; o, down row-parallel with the
-    f32 partials) at 1, 8 and 512 rows: bitwise against its plain version,
-    timed beside the bf16 ``torch.matmul`` on unpacked weights and
-    ``torch._int_mm`` on the same codes (at 1 and 8 rows on the codes padded
-    to 32 rows: it refuses 16 rows or fewer), each weight set cycled past the
-    L2, and its bound."""
+# one rank's K7 shapes of the 2B model at tp 2 and 4 (q, k/v, gate/up
+# column-parallel with bf16 output; o, down row-parallel with the f32
+# partials) at 1, 8 and 512 rows
+TP_K7_SHAPES = [(name, k, n, mode, (1, 8, 512)) for name, k, n, mode in (
+    ("q tp2", 2560, 1280, "bf16"), ("k/v tp2 and tp4, q tp4", 2560, 640, "bf16"),
+    ("o tp2", 1280, 2560, "f32"), ("o tp4", 640, 2560, "f32"),
+    ("gate/up tp2", 2560, 3456, "bf16"), ("gate/up tp4", 2560, 1728, "bf16"),
+    ("down tp2", 3456, 2560, "f32"), ("down tp4", 1728, 2560, "f32"))]
+# the pp_ep phase's K7 shapes: a Llama-3-8B stage's projections at the
+# prefill's rows (2 x 128) and a step's (2); layer 0's experts at ep x C rows
+# (2048 at capacity 8, 64 at 0.25, at ep 2 and 4 alike)
+PP_EP_K7_SHAPES = [
+    ("8B q/o", 4096, 4096, "bf16", (2, 256)), ("8B k/v", 4096, 1024, "bf16", (2, 256)),
+    ("8B gate/up", 4096, 14336, "bf16", (2, 256)), ("8B down", 14336, 4096, "bf16", (2, 256)),
+    ("expert gate/up", 2560, 6912, "bf16", (64, 2048)),
+    ("expert down", 6912, 2560, "bf16", (64, 2048))]
+
+
+def tp_k7_shapes(dev, g, shapes):
+    """K7 at ``shapes`` ((name, K, N, output "bf16" or "f32", row counts)):
+    bitwise against its plain version, timed beside the bf16
+    ``torch.matmul`` on unpacked weights and ``torch._int_mm`` on the same
+    codes (at 16 rows or fewer on the codes padded to 32 rows: it refuses
+    fewer), each weight set cycled past the L2, and its bound."""
     import torch
 
     from wrinklefree_tpu_torch.ops import ternary_cuda as tc
     from wrinklefree_tpu_torch.ops.ternary import unpack_ternary
 
-    shapes = [("q tp2", 2560, 1280, "bf16"), ("k/v tp2 and tp4, q tp4", 2560, 640, "bf16"),
-              ("o tp2", 1280, 2560, "f32"), ("o tp4", 640, 2560, "f32"),
-              ("gate/up tp2", 2560, 3456, "bf16"), ("gate/up tp4", 2560, 1728, "bf16"),
-              ("down tp2", 3456, 2560, "f32"), ("down tp4", 1728, 2560, "f32")]
     rows_out = []
-    for name, k, n, mode in shapes:
+    for name, k, n, mode, row_counts in shapes:
         nl = max(8, math.ceil(64e6 / (k // 4 * n)))
         qw = torch.randint(0, 256, (nl, k // 4, n), generator=g, device=dev, dtype=torch.uint8)
         sw = torch.rand((nl,), generator=g, device=dev) * 80 + 10
@@ -4917,7 +4971,7 @@ def tp_k7_shapes(dev, g):
         lib_w = [unpack_ternary(qw[i]).to(torch.bfloat16) for i in range(nlib)]
         lib_i = [w.to(torch.int8).t().contiguous() for w in lib_w]
         out_dt = torch.float32 if mode == "f32" else torch.bfloat16
-        for rows in (1, 8, 512):
+        for rows in row_counts:
             xq = torch.randint(-128, 128, (rows, k), generator=g, device=dev, dtype=torch.int8)
             sx = torch.rand((rows, 1), generator=g, device=dev) * 60 + 0.5
             lay, lib_lay = Cycle(nl), Cycle(nlib)
@@ -4928,7 +4982,7 @@ def tp_k7_shapes(dev, g):
             ms, call_ms = cuda_ms(lambda: tc.ternary_matmul_stacked(
                 xq, qw, lay(), sx, sw, out_dtype=out_dt))
             plain_ms, _ = cuda_ms(lambda: tc.ternary_matmul_stacked_plain(
-                xq, qw, lay(), sx, sw, out_dtype=out_dt), iters=5, warmup=1)
+                xq, qw, lay(), sx, sw, out_dtype=out_dt), **PLAIN)
             xb = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
             bf16_ms, _ = cuda_ms(lambda: torch.matmul(xb, lib_w[lib_lay()]))
             xi = xq if rows > 16 else torch.cat([xq, xq.new_zeros((32 - rows, k))])
@@ -4962,9 +5016,10 @@ def phase_tp(dev, smi):
         on the same params through K7: tokens equal or parting only at a
         near-tie, the largest teacher-forced logit distance under
         ``TP_DIST_CAP``; at tp 2 a planted control that must fail that gate
-        (``_tp_control_run``: sub-norms over each rank's slice); a profiled
-        window of eight decoding slots on every rank; at tp 2, four HTTP
-        completions from rank 0 of ``create_server(tp=2)``;
+        (``_tp_control_run``: sub-norms over each rank's slice); at tp 2 a
+        profiled burst of eight decoding slots on every rank (tp 4's was read
+        in PR 25, PERF.md section 5) and four HTTP completions from rank 0 of
+        ``create_server(tp=2)``;
     (b) Llama-3-8B ternary at full width cut to 4 layers at tp 2: each
         rank's pools hold 4 KV heads (head-sharded), the token gate as in
         (a);
@@ -4985,14 +5040,20 @@ def phase_tp(dev, smi):
 
     t_phase = time.perf_counter()
     cuda_lib.library()  # built (or loaded) here: the ranks load it from the cache
-    worlds = {}
-    for tag, world, job in (
-            ("2B tp2", 2, dict(model="bitnet_2b", gates=True, window=True, http=True,
-                               k7_shapes=True, control=True)),
-            ("2B tp4", 4, dict(model="bitnet_2b", gates=True, window=True)),
-            ("llama8b 4 layers tp2", 2, dict(model="llama3_8b_ternary", layers=4))):
+    worlds, runs = {}, []
+    # one world a size, its jobs run in turn (each world's spawn, CUDA and
+    # kernel load paid once)
+    for world, jobs in (
+            (2, [("2B tp2", dict(model="bitnet_2b", gates=True, window=True, http=True,
+                                 k7_shapes=True, pp_ep_k7=True, control=True, pp_ep=True)),
+                 ("llama8b 4 layers tp2", dict(model="llama3_8b_ternary", layers=4))]),
+            (4, [("2B tp4", dict(model="bitnet_2b", gates=True, pp_ep=True))])):
         t0 = time.perf_counter()
-        ranks = tp_world(world, job)
+        out = tp_world(world, [job for _, job in jobs])
+        print(f"tp: the world of {world} ranks ({', '.join(t for t, _ in jobs)}): "
+              f"{time.perf_counter() - t0} s")
+        runs += [(tag, world, job, [r[i] for r in out]) for i, (tag, job) in enumerate(jobs)]
+    for tag, world, job, ranks in runs:
         worlds[tag] = ranks
         r0 = ranks[0]
         for row in r0.get("k7_shapes", ()):  # timed in rank 0, a fresh process
@@ -5037,7 +5098,7 @@ def phase_tp(dev, smi):
               f"the single device's, parts {json.dumps(r0['parts'])}; largest teacher-forced "
               f"logit distance {r0['max_teacher_forced_dist']} (cap {TP_DIST_CAP}; the "
               f"30-layer rounding noise {TP_NOISE}); gates {json.dumps(r0.get('gates'))}; "
-              f"{time.perf_counter() - t0} s; {smi}")
+              f"rank 0's job {r0['seconds']} s; {smi}")
         for r in ranks:
             print("tp: " + json.dumps(dict(
                 run=tag, rank=r["rank"], launches=r["launches"], window=r["window"],
@@ -5078,8 +5139,474 @@ def phase_tp(dev, smi):
         fail(f"tp: the NCCL mesh of one against the single device: {why}")
     del single, params, rec
     torch.cuda.empty_cache()
-    print(f"tp: phase wall {time.perf_counter() - t_phase} s")
+    # the pp_ep phase's parts in the worlds count in its own wall
+    pp_ep_s = sum(ranks[0]["pp_ep"]["seconds"] + ranks[0].get("pp_ep_k7_s", 0.0)
+                  for ranks in worlds.values() if "pp_ep" in ranks[0])
+    print(f"tp: phase wall {time.perf_counter() - t_phase - pp_ep_s} s")
     return worlds
+
+
+# ---------------------------------------------------------------------------
+# 17. pp_ep — pipeline and expert parallelism (parallel/pipeline.py,
+# parallel/expert.py) in the tp phase's gloo worlds of 2 and 4 ranks on this
+# card, held to the same functions run at one stage / one expert rank in
+# this process on its NCCL mesh of one
+# ---------------------------------------------------------------------------
+
+# the pipeline's cases, by the size of the world they run in: a prompt of
+# batch x prompt tokens (seed 0) on a cache of T, then greedy one-token steps
+PP_CASES = {
+    "2B S2 M2": dict(world=2, model="bitnet_2b", microbatches=2, batch=8, prompt=256, T=512,
+                     steps=8),
+    "2B S2 M4": dict(world=2, model="bitnet_2b", microbatches=4, batch=8, prompt=256, T=512,
+                     steps=8),
+    # Llama-3-8B ternary at full depth, 8 layers a stage
+    "llama8b S4 M2": dict(world=4, model="llama3_8b_ternary", microbatches=2, batch=4,
+                          prompt=128, T=256, steps=4),
+}
+# the planted control: stage 1 runs its layers on what it received a tick
+# earlier
+PP_CONTROL = "2B S2 M2"
+# layer 0's experts of the repo's MoE configuration (scripts/serving_bench.py
+# --model moe: 2B widths, 8 experts, top-2) on 1024 tokens (seed 0): capacity
+# factor 8 drops nothing, 0.25 is the control
+EP_TOKENS = 1024
+EP_FACTORS = {"no drop": 8.0, "control": 0.25}
+# the all-to-all y against the dense moe_ffn, and the mesh's dense moe_ffn
+# against one device's: the largest difference over the largest |y|. Both
+# sum the same f32 products in another order (or the card's norms reduce
+# other row counts in another order) before one rounding to bf16, which
+# moves an element by at most one bf16 unit (2^-8 of itself); the bar is two
+# such units of the largest element
+EP_REL_BAR = 2 ** -7
+# aux is the mean of the ranks' losses on their own tokens (lax.pmean), a
+# sum in gloo's order over the ranks: held to the same mean taken here
+EP_AUX_TOL = 1e-6
+
+
+def digest(t) -> str:
+    """A tensor's bytes hashed (bitwise comparisons across processes)."""
+    import hashlib
+
+    import torch
+
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(b.tobytes()).hexdigest()[:20]
+
+
+def _moe_layer0(dev):
+    """Layer 0's experts, router and ffn_sub of the repo's MoE
+    configuration (init_params, seed 0) and the tokens (seed 0)."""
+    import dataclasses
+
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.models.moe import EXPERT_KEYS
+
+    cfg = dataclasses.replace(BitNetConfig.bitnet_2b(), num_layers=8, num_experts=8,
+                              num_experts_per_tok=2)
+    lay = init_params(cfg, seed=0, device=dev)["layers"]
+    experts = {k: lay[f"moe_{k}"][0].clone() for k in EXPERT_KEYS}
+    sub, router = lay["ffn_sub"][0].clone(), lay["router"][0].clone()
+    del lay
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn((EP_TOKENS, cfg.hidden_size), generator=g, device=dev).to(cfg.dtype)
+    return cfg, experts, sub, router, x
+
+
+def pp_greedy(cfg, sp, mesh, case, keep_logits=False, stale_stage=None):
+    """``make_pp_forward`` on this rank: the case's prompt, then its greedy
+    steps. Per forward: the logits' digest (and the logits, f32 on the host,
+    with ``keep_logits``), the argmax tokens, K7's launches and tiled
+    launches and the stage axis's calls, each counted from 0 at the
+    forward's start; then this stage's cache digests. ``stale_stage``: the
+    planted control, that stage runs its layers on what it received a tick
+    earlier."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.parallel.pipeline import make_pp_forward
+
+    ax, dev = mesh.axis["stage"], mesh.device
+    B, n = case["batch"], case["prompt"]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (B, n))).to(dev)
+    lcfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // ax.size)
+    cache = KVCache.zeros(lcfg, B, case["T"], device=dev)
+    f = make_pp_forward(cfg, mesh, num_microbatches=case["microbatches"])
+    prev = []
+    if stale_stage == ax.index:
+        sound = ax.ppermute
+
+        def stale(x, perm):
+            got = sound(x, perm)
+            out = prev[-1] if prev and prev[-1].shape == got.shape else torch.zeros_like(got)
+            prev.append(got)
+            return out
+
+        ax.ppermute = stale
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    out = dict(tokens=[], logits=[], digests=[], launches=[], calls=[])
+    k7 = tc.ternary_matmul_stacked
+    try:
+        for i in range(case["steps"] + 1):
+            prev.clear()
+            k7.launches = k7.tiled_launches = 0
+            ax.calls.clear()
+            logits, cache = f(sp, toks, cache, start)
+            out["launches"].append((k7.launches, k7.tiled_launches))
+            out["calls"].append(dict(ax.calls))
+            out["digests"].append(digest(logits))
+            if keep_logits:
+                out["logits"].append(logits.float().cpu())
+            nxt = logits.argmax(-1)
+            out["tokens"].append(nxt.tolist())
+            toks = nxt[:, None]
+            start = torch.full((B,), n + i, dtype=torch.int32, device=dev)
+    finally:
+        if stale_stage == ax.index:
+            ax.ppermute = sound
+    out["cache"] = (digest(cache.k), digest(cache.v))
+    return out, cache
+
+
+def forward_greedy(cfg, params, case, dev, rows):
+    """``models.bitnet.forward`` with the same K7 linear
+    (``make_linear()``) on the whole params: the case's prompt and greedy
+    steps, run on each block of ``rows`` batch rows on its own (a greedy
+    row depends on its own tokens alone); per forward the argmax tokens and
+    the f32 logits on the host, the blocks laid back in batch order."""
+    import numpy as np
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, forward
+    from wrinklefree_tpu_torch.ops.ternary_cuda import make_linear
+
+    B, n = case["batch"], case["prompt"]
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (B, n)))
+    lf = make_linear()
+    blocks = []
+    for r0 in range(0, B, rows):
+        toks = prompt[r0:r0 + rows].to(dev)
+        cache = KVCache.zeros(cfg, rows, case["T"], device=dev)
+        start = torch.zeros(rows, dtype=torch.int32, device=dev)
+        run = dict(tokens=[], logits=[])
+        for i in range(case["steps"] + 1):
+            logits, cache = forward(params, cfg, toks, cache, start, linear_fn=lf,
+                                    logits_all=False)
+            run["logits"].append(logits.float().cpu())
+            nxt = logits.argmax(-1)
+            run["tokens"].append(nxt.tolist())
+            toks = nxt[:, None]
+            start = torch.full((rows,), n + i, dtype=torch.int32, device=dev)
+        blocks.append(run)
+    steps = range(case["steps"] + 1)
+    return dict(tokens=[sum((b["tokens"][i] for b in blocks), []) for i in steps],
+                logits=[torch.cat([b["logits"][i] for b in blocks]) for i in steps])
+
+
+def pp_compare(sampling, want, got):
+    """A pipeline run's greedy rows against ``forward``'s, as ``tp_compare``
+    holds requests: per batch row the largest logit distance over the steps
+    both computed on the same prefix (up to and with the first step where
+    their tokens part), and at that step ``near_tie``'s verdict. Returns
+    (parts, the largest distance)."""
+    from wrinklefree_tpu_torch.engine import SamplingParams
+
+    greedy = SamplingParams(temperature=0.0)
+    parts, dists = [], []
+    steps = len(want["tokens"])
+    for b in range(len(want["tokens"][0])):
+        ta = [want["tokens"][i][b] for i in range(steps)]
+        tb = [got["tokens"][i][b] for i in range(steps)]
+        j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+        upto = steps if j is None else j + 1
+        d = max(float((got["logits"][i][b] - want["logits"][i][b]).abs().max())
+                for i in range(upto))
+        dists.append(d)
+        if j is not None:
+            why = near_tie(sampling, want["logits"][j][b], got["logits"][j][b], greedy, j,
+                           ta[j], tb[j], d)
+            parts.append(dict(row=b, step=j, dist=d, why=why))
+    return parts, max(dists)
+
+
+def ep_run(mesh, cfg, experts, sub, router, x, factor, dense=False):
+    """This rank's expert-parallel MoE FFN on ``x`` (whole, the same on
+    every rank): ``make_ep_moe`` at capacity ``factor``, or with ``dense``
+    the dense-dispatch ``moe_ffn(ep_axis=)`` on all tokens with this rank's
+    block of experts. Returns y's digest, y (f32 on the host), aux, K7's
+    launches and tiled launches and the axis's calls, counted from 0."""
+    from wrinklefree_tpu_torch.models.moe import moe_ffn
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.ternary_cuda import make_linear
+    from wrinklefree_tpu_torch.parallel.expert import make_ep_moe
+
+    ax = mesh.axis["expert"]
+    k7 = tc.ternary_matmul_stacked
+    kw = dict(top_k=cfg.num_experts_per_tok, eps=cfg.rms_norm_eps)
+    if dense:
+        e = experts["gate_qw"].shape[0] // ax.size
+        mine = {k: v[ax.index * e:(ax.index + 1) * e] for k, v in experts.items()}
+        fn = lambda: moe_ffn(x, mine, sub, router, lf=make_linear(),  # noqa: E731
+                             ep_axis=ax if ax.size > 1 else None, **kw)
+    else:
+        fn = make_ep_moe(mesh, experts, sub, router, capacity_factor=factor, **kw)
+        fn = (lambda apply: lambda: apply(x))(fn)
+    k7.launches = k7.tiled_launches = 0
+    ax.calls.clear()
+    y, aux = fn()
+    return dict(digest=digest(y), y=y.float().cpu(), aux=float(aux),
+                launches=(k7.launches, k7.tiled_launches), calls=dict(ax.calls))
+
+
+def pp_ep_job(world, dev):
+    """One rank's pp_ep part in a tp world of ``world`` ranks (every rank
+    runs it): the pipeline cases of this world on a ``stage`` axis over all
+    ranks (and, in the world of 2, the planted control), then layer 0's
+    experts on an ``expert`` axis: ``make_ep_moe`` at each capacity factor
+    and the dense ``moe_ffn(ep_axis=)``. Rank 0 keeps the logits and y for
+    the comparisons. Returns the rank's report."""
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.parallel.pipeline import shard_params_pp
+    from wrinklefree_tpu_torch.parallel.sharding import make_named_mesh
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"  # the CPU rehearses the job
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_named_mesh({"stage": world}, device=dev, backend="gloo")
+    rank0 = mesh.axis["stage"].index == 0
+    report = dict(rank=mesh.axis["stage"].index, pp={}, ep={})
+    sp = model = None
+    for name, case in PP_CASES.items():
+        if case["world"] != world:
+            continue
+        cfg = getattr(BitNetConfig, case["model"])()
+        if case["model"] != model:
+            sp, model = None, case["model"]
+            sp = shard_params_pp(init_params(cfg, seed=0, device=dev), mesh)
+        t1 = time.perf_counter()
+        run, _ = pp_greedy(cfg, sp, mesh, case, keep_logits=rank0)
+        run["seconds"] = time.perf_counter() - t1
+        report["pp"][name] = run
+        if name == PP_CONTROL:
+            report["pp_control"], _ = pp_greedy(cfg, sp, mesh, case, keep_logits=rank0,
+                                                stale_stage=1)
+    del sp
+    if cuda:
+        torch.cuda.empty_cache()
+    emesh = make_named_mesh({"expert": world}, device=dev, backend="gloo")
+    mcfg, experts, sub, router, x = _moe_layer0(dev)
+    for tag, factor in EP_FACTORS.items():
+        report["ep"][tag] = ep_run(emesh, mcfg, experts, sub, router, x, factor)
+    report["ep"]["dense"] = ep_run(emesh, mcfg, experts, sub, router, x, None, dense=True)
+    if not rank0:  # rank 0 alone returns the logits and y
+        for r in list(report["pp"].values()) + [report.get("pp_control", {})]:
+            r["logits"] = []
+        for r in report["ep"].values():
+            r["y"] = None
+    report["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def phase_pp_ep(dev, smi, worlds):
+    """17. pp_ep — pipeline and expert parallelism on this card. The ranks'
+    parts ran at the end of the tp phase's 2B worlds of 2 and 4 ranks
+    (``pp_ep_job``: gloo groups carrying CUDA tensors, every rank on
+    ``cuda:0``); this process, on its NCCL mesh of one, runs what they are
+    held to and checks:
+
+    (a) the pipeline (``make_pp_forward``, K7 linears) on 2B at 2 stages with
+        2 and 4 microbatches (B 8, a 256-token prompt, T 512, 8 greedy steps)
+        and on Llama-3-8B ternary at full depth (32 layers, 8 a stage) at 4
+        stages, 2 microbatches (B 4, 128 tokens, T 256, 4 steps): every
+        stage's logits at every forward and its cache shard bitwise equal to
+        the same ``make_pp_forward`` at one stage here; per stage and forward
+        exactly 7 x L/S x M K7 launches (all tiled in the prefill, none in
+        the steps), S+M-1 shifts and one broadcast; the greedy rows against
+        ``forward`` with the same K7 linear on the microbatches' rows under
+        ``tp_token_gate`` (near-ties only, the teacher-forced distance under
+        ``TP_DIST_CAP``; ``forward`` on the whole batch is printed beside it);
+        the planted control (stage 1 a tick stale) must fail both gates;
+    (b) layer 0's experts of the MoE configuration on 1024 tokens at ep 2 and
+        4: ``make_ep_moe``'s y bitwise equal to ep 1's here without drops,
+        aux within ``EP_AUX_TOL`` of the mean of the ranks' own losses, y
+        within ``EP_REL_BAR`` of the dense ``moe_ffn``; the tight capacity
+        (the control) finite and outside that bar; 2 all-to-alls and 3 x E/ep
+        K7 launches per rank; the dense ``moe_ffn(ep_axis=)`` within the bar
+        of one device's, its psum counted.
+    Returns K7's (launches, tiled launches) over the ranks' sound runs."""
+    import torch
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.models.moe import load_balancing_loss, router_logits, top_k_route
+    from wrinklefree_tpu_torch.ops import sampling
+    from wrinklefree_tpu_torch.parallel.expert import capacity_for
+    from wrinklefree_tpu_torch.parallel.pipeline import shard_params_pp
+    from wrinklefree_tpu_torch.parallel.sharding import make_named_mesh
+
+    t_phase = time.perf_counter()
+    ranks = {2: [r["pp_ep"] for r in worlds["2B tp2"]], 4: [r["pp_ep"] for r in worlds["2B tp4"]]}
+    for world, rs in ranks.items():
+        if [r["rank"] for r in rs] != list(range(world)):
+            fail(f"pp_ep: the world of {world} reported stages {[r['rank'] for r in rs]}")
+    for row in worlds["2B tp2"][0].get("pp_ep_k7", ()):
+        print("pp_ep: K7 " + json.dumps(row))
+    total = [0, 0]
+    mesh = make_named_mesh({"stage": 1}, device=dev)
+    model = params = sp = None
+    whole = {}
+    for name, case in PP_CASES.items():
+        world, M = case["world"], case["microbatches"]
+        cfg = getattr(BitNetConfig, case["model"])()
+        if case["model"] != model:
+            params = sp = None
+            torch.cuda.empty_cache()
+            params = init_params(cfg, seed=0, device=dev)
+            sp, model = shard_params_pp(params, mesh), case["model"]
+        one, cache = pp_greedy(cfg, sp, mesh, case)
+        n = cfg.num_layers // world
+        mb = case["batch"] // M
+        for r in ranks[world]:
+            run, s = r["pp"][name], r["rank"]
+            if run["digests"] != one["digests"]:
+                bad = [i for i, (a, b) in enumerate(zip(run["digests"], one["digests"])) if a != b]
+                fail(f"pp_ep {name}: stage {s}'s logits differ from one stage's at forwards {bad}")
+            want = (digest(cache.k[s * n:(s + 1) * n]), digest(cache.v[s * n:(s + 1) * n]))
+            if run["cache"] != want:
+                fail(f"pp_ep {name}: stage {s}'s cache shard differs from one stage's layers")
+            for i, (lt, calls) in enumerate(zip(run["launches"], run["calls"])):
+                k7 = 7 * n * M
+                rows = mb * (case["prompt"] if i == 0 else 1)
+                if tuple(lt) != (k7, k7 if rows > 8 else 0):
+                    fail(f"pp_ep {name}: stage {s}, forward {i}: K7 (launches, tiled) {lt}, "
+                         f"expected ({k7}, {k7 if rows > 8 else 0})")
+                if calls != {"ppermute": world + M - 1, "broadcast": 1}:
+                    fail(f"pp_ep {name}: stage {s}, forward {i}: collectives {calls}")
+                total[0] += lt[0]
+                total[1] += lt[1]
+        # forward on the microbatches' rows: the shapes a stage computes on.
+        # On the whole batch the card's batched attention products and norms
+        # take other reduction orders, which moves the 30-layer logits by
+        # rounding noise (printed, not gated)
+        ref = forward_greedy(cfg, params, case, dev, mb)
+        parts, dist = pp_compare(sampling, ref, ranks[world][0]["pp"][name])
+        why = tp_token_gate(parts, dist)
+        if why:
+            fail(f"pp_ep {name}: against forward: {why}")
+        if whole.get("model") != case["model"]:  # one run serves the model's cases
+            whole = dict(model=case["model"],
+                         run=forward_greedy(cfg, params, case, dev, case["batch"]))
+        whole_parts, whole_dist = pp_compare(sampling, whole["run"], ranks[world][0]["pp"][name])
+        same = sum(all(a[b] == c[b] for a, c in zip(ref["tokens"], ranks[world][0]["pp"][name]
+                                                     ["tokens"])) for b in range(case["batch"]))
+        print(f"pp_ep {name}: {world} stages on one card over gloo, {cfg.num_layers} layers, "
+              f"{M} microbatches; logits at {len(one['digests'])} forwards and every cache shard "
+              f"bitwise equal to one stage's; K7 {7 * n * M} launches a stage a forward; "
+              f"{world + M - 1} shifts + 1 broadcast a forward; against forward: {same}/"
+              f"{case['batch']} rows equal over {case['steps'] + 1} tokens, parts "
+              f"{json.dumps(parts)}, largest teacher-forced logit distance {dist} (cap "
+              f"{TP_DIST_CAP}; forward on the whole batch of {case['batch']} rows: "
+              f"{whole_dist}, parts {json.dumps(whole_parts)}, the 30-layer rounding noise "
+              f"{TP_NOISE}); wall a stage {[r['pp'][name]['seconds'] for r in ranks[world]]} "
+              f"s; {smi}")
+        if name == PP_CONTROL:
+            ctl = [r["pp_control"] for r in ranks[world]]
+            bitwise = all(c["digests"] == one["digests"] for c in ctl)
+            cparts, cdist = pp_compare(sampling, ref, ctl[0])
+            cwhy = tp_token_gate(cparts, cdist)
+            print(f"pp_ep {name}: control (stage 1 a tick stale): bitwise equal to one stage "
+                  f"{bitwise}; token gate: {cwhy[:300]!r}")
+            if bitwise or not cwhy:
+                fail(f"pp_ep {name}: the control passed a gate (bitwise {bitwise}, token gate "
+                     f"{cwhy!r})")
+        del one, cache, ref
+    params = sp = whole = None
+    torch.cuda.empty_cache()
+
+    emesh = make_named_mesh({"expert": 1}, device=dev)
+    mcfg, experts, sub, router, x = _moe_layer0(dev)
+    E, k = mcfg.num_experts, mcfg.num_experts_per_tok
+    one = {tag: ep_run(emesh, mcfg, experts, sub, router, x, f) for tag, f in EP_FACTORS.items()}
+    dense = ep_run(emesh, mcfg, experts, sub, router, x, None, dense=True)
+    scale = float(dense["y"].abs().max())
+
+    def rel(y):
+        return float((y - dense["y"]).abs().max()) / scale
+
+    if rel(one["no drop"]["y"]) > EP_REL_BAR:
+        fail(f"pp_ep: ep 1's y parts from the dense moe_ffn by {rel(one['no drop']['y'])}")
+    for world, rs in ranks.items():
+        T = EP_TOKENS // world
+        losses = []
+        for i in range(world):
+            xs = x[i * T:(i + 1) * T]
+            logits = router_logits(xs, router)
+            losses.append(load_balancing_loss(torch.softmax(logits, -1),
+                                              top_k_route(logits, k)[1], E))
+        aux_want = float(sum(losses) / world)
+        for r in rs:
+            ep = r["ep"]
+            if ep["no drop"]["digest"] != one["no drop"]["digest"]:
+                fail(f"pp_ep: ep {world}, rank {r['rank']}: y differs from ep 1's")
+            if abs(ep["no drop"]["aux"] - aux_want) > EP_AUX_TOL:
+                fail(f"pp_ep: ep {world}, rank {r['rank']}: aux {ep['no drop']['aux']}, the "
+                     f"ranks' mean {aux_want}")
+            for tag in list(EP_FACTORS) + ["dense"]:
+                # each local expert's three linears on ep x C rows (all the
+                # tokens in the dense form)
+                rows = (EP_TOKENS if tag == "dense" else
+                        world * capacity_for(T, k, E, EP_FACTORS[tag]))
+                want = (3 * E // world, 3 * E // world if rows > 8 else 0)
+                if tuple(ep[tag]["launches"]) != want:
+                    fail(f"pp_ep: ep {world} {tag}: K7 (launches, tiled) {ep[tag]['launches']},"
+                         f" expected {want}")
+                calls = {"psum": 1} if tag == "dense" else {"all_to_all": 2, "psum": 1,
+                                                           "all_gather": 1}
+                if ep[tag]["calls"] != calls:
+                    fail(f"pp_ep: ep {world} {tag}: collectives {ep[tag]['calls']}, expected "
+                         f"{calls}")
+                total[0] += ep[tag]["launches"][0]
+                total[1] += ep[tag]["launches"][1]
+        ep = rs[0]["ep"]
+        d_a2a, d_ctl, d_dense = rel(ep["no drop"]["y"]), rel(ep["control"]["y"]), rel(
+            ep["dense"]["y"])
+        if d_a2a > EP_REL_BAR or d_dense > EP_REL_BAR:
+            fail(f"pp_ep: ep {world}: y parts from the dense moe_ffn by {d_a2a} (all-to-all), "
+                 f"{d_dense} (dense on the mesh), bar {EP_REL_BAR}")
+        if not (bool(torch.isfinite(ep["control"]["y"]).all()) and d_ctl > EP_REL_BAR):
+            fail(f"pp_ep: ep {world}: the control (capacity {EP_FACTORS['control']}) is not "
+                 f"finite or passed the bar: {d_ctl}")
+        print(f"pp_ep: ep {world}, {EP_TOKENS} tokens, {E} experts top-{k}: all-to-all y bitwise "
+              f"equal to ep 1's on {world}/{world} ranks, {d_a2a} of the dense moe_ffn's largest "
+              f"|y| {scale} (bar {EP_REL_BAR}); aux {ep['no drop']['aux']} (ranks' mean "
+              f"{aux_want}; whole batch {one['no drop']['aux']}); control at capacity "
+              f"{EP_FACTORS['control']}: {d_ctl}, finite; collectives a call "
+              f"{ep['no drop']['calls']}"
+              f" (all-to-all), {ep['dense']['calls']} (dense moe_ffn on the mesh: {d_dense}); K7 "
+              f"{3 * E // world} launches a rank a call; peak GB a rank "
+              f"{[r['peak_gb'] for r in rs]}; pp_ep wall a rank {[r['seconds'] for r in rs]} s; "
+              f"{smi}")
+    del experts, x, one, dense
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase + sum(
+        ranks[0]["pp_ep"]["seconds"] + ranks[0].get("pp_ep_k7_s", 0.0)
+        for ranks in (worlds["2B tp2"], worlds["2B tp4"]))
+    print(f"pp_ep: phase wall {wall} s")
+    return total
 
 
 def main() -> int:
@@ -5111,6 +5638,7 @@ def main() -> int:
     per = ([line[3:] for line in report.read_text().splitlines() if line.startswith("== ")]
            if report.exists() else [])
     print(f"build: {secs} s ({cuda_lib.build()}); per source: {', '.join(per)}")
+    print(f"build: phase wall {secs} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
@@ -5123,29 +5651,34 @@ def main() -> int:
     torch.cuda.synchronize()
 
     results = {}
-    phase_kernels(params, cfg, dev, results)
+    with phase_wall("kernels"):
+        phase_kernels(params, cfg, dev, results)
     # the health stamp early: its busy share is read by the profiler, whose
     # sessions late in a long process have come back empty
-    calibrate_launches = phase_calibrate(dev)
-    floors = phase_forward(params, cfg, dev)
-    phase_prefill(params, cfg, dev)
+    with phase_wall("calibrate"):
+        calibrate_launches = phase_calibrate(dev)
+    with phase_wall("forward"):
+        floors = phase_forward(params, cfg, dev)
+        phase_prefill(params, cfg, dev)
     # the batch-1 path reads the int8 head (its exact head scans it); the
     # engine's params keep the bf16 head only
     flash_prefill_launches = fa.flash_prefill.launches  # it has no path: the kernels phase's
-    batch1 = phase_batch1(quantize_lm_head(params, cfg), cfg, dev, floors,
-                          [tc.attn_block_megakernel, tc.mlp_block_megakernel,
-                           tc.ternary_matmul_stacked_fused, tc.layer_block_megakernel,
-                           tc.attn_block_megakernel_static, tc.mlp_block_megakernel_static])
+    with phase_wall("batch1"):
+        batch1 = phase_batch1(quantize_lm_head(params, cfg), cfg, dev, floors,
+                              [tc.attn_block_megakernel, tc.mlp_block_megakernel,
+                               tc.ternary_matmul_stacked_fused, tc.layer_block_megakernel,
+                               tc.attn_block_megakernel_static, tc.mlp_block_megakernel_static])
     serving = [tc.ternary_matmul_stacked_fused, TiledCounter(tc.ternary_matmul_stacked_fused),
                tc.mlp_block_megakernel, kvu.kv_write, fa.flash_paged_prefill]
     # the two windows' device ms per decode step in the reference run
     # (PERF.md section 5); the flash_decode window also K6's
-    launches, toks = phase_engine(params, cfg, dev, serving, step_ref=5.23,
-                                  kernel_refs={"k2_mlp": 0.92})
-    flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
-                                flash_decode=True, step_ref=2.82,
-                                per_step_exact={"flash_paged_decode": cfg.num_layers},
-                                kernel_refs={"k6_decode": 0.17, "k2_mlp": 0.91})
+    with phase_wall("engine"):
+        launches, toks = phase_engine(params, cfg, dev, serving, step_ref=5.23,
+                                      kernel_refs={"k2_mlp": 0.92})
+        flash, ftoks = phase_engine(params, cfg, dev, serving + [fa.flash_paged_decode],
+                                    flash_decode=True, step_ref=2.82,
+                                    per_step_exact={"flash_paged_decode": cfg.num_layers},
+                                    kernel_refs={"k6_decode": 0.17, "k2_mlp": 0.91})
     same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
             for x, y in zip(toks, ftoks)]
     print(f"engine: flash_decode=True beside the default run: leading tokens equal per request "
@@ -5155,9 +5688,13 @@ def main() -> int:
             launches.setdefault(name, batch1[mode][name])
     launches["flash_paged_decode"] = flash["flash_paged_decode"]
     launches["flash_prefill"] = flash_prefill_launches
-    phase_preempt(params, cfg, dev, serving)
-    phase_features(params, cfg, dev, serving, smi.splitlines()[0])
-    engines = phase_heads_kv(params, cfg, dev, serving, toks, results, smi.splitlines()[0])
+    with phase_wall("preempt"):
+        phase_preempt(params, cfg, dev, serving)
+    with phase_wall("features"):
+        phase_features(params, cfg, dev, serving, smi.splitlines()[0])
+    with phase_wall("heads_kv"):
+        engines = phase_heads_kv(params, cfg, dev, serving, toks, results,
+                                 smi.splitlines()[0])
     launches["kv_write/token"] = engines["token"]["kv_write"]
     launches["flash_paged_prefill/contiguous"] = engines["token"]["flash_paged_prefill"]
     for dt in ("fp16", "f32"):
@@ -5166,18 +5703,24 @@ def main() -> int:
         launches[f"flash_paged_prefill/contiguous/{dt}"] = (
             engines[f"token {dt}"]["flash_paged_prefill"])
     torch.cuda.empty_cache()
-    phase_spec(params, cfg, dev, serving, smi.splitlines()[0])
+    with phase_wall("spec"):
+        phase_spec(params, cfg, dev, serving, smi.splitlines()[0])
     del params
     torch.cuda.empty_cache()
-    phase_sparsity(cfg, dev, smi.splitlines()[0])
+    with phase_wall("sparsity"):
+        phase_sparsity(cfg, dev, smi.splitlines()[0])
     torch.cuda.empty_cache()
-    phase_load(cfg, dev, serving, smi.splitlines()[0])
+    with phase_wall("load"):
+        phase_load(cfg, dev, serving, smi.splitlines()[0])
     torch.cuda.empty_cache()
-    phase_server(dev, serving)
+    with phase_wall("server"):
+        phase_server(dev, serving)
     torch.cuda.empty_cache()
-    phase_serving_bench(dev, serving)
+    with phase_wall("serving"):
+        phase_serving_bench(dev, serving)
     torch.cuda.empty_cache()
-    moe = phase_moe(dev)
+    with phase_wall("moe"):
+        moe = phase_moe(dev)
     torch.cuda.empty_cache()
     # in a fresh process: torch.profiler sessions late in this long process
     # have come back empty
@@ -5185,7 +5728,11 @@ def main() -> int:
     for name in ("ternary_matmul_stacked", "ternary_matmul_stacked/tiled"):
         launches[name] = moe[name] + longctx[name]
     torch.cuda.empty_cache()
-    phase_tp(dev, smi.splitlines()[0])
+    worlds = phase_tp(dev, smi.splitlines()[0])
+    torch.cuda.empty_cache()
+    pp_ep = phase_pp_ep(dev, smi.splitlines()[0], worlds)
+    launches["ternary_matmul_stacked"] += pp_ep[0]
+    launches["ternary_matmul_stacked/tiled"] += pp_ep[1]
     launches["measure_stream_us_per_layer"] = calibrate_launches
 
     line = []

@@ -6,8 +6,8 @@ with the ``spawn`` method, form a gloo group whose rendezvous is a
 workers never collide; the ranks talk over the loopback interface), run one
 target of this module over all of the module's cases and write their results
 to the directory, which the parent reads back. This module imports neither
-jax nor any test module: each rank imports only the port and
-``tests/_torch_cpu.py``.
+jax nor any test module: each rank imports only the port (and sets one torch
+thread, as ``tests/_torch_cpu.py`` does).
 """
 
 from __future__ import annotations
@@ -22,8 +22,13 @@ from pathlib import Path
 
 def _rank_main(rank, world, store_path, out_dir, target, payload):
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    import tests._torch_cpu  # noqa: F401  (one torch thread per rank)
+    import torch
     import torch.distributed as dist
+
+    # one torch thread per rank, as tests/_torch_cpu.py sets in the test
+    # workers (not imported by name here: on the card's machine another
+    # installed package is called ``tests``)
+    torch.set_num_threads(1)
 
     result = None
     try:
@@ -340,9 +345,12 @@ def _model(models, name, device="cpu"):
 
 
 def _tensor_tree_np(tree):
+    """Nested dict of tensors -> numpy on the CPU (bf16 as its f32 image)."""
+    import torch
+
     if isinstance(tree, dict):
         return {k: _tensor_tree_np(v) for k, v in tree.items()}
-    return tree.cpu().numpy()
+    return (tree.float() if tree.dtype == torch.bfloat16 else tree).cpu().numpy()
 
 
 def sharding_cases(payload):
@@ -604,4 +612,199 @@ def mesh_cases(payload):
     dist.all_reduce(x)
     out["init_sum"] = float(x[0])
     out["again"] = init_multihost()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline and expert parallelism (tests/test_torch_pipeline.py,
+# test_torch_expert_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def pp_case(params, cfg, mesh, case):
+    """One pipeline case on this rank (``case``: stages, microbatches,
+    tokens [B, S] and T; with ``decode``, one greedy step after the
+    prefill): a fresh stage cache, the prefill from position 0, then the
+    step at position S fed the prefill's argmax. Returns the logits of each
+    call and this stage's cache (f32 numpy) and the stage axis's calls."""
+    import dataclasses
+
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache
+    from wrinklefree_tpu_torch.parallel.pipeline import make_pp_forward
+
+    ax = mesh.axis["stage"]
+    toks = torch.from_numpy(case["tokens"])
+    B, S = toks.shape
+    lcfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // ax.size)
+    cache = KVCache.zeros(lcfg, B, case["T"], device=mesh.device)
+    ax.calls.clear()
+    pp = make_pp_forward(cfg, mesh, num_microbatches=case["microbatches"])
+    logits, cache = pp(params, toks, cache, torch.zeros(B, dtype=torch.int32))
+    out = [logits]
+    if case.get("decode"):
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        logits2, cache = pp(params, nxt, cache, torch.full((B,), S, dtype=torch.int32))
+        out.append(logits2)
+    return dict(logits=[x.float().numpy() for x in out], k=cache.k.float().numpy(),
+                v=cache.v.float().numpy(), calls=dict(ax.calls))
+
+
+def _axis_input(index, P):
+    """Axis index ``index``'s input to ``axis_collectives``: [4P, 3, 5]
+    bf16 from seed ``index``."""
+    import torch
+
+    g = torch.Generator().manual_seed(index)
+    return torch.randn((4 * P, 3, 5), generator=g).to(torch.bfloat16)
+
+
+def axis_collectives(device):
+    """``Axis.ppermute`` (the ring shift, and a pair that leaves every rank
+    but 1 without a source), ``Axis.all_to_all`` and ``Axis.broadcast`` on
+    ``_axis_input`` placed on ``device``, over an axis of the whole world on
+    gloo. Returns {op: (the result's device type, its values f32 on the
+    host)} and the axis's calls."""
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.parallel.sharding import make_named_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    P = dist.get_world_size()
+    ax = make_named_mesh({"x": P}, device=dev, backend="gloo").axis["x"]
+    x = _axis_input(ax.index, P).to(dev)
+    out = {"ring": ax.ppermute(x, [(i, (i + 1) % P) for i in range(P)]),
+           "pair": ax.ppermute(x, [(0, 1)]),
+           "all_to_all": ax.all_to_all(x),
+           "broadcast": ax.broadcast(x.clone(), P - 1)}
+    return ({k: (v.device.type, v.float().cpu().numpy()) for k, v in out.items()},
+            dict(ax.calls))
+
+
+def axis_collectives_expected(index, P):
+    """What ``axis_collectives`` must return on axis index ``index`` of P,
+    built from the inputs on the host (numpy)."""
+    import numpy as np
+
+    xs = [_axis_input(i, P).float().numpy() for i in range(P)]
+    blocks = [np.split(x, P) for x in xs]
+    return {"ring": xs[(index - 1) % P],
+            "pair": xs[0] if index == 1 else np.zeros_like(xs[0]),
+            "all_to_all": np.concatenate([blocks[j][index] for j in range(P)]),
+            "broadcast": xs[P - 1]}
+
+
+def axis_collectives_case(payload):
+    """``axis_collectives`` on ``payload["device"]`` (the card's test)."""
+    return axis_collectives(payload["device"])
+
+
+def pipeline_cases(payload):
+    """``payload``: dict(params numpy, cfg kwargs, cases {name: pp_case's
+    case}). On a world of P ranks as a stage axis: this rank's stage index
+    and ``shard_params_pp`` leaves, ``pp_case`` for the cases of P stages,
+    and the two ``ValueError``s (P + 1 layers; a batch of 3 rows in 2
+    microbatches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.config import BitNetConfig
+    from wrinklefree_tpu_torch.models.bitnet import KVCache
+    from wrinklefree_tpu_torch.parallel.pipeline import make_pp_forward, shard_params_pp
+    from wrinklefree_tpu_torch.parallel.sharding import make_named_mesh
+    from wrinklefree_tpu_torch.weights import params_from_numpy
+
+    P = dist.get_world_size()
+    mesh = make_named_mesh({"stage": P}, device="cpu")
+    cfg = BitNetConfig(**payload["cfg"])
+    sp = shard_params_pp(params_from_numpy(payload["params"], cfg, device="cpu"), mesh)
+    out = dict(stage=mesh.axis["stage"].index, shards=_tensor_tree_np(sp), cases={},
+               errors={}, collectives=axis_collectives("cpu"))
+    for name, case in payload["cases"].items():
+        if case["stages"] == P:
+            out["cases"][name] = pp_case(sp, cfg, mesh, case)
+    bad = dataclasses.replace(cfg, num_layers=P + 1)
+
+    def odd_batch():
+        toks = torch.zeros((3, 4), dtype=torch.int32)
+        cache = KVCache.zeros(cfg, 3, 8, device="cpu")
+        make_pp_forward(cfg, mesh, num_microbatches=2)(sp, toks, cache,
+                                                       torch.zeros(3, dtype=torch.int32))
+
+    for key, fn in {"layers": lambda: make_pp_forward(bad, mesh),
+                    "batch": odd_batch}.items():
+        try:
+            fn()
+            out["errors"][key] = None
+        except ValueError as e:
+            out["errors"][key] = str(e)
+    np.testing.assert_equal(out["stage"], dist.get_rank())
+    return out
+
+
+def ep_case(mesh, case):
+    """One expert-parallel case on this rank (``case``: x [T, H], experts,
+    router, ffn_sub numpy, top_k, capacity_factor, eps; with ``route``,
+    ``ep_moe_ffn`` on this rank's rows under the identity route to expert
+    0; else ``make_ep_moe``). Returns (y, aux, the axis's calls): y the
+    whole [T, H] (``make_ep_moe``'s gather, or the rows gathered here) in
+    f32 numpy."""
+    import torch
+
+    from wrinklefree_tpu_torch.models.moe import identity_route
+    from wrinklefree_tpu_torch.parallel.expert import ep_moe_ffn, make_ep_moe
+
+    ax = mesh.axis["expert"]
+    t = {k: torch.from_numpy(v) for k, v in case["experts"].items()}
+    x = torch.from_numpy(case["x"]).to(torch.bfloat16)
+    sub = torch.from_numpy(case["ffn_sub"]).to(torch.bfloat16)
+    router = torch.from_numpy(case["router"])
+    kw = dict(top_k=case["top_k"], capacity_factor=case["capacity_factor"], eps=case["eps"])
+    ax.calls.clear()
+    if case.get("route"):
+        n = x.shape[0] // ax.size
+        e_local = t["gate_qw"].shape[0] // ax.size
+        mine = {k: v[ax.index * e_local:(ax.index + 1) * e_local] for k, v in t.items()}
+        y, aux = ep_moe_ffn(x[ax.index * n:(ax.index + 1) * n], mine, sub, router, ep_axis=ax,
+                            route_override=identity_route(n, case["top_k"], expert=0), **kw)
+        y = ax.all_gather(y, dim=0)
+    else:
+        y, aux = make_ep_moe(mesh, t, sub, router, **kw)(x)
+    return y.float().numpy(), float(aux), dict(ax.calls)
+
+
+def expert_cases(payload):
+    """``payload``: {name: ep_case's case}. On a world of P ranks as an
+    expert axis: ``ep_case`` for every case, and the two ``ValueError``s of
+    ``make_ep_moe`` (experts, then tokens, that P does not divide; for P > 1)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.parallel.expert import make_ep_moe
+    from wrinklefree_tpu_torch.parallel.sharding import make_named_mesh
+
+    P = dist.get_world_size()
+    mesh = make_named_mesh({"expert": P}, device="cpu")
+    out = {"cases": {name: ep_case(mesh, c) for name, c in payload.items()}, "errors": {}}
+    c = next(iter(payload.values()))
+    t = {k: torch.from_numpy(v) for k, v in c["experts"].items()}
+    sub, router = torch.from_numpy(c["ffn_sub"]), torch.from_numpy(c["router"])
+    x = torch.from_numpy(c["x"]).to(torch.bfloat16)
+    odd = {k: v[:P + 1] for k, v in t.items()}
+    for key, fn in {"experts": lambda: make_ep_moe(mesh, odd, sub, router[:, :P + 1]),
+                    "tokens": lambda: make_ep_moe(mesh, t, sub, router)(x[:P + 1])}.items():
+        try:
+            fn()
+            out["errors"][key] = None
+        except ValueError as e:
+            out["errors"][key] = str(e)
+    np.testing.assert_equal(mesh.axis["expert"].index, dist.get_rank())
     return out

@@ -1703,3 +1703,25 @@ def test_long_route_beside_the_scheduler_on_card():
             server.async_engine.shutdown()
     finally:
         torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_axis_collectives_gloo_on_card():
+    """``Axis.ppermute`` and ``Axis.all_to_all`` (and ``Axis.broadcast``) on
+    CUDA tensors over gloo, two ranks on one card (the pipeline's and the
+    expert all-to-all's collectives in ``chip_smoke.py``'s pp_ep phase):
+    each result on the card and bit for bit what the CPU gives
+    (``tests/test_torch_pipeline.py::test_axis_collectives`` holds the CPU
+    world to the same values). gloo's point-to-point transfers cannot read
+    CUDA memory, so the axis stages them through the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    # by its own name, as _subnormal_cases above
+    from _torch_dist import axis_collectives_expected, run_worlds
+
+    ranks = run_worlds((2,), "axis_collectives_case", dict(device="cuda:0"), timeout=300)[2]
+    for index, (got, calls) in enumerate(ranks):
+        want = axis_collectives_expected(index, 2)
+        for k, (dev, v) in got.items():
+            assert dev == "cuda" and (v == want[k]).all(), k
+        assert calls == {"ppermute": 2, "all_to_all": 1, "broadcast": 1}

@@ -63,24 +63,41 @@ def group_size_rank(group) -> tuple:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
+def exchange(tensors, group, dst, src):
+    """Send each tensor to rank ``dst`` of ``group`` and return as many
+    received from rank ``src`` (ranks within the group; one batch of
+    isend/irecv, a tag per tensor). ``dst`` None sends nothing, ``src``
+    None receives nothing and returns zeros (``lax.ppermute``'s value on a
+    rank that no pair sends to). The ring shift and ``Axis.ppermute`` both
+    run on it."""
+    g = group if group is not None else dist.group.WORLD
+    out = [torch.empty_like(t) if src is not None else torch.zeros_like(t) for t in tensors]
+    if dist.get_backend(g) == "gloo" and any(t.is_cuda for t in tensors):
+        # gloo's send and recv write and read the tensor's memory from the
+        # host (a CUDA pointer fails there: "writev ... Bad address"), so CUDA
+        # tensors go through host copies, as gloo's all_reduce copies them
+        got = exchange([t.cpu() for t in tensors], group, dst, src)
+        return [o.copy_(h) for o, h in zip(out, got)]
+    ops = []
+    for tag, (t, o) in enumerate(zip(tensors, out)):
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(), dist.get_global_rank(g, dst), g,
+                                  tag))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, o, dist.get_global_rank(g, src), g, tag))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
 def ring_shift(tensors, group):
     """Send each tensor to rank ``(r+1) % P`` of ``group`` and return the
-    ones received from ``(r-1) % P`` (one batch of isend/irecv, a tag per
-    tensor). The identity on a group of one."""
+    ones received from ``(r-1) % P``. The identity on a group of one."""
     P, r = group_size_rank(group)
     if P == 1:
         return list(tensors)
-    g = group if group is not None else dist.group.WORLD
-    dst = dist.get_global_rank(g, (r + 1) % P)
-    src = dist.get_global_rank(g, (r - 1) % P)
-    out = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for tag, (t, o) in enumerate(zip(tensors, out)):
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, g, tag))
-        ops.append(dist.P2POp(dist.irecv, o, src, g, tag))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return out
+    return exchange(tensors, group, (r + 1) % P, (r - 1) % P)
 
 
 def ring_attention(

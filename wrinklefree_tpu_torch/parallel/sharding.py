@@ -16,9 +16,16 @@ its own shard (SPMD), and the mesh is a set of process groups:
   mapped one to one onto the axis's group (``psum`` -> ``all_reduce(SUM)``,
   ``pmax``/``pmin`` -> ``all_reduce(MAX/MIN)``, a tiled ``all_gather`` ->
   ``all_gather_into_tensor`` with the shards laid along the axis in rank
-  order). The tensors stay on the rank's device: NCCL moves them between
+  order, ``ppermute`` -> one batch of isend/irecv, ``all_to_all`` ->
+  ``all_to_all_single``; ``broadcast``, the bits of the pipeline's psum of
+  zeros). The tensors stay on the rank's device: NCCL moves them between
   cards; gloo, which a caller may choose for CUDA tensors (two ranks on one
-  card), copies them through the host by itself.
+  card), copies them through the host by itself for its collectives, and
+  the axis copies them for its point-to-point transfers, which cannot read
+  CUDA memory.
+- ``make_named_mesh({name: size, ...})`` lays the world out as a mesh with
+  named axes (the pipeline's ``stage``, expert parallelism's ``expert``),
+  each an ``Axis``.
 - TP layout (Megatron-style, as the reference's): q/k/v/gate/up
   column-parallel (the packed [K/4, N] sharded on N), o/down row-parallel
   (sharded on K/4, partial outputs summed in f32), the embedding and the
@@ -48,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import BitNetConfig
+from ..ops.ring_attention import exchange
 from ..ops.ternary import pack_ternary_np, unpack_ternary_np
 
 DATA, MODEL = "data", "model"
@@ -128,6 +136,46 @@ class Axis:
         dist.all_gather_into_tensor(out, xm, group=self.group)
         return out.movedim(0, dim)
 
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """``lax.ppermute``: ``perm`` holds (source, destination) pairs of
+        axis indexes; this rank sends ``x`` to its destination and returns
+        what its source sent (zeros where no pair sends to it), a new
+        tensor. The pipeline's ring shift is ``[(i, (i + 1) % size)]``."""
+        self.calls["ppermute"] += 1
+        dst = next((d for s_, d in perm if s_ == self.index), None)
+        src = next((s_ for s_, d in perm if d == self.index), None)
+        if self.size == 1:  # no process to talk to (NCCL would send to itself)
+            return x.clone() if src == 0 else torch.zeros_like(x)
+        (out,) = exchange([x], self.group, dst, src)
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_to_all(x, split_axis=0, concat_axis=0)``: ``x``'s
+        leading axis cut into ``size`` blocks, block j sent to axis index j;
+        the blocks received laid along axis 0 in source order (a new
+        tensor)."""
+        self.calls["all_to_all"] += 1
+        if self.size == 1:
+            return x.clone()
+        if x.shape[0] % self.size:
+            raise ValueError(f"all_to_all: leading axis {x.shape[0]} not divisible by "
+                             f"{self.size}")
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Axis index ``src``'s ``x`` on every rank, in place on ``x`` (the
+        bits of a ``psum`` that adds zeros from every other rank)."""
+        self.calls["broadcast"] += 1
+        if self.size == 1:
+            return x
+        if not x.is_contiguous():
+            x = x.contiguous()
+        dist.broadcast(x, src=self.ranks[src], group=self.group)
+        return x
+
 
 @dataclasses.dataclass
 class Mesh:
@@ -164,26 +212,11 @@ def _rank_device(device, rank: int) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def make_mesh(n_data: int = 1, n_model: int = 1, *, device=None,
-              backend: Optional[str] = None) -> Mesh:
-    """This rank's ``Mesh`` over the default process group's
-    ``n_data * n_model`` ranks, laid out ``[n_data, n_model]`` (rank r at
-    data ``r // n_model``, model ``r % n_model``). Every rank of the world
-    calls it, with the same arguments.
-
-    ``device`` defaults to ``cuda:(LOCAL_RANK % device count)`` (the CPU
-    without CUDA), ``backend`` to NCCL on CUDA and gloo on the CPU. A caller
-    may ask for gloo on CUDA tensors (several ranks on one card: gloo copies
-    them through the host); NCCL refuses two ranks on one GPU, so asking for
-    it there raises ``ValueError``. It never switches backend by itself.
-
-    Without an initialized default group a mesh of one forms a group of one
-    (its rendezvous a ``FileStore`` under a fresh temporary directory); a
-    larger mesh raises (start the ranks under ``torchrun`` and call
-    ``parallel.multihost.init_multihost()`` first)."""
-    n = n_data * n_model
+def _world(n: int, device, backend: Optional[str], what: str):
+    """The default group's (rank, device, backend) for a mesh of ``n`` ranks,
+    as ``make_mesh`` documents, and a gloo group of the whole world."""
     if n < 1:
-        raise ValueError(f"mesh ({n_data}, {n_model}) has no ranks")
+        raise ValueError(f"mesh {what} has no ranks")
     if not dist.is_initialized():
         if n != 1:
             raise ValueError(f"torch.distributed is not initialized: a mesh of {n} ranks "
@@ -193,8 +226,7 @@ def make_mesh(n_data: int = 1, n_model: int = 1, *, device=None,
         dist.init_process_group(be, store=dist.FileStore(path, 1), rank=0, world_size=1)
     world, rank = dist.get_world_size(), dist.get_rank()
     if world != n:
-        raise ValueError(f"mesh ({n_data}, {n_model}) needs {n} ranks, the default process "
-                         f"group has {world}")
+        raise ValueError(f"mesh {what} needs {n} ranks, the default process group has {world}")
     dev = _rank_device(device, rank)
     be = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if be == "nccl" and dev.type != "cuda":
@@ -214,6 +246,28 @@ def make_mesh(n_data: int = 1, n_model: int = 1, *, device=None,
                     "one GPU; give each rank its own card, or pass backend='gloo' (which copies "
                     "CUDA tensors through the host)")
             seen[p] = r
+    return rank, dev, be
+
+
+def make_mesh(n_data: int = 1, n_model: int = 1, *, device=None,
+              backend: Optional[str] = None) -> Mesh:
+    """This rank's ``Mesh`` over the default process group's
+    ``n_data * n_model`` ranks, laid out ``[n_data, n_model]`` (rank r at
+    data ``r // n_model``, model ``r % n_model``). Every rank of the world
+    calls it, with the same arguments.
+
+    ``device`` defaults to ``cuda:(LOCAL_RANK % device count)`` (the CPU
+    without CUDA), ``backend`` to NCCL on CUDA and gloo on the CPU. A caller
+    may ask for gloo on CUDA tensors (several ranks on one card: gloo copies
+    them through the host); NCCL refuses two ranks on one GPU, so asking for
+    it there raises ``ValueError``. It never switches backend by itself.
+
+    Without an initialized default group a mesh of one forms a group of one
+    (its rendezvous a ``FileStore`` under a fresh temporary directory); a
+    larger mesh raises (start the ranks under ``torchrun`` and call
+    ``parallel.multihost.init_multihost()`` first)."""
+    n = n_data * n_model
+    rank, dev, be = _world(n, device, backend, f"({n_data}, {n_model})")
     d, m = divmod(rank, n_model)
     model_ranks = [[dd * n_model + mm for mm in range(n_model)] for dd in range(n_data)]
     data_ranks = [[dd * n_model + mm for dd in range(n_data)] for mm in range(n_model)]
@@ -225,6 +279,38 @@ def make_mesh(n_data: int = 1, n_model: int = 1, *, device=None,
         model=Axis(MODEL, models[d], m, n_model, model_ranks[d]),
         data=Axis(DATA, datas[m], d, n_data, data_ranks[m]),
         device=dev, backend=be, control=controls[d], leader=model_ranks[d][0])
+
+
+@dataclasses.dataclass
+class NamedMesh:
+    """This rank's view of a mesh with named axes (the reference's
+    ``Mesh(devices, names)``, such as its pipeline's 1-D ``('stage',)`` and
+    its expert parallelism's ``('expert',)``): ``shape`` maps each name to
+    its size, ``axis`` each name to this rank's ``Axis`` on it."""
+
+    shape: dict
+    axis: dict
+    device: torch.device
+    backend: str
+
+
+def make_named_mesh(axes: dict, *, device=None, backend: Optional[str] = None) -> NamedMesh:
+    """This rank's ``NamedMesh`` over the default group's ranks, laid out
+    row-major over ``axes`` ({name: size}, the last axis innermost: with
+    ``{"stage": 2, "model": 2}`` rank r sits at stage ``r // 2``, model
+    ``r % 2``). Every rank calls it with the same arguments; the world, the
+    device and the backend follow ``make_mesh``'s rules."""
+    names, sizes = list(axes), [int(v) for v in axes.values()]
+    rank, dev, be = _world(int(np.prod(sizes)), device, backend, str(dict(axes)))
+    coords = np.unravel_index(rank, sizes)
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    out = {}
+    for a, name in enumerate(names):
+        lines = np.moveaxis(grid, a, -1).reshape(-1, sizes[a])
+        groups = [dist.new_group(line.tolist(), backend=be) for line in lines]
+        mine = next(i for i, line in enumerate(lines) if rank in line)
+        out[name] = Axis(name, groups[mine], int(coords[a]), sizes[a], lines[mine].tolist())
+    return NamedMesh(shape=dict(zip(names, sizes)), axis=out, device=dev, backend=be)
 
 
 def repack_params_for_tp(params, tp: int):
