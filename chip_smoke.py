@@ -3843,8 +3843,8 @@ def embedding_vs_plain(post, eng, ids):
     24 padded rows) against the plain masked mean: ``forward(...,
     head_fn=identity)`` on the unpadded ids with the engine's linear, the
     f32 mean of the hidden rows, L2-normalized. Fails past ``EMBED_COS`` /
-    ``EMBED_TOL``; reports both and, to show the bar sees the mask, the
-    cosine of the mean taken over the padded bucket's 64 rows."""
+    ``EMBED_TOL``, and if the planted control passes them: the mean taken
+    over the padded bucket's 64 rows (the bar must see the mask)."""
     import torch
 
     from wrinklefree_tpu_torch.models.bitnet import KVCache, forward
@@ -3871,9 +3871,12 @@ def embedding_vs_plain(post, eng, ids):
     if not (cos >= EMBED_COS and err <= EMBED_TOL):
         fail(f"server: embedding vs the plain masked mean: cosine {cos}, max abs {err} "
              f"(bars {EMBED_COS}, {EMBED_TOL})")
+    cos_u = float(served @ unmasked)
+    if cos_u >= EMBED_COS and float((served - unmasked).abs().max()) <= EMBED_TOL:
+        fail(f"server: the control (the unmasked mean, cosine {cos_u}) passes the bars")
     return (f"embedding of {len(ids)} ids vs the plain masked mean: cosine {cos}, "
-            f"max abs {err} (bars {EMBED_COS}, {EMBED_TOL}; unmasked mean's cosine "
-            f"{float(served @ unmasked)})")
+            f"max abs {err} (bars {EMBED_COS}, {EMBED_TOL}; the control, the unmasked "
+            f"mean's cosine {cos_u}, fails them)")
 
 
 def phase_serving_bench(dev, counters):
@@ -4067,32 +4070,56 @@ def phase_moe(dev):
 # - greedy tokens equal the dense forward's or part where the teacher-forced
 #   logits already do: each greedy token is the argmax of the teacher-forced
 #   ring logits of its step, up to the first parting;
-# - two controls must fail the gate: a decode that drops the prefix key its
-#   query weights most (the attention check), and a decode whose prefix V
-#   is one position out of step with its K (the hybrid check).
+# - controls must fail the gate: on a group of one, a decode that drops the
+#   prefix key its query weights most (the attention check) and a decode
+#   whose prefix V is one position out of step with its K (the hybrid
+#   check); on a ring of more ranks, the last rank's prefix block dropped
+#   from the decode's merge (the attention check), the fault that only a
+#   ring of several ranks can have. Each control's fault is in every decode
+#   step, so it runs LONGCTX_CONTROL_STEPS forward passes: the prefill and
+#   the first decode step.
 LONGCTX_ATTN_TOL = 1e-5
 LONGCTX_HYBRID_TOL = 0.0
 LONGCTX_WITNESS_MARGIN = 2.0
+LONGCTX_CONTROL_STEPS = 2
 
 
 def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
-    """The f32 gate above for ``LongContextEngine`` ``lce`` (on a group of
-    one) against ``models.bitnet.forward`` on the same unfused ``params``
-    and ``linear`` (K7 on the card): ``prompt`` [t0] ids, ``steps`` tokens.
-    ``generate``: the call that gives the engine's greedy tokens
+    """The f32 gate above for ``LongContextEngine`` ``lce`` against
+    ``models.bitnet.forward`` on the same unfused ``params`` and ``linear``
+    (K7 on the card): ``prompt`` [t0] ids, ``steps`` tokens. On a group of P
+    > 1 ranks (a tensor-parallel engine's ring; P must divide t0) every rank
+    calls it: the dense forward and the witness run the whole prompt on each
+    rank, the hybrid runs this rank's shard of it with the ring's attention
+    (its prefill logits those of the shard that holds the last row), and its
+    control drops the last rank's prefix block from the decode's merge (in
+    place of the group of one's two). ``generate``: the call that gives the engine's greedy tokens
     (``lce.generate`` by default). Returns (report dict, failures: a list of
     what failed, empty if none). Runs on any device (the plain versions on
     the CPU)."""
     import copy
 
     import torch
+    import torch.distributed as tdist
 
     from wrinklefree_tpu_torch.engine.long_context import _NEVER, LongContextEngine
     from wrinklefree_tpu_torch.models import bitnet
     from wrinklefree_tpu_torch.ops.ternary import quantize_activations
 
     dev, t0, NB = prompt.device, prompt.numel(), lce.decode_buf
+    P, rank = lce.P, lce.rank
+    if t0 % P or t0 < 8 * P:
+        raise ValueError(f"the gate's prompt of {t0} tokens does not split over {P} ranks")
+    lo, hi = rank * t0 // P, (rank + 1) * t0 // P  # this rank's rows of the prompt
     dense_attention = bitnet._attention
+
+    def gather(x):
+        """[1, s_loc, ...] shards of every rank, along dim 1 in rank order."""
+        if P == 1:
+            return x
+        parts = [torch.empty_like(x) for _ in range(P)]
+        tdist.all_gather(parts, x.contiguous(), group=lce.group)
+        return torch.cat(parts, dim=1)
 
     def exact_attention(errs):
         def attention(q, kc, vc, q_pos, cfg_, attn_sparsity=None):
@@ -4110,12 +4137,19 @@ def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
         return attention
 
     def ring_order(eng, errs):
-        """The ring's attention on the dense forward's q and cache: the
-        prefill's q-chunked ring attention, the decode's prefix + buffer."""
+        """The ring's attention on the dense forward's q and cache (this
+        rank's rows of the prompt, ``dense_run(sharded=True)``): the
+        prefill's q-chunked ring attention over this rank's keys, the
+        decode's prefix shard + buffer; each held to the dense attention
+        over every rank's keys (the prompt's, gathered once a layer)."""
+        layer, prefix = [0], {}
+
         def attention(q, kc, vc, q_pos, cfg_, attn_sparsity=None):
-            S = q.shape[1]
-            if S > 1:
-                got = eng._prefill_attention(q, kc[:, :S], vc[:, :S])
+            layer[0] = layer[0] % cfg.num_layers + 1
+            if q.shape[1] > 1:
+                k, v = kc[:, lo:hi], vc[:, lo:hi]
+                got = eng._prefill_attention(q, k, v)
+                kf, vf = prefix[layer[0]] = gather(k), gather(v)
             else:
                 t = int(q_pos[0, 0]) - t0  # the decode step: its buffer row
                 kb = torch.zeros((1, NB) + tuple(kc.shape[2:]), dtype=kc.dtype, device=dev)
@@ -4124,17 +4158,23 @@ def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
                 vb[:, :t + 1] = vc[:, t0:t0 + t + 1]
                 b = torch.arange(NB, device=dev)
                 b_pos = torch.where(b <= t, t0 + b, torch.full_like(b, _NEVER))
-                got = eng._attend(q, kc[:, :t0], vc[:, :t0], kb, vb,
-                                  torch.arange(t0, device=dev), b_pos)
-            errs.append(float((got - dense_attention(q, kc, vc, q_pos, cfg_)).abs().max()))
+                got = eng._attend(q, kc[:, lo:hi], vc[:, lo:hi], kb, vb,
+                                  torch.arange(lo, hi, device=dev), b_pos)
+                kp, vp = prefix[layer[0]]
+                kf = torch.cat([kp, kc[:, t0:t0 + t + 1]], dim=1)
+                vf = torch.cat([vp, vc[:, t0:t0 + t + 1]], dim=1)
+            errs.append(float((got - dense_attention(q, kf, vf, q_pos, cfg_)).abs().max()))
             return got
         return attention
 
-    def dense_run(attention, feed=None, codes=None):
+    def dense_run(attention, feed=None, codes=None, sharded=False):
         """forward with ``attention`` as its _attention: greedy, or fed
         ``feed``; (tokens, each step's logits [V]); ``codes`` receives the
         int8 activation codes of layer 0's seven projections at the
-        prefill."""
+        prefill. ``sharded``: the prefill runs this rank's rows of the
+        prompt (at their positions), and its logits are the last rank's,
+        summed with zeros from the others in f32 (exact), as the ring
+        engine replicates the last row's hidden state."""
         def lin(x, qw, scale, out_dtype=torch.bfloat16):
             if codes is not None and len(codes) < 7:
                 codes.append(quantize_activations(x)[0])
@@ -4142,15 +4182,20 @@ def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
 
         cache = bitnet.KVCache.zeros(cfg, 1, t0 + steps, device=dev)
         tok, start = prompt[None], torch.zeros((1,), dtype=torch.int32, device=dev)
+        if sharded:
+            tok, start = prompt[lo:hi][None], start + lo
         toks, logits = [], []
         bitnet._attention = attention
         try:
-            for i in range(steps):
+            for i in range(steps if feed is None else len(feed)):
                 lg, cache = bitnet.forward(params, cfg, tok, cache, start, linear_fn=lin,
                                            logits_all=False)
+                if sharded and i == 0 and P > 1:
+                    lg = lg.float() if rank == P - 1 else torch.zeros_like(lg, dtype=torch.float32)
+                    tdist.all_reduce(lg, op=tdist.ReduceOp.SUM, group=lce.group)
                 logits.append(lg[0])
                 toks.append(int(lg[0].argmax()) if feed is None else feed[i])
-                start = start + tok.shape[1]
+                start = torch.full((1,), t0 + i, dtype=torch.int32, device=dev)
                 tok = torch.tensor([[toks[-1]]], device=dev)
         finally:
             bitnet._attention = dense_attention
@@ -4160,24 +4205,25 @@ def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
         """The ring engine's prefill and decode, teacher-forced on ``feed``
         (``shift``: the decode reads each prefix V one position late, out of
         step with its K)."""
-        logits0, pk, pv = eng._prefill(prompt[None], t0)
+        logits0, pk, pv = eng._prefill(prompt[lo:hi][None], t0)
         if shift:
             pv = pv.roll(1, dims=2)
         rest = []
-        eng._decode(pk, pv, torch.tensor(feed[0], device=dev), t0, steps - 1,
+        eng._decode(pk, pv, torch.tensor(feed[0], device=dev), t0, len(feed) - 1,
                     feed=feed[1:], logits_out=rest)
         return [logits0[0]] + [lg[0] for lg in rest]
 
     def dist(a, b):
         return [float((x - y).abs().max()) for x, y in zip(a, b)]
 
-    want, dense = dense_run(dense_attention)
-    gaps = [float(v[0] - v[1]) for v in (torch.topk(lg, 2).values for lg in dense)]
     codes_dense, codes_hyb, codes_wit = [], [], []
-    dense_run(dense_attention, feed=want, codes=codes_dense)
+    want, dense = dense_run(dense_attention, codes=codes_dense)
+    gaps = [float(v[0] - v[1]) for v in (torch.topk(lg, 2).values for lg in dense)]
     wit_errs, errs = [], []
     _, wit = dense_run(exact_attention(wit_errs), feed=want, codes=codes_wit)
-    _, hyb = dense_run(ring_order(lce, errs), feed=want, codes=codes_hyb)
+    _, hyb = dense_run(ring_order(lce, errs), feed=want, codes=codes_hyb, sharded=True)
+    codes_dense = [c[..., lo:hi, :] for c in codes_dense]  # this rank's rows
+    codes_wit = [c[..., lo:hi, :] for c in codes_wit]
     ring = ring_run(lce, want)
     got = generate() if generate is not None else lce.generate(prompt.tolist(), steps)
     ring_dist, wit_dist = dist(ring, dense), dist(wit, dense)
@@ -4187,7 +4233,7 @@ def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
     part = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     names = ("q", "k", "v", "o", "gate", "up", "down")
     report = dict(
-        tokens=got, dense_tokens=want, part=part, dense_top2_gaps=gaps,
+        ranks=P, tokens=got, dense_tokens=want, part=part, dense_top2_gaps=gaps,
         attn_err=attn_err, hybrid_err=max(dist(ring, hyb)), ring_logit_dist=ring_dist,
         witness_logit_dist=wit_dist, witness_attn_err=wit_attn_err, cap=cap,
         layer0_code_flips={n: int((a != b).sum()) for n, a, b in
@@ -4222,19 +4268,38 @@ def longctx_f32_gate(lce, params, cfg, prompt, steps, linear, generate=None):
         k_pos_m[j] = _NEVER
         return LongContextEngine._attend(drop, q, k_loc, v_loc, kb, vb, k_pos_m, b_pos_m)
 
-    drop._attend = drop_top_key
-    errs_d = []
-    _, hyb_d = dense_run(ring_order(drop, errs_d), feed=want)
-    ring_d = ring_run(drop, want)
-    ring_s = ring_run(lce, want, shift=True)
-    report["controls"] = {
-        "drop_top_key": checks(max(errs_d), max(dist(ring_d, hyb_d)), dist(ring_d, dense),
-                               drop.generate(prompt.tolist(), steps), ring_d),
-        "shifted_prefix": checks(attn_err, max(dist(ring_s, hyb)), dist(ring_s, dense),
-                                 [int(lg.argmax()) for lg in ring_s], ring_s)}
-    report["control_attn_err"] = {"drop_top_key": max(errs_d)}
-    report["control_logit_dist"] = {"drop_top_key": max(dist(ring_d, dense)),
-                                    "shifted_prefix": max(dist(ring_s, dense))}
+    ctl = want[:LONGCTX_CONTROL_STEPS]
+    if P == 1:
+        drop._attend = drop_top_key
+        errs_d = []
+        _, hyb_d = dense_run(ring_order(drop, errs_d), feed=ctl, sharded=True)
+        ring_d = ring_run(drop, ctl)
+        ring_s = ring_run(lce, ctl, shift=True)
+        report["controls"] = {
+            "drop_top_key": checks(max(errs_d), max(dist(ring_d, hyb_d)), dist(ring_d, dense),
+                                   drop.generate(prompt.tolist(), LONGCTX_CONTROL_STEPS), ring_d),
+            "shifted_prefix": checks(attn_err, max(dist(ring_s, hyb)), dist(ring_s, dense),
+                                     [int(lg.argmax()) for lg in ring_s], ring_s)}
+        report["control_attn_err"] = {"drop_top_key": max(errs_d)}
+        report["control_logit_dist"] = {"drop_top_key": max(dist(ring_d, dense)),
+                                        "shifted_prefix": max(dist(ring_s, dense))}
+    else:  # the last rank's prefix block leaves the decode's merge
+        blk = copy.copy(lce)
+
+        def drop_block(q, k_loc, v_loc, kb, vb, k_pos_m, b_pos_m):
+            if rank == P - 1:
+                k_pos_m = torch.full_like(k_pos_m, _NEVER)
+            return LongContextEngine._attend(blk, q, k_loc, v_loc, kb, vb, k_pos_m, b_pos_m)
+
+        blk._attend = drop_block
+        errs_b = []
+        _, hyb_b = dense_run(ring_order(blk, errs_b), feed=ctl, sharded=True)
+        ring_b = ring_run(blk, ctl)
+        report["controls"] = {"dropped_block": checks(
+            max(errs_b), max(dist(ring_b, hyb_b)), dist(ring_b, dense),
+            [int(lg.argmax()) for lg in ring_b], ring_b)}
+        report["control_attn_err"] = {"dropped_block": max(errs_b)}
+        report["control_logit_dist"] = {"dropped_block": max(dist(ring_b, dense))}
     failures += [f"the control {name} passes the gate"
                  for name, caught in report["controls"].items() if not caught]
     return report, failures
@@ -4425,6 +4490,9 @@ TP_NOISE = 0.665  # the 30-layer rounding noise of the 2B logits (ROADMAP.md sec
 TP_DIST_CAP = 0.5
 TP_TEXTS = ["The capital of France is", "def fibonacci(n):", "Tensor parallel serving on",
             "1, 2, 3, 4,"]
+# the dp x tp server's two concurrent long prompts, one a replica: 600 bytes,
+# a 512-token chunk (K4) and a 128-token one
+DP_TP_LONG = ["".join(chr(33 + (i * 7919 + k) % 90) for i in range(600)) for k in (0, 1)]
 
 
 def _tp_counting_linear(shapes):
@@ -4704,6 +4772,10 @@ def tp_job(job):
             report["control"] = dict(parts=parts, max_teacher_forced_dist=d,
                                      tokens=[r.output_ids for r in creqs])
         del single, rec
+    if job.get("ring"):
+        if cuda:
+            torch.cuda.empty_cache()
+        report["ring"] = _tp_ring(mesh, params, cfg, dev)
     if job.get("http"):
         if cuda:
             torch.cuda.empty_cache()
@@ -4713,6 +4785,105 @@ def tp_job(job):
         del params
         report["pp_ep"] = pp_ep_job(P, dev)
     return report
+
+
+# the tp 4 job's depth: its gloo steps (3.8 s at 30 layers) are the tp
+# phase's slowest; the tp 2 world keeps the whole depth
+TP4_LAYERS = 10
+# the ring on a TP engine: a prompt of twice max_context (2048) tokens
+TP_RING_TOKENS = 4096
+TP_RING_NEW = 8
+TP_RING_ECFG = dict(TP_ECFG, num_pages=64)  # the paged pools stay idle on the ring route
+
+
+def _tp_ring(mesh, params, cfg, dev):
+    """(r) ``Engine(mesh=..., long_context_mesh=mesh.model.group)`` on every
+    rank of the world: the leader's ``generate`` of a ``TP_RING_TOKENS``
+    prompt (seed 27) through the lockstep, every rank running the ring on
+    its half of the prompt. bf16 on ``params``: the tokens, the wall, each
+    rank's K7 launches, and the ring's teacher-forced logits on its own
+    tokens (for the group of one in the parent). f32 (the same seed's f32
+    model): ``longctx_f32_gate`` on the engine's ring on every rank, its
+    greedy tokens the engine's. Returns this rank's report."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import init_params
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.ops.ternary import ternary_linear
+
+    lead, P, r = mesh.model.index == 0, mesh.model.size, mesh.model.index
+    cuda = dev.type == "cuda"
+    t_ring = time.perf_counter()
+    prompt = np.random.default_rng(27).integers(1, cfg.vocab_size, TP_RING_TOKENS).tolist()
+    greedy = SamplingParams(max_new_tokens=TP_RING_NEW, temperature=0.0)
+    out = {}
+
+    def served(eng):
+        """The leader's generate, the followers following it; (the tokens
+        on every rank, the wall, this rank's K7 launches and its GEMM's)."""
+        tc.ternary_matmul_stacked.launches = tc.ternary_matmul_stacked.tiled_launches = 0
+        t0 = time.perf_counter()
+        toks = None
+        if lead:
+            try:
+                toks = eng.generate(prompt, greedy).output_ids
+            finally:
+                eng.stop_followers()
+        else:
+            eng.follow()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        box = [toks]
+        dist.broadcast_object_list(box, src=mesh.leader, group=mesh.control)
+        return (box[0], wall, tc.ternary_matmul_stacked.launches,
+                tc.ternary_matmul_stacked.tiled_launches)
+
+    eng = Engine(params, cfg, EngineConfig(**TP_RING_ECFG), mesh=mesh,
+                 long_context_mesh=mesh.model.group)
+    toks, wall, n, tiled = served(eng)
+    lce = eng._long_ctx
+    out["bf16"] = dict(tokens=toks, wall_s=wall, k7=n, k7_gemm=tiled,
+                       prefill_s=lce.last_timings["prefill_s"],
+                       decode_ms=lce.last_timings["decode_s"] * 1e3 / (TP_RING_NEW - 1))
+    s_loc = TP_RING_TOKENS // P
+    mine = torch.tensor([prompt[r * s_loc:(r + 1) * s_loc]], device=dev)
+    logits0, pk, pv = lce._prefill(mine, TP_RING_TOKENS)
+    rest = []
+    lce._decode(pk, pv, torch.tensor(toks[0], device=dev), TP_RING_TOKENS, TP_RING_NEW - 1,
+                feed=toks[1:], logits_out=rest)
+    if lead:
+        out["bf16"]["logits"] = torch.stack([logits0[0]] + [x[0] for x in rest]).float().cpu()
+    del eng, lce, pk, pv, rest
+    if cuda:
+        torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = init_params(cfg32, seed=0, device=dev)
+    eng = Engine(p32, cfg32, EngineConfig(**TP_RING_ECFG), mesh=mesh,
+                 long_context_mesh=mesh.model.group)
+    toks, wall, n, tiled = served(eng)
+    out["f32"] = dict(tokens=toks, wall_s=wall, k7=n, k7_gemm=tiled)
+
+    def k7_linear(x, qw, scale, out_dtype=torch.bfloat16):
+        return ternary_linear(x, qw, scale, out_dtype=out_dtype, kernel=tc.ternary_matmul)
+
+    t1 = time.perf_counter()
+    rep, failures = longctx_f32_gate(eng._long_ctx, p32, cfg32, torch.tensor(prompt, device=dev),
+                                     TP_RING_NEW, k7_linear, generate=lambda: toks)
+    out["f32"].update(gate=rep, failures=failures, gate_s=time.perf_counter() - t1)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    out["seconds"] = time.perf_counter() - t_ring
+    del eng, p32
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tp_control_run(params, cfg, mesh, prompts, rec):
@@ -4773,48 +4944,241 @@ def tp_token_gate(parts, dist) -> str:
     return ""
 
 
+def _recorded(engines):
+    """Keep every request the engines' ``submit`` is given: a list of
+    (replica index, request)."""
+    got = []
+    for i, e in enumerate(engines):
+        def rec(*a, _submit=e.submit, _i=i, **kw):
+            got.append((_i, _submit(*a, **kw)))
+            return got[-1][1]
+
+        e.submit = rec
+    return got
+
+
+# over 2048 bytes: the byte tokenizer's 2048 tokens, max_context, the ring route
+TP_LONG_TEXT = "".join(chr(33 + (i * 7919) % 90) for i in range(2100))
+
+
 def _tp_http(job, dev):
-    """``create_server("synth:<model>", tp=P)`` on every rank: rank 0 serves
-    four greedy completions over HTTP through the port's client, held to
-    its engine's ``generate`` text, then shuts down (its followers' serve()
-    returns)."""
+    """``create_server("synth:<model>", tp=P, long_context=True)`` on every
+    rank: rank 0 serves four concurrent greedy completions over HTTP through
+    the port's client (its engine's requests recorded), held to the same
+    prompts submitted to its engine together; one embedding, held to the
+    single-device embedding of the leader's snapshot (fused, K1:
+    ``embedding_vs_plain``), its K7 launches counted; one completion of
+    2048 tokens through the ring on the model group, held to the engine's
+    ``generate``. Then it shuts down (its followers' serve() returns). Every
+    rank reports its memory after the build and its peak (the leader keeps
+    the unsharded snapshot)."""
+    import urllib.request
+    from types import SimpleNamespace
+
+    import torch
+
     from wrinklefree_tpu_torch.client.client import InferenceClient
     from wrinklefree_tpu_torch.config import EngineConfig
     from wrinklefree_tpu_torch.engine import SamplingParams
+    from wrinklefree_tpu_torch.models.bitnet import fuse_projections
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
     from wrinklefree_tpu_torch.server._web import ServerThread
-    from wrinklefree_tpu_torch.server.http import FollowerServer, build_app, create_server
+    from wrinklefree_tpu_torch.server.http import (ByteTokenizer, FollowerServer, build_app,
+                                                   create_server)
 
     import torch.distributed as dist
 
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     server = create_server(f"synth:{job['model']}", engine_config=EngineConfig(**TP_ECFG),
-                           tp=dist.get_world_size(), device=dev, tp_backend="gloo")
+                           tp=dist.get_world_size(), long_context=True, device=dev,
+                           tp_backend="gloo")
+    mem = dict(built_gb=torch.cuda.memory_allocated(dev) / 1e9 if cuda else None)
     if isinstance(server, FollowerServer):
         server.serve()
-        return dict(follower_steps=server.engine.stats["decode_steps"])
+        mem["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+        return dict(follower_steps=server.engine.stats["decode_steps"], memory=mem)
     import concurrent.futures
 
     st = ServerThread(build_app(server))
     eng = server.async_engine.engine
     greedy = SamplingParams(max_new_tokens=TP_NEW, temperature=0.0)
+    served = _recorded([eng])
     try:
-        client = InferenceClient(st.url)
+        client = InferenceClient(st.url, timeout=600)
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(TP_TEXTS)) as pool:
             texts = list(pool.map(
                 lambda t: client.generate(t, max_tokens=TP_NEW, temperature=0.0), TP_TEXTS))
         wall = time.perf_counter() - t0
+        by_prompt = {tuple(r.prompt_ids): r.output_ids for _, r in served}
+        ids = [by_prompt[tuple(server.tokenizer.encode(t))] for t in TP_TEXTS]
         # the same prompts submitted to the engine together (the scheduler
         # thread steps them)
         reqs = [eng.submit(server.tokenizer.encode(t), greedy) for t in TP_TEXTS]
-        server.async_engine._wakes[0].set()
+        server.async_engine.wake(eng)
         while not all(r.finished for r in reqs):
             time.sleep(0.05)
         direct = [server.tokenizer.decode(r.output_ids) for r in reqs]
+
+        def post(path, body):
+            req = urllib.request.Request(f"{st.url}{path}", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=600)
+
+        one = SimpleNamespace(cfg=eng.cfg, device=eng.device,
+                              params=fuse_projections(eng._long_ctx_params, eng.cfg),
+                              _linear_fn=tc.make_linear_fused())
+        tc.ternary_matmul_stacked.launches = 0  # the served embedding's (K1 computes the mean)
+        t1 = time.perf_counter()
+        emb = embedding_vs_plain(post, one, ByteTokenizer().encode(TP_TEXTS[0])[:40])
+        emb_s = time.perf_counter() - t1
+        emb_k7 = tc.ternary_matmul_stacked.launches
+        del one
+        long_ids = server.tokenizer.encode(TP_LONG_TEXT)
+        tc.ternary_matmul_stacked.launches = 0
+        t1 = time.perf_counter()
+        with post("/completion", {"prompt": TP_LONG_TEXT, "n_predict": 4,
+                                  "temperature": 0.0}) as r:
+            long_body = json.loads(r.read())
+        long_s = time.perf_counter() - t1
+        long_k7 = tc.ternary_matmul_stacked.launches
+        long_direct = server.tokenizer.decode(eng.generate(
+            long_ids, SamplingParams(max_new_tokens=4, temperature=0.0)).output_ids)
     finally:
         st.stop()
         server.async_engine.shutdown()
+    mem["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
     return dict(completions=len(texts), equal_to_generate=texts == direct, wall_s=wall,
-                decode_steps=eng.stats["decode_steps"])
+                ids=ids, decode_steps=eng.stats["decode_steps"], embedding=emb,
+                embedding_s=emb_s, embedding_k7=emb_k7, long=dict(
+                    prompt_tokens=len(long_ids), max_context=eng.ecfg.max_context,
+                    tokens=long_body.get("tokens_predicted"),
+                    equal_to_generate=long_body.get("content") == long_direct,
+                    seconds=long_s, k7=long_k7),
+                memory=mem)
+
+
+def _dense_logits(params, cfg, ids, dev):
+    """The single-device dense ``forward``'s f32 logits after ``ids``
+    (unfused params, the stacked K7 linear)."""
+    import torch
+
+    from wrinklefree_tpu_torch.models.bitnet import KVCache, forward
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+
+    with torch.no_grad():
+        lg, _ = forward(params, cfg, torch.tensor([ids], device=dev),
+                        KVCache.zeros(cfg, 1, len(ids), device=dev),
+                        torch.zeros((1,), dtype=torch.int32, device=dev),
+                        linear_fn=tc.make_linear_stacked(), logits_all=False)
+    return lg[0].float()
+
+
+def text_parts(params, cfg, dev, prompts, got, want):
+    """Where each of ``got``'s greedy token lists parts from ``want``'s (two
+    TP-2 runs of the same prompts, batched otherwise) and why that is a
+    near-tie, or is not: the two tokens' logits in the single-device dense
+    forward on the common prefix lie within ``2 * TP_NOISE`` (each run's
+    logits may sit the 30-layer rounding noise from it). Returns the parts
+    (dicts; ``why`` empty for a near-tie)."""
+    parts = []
+    for p, a, b in zip(prompts, got, want):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            if len(a) != len(b):
+                parts.append(dict(prompt=len(p), token=min(len(a), len(b)), gap=None,
+                                  why=f"lengths {len(a)} and {len(b)} on equal tokens"))
+            continue
+        lg = _dense_logits(params, cfg, list(p) + list(a[:j]), dev)
+        gap = abs(float(lg[a[j]] - lg[b[j]]))
+        parts.append(dict(prompt=len(p), token=j, gap=gap,
+                          why="" if gap <= 2 * TP_NOISE else f"a logit gap of {gap}"))
+    return parts
+
+
+def dp_tp_job(job):
+    """(d) ``create_server("synth:<model>", dp=2, tp=2)`` on the world of 4
+    (``make_mesh(2, 2)`` over gloo on this card): replica 0 on ranks 0-1
+    (rank 0 serves HTTP), replica 1 on ranks 2-3 (rank 2's
+    ``ReplicaServer``). Rank 0 sends ``TP_TEXTS`` as four concurrent greedy
+    completions and records which replica served each and its tokens, then
+    the two ``DP_TP_LONG`` prompts together (the pick sends them to the two
+    replicas: each prefills a 512-token chunk through K4); after the
+    shutdown it holds the four to ``job["want"]`` (the tp 2 world's) with
+    ``text_parts`` on its snapshot, and plants a control (the least likely
+    first token) that must fail it. Every rank reports its role, that it
+    returned, its K7, K3, K4 and K6 launches and its decode steps."""
+    import concurrent.futures
+
+    import torch
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.client.client import InferenceClient
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.ops import flash_attention as fa
+    from wrinklefree_tpu_torch.ops import kv_update_cuda as kvu
+    from wrinklefree_tpu_torch.ops import ternary_cuda as tc
+    from wrinklefree_tpu_torch.server._web import ServerThread
+    from wrinklefree_tpu_torch.server.http import InferenceServer, build_app, create_server
+
+    dev = torch.device(job.get("device", "cuda:0"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    kernels = (tc.ternary_matmul_stacked, kvu.kv_write, fa.flash_paged_prefill,
+               fa.flash_paged_decode)
+    for c in kernels:
+        c.launches = 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    server = create_server(f"synth:{job['model']}", engine_config=EngineConfig(**TP_ECFG),
+                           dp=2, tp=2, device=dev, tp_backend="gloo")
+    # a replica's leader keeps the unsharded snapshot, its follower not
+    out = dict(rank=dist.get_rank(), role=type(server).__name__,
+               built_gb=torch.cuda.memory_allocated(dev) / 1e9 if cuda else None)
+    if not isinstance(server, InferenceServer):
+        server.serve()
+        return dict(out, returned=True, launches={c.__name__: c.launches for c in kernels},
+                    decode_steps=server.engine.stats["decode_steps"],
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None,
+                    seconds=time.perf_counter() - t0)
+    ae = server.async_engine
+    eng = ae.engine
+    served = _recorded(ae.engines)
+    st = ServerThread(build_app(server))
+    try:
+        client = InferenceClient(st.url, timeout=600)
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(TP_TEXTS)) as pool:
+            texts = list(pool.map(
+                lambda t: client.generate(t, max_tokens=TP_NEW, temperature=0.0), TP_TEXTS))
+        out["requests_s"] = time.perf_counter() - t1
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda t: client.generate(t, max_tokens=2, temperature=0.0),
+                          DP_TP_LONG))
+        out["per_replica_requests"] = [e.stats["requests"] for e in ae.engines]
+    finally:
+        st.stop()
+        ae.shutdown()
+    out.update(returned=True, launches={c.__name__: c.launches for c in kernels},
+               decode_steps=eng.stats["decode_steps"], completions=len(texts),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None)
+    prompts = [server.tokenizer.encode(t) for t in TP_TEXTS]
+    by_prompt = {tuple(r.prompt_ids): (i, r.output_ids) for i, r in served}
+    got = [by_prompt[tuple(p)] for p in prompts]
+    out["long_replicas"] = [by_prompt[tuple(server.tokenizer.encode(t))][0] for t in DP_TP_LONG]
+    out["replicas"] = [i for i, _ in got]
+    out["ids"] = [ids for _, ids in got]
+    snap = eng._long_ctx_params
+    out["parts"] = text_parts(snap, eng.cfg, dev, prompts, out["ids"], job["want"])
+    worst = int(_dense_logits(snap, eng.cfg, prompts[0], dev).argmin())
+    out["control"] = text_parts(snap, eng.cfg, dev, prompts[:1], [[worst]],
+                                [out["ids"][0][:1]])
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def _tp_rank_main(rank, world, store, out_dir, job):
@@ -4833,7 +5197,8 @@ def _tp_rank_main(rank, world, store, out_dir, job):
         torch.set_num_threads(1)
         dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                                 world_size=world)
-        result = ("ok", [tp_job(j) for j in job])  # the world's jobs, in turn
+        # the world's jobs, in turn
+        result = ("ok", [dp_tp_job(j) if j.get("dp_tp") else tp_job(j) for j in job])
         dist.destroy_process_group()
     except BaseException:  # fail() raises SystemExit: reported to the parent
         result = ("error", traceback.format_exc())
@@ -4997,6 +5362,81 @@ def tp_k7_shapes(dev, g, shapes):
     return rows_out
 
 
+def check_tp_ring(tag, ranks, smi):
+    """The parent's checks of ``_tp_ring``'s reports: on every rank 8
+    tokens, K7 exactly 210 launches a forward pass (8 passes, the prefill's
+    through the GEMM) in both runs, and the f32 gate passed with every
+    control caught."""
+    per_pass = 7 * ranks[0]["layers"]
+    for r in ranks:
+        g = r["ring"]
+        for kind in ("bf16", "f32"):
+            x = g[kind]
+            if len(x["tokens"]) != TP_RING_NEW:
+                fail(f"tp {tag}: rank {r['rank']}'s {kind} ring ended with {x['tokens']}")
+            if (x["k7"], x["k7_gemm"]) != (per_pass * TP_RING_NEW, per_pass):
+                fail(f"tp {tag}: rank {r['rank']}'s {kind} ring launched K7 {x['k7']} times "
+                     f"({x['k7_gemm']} through the GEMM)")
+        if g["f32"]["failures"]:
+            fail(f"tp {tag}: rank {r['rank']}: the f32 ring fails its gate: "
+                 + "; ".join(g["f32"]["failures"]))
+    g0 = ranks[0]["ring"]
+    rep = g0["f32"]["gate"]
+    print(f"tp {tag}: ring on the TP engine's model group ({len(ranks)} ranks over gloo), a "
+          f"{TP_RING_TOKENS}-token prompt, max_context {TP_RING_ECFG['max_context']}: bf16 "
+          f"prefill {g0['bf16']['prefill_s']} s, decode {g0['bf16']['decode_ms']} ms a token, "
+          f"wall {g0['bf16']['wall_s']} s, K7 {g0['bf16']['k7']} launches a rank "
+          f"({g0['bf16']['k7_gemm']} through the GEMM); f32 gate on every rank: attention "
+          f"within {max(r['ring']['f32']['gate']['attn_err'] for r in ranks)} (tolerance "
+          f"{LONGCTX_ATTN_TOL}), hybrid {max(r['ring']['f32']['gate']['hybrid_err'] for r in ranks)}"
+          f" (tolerance {LONGCTX_HYBRID_TOL}), ring vs dense logits up to "
+          f"{max(rep['ring_logit_dist'])} (cap {rep['cap']}); tokens {rep['tokens']}, dense "
+          f"{rep['dense_tokens']}; controls caught {json.dumps(rep['controls'])}; the gate "
+          f"{g0['f32']['gate_s']} s, the ring job {g0['seconds']} s; peak "
+          f"{[r['ring']['peak_gb'] for r in ranks]} GB; {smi}")
+
+
+def check_dp_tp(tag, ranks, smi):
+    """The parent's checks of ``dp_tp_job``'s reports: the roles, every rank
+    returned, four completions served by both replicas, tokens equal to the
+    tp 2 world's or parted at near-ties, the planted control refused, K7,
+    K3, K4 and K6 launched on every rank, each follower stepping with its
+    leader."""
+    r0 = ranks[0]
+    roles = [r["role"] for r in ranks]
+    if roles != ["InferenceServer", "FollowerServer", "ReplicaServer", "FollowerServer"]:
+        fail(f"tp {tag}: roles {roles}")
+    if not all(r["returned"] for r in ranks):
+        fail(f"tp {tag}: a rank did not return")
+    if (r0["completions"] != 4 or set(r0["replicas"]) != {0, 1}
+            or sorted(r0["long_replicas"]) != [0, 1]):
+        fail(f"tp {tag}: completions {r0['completions']} served by replicas {r0['replicas']}, "
+             f"the long ones by {r0['long_replicas']}")
+    bad = [p for p in r0["parts"] if p["why"]]
+    if bad:
+        fail(f"tp {tag}: tokens part from the tp 2 world's beyond a near-tie: {bad}")
+    if not all(p["why"] for p in r0["control"]):
+        fail(f"tp {tag}: the planted control passes the near-tie check: {r0['control']}")
+    for r in ranks:
+        zero = [k for k, v in r["launches"].items() if not v]
+        if zero:
+            fail(f"tp {tag}: rank {r['rank']} never launched {zero}")
+    if ranks[1]["decode_steps"] != r0["decode_steps"] or (
+            ranks[3]["decode_steps"] != ranks[2]["decode_steps"]):
+        fail(f"tp {tag}: a follower's steps differ from its leader's")
+    print(f"tp {tag}: create_server(dp=2, tp=2) over 4 processes on one card: four concurrent "
+          f"completions served by replicas {r0['replicas']} in {r0['requests_s']} s, two of "
+          f"600 tokens by {r0['long_replicas']}; per replica requests "
+          f"{r0['per_replica_requests']}; tokens "
+          f"against the tp 2 world's: parts {json.dumps(r0['parts'])} (equal where none); the "
+          f"control {json.dumps(r0['control'])}; every rank returned; {smi}")
+    for r in ranks:
+        print("tp: " + json.dumps(dict(run=tag, rank=r["rank"], role=r["role"],
+                                       launches=r["launches"], decode_steps=r["decode_steps"],
+                                       built_gb=r["built_gb"], peak_gb=r["peak_gb"],
+                                       seconds=r["seconds"])))
+
+
 def phase_tp(dev, smi):
     """17. tp — tensor parallelism (``parallel/sharding.py``, the engine's
     lockstep) on this one card: ranks spawned with ``spawn``, all on
@@ -5006,9 +5446,10 @@ def phase_tp(dev, smi):
 
     (k) K7 at one rank's shapes at tp 2 and 4 (``tp_k7_shapes``, in the tp 2
         world's rank 0 before its model: a fresh process's profiler);
-    (a) BitNet-2B at full width and depth (random weights from seed 0) at
-        tp 2 and at tp 4: the integer gates on layer 0's real activations
-        and their controls (``_tp_int_gates``); three greedy requests (700,
+    (a) BitNet-2B at full width (random weights from seed 0), at tp 2 at
+        full depth and at tp 4 cut to ``TP4_LAYERS`` layers: the integer
+        gates on layer 0's real activations and their controls
+        (``_tp_int_gates``); three greedy requests (700,
         17 and 200 tokens, ``TP_NEW`` = 8 new) through ``Engine(mesh=...)``
         with the engine phase's configuration and ``flash_decode``: the pools
         replicated (5 KV heads), K7, K3, K4 and K6 launched on every rank;
@@ -5017,20 +5458,33 @@ def phase_tp(dev, smi):
         near-tie, the largest teacher-forced logit distance under
         ``TP_DIST_CAP``; at tp 2 a planted control that must fail that gate
         (``_tp_control_run``: sub-norms over each rank's slice); at tp 2 a
-        profiled burst of eight decoding slots on every rank (tp 4's was read
-        in PR 25, PERF.md section 5) and four HTTP completions from rank 0 of
-        ``create_server(tp=2)``;
+        profiled burst of eight decoding slots on every rank (tp 4's is in
+        PERF.md section 5); at tp 2 (r) the ring on the engine's
+        model group (``_tp_ring``: a 4096-token prompt at max_context 2048, 8
+        tokens through the lockstep, in bf16 and in f32 under
+        ``longctx_f32_gate`` with its control, a dropped block) and, from
+        rank 0 of ``create_server(tp=2, long_context=True)``, four concurrent
+        HTTP completions, an embedding held to the single-device embedding of
+        the leader's snapshot and a 2048-token completion through the ring
+        (``_tp_http``);
     (b) Llama-3-8B ternary at full width cut to 4 layers at tp 2: each
         rank's pools hold 4 KV heads (head-sharded), the token gate as in
         (a);
+    (d) in the world of 4 after its tp 4 job, ``create_server(dp=2,
+        tp=2)`` (``dp_tp_job``): four concurrent completions over both
+        replicas, their tokens held to (a)'s HTTP completions at tp 2 with
+        ``text_parts`` and a planted control, every rank returning;
     (c) a mesh of one on NCCL in this process: ``Engine(mesh=make_mesh(1,
         1))`` serves the requests of (a), held to the token gate against the
-        single-device engine run here."""
+        single-device engine run here; then the ring on its group of one on
+        (r)'s prompt, whose bf16 tokens (r)'s must equal or part from at a
+        near-tie of the teacher-forced logits."""
     import numpy as np
     import torch
 
     from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
     from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.engine.long_context import LongContextEngine
     from wrinklefree_tpu_torch.models.bitnet import init_params
     from wrinklefree_tpu_torch.ops import cuda_lib
     from wrinklefree_tpu_torch.ops import flash_attention as fa
@@ -5042,20 +5496,31 @@ def phase_tp(dev, smi):
     cuda_lib.library()  # built (or loaded) here: the ranks load it from the cache
     worlds, runs = {}, []
     # one world a size, its jobs run in turn (each world's spawn, CUDA and
-    # kernel load paid once)
+    # kernel load paid once); the world of 4's dp x tp job holds its tokens
+    # to the tp 2 world's HTTP completions of the same prompts
+    dp_tp = dict(model="bitnet_2b", dp_tp=True)
     for world, jobs in (
             (2, [("2B tp2", dict(model="bitnet_2b", gates=True, window=True, http=True,
-                                 k7_shapes=True, pp_ep_k7=True, control=True, pp_ep=True)),
+                                 ring=True, k7_shapes=True, pp_ep_k7=True, control=True,
+                                 pp_ep=True)),
                  ("llama8b 4 layers tp2", dict(model="llama3_8b_ternary", layers=4))]),
-            (4, [("2B tp4", dict(model="bitnet_2b", gates=True, pp_ep=True))])):
+            (4, [("2B tp4", dict(model="bitnet_2b", layers=TP4_LAYERS, gates=True,
+                                 pp_ep=True)),
+                 ("2B dp2 x tp2", dp_tp)])):
+        if world == 4:
+            dp_tp["want"] = worlds["2B tp2"][0]["http"]["ids"]
         t0 = time.perf_counter()
         out = tp_world(world, [job for _, job in jobs])
         print(f"tp: the world of {world} ranks ({', '.join(t for t, _ in jobs)}): "
               f"{time.perf_counter() - t0} s")
-        runs += [(tag, world, job, [r[i] for r in out]) for i, (tag, job) in enumerate(jobs)]
+        for i, (tag, job) in enumerate(jobs):
+            worlds[tag] = [r[i] for r in out]
+            runs.append((tag, world, job, worlds[tag]))
     for tag, world, job, ranks in runs:
-        worlds[tag] = ranks
         r0 = ranks[0]
+        if job.get("dp_tp"):
+            check_dp_tp(tag, ranks, smi)
+            continue
         for row in r0.get("k7_shapes", ()):  # timed in rank 0, a fresh process
             print("tp: K7 " + json.dumps(row))
         for r in ranks:
@@ -5088,12 +5553,29 @@ def phase_tp(dev, smi):
         for toks in r0["tp_tokens"]:
             if len(toks) != TP_NEW:
                 fail(f"tp {tag}: a request ended with {len(toks)} tokens")
-        if "http" in r0 and not (r0["http"]["completions"] == 4
-                                 and r0["http"]["equal_to_generate"]):
-            fail(f"tp {tag}: HTTP completions {json.dumps(r0['http'])}")
+        if "http" in r0:
+            h, per_pass = r0["http"], 7 * r0["layers"]
+            lg = h["long"]
+            if not (h["completions"] == 4 and h["equal_to_generate"]):
+                fail(f"tp {tag}: HTTP completions {json.dumps(h)}")
+            if not (lg["prompt_tokens"] >= lg["max_context"] and lg["tokens"] == 4
+                    and lg["equal_to_generate"] and lg["k7"] == 4 * per_pass):
+                fail(f"tp {tag}: the long completion over HTTP {json.dumps(lg)}")
+            if h["embedding_k7"] != per_pass:
+                fail(f"tp {tag}: the TP embedding launched K7 {h['embedding_k7']} times")
+            print(f"tp {tag}: over HTTP (create_server(tp={world}, long_context=True)): "
+                  f"{h['embedding']}, K7 {h['embedding_k7']} launches on the leader alone, "
+                  f"{h['embedding_s']} s; a {lg['prompt_tokens']}-token completion (max_context "
+                  f"{lg['max_context']}) through the ring on the model group, equal to "
+                  f"generate's, {lg['seconds']} s, K7 {lg['k7']} launches on rank 0; memory "
+                  f"per rank (built / peak GB) "
+                  f"{[(r['http']['memory']['built_gb'], r['http']['memory']['peak_gb']) for r in ranks]}"
+                  f" (the leader keeps the unsharded snapshot); {smi}")
+        if "ring" in r0:
+            check_tp_ring(tag, ranks, smi)
         same = sum(a == b for a, b in zip(r0["tp_tokens"], r0["single_tokens"]))
         print(f"tp {tag}: {world} ranks on one card over gloo (gloo copies the CUDA tensors "
-              f"through the host), KV {'replicated' if r0['kv_replicated'] else 'head-sharded'}"
+              f"through the host), {r0['layers']} layers, KV {'replicated' if r0['kv_replicated'] else 'head-sharded'}"
               f" ({r0['pool_kv_heads']} heads a pool); {same}/{len(TP_LENS)} requests equal to "
               f"the single device's, parts {json.dumps(r0['parts'])}; largest teacher-forced "
               f"logit distance {r0['max_teacher_forced_dist']} (cap {TP_DIST_CAP}; the "
@@ -5105,6 +5587,7 @@ def phase_tp(dev, smi):
                 peak_gb=r["peak_gb"], pool_gb=r["pool_gb"], seconds=r["seconds"],
                 requests_s=r.get("requests_s"), lockstep_messages=r["lockstep_messages"],
                 http=r.get("http"))))
+    ring = worlds["2B tp2"][0]["ring"]["bf16"]
     # (c) a mesh of one on NCCL (make_mesh forms this process's default group)
     cfg = BitNetConfig.bitnet_2b()
     params = init_params(cfg, seed=0, device=dev)
@@ -5137,7 +5620,30 @@ def phase_tp(dev, smi):
     why = tp_token_gate(parts, dist)
     if why:
         fail(f"tp: the NCCL mesh of one against the single device: {why}")
-    del single, params, rec
+    del single, rec
+    torch.cuda.empty_cache()
+    # the TP world's ring against the ring on this mesh's group of one
+    lce = LongContextEngine(params, cfg, mesh.model.group, device=dev)
+    prompt = np.random.default_rng(27).integers(1, cfg.vocab_size, TP_RING_TOKENS).tolist()
+    logits0, pk, pv = lce._prefill(torch.tensor([prompt], device=dev), TP_RING_TOKENS)
+    rest = []  # greedy, as generate, with each step's logits
+    one = [int(logits0[0].argmax())] + lce._decode(
+        pk, pv, logits0[0].argmax(), TP_RING_TOKENS, TP_RING_NEW - 1, logits_out=rest)
+    l_one = [logits0[0].float()] + [x[0].float() for x in rest]
+    l_tp = ring["logits"].to(dev)
+    j = next((i for i, (a, b) in enumerate(zip(one, ring["tokens"])) if a != b), None)
+    upto = TP_RING_NEW if j is None else j + 1
+    d = max(float((l_tp[i] - l_one[i]).abs().max()) for i in range(upto))
+    why = "" if j is None else near_tie(sampling, l_one[j], l_tp[j], SamplingParams(
+        max_new_tokens=TP_RING_NEW, temperature=0.0), j, one[j], ring["tokens"][j], d)
+    print(f"tp: the bf16 ring of the tp 2 world ({TP_RING_TOKENS}-token prompt) against the "
+          f"ring on a group of one here: tokens {ring['tokens']} / {one}, "
+          f"{'equal' if j is None else f'part at token {j}'}; teacher-forced logit distance "
+          f"up to {d} on the common prefix{f'; {why}' if why else ''}")
+    if why:
+        fail(f"tp: the TP ring's bf16 tokens part from the group of one's beyond a near-tie: "
+             f"{why}")
+    del lce, pk, pv, rest, params
     torch.cuda.empty_cache()
     # the pp_ep phase's parts in the worlds count in its own wall
     pp_ep_s = sum(ranks[0]["pp_ep"]["seconds"] + ranks[0].get("pp_ep_k7_s", 0.0)

@@ -146,16 +146,18 @@ def long_context_cases(payload):
 def long_context_module(payload):
     """All of ``tests/test_torch_long_context.py``'s cases in one world:
     ``long_context_cases`` and ``engine_cases`` on the world's group; in a
-    world of more ranks, ``multi_rank_refusals``; in a world of one,
-    ``gate_case``, then, the group destroyed, ``server_cases`` (which forms
-    a group of one) and ``bench/long_context.py`` on the tiny model."""
+    world of more ranks, ``multi_rank_refusals``; in a world of one or two,
+    ``gate_case``; in a world of one, then, the group destroyed,
+    ``server_cases`` (which forms a group of one) and
+    ``bench/long_context.py`` on the tiny model."""
     import torch.distributed as dist
 
     out = {"lce": long_context_cases(payload), "engine": engine_cases(payload)}
     if dist.get_world_size() > 1:
         out["multi_rank"] = multi_rank_refusals()
-    if dist.get_world_size() == 1:
+    if dist.get_world_size() in (1, 2):
         out["gate"] = gate_case(payload)
+    if dist.get_world_size() == 1:
         dist.destroy_process_group()
         out["server"] = server_cases(payload)
         from wrinklefree_tpu_torch.bench import long_context as bench
@@ -236,8 +238,8 @@ def multi_rank_refusals():
 
 def gate_case(payload):
     """``chip_smoke.py``'s ``longctx_f32_gate`` on the tiny f32 model (the
-    world's group of one, q-chunks of 8, a 50-token prompt, 6 tokens): its
-    report and failures."""
+    world's group, of one or two ranks; q-chunks of 8, a 50-token prompt, 6
+    tokens): its report and failures."""
     import torch
 
     from chip_smoke import longctx_f32_gate
@@ -459,6 +461,72 @@ def tp_engine_cases(payload):
         params, cfg = _model(payload["models"], f["model"])
         out["faults"] = tp_faults(Engine(params, cfg, EngineConfig(**f["ecfg"]), mesh=mesh),
                                   f["prompts"], f["fail_decode"])
+    lc = payload.get("long")
+    if lc is not None and P in lc["worlds"]:
+        out["long"] = tp_long_case(payload["models"], lc, mesh)
+    return out
+
+
+def tp_long_case(models, lc, mesh):
+    """Long context on a tensor-parallel engine (``lc``: model, ecfg, long
+    prompts, short prompts, new tokens for each, worlds). In a world of one: the
+    single-device ring route (``Engine(long_context_mesh=<the world>)``) on
+    the long prompts. In a larger world, ``Engine(mesh, long_context_mesh=
+    mesh.model.group)`` on every rank, the leader: the short prompts alone,
+    the long prompts, then short prompt 0 stepped twice before long prompt 0
+    and short prompt 1 submitted after it, all stepped to their ends; then a
+    sampled long prompt (``ValueError``, nothing recorded). Then the world as
+    a ``make_mesh(P, 1)`` mesh, whose model ranks are one: the world group is
+    foreign to it (``ValueError``). Returns every rank's stats; the leader's
+    tokens and errors."""
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.config import EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine, SamplingParams
+    from wrinklefree_tpu_torch.parallel.sharding import make_mesh
+
+    P = dist.get_world_size()
+    params, cfg = _model(models, lc["model"])
+    ecfg = EngineConfig(**lc["ecfg"])
+    greedy = SamplingParams(max_new_tokens=lc["new"], temperature=0.0)
+    short = SamplingParams(max_new_tokens=lc["short_new"], temperature=0.0)
+    if P == 1:
+        eng = Engine(params, cfg, ecfg, long_context_mesh=dist.group.WORLD, device="cpu")
+        return dict(single=[eng.generate(p, greedy).output_ids for p in lc["longs"]])
+    eng = Engine(params, cfg, ecfg, mesh=mesh, long_context_mesh=mesh.model.group)
+    out = dict(snapshot=eng._long_ctx_params is not None)
+    if mesh.model.index == 0:
+        def run():
+            res = dict(alone=[eng.generate(p, short).output_ids for p in lc["shorts"]],
+                       longs=[eng.generate(p, greedy).output_ids for p in lc["longs"]])
+            a = eng.submit(lc["shorts"][0], short)
+            eng.step()
+            eng.step()
+            res["a_before"] = len(a.output_ids)
+            r = eng.generate(lc["longs"][0], greedy)
+            b = eng.submit(lc["shorts"][1], short)
+            while not (a.finished and b.finished):
+                eng.step()
+            res["together"] = [a.output_ids, r.output_ids, b.output_ids]
+            res["reason"] = r.finish_reason
+            try:
+                eng.generate(lc["longs"][0], SamplingParams(max_new_tokens=2, temperature=0.8))
+                res["sampled"] = None
+            except ValueError as e:
+                res["sampled"] = str(e)
+            res["recorded"] = eng._lockstep.pending()
+            return res
+
+        out.update(_run_leader(eng, run))
+    else:
+        eng.follow()
+    out["stats"] = dict(eng.stats)
+    try:
+        Engine(params, cfg, ecfg, mesh=make_mesh(P, 1, device="cpu"),
+               long_context_mesh=dist.group.WORLD)
+        out["foreign"] = None
+    except ValueError as e:
+        out["foreign"] = str(e)
     return out
 
 
@@ -515,13 +583,49 @@ def tp_faults(eng, prompts, fail_decode):
     return dict(res, stats=dict(eng.stats), decodes=calls[0])
 
 
+def _post(url, path, body, timeout=120):
+    """(status, JSON body) of a POST to a server of the port."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(url, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}{path}", timeout=60) as resp:
+        return resp.read().decode()
+
+
 def tp_server_cases(payload):
-    """``create_server(tiny=True, tp=P, device="cpu")`` on every rank of a
-    world of P (the tiny model's weights from seed 0 in f32 are not the
-    server's; it draws its own): rank 0 answers the payload's completions
-    over HTTP through the port's client (greedy, a streamed one, a sampled
-    one, an embedding refused with 501), compares them with its engine's
-    ``generate``, then shuts down, which ends the followers' ``serve()``."""
+    """A world of 2: ``tp_server_case``, then ``tp_embedding_case``. A world
+    of 4: ``dp_tp_server_case``."""
+    import torch.distributed as dist
+
+    if dist.get_world_size() == 4:
+        return dp_tp_server_case(payload)
+    out = tp_server_case(payload)
+    out["embedding_ref"] = tp_embedding_case(payload)
+    return out
+
+
+def tp_server_case(payload):
+    """``create_server(tiny=True, tp=P, long_context=True, device="cpu")`` on
+    every rank of a world of P (the tiny model's weights from seed 0 in f32
+    are not the server's; it draws its own): rank 0 answers the payload's
+    completions over HTTP through the port's client (greedy, one at a time;
+    a streamed one, a sampled one), an embedding, and a long completion
+    (``payload["long_text"]``, max_context tokens or more, through the ring
+    on the model group), and compares the greedy ones with its engine's
+    ``generate``; then it shuts down, which ends the followers' ``serve()``."""
     import torch.distributed as dist
 
     from wrinklefree_tpu_torch.client.client import InferenceClient
@@ -530,41 +634,130 @@ def tp_server_cases(payload):
     from wrinklefree_tpu_torch.server.http import FollowerServer, build_app, create_server
 
     P = dist.get_world_size()
-    server = create_server(tiny=True, tp=P, device="cpu")
+    server = create_server(tiny=True, tp=P, long_context=True, device="cpu")
     if isinstance(server, FollowerServer):
         server.serve()
         return {"follower": True, "stats": dict(server.engine.stats)}
     out = {"follower": False}
     st = ServerThread(build_app(server))
+    eng = server.async_engine.engine
+    greedy = SamplingParams(max_new_tokens=8, temperature=0.0)
     try:
         client = InferenceClient(st.url)
-        eng = server.async_engine.engine
         out["texts"] = [client.generate(t, max_tokens=8, temperature=0.0)
                         for t in payload["texts"]]
         out["stream"] = "".join(client.generate_stream(payload["texts"][0], max_tokens=8,
                                                        temperature=0.0))
         out["sampled"] = client.generate(payload["texts"][1], max_tokens=8, temperature=0.9,
                                          seed=5)
-        import json
-        import urllib.error
-        import urllib.request
-
-        req = urllib.request.Request(f"{st.url}/v1/embeddings",
-                                     data=json.dumps({"input": "hi"}).encode(),
-                                     headers={"Content-Type": "application/json"})
-        try:
-            urllib.request.urlopen(req, timeout=60)
-            out["embedding_status"] = 200
-        except urllib.error.HTTPError as e:
-            out["embedding_status"] = e.code
+        out["embedding"] = _post(st.url, "/v1/embeddings", {"input": "hi"})
+        out["long"] = _post(st.url, "/completion", {"prompt": payload["long_text"],
+                                                    "n_predict": 4, "temperature": 0.0})
+        out["max_context"] = eng.ecfg.max_context
+        long_ids = server.tokenizer.encode(payload["long_text"])
+        out["long_prompt_tokens"] = len(long_ids)
+        out["long_direct"] = server.tokenizer.decode(eng.generate(
+            long_ids, SamplingParams(max_new_tokens=4, temperature=0.0)).output_ids)
         ids = [server.tokenizer.encode(t) for t in payload["texts"]]
-        out["direct"] = [server.tokenizer.decode(
-            eng.generate(i, SamplingParams(max_new_tokens=8, temperature=0.0)).output_ids)
-            for i in ids]
+        out["direct"] = [server.tokenizer.decode(eng.generate(i, greedy).output_ids)
+                         for i in ids]
     finally:
         st.stop()
         server.async_engine.shutdown()
     out["stats"] = dict(eng.stats)
+    return out
+
+
+def tp_embedding_case(payload):
+    """A TP server of the world's size around ``Engine(mesh=make_mesh(1, P))``
+    on the payload's tiny weights (the reference's, bf16, its tiny engine
+    configuration): the leader's ``_embed_one`` of the payload's embedding
+    texts (on its unsharded snapshot, with no collective), while the
+    followers follow."""
+    import torch.distributed as dist
+
+    from wrinklefree_tpu_torch.config import BitNetConfig, EngineConfig
+    from wrinklefree_tpu_torch.engine import Engine
+    from wrinklefree_tpu_torch.parallel.sharding import make_mesh
+    from wrinklefree_tpu_torch.server.http import TINY_ENGINE, ByteTokenizer, InferenceServer
+    from wrinklefree_tpu_torch.weights import params_from_numpy
+
+    cfg = BitNetConfig.tiny()
+    mesh = make_mesh(1, dist.get_world_size(), device="cpu")
+    eng = Engine(params_from_numpy(payload["weights"], cfg, device="cpu"), cfg,
+                 EngineConfig(**TINY_ENGINE), eos_token_id=0, mesh=mesh)
+    if mesh.model.index:
+        eng.follow()
+        return None
+    server = InferenceServer(eng, ByteTokenizer(), "tp")
+    try:
+        return [server._embed_one(server._encode(t)) for t in payload["embed_texts"]]
+    finally:
+        server.async_engine.shutdown()
+
+
+def dp_tp_server_case(payload):
+    """``create_server(tiny=True, dp=2, tp=2, device="cpu")`` on a world of 4:
+    rank 0 serves HTTP over replica 0 (ranks 0-1) and a proxy of replica 1
+    (ranks 2-3, led by rank 2's ``ReplicaServer``). Rank 0: the payload's
+    greedy completions one at a time; the reference's ``TestDataParallel``
+    requests (six concurrent completions, then ``/stats``, ``/slots``,
+    ``/metrics``); a stream routed to replica 1 whose consumer goes away
+    (its cancel must reach replica 1); then shutdown. Every rank reports
+    its role and that its ``serve()`` (or rank 0's shutdown) returned."""
+    import asyncio
+    import concurrent.futures
+    import json
+
+    from wrinklefree_tpu_torch.client.client import InferenceClient
+    from wrinklefree_tpu_torch.engine import SamplingParams
+    from wrinklefree_tpu_torch.server._web import ServerThread
+    from wrinklefree_tpu_torch.server.http import InferenceServer, build_app, create_server
+
+    server = create_server(tiny=True, dp=2, tp=2, device="cpu")
+    if not isinstance(server, InferenceServer):
+        server.serve()
+        return {"role": type(server).__name__, "returned": True,
+                "stats": dict(server.engine.stats)}
+    out = {"role": "InferenceServer"}
+    ae = server.async_engine
+    st = ServerThread(build_app(server))
+    try:
+        client = InferenceClient(st.url)
+        out["texts"] = [client.generate(t, max_tokens=8, temperature=0.0)
+                        for t in payload["texts"]]
+
+        def gen(i):
+            return _post(st.url, "/v1/completions", {"model": "m", "prompt": f"hello {i}",
+                                                     "max_tokens": 24, "temperature": 0.0})[0]
+
+        with concurrent.futures.ThreadPoolExecutor(6) as ex:
+            out["codes"] = list(ex.map(gen, range(6)))
+        out["stats"] = json.loads(_get(st.url, "/stats"))
+        out["slots"] = json.loads(_get(st.url, "/slots"))
+        out["metrics"] = _get(st.url, "/metrics")
+
+        async def cancelled():
+            ae._rr = 1  # the tie goes to replica 1
+            stream = ae.generate_stream(server.tokenizer.encode("cancel me"),
+                                        SamplingParams(max_new_tokens=200, temperature=0.0))
+            tok, fin, req = await stream.__anext__()
+            owner = ae._owners[id(req)]
+            await stream.aclose()  # the consumer goes away: the request is cancelled
+            for _ in range(600):
+                if req.finished:
+                    break
+                await asyncio.sleep(0.05)
+            return owner, req
+
+        owner, req = asyncio.run(cancelled())
+        out["cancel"] = dict(owner=owner, finished=req.finished, reason=req.finish_reason,
+                             tokens=len(req.output_ids),
+                             busy=sum(s is not None for s in ae.engines[1].slots))
+    finally:
+        st.stop()
+        ae.shutdown()
+    out["returned"] = True
     return out
 
 

@@ -227,6 +227,26 @@ def test_f32_gate_on_the_cpu(port_out):
     assert any("hybrid" in f for f in shift), shift
 
 
+def test_f32_gate_on_a_ring_of_two(port_out):
+    """The same gate on a group of two ranks (a tensor-parallel engine's
+    ring): on each rank, every layer's ring attention (this rank's rows over
+    both ranks' keys) within its tolerance of the dense one, the ring logits
+    bitwise those of the dense forward run on this rank's rows with the
+    ring's attention, tokens equal to the dense forward's; its control, the
+    last rank's prefix block dropped from the decode's merge, caught by the
+    attention check."""
+    from chip_smoke import LONGCTX_ATTN_TOL
+
+    for rep, failures in (r["gate"] for r in port_out[2]):
+        assert failures == [], failures
+        assert rep["ranks"] == 2 and rep["attn_err"] <= LONGCTX_ATTN_TOL
+        assert rep["hybrid_err"] == 0.0
+        assert rep["part"] is None and rep["tokens"] == rep["dense_tokens"]
+        c = rep["controls"]
+        assert list(c) == ["dropped_block"], c
+        assert any("attention differs" in f for f in c["dropped_block"]), c
+
+
 def test_long_context_bench_on_the_cpu(port_out):
     """``bench/long_context.py`` runs the tiny model on the CPU: a 300-token
     prompt and 4 greedy tokens; its device fields are null (not measured)."""

@@ -1290,30 +1290,44 @@ def test_serve_heads_and_kv_flags(flags, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism: create_server(tp=2) on a spawned gloo world of 2 ranks
+# tensor parallelism: create_server(tp=2) on a spawned gloo world of 2 ranks,
+# create_server(dp=2, tp=2) on one of 4
 # ---------------------------------------------------------------------------
 
 TP_TEXTS = ["Hello tensor parallel", "The quick brown fox", "ab", "0123456789"]
+# 300 bytes: beyond the tiny server's max_context of 256
+TP_LONG_TEXT = "The ring runs on the model group. " * 8 + "abcdefghijklmnopqrstuvwxyz!?"
+EMBED_TEXTS = ["hello world", "a", "abcdefghijklmnopq"]
 
 
 @pytest.fixture(scope="module")
-def tp_server_out():
+def tp_worlds(weights):
     from tests._torch_dist import run_worlds
 
-    return run_worlds((2,), "tp_server_cases", dict(texts=TP_TEXTS))[2]
+    return run_worlds((2, 4), "tp_server_cases",
+                      dict(texts=TP_TEXTS, long_text=TP_LONG_TEXT, weights=weights,
+                           embed_texts=EMBED_TEXTS))
+
+
+@pytest.fixture(scope="module")
+def tp_server_out(tp_worlds):
+    return tp_worlds[2]
 
 
 def test_tp_server_answers_over_http(tp_server_out):
-    """Rank 0 of ``create_server(tiny=True, tp=2)`` answers greedy
-    completions over HTTP with its TP engine's own ``generate`` text
-    (tolerance: none), streams the same text, serves a sampled request, and
-    refuses an embedding with 501 (ROADMAP item 12d)."""
+    """Rank 0 of ``create_server(tiny=True, tp=2, long_context=True)``
+    answers greedy completions over HTTP with its TP engine's own
+    ``generate`` text (tolerance: none), streams the same text, serves a
+    sampled request, and answers an embedding with 200, L2-normalized within
+    1e-3."""
     leader, follower = tp_server_out
     assert not leader["follower"] and follower["follower"]
     assert leader["texts"] == leader["direct"]
     assert leader["stream"] == leader["texts"][0]
     assert isinstance(leader["sampled"], str)
-    assert leader["embedding_status"] == 501
+    status, body = leader["embedding"]
+    assert status == 200, body
+    assert abs(float(np.linalg.norm(body["data"][0]["embedding"])) - 1.0) < 1e-3
 
 
 def test_tp_server_follower_ran_every_step(tp_server_out):
@@ -1328,11 +1342,98 @@ def test_tp_server_follower_ran_every_step(tp_server_out):
     (dict(tp=2, dp=2), "dp > 1 with tp > 1"),
     (dict(tp=2, long_context=True), "long_context with tp > 1"),
 ])
-def test_tp_server_refusals(kw, match):
-    from wrinklefree_tpu_torch.server.http import create_server
+def test_tp_server_refusals(tp_worlds, kw, match):
+    """The two configurations the port once refused, now served on spawned
+    worlds: ``dp=2, tp=2`` on 4 ranks (rank 0 serves HTTP, rank 2 leads
+    replica 1, ranks 1 and 3 follow; the greedy texts equal one TP-2
+    replica's, tolerance none), and ``tp=2, long_context=True`` (a
+    300-token completion, max_context 256, through the ring on the model
+    group, with the text of the engine's ``generate``)."""
+    if "dp" in kw:
+        ranks = tp_worlds[4]
+        assert [r["role"] for r in ranks] == ["InferenceServer", "FollowerServer",
+                                             "ReplicaServer", "FollowerServer"]
+        assert ranks[0]["texts"] == tp_worlds[2][0]["texts"]
+    else:
+        leader = tp_worlds[2][0]
+        status, body = leader["long"]
+        assert leader["long_prompt_tokens"] >= leader["max_context"]
+        assert status == 200 and body["tokens_predicted"] == 4, body
+        assert body["content"] == leader["long_direct"]
 
-    with pytest.raises(NotImplementedError, match=match):
-        create_server(tiny=True, device="cpu", **kw)
+
+class TestEmbeddingsUnderTP:
+    """``tests/test_server.py::TestEmbeddingsUnderTP``: a TP-2 server embeds
+    on its leader from the unsharded snapshot."""
+
+    def test_embeddings_tp2(self, tp_server_out):
+        status, body = tp_server_out[0]["embedding"]
+        assert status == 200, body
+        emb = body["data"][0]["embedding"]
+        assert abs(float(np.linalg.norm(np.asarray(emb))) - 1.0) < 1e-3
+
+    def test_tp2_generation_still_works(self, tp_server_out):
+        assert all(len(t) > 0 for t in tp_server_out[0]["texts"])
+
+
+def test_tp_embedding_matches_reference_and_one_device(tp_server_out, weights, port):
+    """The TP-2 leader's embedding of the reference's tiny weights (its
+    snapshot through the stacked K7 linear's plain version) is
+    L2-normalized within 1e-3, within ``EMBED_TOL`` of the reference's
+    ``create_server(tiny=True, tp=2)`` embedding, and bitwise the port's
+    single-device server's (fused params, K1's plain version: the same
+    integer dots and rescale)."""
+    got = [np.asarray(e) for e in tp_server_out[0]["embedding_ref"]]
+    ref = ref_create_server(tiny=True, use_pallas=False, tp=2)
+    try:
+        tok = ByteTokenizer()
+        want = [np.asarray(ref._embed_one(tok.encode(t))) for t in EMBED_TEXTS]
+    finally:
+        ref.async_engine.shutdown()
+    single = [np.asarray(port.server._embed_one(ByteTokenizer().encode(t)))
+              for t in EMBED_TEXTS]
+    for g, w, one in zip(got, want, single):
+        assert abs(float(np.linalg.norm(g)) - 1.0) < 1e-3
+        err = float(np.max(np.abs(g - w)))
+        assert err < EMBED_TOL, err
+        np.testing.assert_array_equal(g, one)
+
+
+class TestDataParallelUnderTP:
+    """``tests/test_server.py::TestDataParallel`` on ``create_server(dp=2,
+    tp=2)`` across 4 processes (``parallel/replicas.py``)."""
+
+    def test_dp_requests_distribute_across_replicas(self, tp_worlds):
+        r0 = tp_worlds[4][0]
+        assert r0["codes"] == [200] * 6
+        assert r0["stats"]["replicas"] == 2
+        assert all(c >= 1 for c in r0["stats"]["per_replica_requests"]), r0["stats"]
+
+    def test_dp_slots_show_replica(self, tp_worlds):
+        slots = tp_worlds[4][0]["slots"]
+        assert len({s["id"] for s in slots}) == len(slots) == 8
+        assert {s["replica"] for s in slots} == {0, 1}
+
+    def test_dp_metrics_aggregate(self, tp_worlds):
+        assert "wf_replicas 2" in tp_worlds[4][0]["metrics"]
+
+
+def test_dp_tp_cancel_reaches_replica_1(tp_worlds):
+    """A stream routed to replica 1 whose consumer goes away after its first
+    token: the cancel reaches replica 1, which ends the request ("abort")
+    well before its 200 tokens and frees its slot."""
+    c = tp_worlds[4][0]["cancel"]
+    assert c["owner"] == 1 and c["finished"] and c["reason"] == "abort", c
+    assert 1 <= c["tokens"] < 200 and c["busy"] == 0, c
+
+
+def test_dp_tp_shutdown_returns_every_rank(tp_worlds):
+    """Rank 0's ``AsyncEngine.shutdown()`` ends replica 1's ``ReplicaServer``
+    and every follower: each rank's ``serve()`` returned, and each replica's
+    follower ran its leader's steps."""
+    ranks = tp_worlds[4]
+    assert all(r["returned"] for r in ranks)
+    assert ranks[3]["stats"] == ranks[2]["stats"] and ranks[2]["stats"]["requests"] >= 1
 
 
 def test_tp_server_needs_a_world():
@@ -1344,3 +1445,25 @@ def test_tp_server_needs_a_world():
     with pytest.raises(ValueError, match="not initialized"):
         create_server(tiny=True, tp=2, device="cpu")
     assert not dist.is_initialized()
+
+
+def test_replica_accepts_only_rank0s_token():
+    """A replica leader's channel takes the first connection that sends rank
+    0's token, and closes any other unread (its messages are pickles)."""
+    from wrinklefree_tpu_torch.parallel.replicas import ReplicaServer
+
+    listener = socket.create_server(("127.0.0.1", 0))
+    addr = listener.getsockname()
+    server = ReplicaServer(None, listener, b"t" * 32)
+    with socket.create_connection(addr) as bad, socket.create_connection(addr) as good:
+        bad.sendall(b"x" * 32)
+        good.sendall(b"t" * 32)
+        conn = server._accept()
+        try:
+            bad.settimeout(30)
+            assert bad.recv(1) == b""  # closed unread
+            conn.sendall(b"k")
+            good.settimeout(30)
+            assert good.recv(1) == b"k"
+        finally:
+            conn.close()

@@ -75,6 +75,14 @@ CASES = {
                           runs=[([1, 5, 9], dict(max_new_tokens=8))]),
 }
 RAISES = {"bad_head_split", "bad_expert_split"}
+# long context on a TP engine (``tests/_torch_dist.py::tp_long_case``): the
+# ring on the model group at tp 2 and 4, prompts of max_context (64) tokens or
+# more, one that P divides and one it does not; the single-device ring route
+# in the world of one
+LONG = dict(model="tiny", ecfg=ECFG, new=6, short_new=40, worlds=(1, 2, 4),
+            longs=[np.random.default_rng(0).integers(1, 256, 96).tolist(),
+                   np.random.default_rng(1).integers(1, 256, 99).tolist()],
+            shorts=[[1, 5, 9, 2, 7], [3, 3, 4]])
 # a full queue and a failed step at tp 2 (``tests/_torch_dist.py::tp_faults``)
 FAULTS = dict(model="tiny", tp=2, ecfg=dict(ECFG, max_queue=3), fail_decode=3,
               prompts=[[1, 5, 9, 2, 7], [3, 3, 4]])
@@ -100,7 +108,7 @@ def port_out(ref_params):
     models = {name: (jax.tree.map(np.asarray, ref_params[name]), MODELS[name])
               for name in MODELS}
     return run_worlds((1, 2, 4, 5), "tp_engine_cases",
-                      dict(models=models, cases=CASES, faults=FAULTS))
+                      dict(models=models, cases=CASES, faults=FAULTS, long=LONG))
 
 
 _REF_CACHE = {}
@@ -226,3 +234,59 @@ def test_tp_followers_survive_a_failed_step(port_out):
     assert follower["decodes"] == leader["decodes"] > FAULTS["fail_decode"]
     assert follower["stats"] == leader["stats"]
     assert leader["stats"]["requests"] == ECFG["max_batch_slots"] + FAULTS["ecfg"]["max_queue"]
+
+
+# -- long context on a tensor-parallel engine ---------------------------------
+
+
+def _long(port_out, tp):
+    ranks = [r["long"] for r in port_out[tp]]
+    for r in ranks[1:]:  # the followers ran the leader's steps and rings
+        assert r["stats"] == ranks[0]["stats"], (r["stats"], ranks[0]["stats"])
+    return ranks
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_long_context_matches_reference(port_out, ref_params, tp):
+    """Tolerance: none. The f32 greedy tokens of a TP engine whose ring group
+    is its model group, on a 96-token prompt (P divides it) and a 99-token
+    one (it does not; max_context 64), equal the reference's
+    ``Engine(mesh=make_mesh(1, tp), long_context_mesh=<a seq mesh of tp
+    devices>)`` and the port's single-device ring route."""
+    from jax.sharding import Mesh
+
+    cfg = RefConfig(**MODELS["tiny"], dtype=jnp.float32)
+    eng = RefEngine(ref_params["tiny"], cfg, RefEngineConfig(**ECFG), mesh=ref_mesh(1, tp),
+                    long_context_mesh=Mesh(np.asarray(jax.devices()[:tp]), ("seq",)))
+    want = [eng.generate(p, RefSampling(max_new_tokens=LONG["new"], temperature=0.0)).output_ids
+            for p in LONG["longs"]]
+    got = _long(port_out, tp)[0]["longs"]
+    assert got == want, (got, want)
+    assert got == port_out[1][0]["long"]["single"]
+    assert all(len(t) == LONG["new"] for t in got)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_long_context_leaves_short_requests_alone(port_out, tp):
+    """A short request stepped before a long one (in flight when the ring
+    runs) and one submitted after it finish with the tokens they have alone,
+    and the long one with its own: the ring runs at the leader's step,
+    between two paged steps, on every rank."""
+    lead = _long(port_out, tp)[0]
+    a, r, b = lead["together"]
+    assert 0 < lead["a_before"] < LONG["short_new"]
+    assert (a, b) == tuple(lead["alone"]) and r == lead["longs"][0]
+    assert lead["reason"] == "length"
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_long_context_refusals_and_snapshot(port_out, tp):
+    """A sampled long prompt raises ``ValueError`` on the leader and records
+    nothing; a group that is not the mesh's model ranks raises
+    ``ValueError`` on every rank; every rank with the group keeps the
+    unsharded snapshot."""
+    ranks = _long(port_out, tp)
+    assert "greedy-only" in ranks[0]["sampled"] and ranks[0]["recorded"] is False
+    for r in ranks:
+        assert r["snapshot"] is True
+        assert "must be the mesh's model ranks" in r["foreign"], r["foreign"]

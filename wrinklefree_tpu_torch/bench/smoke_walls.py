@@ -30,7 +30,7 @@ HELPERS = ("cuda_ms", "graph_ms", "start_profiler", "captured_window", "tp_k7_sh
            "_tp_engine_run", "_tp_control_run", "_tp_http", "_tp_int_gates",
            "_tp_layer0_inputs", "pp_ep_job", "pp_greedy", "forward_greedy", "ep_run",
            "tp_world", "paged_run", "kernels_vs_plain", "moe_kernels_vs_plain", "routed_run",
-           "write_hf_dir")
+           "write_hf_dir", "_tp_ring", "longctx_f32_gate", "text_parts")
 ROOT_ENV = "WF_SMOKE_WALLS_ROOT"  # the tp ranks read --root from here
 ACC = collections.defaultdict(lambda: [0, 0.0])
 
@@ -110,8 +110,9 @@ def instrument(root) -> object:
             _summed(cs, name, name)
     if hasattr(cs, "in_fresh_process"):
         _walled(cs, "in_fresh_process")
-    if hasattr(cs, "tp_job"):
-        _rank_job(cs, "tp_job")
+    for name in ("tp_job", "dp_tp_job"):
+        if hasattr(cs, name):
+            _rank_job(cs, name)
     for name in ("step", "__init__", "generate"):
         if not getattr(getattr(Engine, name), "__wrapped__", None):
             _summed(Engine, name, f"Engine.{name}")

@@ -6,7 +6,10 @@
 ``serve`` starts the port's server (``--tiny --device cpu`` off the card; on
 it ``--model synth:bitnet_2b``, a model directory or a ``.gguf``); with
 ``--tp N`` under ``torchrun --nproc-per-node N`` it serves tensor-parallel
-(rank 0 answers HTTP, the other ranks follow it).
+(rank 0 answers HTTP, the other ranks follow it), with ``--dp M`` as well
+under ``torchrun --nproc-per-node N*M`` M such replicas, and with
+``--long-context`` prompts of ``max_context`` tokens or more through ring
+attention.
 """
 
 from __future__ import annotations
@@ -28,9 +31,11 @@ def cmd_serve(args):
     argv += ["--host", args.host, "--port", str(args.port)]
     if args.kv_dtype:
         argv += ["--kv-dtype", args.kv_dtype]
-    for flag in ("kv_layout", "exact_head", "window", "global_tokens", "tp"):
+    for flag in ("kv_layout", "exact_head", "window", "global_tokens", "tp", "dp"):
         if getattr(args, flag):
             argv += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
+    if args.long_context:
+        argv.append("--long-context")
     if args.tokenizer:
         argv += ["--tokenizer", args.tokenizer]
     if args.device:
@@ -156,6 +161,10 @@ def main(argv=None):
     s.add_argument("--device", default=None, help="torch device (default: cuda)")
     s.add_argument("--tp", type=int, default=0,
                    help="tensor-parallel ranks (run under torchrun --nproc-per-node N)")
+    s.add_argument("--dp", type=int, default=0,
+                   help="replicas (with --tp N: under torchrun --nproc-per-node N*M)")
+    s.add_argument("--long-context", action="store_true",
+                   help="serve prompts of max_context tokens or more through ring attention")
     s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser("generate", help="generate from a live server")

@@ -34,7 +34,9 @@ ring-attention path (``engine/long_context.py``). With a ``mesh``
 (``parallel.sharding.make_mesh``) the engine is tensor-parallel: every rank
 of the model group builds its own engine on its shard of the weights and of
 the KV pools, and the ranks run in lockstep (``engine/lockstep.py``): model
-rank 0 leads, the others ``follow()``.
+rank 0 leads, the others ``follow()``. A tensor-parallel engine's ring group
+is its model group: the leader records a long request, and every rank runs
+the ring path at the leader's next step.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import BitNetConfig, EngineConfig
 from ..kv.paged import PagedKV, make_dual_window_attention
@@ -185,7 +188,14 @@ class Engine:
         (``_tp_kv_rep``). Model rank 0 is the leader, whose ``submit``,
         ``generate``, ``cancel``, ``step`` and ``warmup`` run on every rank;
         the other ranks call ``follow()``, and the leader's
-        ``stop_followers()`` ends it."""
+        ``stop_followers()`` ends it. A ``long_context_mesh`` beside a mesh
+        must span the mesh's model ranks (``ValueError`` otherwise: only they
+        follow the leader), as the mesh's model group does: every rank keeps
+        the whole unfused params as the ring's snapshot (taken before they
+        are quantized, repacked and sharded, as the reference takes it), and
+        a long prompt runs on every rank at the leader's next step
+        (``submit_long``). The leader keeps that snapshot without a group
+        too: the server embeds from it on the leader's device alone."""
         self.cfg = cfg
         self.ecfg = e = ecfg or EngineConfig()
         self.mesh = mesh
@@ -196,8 +206,14 @@ class Engine:
             from ..parallel.sharding import tp_kv_replicated
 
             if long_context_mesh is not None:
-                raise NotImplementedError("a mesh with a long_context_mesh (ring attention on "
-                                          "a tensor-parallel engine): ROADMAP item 12c")
+                try:
+                    ranks = tuple(dist.get_process_group_ranks(long_context_mesh))
+                except (KeyError, RuntimeError, ValueError):  # not a group of this rank
+                    ranks = None
+                if ranks != tuple(mesh.model.ranks):
+                    raise ValueError(f"long_context_mesh spans ranks {ranks}: beside a mesh it "
+                                     f"must be the mesh's model ranks {mesh.model.ranks} (only "
+                                     "they follow the leader's steps)")
             if "qkv_qw" in params["layers"]:
                 raise ValueError("a mesh needs unfused params (the column groups of fused "
                                  "projections would split across ranks)")
@@ -217,9 +233,12 @@ class Engine:
             raise ValueError("long_context_mesh needs unfused params (the ring path's "
                              "snapshot is taken before fuse_projections)")
         self._long_ctx_group = long_context_mesh
-        # the ring path's unfused snapshot (kept only with a group: it holds
-        # the unfused weights alive beside the fused copy)
-        self._long_ctx_params = params if long_context_mesh is not None else None
+        # the unfused, unsharded snapshot (the reference's name): the ring
+        # path's, and a tensor-parallel leader's for the server's embeddings;
+        # kept only then, as it holds the whole weights beside the fused or
+        # sharded copy
+        keep = long_context_mesh is not None or (mesh is not None and mesh.model.index == 0)
+        self._long_ctx_params = params if keep else None
         self._long_ctx = None
         if e.exact_head_k and e.int8_logits:
             raise ValueError("int8_logits (approximate) and exact_head_k (exact) are "
@@ -424,30 +443,69 @@ class Engine:
         given (greedy only: ``temperature > 0`` raises ``ValueError``)."""
         sampling = sampling or SamplingParams()
         if self.long_context_route(prompt_ids):
-            if sampling.temperature > 0:
-                raise ValueError("long-context ring path is greedy-only")
-            return self._generate_long(prompt_ids, sampling)
-        req = self.submit(prompt_ids, sampling)
+            if self._lockstep is None:
+                self._check_long(sampling)
+                return self._run_long(self._new_request(prompt_ids, sampling))
+            req = self.submit_long(prompt_ids, sampling)
+        else:
+            req = self.submit(prompt_ids, sampling)
         while not req.finished:
             if not self.step():
                 time.sleep(0.001)
         return req
 
-    def _generate_long(self, prompt_ids, sampling: SamplingParams) -> Request:
+    def submit_long(self, prompt_ids: List[int], sampling: SamplingParams | None = None,
+                    on_token: Optional[Callable[[int, bool], None]] = None) -> Request:
+        """A tensor-parallel leader's long request (``long_context_route``):
+        recorded, and run through the ring path by every rank of the group at
+        the leader's next step, before that step's scheduling, so the ring's
+        collectives meet on every rank; the paged steps wait for it. Its
+        tokens reach ``on_token`` together at the end. Greedy only
+        (``ValueError`` before anything is recorded)."""
+        sampling = sampling or SamplingParams()
+        if self._lockstep is None:
+            raise RuntimeError("submit_long is a tensor-parallel leader's; one device "
+                               "serves long prompts in generate")
+        self._leader_only("submit_long")
+        if not self.long_context_route(prompt_ids):
+            raise ValueError(f"a prompt of {len(prompt_ids)} tokens takes the paged path "
+                             f"(max_context {self.ecfg.max_context}, long-context group "
+                             f"{'given' if self._long_ctx_group is not None else 'none'})")
+        self._check_long(sampling)
+        req = self._new_request(prompt_ids, sampling, on_token)
+        self._lockstep.record(("long", _request_record(req)), req)
+        return req
+
+    def _check_long(self, sampling: SamplingParams):
+        """What the ring path refuses, raised before it runs."""
+        if sampling.temperature > 0:
+            raise ValueError("long-context ring path is greedy-only")
+        if sampling.max_new_tokens > self._ring().decode_buf:
+            raise ValueError(f"max_new_tokens {sampling.max_new_tokens} > the ring path's "
+                             f"decode_buf {self._ring().decode_buf}")
+
+    def _ring(self):
         if self._long_ctx is None:
             from .long_context import LongContextEngine
 
             self._long_ctx = LongContextEngine(self._long_ctx_params, self.cfg,
                                                self._long_ctx_group, device=self.device)
-        req = self._new_request(prompt_ids, sampling)
-        out = self._long_ctx.generate(list(prompt_ids), sampling.max_new_tokens,
-                                      eos_token_id=self.eos_token_id)
+        return self._long_ctx
+
+    def _run_long(self, req: Request) -> Request:
+        """Serve ``req`` through the ring path (collective: every rank of the
+        group at once) and finish it, its tokens to ``on_token`` at the end."""
+        out = self._ring().generate(list(req.prompt_ids), req.sampling.max_new_tokens,
+                                    eos_token_id=self.eos_token_id)
         req.first_token_t = req.arrival_t + self._long_ctx.last_timings["prefill_s"]
         req.output_ids = out
         req.finished = True
         req.finish_t = time.monotonic()
         req.finish_reason = "stop" if out and out[-1] == self.eos_token_id else "length"
         self.stats["requests"] += 1
+        if req.on_token is not None:
+            for i, tok in enumerate(out):
+                req.on_token(tok, i == len(out) - 1)
         return req
 
     def has_work(self) -> bool:
@@ -540,11 +598,22 @@ class Engine:
         action, now, ops, pieces = msg
         if action == "stop":
             return _STOP
+        longs = []
         with self._lock:
             if pieces is not None and self.token_pieces is None:
                 self.token_pieces = pieces
             for op, local in ops:
-                self._apply(op, local)
+                if op[0] == "long":
+                    longs.append(local if local is not None else _request_from(op[1]))
+                else:
+                    self._apply(op, local)
+        for req in longs:  # the ring path, every rank in the leader's order
+            try:
+                self._run_long(req)
+            except Exception:
+                if not req.finished:  # its stream ends; the caller sees the error
+                    self._finish_notify(req, "error")
+                raise
         self._now = now
         try:
             if action == "warmup":
@@ -1454,6 +1523,21 @@ class Engine:
         if req.on_token is not None:
             req.on_token(-1, True)
         return True
+
+    def slot_states(self) -> List[Optional[dict]]:
+        """Each slot as llama.cpp's ``/slots`` shows it: None when idle, else
+        its request's state, id, prompt and generated token counts and
+        sequence length (read without the lock, as a load probe)."""
+        out = []
+        for r in list(self.slots):
+            out.append(None if r is None else {
+                "state": "prefill" if r.pending else "decoding",
+                "request_id": r.rid,
+                "prompt_tokens": len(r.prompt_ids),
+                "generated_tokens": len(r.output_ids),
+                "seq_len": int(r.seq_len),
+            })
+        return out
 
     def latency_summary(self) -> dict:
         """p50/p95/p99 TTFT and end-to-end latency over the rolling window of

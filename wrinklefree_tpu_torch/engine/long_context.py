@@ -70,13 +70,16 @@ def group_of_one(device) -> "dist.ProcessGroup":
     not initialized yet, its rendezvous in a ``FileStore`` under a fresh
     temporary directory (no TCP port). Raises if the default group has more
     than one rank: ``LongContextEngine.generate`` is collective, and a
-    caller on one rank alone would hang at its first all-reduce."""
+    caller on one rank alone would hang at its first all-reduce (with
+    ``tp > 1`` the group is the tensor-parallel engine's model group)."""
     if dist.is_initialized():
         if dist.get_world_size() > 1:
             raise NotImplementedError(
                 f"the default process group has {dist.get_world_size()} ranks: a long-context "
-                "caller on one rank would wait for the others at every collective (serving "
-                "across ranks is not ported yet)")
+                "caller on one rank would wait for the others at every collective; across "
+                "ranks the ring runs on a tensor-parallel engine's model group, which brings "
+                "every rank to each request (Engine(mesh=..., long_context_mesh="
+                "mesh.model.group), create_server(tp > 1, long_context=True))")
     else:
         import tempfile
 

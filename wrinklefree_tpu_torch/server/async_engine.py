@@ -13,15 +13,22 @@ consumer goes away (a client that disconnects) cancels its request.
 A tensor-parallel engine (``Engine(mesh=...)``) is driven here through its
 leader rank: submit, cancel and the between-step calls are recorded by the
 engine and reach the other ranks with its next step (``engine/lockstep.py``),
-and ``shutdown`` ends their ``follow()``.
+and ``shutdown`` ends their ``follow()``. A replica in another process
+(``parallel/replicas.py``'s ``RemoteReplica``) is driven through the same
+calls, which its proxy carries to that replica's own scheduler thread.
 
-A greedy prompt of ``max_context`` tokens or more runs the ring path
-(``Engine.generate``) of the replica that holds the long-context group, on
-an executor thread beside the scheduler threads, as the reference runs it.
-Beyond the reference: such a prompt goes straight to that replica (the
-reference routes it least-loaded first, and a replica without the group
-refuses it as too long), and its executor has one thread, so long requests
-run one after another (the group's collectives run in one order).
+A greedy prompt of ``max_context`` tokens or more runs the ring path of the
+replica that holds the long-context group. On one device it runs
+``Engine.generate`` on an executor thread beside the scheduler threads, as
+the reference runs it; the executor has one thread, so long requests run
+one after another (the group's collectives run in one order). On a
+tensor-parallel leader it is recorded (``Engine.submit_long``) and every
+rank runs it at the scheduler thread's next step: an executor thread would
+race that thread's collectives on the same groups. The paged steps of the
+other requests wait while the ring runs (the reference's ring program and
+paged programs share its devices instead). Beyond the reference: such a
+prompt goes straight to that replica (the reference routes it least-loaded
+first, and a replica without the group refuses it as too long).
 """
 
 from __future__ import annotations
@@ -59,11 +66,12 @@ class AsyncEngine:
         # per-replica wake events: an idle scheduler thread parks on its
         # event (50 ms cap) and a submit wakes it at once
         self._wakes = [threading.Event() for _ in engines]
-        # the replica that serves the ring path, and its one-thread executor
+        # the replica that serves the ring path, and on one device its
+        # one-thread executor
         self._long = next((e for e in engines if e.has_long_context()), None)
         self._long_pool = (concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="wf-long-context")
-            if self._long is not None else None)
+            if self._long is not None and self._long.mesh is None else None)
         self._threads = [
             threading.Thread(target=self._loop, args=(i,), daemon=True, name=f"wf-engine-{i}")
             for i in range(len(engines))
@@ -95,7 +103,8 @@ class AsyncEngine:
                 wake.wait(timeout=0.05)
                 wake.clear()
 
-    def _wake_for(self, engine: Engine):
+    def wake(self, engine: Engine):
+        """Wake ``engine``'s scheduler thread (work queued outside ``generate``)."""
         self._wakes[self.engines.index(engine)].set()
 
     def pick(self) -> Engine:
@@ -118,12 +127,16 @@ class AsyncEngine:
         self._calls[i].append((fn, fut))
         self._wakes[i].set()
 
-    def between_steps(self, engine: Engine, fn) -> "asyncio.Future":
+    def call_between_steps(self, engine: Engine, fn) -> concurrent.futures.Future:
         """Run ``fn()`` on ``engine``'s scheduler thread before its next step;
-        an awaitable of its result (or its exception)."""
+        a future of its result (or its exception)."""
         fut = concurrent.futures.Future()
         self._call(self.engines.index(engine), fn, fut)
-        return asyncio.wrap_future(fut)
+        return fut
+
+    def between_steps(self, engine: Engine, fn) -> "asyncio.Future":
+        """``call_between_steps`` as an awaitable."""
+        return asyncio.wrap_future(self.call_between_steps(engine, fn))
 
     def cancel(self, req: Request, reason: str = "abort") -> None:
         """Cancel a request: its replica's scheduler thread applies it
@@ -133,7 +146,8 @@ class AsyncEngine:
 
     def shutdown(self):
         """Stop the scheduler threads; a tensor-parallel engine's leader then
-        ends its followers' ``follow()``."""
+        ends its followers' ``follow()``, and a remote replica's proxy stops
+        that replica's scheduler and followers."""
         if self._stop.is_set():
             return
         self._stop.set()
@@ -145,8 +159,7 @@ class AsyncEngine:
         if self._long_pool is not None:
             self._long_pool.shutdown(wait=False, cancel_futures=True)
         for e in self.engines:
-            if e.mesh is not None:
-                e.stop_followers()
+            e.stop_followers()  # a no-op on one device
 
     async def generate_stream(
         self, prompt_ids: List[int], sampling: SamplingParams
@@ -157,22 +170,26 @@ class AsyncEngine:
         loop = asyncio.get_running_loop()
         lc = self._long
         if lc is not None and sampling.temperature == 0 and lc.long_context_route(prompt_ids):
-            # a prompt beyond max_context: the sequence-parallel ring path on
-            # the executor thread (its tokens arrive together at the end)
-            req = await loop.run_in_executor(self._long_pool,
-                                             lambda: lc.generate(prompt_ids, sampling))
-            for i, tok in enumerate(req.output_ids):
-                yield tok, i == len(req.output_ids) - 1, req
-            return
-        eng = self.pick()
+            # a prompt beyond max_context: the sequence-parallel ring path (its
+            # tokens arrive together at the end)
+            if self._long_pool is not None:  # one device: on the executor thread
+                req = await loop.run_in_executor(self._long_pool,
+                                                 lambda: lc.generate(prompt_ids, sampling))
+                for i, tok in enumerate(req.output_ids):
+                    yield tok, i == len(req.output_ids) - 1, req
+                return
+            eng, submit = lc, lc.submit_long  # every rank, at the scheduler's next step
+        else:
+            eng = self.pick()
+            submit = eng.submit
         q: asyncio.Queue = asyncio.Queue()
 
         def on_token(tok: int, fin: bool):
             loop.call_soon_threadsafe(q.put_nowait, (tok, fin))
 
-        req = eng.submit(prompt_ids, sampling, on_token=on_token)
+        req = submit(prompt_ids, sampling, on_token=on_token)
         self._owners[id(req)] = self.engines.index(eng)
-        self._wake_for(eng)
+        self.wake(eng)
         try:
             while True:
                 tok, fin = await q.get()

@@ -37,6 +37,8 @@ from ..engine.sampling_params import SamplingParams
 from ..engine.schema_to_gbnf import schema_to_gbnf
 from ..models.bitnet import KVCache, forward, fuse_projections, init_params, resolve_device
 from ..models.loader import load_params, load_tokenizer
+from ..ops.ternary_cuda import make_linear_stacked
+from ..parallel.replicas import replica_channels
 from . import _web as web
 from .api_types import (
     chat_chunk,
@@ -145,7 +147,8 @@ def _error(message: str, status: int) -> web.Response:
 class InferenceServer:
     def __init__(self, engine, tokenizer, model_name: str):
         """``engine``: one Engine, or a list of replica Engines (served
-        behind AsyncEngine's least-loaded router)."""
+        behind AsyncEngine's least-loaded router), of which those in other
+        processes are ``parallel.replicas.RemoteReplica`` proxies."""
         self.async_engine = AsyncEngine(engine)
         self.tokenizer = tokenizer
         self.model_name = model_name
@@ -388,22 +391,14 @@ class InferenceServer:
         out = []
         base = 0
         for rep, eng in enumerate(engines):
-            for i, r in enumerate(eng.slots):
+            states = eng.slot_states()
+            for i, st in enumerate(states):
                 entry = {"id": base + i}
                 if dp:
                     entry["replica"] = rep
-                if r is None:
-                    entry["state"] = "idle"
-                else:
-                    entry.update({
-                        "state": "prefill" if r.pending else "decoding",
-                        "request_id": r.rid,
-                        "prompt_tokens": len(r.prompt_ids),
-                        "generated_tokens": len(r.output_ids),
-                        "seq_len": int(r.seq_len),
-                    })
+                entry.update(st or {"state": "idle"})
                 out.append(entry)
-            base += len(eng.slots)
+            base += len(states)
         return web.json_response(out)
 
     async def metrics(self, request):
@@ -453,18 +448,22 @@ class InferenceServer:
     # OpenAI /v1/embeddings + llama.cpp /embedding: masked mean-pool over
     # the final hidden states (after the final norm), L2-normalized; one
     # program per power-of-two length bucket, on the engine's params and
-    # linear (the kernels on the card).
+    # linear (the kernels on the card). A tensor-parallel leader embeds on
+    # its own device from its unsharded unfused snapshot through the stacked
+    # K7 linear, with no collective, so the other ranks take no part (the
+    # reference embeds from the same snapshot on one device).
 
     def _embed_program(self, bucket: int):
         if bucket not in self._embed_fns:
             eng = self.async_engine.engine
             cfg, dev = eng.cfg, eng.device
+            linear = make_linear_stacked() if eng.mesh is not None else eng._linear_fn
 
             def run(params, toks, length: int):  # toks [1, bucket]
                 cache = KVCache.zeros(cfg, 1, bucket, device=dev)
                 hidden, _ = forward(
                     params, cfg, toks, cache, torch.zeros((1,), dtype=torch.int32, device=dev),
-                    logits_all=True, head_fn=lambda h, p: h, linear_fn=eng._linear_fn,
+                    logits_all=True, head_fn=lambda h, p: h, linear_fn=linear,
                 )  # [1, bucket, H]
                 mask = (torch.arange(bucket, device=dev) < length)[None, :, None]
                 s = torch.sum(hidden.float() * mask, dim=1) / max(length, 1)
@@ -476,11 +475,7 @@ class InferenceServer:
 
     def _embed_one(self, ids):
         eng = self.async_engine.engine
-        if eng.mesh is not None:
-            # the embedding program would run on the leader alone, and its
-            # collectives wait for the other ranks
-            raise NotImplementedError("embeddings on a tensor-parallel server: ROADMAP "
-                                      "item 12d")
+        params = eng._long_ctx_params if eng.mesh is not None else eng.params
         ids = ids[: eng.ecfg.max_context]
         bucket = 16
         while bucket < len(ids):
@@ -488,7 +483,7 @@ class InferenceServer:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, : len(ids)] = ids
         out = self._embed_program(bucket)(
-            eng.params, torch.as_tensor(toks, device=eng.device), len(ids))
+            params, torch.as_tensor(toks, device=eng.device), len(ids))
         return out.cpu().tolist()
 
     async def embeddings(self, request):
@@ -525,8 +520,6 @@ class InferenceServer:
                 total += len(ids)
         except ValueError as e:
             return _error(str(e), 400)
-        except NotImplementedError as e:
-            return _error(str(e), 501)
         return web.json_response({
             "object": "list",
             "model": self.model_name,
@@ -543,8 +536,6 @@ class InferenceServer:
             emb = await loop.run_in_executor(None, self._embed_one, ids)
         except ValueError as e:
             return _error(str(e), 400)
-        except NotImplementedError as e:
-            return _error(str(e), 501)
         return web.json_response({"embedding": emb})
 
     async def admin_reset_cache(self, request):
@@ -983,40 +974,40 @@ def create_server(
     its tokenizer from ``tokenizer_path`` or the directory) or a ``.gguf``
     file (``convert.gguf``, which carries no tokenizer: pass
     ``tokenizer_path``); loading a tokenizer needs ``transformers``.
-    ``dp > 1`` serves that many replicas on the one device, sharing the
-    weights, each with its own KV pool. ``attn_window > 0`` serves
-    sliding-window attention (``attn_global_tokens`` global prefix) on the
-    dual layout: an ``auto`` layout becomes ``layer``, as the reference
-    sets it. ``long_context``: replica 0 serves greedy prompts of
-    ``max_context`` tokens or more through the ring-attention path
-    (``engine/long_context.py``) on a group of one (formed if
-    ``torch.distributed`` is not initialized; a default group of more ranks
-    raises ``NotImplementedError``: the ring path is collective, and no
-    caller brings the other ranks to each request).
+    ``dp > 1`` with ``tp == 1`` serves that many replicas on the one
+    device, sharing the weights, each with its own KV pool.
+    ``attn_window > 0`` serves sliding-window attention
+    (``attn_global_tokens`` global prefix) on the dual layout: an ``auto``
+    layout becomes ``layer``, as the reference sets it. ``long_context``:
+    replica 0 serves greedy prompts of ``max_context`` tokens or more through
+    the ring-attention path (``engine/long_context.py``); with ``tp == 1`` on
+    a group of one (formed if ``torch.distributed`` is not initialized; a
+    default group of more ranks raises ``NotImplementedError``: the ring path
+    is collective, and no caller brings the other ranks to each request).
 
-    ``tp > 1`` serves tensor-parallel on the default process group's ``tp``
-    ranks (``parallel.multihost.init_multihost()`` forms it from
+    ``tp > 1`` serves tensor-parallel on the default process group's
+    ``dp * tp`` ranks (``parallel.multihost.init_multihost()`` forms it from
     ``torchrun``'s environment if it is not initialized): every rank calls
     ``create_server`` with the same arguments and builds its shard of one
-    ``Engine(mesh=make_mesh(1, tp))``. Model rank 0 gets the
-    ``InferenceServer`` (HTTP, its scheduler thread driving the engine); the
-    other ranks a ``FollowerServer``, whose ``serve()`` runs the engine's
-    ``follow()`` until the leader's ``AsyncEngine.shutdown()``. ``device``
-    defaults to the rank's card, ``tp_backend`` to NCCL on CUDA (gloo: several
-    ranks on one card). ``dp > 1`` with ``tp > 1``, ``long_context`` with
-    ``tp > 1`` and embeddings on a tensor-parallel server raise
-    ``NotImplementedError`` (ROADMAP items 12d and 12c)."""
-    missing = []
-    if tp > 1 and dp > 1:
-        missing.append("dp > 1 with tp > 1 (replicas of a tensor-parallel engine across "
-                       "processes: ROADMAP item 12d)")
-    if tp > 1 and long_context:
-        missing.append("long_context with tp > 1 (ROADMAP item 12c)")
+    ``Engine(mesh=make_mesh(dp, tp))``; replica d is model group d, the ranks
+    ``[d*tp, (d+1)*tp)``, as the reference gives replica r the devices
+    ``[r*tp, (r+1)*tp)``. With ``long_context`` replica 0's ring group is its
+    model group (on one host where tp is the device count, the reference's
+    all-local-devices ``seq`` axis). Global rank 0 gets the
+    ``InferenceServer`` (HTTP, its scheduler thread driving its engine, and
+    with ``dp > 1`` a ``parallel.replicas.RemoteReplica`` of each other
+    replica behind the least-loaded pick); the leader of each other replica a
+    ``parallel.replicas.ReplicaServer``, whose ``serve()`` runs that
+    replica's scheduler loop until rank 0 shuts down; every other rank a
+    ``FollowerServer``, whose ``serve()`` runs the engine's ``follow()``
+    until its leader stops it. Rank 0's ``AsyncEngine.shutdown()`` ends every
+    ``serve()``. ``device`` defaults to the rank's card, ``tp_backend`` to
+    NCCL on CUDA (gloo: several ranks on one card). Only ``use_pallas=False``
+    raises ``NotImplementedError``."""
     if use_pallas is False:
-        missing.append("use_pallas=False (the kernels' plain twins are their CPU path and "
-                       "oracle, not a serving path on the card)")
-    if missing:
-        raise NotImplementedError("not ported to the PyTorch server: " + "; ".join(missing))
+        raise NotImplementedError("not ported to the PyTorch server: use_pallas=False (the "
+                                  "kernels' plain twins are their CPU path and oracle, not a "
+                                  "serving path on the card)")
     if dp < 1 or tp < 1:
         raise ValueError(f"dp and tp must be >= 1, got dp={dp}, tp={tp}")
     mesh = None
@@ -1025,7 +1016,7 @@ def create_server(
         from ..parallel.sharding import make_mesh
 
         init_multihost(tp_backend)
-        mesh = make_mesh(1, tp, device=device, backend=tp_backend)
+        mesh = make_mesh(dp, tp, device=device, backend=tp_backend)
         device = mesh.device
     dev = resolve_device(device)
     synthetic = tiny or str(model_path or "").startswith("synth:")
@@ -1062,11 +1053,17 @@ def create_server(
             kv_layout="layer" if ecfg.kv_layout == "auto" else ecfg.kv_layout)
     eos = getattr(tokenizer, "eos_token_id", None)
     if mesh is not None:
-        # every rank shards the whole params (unfused) in Engine(mesh=...)
-        engine = Engine(params, cfg, ecfg, eos_token_id=eos, mesh=mesh)
+        # every rank shards the whole params (unfused) in Engine(mesh=...);
+        # only replica 0 takes the ring group, as the reference's
+        lc_group = mesh.model.group if long_context and mesh.data.index == 0 else None
+        engine = Engine(params, cfg, ecfg, eos_token_id=eos, mesh=mesh,
+                        long_context_mesh=lc_group)
+        replica, remotes = replica_channels(mesh, engine) if dp > 1 else (None, [])
         if mesh.model.index != 0:
             return FollowerServer(engine)
-        return InferenceServer(engine, tokenizer, name)
+        if replica is not None:
+            return replica
+        return InferenceServer([engine, *remotes] if remotes else engine, tokenizer, name)
     lc_group = None
     if long_context:
         # the ring path for beyond-max_context requests, on a group of one
@@ -1085,9 +1082,9 @@ def create_server(
 
 
 class FollowerServer:
-    """A tensor-parallel server's rank other than model rank 0: it serves no
-    HTTP; ``serve()`` runs its engine's ``follow()`` (the leader's calls and
-    steps) until the leader stops it."""
+    """A tensor-parallel server's rank other than its replica's model rank 0:
+    it serves no HTTP; ``serve()`` runs its engine's ``follow()`` (the
+    leader's calls and steps) until the leader stops it."""
 
     def __init__(self, engine: Engine):
         self.engine = engine
@@ -1124,10 +1121,13 @@ def main(argv=None):
                    help="tensor-parallel ranks: run under torchrun --nproc-per-node N "
                         "(rank 0 serves HTTP, the others follow it)")
     p.add_argument("--dp", type=int, default=1,
-                   help="engine replicas on the device behind a least-loaded router")
+                   help="engine replicas behind a least-loaded router: on the one device "
+                        "with --tp 1; with --tp N under torchrun --nproc-per-node N*M, "
+                        "replica r on ranks [r*N, (r+1)*N)")
     p.add_argument("--long-context", action="store_true",
-                   help="serve greedy prompts beyond --max-context through ring attention "
-                        "on a group of one")
+                   help="serve greedy prompts of --max-context tokens or more through ring "
+                        "attention: on a group of one, or with --tp N on replica 0's "
+                        "model group")
     p.add_argument("--window", type=int, default=0,
                    help="sliding-window attention width (0: full attention)")
     p.add_argument("--global-tokens", type=int, default=0,
@@ -1156,8 +1156,8 @@ def main(argv=None):
         tokenizer_path=args.tokenizer, long_context=args.long_context,
         attn_window=args.window, attn_global_tokens=args.global_tokens, device=args.device,
     )
-    if isinstance(server, FollowerServer):
-        server.serve()  # a warmup on the leader runs here too
+    if not isinstance(server, InferenceServer):
+        server.serve()  # a follower or another replica's leader; a warmup runs here too
         return
     if args.warmup:
         for e in server.async_engine.engines:
